@@ -1,0 +1,292 @@
+// The fused surface chain, one ray per thread, for Hopper (sm_90a).
+//
+// Port of the per-tile body of the Pallas kernels in
+// optiland_tpu/trace/fused.py: `tile_raygen` is `_tile_raygen`,
+// `trace_chain` is `_tile_trace` (value pass, uniform wavelength) for the
+// branches of this slice: plane / conic / even / odd asphere geometries,
+// refract / reflect / none interactions, radial apertures, tilt and
+// decenter. The Python wrappers (trace/fused.py, `_check_kernel_branches`)
+// refuse every other branch before a launch.
+//
+// The JAX kernel unrolls the chain on static per-surface codes; here the
+// chain loops over the surfaces at run time and switches on the codes held
+// in the int table. Both tables are staged in shared memory once per block.
+//
+// Numerics kept from the JAX kernel: the closed-form conic seed with the
+// same 1e-12 safe-divides and root choice, min(newton_iters, 2) + 1 Newton
+// updates for aspheres (none for pure conics), opd += |t n|, i *= valid,
+// aperture x^2 + y^2 <= r^2, normal orientation by sign(l.n), TIR
+// passthrough. IEEE sqrtf / tanf and no fast-math.
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace otk {
+
+// per-surface float slots (trace/fused.py `_pack_tables` writes them)
+constexpr int F_CV = 0;
+constexpr int F_CONIC = 1;
+constexpr int F_COEFFS = 2;  // 17 slots
+constexpr int F_THICK = 19;
+constexpr int F_TILT = 20;   // rx, ry, rz
+constexpr int F_DEC = 23;    // dx, dy
+constexpr int F_NTAB = 25;   // index after the surface at the wavelength
+constexpr int F_ALPHA = 26;  // absorption per gap (not used by this slice)
+constexpr int F_AP = 27;     // radial semi-aperture
+constexpr int F_COAT = 28;   // coating T, R (not used by this slice)
+constexpr int F_STRIDE = 32;
+
+// per-surface int slots
+constexpr int I_GEOM = 0;
+constexpr int I_NCOEF = 1;
+constexpr int I_INTER = 2;
+constexpr int I_TILT = 3;
+constexpr int I_DEC = 4;
+constexpr int I_AP = 5;
+constexpr int I_STRIDE = 8;
+
+constexpr int GEOM_EVEN_ASPHERE = 2;
+constexpr int GEOM_ODD_ASPHERE = 3;
+constexpr int INT_REFLECT = 1;
+constexpr int INT_NONE = 3;
+
+constexpr int MAX_SURFACES = 64;
+constexpr int BLOCK = 256;
+constexpr float EPS = 1e-12f;
+
+struct Ray {
+  float x, y, z, L, M, N, i, opd;
+};
+
+__device__ __forceinline__ float sign_of(float v) {
+  return (v > 0.f) ? 1.f : ((v < 0.f) ? -1.f : 0.f);
+}
+
+// Stage the (S, F_STRIDE) float and (S, I_STRIDE) int tables and the five
+// raygen scalars into shared memory; every thread of the block calls it.
+__device__ __forceinline__ void stage_tables(int S, const float* __restrict__ ftab,
+                                             const int* __restrict__ itab,
+                                             const float* __restrict__ rg,
+                                             float* s_ft, int* s_it, float* s_rg) {
+  for (int j = threadIdx.x; j < S * F_STRIDE; j += blockDim.x) s_ft[j] = ftab[j];
+  for (int j = threadIdx.x; j < S * I_STRIDE; j += blockDim.x) s_it[j] = itab[j];
+  if (threadIdx.x < 5) s_rg[threadIdx.x] = rg[threadIdx.x];
+  __syncthreads();
+}
+
+// Ray generation from rg = (epl, epd, fmax, a, b): `_tile_raygen`.
+__device__ __forceinline__ Ray tile_raygen(int field_angle, int object_infinite,
+                                           const float* rg, float Hx, float Hy,
+                                           float Px, float Py) {
+  const float epl = rg[0], epd = rg[1], fmax = rg[2], a = rg[3], b = rg[4];
+  const float deg2rad = 0.017453292519943295f;
+  const float half = epd * 0.5f;
+  float x0, y0;
+  if (field_angle) {
+    const float tx = tanf((fmax * Hx) * deg2rad);
+    const float ty = tanf((fmax * Hy) * deg2rad);
+    if (object_infinite) {
+      x0 = Px * half - tx * b;
+      y0 = Py * half - ty * b;
+    } else {
+      x0 = -tx * b;
+      y0 = -ty * b;
+    }
+  } else {  // object height, finite object
+    x0 = fmax * Hx;
+    y0 = fmax * Hy;
+  }
+  const float z0 = a;
+  const float dx = Px * half - x0;
+  const float dy = Py * half - y0;
+  const float dz = epl - z0;
+  const float mag2 = dx * dx + dy * dy + dz * dz;
+  const float degen = (mag2 < 1e-18f) ? 1.f : 0.f;
+  const float inv = rsqrtf(fmaxf(mag2, 1e-18f));
+  Ray r;
+  r.x = x0;
+  r.y = y0;
+  r.z = z0;
+  r.L = (1.f - degen) * dx * inv;
+  r.M = (1.f - degen) * dy * inv;
+  r.N = (1.f - degen) * dz * inv + degen;
+  r.i = 1.f;
+  r.opd = 0.f;
+  return r;
+}
+
+// Conic + polynomial sag (when want_sag) and the gradient (gx, gy) at
+// (x, y): `_sag_grad_terms` with the odd-asphere 1/r term folded in.
+__device__ __forceinline__ void sag_grad(int code, int nc, const float* co, float cv,
+                                         float kk, float x, float y, bool want_sag,
+                                         float& s, float& gx, float& gy) {
+  const float r2 = x * x + y * y;
+  const float m = fmaxf(1.f - kk * cv * cv * r2, EPS);
+  const float inv_root = rsqrtf(m);
+  const float root = m * inv_root;
+  if (want_sag) s = cv * r2 / (1.f + root);
+  const float gmul = cv * inv_root;
+  if (code == GEOM_EVEN_ASPHERE && nc) {
+    float rp = r2, rp0 = 1.f, g = 0.f;
+    for (int ci = 0; ci < nc; ++ci) {
+      if (want_sag) {
+        s = s + co[ci] * rp;
+        rp = rp * r2;
+      }
+      g = g + (2.f * (ci + 1)) * co[ci] * rp0;
+      rp0 = rp0 * r2;
+    }
+    gx = x * (gmul + g);
+    gy = y * (gmul + g);
+  } else if (code == GEOM_ODD_ASPHERE && nc) {
+    const float r = sqrtf(fmaxf(r2, EPS));
+    float rpow = r, rpow0 = 1.f, g = 0.f;
+    for (int ci = 0; ci < nc; ++ci) {
+      if (want_sag) {
+        s = s + co[ci] * rpow;
+        rpow = rpow * r;
+      }
+      g = g + (float)(ci + 1) * co[ci] * rpow0;
+      rpow0 = rpow0 * r;
+    }
+    const float godd = g / r;
+    gx = x * gmul + x * godd;
+    gy = y * gmul + y * godd;
+  } else {
+    gx = x * gmul;
+    gy = y * gmul;
+  }
+}
+
+// Rotate positions and directions about one axis (0 = x, 1 = y, 2 = z).
+__device__ __forceinline__ void rotate(int axis, float ang, float& x, float& y, float& z,
+                                       float& L, float& M, float& N) {
+  const float c = cosf(ang), s = sinf(ang);
+  float a, b;
+  if (axis == 2) {
+    a = x * c - y * s; b = x * s + y * c; x = a; y = b;
+    a = L * c - M * s; b = L * s + M * c; L = a; M = b;
+  } else if (axis == 1) {
+    a = x * c + z * s; b = -x * s + z * c; x = a; z = b;
+    a = L * c + N * s; b = -L * s + N * c; L = a; N = b;
+  } else {
+    a = y * c - z * s; b = y * s + z * c; y = a; z = b;
+    a = M * c - N * s; b = M * s + N * c; M = a; N = b;
+  }
+}
+
+// The surface chain from surface 1 to S-1: `_tile_trace` (for_grad=False).
+__device__ __forceinline__ void trace_chain(int S, int n_newton, const float* ft,
+                                            const int* it, Ray& r) {
+  float x = r.x, y = r.y, z = r.z, L = r.L, M = r.M, N = r.N, i = r.i, opd = r.opd;
+  float pos_prev = 0.f;
+  float n_pre = ft[F_NTAB];
+  for (int k = 1; k < S; ++k) {
+    const float* f = ft + k * F_STRIDE;
+    const int* c = it + k * I_STRIDE;
+    const float pos_k = pos_prev + (k > 1 ? ft[(k - 1) * F_STRIDE + F_THICK] : 0.f);
+    pos_prev = pos_k;
+
+    const bool tilted = c[I_TILT] != 0;
+    const bool decentered = c[I_DEC] != 0;
+    const float tx = f[F_DEC], ty = f[F_DEC + 1];
+    if (tilted || decentered) {
+      x = x - tx;
+      y = y - ty;
+    }
+    z = z - pos_k;
+    if (tilted) {
+      rotate(2, -f[F_TILT + 2], x, y, z, L, M, N);
+      rotate(1, -f[F_TILT + 1], x, y, z, L, M, N);
+      rotate(0, -f[F_TILT + 0], x, y, z, L, M, N);
+    }
+
+    const int code = c[I_GEOM];
+    const int nc = c[I_NCOEF];
+    const float* co = f + F_COEFFS;
+    const float cv = f[F_CV];
+    const float kk = 1.f + f[F_CONIC];
+    // closed-form conic intersection (curvature form)
+    const float A = cv * (L * L + M * M + kk * N * N);
+    const float B = 2.f * (cv * (L * x + M * y + kk * N * z) - N);
+    const float C = cv * (x * x + y * y + kk * z * z) - 2.f * z;
+    const float disc = B * B - 4.f * A * C;
+    float validf = (disc >= 0.f) ? 1.f : 0.f;
+    const float sq = sqrtf(fmaxf(disc, 0.f));
+    const bool bigA = fabsf(A) > EPS;
+    const float inv2A = 1.f / (2.f * (bigA ? A : 1.f));
+    const float t1 = (-B + sq) * inv2A;
+    const float t2 = (-B - sq) * inv2A;
+    const float t_quad = (fabsf(z + t1 * N) <= fabsf(z + t2 * N)) ? t1 : t2;
+    const float B_safe = (fabsf(B) > EPS) ? B : EPS;
+    float t = bigA ? t_quad : -C / B_safe;
+    if (!bigA) validf = 1.f;
+
+    if ((code == GEOM_EVEN_ASPHERE || code == GEOM_ODD_ASPHERE) && nc) {
+      for (int itn = 0; itn <= n_newton; ++itn) {
+        const float xt = x + t * L, yt = y + t * M, zt = z + t * N;
+        float s, gx, gy;
+        sag_grad(code, nc, co, cv, kk, xt, yt, true, s, gx, gy);
+        const float fv = s - zt;
+        float fp = gx * L + gy * M - N;
+        fp = (fabsf(fp) > EPS) ? fp : EPS;
+        t = t - fv / fp;
+      }
+    }
+
+    x = x + t * L;
+    y = y + t * M;
+    z = z + t * N;
+    opd = opd + fabsf(t * n_pre);
+    i = i * validf;
+    if (c[I_AP]) {
+      const float ap = f[F_AP];
+      i = i * ((x * x + y * y <= ap * ap) ? 1.f : 0.f);
+    }
+
+    const int inter = c[I_INTER];
+    if (inter != INT_NONE) {
+      float s, gx, gy;
+      sag_grad(code, nc, co, cv, kk, x, y, false, s, gx, gy);
+      const float inv_mag = rsqrtf(gx * gx + gy * gy + 1.f);
+      float nx = gx * inv_mag, ny = gy * inv_mag, nz = -inv_mag;
+      const float sg = sign_of(L * nx + M * ny + N * nz);
+      nx *= sg;
+      ny *= sg;
+      nz *= sg;
+      const float cs = L * nx + M * ny + N * nz;
+      if (inter == INT_REFLECT) {
+        L = L - 2.f * cs * nx;
+        M = M - 2.f * cs * ny;
+        N = N - 2.f * cs * nz;
+      } else {  // refract, TIR passes through with i = 0
+        const float n_post = f[F_NTAB];
+        const float u = n_pre / n_post;
+        const float d2 = 1.f - u * u * (1.f - cs * cs);
+        if (d2 >= 0.f) {
+          const float q = sqrtf(d2) - u * cs;
+          L = u * L + q * nx;
+          M = u * M + q * ny;
+          N = u * N + q * nz;
+        } else {
+          i = 0.f * i;
+        }
+        n_pre = n_post;
+      }
+    }
+
+    if (tilted) {
+      rotate(0, f[F_TILT + 0], x, y, z, L, M, N);
+      rotate(1, f[F_TILT + 1], x, y, z, L, M, N);
+      rotate(2, f[F_TILT + 2], x, y, z, L, M, N);
+    }
+    z = z + pos_k;
+    if (tilted || decentered) {
+      x = x + tx;
+      y = y + ty;
+    }
+  }
+  r.x = x; r.y = y; r.z = z; r.L = L; r.M = M; r.N = N; r.i = i; r.opd = opd;
+}
+
+}  // namespace otk

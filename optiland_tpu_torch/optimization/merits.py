@@ -1,0 +1,26 @@
+"""Fused merit functions for the trace-and-merit path.
+
+Port of `optiland_tpu/optimization/merits.py`. The centroid-RMS spot merit
+consumes four weighted moments of the image-surface state, which
+`trace.fused.spot_moments` computes in one kernel launch (K1) on the CUDA
+card for the systems the fused gates accept."""
+
+from __future__ import annotations
+
+from optiland_tpu_torch.trace.fused import spot_moments
+
+
+def centroid_rms_spot(static, params, Hx, Hy, Px, Py, wavelength,
+                      eps: float = 1e-6):
+    """Intensity-weighted RMS spot size (squared) about the weighted
+    centroid at the image surface:
+
+        loss = sum(((x-cx)^2 + (y-cy)^2) * i) / (sum(i) + eps)
+    """
+    m0, m1, m2, m3 = spot_moments(static, params, Hx, Hy, Px, Py,
+                                  wavelength)
+    ws = m0 + eps
+    cx = m1 / ws
+    cy = m2 / ws
+    # expansion of sum(((x-cx)^2+(y-cy)^2) i) in moments
+    return (m3 - 2.0 * (cx * m1 + cy * m2) + (cx * cx + cy * cy) * m0) / ws

@@ -1,0 +1,223 @@
+"""The `Optic` builder: the prescription API of `optiland_tpu/system/optic.py`
+for the ported surface types.
+
+`build(device=...)` compiles the description to a `(SystemStatic,
+SystemParams)` pair with the parameter tensors on that device; without
+`device=` it builds on the CUDA card.
+"""
+
+from __future__ import annotations
+
+import math
+
+from optiland_tpu_torch import config
+from optiland_tpu_torch.materials.catalog import resolve_material
+from optiland_tpu_torch.system import paraxial as px
+from optiland_tpu_torch.system.spec import SurfaceSpec, build_system
+
+
+class _SurfaceCollection:
+    """Builder for the surface list."""
+
+    def __init__(self, optic: "Optic"):
+        self._optic = optic
+        self._specs: list[SurfaceSpec] = []
+
+    def __len__(self):
+        return len(self._specs)
+
+    def __getitem__(self, i):
+        return self._specs[i]
+
+    @property
+    def specs(self) -> list[SurfaceSpec]:
+        return self._specs
+
+    def add(
+        self,
+        index: int | None = None,
+        radius: float = math.inf,
+        thickness: float = 0.0,
+        material="air",
+        conic: float = 0.0,
+        is_stop: bool = False,
+        surface_type: str = "standard",
+        coefficients=(),
+        dx: float = 0.0,
+        dy: float = 0.0,
+        rx: float = 0.0,
+        ry: float = 0.0,
+        rz: float = 0.0,
+        aperture: float | None = None,
+        coating=None,
+        comment: str = "",
+    ):
+        geometry = "standard"
+        if surface_type in ("even_asphere", "odd_asphere"):
+            geometry = surface_type
+            surface_type = "standard"
+        if surface_type != "standard":
+            raise NotImplementedError(
+                f"surface_type {surface_type!r} is not ported yet; ported: "
+                "standard, even_asphere, odd_asphere (ROADMAP queue 1, slice 2)")
+        spec = SurfaceSpec(
+            radius=float(radius),
+            thickness=float(thickness),
+            conic=float(conic),
+            coefficients=tuple(float(c) for c in coefficients),
+            material=resolve_material(material),
+            geometry=geometry,
+            surface_type=surface_type,
+            is_stop=is_stop,
+            semi_aperture=None if aperture is None else float(aperture),
+            dx=dx, dy=dy, rx=rx, ry=ry, rz=rz,
+            coating=coating,
+            comment=comment,
+        )
+        if index is None or index == len(self._specs):
+            self._specs.append(spec)
+        else:
+            self._specs.insert(index, spec)
+        self._optic._dirty()
+        return spec
+
+
+class _FieldGroup:
+    def __init__(self, optic: "Optic"):
+        self._optic = optic
+        self.field_type = "angle"
+        self.x: list[float] = []
+        self.y: list[float] = []
+        self.vx: list[float] = []
+        self.vy: list[float] = []
+
+    def add(self, y: float = 0.0, x: float = 0.0, vx: float = 0.0,
+            vy: float = 0.0):
+        self.x.append(float(x))
+        self.y.append(float(y))
+        self.vx.append(float(vx))
+        self.vy.append(float(vy))
+        self._optic._dirty()
+
+    @property
+    def num_fields(self):
+        return len(self.x)
+
+
+_UNIT_TO_UM = {"nm": 1e-3, "um": 1.0, "mm": 1e3}
+
+
+class _WavelengthGroup:
+    def __init__(self, optic: "Optic"):
+        self._optic = optic
+        self.values_um: list[float] = []
+        self.primary_idx = 0
+
+    def add(self, value: float, is_primary: bool = False, unit: str = "um"):
+        self.values_um.append(float(value) * _UNIT_TO_UM[unit])
+        if is_primary or len(self.values_um) == 1:
+            self.primary_idx = len(self.values_um) - 1
+        self._optic._dirty()
+
+    @property
+    def num_wavelengths(self):
+        return len(self.values_um)
+
+    @property
+    def primary_wavelength(self):
+        return self.values_um[self.primary_idx]
+
+
+class _ParaxialFacade:
+    """`optic.paraxial.f2()`-style accessors over the functional engine,
+    evaluated on the device of the optic's last build."""
+
+    def __init__(self, optic: "Optic"):
+        self._optic = optic
+
+    def __getattr__(self, name):
+        fn = getattr(px, name, None)
+        if fn is None:
+            raise AttributeError(name)
+
+        def call(*args, **kw):
+            static, params = self._optic.build(device=self._optic.device)
+            return fn(static, params, *args, **kw)
+
+        return call
+
+
+class Optic:
+    """A sequential optical system (lens prescription)."""
+
+    def __init__(self, name: str | None = None):
+        self.name = name or self.__class__.__name__
+        self.surfaces = _SurfaceCollection(self)
+        self.fields = _FieldGroup(self)
+        self.wavelengths = _WavelengthGroup(self)
+        self.aperture_type: str | None = None
+        self.aperture_value: float = 0.0
+        self.device = None  # the device of the last build; None = CUDA
+        self._built = {}
+        self.paraxial = _ParaxialFacade(self)
+
+    def _dirty(self):
+        self._built = {}
+
+    def add_surface(self, **kw):
+        return self.surfaces.add(**kw)
+
+    def set_aperture(self, aperture_type: str, value: float):
+        if aperture_type == "float_by_stop_size":
+            aperture_type = "float_by_stop"
+        self.aperture_type = aperture_type
+        self.aperture_value = float(value)
+        self._dirty()
+
+    def set_field_type(self, field_type: str):
+        if field_type not in ("angle", "object_height",
+                              "paraxial_image_height", "real_image_height"):
+            raise ValueError(f"Invalid field type: {field_type}.")
+        self.fields.field_type = field_type
+        self._dirty()
+
+    def add_field(self, y: float = 0.0, x: float = 0.0, vx: float = 0.0,
+                  vy: float = 0.0):
+        self.fields.add(y=y, x=x, vx=vx, vy=vy)
+
+    def add_wavelength(self, value: float, is_primary: bool = False,
+                       unit: str = "um"):
+        self.wavelengths.add(value, is_primary=is_primary, unit=unit)
+
+    @property
+    def primary_wavelength(self):
+        return self.wavelengths.primary_wavelength
+
+    def build(self, device=None):
+        """Compile to (SystemStatic, SystemParams) on `device` (None: the
+        CUDA card, RuntimeError without one); cached per device and dtype
+        until the prescription changes."""
+        dev = config.resolve_device(device)
+        self.device = dev
+        key = (str(dev), config.get_dtype())
+        if key not in self._built:
+            if self.aperture_type is None:
+                raise ValueError("No aperture defined; call set_aperture().")
+            if not self.wavelengths.num_wavelengths:
+                raise ValueError("No wavelengths defined.")
+            if not self.fields.num_fields:
+                self.fields.add(y=0.0)
+            self._built[key] = build_system(
+                self.surfaces.specs,
+                field_type=self.fields.field_type,
+                x_fields=self.fields.x,
+                y_fields=self.fields.y,
+                vx=self.fields.vx,
+                vy=self.fields.vy,
+                aperture_type=self.aperture_type,
+                aperture_value=self.aperture_value,
+                wavelengths=self.wavelengths.values_um,
+                primary_wavelength_idx=self.wavelengths.primary_idx,
+                device=dev,
+            )
+        return self._built[key]

@@ -1,0 +1,513 @@
+"""System representation: the static/parameter split.
+
+Port of `optiland_tpu/system/spec.py`:
+  - `SystemStatic` — hashable structure: geometry codes, material formulas,
+    interaction kinds, stop index, field/aperture types.
+  - `SystemParams` — a dataclass of tensors: curvatures, conics,
+    coefficients, thicknesses, tilts/decenters, material coefficients,
+    field/wavelength tables. Autograd differentiates merits through it.
+
+`build_system` compiles a list of `SurfaceSpec`s for the ported surface
+types (plane, conic, even and odd aspheres; refract, reflect, none).
+`static_from_dict` and `params_from_numpy` carry a system built by the JAX
+package across, so both packages can run on the same tables.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, fields, replace
+
+import numpy as np
+import torch
+
+from optiland_tpu_torch import config
+from optiland_tpu_torch.config import resolve_device
+from optiland_tpu_torch.geometry.surfaces import (
+    GEOM_CONIC,
+    GEOM_EVEN_ASPHERE,
+    GEOM_ODD_ASPHERE,
+    GEOM_PLANE,
+)
+from optiland_tpu_torch.materials.catalog import AIR, MaterialSpec
+from optiland_tpu_torch.materials.dispersion import MAX_COEFFS
+
+# interaction kinds (static per surface)
+INT_REFRACT = 0
+INT_REFLECT = 1
+INT_THIN_LENS = 2
+INT_NONE = 3  # object/image surfaces: record only
+INT_DIFFRACT = 4
+INT_PHASE = 5
+
+# phase profile kinds (static per surface)
+PHASE_NONE = 0
+PHASE_CONSTANT = 1
+PHASE_RADIAL = 2
+PHASE_LINEAR_GRATING = 3
+PHASE_GRID = 4
+PHASE_HEIGHT = 5
+
+# coating kinds (static per surface; params in SystemParams.coating_params)
+COAT_NONE = 0
+COAT_SIMPLE = 1        # params: [transmittance, reflectance]
+COAT_FRESNEL = 2
+COAT_POLARIZER_H = 3
+COAT_POLARIZER_V = 4
+COAT_POLARIZER_RCP = 5
+COAT_POLARIZER_LCP = 6
+COAT_RETARDER = 7
+COAT_DIATTENUATOR = 8
+COAT_LINEAR_POLARIZER = 9
+COAT_THIN_FILM = 10
+
+_COATING_BY_NAME = {
+    None: COAT_NONE,
+    "fresnel": COAT_FRESNEL,
+    "polarizer_h": COAT_POLARIZER_H,
+    "polarizer_v": COAT_POLARIZER_V,
+    "polarizer_rcp": COAT_POLARIZER_RCP,
+    "polarizer_lcp": COAT_POLARIZER_LCP,
+}
+
+_GEOM_BY_TYPE = {
+    "standard": GEOM_CONIC,
+    "plane": GEOM_PLANE,
+    "even_asphere": GEOM_EVEN_ASPHERE,
+    "odd_asphere": GEOM_ODD_ASPHERE,
+}
+
+_INF = float("inf")
+
+MAX_GEOM_COEFFS = 17
+
+
+@dataclass
+class SurfaceSpec:
+    """Host-side description of one surface (builder output)."""
+
+    radius: float = _INF
+    thickness: float = 0.0
+    conic: float = 0.0
+    coefficients: tuple[float, ...] = ()
+    material: MaterialSpec = AIR  # medium *after* this surface
+    geometry: str = "standard"
+    surface_type: str = "standard"
+    is_stop: bool = False
+    semi_aperture: float | None = None  # radial clip aperture (None = open)
+    dx: float = 0.0
+    dy: float = 0.0
+    rx: float = 0.0
+    ry: float = 0.0
+    rz: float = 0.0
+    coating: object = None  # None | name str | ("simple", T, R)
+    comment: str = ""
+
+
+@dataclass(frozen=True)
+class SystemStatic:
+    """Hashable structural description of the optical system (the same
+    fields as the JAX package's, so its systems carry across)."""
+
+    num_surfaces: int
+    geom_codes: tuple[int, ...]
+    geom_n_coeffs: tuple[int, ...]
+    interactions: tuple[int, ...]
+    is_reflective: tuple[bool, ...]
+    coatings: tuple[int, ...]
+    bsdfs: tuple
+    phase_kinds: tuple[int, ...]
+    geom_aux: tuple[tuple, ...]
+    mat_formulas: tuple[int, ...]
+    mat_n_coeffs: tuple[int, ...]
+    has_absorption: tuple[bool, ...]
+    has_tilt: tuple[bool, ...]
+    has_decenter: tuple[bool, ...]
+    has_aperture: tuple[bool, ...]
+    stop_index: int
+    object_infinite: bool
+    has_abs_cs: bool
+    field_type: str
+    aperture_type: str
+    num_fields: int
+    num_wavelengths: int
+    primary_wavelength_idx: int
+    apodization: object = None
+    newton_iters: int = 16
+    telecentric: bool = False
+    aperture_masks: tuple = ()
+    thin_films: tuple = ()
+    has_vignetting: bool = False
+    phase_aux: tuple = ()
+    phase_interp: str = "cubic"
+    # True iff every asphere's conic-seeded capped f32 Newton lands within
+    # f32 round-off of the converged f64 root (`_fused_newton_seed_ok`);
+    # the fused kernels refuse the system otherwise
+    fused_newton_ok: bool = True
+
+    @property
+    def surface_indices(self):
+        return range(self.num_surfaces)
+
+
+@dataclass(frozen=True)
+class SystemParams:
+    """Differentiable system parameters (tensors).
+
+    Per-surface tensors have shape (S,) or (S, K); field/wavelength tables
+    are (F,) / (W,). `thickness[k]` is the gap after surface k.
+    """
+
+    cv: torch.Tensor
+    conic: torch.Tensor
+    coeffs: torch.Tensor  # (S, MAX_GEOM_COEFFS)
+    thickness: torch.Tensor
+    tilt: torch.Tensor  # (S, 3) rx, ry, rz
+    decenter: torch.Tensor  # (S, 2) dx, dy
+    focal_length: torch.Tensor
+    mat_coeffs: torch.Tensor  # (S, MAX_COEFFS)
+    k_wl: torch.Tensor
+    k_val: torch.Tensor
+    ap_radius: torch.Tensor  # (S,) physical semi-aperture (inf = open)
+    grating: torch.Tensor
+    coating_params: torch.Tensor  # (S, 4)
+    phase_params: torch.Tensor
+    cs_pos: torch.Tensor
+    aperture_value: torch.Tensor
+    x_fields: torch.Tensor
+    y_fields: torch.Tensor
+    vx: torch.Tensor
+    vy: torch.Tensor
+    wavelengths: torch.Tensor
+    phase_grids: torch.Tensor | None = None
+    phase_mat_coeffs: torch.Tensor | None = None
+
+    def positions(self) -> torch.Tensor:
+        """Vertex z positions (S,), with pos[1] = 0 and pos[0] =
+        -thickness[0] (-inf for an infinite object)."""
+        t = self.thickness
+        return torch.cat([-t[:1], torch.zeros(1, dtype=t.dtype, device=t.device),
+                          torch.cumsum(t[1:-1], 0)])
+
+    def replace(self, **kw) -> "SystemParams":
+        return replace(self, **kw)
+
+
+def positions_of(static, params) -> torch.Tensor:
+    """Vertex z positions: the thickness cumsum, or the stored absolute CS
+    z for folded systems."""
+    if static.has_abs_cs:
+        return params.cs_pos[:, 2]
+    return params.positions()
+
+
+def static_from_dict(d: dict) -> SystemStatic:
+    """A `SystemStatic` from the JAX package's `SystemStatic` fields, keyed
+    by field name. Fields holding objects of that package (apodization,
+    BSDFs, aperture masks, thin films) must be empty: they are not ported."""
+    names = {f.name for f in fields(SystemStatic)}
+    unknown = set(d) - names
+    if unknown:
+        raise ValueError(f"unknown SystemStatic fields {sorted(unknown)}")
+    if (d.get("apodization") is not None
+            or any(b is not None for b in d.get("bsdfs", ()))
+            or any(m is not None for m in d.get("aperture_masks", ()))
+            or any(t is not None for t in d.get("thin_films", ()))):
+        raise NotImplementedError(
+            "apodization, BSDFs, aperture masks and thin films are not "
+            "ported yet (ROADMAP queue 1, slice 2)")
+    return SystemStatic(**{k: (tuple(v) if isinstance(v, list) else v)
+                           for k, v in d.items()})
+
+
+def params_from_numpy(arrays: dict, device, dtype=None) -> SystemParams:
+    """A `SystemParams` from numpy arrays keyed by field name (the JAX
+    package's `SystemParams` leaves), on `device` in `dtype`."""
+    dev = resolve_device(device)
+    dtype = dtype or config.get_dtype()
+    kw = {}
+    for f in fields(SystemParams):
+        a = arrays.get(f.name)
+        kw[f.name] = (None if a is None else
+                      torch.as_tensor(np.array(a), dtype=dtype, device=dev))
+    return SystemParams(**kw)
+
+
+def _safe_cv(r: float) -> float:
+    return 0.0 if (r in (_INF, -_INF) or r == 0) else 1.0 / r
+
+
+def _fused_newton_seed_ok(code, cvk, conic_k, coeffs, r_max) -> bool:
+    """Measure, on the host at build time, whether the fused kernel's capped
+    Newton converges for this asphere: the kernel's exact intersection path
+    in float32 (closed-form conic seed, then 2+1 Newton steps) on a fan of
+    oblique rays over the clear aperture, against a 48-iteration float64
+    Newton. False when the capped root misses by more than ~1e-4 of the
+    aperture scale."""
+    n_c = len(coeffs)
+    kk = 1.0 + conic_k
+
+    def sag_grad(x, dtype):
+        x = x.astype(dtype)
+        r2 = x * x
+        m = np.maximum(1.0 - kk * cvk * cvk * r2, 1e-12)
+        root = np.sqrt(m)
+        s_val = cvk * r2 / (1.0 + root)
+        g = cvk / root
+        if code == GEOM_EVEN_ASPHERE:
+            rp = r2.copy()
+            rp0 = np.ones_like(r2)
+            for ci in range(n_c):
+                s_val = s_val + coeffs[ci] * rp
+                g = g + 2.0 * (ci + 1) * coeffs[ci] * rp0
+                rp = rp * r2
+                rp0 = rp0 * r2
+            return s_val, x * g
+        r = np.sqrt(np.maximum(r2, 1e-12))
+        godd = np.zeros_like(r)
+        rpow = r.copy()
+        rpow0 = np.ones_like(r)
+        for ci in range(n_c):
+            s_val = s_val + coeffs[ci] * rpow
+            godd = godd + (ci + 1) * coeffs[ci] * rpow0
+            rpow = rpow * r
+            rpow0 = rpow0 * r
+        return s_val, x * g + (x / r) * godd
+
+    heights = np.linspace(-r_max, r_max, 17)
+    angles = np.deg2rad(np.linspace(-35.0, 35.0, 9))
+    X0, A = [a.ravel() for a in np.meshgrid(heights, angles)]
+    L = np.sin(A)
+    N = np.cos(A)
+    z0 = -(abs(float(sag_grad(np.asarray([r_max]), np.float64)[0][0])) + 1.0)
+    z = np.full_like(X0, z0)
+
+    def newton(t, iters, dtype):
+        t = t.astype(dtype)
+        for _ in range(iters):
+            xt = (X0 + t * L).astype(dtype)
+            zt = (z + t * N).astype(dtype)
+            s_val, gx = sag_grad(xt, dtype)
+            f = s_val - zt
+            fp = gx * L - N
+            fp = np.where(np.abs(fp) > 1e-12, fp, 1e-12)
+            t = (t - f / fp).astype(dtype)
+        return t
+
+    Aq = cvk * (L * L + kk * N * N)
+    Bq = 2.0 * (cvk * (L * X0 + kk * N * z) - N)
+    Cq = cvk * (X0 * X0 + kk * z * z) - 2.0 * z
+    disc = np.maximum(Bq * Bq - 4.0 * Aq * Cq, 0.0)
+    sq = np.sqrt(disc)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        t1 = (-Bq + sq) / (2.0 * Aq)
+        t2 = (-Bq - sq) / (2.0 * Aq)
+        tq = np.where(np.abs(z + t1 * N) <= np.abs(z + t2 * N), t1, t2)
+        seed = np.where(np.abs(Aq) > 1e-12, tq, -Cq / np.where(
+            np.abs(Bq) > 1e-12, Bq, 1e-12))
+    t_fused = newton(seed.astype(np.float32), 3, np.float32)
+    t_true = newton(seed, 48, np.float64)
+    ok = np.isfinite(t_true)
+    if not ok.any():
+        return True
+    err = np.abs(t_fused.astype(np.float64) - t_true)[ok]
+    return bool(np.max(err) <= 1e-4 * max(1.0, r_max))
+
+
+def _pack_geometry(s: SurfaceSpec):
+    """Resolve one SurfaceSpec's geometry to (code, cv, k, coeffs)."""
+    if s.geometry not in _GEOM_BY_TYPE:
+        raise NotImplementedError(
+            f"geometry {s.geometry!r} is not ported yet (ROADMAP queue 1, "
+            "slice 2)")
+    geom = _GEOM_BY_TYPE[s.geometry]
+    if geom == GEOM_CONIC and _safe_cv(s.radius) == 0.0:
+        geom = GEOM_PLANE
+    return geom, _safe_cv(s.radius), s.conic, list(s.coefficients)
+
+
+def _coating_code(coat):
+    if coat is None or isinstance(coat, str):
+        return _COATING_BY_NAME[coat], ()
+    kind, *cp = coat
+    code = {
+        "simple": COAT_SIMPLE,
+        "retarder": COAT_RETARDER,
+        "diattenuator": COAT_DIATTENUATOR,
+        "linear_polarizer": COAT_LINEAR_POLARIZER,
+    }.get(kind)
+    if code is None:
+        raise NotImplementedError(
+            f"coating {kind!r} is not ported yet (ROADMAP queue 1, slice 2)")
+    return code, tuple(cp)
+
+
+def build_system(
+    surfaces: list[SurfaceSpec],
+    *,
+    field_type: str,
+    x_fields,
+    y_fields,
+    vx,
+    vy,
+    aperture_type: str,
+    aperture_value: float,
+    wavelengths,
+    primary_wavelength_idx: int,
+    newton_iters: int = 16,
+    dtype=None,
+    device=None,
+) -> tuple[SystemStatic, SystemParams]:
+    """Compile builder state into the (static, params) pair, with the
+    parameter tensors on `device` (None means the CUDA card)."""
+    dev = resolve_device(device)
+    dtype = dtype or config.get_dtype()
+    S = len(surfaces)
+    if S < 3:
+        raise ValueError("A system needs at least object, one surface, image.")
+
+    packed = [_pack_geometry(s) for s in surfaces]
+    coeff_width = max([MAX_GEOM_COEFFS] + [len(p[3]) for p in packed])
+
+    geom_codes, geom_n_coeffs, interactions, is_reflective = [], [], [], []
+    coatings, mat_formulas, mat_n_coeffs = [], [], []
+    has_tilt, has_decenter, has_aperture = [], [], []
+    stop_index = 0
+
+    cv = np.zeros(S)
+    conic = np.zeros(S)
+    coeffs = np.zeros((S, coeff_width))
+    thickness = np.zeros(S)
+    tilt = np.zeros((S, 3))
+    decenter = np.zeros((S, 2))
+    mat_w = max([MAX_COEFFS] + [s.material.n_coeffs for s in surfaces])
+    mat_coeffs = np.zeros((S, mat_w))
+    ap_radius = np.full(S, np.inf)
+    coating_params = np.zeros((S, 4))
+
+    current_medium = AIR
+    for idx, s in enumerate(surfaces):
+        if s.surface_type != "standard":
+            raise NotImplementedError(
+                f"surface_type {s.surface_type!r} is not ported yet "
+                "(ROADMAP queue 1, slice 2)")
+        mat = s.material
+        if mat.k_table is not None:
+            raise NotImplementedError(
+                "absorbing media are not ported yet (ROADMAP queue 1, slice 2)")
+        reflective = mat.mirror
+        if not reflective:
+            current_medium = mat
+        is_reflective.append(bool(reflective))
+
+        geom, cv_val, k_val_, packed_coeffs = packed[idx]
+        geom_codes.append(geom)
+        geom_n_coeffs.append(len(packed_coeffs))
+
+        if idx == 0 or idx == S - 1:
+            interactions.append(INT_NONE)
+        elif reflective:
+            interactions.append(INT_REFLECT)
+        else:
+            interactions.append(INT_REFRACT)
+
+        mat_formulas.append(current_medium.formula)
+        mat_n_coeffs.append(current_medium.n_coeffs)
+        mat_coeffs[idx, : current_medium.n_coeffs] = current_medium.coefficients
+
+        has_tilt.append(bool(s.rx or s.ry or s.rz))
+        has_decenter.append(bool(s.dx or s.dy))
+        has_aperture.append(s.semi_aperture is not None)
+
+        code, cp = _coating_code(s.coating)
+        coatings.append(code)
+        coating_params[idx, : len(cp)] = cp
+
+        if s.is_stop:
+            stop_index = idx
+
+        cv[idx] = cv_val
+        conic[idx] = k_val_
+        if packed_coeffs:
+            coeffs[idx, : len(packed_coeffs)] = packed_coeffs
+        thickness[idx] = s.thickness
+        tilt[idx] = (s.rx, s.ry, s.rz)
+        decenter[idx] = (s.dx, s.dy)
+        if s.semi_aperture is not None:
+            ap_radius[idx] = s.semi_aperture
+
+    if stop_index == 0:
+        stop_index = 1
+
+    object_infinite = not np.isfinite(surfaces[0].thickness)
+    if object_infinite:
+        thickness[0] = np.inf
+
+    fused_newton_ok = True
+    for idx in range(S):
+        if (geom_codes[idx] in (GEOM_EVEN_ASPHERE, GEOM_ODD_ASPHERE)
+                and geom_n_coeffs[idx]):
+            if np.isfinite(ap_radius[idx]):
+                r_max = float(ap_radius[idx])
+            elif aperture_type == "EPD":
+                r_max = 0.75 * float(aperture_value)
+            else:
+                r_max = 10.0
+            cvk = float(cv[idx])
+            kk = 1.0 + float(conic[idx])
+            if cvk != 0.0 and kk > 0.0:
+                r_max = min(r_max, 0.9 / (abs(cvk) * np.sqrt(kk)))
+            if not _fused_newton_seed_ok(
+                    geom_codes[idx], cvk, float(conic[idx]),
+                    [float(c) for c in coeffs[idx][:geom_n_coeffs[idx]]],
+                    r_max):
+                fused_newton_ok = False
+                break
+
+    static = SystemStatic(
+        num_surfaces=S,
+        geom_codes=tuple(geom_codes),
+        geom_n_coeffs=tuple(geom_n_coeffs),
+        geom_aux=tuple(() for _ in range(S)),
+        interactions=tuple(interactions),
+        is_reflective=tuple(is_reflective),
+        coatings=tuple(coatings),
+        bsdfs=tuple(None for _ in range(S)),
+        phase_kinds=tuple(PHASE_NONE for _ in range(S)),
+        mat_formulas=tuple(mat_formulas),
+        mat_n_coeffs=tuple(mat_n_coeffs),
+        has_absorption=tuple(False for _ in range(S)),
+        has_tilt=tuple(has_tilt),
+        has_decenter=tuple(has_decenter),
+        has_aperture=tuple(has_aperture),
+        stop_index=stop_index,
+        object_infinite=object_infinite,
+        has_abs_cs=False,
+        field_type=field_type,
+        aperture_type=aperture_type,
+        num_fields=len(x_fields),
+        num_wavelengths=len(wavelengths),
+        primary_wavelength_idx=primary_wavelength_idx,
+        newton_iters=newton_iters,
+        aperture_masks=tuple(None for _ in range(S)),
+        thin_films=tuple(None for _ in range(S)),
+        has_vignetting=any(float(v) != 0.0 for v in list(vx) + list(vy)),
+        phase_aux=tuple(None for _ in range(S)),
+        fused_newton_ok=fused_newton_ok,
+    )
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, float), dtype=dtype, device=dev)
+
+    params = SystemParams(
+        cv=t(cv), conic=t(conic), coeffs=t(coeffs), thickness=t(thickness),
+        tilt=t(tilt), decenter=t(decenter), focal_length=t(np.zeros(S)),
+        mat_coeffs=t(mat_coeffs), k_wl=t(np.ones((S, 1))),
+        k_val=t(np.zeros((S, 1))), ap_radius=t(ap_radius),
+        grating=t(np.zeros((S, 3))), coating_params=t(coating_params),
+        phase_params=t(np.zeros((S, 8))), cs_pos=t(np.zeros((S, 3))),
+        aperture_value=t(aperture_value), x_fields=t(x_fields),
+        y_fields=t(y_fields), vx=t(vx), vy=t(vy), wavelengths=t(wavelengths),
+        phase_grids=t(np.zeros((S, 0, 0))),
+        phase_mat_coeffs=t(np.zeros((S, MAX_COEFFS))),
+    )
+    return static, params

@@ -1,0 +1,714 @@
+"""Fused trace kernels: ray generation, the whole surface chain and the
+spot-moment reduction in one launch on the CUDA card.
+
+Port of `optiland_tpu/trace/fused.py`, first slice: the two forward
+kernels of the trace-and-merit path.
+
+  K1 `moments_forward` replaces the Pallas kernel `_moments_forward`
+     (optiland_tpu/trace/fused.py): in-kernel raygen from 5 scalars, the
+     surface chain, and the masked moments (sum i, sum x i, sum y i,
+     sum (x^2+y^2) i). CUDA source: csrc/moments_fwd.cu.
+  K3 `raygen_trace_forward` replaces `_raygen_forward` (same file): the
+     same raygen and chain, writing the requested final per-ray arrays.
+     CUDA source: csrc/raygen_trace_fwd.cu.
+
+Both run one ray per thread (csrc/chain.cuh). What bounds them on an H100:
+FP32 arithmetic, not memory. At 2M rays K1 reads 32 MB (Hx, Hy, Px, Py in
+f32; the wavelength is hoisted into the per-surface index table), about
+10 us at 3.35 TB/s, while the chain costs on the order of 10^3 FP32
+operations per ray (counted per branch by `chip_smoke.py`), ~50 us at the
+67 TFLOP/s non-tensor FP32 peak of NVIDIA's H100 SXM data sheet. The
+design keeps every per-ray intermediate in registers (no per-surface state
+touches memory), stages the small system tables in shared memory once per
+block, and K1 reduces inside the block (warp shuffles, then shared memory)
+to one partial per block, summed by `torch.sum`: deterministic, no atomics.
+
+Beside each kernel is its plain PyTorch version (`_moments_plain`,
+`_raygen_trace_plain`) with the kernel's arithmetic: the wrapper takes it
+only for tensors on the CPU. On a CUDA tensor the wrapper launches the
+kernel or raises. Their backward kernels (K2 `_moments_bwd`, K4
+`_raygen_bwd`) are the next slice; until then the autograd seam raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from functools import lru_cache
+
+import torch
+
+from optiland_tpu_torch.geometry.surfaces import (
+    GEOM_BICONIC,
+    GEOM_CHEBYSHEV,
+    GEOM_CONIC,
+    GEOM_EVEN_ASPHERE,
+    GEOM_FORBES_Q2D,
+    GEOM_FORBES_QBFS,
+    GEOM_ODD_ASPHERE,
+    GEOM_PLANE,
+    GEOM_POLYNOMIAL_XY,
+    GEOM_TOROIDAL,
+    GEOM_ZERNIKE,
+)
+from optiland_tpu_torch.materials.dispersion import material_index
+from optiland_tpu_torch.system.spec import (
+    COAT_NONE,
+    COAT_SIMPLE,
+    INT_DIFFRACT,
+    INT_NONE,
+    INT_PHASE,
+    INT_REFLECT,
+    INT_THIN_LENS,
+    MAX_GEOM_COEFFS,
+    PHASE_CONSTANT,
+    PHASE_LINEAR_GRATING,
+    PHASE_NONE,
+    PHASE_RADIAL,
+    SystemParams,
+    SystemStatic,
+    positions_of,
+)
+
+_INLINE_GEOMS = (GEOM_PLANE, GEOM_CONIC, GEOM_EVEN_ASPHERE, GEOM_ODD_ASPHERE)
+_SUPPORTED_GEOMS = _INLINE_GEOMS + (
+    GEOM_POLYNOMIAL_XY, GEOM_BICONIC, GEOM_TOROIDAL, GEOM_CHEBYSHEV,
+    GEOM_ZERNIKE, GEOM_FORBES_QBFS, GEOM_FORBES_Q2D)
+_SUPPORTED_INTERACTIONS = (0, INT_REFLECT, INT_NONE, INT_THIN_LENS,
+                           INT_DIFFRACT, INT_PHASE)
+_ANALYTIC_PHASE = (PHASE_NONE, PHASE_CONSTANT, PHASE_RADIAL,
+                   PHASE_LINEAR_GRATING)
+_EPS = 1e-12
+
+# Newton cap of the fused chain: the conic closed form seeds within ~1e-3
+# of the asphere root and Newton converges quadratically, so 2 iterations
+# plus the closing step land below f32 eps. It overrides
+# `static.newton_iters`; `spec._fused_newton_seed_ok` refuses the systems
+# where that does not hold.
+_NEWTON_FUSED_MAX = 2
+
+# row widths of the packed per-surface tables; `_pack_tables` writes the
+# slots in the order csrc/chain.cuh names them (F_* and I_* there)
+_F_STRIDE = 32
+_I_STRIDE = 8
+_MAX_SURFACES = 64
+_BLOCK = 256    # threads per block, one ray each (csrc/chain.cuh)
+
+_NAMES = ("x", "y", "z", "L", "M", "N", "intensity", "opd")
+
+
+def supports_fused(static: SystemStatic) -> bool:
+    """Whether the fused chain's system class covers this system (the JAX
+    gate, including the build-time measured Newton-cap guard)."""
+    return (
+        static.fused_newton_ok
+        and not static.has_abs_cs
+        and all(g in _SUPPORTED_GEOMS for g in static.geom_codes)
+        and all(i in _SUPPORTED_INTERACTIONS for i in static.interactions)
+        and all(pk in _ANALYTIC_PHASE for pk in static.phase_kinds)
+        and all(c in (COAT_NONE, COAT_SIMPLE) for c in static.coatings)
+        and all(b is None for b in static.bsdfs)
+        and static.apodization is None
+        and all(m is None for m in static.aperture_masks)
+    )
+
+
+def supports_fused_raygen(static: SystemStatic) -> bool:
+    """Whether ray generation can run inside the kernel: angle fields, or
+    object-height fields with a finite object; no telecentric aiming, no
+    vignetting factors, no apodization."""
+    return (
+        static.field_type in ("angle", "object_height")
+        and not (static.field_type == "object_height"
+                 and static.object_infinite)
+        and not static.telecentric
+        and not static.has_vignetting
+        and static.apodization is None
+    )
+
+
+def _check_kernel_branches(static: SystemStatic, uniform_w: bool):
+    """Refuse the chain branches the CUDA kernels do not cover yet (each is
+    queued in ROADMAP queue 2, in this order)."""
+    missing = []
+    if not uniform_w:
+        missing.append("per-ray wavelengths")
+    if any(static.has_absorption):
+        missing.append("absorption")
+    if any(c == COAT_SIMPLE for c, i in zip(static.coatings,
+                                            static.interactions)
+           if i != INT_NONE):
+        missing.append("simple coatings")
+    if INT_THIN_LENS in static.interactions:
+        missing.append("thin lens")
+    if any(g not in _INLINE_GEOMS for g in static.geom_codes):
+        missing.append("freeform geometries")
+    if INT_DIFFRACT in static.interactions:
+        missing.append("gratings")
+    if INT_PHASE in static.interactions:
+        missing.append("phase surfaces")
+    if missing:
+        raise NotImplementedError(
+            "fused CUDA chain branches not ported yet (ROADMAP queue 2): "
+            + ", ".join(missing))
+    if static.num_surfaces > _MAX_SURFACES:
+        raise ValueError(f"the fused chain takes at most {_MAX_SURFACES} "
+                         f"surfaces, got {static.num_surfaces}")
+    if max(static.geom_n_coeffs) > MAX_GEOM_COEFFS:
+        raise ValueError(f"the fused chain takes at most {MAX_GEOM_COEFFS} "
+                         "asphere coefficients per surface")
+
+
+def _raygen_scalars(static: SystemStatic, params: SystemParams):
+    """The differentiable scalar prologue of the in-kernel raygen:
+    (5,) = [epl, epd, fmax, a, b] (see `_tile_raygen`)."""
+    from optiland_tpu_torch.system import paraxial as px
+
+    epl = px.EPL(static, params)
+    epd = px.EPD(static, params)
+    pos = positions_of(static, params)
+    fmax = torch.sqrt(torch.max(params.x_fields ** 2 + params.y_fields ** 2))
+    if static.field_type == "angle" and static.object_infinite:
+        offset = epd - torch.min(pos[1:-1])
+        a = pos[1] - offset   # start plane z
+        b = offset + epl      # lever arm for the field-angle offset
+    else:
+        a = pos[0]            # object plane z
+        b = epl - pos[0]
+    return torch.stack([epl, epd, fmax, a, b]).to(params.cv.dtype)
+
+
+def _uniform_tables(static: SystemStatic, params: SystemParams, w):
+    """Hoist monochromatic dispersion out of the kernel: (n_table,
+    alpha_table), the index after each surface (differentiable through
+    `mat_coeffs`) and the Beer-Lambert coefficient per gap."""
+    w = torch.as_tensor(w, dtype=params.cv.dtype, device=params.cv.device)
+    n_table = torch.stack([
+        material_index(static.mat_formulas[k], static.mat_n_coeffs[k],
+                       params.mat_coeffs[k], w)
+        for k in range(static.num_surfaces)
+    ])
+    if any(static.has_absorption):
+        raise NotImplementedError(
+            "absorption is not ported yet (ROADMAP queue 2)")
+    return n_table, torch.zeros_like(params.cv)
+
+
+def _diff_params(params: SystemParams, n_table=None):
+    if n_table is None:
+        n_table = torch.zeros_like(params.cv)
+    return (params.cv, params.conic, params.coeffs, params.thickness,
+            params.tilt, params.decenter, params.mat_coeffs,
+            params.coating_params, n_table, params.grating,
+            params.phase_params, params.focal_length)
+
+
+def _nondiff_params(params: SystemParams, alpha_table=None):
+    if alpha_table is None:
+        alpha_table = torch.zeros_like(params.cv)
+    return (params.ap_radius, params.k_wl, params.k_val, alpha_table)
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions of the kernels
+# ---------------------------------------------------------------------------
+def _tile_raygen(static: SystemStatic, rg, Hx, Hy, Px, Py):
+    """Ray generation from the 5 raygen scalars; `generate_rays` semantics
+    for the `supports_fused_raygen` class. Returns (x0, y0, z0, L, M, N,
+    i, opd)."""
+    epl, epd, fmax, a, b = rg[0], rg[1], rg[2], rg[3], rg[4]
+    half = epd * 0.5
+    if static.field_type == "angle":
+        tx = torch.tan(torch.deg2rad(fmax * Hx))
+        ty = torch.tan(torch.deg2rad(fmax * Hy))
+        if static.object_infinite:
+            x0 = Px * half - tx * b
+            y0 = Py * half - ty * b
+        else:
+            x0 = (-tx * b).expand(Px.shape)
+            y0 = (-ty * b).expand(Px.shape)
+    else:  # object_height (finite object)
+        x0 = (fmax * Hx).expand(Px.shape)
+        y0 = (fmax * Hy).expand(Px.shape)
+    z0 = a.expand(Px.shape)
+    # aim at the paraxial entrance pupil
+    dx = Px * half - x0
+    dy = Py * half - y0
+    dz = epl - z0
+    mag2 = dx * dx + dy * dy + dz * dz
+    degen = (mag2 < 1e-18).to(dx.dtype)
+    inv = torch.rsqrt(torch.clamp(mag2, min=1e-18))
+    L = (1.0 - degen) * dx * inv
+    M = (1.0 - degen) * dy * inv
+    N = (1.0 - degen) * dz * inv + degen
+    return x0, y0, z0, L, M, N, torch.ones_like(Px), torch.zeros_like(Px)
+
+
+def _sag_grad_terms(code, n_coeffs, coeffs_k, cvk, kk, r2, want_sag):
+    """Conic+polynomial sag (optional) and its radial gradient factors:
+    (sag, fx, fy, godd) with gradient (x fx + x godd, y fy + y godd);
+    godd is None except for odd aspheres."""
+    m = torch.clamp(1.0 - kk * cvk * cvk * r2, min=_EPS)
+    inv_root = torch.rsqrt(m)
+    root = m * inv_root
+    s_val = cvk * r2 / (1.0 + root) if want_sag else None
+    gmul = cvk * inv_root
+    if code == GEOM_EVEN_ASPHERE and n_coeffs:
+        rp = r2
+        rp0 = torch.ones_like(r2)
+        g = torch.zeros_like(r2)
+        for ci in range(n_coeffs):
+            if want_sag:
+                s_val = s_val + coeffs_k[ci] * rp
+                rp = rp * r2
+            g = g + 2.0 * (ci + 1) * coeffs_k[ci] * rp0
+            rp0 = rp0 * r2
+        return s_val, gmul + g, gmul + g, None
+    if code == GEOM_ODD_ASPHERE and n_coeffs:
+        r = torch.sqrt(torch.clamp(r2, min=_EPS))
+        rpow = r
+        rpow0 = torch.ones_like(r)
+        g = torch.zeros_like(r)
+        for ci in range(n_coeffs):
+            if want_sag:
+                s_val = s_val + coeffs_k[ci] * rpow
+                rpow = rpow * r
+            g = g + (ci + 1) * coeffs_k[ci] * rpow0
+            rpow0 = rpow0 * r
+        return s_val, gmul, gmul, g / r
+    return s_val, gmul, gmul, None
+
+
+def _radial_grad(code, n_coeffs, coeffs_k, cvk, kk, x, y, want_sag):
+    r2 = x * x + y * y
+    s_val, fx, fy, godd = _sag_grad_terms(code, n_coeffs, coeffs_k, cvk, kk,
+                                          r2, want_sag)
+    if godd is None:
+        return s_val, x * fx, y * fy
+    return s_val, x * fx + x * godd, y * fy + y * godd
+
+
+def _refract(L, M, N, nx, ny, nz, u):
+    """Vector Snell refraction with TIR passthrough; `n` oriented along the
+    incident ray. Returns (L', M', N', okf)."""
+    c = L * nx + M * ny + N * nz
+    d2 = 1.0 - u * u * (1.0 - c * c)
+    okf = (d2 >= 0.0).to(L.dtype)
+    rt = torch.sqrt(torch.clamp(d2, min=0.0))
+    q = rt - u * c
+    Lo = okf * (u * L + q * nx) + (1.0 - okf) * L
+    Mo = okf * (u * M + q * ny) + (1.0 - okf) * M
+    No = okf * (u * N + q * nz) + (1.0 - okf) * N
+    return Lo, Mo, No, okf
+
+
+def _reflect(L, M, N, nx, ny, nz):
+    """Mirror reflection l' = l - 2 (l.n) n."""
+    c = L * nx + M * ny + N * nz
+    return L - 2.0 * c * nx, M - 2.0 * c * ny, N - 2.0 * c * nz
+
+
+def _rotate(x, y, z, L, M, N, angles):
+    for c_, s_, rot in angles:
+        if rot == "z":
+            x, y = x * c_ - y * s_, x * s_ + y * c_
+            L, M = L * c_ - M * s_, L * s_ + M * c_
+        elif rot == "y":
+            x, z = x * c_ + z * s_, -x * s_ + z * c_
+            L, N = L * c_ + N * s_, -L * s_ + N * c_
+        else:
+            y, z = y * c_ - z * s_, y * s_ + z * c_
+            M, N = M * c_ - N * s_, M * s_ + N * c_
+    return x, y, z, L, M, N
+
+
+def _tile_trace(static: SystemStatic, diffp, nondiffp,
+                x, y, z, L, M, N, i, opd):
+    """The fused chain in PyTorch, monochromatic (indices from `n_table`),
+    for the branches the CUDA kernels cover; the arithmetic of
+    csrc/chain.cuh and of the JAX `_tile_trace` value pass. Newton runs on
+    a detached root and closes with one differentiable step, so autograd
+    through it gives the implicit-function-theorem derivative."""
+    (cv, conic, coeffs, thickness, tilt, decenter, _mat_coeffs,
+     _coating_params, n_table, _grating, _phase_params, _focal) = diffp
+    ap_radius = nondiffp[0]
+    pos_prev = torch.zeros((), dtype=cv.dtype, device=cv.device)
+    one = torch.ones((), dtype=cv.dtype, device=cv.device)
+    eps = _EPS * one
+
+    n_pre = n_table[0]
+    for k in range(1, static.num_surfaces):
+        pos_k = pos_prev + (thickness[k - 1] if k > 1 else 0.0)
+        pos_prev = pos_k
+
+        tilted = static.has_tilt[k]
+        decentered = static.has_decenter[k]
+        tx = decenter[k, 0]
+        ty = decenter[k, 1]
+        if tilted or decentered:
+            x = x - tx
+            y = y - ty
+        z = z - pos_k
+        if tilted:
+            rx, ry, rz = tilt[k, 0], tilt[k, 1], tilt[k, 2]
+            x, y, z, L, M, N = _rotate(x, y, z, L, M, N, (
+                (torch.cos(-rz), torch.sin(-rz), "z"),
+                (torch.cos(-ry), torch.sin(-ry), "y"),
+                (torch.cos(-rx), torch.sin(-rx), "x")))
+
+        code = static.geom_codes[k]
+        cvk = cv[k]
+        kk = 1.0 + conic[k]
+        # closed-form conic intersection (curvature form)
+        A = cvk * (L * L + M * M + kk * N * N)
+        B = 2.0 * (cvk * (L * x + M * y + kk * N * z) - N)
+        C = cvk * (x * x + y * y + kk * z * z) - 2.0 * z
+        disc = B * B - 4.0 * A * C
+        validf = (disc >= 0.0).to(A.dtype)
+        sq = torch.sqrt(torch.clamp(disc, min=0.0))
+        big = torch.abs(A) > _EPS
+        A_safe = torch.where(big, A, one)
+        inv2A = 1.0 / (2.0 * A_safe)
+        t1 = (-B + sq) * inv2A
+        t2 = (-B - sq) * inv2A
+        z1 = z + t1 * N
+        z2 = z + t2 * N
+        t_quad = torch.where(torch.abs(z1) <= torch.abs(z2), t1, t2)
+        B_safe = torch.where(torch.abs(B) > _EPS, B, eps)
+        t = torch.where(big, t_quad, -C / B_safe)
+        validf = torch.where(big, validf, one)
+
+        n_coeffs = static.geom_n_coeffs[k]
+        if code in (GEOM_EVEN_ASPHERE, GEOM_ODD_ASPHERE) and n_coeffs:
+            t = t.detach()
+            n_newton = min(static.newton_iters, _NEWTON_FUSED_MAX)
+            for it in range(n_newton + 1):
+                if it == n_newton:
+                    t = t.detach()
+                xt = x + t * L
+                yt = y + t * M
+                zt = z + t * N
+                s_val, gx, gy = _radial_grad(code, n_coeffs, coeffs[k], cvk,
+                                             kk, xt, yt, True)
+                f = s_val - zt
+                fp = gx * L + gy * M - N
+                fp = torch.where(torch.abs(fp) > _EPS, fp, eps)
+                t = t - f / fp
+
+        x = x + t * L
+        y = y + t * M
+        z = z + t * N
+        opd = opd + torch.abs(t * n_pre)
+        i = i * validf
+        if static.has_aperture[k]:
+            i = i * (x * x + y * y <= ap_radius[k] ** 2).to(i.dtype)
+
+        interaction = static.interactions[k]
+        if interaction != INT_NONE:
+            _, gx, gy = _radial_grad(code, n_coeffs, coeffs[k], cvk, kk, x, y,
+                                     False)
+            inv_mag = torch.rsqrt(gx * gx + gy * gy + 1.0)
+            nx, ny, nz = gx * inv_mag, gy * inv_mag, -inv_mag
+            sgn = torch.sign(L * nx + M * ny + N * nz)
+            nx, ny, nz = nx * sgn, ny * sgn, nz * sgn
+            if interaction == INT_REFLECT:
+                L, M, N = _reflect(L, M, N, nx, ny, nz)
+            else:
+                n_post = n_table[k]
+                L, M, N, okf = _refract(L, M, N, nx, ny, nz, n_pre / n_post)
+                i = i * okf
+                n_pre = n_post
+
+        if tilted:
+            x, y, z, L, M, N = _rotate(x, y, z, L, M, N, (
+                (torch.cos(rx), torch.sin(rx), "x"),
+                (torch.cos(ry), torch.sin(ry), "y"),
+                (torch.cos(rz), torch.sin(rz), "z")))
+        z = z + pos_k
+        if tilted or decentered:
+            x = x + tx
+            y = y + ty
+
+    return x, y, z, L, M, N, i, opd
+
+
+def _moments_plain(static, diffp, nondiffp, rg, data):
+    """Plain version of K1: (4,) = (sum i, sum x i, sum y i,
+    sum (x^2+y^2) i) at the image surface."""
+    _check_kernel_branches(static, uniform_w=True)
+    rays8 = _tile_raygen(static, rg, *data)
+    x, y, _, _, _, _, i, _ = _tile_trace(static, diffp, nondiffp, *rays8)
+    return torch.stack([torch.sum(i), torch.sum(x * i), torch.sum(y * i),
+                        torch.sum((x * x + y * y) * i)])
+
+
+def _raygen_trace_plain(static, diffp, nondiffp, rg, data, out_keys):
+    """Plain version of K3: the `out_keys` subset of the final
+    (x, y, z, L, M, N, i, opd)."""
+    _check_kernel_branches(static, uniform_w=True)
+    rays8 = _tile_raygen(static, rg, *data)
+    res = _tile_trace(static, diffp, nondiffp, *rays8)
+    return tuple(res[k] for k in out_keys)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    # n, S, n_newton, field_angle, object_infinite, rg, ftab, itab,
+    # Hx, Hy, Px, Py, partials (num_blocks, 4), stream
+    "moments_fwd": [_I] * 5 + [_P] * 9,
+    # n, S, n_newton, field_angle, object_infinite, out_mask, rg, ftab,
+    # itab, Hx, Hy, Px, Py, 8 output pointers (NULL = not requested), stream
+    "raygen_trace_fwd": [_I] * 6 + [_P] * 16,
+}
+
+
+@lru_cache(maxsize=None)
+def _kernel(name: str):
+    """The C entry point `name` of csrc/<name>.cu, built on first use."""
+    from optiland_tpu_torch import _build
+
+    fn = getattr(_build.library(name), name)
+    fn.argtypes = _SIGNATURES[name]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@lru_cache(maxsize=64)
+def _int_table(static: SystemStatic, device: torch.device):
+    rows = [[static.geom_codes[k], static.geom_n_coeffs[k],
+             static.interactions[k], int(static.has_tilt[k]),
+             int(static.has_decenter[k]), int(static.has_aperture[k])]
+            + [0] * (_I_STRIDE - 6) for k in range(static.num_surfaces)]
+    return torch.tensor(rows, dtype=torch.int32).to(device)
+
+
+def _pack_tables(static: SystemStatic, diffp, nondiffp):
+    """The per-surface float table (S, 32) in the slot layout of
+    csrc/chain.cuh, and the (S, 8) int table of static codes."""
+    (cv, conic, coeffs, thickness, tilt, decenter, _mat, coating_params,
+     n_table, _grating, _phase, _focal) = diffp
+    ap_radius, _k_wl, _k_val, alpha_table = nondiffp
+    S = static.num_surfaces
+    co = coeffs[:, :MAX_GEOM_COEFFS]
+    if co.shape[1] < MAX_GEOM_COEFFS:
+        co = torch.nn.functional.pad(co, (0, MAX_GEOM_COEFFS - co.shape[1]))
+    col = [cv[:, None], conic[:, None], co, thickness[:, None], tilt,
+           decenter, n_table[:, None], alpha_table[:, None],
+           ap_radius[:, None], coating_params[:, :2]]
+    used = sum(c.shape[1] for c in col)
+    col.append(torch.zeros((S, _F_STRIDE - used), dtype=cv.dtype,
+                           device=cv.device))
+    ftab = torch.cat(col, dim=1).to(torch.float32).contiguous()
+    return ftab, _int_table(static, cv.device)
+
+
+def _check_launch_inputs(rg, ftab, data):
+    dev = rg.device
+    for name, a in [("rg", rg), ("tables", ftab)] + list(
+            zip(("Hx", "Hy", "Px", "Py"), data)):
+        if a.device != dev or a.dtype != torch.float32:
+            raise ValueError(f"{name}: expected float32 on {dev}, got "
+                             f"{a.dtype} on {a.device}")
+        if not a.is_contiguous():
+            raise ValueError(f"{name}: expected a contiguous tensor")
+    n = data[0].shape[0]
+    if len(data) != 4 or any(d.shape != (n,) for d in data) \
+            or rg.shape != (5,):
+        raise ValueError("expected four (n,) ray arrays and a (5,) rg")
+    return n
+
+
+def _launch_args(static, rg, diffp, nondiffp, data):
+    _check_kernel_branches(static, uniform_w=True)
+    ftab, itab = _pack_tables(static, diffp, nondiffp)
+    n = _check_launch_inputs(rg, ftab, data)
+    head = [n, static.num_surfaces,
+            min(static.newton_iters, _NEWTON_FUSED_MAX),
+            int(static.field_type == "angle"), int(static.object_infinite)]
+    ptrs = [rg.data_ptr(), ftab.data_ptr(), itab.data_ptr()] + [
+        d.data_ptr() for d in data]
+    # the caller holds (ftab, itab) until the launch is enqueued: freed
+    # earlier, their blocks could be handed to the outputs it allocates
+    return n, head, ptrs, (ftab, itab)
+
+
+def _raise_on_error(name, err):
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+
+
+def moments_forward(static, diffp, nondiffp, rg, data):
+    """K1: (4,) spot moments of rays made from data = (Hx, Hy, Px, Py).
+    CPU tensors take `_moments_plain`; CUDA tensors launch the kernel."""
+    if rg.device.type == "cpu":
+        return _moments_plain(static, diffp, nondiffp, rg, data)
+    n, head, ptrs, keep = _launch_args(static, rg, diffp, nondiffp, data)
+    blocks = -(-n // _BLOCK)
+    partials = torch.empty((blocks, 4), dtype=torch.float32, device=rg.device)
+    if n:
+        err = _kernel("moments_fwd")(
+            *head, *ptrs, partials.data_ptr(),
+            torch.cuda.current_stream(rg.device).cuda_stream)
+        _raise_on_error("moments_fwd", err)
+        moments_forward.launches += 1
+    return torch.sum(partials, dim=0)
+
+
+moments_forward.launches = 0
+
+
+def raygen_trace_forward(static, diffp, nondiffp, rg, data, out_keys):
+    """K3: the `out_keys` subset of the final (x, y, z, L, M, N, i, opd) of
+    rays made from data = (Hx, Hy, Px, Py). CPU tensors take
+    `_raygen_trace_plain`; CUDA tensors launch the kernel. Unrequested
+    outputs are neither allocated nor written."""
+    if rg.device.type == "cpu":
+        return _raygen_trace_plain(static, diffp, nondiffp, rg, data,
+                                   out_keys)
+    n, head, ptrs, keep = _launch_args(static, rg, diffp, nondiffp, data)
+    outs = {k: torch.empty((n,), dtype=torch.float32, device=rg.device)
+            for k in out_keys}
+    mask = sum(1 << k for k in out_keys)
+    out_ptrs = [outs[k].data_ptr() if k in outs else None for k in range(8)]
+    if n:
+        err = _kernel("raygen_trace_fwd")(
+            *head[:5], mask, *ptrs, *out_ptrs,
+            torch.cuda.current_stream(rg.device).cuda_stream)
+        _raise_on_error("raygen_trace_fwd", err)
+        raygen_trace_forward.launches += 1
+    return tuple(outs[k] for k in out_keys)
+
+
+raygen_trace_forward.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# autograd seams
+# ---------------------------------------------------------------------------
+class _FusedSpotMoments(torch.autograd.Function):
+    """K1 at the autograd seam; its backward is K2 `_moments_bwd`."""
+
+    @staticmethod
+    def forward(ctx, static, n_diff, rg, *tensors):
+        diffp, nondiffp = tensors[:n_diff], tensors[n_diff:n_diff + 4]
+        return moments_forward(static, diffp, nondiffp, rg,
+                               tensors[n_diff + 4:])
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError("K2 _moments_bwd port: ROADMAP slice 2")
+
+
+class _FusedRaygenTraceFinal(torch.autograd.Function):
+    """K3 at the autograd seam; its backward is K4 `_raygen_bwd`."""
+
+    @staticmethod
+    def forward(ctx, static, out_keys, n_diff, rg, *tensors):
+        diffp, nondiffp = tensors[:n_diff], tensors[n_diff:n_diff + 4]
+        return raygen_trace_forward(static, diffp, nondiffp, rg,
+                                    tensors[n_diff + 4:], out_keys)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError("K4 _raygen_bwd port: ROADMAP slice 2")
+
+
+def fused_spot_moments(static, params_tuple, data):
+    """(m0, m1, m2, m3) through K1. `params_tuple` = (diffp, nondiffp, rg)
+    as `_diff_params`, `_nondiff_params`, `_raygen_scalars` give them;
+    `data` = (Hx, Hy, Px, Py)."""
+    diffp, nondiffp, rg = params_tuple
+    m = _FusedSpotMoments.apply(static, len(diffp), rg, *diffp, *nondiffp,
+                                *data)
+    return tuple(m.unbind())
+
+
+def fused_raygen_trace_final(static, out_keys, params_tuple, data):
+    """The `out_keys` final arrays through K3 (arguments as
+    `fused_spot_moments`)."""
+    diffp, nondiffp, rg = params_tuple
+    return _FusedRaygenTraceFinal.apply(static, tuple(out_keys), len(diffp),
+                                        rg, *diffp, *nondiffp, *data)
+
+
+def _prepare(static, params, Hx, Hy, Px, Py, wavelength):
+    """Broadcast the per-ray data and build the kernel parameter tuple."""
+    dt, dev = params.cv.dtype, params.cv.device
+    Px = torch.as_tensor(Px, dtype=dt, device=dev)
+    Py = torch.as_tensor(Py, dtype=dt, device=dev)
+    Hx = torch.as_tensor(Hx, dtype=dt, device=dev).expand(Px.shape)
+    Hy = torch.as_tensor(Hy, dtype=dt, device=dev).expand(Px.shape)
+    if torch.as_tensor(wavelength).ndim != 0:
+        _check_kernel_branches(static, uniform_w=False)
+    n_table, alpha_table = _uniform_tables(static, params, wavelength)
+    p = (_diff_params(params, n_table), _nondiff_params(params, alpha_table),
+         _raygen_scalars(static, params))
+    return p, tuple(a.contiguous() for a in (Hx, Hy, Px, Py))
+
+
+def trace_system_final_fused(static: SystemStatic, params: SystemParams,
+                             Hx, Hy, Px, Py, wavelength, outputs=None):
+    """Raygen+trace in one launch of K3. The caller has checked
+    `supports_fused` and `supports_fused_raygen`. `outputs`: names from
+    ("x", "y", "z", "L", "M", "N", "intensity", "opd"); default all."""
+    p, data = _prepare(static, params, Hx, Hy, Px, Py, wavelength)
+    if outputs is None:
+        out_keys = tuple(range(8))
+    else:
+        out_keys = tuple(sorted(_NAMES.index(o) for o in outputs))
+    vals = fused_raygen_trace_final(static, out_keys, p, data)
+    return {_NAMES[k]: v for k, v in zip(out_keys, vals)}
+
+
+def trace_final(static: SystemStatic, params: SystemParams, rays0,
+                wavelength=None):
+    """Final-surface state from a caller-made bundle. On a CUDA device in
+    float32 a `supports_fused` system is K5 `_fused_forward`, not ported
+    yet; otherwise the eager trace."""
+    from optiland_tpu_torch.trace.tracer import _final, trace_rays
+
+    if (supports_fused(static) and rays0.x.is_cuda
+            and rays0.x.dtype == torch.float32):
+        raise NotImplementedError("K5 _fused_forward port: ROADMAP slice 2")
+    return _final(trace_rays(static, params, rays0))
+
+
+def trace_history_fused(static: SystemStatic, params: SystemParams, rays0):
+    """Full (S, N) history. On a CUDA device in float32 a `supports_fused`
+    system is K7 `_history_forward`, not ported yet; otherwise the eager
+    trace."""
+    from optiland_tpu_torch.trace.tracer import trace_rays
+
+    if (supports_fused(static) and rays0.x.is_cuda
+            and rays0.x.dtype == torch.float32):
+        raise NotImplementedError("K7 _history_forward port: ROADMAP slice 2")
+    return trace_rays(static, params, rays0)
+
+
+def spot_moments(static: SystemStatic, params: SystemParams,
+                 Hx, Hy, Px, Py, wavelength):
+    """Weighted spot moments (m0, m1, m2, m3) = (sum i, sum x i, sum y i,
+    sum (x^2+y^2) i) at the image surface. On a CUDA device in float32 a
+    system both gates accept is one launch of K1; on the CPU, and in
+    float64, the eager generate_rays -> trace_rays pipeline under autograd."""
+    dtype = params.cv.dtype
+    use_fused = (supports_fused(static) and supports_fused_raygen(static)
+                 and params.cv.is_cuda and dtype == torch.float32)
+    if use_fused:
+        p, data = _prepare(static, params, Hx, Hy, Px, Py, wavelength)
+        return fused_spot_moments(static, p, data)
+    from optiland_tpu_torch.trace.raygen import generate_rays
+    from optiland_tpu_torch.trace.tracer import trace_rays
+
+    dev = params.cv.device
+    Px = torch.as_tensor(Px, dtype=dtype, device=dev)
+    Hxb = torch.as_tensor(Hx, dtype=dtype, device=dev).expand(Px.shape)
+    Hyb = torch.as_tensor(Hy, dtype=dtype, device=dev).expand(Px.shape)
+    rays0 = generate_rays(static, params, Hxb, Hyb, Px, Py, wavelength)
+    h = trace_rays(static, params, rays0)
+    x, y, i = h.x[-1], h.y[-1], h.intensity[-1]
+    return (torch.sum(i), torch.sum(x * i), torch.sum(y * i),
+            torch.sum((x * x + y * y) * i))

@@ -1,0 +1,132 @@
+"""Parity of the port's fused trace kernels (K1 `_moments_forward`, K3
+`_raygen_forward`) with the JAX package.
+
+On the CPU the port's plain PyTorch versions (`_moments_plain`,
+`_raygen_trace_plain`, the arithmetic of csrc/chain.cuh) are held in
+float64 against the JAX Pallas kernels run in interpret mode, on the small
+singlets of tests/test_fused_kernel.py (K1 on the tilted, decentered,
+clipped even-asphere singlet, K3 on the odd-asphere mirror: between them
+every branch of the chain), at n = 200 rays (not a multiple of the 128-lane
+tile) and rtol 1e-10. The 13-surface bench lens is held against the JAX
+XLA path in tests/test_torch_slice.py (interpret mode costs ~30 s there);
+tests/test_fused_kernel.py pins that path to the kernel.
+The CUDA kernels themselves are held against the plain versions on the
+card by tests/test_torch_cuda.py."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from optiland_tpu.trace import fused as jfused
+from optiland_tpu_torch.trace import fused as tfused
+
+from torch_port_helpers import bench_lens, build_both, singlet_lens
+
+RTOL = 1e-10
+N_RAYS = 200
+
+_SYSTEMS = {
+    "singlet": dict(),
+    "tilt_decenter_aperture": dict(tilt=True, decenter=True, aperture=4.5),
+    "odd_asphere_mirror": dict(mirror=True, odd=True),
+}
+
+
+def _system(name):
+    return build_both(lambda O: singlet_lens(O, **_SYSTEMS[name]),
+                      newton_iters=4)
+
+
+def _data(seed=11, n=N_RAYS):
+    rng = np.random.default_rng(seed)
+    Px, Py = rng.uniform(-0.9, 0.9, (2, n))
+    Hx, Hy = rng.uniform(-0.5, 0.5, (2, n))
+    return Hx, Hy, Px, Py
+
+
+def _port_args(ts, tp, w):
+    n_table, alpha = tfused._uniform_tables(ts, tp, w)
+    return (tfused._diff_params(tp, n_table),
+            tfused._nondiff_params(tp, alpha),
+            tfused._raygen_scalars(ts, tp))
+
+
+def _t(arrays):
+    return tuple(torch.tensor(a) for a in arrays)
+
+
+@pytest.mark.parametrize("name", ["tilt_decenter_aperture"])
+def test_moments_plain_matches_jax_kernel(name):
+    (js, jp), (ts, tp) = _system(name)
+    data = _data()
+    ref = jax.jit(lambda p, *d: jfused.spot_moments(
+        js, p, *d, 0.55, interpret=True))(jp, *(jnp.asarray(a) for a in data))
+    got = tfused._moments_plain(ts, *_port_args(ts, tp, 0.55), _t(data))
+    assert float(ref[0]) > 0
+    for j in range(4):
+        np.testing.assert_allclose(float(got[j]), float(ref[j]), rtol=RTOL,
+                                   err_msg=f"m{j}")
+
+
+@pytest.mark.parametrize("name", ["odd_asphere_mirror"])
+def test_raygen_trace_plain_matches_jax_kernel(name):
+    (js, jp), (ts, tp) = _system(name)
+    data = _data(seed=3)
+    ref = jfused.trace_system_final_fused(
+        js, jp, *(jnp.asarray(a) for a in data), jnp.asarray(0.55),
+        interpret=True)
+    got = tfused._raygen_trace_plain(ts, *_port_args(ts, tp, 0.55), _t(data),
+                                     tuple(range(8)))
+    for k, key in enumerate(tfused._NAMES):
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(ref[key]),
+                                   rtol=RTOL, atol=1e-12, err_msg=key)
+
+
+@pytest.fixture(scope="module")
+def bench_pair():
+    return build_both(bench_lens)
+
+
+def test_cpu_dispatch_is_eager_and_launches_nothing(bench_pair):
+    _, (ts, tp) = bench_pair
+    k1, k3 = tfused.moments_forward.launches, \
+        tfused.raygen_trace_forward.launches
+    data = _t(_data(seed=0, n=64))
+    m = tfused.spot_moments(ts, tp, *data, 0.5876)
+    plain = tfused._moments_plain(ts, *_port_args(ts, tp, 0.5876), data)
+    for j in range(4):
+        np.testing.assert_allclose(float(m[j]), float(plain[j]), rtol=RTOL)
+    assert (tfused.moments_forward.launches,
+            tfused.raygen_trace_forward.launches) == (k1, k3)
+
+
+def test_kernel_seams_refuse_backward(bench_pair):
+    _, (ts, tp) = bench_pair
+    tp = tp.replace(cv=tp.cv.clone().requires_grad_(True))
+    data = _t(_data(seed=0, n=16))
+    p = _port_args(ts, tp, 0.5876)
+    m = tfused.fused_spot_moments(ts, p, data)
+    with pytest.raises(NotImplementedError, match="K2 _moments_bwd"):
+        m[3].backward()
+    out = tfused.fused_raygen_trace_final(ts, (0, 1), _port_args(
+        ts, tp, 0.5876), data)
+    with pytest.raises(NotImplementedError, match="K4 _raygen_bwd"):
+        out[0].sum().backward()
+
+
+def test_unported_chain_branches_raise():
+    (_, _), (ts, tp) = build_both(
+        lambda O: singlet_lens(O, asphere=False))
+    from dataclasses import replace
+
+    coated = replace(ts, coatings=(0, 1, 0, 0))
+    with pytest.raises(NotImplementedError, match="simple coatings"):
+        tfused._moments_plain(coated, *_port_args(ts, tp, 0.55),
+                              _t(_data(n=8)))
+    with pytest.raises(NotImplementedError, match="per-ray wavelengths"):
+        tfused.trace_system_final_fused(ts, tp, *_t(_data(n=8)),
+                                        torch.full((8,), 0.55,
+                                                   dtype=torch.float64))

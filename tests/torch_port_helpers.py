@@ -1,0 +1,129 @@
+"""Shared fixtures of the PyTorch-port tests (tests/test_torch_*.py): lens
+prescriptions written once against the builder API that both packages
+share, and a builder that makes the same system in both. JAX is imported
+only by the functions that build the JAX side, so the tests on the card
+(tests/test_torch_cuda.py) run where JAX is not installed."""
+
+import math
+from dataclasses import fields, replace
+
+import numpy as np
+import torch
+
+from optiland_tpu_torch.system.optic import Optic as TOptic
+from optiland_tpu_torch.system.spec import params_from_numpy, static_from_dict
+
+
+def bench_lens(Optic):
+    """The 10-surface, 4-even-asphere prescription the benchmark traces
+    (a copy: the benchmark module sets the JAX precision globally)."""
+    lens = Optic("Bench10")
+    inf = math.inf
+    asph = (1e-7, -2e-11, 3e-15)
+    lens.add_surface(index=0, radius=inf, thickness=inf)
+    lens.add_surface(index=1, radius=56.20238, thickness=8.75, material=1.617,
+                     surface_type="even_asphere", coefficients=asph)
+    lens.add_surface(index=2, radius=152.28580, thickness=0.5)
+    lens.add_surface(index=3, radius=37.68262, thickness=12.5, material=1.607)
+    lens.add_surface(index=4, radius=inf, thickness=3.8, material=1.603,
+                     surface_type="even_asphere", coefficients=asph)
+    lens.add_surface(index=5, radius=24.23130, thickness=16.369445)
+    lens.add_surface(index=6, radius=inf, thickness=13.747957, is_stop=True)
+    lens.add_surface(index=7, radius=-28.37731, thickness=3.8, material=1.603,
+                     surface_type="even_asphere", coefficients=asph)
+    lens.add_surface(index=8, radius=inf, thickness=11, material=1.620,
+                     surface_type="even_asphere", coefficients=asph)
+    lens.add_surface(index=9, radius=-37.92546, thickness=0.5)
+    lens.add_surface(index=10, radius=177.41176, thickness=7, material=1.620)
+    lens.add_surface(index=11, radius=-79.41143, thickness=61.487536)
+    lens.add_surface(index=12)
+    lens.set_aperture(aperture_type="imageFNO", value=5)
+    lens.set_field_type("angle")
+    lens.add_field(y=0)
+    lens.add_field(y=14)
+    lens.add_wavelength(value=0.5876, is_primary=True)
+    return lens
+
+
+def singlet_lens(Optic, field_type="angle", object_distance=math.inf,
+                 asphere=True, odd=False, tilt=False, decenter=False,
+                 mirror=False, aperture=None, max_field=5.0):
+    """The asphere singlet of tests/test_fused_kernel.py (`_singlet`), with
+    two fields (0 and `max_field`) and optional odd asphere, tilt, decenter,
+    mirror and clear aperture."""
+    lens = Optic()
+    lens.add_surface(index=0, radius=math.inf, thickness=object_distance)
+    kw = {}
+    if asphere:
+        kw = dict(surface_type="odd_asphere" if odd else "even_asphere",
+                  coefficients=(1e-6, -1e-9))
+    if tilt:
+        kw["rx"] = 0.02
+        kw["ry"] = -0.01
+    if decenter:
+        kw["dx"] = 0.3
+        kw["dy"] = -0.2
+    if aperture is not None:
+        kw["aperture"] = aperture
+    if mirror:
+        lens.add_surface(index=1, radius=-100.0, material="mirror",
+                         is_stop=True, thickness=-40.0, **kw)
+        lens.add_surface(index=2, radius=math.inf, thickness=0.0)
+        lens.add_surface(index=3)
+    else:
+        lens.add_surface(index=1, radius=50.0, thickness=5.0, material=1.52,
+                         is_stop=True, **kw)
+        lens.add_surface(index=2, radius=-50.0, thickness=47.0)
+        lens.add_surface(index=3)
+    lens.set_aperture("EPD", 10.0)
+    lens.set_field_type(field_type)
+    lens.add_field(y=0.0)
+    lens.add_field(y=max_field)
+    lens.add_wavelength(0.55, is_primary=True)
+    return lens
+
+
+def jax_build_f64(lens):
+    """Build a JAX-package lens in float64 whatever the JAX precision
+    global holds, and restore it."""
+    import optiland_tpu
+
+    prev = optiland_tpu.get_dtype()
+    optiland_tpu.set_precision("float64")
+    try:
+        return lens.build()
+    finally:
+        optiland_tpu.set_precision(
+            "float32" if prev == np.float32 else "float64")
+
+
+def carry_across(static, params, device="cpu", dtype=torch.float64):
+    """The JAX system's tables as the port's (static_from_dict +
+    params_from_numpy)."""
+    ts = static_from_dict({f.name: getattr(static, f.name)
+                           for f in fields(static)})
+    arrays = {f.name: np.asarray(getattr(params, f.name))
+              for f in fields(params) if getattr(params, f.name) is not None}
+    return ts, params_from_numpy(arrays, device, dtype)
+
+
+def build_both(make, newton_iters=None):
+    """((jax static, jax params), (port static, port params)) of the lens
+    `make(Optic)` builds, float64, port on the CPU. The port's own builder
+    must reproduce the JAX tables exactly (checked here), and the returned
+    port system is the one carried across from the JAX tables."""
+    from optiland_tpu.system.optic import Optic as JOptic
+
+    js, jp = jax_build_f64(make(JOptic))
+    ts_own, tp_own = make(TOptic).build(device="cpu")
+    ts, tp = carry_across(js, jp)
+    assert ts_own == ts
+    for f in fields(tp):
+        a, b = getattr(tp_own, f.name), getattr(tp, f.name)
+        if f.name in ("k_wl", "k_val", "phase_grids", "phase_mat_coeffs"):
+            continue  # padding of tables the ported surface types never read
+        assert torch.equal(a, b), f.name
+    if newton_iters is not None:
+        js = replace(js, newton_iters=newton_iters)
+        ts = replace(ts, newton_iters=newton_iters)
+    return (js, jp), (ts, tp)
