@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's main paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -7,22 +7,37 @@ From the root of the repository, on a machine with a CUDA card, nvcc and
 PyTorch built for CUDA. In order it:
   1. prints the card (`nvidia-smi` name and power limit) and the torch and
      CUDA versions;
-  2. builds the CUDA kernels of optiland_tpu_torch/csrc with nvcc and
-     prints the build time and nvcc's register report;
+  2. builds the CUDA kernels of optiland_tpu_torch/csrc with nvcc (one
+     process per source, all at once) and prints the build time and nvcc's
+     register report;
   3. builds the benchmark's 13-surface, 4-asphere lens in float32 on the
      card and draws 2,000,000 rays as bench.py draws them (seed 0);
-  4. drives the main path through the entry points a user calls,
+  4. drives the forward path through the entry points a user calls,
      `centroid_rms_spot` (reaches K1) and `trace_system_final` (reaches
-     K3), with every launch counter set to 0 just before and read just
-     after, and fails unless both kernels were launched;
-  5. checks the outputs: finite, of the expected shape, and in agreement
+     K3), and
+  5. checks its outputs: finite, of the expected shape, and in agreement
      with the port's eager float64 path on the card (an independent
      implementation: full Newton, autograd-friendly ops, no kernel);
-  6. holds each kernel against its plain PyTorch version on the same
-     inputs, with the tolerances stated at `TOL`;
-  7. times each kernel and its plain version with CUDA events (warm-up,
-     then the median of 25 calls) and prints one JSON line of kernels;
-  8. prints as its last line {"ok": true, "device": {...}}.
+  6. holds K1 and K3 against their plain PyTorch versions;
+  7. (a) takes the training step at full width: `centroid_rms_spot(...,
+     diff_inputs=False).backward()` (K1, K2), gradients of cv, conic,
+     coeffs and thickness against the eager float64 path's autograd;
+  8. (b) the input cotangents: `diff_inputs=True` gives Hy cotangents that
+     agree with the plain version, `diff_inputs=False` the same parameter
+     gradients bit for bit and zero Hy cotangents;
+  9. (c) the backward of `trace_system_final` (K3, K4);
+ 10. (d) the caller-ray path: a vignetted 14 degree field leaves in-kernel
+     raygen, so `trace_system_final` and its backward reach K5 and K6;
+     values against the eager float64 path;
+ 11. (e) holds K2, K4, K5 and K6 against their plain versions, and K2's and
+     K6's parameter cotangents bitwise against a second launch;
+ 12. (f) a trainer: 5 torch.optim.Adam steps (lr 1e-4) of the training step;
+ 13. (g) times each kernel and its plain version with CUDA events (warm-up,
+     then the median of 25 calls) and the training step end to end, and
+     prints one JSON line of kernels;
+ 14. prints as its last line {"ok": true, "device": {...}}.
+Every path is driven with all six launch counters set to 0 just before it
+and read just after, and fails unless its kernels were launched.
 
 Any failed check raises and the script exits non-zero. Without a CUDA card,
 or without the repository around it, it exits non-zero and prints no
@@ -45,6 +60,13 @@ ROOT = Path(__file__).resolve().parent
 N_RAYS = 2_000_000
 WAVELENGTH = 0.5876
 TIMED_CALLS = 25
+TIMED_STEPS = 10
+GRAD_LEAVES = ("cv", "conic", "coeffs", "thickness")
+# Adam moves every coordinate by about lr per step whatever its scale; the
+# asphere coefficients (1e-7 to 3e-15) would jump by orders of magnitude,
+# so the trainer steps the other three leaves
+TRAIN_LEAVES = ("cv", "conic", "thickness")
+ADAM_STEPS, ADAM_LR = 5, 1e-4
 
 # Peak rates of one H100 SXM (NVIDIA's data sheet, at its 700 W limit):
 # FP32 outside the tensor cores, and HBM3 bandwidth.
@@ -56,17 +78,24 @@ PEAK_BYTES_PER_S = 3.35e12
 # runs PyTorch's elementwise kernels, so the two round differently: at
 # image heights up to ~25 mm and paths of ~300 mm, f32 spacing is 2e-6 mm
 # and 3e-5 mm, and a 12-surface chain amplifies a few ulps per surface.
+# Cotangents are held relative to the largest entry of their group: a
+# parameter's is a sum over 2M rays (blocked sums in another order), a
+# per-ray one carries the chain's conditioning (the plain f32 version is
+# ~5e-4 of scale off float64 on the bench lens, on the CPU) and is
+# compared on the rays whose intensity both versions agree on.
 TOL = {
     "position_mm": 5e-4,     # x, y, z
     "direction": 1e-5,       # L, M, N
     "opd_mm": 2e-3,          # 12 accumulated |t n| terms of ~30 mm
     "intensity_frac": 1e-5,  # rays whose i differs (edge TIR / clipping)
     "moment_rel": 1e-4,      # moments, relative to their natural scale
+    "param_grad_rel": 1e-4,  # raygen-scalar and table cotangents
+    "ray_grad_rel": 5e-3,    # per-ray cotangents
 }
 # The main path against the eager float64 path: float32 against float64
 # (kernel: capped Newton; eager: 16 iterations), same scales.
 TOL_F64 = {"position_mm": 5e-4, "direction": 1e-5, "moment_rel": 1e-4,
-           "loss_rel": 1e-3}
+           "loss_rel": 1e-3, "grad_rel": 1e-4}
 
 
 def check(cond, msg):
@@ -74,9 +103,10 @@ def check(cond, msg):
         raise RuntimeError(f"check failed: {msg}")
 
 
-def bench_lens(Optic):
+def bench_lens(Optic, vignetted=False):
     """The benchmark prescription (bench.py:33-56): 10 glass surfaces, 4
-    even aspheres, imageFNO 5, angle fields 0 and 14 degrees."""
+    even aspheres, imageFNO 5, angle fields 0 and 14 degrees; `vignetted`
+    gives the 14 degree field vignetting factors vx = vy = 0.1."""
     lens = Optic("Bench10")
     inf = math.inf
     asph = (1e-7, -2e-11, 3e-15)
@@ -100,7 +130,10 @@ def bench_lens(Optic):
     lens.set_aperture(aperture_type="imageFNO", value=5)
     lens.set_field_type("angle")
     lens.add_field(y=0)
-    lens.add_field(y=14)
+    if vignetted:
+        lens.add_field(y=14, vx=0.1, vy=0.1)
+    else:
+        lens.add_field(y=14)
     lens.add_wavelength(value=WAVELENGTH, is_primary=True)
     return lens
 
@@ -144,6 +177,43 @@ def chain_ops_per_ray(static, fused):
     return ops
 
 
+def backward_ops_per_ray(static, fused, raygen=True):
+    """FP32 operations per ray of a backward kernel's function, counted as
+    `chain_ops_per_ray` counts: the forward once (its re-trace), then the
+    adjoint once. The adjoint of each piece (csrc/chain_bwd.cuh) counts the
+    operations that make cotangents, with every forward value it reads
+    taken from the forward: the sag gradient and normal at the hit, the
+    refraction's u, d2 and q, a plane's A, B and C, the rotations' cos and
+    sin, the polynomial's lower powers. The sweep recomputes those from its
+    record, a cost of the design and not of the function. A plane takes
+    the branch of cv = 0. A parameter's cotangent is a sum over rays: one
+    add per ray for each slot. With `raygen`, the raygen adjoint and its
+    row; without it (K6) the forward starts from loaded rays."""
+    ops = chain_ops_per_ray(static, fused)
+    ops += 56 + 5 if raygen else -32
+    for k in range(1, static.num_surfaces):
+        code, nc = static.geom_codes[k], static.geom_n_coeffs[k]
+        asphere = code in (2, 3) and nc > 0
+        odd = code == 3 and nc > 0
+        inter = static.interactions[k]
+        tilted = static.has_tilt[k]
+        moved = tilted or static.has_decenter[k]
+        ops += 16 + 3                # propagation and opd; vertex z, thickness
+        ops += 4 if moved else 0     # decenter
+        ops += 6 * 20 if tilted else 0   # the six rotations
+        if inter != 3:   # reflection or refraction, normal, sag gradient
+            ops += (24 if inter == 1 else 57) + 17
+            ops += (31 if not asphere else
+                    (34 if odd else 28) + 7 * nc)
+        # the hit: a plane's closed form; the IFT, with the sag's
+        # denominator and top power, which the forward does not form
+        ops += 56 if code == 0 else 34 + 2 * nc + int(asphere)
+        slots = 3 + (nc if asphere else 0) + (3 if tilted else 0) + (
+            2 if moved else 0) + (1 if inter == 0 else 0)
+        ops += slots
+    return ops + 1   # n_table[0]
+
+
 def bound_ms(n_bytes, n_ops):
     t_bytes = n_bytes / PEAK_BYTES_PER_S
     t_ops = n_ops / PEAK_FP32_FLOPS
@@ -151,13 +221,13 @@ def bound_ms(n_bytes, n_ops):
                                        else "operations")
 
 
-def time_ms(fn):
-    """Median over TIMED_CALLS of CUDA-event time around one call, after
-    three warm-up calls."""
+def time_ms(fn, calls=TIMED_CALLS):
+    """Median over `calls` of CUDA-event time around one call, after three
+    warm-up calls."""
     for _ in range(3):
         fn()
     times = []
-    for _ in range(TIMED_CALLS):
+    for _ in range(calls):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -166,6 +236,55 @@ def time_ms(fn):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def rel_err(got, ref, keep=None):
+    """max |got - ref| over max |ref| (on the `keep` entries)."""
+    if keep is not None:
+        got, ref = got[keep], ref[keep]
+    scale = ref.abs().max().double().clamp_min(1e-30)
+    return ((got.double() - ref.double()).abs().max() / scale).item()
+
+
+def max_abs(got, ref, keep=None):
+    if keep is not None:
+        got, ref = got[keep], ref[keep]
+    return (got.double() - ref.double()).abs().max().item()
+
+
+def cotangent_errs(got, ref, keep):
+    """Relative errors of a backward kernel against its plain version:
+    rg, the `_diff_params` groups either side fills, and the per-ray
+    cotangents (on `keep`). Returns (errors, max abs error of the
+    parameter cotangents)."""
+    names = ("cv", "conic", "coeffs", "thickness", "tilt", "decenter",
+             "mat_coeffs", "coating_params", "n_table", "grating",
+             "phase_params", "focal_length")
+    d_rg, d_diff, d_ray = got
+    r_rg, r_diff, r_ray = ref
+    errs, worst = {}, 0.0
+    if d_rg is not None:
+        errs["rg"] = rel_err(d_rg, r_rg)
+        worst = max_abs(d_rg, r_rg)
+    for name, g, r in zip(names, d_diff, r_diff):
+        if r.abs().max() > 0 or g.abs().max() > 0:
+            errs[name] = rel_err(g, r)
+            worst = max(worst, max_abs(g, r))
+    rays = {}
+    for j, (g, r) in enumerate(zip(d_ray, r_ray)):
+        if r.abs().max() > 0 or g.abs().max() > 0:
+            rays[f"ray{j}"] = rel_err(g, r, keep)
+    return errs, rays, worst
+
+
+def check_cotangents(label, errs, rays):
+    print(f"{label} vs plain: params {json.dumps(errs)} per-ray "
+          f"{json.dumps(rays)} tolerances param_grad_rel "
+          f"{TOL['param_grad_rel']} ray_grad_rel {TOL['ray_grad_rel']}")
+    for k, v in errs.items():
+        check(v <= TOL["param_grad_rel"], f"{label} {k} vs plain")
+    for k, v in rays.items():
+        check(v <= TOL["ray_grad_rel"], f"{label} {k} vs plain")
 
 
 def main():
@@ -179,13 +298,39 @@ def main():
         return 3
     sys.path.insert(0, str(ROOT))
     from optiland_tpu_torch import _build, config
-    from optiland_tpu_torch.optimization.merits import centroid_rms_spot
+    from optiland_tpu_torch.optimization.merits import (
+        centroid_rms_from_moments,
+        centroid_rms_spot,
+    )
     from optiland_tpu_torch.system.optic import Optic
     from optiland_tpu_torch.trace import fused, tracer
+    from optiland_tpu_torch.trace.raygen import generate_rays
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    counters = {"K1": fused.moments_forward, "K2": fused.moments_backward,
+                "K3": fused.raygen_trace_forward,
+                "K4": fused.raygen_trace_backward,
+                "K5": fused.fused_trace_forward,
+                "K6": fused.fused_trace_backward}
+
+    def reset_counts():
+        for f in counters.values():
+            f.launches = 0
+
+    def read_counts():
+        torch.cuda.synchronize()
+        return {k: f.launches for k, f in counters.items()}
+
+    def leaves_of(params, names=GRAD_LEAVES):
+        leaves = {k: getattr(params, k).detach().clone().requires_grad_(True)
+                  for k in names}
+        return leaves, params.replace(**leaves)
+
+    def free():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
 
     # 1. the card
     smi = subprocess.run(
@@ -216,19 +361,16 @@ def main():
     Hx, Hy, Px, Py = bench_rays(dev)
     torch.cuda.synchronize()
 
-    # 4. the main path, counters at 0 just before and read just after
-    fused.moments_forward.launches = 0
-    fused.raygen_trace_forward.launches = 0
+    # 4. the forward path, counters at 0 just before and read just after
+    reset_counts()
     loss = centroid_rms_spot(static, params, Hx, Hy, Px, Py, WAVELENGTH)
     m_main = fused.spot_moments(static, params, Hx, Hy, Px, Py, WAVELENGTH)
     final = tracer.trace_system_final(static, params, Hx, Hy, Px, Py,
                                       WAVELENGTH)
-    torch.cuda.synchronize()
-    launches = {"K1": fused.moments_forward.launches,
-                "K3": fused.raygen_trace_forward.launches}
-    print(f"main path launches: {launches}")
-    check(launches["K1"] >= 1 and launches["K3"] >= 1,
-          "main path launched K1 and K3")
+    fwd_launches = read_counts()
+    print(f"forward path launches: {fwd_launches}")
+    check(fwd_launches["K1"] >= 1 and fwd_launches["K3"] >= 1,
+          "forward path launched K1 and K3")
 
     # 5. what comes out: finite, shaped, and agreeing with the eager
     # float64 path on the card
@@ -246,9 +388,7 @@ def main():
                                           WAVELENGTH)
     ref_m = fused.spot_moments(static64, params64, *data64, WAVELENGTH)
     ref_loss = centroid_rms_spot(static64, params64, *data64, WAVELENGTH)
-    torch.cuda.synchronize()
-    check(fused.moments_forward.launches == launches["K1"]
-          and fused.raygen_trace_forward.launches == launches["K3"],
+    check(read_counts() == fwd_launches,
           "float64 reference ran eager (no kernel)")
     ref_m = [float(v) for v in ref_m]
     scale = [ref_m[0], math.sqrt(ref_m[0] * ref_m[3]),
@@ -265,7 +405,7 @@ def main():
                      ("N", "direction")):
         err64[key] = (final[key].double() - ref_final[key])[same].abs().max(
         ).item()
-    print("main path vs eager float64: " + json.dumps(err64)
+    print("forward path vs eager float64: " + json.dumps(err64)
           + f" tolerances {json.dumps(TOL_F64)}")
     for j in range(4):
         check(err64[f"m{j}_rel"] <= TOL_F64["moment_rel"], f"m{j} vs f64")
@@ -275,10 +415,11 @@ def main():
         check(err64[key] <= TOL_F64["position_mm"], f"{key} vs f64")
     for key in ("L", "M", "N"):
         check(err64[key] <= TOL_F64["direction"], f"{key} vs f64")
-    del ref_final, data64
+    del ref_final, final
     config.set_precision("float32")
+    free()
 
-    # 6. each kernel against its plain version on the same inputs
+    # 6. K1 and K3 against their plain versions on the same inputs
     p, data = fused._prepare(static, params, Hx, Hy, Px, Py, WAVELENGTH)
     k1 = fused.moments_forward(static, *p, data)
     k1_plain = fused._moments_plain(static, *p, data)
@@ -293,66 +434,319 @@ def main():
     keys = tuple(range(8))
     k3 = fused.raygen_trace_forward(static, *p, data, keys)
     k3_plain = fused._raygen_trace_plain(static, *p, data, keys)
-    same = k3[6] == k3_plain[6]
-    k3_err = {"intensity_frac": 1.0 - same.float().mean().item()}
+    keep = k3[6] == k3_plain[6]   # rays whose i both versions agree on
+    k3_err = {"intensity_frac": 1.0 - keep.float().mean().item()}
     tol_of = {"x": "position_mm", "y": "position_mm", "z": "position_mm",
               "L": "direction", "M": "direction", "N": "direction",
               "opd": "opd_mm"}
     for k, key in enumerate(fused._NAMES):
         if key in tol_of:
-            k3_err[key] = (k3[k] - k3_plain[k])[same].abs().max().item()
+            k3_err[key] = (k3[k] - k3_plain[k])[keep].abs().max().item()
     print("K3 vs plain: " + json.dumps(k3_err)
           + f" tolerances {json.dumps(TOL)}")
     check(k3_err["intensity_frac"] <= TOL["intensity_frac"], "K3 i")
     for key, tol in tol_of.items():
         check(k3_err[key] <= TOL[tol], f"K3 {key} vs plain")
     del k3, k3_plain
-    torch.cuda.synchronize()
+    free()
 
-    # 7. times and bounds, at the main path's shapes. A kernel's time is
-    # its bare launch (tables packed once, outside the timed region);
+    # 7. (a) the training step at full width, params only
+    leaves, p_train = leaves_of(params)
+    reset_counts()
+    loss = centroid_rms_spot(static, p_train, Hx, Hy, Px, Py, WAVELENGTH,
+                             diff_inputs=False)
+    loss.backward()
+    train_launches = read_counts()
+    print(f"training step launches: {train_launches}")
+    check(train_launches["K1"] >= 1 and train_launches["K2"] >= 1,
+          "training step launched K1 and K2")
+    for k, v in leaves.items():
+        check(bool(torch.isfinite(v.grad).all()) and bool(v.grad.any()),
+              f"{k} gradient finite and nonzero")
+    config.set_precision("float64")
+    leaves64, p64 = leaves_of(params64)
+    centroid_rms_spot(static64, p64, *data64, WAVELENGTH).backward()
+    check(read_counts() == train_launches, "float64 gradient ran eager")
+    grad_err = {k: rel_err(leaves[k].grad, leaves64[k].grad)
+                for k in GRAD_LEAVES}
+    print("training gradients vs eager float64 autograd, relative to each "
+          f"leaf's largest entry: {json.dumps(grad_err)} tolerance "
+          f"{TOL_F64['grad_rel']} (float32 against float64, capped Newton)")
+    for k, v in grad_err.items():
+        check(v <= TOL_F64["grad_rel"], f"{k} gradient vs f64")
+    del leaves64, p64
+    config.set_precision("float32")
+    free()
+
+    # 8. (b) the input cotangents through the K1/K2 seam
+    leaves_b, p_b = leaves_of(params)
+    hy = Hy.clone().requires_grad_(True)
+    wrt = list(leaves_b.values()) + [hy]
+    g_on = torch.autograd.grad(centroid_rms_spot(
+        static, p_b, Hx, hy, Px, Py, WAVELENGTH, diff_inputs=True), wrt)
+    g_off = torch.autograd.grad(centroid_rms_spot(
+        static, p_b, Hx, hy, Px, Py, WAVELENGTH, diff_inputs=False), wrt)
+    check(all(torch.equal(a, b) for a, b in zip(g_on[:-1], g_off[:-1])),
+          "diff_inputs=False: parameter gradients bitwise unchanged")
+    check(not g_off[-1].any(), "diff_inputs=False: zero Hy cotangents")
+    check(bool(torch.isfinite(g_on[-1]).all()) and bool(g_on[-1].any()),
+          "diff_inputs=True: finite, nonzero Hy cotangents")
+    m_leaf = fused.moments_forward(static, *p, data).requires_grad_(True)
+    c_loss, = torch.autograd.grad(centroid_rms_from_moments(*m_leaf.unbind()),
+                                  m_leaf)
+    k2_plain = fused._moments_bwd_plain(static, *p, data, c_loss, True)
+    hy_err = rel_err(g_on[-1], k2_plain[2][1], keep)
+    print(f"Hy cotangents (diff_inputs=True) vs plain: {hy_err:.6g} of the "
+          f"largest (tolerance {TOL['ray_grad_rel']})")
+    check(hy_err <= TOL["ray_grad_rel"], "Hy cotangents vs plain")
+    del g_on, g_off, hy
+    free()
+
+    # 9. (c) the backward of trace_system_final: K3, K4
+    leaves_c, p_c = leaves_of(params)
+    reset_counts()
+    out = tracer.trace_system_final(static, p_c, Hx, Hy, Px, Py, WAVELENGTH)
+    (out["x"] ** 2 + out["y"] ** 2 + out["opd"]).sum().backward()
+    final_launches = read_counts()
+    print(f"trace_system_final + backward launches: {final_launches}")
+    check(final_launches["K3"] >= 1 and final_launches["K4"] >= 1,
+          "trace_system_final backward launched K3 and K4")
+    for k, v in leaves_c.items():
+        check(bool(torch.isfinite(v.grad).all()) and bool(v.grad.any()),
+              f"{k} gradient of sum(x^2 + y^2 + opd) finite and nonzero")
+    k4_keys = (0, 1, 7)
+    k4_seeds = (2.0 * out["x"].detach(), 2.0 * out["y"].detach(),
+                torch.ones_like(Hy))
+    del out, leaves_c, p_c
+    free()
+
+    # 10. (d) the caller-ray path: a vignetted field, K5 and K6
+    static_v, params_v = bench_lens(Optic, vignetted=True).build(device="cuda")
+    check(static_v.has_vignetting and fused.supports_fused(static_v)
+          and not fused.supports_fused_raygen(static_v),
+          "vignetted bench lens: caller-ray path")
+    leaves_d, p_d = leaves_of(params_v)
+    reset_counts()
+    out_v = tracer.trace_system_final(static_v, p_d, Hx, Hy, Px, Py,
+                                      WAVELENGTH)
+    (out_v["x"] ** 2 + out_v["y"] ** 2 + out_v["opd"]).sum().backward()
+    caller_launches = read_counts()
+    print(f"vignetted trace_system_final + backward launches: "
+          f"{caller_launches}")
+    check(caller_launches["K5"] >= 1 and caller_launches["K6"] >= 1,
+          "vignetted trace_system_final launched K5 and K6")
+    for key, v in out_v.items():
+        check(v.shape == (N_RAYS,) and bool(torch.isfinite(v).all()),
+              f"vignetted {key}: shape, finite")
+    for k, v in leaves_d.items():
+        check(bool(torch.isfinite(v.grad).all()) and bool(v.grad.any()),
+              f"vignetted {k} gradient finite and nonzero")
+    config.set_precision("float64")
+    static_v64, params_v64 = bench_lens(Optic, vignetted=True).build(
+        device="cuda")
+    ref_v = tracer.trace_system_final(static_v64, params_v64, *data64,
+                                      WAVELENGTH)
+    check(read_counts() == caller_launches, "float64 reference ran eager")
+    same_v = out_v["intensity"].double() == ref_v["intensity"]
+    err_v = {"intensity_frac": 1.0 - same_v.double().mean().item()}
+    for key in ("x", "y", "L", "M", "N"):
+        err_v[key] = (out_v[key].double() - ref_v[key])[same_v].abs().max(
+        ).item()
+    print("vignetted path vs eager float64: " + json.dumps(err_v))
+    check(err_v["intensity_frac"] <= TOL["intensity_frac"], "vignetted i")
+    for key in ("x", "y"):
+        check(err_v[key] <= TOL_F64["position_mm"], f"vignetted {key}")
+    for key in ("L", "M", "N"):
+        check(err_v[key] <= TOL_F64["direction"], f"vignetted {key}")
+    del out_v, ref_v, leaves_d, p_d, data64
+    config.set_precision("float32")
+    free()
+
+    # 11. (e) K2, K4, K5, K6 against their plain versions
+    k2 = fused.moments_backward(static, *p, data, c_loss, True)
+    k2_errs, k2_rays, k2_abs = cotangent_errs(k2, k2_plain, keep)
+    check_cotangents("K2", k2_errs, k2_rays)
+    k2_again = fused.moments_backward(static, *p, data, c_loss, True)
+    check(torch.equal(k2_again[0], k2[0])
+          and all(torch.equal(a, b) for a, b in zip(k2_again[1], k2[1])),
+          "K2 parameter cotangents bitwise equal over two launches")
+    del k2, k2_again, k2_plain
+    free()
+
+    k4 = fused.raygen_trace_backward(static, *p, data, k4_keys, k4_seeds)
+    k4_plain = fused._raygen_trace_bwd_plain(static, *p, data, k4_keys,
+                                             k4_seeds)
+    k4_errs, k4_rays, k4_abs = cotangent_errs(k4, k4_plain, keep)
+    check_cotangents("K4", k4_errs, k4_rays)
+    del k4, k4_plain
+    free()
+
+    rays0 = generate_rays(static_v, params_v, Hx, Hy, Px, Py, WAVELENGTH)
+    rays8 = tuple(getattr(rays0, k).detach().contiguous()
+                  for k in ("x", "y", "z", "L", "M", "N", "i", "opd"))
+    del rays0
+    n_tab_v, alpha_v = fused._uniform_tables(static_v, params_v, WAVELENGTH)
+    p_v = (fused._diff_params(params_v, n_tab_v),
+           fused._nondiff_params(params_v, alpha_v))
+    k5 = fused.fused_trace_forward(static_v, *p_v, rays8)
+    k5_plain = fused._fused_trace_plain(static_v, *p_v, rays8)
+    keep_v = k5[6] == k5_plain[6]
+    k5_err = {"intensity_frac": 1.0 - keep_v.float().mean().item()}
+    for k, key in enumerate(fused._NAMES):
+        if key in tol_of:
+            k5_err[key] = (k5[k] - k5_plain[k])[keep_v].abs().max().item()
+    print("K5 vs plain: " + json.dumps(k5_err))
+    check(k5_err["intensity_frac"] <= TOL["intensity_frac"], "K5 i")
+    for key, tol in tol_of.items():
+        check(k5_err[key] <= TOL[tol], f"K5 {key} vs plain")
+    del k5, k5_plain
+    rng = np.random.default_rng(1)
+    k6_seeds = tuple(torch.from_numpy(rng.standard_normal(N_RAYS).astype(
+        np.float32)).to(dev) for _ in range(8))
+    k6 = fused.fused_trace_backward(static_v, *p_v, rays8, k6_seeds)
+    k6_plain = fused._fused_trace_bwd_plain(static_v, *p_v, rays8, k6_seeds)
+    k6_errs, k6_rays, k6_abs = cotangent_errs((None, k6[1], k6[0]),
+                                              (None, k6_plain[1],
+                                               k6_plain[0]), keep_v)
+    check_cotangents("K6", k6_errs, k6_rays)
+    k6_again = fused.fused_trace_backward(static_v, *p_v, rays8, k6_seeds)
+    check(all(torch.equal(a, b) for a, b in zip(k6_again[1], k6[1])),
+          "K6 parameter cotangents bitwise equal over two launches")
+    del k6, k6_again, k6_plain
+    free()
+
+    # 12. (f) the trainer: Adam steps of the training step
+    leaves_f, p_f = leaves_of(params, TRAIN_LEAVES)
+    start = {k: v.detach().clone() for k, v in leaves_f.items()}
+    opt = torch.optim.Adam(list(leaves_f.values()), lr=ADAM_LR)
+
+    def train_step():
+        opt.zero_grad()
+        step_loss = centroid_rms_spot(static, p_f, Hx, Hy, Px, Py,
+                                      WAVELENGTH, diff_inputs=False)
+        step_loss.backward()
+        opt.step()
+        return step_loss
+
+    losses = []
+    for _ in range(ADAM_STEPS):
+        reset_counts()
+        losses.append(train_step().item())
+        step_launches = read_counts()
+        check(step_launches["K1"] == 1 and step_launches["K2"] == 1,
+              f"Adam step launched K1 and K2 once: {step_launches}")
+    moved = {k: (v.detach() - start[k])[torch.isfinite(start[k])].abs().max(
+    ).item() for k, v in leaves_f.items()}
+    print(f"{ADAM_STEPS} Adam steps (lr {ADAM_LR}): losses {losses}, "
+          f"largest parameter change {json.dumps(moved)}")
+    check(all(math.isfinite(v) for v in losses), "Adam losses finite")
+    check(all(v > 0 for v in moved.values()), "Adam moved every leaf")
+
+    # 13. (g) times and bounds, at the main paths' shapes. A kernel's time
+    # is its bare launch (tables packed once, outside the timed region);
     # these launches bypass the wrappers and their counters.
-    n, head, ptrs, keep = fused._launch_args(static, p[2], p[0], p[1], data)
+    n, head, ptrs, keep_alive = fused._launch_args(static, p[2], p[0], p[1],
+                                                   data)
+    nv, head_v, ptrs_v, keep_alive_v = fused._caller_ray_args(
+        static_v, *p_v, rays8)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    partials = torch.empty((-(-n // fused._BLOCK), 4), device=dev)
+    blocks = -(-n // fused._BLOCK)
+    S = static.num_surfaces
+    partials = torch.empty((blocks, 4), device=dev)
+    partials_bwd = torch.empty((blocks, S + 1, fused._F_STRIDE), device=dev)
     outs = [torch.empty(n, device=dev) for _ in range(8)]
+    c32 = c_loss.float().contiguous()
+    k4_s8, k4_sp = fused._seed_ptrs([dict(zip(k4_keys, k4_seeds)).get(k)
+                                     for k in range(8)], n, dev)
+    k6_s8, k6_sp = fused._seed_ptrs(k6_seeds, nv, dev)
 
     def launch(name, *args):
         err = fused._kernel(name)(*args, stream)
         check(err == 0, f"{name} launch: cudaError {err}")
 
-    def launch_k1():
-        launch("moments_fwd", *head, *ptrs, partials.data_ptr())
+    launches = {
+        "K1": lambda: launch("moments_fwd", *head, *ptrs,
+                             partials.data_ptr()),
+        "K2": lambda: launch("moments_bwd", *head, 0, *ptrs, c32.data_ptr(),
+                             partials_bwd.data_ptr(), None, None, None,
+                             None),
+        "K3": lambda: launch("raygen_trace_fwd", *head, 255, *ptrs,
+                             *(o.data_ptr() for o in outs)),
+        "K4": lambda: launch("raygen_trace_bwd", *head, *ptrs, *k4_sp,
+                             partials_bwd.data_ptr(),
+                             *(o.data_ptr() for o in outs[:4])),
+        "K5": lambda: launch("fused_trace_fwd", *head_v, *ptrs_v,
+                             *(o.data_ptr() for o in outs)),
+        "K6": lambda: launch("fused_trace_bwd", *head_v, *ptrs_v, *k6_sp,
+                             partials_bwd.data_ptr(),
+                             *(o.data_ptr() for o in outs)),
+    }
+    plains = {
+        "K1": lambda: fused._moments_plain(static, *p, data),
+        "K2": lambda: fused._moments_bwd_plain(static, *p, data, c_loss,
+                                               False),
+        "K3": lambda: fused._raygen_trace_plain(static, *p, data, keys),
+        "K4": lambda: fused._raygen_trace_bwd_plain(static, *p, data,
+                                                    k4_keys, k4_seeds),
+        "K5": lambda: fused._fused_trace_plain(static_v, *p_v, rays8),
+        "K6": lambda: fused._fused_trace_bwd_plain(static_v, *p_v, rays8,
+                                                   k6_seeds),
+    }
+    fwd_ops = chain_ops_per_ray(static, fused)
+    bwd_ops = backward_ops_per_ray(static, fused)
+    caller_fwd_ops = chain_ops_per_ray(static_v, fused) - 32
+    caller_bwd_ops = backward_ops_per_ray(static_v, fused, raygen=False)
+    bounds = {   # (bytes, operations) of each function at these inputs
+        "K1": (4 * 4 * n, (fwd_ops + 10) * n),
+        "K2": (4 * 4 * n, (bwd_ops + 8) * n),
+        "K3": ((4 + 8) * 4 * n, fwd_ops * n),
+        "K4": ((4 + len(k4_keys) + 4) * 4 * n, bwd_ops * n),
+        "K5": ((8 + 8) * 4 * nv, caller_fwd_ops * nv),
+        "K6": ((7 + 8 + 8) * 4 * nv, caller_bwd_ops * nv),
+    }
+    meta = {
+        "K1": ("_moments_forward", "moments_fwd.cu", 1431, k1_abs,
+               fwd_launches),
+        "K2": ("_moments_bwd", "moments_bwd.cu", 1509, k2_abs,
+               train_launches),
+        "K3": ("_raygen_forward", "raygen_trace_fwd.cu", 1011,
+               max(v for k, v in k3_err.items() if k != "intensity_frac"),
+               fwd_launches),
+        "K4": ("_raygen_bwd", "raygen_trace_bwd.cu", 1078, k4_abs,
+               final_launches),
+        "K5": ("_fused_forward", "fused_trace_fwd.cu", 848,
+               max(v for k, v in k5_err.items() if k != "intensity_frac"),
+               caller_launches),
+        "K6": ("_fused_bwd", "fused_trace_bwd.cu", 900, k6_abs,
+               caller_launches),
+    }
+    rows = []
+    for key, (fn_name, src, line, err, path_launches) in meta.items():
+        b_ms, b_by = bound_ms(*bounds[key])
+        rows.append(dict(
+            name=f"{key} {fn_name}", route="cuda",
+            source=f"optiland_tpu_torch/csrc/{src}",
+            replaces=f"optiland_tpu/trace/fused.py:{line}",
+            launches=path_launches[key], max_abs_err=err,
+            ms=time_ms(launches[key]), plain_ms=time_ms(plains[key]),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None))
+        free()
 
-    def launch_k3():
-        launch("raygen_trace_fwd", *head, 255, *ptrs,
-               *(o.data_ptr() for o in outs))
+    def timed_step():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        train_step()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t)
 
-    ops = chain_ops_per_ray(static, fused) * N_RAYS
-    k1_bound = bound_ms(4 * 4 * N_RAYS, ops + 10 * N_RAYS)
-    k3_bound = bound_ms((4 + 8) * 4 * N_RAYS, ops)
-    rows = [
-        dict(name="K1 _moments_forward", route="cuda",
-             source="optiland_tpu_torch/csrc/moments_fwd.cu",
-             replaces="optiland_tpu/trace/fused.py:1431",
-             launches=launches["K1"], max_abs_err=k1_abs,
-             ms=time_ms(launch_k1),
-             plain_ms=time_ms(lambda: fused._moments_plain(static, *p, data)),
-             bound_ms=k1_bound[0], bound_by=k1_bound[1], library_ms=None),
-        dict(name="K3 _raygen_forward", route="cuda",
-             source="optiland_tpu_torch/csrc/raygen_trace_fwd.cu",
-             replaces="optiland_tpu/trace/fused.py:1011",
-             launches=launches["K3"],
-             max_abs_err=max(v for k, v in k3_err.items()
-                             if k != "intensity_frac"),
-             ms=time_ms(launch_k3),
-             plain_ms=time_ms(lambda: fused._raygen_trace_plain(
-                 static, *p, data, keys)),
-             bound_ms=k3_bound[0], bound_by=k3_bound[1], library_ms=None),
-    ]
+    for _ in range(2):
+        timed_step()
+    step_ms = float(np.median([timed_step() for _ in range(TIMED_STEPS)]))
     wrap_ms = {
         "K1 wrapper": time_ms(lambda: fused.moments_forward(static, *p,
                                                              data)),
+        "K2 wrapper": time_ms(lambda: fused.moments_backward(
+            static, *p, data, c_loss, False)),
         "K3 wrapper": time_ms(lambda: fused.raygen_trace_forward(
             static, *p, data, keys)),
         "centroid_rms_spot": time_ms(lambda: centroid_rms_spot(
@@ -361,8 +755,11 @@ def main():
             static, params, Hx, Hy, Px, Py, WAVELENGTH)),
     }
     print(f"end to end at 2M rays, float32, median of {TIMED_CALLS} (ms): "
-          + json.dumps(wrap_ms) + f"; chain FP32 ops/ray "
-          f"{chain_ops_per_ray(static, fused)}")
+          + json.dumps(wrap_ms) + f"; chain FP32 ops/ray {fwd_ops}, "
+          f"backward {bwd_ops}")
+    print(f"training step (centroid_rms_spot diff_inputs=False, backward, "
+          f"Adam) at 2M rays, host clock, median of {TIMED_STEPS}: "
+          f"{step_ms:.4f} ms, {N_RAYS / step_ms * 1e3:.6g} rays/s")
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

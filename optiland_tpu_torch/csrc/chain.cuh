@@ -6,7 +6,8 @@
 // branches of this slice: plane / conic / even / odd asphere geometries,
 // refract / reflect / none interactions, radial apertures, tilt and
 // decenter. The Python wrappers (trace/fused.py, `_check_kernel_branches`)
-// refuse every other branch before a launch.
+// refuse every other branch before a launch. chain_bwd.cuh holds the
+// reverse sweep built from the same pieces.
 //
 // The JAX kernel unrolls the chain on static per-surface codes; here the
 // chain loops over the surfaces at run time and switches on the codes held
@@ -35,6 +36,7 @@ constexpr int F_ALPHA = 26;  // absorption per gap (not used by this slice)
 constexpr int F_AP = 27;     // radial semi-aperture
 constexpr int F_COAT = 28;   // coating T, R (not used by this slice)
 constexpr int F_STRIDE = 32;
+constexpr int MAX_COEFFS = F_THICK - F_COEFFS;
 
 // per-surface int slots
 constexpr int I_GEOM = 0;
@@ -45,21 +47,66 @@ constexpr int I_DEC = 4;
 constexpr int I_AP = 5;
 constexpr int I_STRIDE = 8;
 
+constexpr int GEOM_PLANE = 0;
 constexpr int GEOM_EVEN_ASPHERE = 2;
 constexpr int GEOM_ODD_ASPHERE = 3;
+constexpr int INT_REFRACT = 0;
 constexpr int INT_REFLECT = 1;
 constexpr int INT_NONE = 3;
 
 constexpr int MAX_SURFACES = 64;
 constexpr int BLOCK = 256;
 constexpr float EPS = 1e-12f;
+// the float nearest pi / 180, written as a cast of the double literal so
+// that a host build in double (tests/test_torch_chain_host.py) keeps it exact
+constexpr float DEG2RAD = static_cast<float>(0.017453292519943295);
+
+// floats the re-trace of a backward kernel keeps per surface: the entry
+// state (x, y, z, L, M, N, global frame), the ray parameter t, the index
+// before the surface and the surface's vertex z
+constexpr int REC = 9;
 
 struct Ray {
   float x, y, z, L, M, N, i, opd;
 };
 
+// One surface's codes and values, read from the staged tables.
+struct Surface {
+  int code, nc, inter;
+  bool tilted, decentered, aperture;
+  float cv, kk, tx, ty, rx, ry, rz, ap, n;
+  const float* co;
+};
+
 __device__ __forceinline__ float sign_of(float v) {
   return (v > 0.f) ? 1.f : ((v < 0.f) ? -1.f : 0.f);
+}
+
+__device__ __forceinline__ Surface load_surface(const float* ft, const int* it, int k) {
+  const float* f = ft + k * F_STRIDE;
+  const int* c = it + k * I_STRIDE;
+  Surface s;
+  s.code = c[I_GEOM];
+  s.nc = c[I_NCOEF];
+  s.inter = c[I_INTER];
+  s.tilted = c[I_TILT] != 0;
+  s.decentered = c[I_DEC] != 0;
+  s.aperture = c[I_AP] != 0;
+  s.cv = f[F_CV];
+  s.kk = 1.f + f[F_CONIC];
+  s.tx = f[F_DEC];
+  s.ty = f[F_DEC + 1];
+  s.rx = f[F_TILT];
+  s.ry = f[F_TILT + 1];
+  s.rz = f[F_TILT + 2];
+  s.ap = f[F_AP];
+  s.n = f[F_NTAB];
+  s.co = f + F_COEFFS;
+  return s;
+}
+
+__device__ __forceinline__ bool is_asphere(const Surface& s) {
+  return (s.code == GEOM_EVEN_ASPHERE || s.code == GEOM_ODD_ASPHERE) && s.nc;
 }
 
 // Stage the (S, F_STRIDE) float and (S, I_STRIDE) int tables and the five
@@ -70,7 +117,7 @@ __device__ __forceinline__ void stage_tables(int S, const float* __restrict__ ft
                                              float* s_ft, int* s_it, float* s_rg) {
   for (int j = threadIdx.x; j < S * F_STRIDE; j += blockDim.x) s_ft[j] = ftab[j];
   for (int j = threadIdx.x; j < S * I_STRIDE; j += blockDim.x) s_it[j] = itab[j];
-  if (threadIdx.x < 5) s_rg[threadIdx.x] = rg[threadIdx.x];
+  if (rg != nullptr && threadIdx.x < 5) s_rg[threadIdx.x] = rg[threadIdx.x];
   __syncthreads();
 }
 
@@ -79,12 +126,11 @@ __device__ __forceinline__ Ray tile_raygen(int field_angle, int object_infinite,
                                            const float* rg, float Hx, float Hy,
                                            float Px, float Py) {
   const float epl = rg[0], epd = rg[1], fmax = rg[2], a = rg[3], b = rg[4];
-  const float deg2rad = 0.017453292519943295f;
   const float half = epd * 0.5f;
   float x0, y0;
   if (field_angle) {
-    const float tx = tanf((fmax * Hx) * deg2rad);
-    const float ty = tanf((fmax * Hy) * deg2rad);
+    const float tx = tanf((fmax * Hx) * DEG2RAD);
+    const float ty = tanf((fmax * Hy) * DEG2RAD);
     if (object_infinite) {
       x0 = Px * half - tx * b;
       y0 = Py * half - ty * b;
@@ -175,116 +221,154 @@ __device__ __forceinline__ void rotate(int axis, float ang, float& x, float& y, 
   }
 }
 
+// Global frame -> the frame of surface s at vertex z `pos`.
+__device__ __forceinline__ void to_local(const Surface& s, float pos, float& x, float& y,
+                                         float& z, float& L, float& M, float& N) {
+  if (s.tilted || s.decentered) {
+    x = x - s.tx;
+    y = y - s.ty;
+  }
+  z = z - pos;
+  if (s.tilted) {
+    rotate(2, -s.rz, x, y, z, L, M, N);
+    rotate(1, -s.ry, x, y, z, L, M, N);
+    rotate(0, -s.rx, x, y, z, L, M, N);
+  }
+}
+
+// The frame of surface s -> global frame.
+__device__ __forceinline__ void to_global(const Surface& s, float pos, float& x, float& y,
+                                          float& z, float& L, float& M, float& N) {
+  if (s.tilted) {
+    rotate(0, s.rx, x, y, z, L, M, N);
+    rotate(1, s.ry, x, y, z, L, M, N);
+    rotate(2, s.rz, x, y, z, L, M, N);
+  }
+  z = z + pos;
+  if (s.tilted || s.decentered) {
+    x = x + s.tx;
+    y = y + s.ty;
+  }
+}
+
+// Ray parameter t of the hit on surface s (local frame): closed-form conic
+// root, then n_newton + 1 Newton updates for aspheres. validf is 0 where
+// the conic root does not exist.
+__device__ __forceinline__ float intersect(const Surface& s, int n_newton, float x, float y,
+                                           float z, float L, float M, float N,
+                                           float& validf) {
+  const float cv = s.cv, kk = s.kk;
+  // closed-form conic intersection (curvature form)
+  const float A = cv * (L * L + M * M + kk * N * N);
+  const float B = 2.f * (cv * (L * x + M * y + kk * N * z) - N);
+  const float C = cv * (x * x + y * y + kk * z * z) - 2.f * z;
+  const float disc = B * B - 4.f * A * C;
+  validf = (disc >= 0.f) ? 1.f : 0.f;
+  const float sq = sqrtf(fmaxf(disc, 0.f));
+  const bool bigA = fabsf(A) > EPS;
+  const float inv2A = 1.f / (2.f * (bigA ? A : 1.f));
+  const float t1 = (-B + sq) * inv2A;
+  const float t2 = (-B - sq) * inv2A;
+  const float t_quad = (fabsf(z + t1 * N) <= fabsf(z + t2 * N)) ? t1 : t2;
+  const float B_safe = (fabsf(B) > EPS) ? B : EPS;
+  float t = bigA ? t_quad : -C / B_safe;
+  if (!bigA) validf = 1.f;
+
+  if (is_asphere(s)) {
+    for (int itn = 0; itn <= n_newton; ++itn) {
+      const float xt = x + t * L, yt = y + t * M, zt = z + t * N;
+      float sv, gx, gy;
+      sag_grad(s.code, s.nc, s.co, cv, kk, xt, yt, true, sv, gx, gy);
+      const float fv = sv - zt;
+      float fp = gx * L + gy * M - N;
+      fp = (fabsf(fp) > EPS) ? fp : EPS;
+      t = t - fv / fp;
+    }
+  }
+  return t;
+}
+
+// Unit normal of surface s at the local hit (x, y), oriented along the
+// incident direction (L, M, N) by sign(l.n).
+__device__ __forceinline__ void oriented_normal(const Surface& s, float x, float y, float L,
+                                                float M, float N, float& nx, float& ny,
+                                                float& nz) {
+  float sv, gx, gy;
+  sag_grad(s.code, s.nc, s.co, s.cv, s.kk, x, y, false, sv, gx, gy);
+  const float inv_mag = rsqrtf(gx * gx + gy * gy + 1.f);
+  nx = gx * inv_mag;
+  ny = gy * inv_mag;
+  nz = -inv_mag;
+  const float sg = sign_of(L * nx + M * ny + N * nz);
+  nx *= sg;
+  ny *= sg;
+  nz *= sg;
+}
+
+// Refract or reflect at the local hit (x, y); TIR passes through with
+// i = 0. Returns the index after the surface.
+__device__ __forceinline__ float interact(const Surface& s, float n_pre, float x, float y,
+                                          float& L, float& M, float& N, float& i) {
+  if (s.inter == INT_NONE) return n_pre;
+  float nx, ny, nz;
+  oriented_normal(s, x, y, L, M, N, nx, ny, nz);
+  const float cs = L * nx + M * ny + N * nz;
+  if (s.inter == INT_REFLECT) {
+    L = L - 2.f * cs * nx;
+    M = M - 2.f * cs * ny;
+    N = N - 2.f * cs * nz;
+    return n_pre;
+  }
+  const float n_post = s.n;
+  const float u = n_pre / n_post;
+  const float d2 = 1.f - u * u * (1.f - cs * cs);
+  if (d2 >= 0.f) {
+    const float q = sqrtf(d2) - u * cs;
+    L = u * L + q * nx;
+    M = u * M + q * ny;
+    N = u * N + q * nz;
+  } else {
+    i = 0.f * i;
+  }
+  return n_post;
+}
+
 // The surface chain from surface 1 to S-1: `_tile_trace` (for_grad=False).
+// The vertex z of surface k is the running sum of thickness[1..k-1]
+// (thickness[0], infinite for an infinite object, never enters). With
+// `rec`, row k gets surface k's entry state, t, index before it and vertex
+// z (the re-trace of the backward kernels, chain_bwd.cuh).
 __device__ __forceinline__ void trace_chain(int S, int n_newton, const float* ft,
-                                            const int* it, Ray& r) {
+                                            const int* it, Ray& r,
+                                            float (*rec)[REC] = nullptr) {
   float x = r.x, y = r.y, z = r.z, L = r.L, M = r.M, N = r.N, i = r.i, opd = r.opd;
   float pos_prev = 0.f;
   float n_pre = ft[F_NTAB];
   for (int k = 1; k < S; ++k) {
-    const float* f = ft + k * F_STRIDE;
-    const int* c = it + k * I_STRIDE;
+    const Surface s = load_surface(ft, it, k);
     const float pos_k = pos_prev + (k > 1 ? ft[(k - 1) * F_STRIDE + F_THICK] : 0.f);
     pos_prev = pos_k;
-
-    const bool tilted = c[I_TILT] != 0;
-    const bool decentered = c[I_DEC] != 0;
-    const float tx = f[F_DEC], ty = f[F_DEC + 1];
-    if (tilted || decentered) {
-      x = x - tx;
-      y = y - ty;
-    }
-    z = z - pos_k;
-    if (tilted) {
-      rotate(2, -f[F_TILT + 2], x, y, z, L, M, N);
-      rotate(1, -f[F_TILT + 1], x, y, z, L, M, N);
-      rotate(0, -f[F_TILT + 0], x, y, z, L, M, N);
+    if (rec) {
+      rec[k][0] = x; rec[k][1] = y; rec[k][2] = z;
+      rec[k][3] = L; rec[k][4] = M; rec[k][5] = N;
+      rec[k][7] = n_pre;
+      rec[k][8] = pos_k;
     }
 
-    const int code = c[I_GEOM];
-    const int nc = c[I_NCOEF];
-    const float* co = f + F_COEFFS;
-    const float cv = f[F_CV];
-    const float kk = 1.f + f[F_CONIC];
-    // closed-form conic intersection (curvature form)
-    const float A = cv * (L * L + M * M + kk * N * N);
-    const float B = 2.f * (cv * (L * x + M * y + kk * N * z) - N);
-    const float C = cv * (x * x + y * y + kk * z * z) - 2.f * z;
-    const float disc = B * B - 4.f * A * C;
-    float validf = (disc >= 0.f) ? 1.f : 0.f;
-    const float sq = sqrtf(fmaxf(disc, 0.f));
-    const bool bigA = fabsf(A) > EPS;
-    const float inv2A = 1.f / (2.f * (bigA ? A : 1.f));
-    const float t1 = (-B + sq) * inv2A;
-    const float t2 = (-B - sq) * inv2A;
-    const float t_quad = (fabsf(z + t1 * N) <= fabsf(z + t2 * N)) ? t1 : t2;
-    const float B_safe = (fabsf(B) > EPS) ? B : EPS;
-    float t = bigA ? t_quad : -C / B_safe;
-    if (!bigA) validf = 1.f;
-
-    if ((code == GEOM_EVEN_ASPHERE || code == GEOM_ODD_ASPHERE) && nc) {
-      for (int itn = 0; itn <= n_newton; ++itn) {
-        const float xt = x + t * L, yt = y + t * M, zt = z + t * N;
-        float s, gx, gy;
-        sag_grad(code, nc, co, cv, kk, xt, yt, true, s, gx, gy);
-        const float fv = s - zt;
-        float fp = gx * L + gy * M - N;
-        fp = (fabsf(fp) > EPS) ? fp : EPS;
-        t = t - fv / fp;
-      }
-    }
+    to_local(s, pos_k, x, y, z, L, M, N);
+    float validf;
+    const float t = intersect(s, n_newton, x, y, z, L, M, N, validf);
+    if (rec) rec[k][6] = t;
 
     x = x + t * L;
     y = y + t * M;
     z = z + t * N;
     opd = opd + fabsf(t * n_pre);
     i = i * validf;
-    if (c[I_AP]) {
-      const float ap = f[F_AP];
-      i = i * ((x * x + y * y <= ap * ap) ? 1.f : 0.f);
-    }
+    if (s.aperture) i = i * ((x * x + y * y <= s.ap * s.ap) ? 1.f : 0.f);
 
-    const int inter = c[I_INTER];
-    if (inter != INT_NONE) {
-      float s, gx, gy;
-      sag_grad(code, nc, co, cv, kk, x, y, false, s, gx, gy);
-      const float inv_mag = rsqrtf(gx * gx + gy * gy + 1.f);
-      float nx = gx * inv_mag, ny = gy * inv_mag, nz = -inv_mag;
-      const float sg = sign_of(L * nx + M * ny + N * nz);
-      nx *= sg;
-      ny *= sg;
-      nz *= sg;
-      const float cs = L * nx + M * ny + N * nz;
-      if (inter == INT_REFLECT) {
-        L = L - 2.f * cs * nx;
-        M = M - 2.f * cs * ny;
-        N = N - 2.f * cs * nz;
-      } else {  // refract, TIR passes through with i = 0
-        const float n_post = f[F_NTAB];
-        const float u = n_pre / n_post;
-        const float d2 = 1.f - u * u * (1.f - cs * cs);
-        if (d2 >= 0.f) {
-          const float q = sqrtf(d2) - u * cs;
-          L = u * L + q * nx;
-          M = u * M + q * ny;
-          N = u * N + q * nz;
-        } else {
-          i = 0.f * i;
-        }
-        n_pre = n_post;
-      }
-    }
-
-    if (tilted) {
-      rotate(0, f[F_TILT + 0], x, y, z, L, M, N);
-      rotate(1, f[F_TILT + 1], x, y, z, L, M, N);
-      rotate(2, f[F_TILT + 2], x, y, z, L, M, N);
-    }
-    z = z + pos_k;
-    if (tilted || decentered) {
-      x = x + tx;
-      y = y + ty;
-    }
+    n_pre = interact(s, n_pre, x, y, L, M, N, i);
+    to_global(s, pos_k, x, y, z, L, M, N);
   }
   r.x = x; r.y = y; r.z = z; r.L = L; r.M = M; r.N = N; r.i = i; r.opd = opd;
 }

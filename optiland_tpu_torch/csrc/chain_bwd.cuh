@@ -1,0 +1,525 @@
+// The reverse sweep of the fused chain, one ray per thread, for Hopper
+// (sm_90a): the adjoint of `tile_raygen` and `trace_chain` (chain.cuh) for
+// exactly the branches that file covers.
+//
+// Hopper has no in-kernel autodiff, so this is the hand-written
+// counterpart of the `jax.vjp` / `jax.grad` that the Pallas backward
+// kernels of optiland_tpu/trace/fused.py (`_moments_bwd`, `_raygen_bwd`,
+// `_fused_bwd`) run on `_tile_trace(..., for_grad=True)`. It is written
+// once and seeded three ways: K2 with the four moment cotangents, K4 and
+// K6 with per-ray cotangents of the final state.
+//
+// Design: a backward kernel re-traces its ray with `trace_chain(..., rec)`,
+// which keeps each surface's entry state, t, index and vertex z (REC
+// floats per surface, in local memory), then `reverse_chain` walks the surfaces from
+// S-1 down to 1. Per surface it recomputes that surface's forward from the
+// record and runs its adjoint:
+//   - the closed-form adjoints of refraction and reflection
+//     (`_refract_cv_bwd`, `_reflect_cv_bwd` in the JAX file);
+//   - on every curved surface the implicit-function-theorem derivative of
+//     the hit, dt/dp = -F_p / F_t with F = sag(x + tL, y + tM) - (z + tN),
+//     not a differentiation of the Newton iterations (the `for_grad`
+//     structure of `_tile_trace`); on planes the derivative of the closed
+//     form t = -C/B, whose cv cotangent is not zero;
+//   - the adjoint of the sag gradient in x, y, cv, k and the polynomial
+//     coefficients, with the odd asphere's 1/r term;
+//   - the tilt rotations, with cotangents to the three angles;
+//   - opd += |t n| with a cotangent to the index table; sign(l.n) is
+//     constant almost everywhere and gets none.
+// Masks (valid root, aperture, TIR) carry no cotangent, as in JAX.
+//
+// Parameter cotangents leave each surface as one row of F_STRIDE slots in
+// the packed-table layout, summed over the block by `BlockRows` (warp
+// shuffles, then the warps in a fixed order): one partial row per block,
+// no float atomics, bitwise reproducible.
+#pragma once
+
+#include "chain.cuh"
+
+namespace otk {
+
+struct Vec6 {
+  float x, y, z, L, M, N;
+};
+
+// One surface's parameter cotangents.
+struct SurfGrad {
+  float cv, conic, co[MAX_COEFFS], thick, tilt[3], dec[2], n;
+};
+
+__device__ __forceinline__ void zero(SurfGrad& g) {
+  g.cv = g.conic = g.thick = g.n = 0.f;
+#pragma unroll
+  for (int ci = 0; ci < MAX_COEFFS; ++ci) g.co[ci] = 0.f;
+  g.tilt[0] = g.tilt[1] = g.tilt[2] = 0.f;
+  g.dec[0] = g.dec[1] = 0.f;
+}
+
+__device__ __forceinline__ void rotate(int axis, float ang, Vec6& v) {
+  rotate(axis, ang, v.x, v.y, v.z, v.L, v.M, v.N);
+}
+
+// Reverse of one pair (p, q) -> (p c - q s, p s + q c), given its output
+// (p1, q1): turns (gp, gq) into the input's cotangent, returns d(angle).
+__device__ __forceinline__ float rot_pair_bwd(float c, float s, float p1, float q1,
+                                              float& gp, float& gq) {
+  const float da = -gp * q1 + gq * p1;
+  const float gp0 = c * gp + s * gq;
+  const float gq0 = -s * gp + c * gq;
+  gp = gp0;
+  gq = gq0;
+  return da;
+}
+
+// Reverse of rotate(axis, ang, .): `out` is the rotation's output, g the
+// cotangent of the output on entry and of the input on exit.
+__device__ __forceinline__ float rotate_bwd(int axis, float ang, const Vec6& out, Vec6& g) {
+  const float c = cosf(ang), s = sinf(ang);
+  if (axis == 2)
+    return rot_pair_bwd(c, s, out.x, out.y, g.x, g.y) +
+           rot_pair_bwd(c, s, out.L, out.M, g.L, g.M);
+  if (axis == 1)
+    return rot_pair_bwd(c, s, out.z, out.x, g.z, g.x) +
+           rot_pair_bwd(c, s, out.N, out.L, g.N, g.L);
+  return rot_pair_bwd(c, s, out.y, out.z, g.y, g.z) +
+         rot_pair_bwd(c, s, out.M, out.N, g.M, g.N);
+}
+
+// Adds w * (d sag / d cv, d sag / d k, d sag / d coeffs) at (x, y).
+__device__ __forceinline__ void sag_partials(const Surface& s, float x, float y, float w,
+                                             SurfGrad& sg) {
+  const float cv = s.cv, kk = s.kk;
+  const float r2 = x * x + y * y;
+  const float m_raw = 1.f - kk * cv * cv * r2;
+  const float m = fmaxf(m_raw, EPS);
+  const float inv_root = rsqrtf(m);
+  const float den = 1.f + m * inv_root;
+  const float s_c = cv * r2 / den;
+  float droot_dcv = 0.f, droot_dkk = 0.f;
+  if (m_raw > EPS) {
+    droot_dcv = -kk * cv * r2 * inv_root;
+    droot_dkk = -0.5f * cv * cv * r2 * inv_root;
+  }
+  sg.cv += w * (r2 / den - s_c / den * droot_dcv);
+  sg.conic += w * (-s_c / den * droot_dkk);
+  if (!is_asphere(s)) return;
+  const float base = (s.code == GEOM_EVEN_ASPHERE) ? r2 : sqrtf(fmaxf(r2, EPS));
+  float p = base;
+#pragma unroll
+  for (int ci = 0; ci < MAX_COEFFS; ++ci) {
+    if (ci >= s.nc) break;
+    sg.co[ci] += w * p;
+    p = p * base;
+  }
+}
+
+// Reverse of sag_grad's gradient: (dgx, dgy) -> cotangents of x, y and of
+// the surface's cv, k and coefficients.
+__device__ __forceinline__ void sag_grad_bwd(const Surface& s, float x, float y, float dgx,
+                                             float dgy, float& dx, float& dy, SurfGrad& sg) {
+  const float cv = s.cv, kk = s.kk;
+  const float r2 = x * x + y * y;
+  const float m_raw = 1.f - kk * cv * cv * r2;
+  const float m = fmaxf(m_raw, EPS);
+  const float inv_root = rsqrtf(m);
+  const float gmul = cv * inv_root;
+  const bool even = s.code == GEOM_EVEN_ASPHERE && s.nc;
+  const bool odd = s.code == GEOM_ODD_ASPHERE && s.nc;
+  float g = 0.f, r = 1.f, G = gmul;
+  if (even || odd) {
+    r = odd ? sqrtf(fmaxf(r2, EPS)) : r2;  // the polynomial's variable
+    float p = 1.f;
+#pragma unroll
+    for (int ci = 0; ci < MAX_COEFFS; ++ci) {
+      if (ci >= s.nc) break;
+      g = g + (even ? 2.f : 1.f) * (float)(ci + 1) * s.co[ci] * p;
+      p = p * r;
+    }
+    G = even ? gmul + g : gmul + g / r;
+  }
+  dx += dgx * G;
+  dy += dgy * G;
+  const float dG = dgx * x + dgy * y;
+  float dr2 = 0.f;
+  sg.cv += dG * inv_root;
+  if (m_raw > EPS) {
+    const float dm = -0.5f * dG * cv * inv_root * inv_root * inv_root;
+    sg.conic -= dm * cv * cv * r2;
+    sg.cv -= dm * 2.f * kk * cv * r2;
+    dr2 -= dm * kk * cv * cv;
+  }
+  if (even || odd) {
+    // g = sum_ci f (ci+1) co[ci] r^ci with f = 2 (even, r = r2) or 1 (odd);
+    // the odd gradient term is g / r
+    const float dg = even ? dG : dG / r;
+    float dr = even ? 0.f : -dG * g / (r * r);
+    float p = 1.f, pm = 0.f;  // r^ci and r^(ci-1)
+#pragma unroll
+    for (int ci = 0; ci < MAX_COEFFS; ++ci) {
+      if (ci >= s.nc) break;
+      const float f = (even ? 2.f : 1.f) * (float)(ci + 1);
+      sg.co[ci] += dg * f * p;
+      if (ci > 0) dr += dg * f * (float)ci * s.co[ci] * pm;
+      pm = p;
+      p = p * r;
+    }
+    if (even)
+      dr2 += dr;
+    else if (r2 > EPS)
+      dr2 += dr * 0.5f / r;
+  }
+  dx += 2.f * x * dr2;
+  dy += 2.f * y * dr2;
+}
+
+// Reverse of intersect(): dt -> cotangents of the local ray (g) and of the
+// surface parameters. `a` is the local state before the hit, t the hit.
+__device__ __forceinline__ void intersect_bwd(const Surface& s, const Vec6& a, float t,
+                                              float dt, Vec6& g, SurfGrad& sg) {
+  const float cv = s.cv, kk = s.kk;
+  const float x = a.x, y = a.y, z = a.z, L = a.L, M = a.M, N = a.N;
+  if (s.code != GEOM_PLANE) {
+    // implicit function theorem at the root of F(t) = sag - z
+    const float xh = x + t * L, yh = y + t * M;
+    float sv, gx, gy;
+    sag_grad(s.code, s.nc, s.co, cv, kk, xh, yh, false, sv, gx, gy);
+    float fp = gx * L + gy * M - N;
+    fp = (fabsf(fp) > EPS) ? fp : EPS;
+    const float w = -dt / fp;
+    g.x += w * gx;
+    g.y += w * gy;
+    g.z -= w;
+    g.L += w * t * gx;
+    g.M += w * t * gy;
+    g.N -= w * t;
+    sag_partials(s, xh, yh, w, sg);
+    return;
+  }
+  // plane: the closed form, t = t_quad if |A| > eps else -C / B_safe
+  const float A = cv * (L * L + M * M + kk * N * N);
+  const float B = 2.f * (cv * (L * x + M * y + kk * N * z) - N);
+  const float C = cv * (x * x + y * y + kk * z * z) - 2.f * z;
+  float dA = 0.f, dB = 0.f, dC = 0.f;
+  if (fabsf(A) > EPS) {
+    const float disc = B * B - 4.f * A * C;
+    const float sq = sqrtf(fmaxf(disc, 0.f));
+    const float inv2A = 1.f / (2.f * A);
+    const float t1 = (-B + sq) * inv2A;
+    const float t2 = (-B - sq) * inv2A;
+    const bool first = fabsf(z + t1 * N) <= fabsf(z + t2 * N);
+    const float tq = first ? t1 : t2;
+    const float e = dt * inv2A;
+    dB = -e;
+    dA = -dt * tq / A;
+    if (disc > 0.f) {
+      const float dd = (first ? e : -e) * 0.5f / sq;
+      dB += 2.f * B * dd;
+      dA -= 4.f * C * dd;
+      dC -= 4.f * A * dd;
+    }
+  } else if (fabsf(B) > EPS) {
+    dC = -dt / B;
+    dB = dt * C / (B * B);
+  } else {
+    dC = -dt / EPS;
+  }
+  sg.cv += dA * (L * L + M * M + kk * N * N) + dB * 2.f * (L * x + M * y + kk * N * z) +
+           dC * (x * x + y * y + kk * z * z);
+  sg.conic += dA * cv * N * N + dB * 2.f * cv * N * z + dC * cv * z * z;
+  g.L += dA * 2.f * cv * L + dB * 2.f * cv * x;
+  g.M += dA * 2.f * cv * M + dB * 2.f * cv * y;
+  g.N += dA * 2.f * cv * kk * N + dB * (2.f * cv * kk * z - 2.f);
+  g.x += dB * 2.f * cv * L + dC * 2.f * cv * x;
+  g.y += dB * 2.f * cv * M + dC * 2.f * cv * y;
+  g.z += dB * 2.f * cv * kk * N + dC * (2.f * cv * kk * z - 2.f);
+}
+
+// Reverse of interact() at the local hit (x, y) with incident direction
+// (L, M, N): g holds the cotangent of (x, y, z, L', M', N') on entry and of
+// (x, y, z, L, M, N) on exit. A refraction adds the running index
+// cotangent acc_n to the surface's n_table slot and restarts acc_n at the
+// cotangent of the index before the surface.
+__device__ __forceinline__ void interact_bwd(const Surface& s, float n_pre, float x,
+                                             float y, float L, float M, float N, Vec6& g,
+                                             float& acc_n, SurfGrad& sg) {
+  if (s.inter == INT_NONE) return;
+  float sv, gxs, gys;
+  sag_grad(s.code, s.nc, s.co, s.cv, s.kk, x, y, false, sv, gxs, gys);
+  const float inv_mag = rsqrtf(gxs * gxs + gys * gys + 1.f);
+  const float nx0 = gxs * inv_mag, ny0 = gys * inv_mag, nz0 = -inv_mag;
+  const float sgn = sign_of(L * nx0 + M * ny0 + N * nz0);
+  const float nx = nx0 * sgn, ny = ny0 * sgn, nz = nz0 * sgn;
+  const float cs = L * nx + M * ny + N * nz;
+  const float gL = g.L, gM = g.M, gN = g.N;
+  float dnx, dny, dnz;
+  if (s.inter == INT_REFLECT) {
+    const float gn = gL * nx + gM * ny + gN * nz;
+    g.L = gL - 2.f * gn * nx;
+    g.M = gM - 2.f * gn * ny;
+    g.N = gN - 2.f * gn * nz;
+    dnx = -2.f * (gn * L + cs * gL);
+    dny = -2.f * (gn * M + cs * gM);
+    dnz = -2.f * (gn * N + cs * gN);
+  } else {
+    const float n_post = s.n;
+    const float u = n_pre / n_post;
+    const float d2 = 1.f - u * u * (1.f - cs * cs);
+    const float okf = (d2 >= 0.f) ? 1.f : 0.f;
+    const float rt = sqrtf(fmaxf(d2, 0.f));
+    const float q = rt - u * cs;
+    const float gpL = okf * gL, gpM = okf * gM, gpN = okf * gN;
+    float du = L * gpL + M * gpM + N * gpN;
+    const float dq = nx * gpL + ny * gpM + nz * gpN;
+    const float dd2 = okf * (0.5f * dq) / fmaxf(rt, EPS);
+    du = du - cs * dq - 2.f * u * (1.f - cs * cs) * dd2;
+    const float dc = -u * dq + 2.f * (u * u) * cs * dd2;
+    const float thru = 1.f - okf;
+    g.L = u * gpL + thru * gL + dc * nx;
+    g.M = u * gpM + thru * gM + dc * ny;
+    g.N = u * gpN + thru * gN + dc * nz;
+    dnx = q * gpL + dc * L;
+    dny = q * gpM + dc * M;
+    dnz = q * gpN + dc * N;
+    sg.n += acc_n - du * u / n_post;
+    acc_n = du / n_post;
+  }
+  // n = sgn (gx, gy, -1) / |(gx, gy, -1)|
+  const float a = sgn * dnx, b = sgn * dny, c = sgn * dnz;
+  const float dI = a * gxs + b * gys - c;
+  const float im3 = inv_mag * inv_mag * inv_mag;
+  const float dgx = a * inv_mag - dI * gxs * im3;
+  const float dgy = b * inv_mag - dI * gys * im3;
+  sag_grad_bwd(s, x, y, dgx, dgy, g.x, g.y, sg);
+}
+
+// Reverse of one surface of trace_chain. e: the surface's record (entry
+// state, t, index before it, vertex z); g: cotangent of the state after the
+// surface on entry, of the entry state on exit; g_opd: the opd cotangent
+// (opd only accumulates, so it is the same at every surface). Adds the
+// surface's parameter cotangents to sg and the cotangent of its vertex z
+// to dpos.
+__device__ __forceinline__ void surface_bwd(const Surface& s, const float* e, float g_opd,
+                                            Vec6& g, float& acc_n, float& dpos,
+                                            SurfGrad& sg) {
+  const float t = e[6], n_pre = e[7], pos = e[8];
+  // recompute the surface's forward from its record
+  Vec6 a[4];
+  a[0] = Vec6{e[0], e[1], e[2], e[3], e[4], e[5]};
+  if (s.tilted || s.decentered) {
+    a[0].x = a[0].x - s.tx;
+    a[0].y = a[0].y - s.ty;
+  }
+  a[0].z = a[0].z - pos;
+  a[1] = a[0];
+  a[2] = a[0];
+  a[3] = a[0];
+  if (s.tilted) {
+    rotate(2, -s.rz, a[1]);
+    a[2] = a[1];
+    rotate(1, -s.ry, a[2]);
+    a[3] = a[2];
+    rotate(0, -s.rx, a[3]);
+  }
+  const Vec6& lo = a[3];  // local frame, before the hit
+  const float xh = lo.x + t * lo.L, yh = lo.y + t * lo.M, zh = lo.z + t * lo.N;
+  Vec6 b[4];
+  b[0] = Vec6{xh, yh, zh, lo.L, lo.M, lo.N};
+  float i_dummy = 1.f;
+  interact(s, n_pre, xh, yh, b[0].L, b[0].M, b[0].N, i_dummy);
+  b[1] = b[0];
+  b[2] = b[0];
+  b[3] = b[0];
+  if (s.tilted) {
+    rotate(0, s.rx, b[1]);
+    b[2] = b[1];
+    rotate(1, s.ry, b[2]);
+    b[3] = b[2];
+    rotate(2, s.rz, b[3]);
+  }
+
+  // to_global
+  if (s.tilted || s.decentered) {
+    sg.dec[0] += g.x;
+    sg.dec[1] += g.y;
+  }
+  dpos += g.z;
+  if (s.tilted) {
+    sg.tilt[2] += rotate_bwd(2, s.rz, b[3], g);
+    sg.tilt[1] += rotate_bwd(1, s.ry, b[2], g);
+    sg.tilt[0] += rotate_bwd(0, s.rx, b[1], g);
+  }
+  // interaction
+  interact_bwd(s, n_pre, xh, yh, lo.L, lo.M, lo.N, g, acc_n, sg);
+  // propagation x + t l and opd += |t n_pre|
+  const float so = sign_of(t * n_pre);
+  const float dt = g.x * lo.L + g.y * lo.M + g.z * lo.N + g_opd * so * n_pre;
+  acc_n += g_opd * so * t;
+  g.L += g.x * t;
+  g.M += g.y * t;
+  g.N += g.z * t;
+  intersect_bwd(s, lo, t, dt, g, sg);
+  // to_local
+  if (s.tilted) {
+    sg.tilt[0] -= rotate_bwd(0, -s.rx, a[3], g);
+    sg.tilt[1] -= rotate_bwd(1, -s.ry, a[2], g);
+    sg.tilt[2] -= rotate_bwd(2, -s.rz, a[1], g);
+  }
+  dpos -= g.z;
+  if (s.tilted || s.decentered) {
+    sg.dec[0] -= g.x;
+    sg.dec[1] -= g.y;
+  }
+}
+
+// Reverse of tile_raygen: the cotangent g of the starting ray -> drg (5)
+// and the cotangents dd = (dHx, dHy, dPx, dPy).
+__device__ __forceinline__ void tile_raygen_bwd(int field_angle, int object_infinite,
+                                                const float* rg, float Hx, float Hy,
+                                                float Px, float Py, const Vec6& g,
+                                                float* drg, float* dd) {
+  const float epl = rg[0], epd = rg[1], fmax = rg[2], a = rg[3], b = rg[4];
+  const float half = epd * 0.5f;
+  float x0, y0, tx = 0.f, ty = 0.f;
+  if (field_angle) {
+    tx = tanf((fmax * Hx) * DEG2RAD);
+    ty = tanf((fmax * Hy) * DEG2RAD);
+    x0 = object_infinite ? Px * half - tx * b : -tx * b;
+    y0 = object_infinite ? Py * half - ty * b : -ty * b;
+  } else {
+    x0 = fmax * Hx;
+    y0 = fmax * Hy;
+  }
+  const float dx = Px * half - x0;
+  const float dy = Py * half - y0;
+  const float dz = epl - a;
+  const float mag2 = dx * dx + dy * dy + dz * dz;
+  float ddx = 0.f, ddy = 0.f, ddz = 0.f;
+  if (!(mag2 < 1e-18f)) {
+    const float inv = rsqrtf(fmaxf(mag2, 1e-18f));
+    const float dinv = g.L * dx + g.M * dy + g.N * dz;
+    const float dmag2 = -0.5f * dinv * inv * inv * inv;
+    ddx = g.L * inv + 2.f * dx * dmag2;
+    ddy = g.M * inv + 2.f * dy * dmag2;
+    ddz = g.N * inv + 2.f * dz * dmag2;
+  }
+  float gx0 = g.x - ddx, gy0 = g.y - ddy;
+  float dPx = ddx * half, dPy = ddy * half, dhalf = ddx * Px + ddy * Py;
+  float dfmax, dHx, dHy, db = 0.f;
+  if (field_angle) {
+    if (object_infinite) {
+      dPx += gx0 * half;
+      dPy += gy0 * half;
+      dhalf += gx0 * Px + gy0 * Py;
+    }
+    db = -gx0 * tx - gy0 * ty;
+    const float ux = (1.f + tx * tx) * (-gx0 * b) * DEG2RAD;
+    const float uy = (1.f + ty * ty) * (-gy0 * b) * DEG2RAD;
+    dfmax = ux * Hx + uy * Hy;
+    dHx = ux * fmax;
+    dHy = uy * fmax;
+  } else {
+    dfmax = gx0 * Hx + gy0 * Hy;
+    dHx = gx0 * fmax;
+    dHy = gy0 * fmax;
+  }
+  drg[0] = ddz;
+  drg[1] = 0.5f * dhalf;
+  drg[2] = dfmax;
+  drg[3] = g.z - ddz;
+  drg[4] = db;
+  dd[0] = dHx;
+  dd[1] = dHy;
+  dd[2] = dPx;
+  dd[3] = dPy;
+}
+
+// The slots of row k that the reverse sweep fills.
+__device__ __forceinline__ unsigned used_slots(const Surface& s) {
+  unsigned used = (1u << F_CV) | (1u << F_CONIC) | (1u << F_THICK);
+  if (is_asphere(s)) used |= ((1u << s.nc) - 1u) << F_COEFFS;
+  if (s.tilted) used |= 7u << F_TILT;
+  if (s.tilted || s.decentered) used |= 3u << F_DEC;
+  if (s.inter == INT_REFRACT) used |= 1u << F_NTAB;
+  return used;
+}
+
+// A surface's cotangents as one row of the packed-table layout.
+__device__ __forceinline__ void grad_row(const SurfGrad& sg, float (&v)[F_STRIDE]) {
+#pragma unroll
+  for (int j = 0; j < F_STRIDE; ++j) v[j] = 0.f;
+  v[F_CV] = sg.cv;
+  v[F_CONIC] = sg.conic;
+#pragma unroll
+  for (int ci = 0; ci < MAX_COEFFS; ++ci) v[F_COEFFS + ci] = sg.co[ci];
+  v[F_THICK] = sg.thick;
+  v[F_TILT] = sg.tilt[0];
+  v[F_TILT + 1] = sg.tilt[1];
+  v[F_TILT + 2] = sg.tilt[2];
+  v[F_DEC] = sg.dec[0];
+  v[F_DEC + 1] = sg.dec[1];
+  v[F_NTAB] = sg.n;
+}
+
+// Sums one row of F_STRIDE per-thread values over the block and writes it
+// to out[row * F_STRIDE ...]: warp shuffles, then the block's warps in a
+// fixed order. Slots outside `used` (uniform over the block) are written
+// as 0 without a reduction. Every thread of the block calls it.
+struct BlockRows {
+  float* out;     // this block's partial rows
+  float* s_part;  // shared, (BLOCK / 32) * F_STRIDE floats
+
+  __device__ __forceinline__ void put(int row, const float (&v)[F_STRIDE],
+                                      unsigned used) const {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+    for (int j = 0; j < F_STRIDE; ++j) {
+      if (used & (1u << j)) {
+        float x = v[j];
+        for (int off = 16; off > 0; off >>= 1) x += __shfl_down_sync(0xffffffffu, x, off);
+        if (lane == 0) s_part[warp * F_STRIDE + j] = x;
+      }
+    }
+    __syncthreads();
+    if (threadIdx.x < F_STRIDE) {
+      const int j = threadIdx.x;
+      float tot = 0.f;
+      if (used & (1u << j))
+        for (int w = 0; w < BLOCK / 32; ++w) tot += s_part[w * F_STRIDE + j];
+      out[row * F_STRIDE + j] = tot;
+    }
+    __syncthreads();
+  }
+};
+
+// The reverse sweep from surface S-1 down to 1, for every thread of the
+// block (dead threads, live = false, contribute zeros). g: the final
+// state's cotangent on entry, the starting ray's on exit. Rows 1..S-1 of
+// `rows` get the surfaces' parameter cotangents (the thickness slot of row
+// k is d thickness[k], the sum over the vertices after k), row 0 the
+// cotangent of n_table[0].
+template <class Rows>
+__device__ __forceinline__ void reverse_chain(int S, const float* ft, const int* it,
+                                              float (*rec)[REC], bool live,
+                                              float g_opd, Vec6& g, const Rows& rows) {
+  float acc_n = 0.f, acc_pos = 0.f;
+  for (int k = S - 1; k >= 1; --k) {
+    const Surface s = load_surface(ft, it, k);
+    SurfGrad sg;
+    zero(sg);
+    float dpos = 0.f;
+    if (live) surface_bwd(s, rec[k], g_opd, g, acc_n, dpos, sg);
+    sg.thick = acc_pos;
+    acc_pos += dpos;
+    float v[F_STRIDE];
+    grad_row(sg, v);
+    rows.put(k, v, used_slots(s));
+  }
+  SurfGrad sg;
+  zero(sg);
+  sg.n = acc_n;
+  float v[F_STRIDE];
+  grad_row(sg, v);
+  rows.put(0, v, 1u << F_NTAB);
+}
+
+}  // namespace otk

@@ -1,0 +1,88 @@
+// K6: the backward of K5, one ray per thread (Hopper, sm_90a): given
+// per-ray cotangents of the final (x, y, z, L, M, N, i, opd), the
+// cotangents of the caller's 8 starting arrays and of the packed
+// per-surface table.
+//
+// Replaces the Pallas kernel `_fused_bwd` of optiland_tpu/trace/fused.py
+// (whose wavelength cotangent is zeros; the wrapper returns the same).
+// A NULL seed pointer is a zero seed. Each thread re-traces its ray with a
+// record (starting from i = 1, so the final i is the product of its
+// masks), runs the reverse sweep of chain_bwd.cuh and writes
+// (dx, dy, dz, dL, dM, dN) of the start, di = seed_i * masks and
+// dopd = seed_opd. The block sums the parameter cotangents into one
+// partial row per surface, summed by torch.sum in the wrapper (no float
+// atomics, bitwise reproducible).
+//
+// Bound on an H100: FP32 operations of the re-trace plus the adjoint; it
+// moves 96 bytes per ray (8 arrays in, 8 seeds, 8 cotangents out).
+#include <cstdint>
+
+#include "chain_bwd.cuh"
+
+namespace {
+
+struct Arrays {
+  float* p[8];
+};
+
+__global__ void __launch_bounds__(otk::BLOCK)
+fused_trace_bwd_kernel(int n, int S, int n_newton, const float* __restrict__ ftab,
+                       const int* __restrict__ itab, Arrays rays, Arrays seeds,
+                       float* __restrict__ partials, Arrays d_rays) {
+  __shared__ float s_ft[otk::MAX_SURFACES * otk::F_STRIDE];
+  __shared__ int s_it[otk::MAX_SURFACES * otk::I_STRIDE];
+  __shared__ float s_part[(otk::BLOCK / 32) * otk::F_STRIDE];
+  otk::stage_tables(S, ftab, itab, nullptr, s_ft, s_it, nullptr);
+
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool live = idx < n;
+  float rec[otk::MAX_SURFACES][otk::REC];
+  float sd[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  float mask = 0.f;
+  otk::Vec6 g = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  if (live) {
+    otk::Ray r = {rays.p[0][idx], rays.p[1][idx], rays.p[2][idx], rays.p[3][idx],
+                  rays.p[4][idx], rays.p[5][idx], 1.f, rays.p[7][idx]};
+    otk::trace_chain(S, n_newton, s_ft, s_it, r, rec);
+    mask = r.i;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) sd[k] = seeds.p[k] ? seeds.p[k][idx] : 0.f;
+    g = otk::Vec6{sd[0], sd[1], sd[2], sd[3], sd[4], sd[5]};
+  }
+  const otk::BlockRows rows{partials + (size_t)blockIdx.x * S * otk::F_STRIDE, s_part};
+  otk::reverse_chain(S, s_ft, s_it, rec, live, sd[7], g, rows);
+  if (live) {
+    const float v[8] = {g.x, g.y, g.z, g.L, g.M, g.N, sd[6] * mask, sd[7]};
+#pragma unroll
+    for (int k = 0; k < 8; ++k) d_rays.p[k][idx] = v[k];
+  }
+}
+
+}  // namespace
+
+// Launch K6 on `stream` over n rays; partials holds (blocks, S, F_STRIDE)
+// floats. Returns cudaGetLastError().
+extern "C" int fused_trace_bwd(int n, int S, int n_newton, const void* ftab,
+                               const void* itab, void* x, void* y, void* z, void* L,
+                               void* M, void* N, void* i, void* opd, void* sx, void* sy,
+                               void* sz, void* sL, void* sM, void* sN, void* si,
+                               void* sopd, void* partials, void* dx, void* dy, void* dz,
+                               void* dL, void* dM, void* dN, void* di, void* dopd,
+                               void* stream) {
+  const int blocks = (n + otk::BLOCK - 1) / otk::BLOCK;
+  Arrays rays = {{static_cast<float*>(x), static_cast<float*>(y), static_cast<float*>(z),
+                  static_cast<float*>(L), static_cast<float*>(M), static_cast<float*>(N),
+                  static_cast<float*>(i), static_cast<float*>(opd)}};
+  Arrays seeds = {{static_cast<float*>(sx), static_cast<float*>(sy),
+                   static_cast<float*>(sz), static_cast<float*>(sL),
+                   static_cast<float*>(sM), static_cast<float*>(sN),
+                   static_cast<float*>(si), static_cast<float*>(sopd)}};
+  Arrays d_rays = {{static_cast<float*>(dx), static_cast<float*>(dy),
+                    static_cast<float*>(dz), static_cast<float*>(dL),
+                    static_cast<float*>(dM), static_cast<float*>(dN),
+                    static_cast<float*>(di), static_cast<float*>(dopd)}};
+  fused_trace_bwd_kernel<<<blocks, otk::BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
+      n, S, n_newton, static_cast<const float*>(ftab), static_cast<const int*>(itab), rays,
+      seeds, static_cast<float*>(partials), d_rays);
+  return static_cast<int>(cudaGetLastError());
+}

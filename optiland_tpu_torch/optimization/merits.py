@@ -3,7 +3,8 @@
 Port of `optiland_tpu/optimization/merits.py`. The centroid-RMS spot merit
 consumes four weighted moments of the image-surface state, which
 `trace.fused.spot_moments` computes in one kernel launch (K1) on the CUDA
-card for the systems the fused gates accept."""
+card for the systems the fused gates accept; its gradient is one launch of
+K2."""
 
 from __future__ import annotations
 
@@ -11,14 +12,23 @@ from optiland_tpu_torch.trace.fused import spot_moments
 
 
 def centroid_rms_spot(static, params, Hx, Hy, Px, Py, wavelength,
-                      eps: float = 1e-6):
+                      eps: float = 1e-6, diff_inputs: bool = True):
     """Intensity-weighted RMS spot size (squared) about the weighted
     centroid at the image surface:
 
         loss = sum(((x-cx)^2 + (y-cy)^2) * i) / (sum(i) + eps)
-    """
-    m0, m1, m2, m3 = spot_moments(static, params, Hx, Hy, Px, Py,
-                                  wavelength)
+
+    Differentiable with respect to `params` and, by default, the field and
+    pupil inputs. `diff_inputs=False` declares the per-ray input
+    cotangents unwanted, so the backward kernel skips them (they come back
+    as zeros): the params-only optimization step."""
+    return centroid_rms_from_moments(
+        *spot_moments(static, params, Hx, Hy, Px, Py, wavelength,
+                      diff_data=diff_inputs), eps)
+
+
+def centroid_rms_from_moments(m0, m1, m2, m3, eps: float = 1e-6):
+    """The centroid-RMS spot merit from the four spot moments."""
     ws = m0 + eps
     cx = m1 / ws
     cy = m2 / ws

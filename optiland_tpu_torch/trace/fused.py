@@ -1,33 +1,48 @@
 """Fused trace kernels: ray generation, the whole surface chain and the
-spot-moment reduction in one launch on the CUDA card.
+spot-moment reduction in one launch on the CUDA card, and their backward.
 
-Port of `optiland_tpu/trace/fused.py`, first slice: the two forward
-kernels of the trace-and-merit path.
+Port of `optiland_tpu/trace/fused.py`: the six Pallas kernels of the
+trace-and-merit and trace-final paths, each a hand-written CUDA kernel.
 
-  K1 `moments_forward` replaces the Pallas kernel `_moments_forward`
-     (optiland_tpu/trace/fused.py): in-kernel raygen from 5 scalars, the
-     surface chain, and the masked moments (sum i, sum x i, sum y i,
-     sum (x^2+y^2) i). CUDA source: csrc/moments_fwd.cu.
-  K3 `raygen_trace_forward` replaces `_raygen_forward` (same file): the
-     same raygen and chain, writing the requested final per-ray arrays.
-     CUDA source: csrc/raygen_trace_fwd.cu.
+  K1 `moments_forward` replaces `_moments_forward`: in-kernel raygen from
+     5 scalars, the surface chain, and the masked moments (sum i, sum x i,
+     sum y i, sum (x^2+y^2) i). CUDA source: csrc/moments_fwd.cu.
+  K2 `moments_backward` replaces `_moments_bwd`: the cotangents of c . m
+     for the raygen scalars, the per-surface tables and (with `diff_data`)
+     the per-ray inputs. csrc/moments_bwd.cu.
+  K3 `raygen_trace_forward` replaces `_raygen_forward`: the same raygen and
+     chain, writing the requested final per-ray arrays.
+     csrc/raygen_trace_fwd.cu.
+  K4 `raygen_trace_backward` replaces `_raygen_bwd`: per-ray seeds of the
+     requested outputs -> raygen, table and data cotangents.
+     csrc/raygen_trace_bwd.cu.
+  K5 `fused_trace_forward` replaces `_fused_forward`: the chain on the
+     caller's rays (the fields in-kernel raygen refuses: vignetted ones).
+     csrc/fused_trace_fwd.cu.
+  K6 `fused_trace_backward` replaces `_fused_bwd`: per-ray seeds of the 8
+     final arrays -> the 8 starting-ray and the table cotangents.
+     csrc/fused_trace_bwd.cu.
 
-Both run one ray per thread (csrc/chain.cuh). What bounds them on an H100:
-FP32 arithmetic, not memory. At 2M rays K1 reads 32 MB (Hx, Hy, Px, Py in
-f32; the wavelength is hoisted into the per-surface index table), about
-10 us at 3.35 TB/s, while the chain costs on the order of 10^3 FP32
-operations per ray (counted per branch by `chip_smoke.py`), ~50 us at the
-67 TFLOP/s non-tensor FP32 peak of NVIDIA's H100 SXM data sheet. The
-design keeps every per-ray intermediate in registers (no per-surface state
-touches memory), stages the small system tables in shared memory once per
-block, and K1 reduces inside the block (warp shuffles, then shared memory)
-to one partial per block, summed by `torch.sum`: deterministic, no atomics.
+All run one ray per thread (csrc/chain.cuh; the backward kernels share the
+reverse sweep of csrc/chain_bwd.cuh). What bounds them on an H100: FP32
+arithmetic, not memory. At 2M rays K1 reads 32 MB (Hx, Hy, Px, Py in f32;
+the wavelength is hoisted into the per-surface index table), about 10 us
+at 3.35 TB/s, while the chain costs on the order of 10^3 FP32 operations
+per ray (counted per branch by `chip_smoke.py`), ~50 us at the 67 TFLOP/s
+non-tensor FP32 peak of NVIDIA's H100 SXM data sheet; a backward re-traces
+the ray and runs the adjoint, about three times that. The design keeps the
+forward's per-ray intermediates in registers, stages the small system
+tables in shared memory once per block, and reduces inside the block
+(warp shuffles, then shared memory) to one partial per block, summed by
+`torch.sum`: deterministic, no atomics. A backward keeps each surface's
+entry state in local memory for its reverse sweep.
 
 Beside each kernel is its plain PyTorch version (`_moments_plain`,
-`_raygen_trace_plain`) with the kernel's arithmetic: the wrapper takes it
-only for tensors on the CPU. On a CUDA tensor the wrapper launches the
-kernel or raises. Their backward kernels (K2 `_moments_bwd`, K4
-`_raygen_bwd`) are the next slice; until then the autograd seam raises.
+`_moments_bwd_plain`, `_raygen_trace_plain`, `_raygen_trace_bwd_plain`,
+`_fused_trace_plain`, `_fused_trace_bwd_plain`; a backward's plain
+version is autograd through its forward's): the wrapper takes it only for
+tensors on the CPU. On a CUDA tensor the wrapper launches the kernel or
+raises.
 """
 
 from __future__ import annotations
@@ -89,6 +104,7 @@ _NEWTON_FUSED_MAX = 2
 # row widths of the packed per-surface tables; `_pack_tables` writes the
 # slots in the order csrc/chain.cuh names them (F_* and I_* there)
 _F_STRIDE = 32
+_F_COEFFS, _F_THICK, _F_TILT, _F_DEC, _F_NTAB = 2, 19, 20, 23, 25
 _I_STRIDE = 8
 _MAX_SURFACES = 64
 _BLOCK = 256    # threads per block, one ray each (csrc/chain.cuh)
@@ -450,6 +466,65 @@ def _raygen_trace_plain(static, diffp, nondiffp, rg, data, out_keys):
     return tuple(res[k] for k in out_keys)
 
 
+def _fused_trace_plain(static, diffp, nondiffp, rays8):
+    """Plain version of K5: the final (x, y, z, L, M, N, i, opd) of the
+    caller's rays."""
+    _check_kernel_branches(static, uniform_w=True)
+    return _tile_trace(static, diffp, nondiffp, *rays8)
+
+
+def _vjp(fn, args, grad_mask, seeds):
+    """Autograd of `fn(*args)` (a tuple of tensors) against `seeds` (None
+    is a zero seed): the cotangent of every arg where `grad_mask` holds,
+    explicit zeros elsewhere and where an arg does not reach the output."""
+    with torch.enable_grad():
+        leaves = [a.detach().requires_grad_(m) for a, m in zip(args, grad_mask)]
+        # an output that no arg reaches (i from the raygen) takes no seed
+        pairs = [(o, torch.zeros_like(o) if s is None else s)
+                 for o, s in zip(fn(*leaves), seeds, strict=True)
+                 if o.requires_grad]
+        wrt = [a for a in leaves if a.requires_grad]
+        grads = iter(torch.autograd.grad(
+            [o for o, _ in pairs], wrt, [s for _, s in pairs],
+            allow_unused=True) if pairs else [None] * len(wrt))
+    res = []
+    for a in leaves:
+        g = next(grads) if a.requires_grad else None
+        res.append(torch.zeros_like(a) if g is None else g)
+    return res
+
+
+def _moments_bwd_plain(static, diffp, nondiffp, rg, data, c, diff_data):
+    """Plain version of K2: autograd of c . `_moments_plain`. Returns
+    (d_rg, d_diffp, d_data); d_data is zeros without `diff_data`."""
+    nd = len(diffp)
+    g = _vjp(lambda rg_, *a: (_moments_plain(static, a[:nd], nondiffp, rg_,
+                                             a[nd:]),),
+             (rg, *diffp, *data), [True] * (1 + nd) + [diff_data] * 4, (c,))
+    return g[0], tuple(g[1:1 + nd]), tuple(g[1 + nd:])
+
+
+def _raygen_trace_bwd_plain(static, diffp, nondiffp, rg, data, out_keys,
+                            seeds):
+    """Plain version of K4: autograd of `_raygen_trace_plain` against the
+    per-ray `seeds` of `out_keys` (None = zero). Returns (d_rg, d_diffp,
+    d_data)."""
+    nd = len(diffp)
+    g = _vjp(lambda rg_, *a: _raygen_trace_plain(static, a[:nd], nondiffp,
+                                                 rg_, a[nd:], out_keys),
+             (rg, *diffp, *data), [True] * (5 + nd), seeds)
+    return g[0], tuple(g[1:1 + nd]), tuple(g[1 + nd:])
+
+
+def _fused_trace_bwd_plain(static, diffp, nondiffp, rays8, seeds):
+    """Plain version of K6: autograd of `_fused_trace_plain` against the 8
+    per-ray `seeds` (None = zero). Returns (d_rays8, d_diffp)."""
+    nd = len(diffp)
+    g = _vjp(lambda *a: _fused_trace_plain(static, a[:nd], nondiffp, a[nd:]),
+             (*diffp, *rays8), [True] * (8 + nd), seeds)
+    return tuple(g[nd:]), tuple(g[:nd])
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -459,9 +534,22 @@ _SIGNATURES = {
     # n, S, n_newton, field_angle, object_infinite, rg, ftab, itab,
     # Hx, Hy, Px, Py, partials (num_blocks, 4), stream
     "moments_fwd": [_I] * 5 + [_P] * 9,
+    # n, S, n_newton, field_angle, object_infinite, diff_data, rg, ftab,
+    # itab, Hx, Hy, Px, Py, c, partials (num_blocks, S + 1, 32),
+    # dHx, dHy, dPx, dPy (NULL without diff_data), stream
+    "moments_bwd": [_I] * 6 + [_P] * 14,
     # n, S, n_newton, field_angle, object_infinite, out_mask, rg, ftab,
     # itab, Hx, Hy, Px, Py, 8 output pointers (NULL = not requested), stream
     "raygen_trace_fwd": [_I] * 6 + [_P] * 16,
+    # n, S, n_newton, field_angle, object_infinite, rg, ftab, itab,
+    # Hx, Hy, Px, Py, 8 seed pointers (NULL = zero seed), partials
+    # (num_blocks, S + 1, 32), dHx, dHy, dPx, dPy, stream
+    "raygen_trace_bwd": [_I] * 5 + [_P] * 21,
+    # n, S, n_newton, ftab, itab, 8 ray pointers, 8 output pointers, stream
+    "fused_trace_fwd": [_I] * 3 + [_P] * 19,
+    # n, S, n_newton, ftab, itab, 8 ray pointers, 8 seed pointers (NULL =
+    # zero seed), partials (num_blocks, S, 32), 8 cotangent pointers, stream
+    "fused_trace_bwd": [_I] * 3 + [_P] * 28,
 }
 
 
@@ -487,7 +575,8 @@ def _int_table(static: SystemStatic, device: torch.device):
 
 def _pack_tables(static: SystemStatic, diffp, nondiffp):
     """The per-surface float table (S, 32) in the slot layout of
-    csrc/chain.cuh, and the (S, 8) int table of static codes."""
+    csrc/chain.cuh, in the parameters' dtype, and the (S, 8) int table of
+    static codes."""
     (cv, conic, coeffs, thickness, tilt, decenter, _mat, coating_params,
      n_table, _grating, _phase, _focal) = diffp
     ap_radius, _k_wl, _k_val, alpha_table = nondiffp
@@ -501,30 +590,51 @@ def _pack_tables(static: SystemStatic, diffp, nondiffp):
     used = sum(c.shape[1] for c in col)
     col.append(torch.zeros((S, _F_STRIDE - used), dtype=cv.dtype,
                            device=cv.device))
-    ftab = torch.cat(col, dim=1).to(torch.float32).contiguous()
+    ftab = torch.cat(col, dim=1).contiguous()
     return ftab, _int_table(static, cv.device)
 
 
-def _check_launch_inputs(rg, ftab, data):
-    dev = rg.device
-    for name, a in [("rg", rg), ("tables", ftab)] + list(
-            zip(("Hx", "Hy", "Px", "Py"), data)):
+def _unpack_table_grads(tab, diffp):
+    """The (S, 32) table cotangents of a backward kernel as the 12
+    `_diff_params` cotangents: cv, conic, coeffs (cut back or padded with
+    zeros to its width), thickness, tilt, decenter and n_table from their
+    slots; zeros for the tables the chain does not read (mat_coeffs,
+    coating_params, grating, phase_params, focal_length)."""
+    coeffs = diffp[2]
+    nco = coeffs.shape[1]
+    co = tab[:, _F_COEFFS:_F_COEFFS + min(nco, MAX_GEOM_COEFFS)]
+    if nco > MAX_GEOM_COEFFS:
+        co = torch.nn.functional.pad(co, (0, nco - MAX_GEOM_COEFFS))
+    slots = {0: tab[:, 0], 1: tab[:, 1], 2: co, 3: tab[:, _F_THICK],
+             4: tab[:, _F_TILT:_F_TILT + 3], 5: tab[:, _F_DEC:_F_DEC + 2],
+             8: tab[:, _F_NTAB]}
+    return tuple(slots[j].to(p.dtype).reshape(p.shape) if j in slots
+                 else torch.zeros_like(p) for j, p in enumerate(diffp))
+
+
+def _check_arrays(named, dev):
+    """Every (name, tensor) float32, contiguous, on `dev`, and the per-ray
+    ones (all but rg and the tables) of one shape (n,). Returns n."""
+    for name, a in named:
         if a.device != dev or a.dtype != torch.float32:
             raise ValueError(f"{name}: expected float32 on {dev}, got "
                              f"{a.dtype} on {a.device}")
         if not a.is_contiguous():
             raise ValueError(f"{name}: expected a contiguous tensor")
-    n = data[0].shape[0]
-    if len(data) != 4 or any(d.shape != (n,) for d in data) \
-            or rg.shape != (5,):
-        raise ValueError("expected four (n,) ray arrays and a (5,) rg")
+    per_ray = [a for name, a in named if name not in ("rg", "tables")]
+    n = per_ray[0].shape[0]
+    if any(a.shape != (n,) for a in per_ray):
+        raise ValueError("expected (n,) per-ray arrays of one length")
     return n
 
 
 def _launch_args(static, rg, diffp, nondiffp, data):
     _check_kernel_branches(static, uniform_w=True)
     ftab, itab = _pack_tables(static, diffp, nondiffp)
-    n = _check_launch_inputs(rg, ftab, data)
+    if len(data) != 4 or rg.shape != (5,):
+        raise ValueError("expected four (n,) ray arrays and a (5,) rg")
+    n = _check_arrays([("rg", rg), ("tables", ftab)] + list(
+        zip(("Hx", "Hy", "Px", "Py"), data)), rg.device)
     head = [n, static.num_surfaces,
             min(static.newton_iters, _NEWTON_FUSED_MAX),
             int(static.field_type == "angle"), int(static.object_infinite)]
@@ -535,9 +645,41 @@ def _launch_args(static, rg, diffp, nondiffp, data):
     return n, head, ptrs, (ftab, itab)
 
 
+def _caller_ray_args(static, diffp, nondiffp, rays8):
+    """Tables and checked pointers of the caller-ray kernels (K5, K6)."""
+    _check_kernel_branches(static, uniform_w=True)
+    ftab, itab = _pack_tables(static, diffp, nondiffp)
+    if len(rays8) != 8:
+        raise ValueError("expected the 8 ray arrays x, y, z, L, M, N, i, opd")
+    n = _check_arrays([("tables", ftab)] + list(zip(_NAMES, rays8)),
+                      ftab.device)
+    head = [n, static.num_surfaces,
+            min(static.newton_iters, _NEWTON_FUSED_MAX)]
+    ptrs = [ftab.data_ptr(), itab.data_ptr()] + [r.data_ptr() for r in rays8]
+    return n, head, ptrs, (ftab, itab)
+
+
+def _seed_ptrs(seeds, n, dev):
+    """Seeds as float32 contiguous (n,) tensors on `dev` and their pointers;
+    None stays None (a zero seed, a NULL pointer)."""
+    out = []
+    for j, s in enumerate(seeds):
+        if s is not None:
+            s = s.to(device=dev, dtype=torch.float32).contiguous()
+            if s.shape != (n,):
+                raise ValueError(f"seed {j}: expected shape ({n},), got "
+                                 f"{tuple(s.shape)}")
+        out.append(s)
+    return out, [None if s is None else s.data_ptr() for s in out]
+
+
 def _raise_on_error(name, err):
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
+
+
+def _stream(dev):
+    return torch.cuda.current_stream(dev).cuda_stream
 
 
 def moments_forward(static, diffp, nondiffp, rg, data):
@@ -549,15 +691,46 @@ def moments_forward(static, diffp, nondiffp, rg, data):
     blocks = -(-n // _BLOCK)
     partials = torch.empty((blocks, 4), dtype=torch.float32, device=rg.device)
     if n:
-        err = _kernel("moments_fwd")(
-            *head, *ptrs, partials.data_ptr(),
-            torch.cuda.current_stream(rg.device).cuda_stream)
+        err = _kernel("moments_fwd")(*head, *ptrs, partials.data_ptr(),
+                                     _stream(rg.device))
         _raise_on_error("moments_fwd", err)
         moments_forward.launches += 1
     return torch.sum(partials, dim=0)
 
 
 moments_forward.launches = 0
+
+
+def moments_backward(static, diffp, nondiffp, rg, data, c, diff_data=True):
+    """K2: the cotangents of c . m (m the K1 moments, c of shape (4,)):
+    (d_rg, d_diffp, d_data). Without `diff_data` the data cotangents are
+    explicit zeros that the kernel neither computes nor writes. CPU tensors
+    take `_moments_bwd_plain`; CUDA tensors launch the kernel. Parameter
+    cotangents are per-block partials summed by torch.sum: reproducible
+    bit for bit."""
+    if rg.device.type == "cpu":
+        return _moments_bwd_plain(static, diffp, nondiffp, rg, data, c,
+                                  diff_data)
+    n, head, ptrs, keep = _launch_args(static, rg, diffp, nondiffp, data)
+    dev, S = rg.device, static.num_surfaces
+    c = c.to(torch.float32).contiguous()
+    partials = torch.empty((-(-n // _BLOCK), S + 1, _F_STRIDE),
+                           dtype=torch.float32, device=dev)
+    d_data = tuple(torch.empty(n, dtype=torch.float32, device=dev)
+                   if diff_data else torch.zeros_like(d) for d in data)
+    if n:
+        err = _kernel("moments_bwd")(
+            *head, int(diff_data), *ptrs, c.data_ptr(), partials.data_ptr(),
+            *(d.data_ptr() if diff_data else None for d in d_data),
+            _stream(dev))
+        _raise_on_error("moments_bwd", err)
+        moments_backward.launches += 1
+    tab = torch.sum(partials, dim=0)
+    return (tab[S, :5].to(rg.dtype), _unpack_table_grads(tab[:S], diffp),
+            d_data)
+
+
+moments_backward.launches = 0
 
 
 def raygen_trace_forward(static, diffp, nondiffp, rg, data, out_keys):
@@ -574,9 +747,8 @@ def raygen_trace_forward(static, diffp, nondiffp, rg, data, out_keys):
     mask = sum(1 << k for k in out_keys)
     out_ptrs = [outs[k].data_ptr() if k in outs else None for k in range(8)]
     if n:
-        err = _kernel("raygen_trace_fwd")(
-            *head[:5], mask, *ptrs, *out_ptrs,
-            torch.cuda.current_stream(rg.device).cuda_stream)
+        err = _kernel("raygen_trace_fwd")(*head, mask, *ptrs, *out_ptrs,
+                                          _stream(rg.device))
         _raise_on_error("raygen_trace_fwd", err)
         raygen_trace_forward.launches += 1
     return tuple(outs[k] for k in out_keys)
@@ -585,53 +757,180 @@ def raygen_trace_forward(static, diffp, nondiffp, rg, data, out_keys):
 raygen_trace_forward.launches = 0
 
 
+def raygen_trace_backward(static, diffp, nondiffp, rg, data, out_keys,
+                          seeds):
+    """K4: the cotangents (d_rg, d_diffp, d_data) of the K3 outputs
+    `out_keys` against per-ray `seeds` (one per key; None is a zero seed,
+    never read). CPU tensors take `_raygen_trace_bwd_plain`; CUDA tensors
+    launch the kernel."""
+    if rg.device.type == "cpu":
+        return _raygen_trace_bwd_plain(static, diffp, nondiffp, rg, data,
+                                       out_keys, seeds)
+    n, head, ptrs, keep = _launch_args(static, rg, diffp, nondiffp, data)
+    dev, S = rg.device, static.num_surfaces
+    by_key = dict(zip(out_keys, seeds))
+    seeds8, seed_ptrs = _seed_ptrs([by_key.get(k) for k in range(8)], n, dev)
+    partials = torch.empty((-(-n // _BLOCK), S + 1, _F_STRIDE),
+                           dtype=torch.float32, device=dev)
+    d_data = tuple(torch.empty(n, dtype=torch.float32, device=dev)
+                   for _ in range(4))
+    if n:
+        err = _kernel("raygen_trace_bwd")(
+            *head, *ptrs, *seed_ptrs, partials.data_ptr(),
+            *(d.data_ptr() for d in d_data), _stream(dev))
+        _raise_on_error("raygen_trace_bwd", err)
+        raygen_trace_backward.launches += 1
+    tab = torch.sum(partials, dim=0)
+    return (tab[S, :5].to(rg.dtype), _unpack_table_grads(tab[:S], diffp),
+            d_data)
+
+
+raygen_trace_backward.launches = 0
+
+
+def fused_trace_forward(static, diffp, nondiffp, rays8):
+    """K5: the final (x, y, z, L, M, N, i, opd) of the caller's rays
+    (rays8, the same 8 arrays at the start). CPU tensors take
+    `_fused_trace_plain`; CUDA tensors launch the kernel."""
+    if rays8[0].device.type == "cpu":
+        return _fused_trace_plain(static, diffp, nondiffp, rays8)
+    n, head, ptrs, keep = _caller_ray_args(static, diffp, nondiffp, rays8)
+    dev = rays8[0].device
+    outs = tuple(torch.empty(n, dtype=torch.float32, device=dev)
+                 for _ in range(8))
+    if n:
+        err = _kernel("fused_trace_fwd")(
+            *head, *ptrs, *(o.data_ptr() for o in outs), _stream(dev))
+        _raise_on_error("fused_trace_fwd", err)
+        fused_trace_forward.launches += 1
+    return outs
+
+
+fused_trace_forward.launches = 0
+
+
+def fused_trace_backward(static, diffp, nondiffp, rays8, seeds):
+    """K6: the cotangents (d_rays8, d_diffp) of the K5 outputs against the 8
+    per-ray `seeds` (None is a zero seed). CPU tensors take
+    `_fused_trace_bwd_plain`; CUDA tensors launch the kernel."""
+    if rays8[0].device.type == "cpu":
+        return _fused_trace_bwd_plain(static, diffp, nondiffp, rays8, seeds)
+    n, head, ptrs, keep = _caller_ray_args(static, diffp, nondiffp, rays8)
+    dev, S = rays8[0].device, static.num_surfaces
+    seeds8, seed_ptrs = _seed_ptrs(seeds, n, dev)
+    partials = torch.empty((-(-n // _BLOCK), S, _F_STRIDE),
+                           dtype=torch.float32, device=dev)
+    d_rays = tuple(torch.empty(n, dtype=torch.float32, device=dev)
+                   for _ in range(8))
+    if n:
+        err = _kernel("fused_trace_bwd")(
+            *head, *ptrs, *seed_ptrs, partials.data_ptr(),
+            *(d.data_ptr() for d in d_rays), _stream(dev))
+        _raise_on_error("fused_trace_bwd", err)
+        fused_trace_backward.launches += 1
+    return d_rays, _unpack_table_grads(torch.sum(partials, dim=0), diffp)
+
+
+fused_trace_backward.launches = 0
+
+
 # ---------------------------------------------------------------------------
 # autograd seams
 # ---------------------------------------------------------------------------
+def _split(n_diff, tensors):
+    """(diffp, nondiffp, per-ray arrays) of a seam's flat tensor list."""
+    return (tensors[:n_diff], tensors[n_diff:n_diff + 4],
+            tensors[n_diff + 4:])
+
+
 class _FusedSpotMoments(torch.autograd.Function):
-    """K1 at the autograd seam; its backward is K2 `_moments_bwd`."""
+    """K1 at the autograd seam; its backward is K2."""
 
     @staticmethod
-    def forward(ctx, static, n_diff, rg, *tensors):
-        diffp, nondiffp = tensors[:n_diff], tensors[n_diff:n_diff + 4]
-        return moments_forward(static, diffp, nondiffp, rg,
-                               tensors[n_diff + 4:])
+    def forward(ctx, static, n_diff, diff_data, rg, *tensors):
+        ctx.static, ctx.n_diff, ctx.diff_data = static, n_diff, diff_data
+        ctx.save_for_backward(rg, *tensors)
+        diffp, nondiffp, data = _split(n_diff, tensors)
+        return moments_forward(static, diffp, nondiffp, rg, data)
 
     @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError("K2 _moments_bwd port: ROADMAP slice 2")
+    def backward(ctx, c):
+        rg, *tensors = ctx.saved_tensors
+        diffp, nondiffp, data = _split(ctx.n_diff, tensors)
+        d_rg, d_diff, d_data = moments_backward(
+            ctx.static, diffp, nondiffp, rg, data, c, ctx.diff_data)
+        return (None, None, None, d_rg, *d_diff, *[None] * len(nondiffp),
+                *d_data)
 
 
 class _FusedRaygenTraceFinal(torch.autograd.Function):
-    """K3 at the autograd seam; its backward is K4 `_raygen_bwd`."""
+    """K3 at the autograd seam; its backward is K4."""
 
     @staticmethod
     def forward(ctx, static, out_keys, n_diff, rg, *tensors):
-        diffp, nondiffp = tensors[:n_diff], tensors[n_diff:n_diff + 4]
-        return raygen_trace_forward(static, diffp, nondiffp, rg,
-                                    tensors[n_diff + 4:], out_keys)
+        ctx.static, ctx.out_keys, ctx.n_diff = static, out_keys, n_diff
+        ctx.save_for_backward(rg, *tensors)
+        ctx.set_materialize_grads(False)
+        diffp, nondiffp, data = _split(n_diff, tensors)
+        return raygen_trace_forward(static, diffp, nondiffp, rg, data,
+                                    out_keys)
 
     @staticmethod
     def backward(ctx, *grads):
-        raise NotImplementedError("K4 _raygen_bwd port: ROADMAP slice 2")
+        rg, *tensors = ctx.saved_tensors
+        diffp, nondiffp, data = _split(ctx.n_diff, tensors)
+        d_rg, d_diff, d_data = raygen_trace_backward(
+            ctx.static, diffp, nondiffp, rg, data, ctx.out_keys, grads)
+        return (None, None, None, d_rg, *d_diff, *[None] * len(nondiffp),
+                *d_data)
 
 
-def fused_spot_moments(static, params_tuple, data):
-    """(m0, m1, m2, m3) through K1. `params_tuple` = (diffp, nondiffp, rg)
-    as `_diff_params`, `_nondiff_params`, `_raygen_scalars` give them;
-    `data` = (Hx, Hy, Px, Py)."""
+class _FusedTraceFinal(torch.autograd.Function):
+    """K5 at the autograd seam; its backward is K6."""
+
+    @staticmethod
+    def forward(ctx, static, n_diff, *tensors):
+        ctx.static, ctx.n_diff = static, n_diff
+        ctx.save_for_backward(*tensors)
+        ctx.set_materialize_grads(False)
+        diffp, nondiffp, rays8 = _split(n_diff, tensors)
+        return fused_trace_forward(static, diffp, nondiffp, rays8)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        diffp, nondiffp, rays8 = _split(ctx.n_diff, ctx.saved_tensors)
+        d_rays, d_diff = fused_trace_backward(ctx.static, diffp, nondiffp,
+                                              rays8, grads)
+        return (None, None, *d_diff, *[None] * len(nondiffp), *d_rays)
+
+
+def fused_spot_moments(static, params_tuple, data, diff_data=True):
+    """(m0, m1, m2, m3) through K1, differentiable through K2.
+    `params_tuple` = (diffp, nondiffp, rg) as `_diff_params`,
+    `_nondiff_params`, `_raygen_scalars` give them; `data` = (Hx, Hy, Px,
+    Py). `diff_data=False` declares the data cotangents unwanted: they come
+    back as zeros and the backward kernel skips them."""
     diffp, nondiffp, rg = params_tuple
-    m = _FusedSpotMoments.apply(static, len(diffp), rg, *diffp, *nondiffp,
-                                *data)
+    m = _FusedSpotMoments.apply(static, len(diffp), diff_data, rg, *diffp,
+                                *nondiffp, *data)
     return tuple(m.unbind())
 
 
 def fused_raygen_trace_final(static, out_keys, params_tuple, data):
-    """The `out_keys` final arrays through K3 (arguments as
-    `fused_spot_moments`)."""
+    """The `out_keys` final arrays through K3, differentiable through K4
+    (arguments as `fused_spot_moments`)."""
     diffp, nondiffp, rg = params_tuple
     return _FusedRaygenTraceFinal.apply(static, tuple(out_keys), len(diffp),
                                         rg, *diffp, *nondiffp, *data)
+
+
+def fused_trace_final(static, params_tuple, rays8):
+    """The final (x, y, z, L, M, N, i, opd) of the caller's 8 ray arrays
+    through K5, differentiable through K6. `params_tuple` = (diffp,
+    nondiffp)."""
+    diffp, nondiffp = params_tuple
+    return _FusedTraceFinal.apply(static, len(diffp), *diffp, *nondiffp,
+                                  *rays8)
 
 
 def _prepare(static, params, Hx, Hy, Px, Py, wavelength):
@@ -651,9 +950,9 @@ def _prepare(static, params, Hx, Hy, Px, Py, wavelength):
 
 def trace_system_final_fused(static: SystemStatic, params: SystemParams,
                              Hx, Hy, Px, Py, wavelength, outputs=None):
-    """Raygen+trace in one launch of K3. The caller has checked
-    `supports_fused` and `supports_fused_raygen`. `outputs`: names from
-    ("x", "y", "z", "L", "M", "N", "intensity", "opd"); default all."""
+    """Raygen+trace in one launch of K3 (backward: K4). The caller has
+    checked `supports_fused` and `supports_fused_raygen`. `outputs`: names
+    from ("x", "y", "z", "L", "M", "N", "intensity", "opd"); default all."""
     p, data = _prepare(static, params, Hx, Hy, Px, Py, wavelength)
     if outputs is None:
         out_keys = tuple(range(8))
@@ -666,13 +965,21 @@ def trace_system_final_fused(static: SystemStatic, params: SystemParams,
 def trace_final(static: SystemStatic, params: SystemParams, rays0,
                 wavelength=None):
     """Final-surface state from a caller-made bundle. On a CUDA device in
-    float32 a `supports_fused` system is K5 `_fused_forward`, not ported
-    yet; otherwise the eager trace."""
+    float32 a `supports_fused` system is one launch of K5 (backward: K6),
+    for a uniform `wavelength` (the one the bundle was made with); per-ray
+    wavelengths raise. Otherwise the eager trace."""
     from optiland_tpu_torch.trace.tracer import _final, trace_rays
 
     if (supports_fused(static) and rays0.x.is_cuda
             and rays0.x.dtype == torch.float32):
-        raise NotImplementedError("K5 _fused_forward port: ROADMAP slice 2")
+        if wavelength is None or torch.as_tensor(wavelength).ndim != 0:
+            _check_kernel_branches(static, uniform_w=False)
+        n_table, alpha_table = _uniform_tables(static, params, wavelength)
+        p = (_diff_params(params, n_table),
+             _nondiff_params(params, alpha_table))
+        rays8 = tuple(getattr(rays0, k).contiguous()
+                      for k in ("x", "y", "z", "L", "M", "N", "i", "opd"))
+        return dict(zip(_NAMES, fused_trace_final(static, p, rays8)))
     return _final(trace_rays(static, params, rays0))
 
 
@@ -684,22 +991,25 @@ def trace_history_fused(static: SystemStatic, params: SystemParams, rays0):
 
     if (supports_fused(static) and rays0.x.is_cuda
             and rays0.x.dtype == torch.float32):
-        raise NotImplementedError("K7 _history_forward port: ROADMAP slice 2")
+        raise NotImplementedError("K7 _history_forward port: ROADMAP slice 3")
     return trace_rays(static, params, rays0)
 
 
 def spot_moments(static: SystemStatic, params: SystemParams,
-                 Hx, Hy, Px, Py, wavelength):
+                 Hx, Hy, Px, Py, wavelength, diff_data: bool = True):
     """Weighted spot moments (m0, m1, m2, m3) = (sum i, sum x i, sum y i,
     sum (x^2+y^2) i) at the image surface. On a CUDA device in float32 a
-    system both gates accept is one launch of K1; on the CPU, and in
-    float64, the eager generate_rays -> trace_rays pipeline under autograd."""
+    system both gates accept is one launch of K1, and its gradient one
+    launch of K2; `diff_data=False` then declares the (Hx, Hy, Px, Py)
+    cotangents unwanted (they come back as zeros, the parameter gradients
+    are unchanged). On the CPU, and in float64, the eager generate_rays ->
+    trace_rays pipeline under autograd, which differentiates everything."""
     dtype = params.cv.dtype
     use_fused = (supports_fused(static) and supports_fused_raygen(static)
                  and params.cv.is_cuda and dtype == torch.float32)
     if use_fused:
         p, data = _prepare(static, params, Hx, Hy, Px, Py, wavelength)
-        return fused_spot_moments(static, p, data)
+        return fused_spot_moments(static, p, data, diff_data)
     from optiland_tpu_torch.trace.raygen import generate_rays
     from optiland_tpu_torch.trace.tracer import trace_rays
 

@@ -1,0 +1,257 @@
+"""The CUDA device code of the fused chain, compiled for the host.
+
+`csrc/chain.cuh` and `csrc/chain_bwd.cuh` are C++ apart from CUDA
+qualifiers and intrinsics. Built by g++ in float64 with those defined away
+(one thread, one ray at a time), the per-ray bodies of K1, K2, K4, K5 and
+K6 run here on the CPU: the forward chain (`trace_chain`), the reverse
+sweep (`reverse_chain`) and the raygen adjoint (`tile_raygen_bwd`). Each is
+held against the plain PyTorch version that the kernel is held to on the
+card, in float64, at 1e-10 of each cotangent group's largest entry: a
+check of the kernels' arithmetic that needs no card. The block reduction,
+shared-memory staging and launch code run only on the card
+(tests/test_torch_cuda.py). Skips without g++."""
+
+import ctypes
+import shutil
+import subprocess
+from dataclasses import replace
+
+import numpy as np
+import pytest
+import torch
+
+from optiland_tpu_torch import config
+from optiland_tpu_torch.system.optic import Optic
+from optiland_tpu_torch.trace import fused
+
+from torch_port_helpers import bench_lens, singlet_lens
+
+CSRC = fused.__file__.rsplit("/", 2)[0] + "/csrc"
+RTOL = 1e-10    # of each group's largest entry; float64 on both sides
+N_RAYS = 64
+
+# One thread's body of each kernel, looped over the rays; BlockRows becomes
+# a plain sum over rays into the (rows, 32) table.
+_SHIM = r"""
+#include <cmath>
+#define __device__
+#define __forceinline__ inline
+#define float double
+#define rsqrtf(x) (1.0 / std::sqrt(x))
+#define sqrtf std::sqrt
+#define fmaxf std::fmax
+#define fabsf std::fabs
+#define tanf std::tan
+#define cosf std::cos
+#define sinf std::sin
+struct Dim3 { int x; };
+static Dim3 threadIdx = {0}, blockDim = {1};
+inline void __syncthreads() {}
+inline double __shfl_down_sync(unsigned, double v, int) { return v; }
+#include "chain_bwd.cuh"
+
+struct Rows {
+  double* out;
+  void put(int row, const double (&v)[otk::F_STRIDE], unsigned used) const {
+    for (int j = 0; j < otk::F_STRIDE; ++j)
+      if (used & (1u << j)) out[row * otk::F_STRIDE + j] += v[j];
+  }
+};
+static double rec[otk::MAX_SURFACES][otk::REC];
+
+// mode 0: K1 moments (out4), 1: K2 with c, 2: K4 with seeds (8, n)
+extern "C" void raygen_kernels(int mode, int n, int S, int nn, int fa, int oi,
+                               const double* rg, const double* ft, const int* it,
+                               const double* Hx, const double* Hy, const double* Px,
+                               const double* Py, const double* c, const double* seeds,
+                               double* out4, double* tab, double* dd) {
+  for (int q = 0; q < 4; ++q) out4[q] = 0;
+  for (int idx = 0; idx < n; ++idx) {
+    otk::Ray r = otk::tile_raygen(fa, oi, rg, Hx[idx], Hy[idx], Px[idx], Py[idx]);
+    otk::trace_chain(S, nn, ft, it, r, rec);
+    if (mode == 0) {
+      out4[0] += r.i;
+      out4[1] += r.x * r.i;
+      out4[2] += r.y * r.i;
+      out4[3] += (r.x * r.x + r.y * r.y) * r.i;
+      continue;
+    }
+    otk::Vec6 g = {0, 0, 0, 0, 0, 0};
+    double g_opd = 0;
+    if (mode == 1) {
+      g.x = r.i * (c[1] + 2 * c[3] * r.x);
+      g.y = r.i * (c[2] + 2 * c[3] * r.y);
+    } else {
+      g = otk::Vec6{seeds[idx], seeds[n + idx], seeds[2 * n + idx],
+                    seeds[3 * n + idx], seeds[4 * n + idx], seeds[5 * n + idx]};
+      g_opd = seeds[7 * n + idx];
+    }
+    const Rows rows{tab};
+    otk::reverse_chain(S, ft, it, rec, true, g_opd, g, rows);
+    double v[otk::F_STRIDE] = {0};
+    double d4[4];
+    otk::tile_raygen_bwd(fa, oi, rg, Hx[idx], Hy[idx], Px[idx], Py[idx], g, v, d4);
+    rows.put(S, v, 0x1fu);
+    for (int q = 0; q < 4; ++q) dd[q * n + idx] = d4[q];
+  }
+}
+
+// mode 0: K5 (outs (8, n)), 1: K6 with seeds (8, n) (outs: the cotangents)
+extern "C" void caller_kernels(int mode, int n, int S, int nn, const double* ft,
+                               const int* it, const double* rays, const double* seeds,
+                               double* tab, double* outs) {
+  for (int idx = 0; idx < n; ++idx) {
+    const double* p = rays + idx;
+    otk::Ray r = {p[0], p[n], p[2 * n], p[3 * n], p[4 * n], p[5 * n],
+                  mode == 0 ? p[6 * n] : 1.0, p[7 * n]};
+    otk::trace_chain(S, nn, ft, it, r, rec);
+    double v[8] = {r.x, r.y, r.z, r.L, r.M, r.N, r.i, r.opd};
+    if (mode == 1) {
+      const double* s = seeds + idx;
+      otk::Vec6 g = {s[0], s[n], s[2 * n], s[3 * n], s[4 * n], s[5 * n]};
+      otk::reverse_chain(S, ft, it, rec, true, s[7 * n], g, Rows{tab});
+      const double dv[8] = {g.x, g.y, g.z, g.L, g.M, g.N, s[6 * n] * r.i, s[7 * n]};
+      for (int k = 0; k < 8; ++k) v[k] = dv[k];
+    }
+    for (int k = 0; k < 8; ++k) outs[k * n + idx] = v[k];
+  }
+}
+"""
+
+_SYSTEMS = {
+    "singlet": lambda O: singlet_lens(O),
+    "tilt_decenter_aperture": lambda O: singlet_lens(
+        O, tilt=True, decenter=True, aperture=4.5),
+    "odd_asphere_mirror": lambda O: singlet_lens(O, mirror=True, odd=True),
+    "conic_object_height": lambda O: singlet_lens(
+        O, asphere=False, field_type="object_height", object_distance=100.0),
+    "angle_finite_object": lambda O: singlet_lens(O, object_distance=200.0),
+    "bench": bench_lens,
+}
+
+
+@pytest.fixture(scope="module")
+def host_lib(tmp_path_factory):
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("no g++ to build the device code for the host")
+    out = tmp_path_factory.mktemp("chain_host")
+    (out / "cuda_runtime.h").write_text("#pragma once\n")
+    (out / "shim.cpp").write_text(_SHIM)
+    lib = out / "libchainhost.so"
+    build = subprocess.run([gxx, "-O1", "-std=c++17", "-shared", "-fPIC",
+                            f"-I{out}", f"-I{CSRC}", "-o", str(lib),
+                            str(out / "shim.cpp")],
+                           capture_output=True, text=True)
+    assert build.returncode == 0, build.stderr
+    return ctypes.CDLL(str(lib))
+
+
+@pytest.fixture
+def f64():
+    prev = config.get_dtype()
+    config.set_precision("float64")
+    yield
+    config.set_precision("float64" if prev == torch.float64 else "float32")
+
+
+def _ptr(a):
+    return a.ctypes.data_as(ctypes.c_void_p)
+
+
+def _np(t):
+    return np.ascontiguousarray(t.detach().numpy())
+
+
+def _close(got, ref, label):
+    got, ref = np.asarray(got), _np(ref) if torch.is_tensor(ref) else ref
+    assert got.shape == ref.shape, label
+    scale = max(np.abs(ref).max(), 1e-300)
+    np.testing.assert_allclose(got / scale, ref / scale, rtol=0, atol=RTOL,
+                               err_msg=label)
+
+
+def _close_params(tab, diffp, ref_diff):
+    names = ("cv", "conic", "coeffs", "thickness", "tilt", "decenter",
+             "mat_coeffs", "coating_params", "n_table", "grating",
+             "phase_params", "focal_length")
+    got = fused._unpack_table_grads(torch.from_numpy(tab), diffp)
+    for name, g, r in zip(names, got, ref_diff):
+        _close(_np(g), r, name)
+
+
+@pytest.mark.parametrize("name", list(_SYSTEMS))
+def test_device_code_matches_plain(host_lib, f64, name):
+    ts, tp = _SYSTEMS[name](Optic).build(device="cpu")
+    if name != "bench":
+        ts = replace(ts, newton_iters=4)
+    w = 0.5876 if name == "bench" else 0.55
+    n_table, alpha = fused._uniform_tables(ts, tp, w)
+    diffp = fused._diff_params(tp, n_table)
+    nondiffp = fused._nondiff_params(tp, alpha)
+    rg = fused._raygen_scalars(ts, tp)
+    ftab, itab = fused._pack_tables(ts, diffp, nondiffp)
+    ftab, itab, rg_np = _np(ftab), _np(itab), _np(rg)
+    S = ts.num_surfaces
+    head = [S, min(ts.newton_iters, fused._NEWTON_FUSED_MAX)]
+    rng = np.random.default_rng(5)
+    n = N_RAYS
+    data_np = [np.ascontiguousarray(a) for a in (
+        *rng.uniform(-0.5, 0.5, (2, n)), *rng.uniform(-0.9, 0.9, (2, n)))]
+    data = tuple(torch.from_numpy(a) for a in data_np)
+    seeds = np.ascontiguousarray(rng.normal(size=(8, n)))
+
+    def raygen_kernel(mode, c=None, s=None):
+        out4, tab, dd = np.zeros(4), np.zeros((S + 1, 32)), np.zeros((4, n))
+        c = np.zeros(4) if c is None else c
+        s = np.zeros((8, n)) if s is None else s
+        host_lib.raygen_kernels(
+            mode, n, *head, int(ts.field_type == "angle"),
+            int(ts.object_infinite), _ptr(rg_np), _ptr(ftab), _ptr(itab),
+            *map(_ptr, data_np), _ptr(c), _ptr(s), _ptr(out4), _ptr(tab),
+            _ptr(dd))
+        return out4, tab, dd
+
+    # K1
+    m, _, _ = raygen_kernel(0)
+    np.testing.assert_allclose(m, _np(fused._moments_plain(
+        ts, diffp, nondiffp, rg, data)), rtol=1e-12)
+    # K2
+    c = np.array([0.3, -0.7, 0.5, 1.1])
+    _, tab, dd = raygen_kernel(1, c=c)
+    d_rg, d_diff, d_data = fused._moments_bwd_plain(
+        ts, diffp, nondiffp, rg, data, torch.from_numpy(c), True)
+    _close(tab[S, :5], d_rg, "K2 rg")
+    _close_params(tab[:S], diffp, d_diff)
+    for q in range(4):
+        _close(dd[q], d_data[q], f"K2 data {q}")
+    # K4, all eight seeds (the seed of i reaches nothing)
+    _, tab, dd = raygen_kernel(2, s=seeds)
+    d_rg, d_diff, d_data = fused._raygen_trace_bwd_plain(
+        ts, diffp, nondiffp, rg, data, tuple(range(8)),
+        tuple(torch.from_numpy(a) for a in seeds))
+    _close(tab[S, :5], d_rg, "K4 rg")
+    _close_params(tab[:S], diffp, d_diff)
+    for q in range(4):
+        _close(dd[q], d_data[q], f"K4 data {q}")
+
+    # K5 and K6 on the raygen's rays with a caller's intensity and opd
+    rays8 = [r.detach().expand(n).clone() for r in fused._tile_raygen(
+        ts, rg, *data)[:6]]
+    rays8 += [torch.from_numpy(rng.uniform(0.5, 1.0, n)),
+              torch.from_numpy(rng.uniform(0.0, 1.0, n))]
+    rays_np = np.ascontiguousarray(np.stack([_np(r) for r in rays8]))
+    outs, tab = np.zeros((8, n)), np.zeros((S, 32))
+    host_lib.caller_kernels(0, n, *head, _ptr(ftab), _ptr(itab),
+                            _ptr(rays_np), _ptr(seeds), _ptr(tab), _ptr(outs))
+    ref = fused._fused_trace_plain(ts, diffp, nondiffp, rays8)
+    for k in range(8):
+        np.testing.assert_allclose(outs[k], _np(ref[k]), rtol=1e-12,
+                                   atol=1e-12, err_msg=fused._NAMES[k])
+    host_lib.caller_kernels(1, n, *head, _ptr(ftab), _ptr(itab),
+                            _ptr(rays_np), _ptr(seeds), _ptr(tab), _ptr(outs))
+    d_rays, d_diff = fused._fused_trace_bwd_plain(
+        ts, diffp, nondiffp, rays8, tuple(torch.from_numpy(a) for a in seeds))
+    for k in range(8):
+        _close(outs[k], d_rays[k], f"K6 d{fused._NAMES[k]}")
+    _close_params(tab, diffp, d_diff)

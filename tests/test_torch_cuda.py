@@ -1,14 +1,15 @@
-"""The port's CUDA kernels on the card (no JAX needed): K1 and K3 against
-their plain PyTorch versions in float32, the dispatch of the public entry
-points to the kernels, and the explicit refusals of the paths whose kernels
-are not ported yet. Every test skips without a CUDA device and nvcc.
+"""The port's CUDA kernels on the card (no JAX needed): K1-K6 against
+their plain PyTorch versions in float32, the bitwise reproducibility of the
+backward kernels' parameter cotangents, the dispatch of the public entry
+points (and their backward) to the kernels, and the explicit refusal of the
+path whose kernel is not ported yet (K7). Every test skips without a CUDA
+device and nvcc.
 
 On a machine with the card, from the repository root:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
-import math
 import shutil
 from dataclasses import replace
 
@@ -27,6 +28,12 @@ pytestmark = pytest.mark.cuda
 # float32, kernel against plain: the two round differently (FMA
 # contraction, hardware rsqrt), a few ulps per surface at mm scales
 POS_TOL, DIR_TOL, OPD_TOL, MOMENT_RTOL = 5e-4, 1e-5, 2e-3, 1e-4
+# float32 cotangents, kernel against plain, relative to each group's
+# largest entry: a parameter's sums 5000 per-ray terms, of both signs under
+# random seeds, so it cancels to a small fraction of their size (1.3e-4
+# measured on an H100 for a singlet's conic); per-ray cotangents carry the
+# chain's conditioning (6e-4 measured at 2M rays on the bench lens)
+PARAM_GRAD_RTOL, RAY_GRAD_RTOL = 1e-3, 5e-3
 
 _SYSTEMS = {
     "singlet": dict(),
@@ -82,6 +89,85 @@ def test_kernels_match_plain(cuda_f32, name):
             assert err <= tol, (fused._NAMES[k], err)
 
 
+def _rel(got, ref, keep=None):
+    if keep is not None:
+        got, ref = got[keep], ref[keep]
+    return ((got - ref).abs().max() / ref.abs().max().clamp_min(1e-30)).item()
+
+
+def _param_errs(got, ref):
+    """{group index: relative error} of the `_diff_params` cotangents."""
+    return {j: _rel(g, r) for j, (g, r) in enumerate(zip(got, ref))
+            if r.abs().max() > 0 or g.abs().max() > 0}
+
+
+@pytest.mark.parametrize("name", list(_SYSTEMS) + ["bench"])
+def test_backward_kernels_match_plain(cuda_f32, name):
+    """K2 (with and without the data cotangents), K4, K5 and K6 against
+    their plain versions; K2's and K6's parameter cotangents bitwise equal
+    over two launches."""
+    if name == "bench":
+        ts, tp = bench_lens(Optic).build(device=cuda_f32)
+        w = 0.5876
+    else:
+        ts, tp = singlet_lens(Optic, **_SYSTEMS[name]).build(device=cuda_f32)
+        ts, w = replace(ts, newton_iters=4), 0.55
+    data = _data(5000, cuda_f32)
+    diffp, nondiffp, rg = _args(ts, tp, w)
+    keep = fused.raygen_trace_forward(ts, diffp, nondiffp, rg, data,
+                                      (6,))[0] == fused._raygen_trace_plain(
+        ts, diffp, nondiffp, rg, data, (6,))[0]
+
+    c = torch.tensor([0.3, -0.7, 0.5, 1.1], device=cuda_f32)
+    before = fused.moments_backward.launches
+    got = fused.moments_backward(ts, diffp, nondiffp, rg, data, c, True)
+    ref = fused._moments_bwd_plain(ts, diffp, nondiffp, rg, data, c, True)
+    assert fused.moments_backward.launches == before + 1
+    assert _rel(got[0], ref[0]) <= PARAM_GRAD_RTOL
+    errs = _param_errs(got[1], ref[1])
+    assert errs and max(errs.values()) <= PARAM_GRAD_RTOL, errs
+    for g, r in zip(got[2], ref[2]):
+        assert _rel(g, r, keep) <= RAY_GRAD_RTOL
+    again = fused.moments_backward(ts, diffp, nondiffp, rg, data, c, False)
+    assert torch.equal(again[0], got[0])
+    assert all(torch.equal(a, b) for a, b in zip(again[1], got[1]))
+    assert not any(d.any() for d in again[2])
+
+    rng = np.random.default_rng(3)
+    seeds = [torch.tensor(rng.normal(size=5000), dtype=torch.float32,
+                          device=cuda_f32) for _ in range(8)]
+    keys = (0, 1, 5, 7)
+    got = fused.raygen_trace_backward(ts, diffp, nondiffp, rg, data, keys,
+                                      [seeds[k] for k in keys])
+    ref = fused._raygen_trace_bwd_plain(ts, diffp, nondiffp, rg, data, keys,
+                                        [seeds[k] for k in keys])
+    assert _rel(got[0], ref[0]) <= PARAM_GRAD_RTOL
+    errs = _param_errs(got[1], ref[1])
+    assert max(errs.values()) <= PARAM_GRAD_RTOL, errs
+    for g, r in zip(got[2], ref[2]):
+        assert _rel(g, r, keep) <= RAY_GRAD_RTOL
+
+    rays8 = fused._tile_raygen(ts, rg, *data)[:6] + (
+        torch.tensor(rng.uniform(0.5, 1.0, 5000), dtype=torch.float32,
+                     device=cuda_f32), torch.zeros_like(data[0]))
+    rays8 = tuple(r.contiguous() for r in rays8)
+    outs = fused.fused_trace_forward(ts, diffp, nondiffp, rays8)
+    refs = fused._fused_trace_plain(ts, diffp, nondiffp, rays8)
+    same = outs[6] == refs[6]
+    assert same.float().mean().item() >= 1 - 1e-3
+    for k, tol in enumerate((POS_TOL,) * 3 + (DIR_TOL,) * 3 + (0, OPD_TOL)):
+        if k != 6:
+            assert (outs[k] - refs[k])[same].abs().max().item() <= tol
+    got = fused.fused_trace_backward(ts, diffp, nondiffp, rays8, seeds)
+    ref = fused._fused_trace_bwd_plain(ts, diffp, nondiffp, rays8, seeds)
+    errs = _param_errs(got[1], ref[1])
+    assert max(errs.values()) <= PARAM_GRAD_RTOL, errs
+    for k, (g, r) in enumerate(zip(got[0], ref[0])):
+        assert _rel(g, r, same) <= RAY_GRAD_RTOL, fused._NAMES[k]
+    again = fused.fused_trace_backward(ts, diffp, nondiffp, rays8, seeds)
+    assert all(torch.equal(a, b) for a, b in zip(again[1], got[1]))
+
+
 def test_requested_outputs_only(cuda_f32):
     ts, tp = singlet_lens(Optic).build(device=cuda_f32)
     data = _data(1000, cuda_f32)
@@ -94,20 +180,28 @@ def test_requested_outputs_only(cuda_f32):
 
 def test_entry_points_launch_kernels(cuda_f32):
     ts, tp = bench_lens(Optic).build(device=cuda_f32)
+    tp = tp.replace(cv=tp.cv.clone().requires_grad_(True))
     data = _data(4096, cuda_f32, seed=0)
-    k1, k3 = fused.moments_forward.launches, fused.raygen_trace_forward.launches
+    counters = (fused.moments_forward, fused.moments_backward,
+                fused.raygen_trace_forward, fused.raygen_trace_backward,
+                fused.fused_trace_forward, fused.fused_trace_backward)
+    before = [f.launches for f in counters]
     m = fused.spot_moments(ts, tp, *data, 0.5876)
+    m[3].backward()
     out = tracer.trace_system_final(ts, tp, *data, 0.5876)
-    assert fused.moments_forward.launches == k1 + 1
-    assert fused.raygen_trace_forward.launches == k3 + 1
-    assert all(math.isfinite(float(v)) for v in m)
-    assert all(bool(torch.isfinite(v).all()) for v in out.values())
-    # the paths whose kernels are the next slice refuse, naming the kernel
+    out["x"].square().sum().backward()
+    # a vignetted system leaves in-kernel raygen: the caller-ray pair
+    vignetted = replace(ts, has_vignetting=True)
+    out_v = tracer.trace_system_final(vignetted, tp, *data, 0.5876)
+    out_v["y"].square().sum().backward()
+    assert [f.launches - b for f, b in zip(counters, before)] == [1] * 6
+    assert bool(torch.isfinite(torch.stack(m)).all())
+    for o in (out, out_v):
+        assert all(bool(torch.isfinite(v).all()) for v in o.values())
+    assert bool(torch.isfinite(tp.cv.grad).all()) and tp.cv.grad.any()
+    # the path whose kernel is the next slice refuses, naming the kernel
     with pytest.raises(NotImplementedError, match="K7 _history_forward"):
         tracer.trace_system(ts, tp, *data, 0.5876)
-    vignetted = replace(ts, has_vignetting=True)
-    with pytest.raises(NotImplementedError, match="K5 _fused_forward"):
-        tracer.trace_system_final(vignetted, tp, *data, 0.5876)
 
 
 def test_wrapper_rejects_bad_inputs(cuda_f32):

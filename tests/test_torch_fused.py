@@ -104,17 +104,30 @@ def test_cpu_dispatch_is_eager_and_launches_nothing(bench_pair):
 
 
 def test_kernel_seams_refuse_backward(bench_pair):
+    """The K1 and K3 seams no longer refuse a backward: on CPU tensors
+    their gradients (K2, K4) equal the plain versions', here for cv and
+    for the raygen scalars through autograd around the seam."""
     _, (ts, tp) = bench_pair
-    tp = tp.replace(cv=tp.cv.clone().requires_grad_(True))
     data = _t(_data(seed=0, n=16))
-    p = _port_args(ts, tp, 0.5876)
+    diffp, nondiffp, rg = _port_args(ts, tp, 0.5876)
+    cv = diffp[0].clone().requires_grad_(True)
+    rg_ = rg.clone().requires_grad_(True)
+    p = ((cv,) + tuple(diffp[1:]), nondiffp, rg_)
     m = tfused.fused_spot_moments(ts, p, data)
-    with pytest.raises(NotImplementedError, match="K2 _moments_bwd"):
-        m[3].backward()
-    out = tfused.fused_raygen_trace_final(ts, (0, 1), _port_args(
-        ts, tp, 0.5876), data)
-    with pytest.raises(NotImplementedError, match="K4 _raygen_bwd"):
-        out[0].sum().backward()
+    g_cv, g_rg = torch.autograd.grad(m[3], (cv, rg_))
+    c = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=torch.float64)
+    d_rg, d_diff, _ = tfused._moments_bwd_plain(ts, diffp, nondiffp, rg,
+                                                data, c, True)
+    assert torch.equal(g_cv, d_diff[0]) and torch.equal(g_rg, d_rg)
+    assert g_cv.abs().max() > 0
+
+    out = tfused.fused_raygen_trace_final(ts, (0, 1), p, data)
+    g_cv, g_rg = torch.autograd.grad(out[0].sum(), (cv, rg_))
+    d_rg, d_diff, _ = tfused._raygen_trace_bwd_plain(
+        ts, diffp, nondiffp, rg, data, (0, 1),
+        (torch.ones(16, dtype=torch.float64), None))
+    assert torch.equal(g_cv, d_diff[0]) and torch.equal(g_rg, d_rg)
+    assert g_rg.abs().max() > 0
 
 
 def test_unported_chain_branches_raise():
