@@ -32,12 +32,28 @@ PyTorch built for CUDA. In order it:
  11. (e) holds K2, K4, K5 and K6 against their plain versions, and K2's and
      K6's parameter cotangents bitwise against a second launch;
  12. (f) a trainer: 5 torch.optim.Adam steps (lr 1e-4) of the training step;
- 13. (g) times each kernel and its plain version with CUDA events (warm-up,
-     then the median of 25 calls) and the training step end to end, and
-     prints one JSON line of kernels;
- 14. prints as its last line {"ok": true, "device": {...}}.
-Every path is driven with all six launch counters set to 0 just before it
-and read just after, and fails unless its kernels were launched.
+ 13. the flagship: the Cooke triplet (8 surfaces, absorbing SK16 and F2,
+     3 fields x 3 wavelengths) built on the card in float32 and float64,
+     and the 1,999,998-ray batch of `__graft_entry__._make_inputs(...,
+     222_222)` (a numpy copy here, seed 0);
+ 14. (h) `trace_system` at per-ray wavelengths (reaches K7): every row of
+     the (S, n) history against the plain version and against the eager
+     float64 trace on the card;
+ 15. (i) the flagship training step: `__graft_entry__.entry`'s RMS-spot
+     merit, `.backward()` (K7 forward, the eager twin's backward), finite
+     gradients on every leaf that agree with float64 autograd, and 5
+     torch.optim.Adam steps (lr 1e-4) over every leaf;
+ 16. (j) `centroid_rms_spot(..., 0.55)` and its backward on the Cooke
+     triplet (K1 and K2 with absorption) against their plain versions and
+     float64;
+ 17. (k) `CookeTriplet().trace(Hx=0, Hy=1, num_rays=6)`, the user's entry,
+     reaches K7;
+ 18. (g) times each kernel and its plain version with CUDA events (warm-up,
+     then the median of 25 calls), the training steps and the flagship
+     forward end to end, and prints one JSON line of kernels;
+ 19. prints as its last line {"ok": true, "device": {...}}.
+Every path is driven with all seven launch counters set to 0 just before
+it and read just after, and fails unless its kernels were launched.
 
 Any failed check raises and the script exits non-zero. Without a CUDA card,
 or without the repository around it, it exits non-zero and prints no
@@ -46,6 +62,7 @@ result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -88,6 +105,9 @@ TOL = {
     "direction": 1e-5,       # L, M, N
     "opd_mm": 2e-3,          # 12 accumulated |t n| terms of ~30 mm
     "intensity_frac": 1e-5,  # rays whose i differs (edge TIR / clipping)
+    # i of the rays both keep: a product of three f32 exp factors of about
+    # 0.9995 each (absorbing glass), a few ulps (6e-8) apart
+    "intensity": 2e-6,
     "moment_rel": 1e-4,      # moments, relative to their natural scale
     "param_grad_rel": 1e-4,  # raygen-scalar and table cotangents
     "ray_grad_rel": 5e-3,    # per-ray cotangents
@@ -95,7 +115,22 @@ TOL = {
 # The main path against the eager float64 path: float32 against float64
 # (kernel: capped Newton; eager: 16 iterations), same scales.
 TOL_F64 = {"position_mm": 5e-4, "direction": 1e-5, "moment_rel": 1e-4,
-           "loss_rel": 1e-3, "grad_rel": 1e-4}
+           "loss_rel": 1e-3, "grad_rel": 1e-4, "opd_mm": 2e-3,
+           "intensity": 2e-6}
+# Some flagship gradients cancel: the merit is invariant to a common scale
+# of the intensities (the extinction tables act only through it), and the
+# raygen's start plane moves with the aperture, a shift each ray's trace
+# undoes (the aperture, the wavelengths through the paraxial pupil, the
+# vignetting factors). In float32 they miss float64 by more than 1e-4 of
+# their largest entry in the eager float32 trace itself, with no kernel
+# (printed beside). The kernel path rounds its forward differently (FMA
+# contraction), an independent draw of that noise. Each flagship gradient
+# is held to the larger of TOL_F64["grad_rel"] and this factor times the
+# eager float32 path's own error on the same leaf.
+GRAD_NOISE_FACTOR = 10
+# the flagship batch: `__graft_entry__._make_inputs(static, params, 222_222)`
+FLAGSHIP_RAYS_PER_FIELD = 222_222
+FLAGSHIP_WAVELENGTH = 0.55   # `dryrun_multichip`'s primary-wavelength phase
 
 
 def check(cond, msg):
@@ -214,6 +249,73 @@ def backward_ops_per_ray(static, fused, raygen=True):
     return ops + 1   # n_table[0]
 
 
+def flagship_inputs(params, device, rays_per_field=FLAGSHIP_RAYS_PER_FIELD):
+    """(Hx, Hy, Px, Py, w) flat batches over fields x wavelengths x pupil,
+    made as `__graft_entry__._make_inputs` makes them (seed 0), float32."""
+    rng = np.random.default_rng(0)
+    xf = params.x_fields.double().cpu().numpy()
+    yf = params.y_fields.double().cpu().numpy()
+    wl = params.wavelengths.double().cpu().numpy()
+    F, W, n = len(xf), len(wl), rays_per_field
+    r = np.sqrt(rng.uniform(size=n))
+    th = rng.uniform(0, 2 * np.pi, size=n)
+    Px, Py = r * np.cos(th), r * np.sin(th)
+    m = max(float(np.max(np.hypot(xf, yf))), 1e-12)
+    Hx = np.repeat(np.tile(xf / m, W), n)
+    Hy = np.repeat(np.tile(yf / m, W), n)
+    w = np.repeat(np.repeat(wl, F), n)
+    Px = np.tile(Px, F * W)
+    Py = np.tile(Py, F * W)
+    return tuple(torch.from_numpy(a.astype(np.float32)).to(device)
+                 for a in (Hx, Hy, Px, Py, w))
+
+
+def flagship_merit(hist):
+    """`__graft_entry__.entry`'s merit: the intensity-weighted RMS spot
+    about the centroid, on the image row of the history."""
+    x, y, i = hist.x[-1], hist.y[-1], hist.intensity[-1]
+    wsum = torch.sum(i) + 1e-12
+    cx = torch.sum(x * i) / wsum
+    cy = torch.sum(y * i) / wsum
+    return torch.sum(((x - cx) ** 2 + (y - cy) ** 2) * i) / wsum
+
+
+# FP32 operations of `material_index` per formula code, counted as
+# `chain_ops_per_ray` counts (pow, sqrt and a divide one each), for nc
+# coefficients; the tabulated formula's binary search is compares and loads
+FORMULA_OPS = {
+    0: lambda nc: 0,
+    1: lambda nc: 1 + 1 + 5 * ((nc - 1) // 2) + 1,
+    2: lambda nc: 1 + 1 + 4 * ((nc - 1) // 2) + 1,
+    3: lambda nc: 3 * ((nc - 1) // 2) + 1,
+    4: lambda nc: 1 + 12 + 3 * max(0, (nc - 9) // 2) + 1,
+    5: lambda nc: 3 * ((nc - 1) // 2),
+    6: lambda nc: 2 + 1 + 3 * ((nc - 1) // 2),
+    7: lambda nc: 1 + 3 + 4 + 3 * max(0, nc - 3),
+    8: lambda nc: 12,
+    9: lambda nc: 12,
+    10: lambda nc: 6,
+    11: lambda nc: 2 * (nc - 1),
+}
+
+
+def history_ops_per_ray(static, fused, K):
+    """FP32 operations per ray of K7's function: the chain on loaded rays
+    (`chain_ops_per_ray` without the raygen), the per-ray index of every
+    medium a refraction reads, and per absorbing medium the K-point
+    extinction interpolation as `_kv_interp` writes it (9 operations per
+    segment, 3 for the edges), alpha = 4 pi k / w and the exp factor."""
+    ops = chain_ops_per_ray(static, fused) - 32
+    media = [0] + [k for k in range(1, static.num_surfaces)
+                   if static.interactions[k] == 0]
+    ops += sum(FORMULA_OPS[static.mat_formulas[k]](static.mat_n_coeffs[k])
+               for k in media)
+    ops += sum(3 + 9 * (K - 1) + 2 + 4
+               for k in range(static.num_surfaces - 1)
+               if static.has_absorption[k])
+    return ops
+
+
 def bound_ms(n_bytes, n_ops):
     t_bytes = n_bytes / PEAK_BYTES_PER_S
     t_ops = n_ops / PEAK_FP32_FLOPS
@@ -298,6 +400,7 @@ def main():
         return 3
     sys.path.insert(0, str(ROOT))
     from optiland_tpu_torch import _build, config
+    from optiland_tpu_torch.models import CookeTriplet
     from optiland_tpu_torch.optimization.merits import (
         centroid_rms_from_moments,
         centroid_rms_spot,
@@ -313,7 +416,8 @@ def main():
                 "K3": fused.raygen_trace_forward,
                 "K4": fused.raygen_trace_backward,
                 "K5": fused.fused_trace_forward,
-                "K6": fused.fused_trace_backward}
+                "K6": fused.fused_trace_backward,
+                "K7": fused.history_forward}
 
     def reset_counts():
         for f in counters.values():
@@ -420,7 +524,8 @@ def main():
     free()
 
     # 6. K1 and K3 against their plain versions on the same inputs
-    p, data = fused._prepare(static, params, Hx, Hy, Px, Py, WAVELENGTH)
+    p, data = fused._prepare(static, params, Hx, Hy, Px, Py, WAVELENGTH,
+                             "K1")
     k1 = fused.moments_forward(static, *p, data)
     k1_plain = fused._moments_plain(static, *p, data)
     k1_scale = torch.stack([k1_plain[0], (k1_plain[0] * k1_plain[3]).sqrt(),
@@ -642,13 +747,234 @@ def main():
     check(all(math.isfinite(v) for v in losses), "Adam losses finite")
     check(all(v > 0 for v in moved.values()), "Adam moved every leaf")
 
+    # 13. the flagship: the Cooke triplet on the card in float32 and
+    # float64, and `_make_inputs`'s 1,999,998-ray batch
+    static_c, params_c = CookeTriplet().build(device="cuda")
+    check(static_c.num_surfaces == 8 and any(static_c.has_absorption),
+          "Cooke triplet: 8 surfaces, absorbing glasses")
+    check(fused.supports_fused(static_c), "Cooke triplet inside the gate")
+    fb = flagship_inputs(params_c, dev)
+    n_c, S_c = fb[0].shape[0], static_c.num_surfaces
+    check(n_c == 1_999_998, "flagship batch of 1,999,998 rays")
+    config.set_precision("float64")
+    static_c64, params_c64 = CookeTriplet().build(device="cuda")
+    config.set_precision("float32")
+    fb64 = tuple(a.double() for a in fb)
+    hist_tol = {"x": "position_mm", "y": "position_mm", "z": "position_mm",
+                "L": "direction", "M": "direction", "N": "direction",
+                "intensity": "intensity", "opd": "opd_mm"}
+
+    def history_errs(got, ref):
+        """Largest |got - ref| per history array over all S rows, on the
+        rays both keep alive at every surface, and the share of the rest."""
+        keep_h = ((got[6] > 0) == (ref[6] > 0)).all(dim=0)
+        errs = {"intensity_frac": 1.0 - keep_h.double().mean().item()}
+        for k, key in enumerate(fused._NAMES):
+            errs[key] = (got[k].double() - ref[k].double())[:, keep_h].abs(
+            ).max().item()
+        return errs
+
+    def as_tuple(h):
+        return (h.x, h.y, h.z, h.L, h.M, h.N, h.intensity, h.opd)
+
+    # 14. (h) trace_system at per-ray wavelengths: K7
+    reset_counts()
+    hist = tracer.trace_system(static_c, params_c, *fb)
+    hist_launches = read_counts()
+    print(f"flagship trace_system launches: {hist_launches}")
+    check(hist_launches["K7"] >= 1, "flagship trace_system launched K7")
+    for key, v in zip(fused._NAMES, as_tuple(hist)):
+        check(v.shape == (S_c, n_c) and v.dtype == torch.float32,
+              f"history {key}: shape and dtype")
+        check(bool(torch.isfinite(v).all()), f"history {key}: finite")
+    i_img = hist.intensity[-1]
+    lit = i_img[i_img > 0]
+    print(f"flagship image intensities: {lit.numel()} of {n_c} rays lit, "
+          f"min {lit.min().item():.6g} max {lit.max().item():.6g} "
+          "(absorbing glass)")
+    check(lit.numel() > n_c // 2 and lit.max().item() < 1.0,
+          "most rays reach the image, attenuated")
+    ref_h = tracer.trace_system(static_c64, params_c64, *fb64)
+    check(read_counts() == hist_launches, "float64 history ran eager")
+    err_h = history_errs(as_tuple(hist), as_tuple(ref_h))
+    print("flagship history vs eager float64, all rows: " + json.dumps(err_h)
+          + f" tolerances {json.dumps(TOL_F64)}")
+    check(err_h["intensity_frac"] <= TOL["intensity_frac"], "history i set")
+    for key, tol in hist_tol.items():
+        check(err_h[key] <= TOL_F64[tol], f"history {key} vs f64")
+    del ref_h, hist
+    free()
+
+    rays0_c = generate_rays(static_c, params_c, *fb)
+    rays9 = tuple(getattr(rays0_c, k).detach().contiguous()
+                  for k in fused._RAY_KEYS)
+    del rays0_c
+    p7 = (fused._diff_params(params_c), fused._nondiff_params(params_c))
+    k7_err = history_errs(fused.history_forward(static_c, *p7, rays9),
+                          fused._history_plain(static_c, *p7, rays9))
+    print("K7 vs plain, all rows: " + json.dumps(k7_err)
+          + f" tolerances {json.dumps(TOL)}")
+    check(k7_err["intensity_frac"] <= TOL["intensity_frac"], "K7 i set")
+    for key, tol in hist_tol.items():
+        check(k7_err[key] <= TOL[tol], f"K7 {key} vs plain")
+    k7_abs = max(v for k, v in k7_err.items() if k != "intensity_frac")
+    free()
+
+    # 15. (i) the flagship training step over every parameter leaf
+    names_c = [f.name for f in dataclasses.fields(params_c)
+               if getattr(params_c, f.name) is not None
+               and getattr(params_c, f.name).numel()]
+    leaves_h, p_h = leaves_of(params_c, names_c)
+    reset_counts()
+    loss_h = flagship_merit(tracer.trace_system(static_c, p_h, *fb))
+    loss_h.backward()
+    flag_launches = read_counts()
+    print(f"flagship training step launches: {flag_launches}")
+    check(flag_launches["K7"] >= 1, "flagship step launched K7")
+    for k, v in leaves_h.items():
+        check(v.grad is None or bool(torch.isfinite(v.grad).all()),
+              f"flagship {k} gradient finite")
+    config.set_precision("float64")
+    leaves64_h, p64_h = leaves_of(params_c64, names_c)
+    loss64_h = flagship_merit(tracer.trace_system(static_c64, p64_h, *fb64))
+    loss64_h.backward()
+    check(read_counts() == flag_launches, "float64 flagship step ran eager")
+    config.set_precision("float32")
+    # the same merit through the eager float32 trace (no kernel): the
+    # rounding float32 itself leaves in each leaf's gradient
+    leaves_e, p_e = leaves_of(params_c, names_c)
+    flagship_merit(tracer.trace_rays(static_c, p_e, generate_rays(
+        static_c, p_e, *fb))).backward()
+    check(read_counts() == flag_launches, "float32 eager reference ran eager")
+
+    def grad_of(leaves, k):
+        g = leaves[k].grad
+        return torch.zeros_like(leaves[k]) if g is None else g
+
+    flag_err = {"loss_rel": abs(loss_h.item() - loss64_h.item())
+                / abs(loss64_h.item())}
+    eager_err = {}
+    for k in names_c:
+        g32, g64 = grad_of(leaves_h, k), grad_of(leaves64_h, k)
+        if g64.abs().max() > 0 or g32.abs().max() > 0:
+            flag_err[k] = rel_err(g32, g64)
+            eager_err[k] = rel_err(grad_of(leaves_e, k), g64)
+    print("flagship merit and gradients vs eager float64 autograd, relative "
+          f"to each leaf's largest entry: {json.dumps(flag_err)}; the eager "
+          f"float32 path's own: {json.dumps(eager_err)}; tolerances loss_rel "
+          f"{TOL_F64['loss_rel']}, per leaf the larger of grad_rel "
+          f"{TOL_F64['grad_rel']} and {GRAD_NOISE_FACTOR}x the eager "
+          "float32 path's error")
+    check(flag_err.pop("loss_rel") <= TOL_F64["loss_rel"], "flagship loss")
+    check(flag_err and all(
+        v <= max(TOL_F64["grad_rel"], GRAD_NOISE_FACTOR * eager_err[k])
+        for k, v in flag_err.items()), "flagship gradients vs f64")
+    del leaves64_h, p64_h, loss64_h, leaves_h, p_h, loss_h, leaves_e, p_e
+    free()
+
+    leaves_a, p_a = leaves_of(params_c, names_c)
+    start_a = {k: v.detach().clone() for k, v in leaves_a.items()}
+    opt_h = torch.optim.Adam(list(leaves_a.values()), lr=ADAM_LR)
+
+    def flagship_step():
+        opt_h.zero_grad()
+        step_loss = flagship_merit(tracer.trace_system(static_c, p_a, *fb))
+        step_loss.backward()
+        opt_h.step()
+        return step_loss
+
+    losses_h = []
+    for _ in range(ADAM_STEPS):
+        reset_counts()
+        losses_h.append(flagship_step().item())
+        c_step = read_counts()
+        check(c_step["K7"] == 1 and sum(c_step.values()) == 1,
+              f"flagship Adam step launched K7 once: {c_step}")
+        check(all(v.grad is None or bool(torch.isfinite(v.grad).all())
+                  for v in leaves_a.values()), "flagship Adam grads finite")
+    moved_h = {k: (v.detach() - start_a[k])[torch.isfinite(start_a[k])].abs(
+    ).max().item() for k, v in leaves_a.items()
+        if torch.isfinite(start_a[k]).any()}
+    print(f"flagship {ADAM_STEPS} Adam steps over {len(leaves_a)} leaves "
+          f"(lr {ADAM_LR}): losses {losses_h}, largest change "
+          f"{json.dumps(moved_h)}")
+    check(all(math.isfinite(v) for v in losses_h), "flagship losses finite")
+    check(any(v > 0 for v in moved_h.values()), "Adam moved some leaf")
+    free()
+
+    # 16. (j) `dryrun_multichip`'s second phase: centroid_rms_spot at the
+    # primary wavelength on the Cooke triplet, K1 and K2 with absorption
+    spot_names = ("cv", "conic", "thickness", "mat_coeffs")
+    leaves_j, p_j = leaves_of(params_c, spot_names)
+    reset_counts()
+    loss_j = centroid_rms_spot(static_c, p_j, *fb[:4], FLAGSHIP_WAVELENGTH,
+                               diff_inputs=False)
+    loss_j.backward()
+    spot_launches = read_counts()
+    print(f"Cooke centroid_rms_spot + backward launches: {spot_launches}")
+    check(spot_launches["K1"] >= 1 and spot_launches["K2"] >= 1,
+          "Cooke centroid_rms_spot launched K1 and K2")
+    config.set_precision("float64")
+    leaves64_j, p64_j = leaves_of(params_c64, spot_names)
+    loss64_j = centroid_rms_spot(static_c64, p64_j, *fb64[:4],
+                                 FLAGSHIP_WAVELENGTH)
+    loss64_j.backward()
+    check(read_counts() == spot_launches, "float64 spot merit ran eager")
+    config.set_precision("float32")
+    spot_err = {"loss_rel": abs(loss_j.item() - loss64_j.item())
+                / abs(loss64_j.item())}
+    spot_err.update({k: rel_err(leaves_j[k].grad, leaves64_j[k].grad)
+                     for k in spot_names})
+    print("Cooke centroid_rms_spot vs eager float64: "
+          + json.dumps(spot_err) + " tolerances loss_rel "
+          f"{TOL_F64['loss_rel']} grad_rel {TOL_F64['grad_rel']}")
+    check(spot_err.pop("loss_rel") <= TOL_F64["loss_rel"], "spot loss")
+    for k, v in spot_err.items():
+        check(v <= TOL_F64["grad_rel"], f"Cooke spot {k} gradient vs f64")
+    del leaves64_j, p64_j, loss64_j
+    pc, data_c = fused._prepare(static_c, params_c, *fb[:4],
+                                FLAGSHIP_WAVELENGTH, "K1")
+    k1c = fused.moments_forward(static_c, *pc, data_c)
+    k1c_plain = fused._moments_plain(static_c, *pc, data_c)
+    k1c_scale = torch.stack([k1c_plain[0], (k1c_plain[0] * k1c_plain[3]).sqrt(),
+                             (k1c_plain[0] * k1c_plain[3]).sqrt(),
+                             k1c_plain[3]])
+    k1c_rel = ((k1c - k1c_plain).abs() / k1c_scale).max().item()
+    print(f"K1 (Cooke) vs plain: max rel {k1c_rel:.6g} "
+          f"(tolerance {TOL['moment_rel']})")
+    check(k1c_rel <= TOL["moment_rel"], "K1 (Cooke) vs plain")
+    mc_leaf = k1c.detach().requires_grad_(True)
+    c_cooke, = torch.autograd.grad(
+        centroid_rms_from_moments(*mc_leaf.unbind()), mc_leaf)
+    i_k3 = fused.raygen_trace_forward(static_c, *pc, data_c, (6,))[0]
+    i_k3p = fused._raygen_trace_plain(static_c, *pc, data_c, (6,))[0]
+    keep_cj = (i_k3 > 0) == (i_k3p > 0)
+    del i_k3, i_k3p
+    k2c = fused.moments_backward(static_c, *pc, data_c, c_cooke, True)
+    k2c_plain = fused._moments_bwd_plain(static_c, *pc, data_c, c_cooke, True)
+    k2c_errs, k2c_rays, _ = cotangent_errs(k2c, k2c_plain, keep_cj)
+    check_cotangents("K2 (Cooke)", k2c_errs, k2c_rays)
+    del k2c, k2c_plain, leaves_j, p_j
+    free()
+
+    # 17. (k) the user's entry: Optic.trace on the card
+    reset_counts()
+    h_user = CookeTriplet().trace(Hx=0, Hy=1, num_rays=6)
+    user_launches = read_counts()
+    print(f"CookeTriplet().trace(Hx=0, Hy=1, num_rays=6) launches: "
+          f"{user_launches}, history shape {tuple(h_user.x.shape)}")
+    check(user_launches["K7"] == 1, "Optic.trace launched K7")
+    check(h_user.x.shape == (8, 127) and h_user.x.is_cuda
+          and all(bool(torch.isfinite(v).all()) for v in as_tuple(h_user)),
+          "Optic.trace history: shape, device, finite")
+
     # 13. (g) times and bounds, at the main paths' shapes. A kernel's time
     # is its bare launch (tables packed once, outside the timed region);
     # these launches bypass the wrappers and their counters.
     n, head, ptrs, keep_alive = fused._launch_args(static, p[2], p[0], p[1],
-                                                   data)
+                                                   data, "K1")
     nv, head_v, ptrs_v, keep_alive_v = fused._caller_ray_args(
-        static_v, *p_v, rays8)
+        static_v, *p_v, rays8, "K5")
     stream = torch.cuda.current_stream(dev).cuda_stream
     blocks = -(-n // fused._BLOCK)
     S = static.num_surfaces
@@ -659,6 +985,10 @@ def main():
     k4_s8, k4_sp = fused._seed_ptrs([dict(zip(k4_keys, k4_seeds)).get(k)
                                      for k in range(8)], n, dev)
     k6_s8, k6_sp = fused._seed_ptrs(k6_seeds, nv, dev)
+    ftab7, itab7 = fused._pack_tables(static_c, *p7)
+    mat7 = p7[0][6].contiguous()
+    kwl7, kval7 = p7[1][1].contiguous(), p7[1][2].contiguous()
+    hist7 = [torch.empty((S_c, n_c), device=dev) for _ in range(8)]
 
     def launch(name, *args):
         err = fused._kernel(name)(*args, stream)
@@ -680,6 +1010,13 @@ def main():
         "K6": lambda: launch("fused_trace_bwd", *head_v, *ptrs_v, *k6_sp,
                              partials_bwd.data_ptr(),
                              *(o.data_ptr() for o in outs)),
+        "K7": lambda: launch(
+            "history_fwd", n_c, S_c,
+            min(static_c.newton_iters, fused._NEWTON_FUSED_MAX),
+            mat7.shape[1], kwl7.shape[1], ftab7.data_ptr(),
+            itab7.data_ptr(), mat7.data_ptr(), kwl7.data_ptr(),
+            kval7.data_ptr(), *(r.data_ptr() for r in rays9),
+            *(h.data_ptr() for h in hist7)),
     }
     plains = {
         "K1": lambda: fused._moments_plain(static, *p, data),
@@ -691,11 +1028,13 @@ def main():
         "K5": lambda: fused._fused_trace_plain(static_v, *p_v, rays8),
         "K6": lambda: fused._fused_trace_bwd_plain(static_v, *p_v, rays8,
                                                    k6_seeds),
+        "K7": lambda: fused._history_plain(static_c, *p7, rays9),
     }
     fwd_ops = chain_ops_per_ray(static, fused)
     bwd_ops = backward_ops_per_ray(static, fused)
     caller_fwd_ops = chain_ops_per_ray(static_v, fused) - 32
     caller_bwd_ops = backward_ops_per_ray(static_v, fused, raygen=False)
+    hist_ops = history_ops_per_ray(static_c, fused, kwl7.shape[1])
     bounds = {   # (bytes, operations) of each function at these inputs
         "K1": (4 * 4 * n, (fwd_ops + 10) * n),
         "K2": (4 * 4 * n, (bwd_ops + 8) * n),
@@ -703,6 +1042,8 @@ def main():
         "K4": ((4 + len(k4_keys) + 4) * 4 * n, bwd_ops * n),
         "K5": ((8 + 8) * 4 * nv, caller_fwd_ops * nv),
         "K6": ((7 + 8 + 8) * 4 * nv, caller_bwd_ops * nv),
+        # 9 arrays in, 8 (S, n) arrays out (row 0 the input bundle)
+        "K7": ((9 + 8 * S_c) * 4 * n_c, hist_ops * n_c),
     }
     meta = {
         "K1": ("_moments_forward", "moments_fwd.cu", 1431, k1_abs,
@@ -719,6 +1060,8 @@ def main():
                caller_launches),
         "K6": ("_fused_bwd", "fused_trace_bwd.cu", 900, k6_abs,
                caller_launches),
+        "K7": ("_history_forward", "history_fwd.cu", 1258, k7_abs,
+               hist_launches),
     }
     rows = []
     for key, (fn_name, src, line, err, path_launches) in meta.items():
@@ -732,16 +1075,21 @@ def main():
             bound_ms=b_ms, bound_by=b_by, library_ms=None))
         free()
 
-    def timed_step():
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        train_step()
-        torch.cuda.synchronize()
-        return 1e3 * (time.perf_counter() - t)
+    def host_ms(fn, calls=TIMED_STEPS):
+        """Median host-clock time of `fn` between two synchronizes, after
+        two warm-up calls."""
+        def once():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            return 1e3 * (time.perf_counter() - t)
 
-    for _ in range(2):
-        timed_step()
-    step_ms = float(np.median([timed_step() for _ in range(TIMED_STEPS)]))
+        for _ in range(2):
+            once()
+        return float(np.median([once() for _ in range(calls)]))
+
+    step_ms = host_ms(train_step)
     wrap_ms = {
         "K1 wrapper": time_ms(lambda: fused.moments_forward(static, *p,
                                                              data)),
@@ -753,13 +1101,55 @@ def main():
             static, params, Hx, Hy, Px, Py, WAVELENGTH)),
         "trace_system_final": time_ms(lambda: tracer.trace_system_final(
             static, params, Hx, Hy, Px, Py, WAVELENGTH)),
+        "K1 wrapper (Cooke)": time_ms(lambda: fused.moments_forward(
+            static_c, *pc, data_c)),
+        "K2 wrapper (Cooke)": time_ms(lambda: fused.moments_backward(
+            static_c, *pc, data_c, c_cooke, False)),
+        "K7 wrapper (Cooke)": time_ms(lambda: fused.history_forward(
+            static_c, *p7, rays9)),
     }
     print(f"end to end at 2M rays, float32, median of {TIMED_CALLS} (ms): "
           + json.dumps(wrap_ms) + f"; chain FP32 ops/ray {fwd_ops}, "
-          f"backward {bwd_ops}")
+          f"backward {bwd_ops}, K7 (Cooke) {hist_ops}")
     print(f"training step (centroid_rms_spot diff_inputs=False, backward, "
           f"Adam) at 2M rays, host clock, median of {TIMED_STEPS}: "
           f"{step_ms:.4f} ms, {N_RAYS / step_ms * 1e3:.6g} rays/s")
+
+    # the flagship forward and training step, and the step's split
+    fwd_c_ms = host_ms(lambda: tracer.trace_system(static_c, params_c, *fb))
+    step_c_ms = host_ms(flagship_step)
+    split = {"generate_rays": [], "K7 forward + merit": [],
+             "backward (eager twin)": [], "Adam": []}
+    for _ in range(TIMED_STEPS):
+        opt_h.zero_grad()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r0 = generate_rays(static_c, p_a, *fb)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        h = fused.trace_history_fused(static_c, p_a, r0)
+        step_loss = flagship_merit(h)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        step_loss.backward()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        opt_h.step()
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        for key, a, b in zip(split, (t0, t1, t2, t3), (t1, t2, t3, t4)):
+            split[key].append(1e3 * (b - a))
+        del r0, h, step_loss
+    split = {k: float(np.median(v)) for k, v in split.items()}
+    torch.cuda.reset_peak_memory_stats()
+    flagship_step()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"flagship (Cooke triplet, {n_c} rays, float32) host clock, "
+          f"median of {TIMED_STEPS}: trace_system {fwd_c_ms:.4f} ms; "
+          f"training step (merit, backward, Adam over {len(leaves_a)} "
+          f"leaves) {step_c_ms:.4f} ms, {n_c / step_c_ms * 1e3:.6g} rays/s; "
+          f"step split (ms) {json.dumps(split)}; step peak device memory "
+          f"{peak_gb:.3f} GB")
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

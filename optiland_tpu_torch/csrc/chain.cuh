@@ -2,12 +2,16 @@
 //
 // Port of the per-tile body of the Pallas kernels in
 // optiland_tpu/trace/fused.py: `tile_raygen` is `_tile_raygen`,
-// `trace_chain` is `_tile_trace` (value pass, uniform wavelength) for the
-// branches of this slice: plane / conic / even / odd asphere geometries,
-// refract / reflect / none interactions, radial apertures, tilt and
-// decenter. The Python wrappers (trace/fused.py, `_check_kernel_branches`)
-// refuse every other branch before a launch. chain_bwd.cuh holds the
-// reverse sweep built from the same pieces.
+// `trace_chain` is `_tile_trace` (value pass) for the branches of the
+// port: plane / conic / even / odd asphere geometries, refract / reflect /
+// none interactions, radial apertures, tilt and decenter, Beer-Lambert
+// absorption; at one wavelength from the hoisted index and absorption
+// tables (K1-K6), or at each ray's own wavelength (`Dispersion`, K7:
+// `material_index` for every formula code of materials/dispersion.py and
+// `kv_interp` of the extinction tables). The Python wrappers
+// (trace/fused.py, `_check_kernel_branches`) refuse every other branch
+// before a launch. chain_bwd.cuh holds the reverse sweep built from the
+// same pieces.
 //
 // The JAX kernel unrolls the chain on static per-surface codes; here the
 // chain loops over the surfaces at run time and switches on the codes held
@@ -17,7 +21,8 @@
 // same 1e-12 safe-divides and root choice, min(newton_iters, 2) + 1 Newton
 // updates for aspheres (none for pure conics), opd += |t n|, i *= valid,
 // aperture x^2 + y^2 <= r^2, normal orientation by sign(l.n), TIR
-// passthrough. IEEE sqrtf / tanf and no fast-math.
+// passthrough, i *= exp(-alpha t 1e3) in an absorbing medium. IEEE sqrtf /
+// tanf / powf / expf and no fast-math.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -32,7 +37,7 @@ constexpr int F_THICK = 19;
 constexpr int F_TILT = 20;   // rx, ry, rz
 constexpr int F_DEC = 23;    // dx, dy
 constexpr int F_NTAB = 25;   // index after the surface at the wavelength
-constexpr int F_ALPHA = 26;  // absorption per gap (not used by this slice)
+constexpr int F_ALPHA = 26;  // Beer-Lambert alpha of the medium after the surface
 constexpr int F_AP = 27;     // radial semi-aperture
 constexpr int F_COAT = 28;   // coating T, R (not used by this slice)
 constexpr int F_STRIDE = 32;
@@ -45,7 +50,10 @@ constexpr int I_INTER = 2;
 constexpr int I_TILT = 3;
 constexpr int I_DEC = 4;
 constexpr int I_AP = 5;
-constexpr int I_STRIDE = 8;
+constexpr int I_FORM = 6;  // dispersion formula of the medium after the surface
+constexpr int I_NMAT = 7;  // its number of coefficients
+constexpr int I_ABS = 8;   // 1 where that medium absorbs
+constexpr int I_STRIDE = 16;
 
 constexpr int GEOM_PLANE = 0;
 constexpr int GEOM_EVEN_ASPHERE = 2;
@@ -53,6 +61,10 @@ constexpr int GEOM_ODD_ASPHERE = 3;
 constexpr int INT_REFRACT = 0;
 constexpr int INT_REFLECT = 1;
 constexpr int INT_NONE = 3;
+constexpr int FORMULA_TABULATED = 10;
+// leading material coefficients staged in shared memory (K7): every formula
+// but the tabulated one has at most this many
+constexpr int MAT_SHARED = 17;
 
 constexpr int MAX_SURFACES = 64;
 constexpr int BLOCK = 256;
@@ -60,6 +72,9 @@ constexpr float EPS = 1e-12f;
 // the float nearest pi / 180, written as a cast of the double literal so
 // that a host build in double (tests/test_torch_chain_host.py) keeps it exact
 constexpr float DEG2RAD = static_cast<float>(0.017453292519943295);
+constexpr float FOUR_PI = static_cast<float>(12.566370614359172);
+// jnp.interp's zero-width-segment threshold in float32: the spacing of eps
+constexpr float INTERP_DX0 = static_cast<float>(1.4210854715202004e-14);
 
 // floats the re-trace of a backward kernel keeps per surface: the entry
 // state (x, y, z, L, M, N, global frame), the ray parameter t, the index
@@ -70,12 +85,27 @@ struct Ray {
   float x, y, z, L, M, N, i, opd;
 };
 
-// One surface's codes and values, read from the staged tables.
+// One surface's codes and values, read from the staged tables. `absorbs`
+// and `alpha` are those of the medium before the surface (row k - 1).
 struct Surface {
   int code, nc, inter;
-  bool tilted, decentered, aperture;
-  float cv, kk, tx, ty, rx, ry, rz, ap, n;
+  bool tilted, decentered, aperture, absorbs;
+  float cv, kk, tx, ty, rx, ry, rz, ap, n, alpha;
   const float* co;
+};
+
+// Per-ray dispersion (K7): the system's materials at the ray's own
+// wavelength w. mat: the (S, mat_w) coefficient rows in global memory (a
+// tabulated glass's row is as wide as its table, up to tens of thousands of
+// floats); s_mat: their first MAT_SHARED columns, staged in shared memory;
+// kwl, kval: the (S, K) extinction tables, padded with their last point.
+struct Dispersion {
+  const float* mat;
+  const float* s_mat;
+  const float* kwl;
+  const float* kval;
+  int mat_w, K;
+  float w;
 };
 
 __device__ __forceinline__ float sign_of(float v) {
@@ -102,6 +132,8 @@ __device__ __forceinline__ Surface load_surface(const float* ft, const int* it, 
   s.ap = f[F_AP];
   s.n = f[F_NTAB];
   s.co = f + F_COEFFS;
+  s.absorbs = k > 0 && it[(k - 1) * I_STRIDE + I_ABS] != 0;
+  s.alpha = k > 0 ? ft[(k - 1) * F_STRIDE + F_ALPHA] : 0.f;
   return s;
 }
 
@@ -119,6 +151,138 @@ __device__ __forceinline__ void stage_tables(int S, const float* __restrict__ ft
   for (int j = threadIdx.x; j < S * I_STRIDE; j += blockDim.x) s_it[j] = itab[j];
   if (rg != nullptr && threadIdx.x < 5) s_rg[threadIdx.x] = rg[threadIdx.x];
   __syncthreads();
+}
+
+// Stage the first MAT_SHARED columns of the (S, mat_w) material rows into
+// shared memory (K7); every thread of the block calls it, before its
+// __syncthreads.
+__device__ __forceinline__ void stage_materials(int S, int mat_w,
+                                                const float* __restrict__ mat,
+                                                float* s_mat) {
+  const int cols = mat_w < MAT_SHARED ? mat_w : MAT_SHARED;
+  for (int j = threadIdx.x; j < S * MAT_SHARED; j += blockDim.x) {
+    const int k = j / MAT_SHARED, c = j % MAT_SHARED;
+    s_mat[j] = c < cols ? mat[(size_t)k * mat_w + c] : 0.f;
+  }
+}
+
+// jnp.interp(x, xp, fp) over a (K,) table in global memory: a binary search
+// for the first xp > x, clipped to [1, K - 1], a zero-width segment taking
+// its left value, edge-clamped outside [xp[0], xp[K-1]].
+__device__ __forceinline__ float interp(float x, const float* xp, const float* fp, int K) {
+  int lo = 0, hi = K;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (xp[mid] <= x)
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  const int i = K > 1 ? (lo < 1 ? 1 : (lo > K - 1 ? K - 1 : lo)) : 0;
+  const int i0 = K > 1 ? i - 1 : 0;
+  const float dx = xp[i] - xp[i0];
+  float f = (fabsf(dx) <= INTERP_DX0) ? fp[i0] : fp[i0] + ((x - xp[i0]) / dx) * (fp[i] - fp[i0]);
+  if (x < xp[0]) f = fp[0];
+  if (x > xp[K - 1]) f = fp[K - 1];
+  return f;
+}
+
+// Refractive index n(w) of dispersion formula `formula` with nc
+// coefficients c (`material_index` of materials/dispersion.py, same
+// operation order); `row` is the material's whole row in global memory,
+// read by the tabulated formula only.
+__device__ __forceinline__ float material_index(int formula, int nc, const float* c,
+                                                const float* row, float w) {
+  const float w2 = w * w;
+  switch (formula) {
+    case 0:  // ideal
+      return c[0];
+    case 1:    // Sellmeier, squared poles
+    case 2: {  // Sellmeier, poles as given
+      float n2 = 1.f + c[0];
+      for (int k = 1; k < nc - 1; k += 2) {
+        const float d = formula == 1 ? c[k + 1] * c[k + 1] : c[k + 1];
+        n2 = n2 + c[k] * w2 / (w2 - d);
+      }
+      return sqrtf(n2);
+    }
+    case 3: {  // polynomial
+      float n2 = c[0];
+      for (int k = 1; k < nc - 1; k += 2) n2 = n2 + c[k] * powf(w, c[k + 1]);
+      return sqrtf(n2);
+    }
+    case 4: {  // refractiveindex.info formula 4
+      float n2 = c[0];
+      if (nc > 4) n2 = n2 + c[1] * powf(w, c[2]) / (w2 - powf(c[3], c[4]));
+      if (nc > 8) n2 = n2 + c[5] * powf(w, c[6]) / (w2 - powf(c[7], c[8]));
+      for (int k = 9; k < nc - 1; k += 2) n2 = n2 + c[k] * powf(w, c[k + 1]);
+      return sqrtf(n2);
+    }
+    case 5: {  // Cauchy
+      float n = c[0];
+      for (int k = 1; k < nc - 1; k += 2) n = n + c[k] * powf(w, c[k + 1]);
+      return n;
+    }
+    case 6: {  // gases
+      const float inv_w2 = 1.f / w2;
+      float n = 1.f + c[0];
+      for (int k = 1; k < nc - 1; k += 2) n = n + c[k] / (c[k + 1] - inv_w2);
+      return n;
+    }
+    case 7: {  // Herzberger: integer powers w^(2 (k - 2))
+      const float g = 1.f / (w2 - static_cast<float>(0.028));
+      float n = c[0] + c[1] * g + c[2] * g * g;
+      float p = 1.f;
+      for (int k = 3; k < nc; ++k) {
+        p = p * w2;
+        n = n + c[k] * p;
+      }
+      return n;
+    }
+    case 8: {  // retro
+      const float rhs = c[0] + c[1] * w2 / (w2 - c[2]) + c[3] * w2;
+      return sqrtf((2.f * rhs + 1.f) / (1.f - rhs));
+    }
+    case 9: {  // exotic
+      const float d = w - c[4];
+      return sqrtf(c[0] + c[1] / (w2 - c[2]) + c[3] * d / (d * d + c[5]));
+    }
+    case FORMULA_TABULATED: {  // (wavelengths..., indices...)
+      const int K = nc / 2;
+      return interp(w, row, row + K, K);
+    }
+    default: {  // 11: polyval, highest power first
+      float n = c[0];
+      for (int k = 1; k < nc; ++k) n = n * w + c[k];
+      return n;
+    }
+  }
+}
+
+// The index of the medium after surface k at the ray's wavelength.
+__device__ __forceinline__ float index_at(const Dispersion& d, const int* it, int k) {
+  const int* c = it + k * I_STRIDE;
+  return material_index(c[I_FORM], c[I_NMAT], d.s_mat + k * MAT_SHARED,
+                        d.mat + (size_t)k * d.mat_w, d.w);
+}
+
+// Unrolled linear interpolation of a (K,)-point extinction table with
+// float masks: the JAX `_kv_interp` as written (edge-clamped, a guarded
+// divide on the zero-width segments of a padded table).
+__device__ __forceinline__ float kv_interp(float w, const float* kwl, const float* kval,
+                                           int K) {
+  const float lo = (w <= kwl[0]) ? 1.f : 0.f;
+  const float hi = (w > kwl[K - 1]) ? 1.f : 0.f;
+  float kv = lo * kval[0] + hi * kval[K - 1];
+  for (int j = 0; j < K - 1; ++j) {
+    const float w0 = kwl[j], w1 = kwl[j + 1];
+    const float dw = (fabsf(w1 - w0) > EPS) ? w1 - w0 : 1.f;
+    const float frac = (w - w0) / dw;
+    const float val = kval[j] + frac * (kval[j + 1] - kval[j]);
+    const float inseg = (w > w0 ? 1.f : 0.f) * (w <= w1 ? 1.f : 0.f);
+    kv = kv + inseg * val;
+  }
+  return kv;
 }
 
 // Ray generation from rg = (epl, epd, fmax, a, b): `_tile_raygen`.
@@ -333,19 +497,30 @@ __device__ __forceinline__ float interact(const Surface& s, float n_pre, float x
   return n_post;
 }
 
+// Receives each surface's state after the chain has passed it (K7 writes
+// it to the history); the default receives nothing.
+struct NoSink {
+  __device__ __forceinline__ void operator()(int, const Ray&) const {}
+};
+
 // The surface chain from surface 1 to S-1: `_tile_trace` (for_grad=False).
 // The vertex z of surface k is the running sum of thickness[1..k-1]
 // (thickness[0], infinite for an infinite object, never enters). With
 // `rec`, row k gets surface k's entry state, t, index before it and vertex
-// z (the re-trace of the backward kernels, chain_bwd.cuh).
+// z (the re-trace of the backward kernels, chain_bwd.cuh). Without `disp`
+// the indices and absorption come from the tables' one wavelength; with
+// it, from the ray's own. `sink(k, ray)` sees the state after surface k.
+template <class Sink = NoSink>
 __device__ __forceinline__ void trace_chain(int S, int n_newton, const float* ft,
                                             const int* it, Ray& r,
-                                            float (*rec)[REC] = nullptr) {
+                                            float (*rec)[REC] = nullptr,
+                                            const Dispersion* disp = nullptr,
+                                            const Sink& sink = Sink()) {
   float x = r.x, y = r.y, z = r.z, L = r.L, M = r.M, N = r.N, i = r.i, opd = r.opd;
   float pos_prev = 0.f;
-  float n_pre = ft[F_NTAB];
+  float n_pre = disp ? index_at(*disp, it, 0) : ft[F_NTAB];
   for (int k = 1; k < S; ++k) {
-    const Surface s = load_surface(ft, it, k);
+    Surface s = load_surface(ft, it, k);
     const float pos_k = pos_prev + (k > 1 ? ft[(k - 1) * F_STRIDE + F_THICK] : 0.f);
     pos_prev = pos_k;
     if (rec) {
@@ -365,10 +540,22 @@ __device__ __forceinline__ void trace_chain(int S, int n_newton, const float* ft
     z = z + t * N;
     opd = opd + fabsf(t * n_pre);
     i = i * validf;
+    if (s.absorbs) {
+      // Beer-Lambert through the medium before this surface
+      float alpha = s.alpha;
+      if (disp) {
+        const size_t row = (size_t)(k - 1) * disp->K;
+        alpha = FOUR_PI * kv_interp(disp->w, disp->kwl + row, disp->kval + row, disp->K) /
+                disp->w;
+      }
+      i = i * expf(-alpha * t * 1e3f);
+    }
     if (s.aperture) i = i * ((x * x + y * y <= s.ap * s.ap) ? 1.f : 0.f);
 
+    if (disp && s.inter != INT_NONE && s.inter != INT_REFLECT) s.n = index_at(*disp, it, k);
     n_pre = interact(s, n_pre, x, y, L, M, N, i);
     to_global(s, pos_k, x, y, z, L, M, N);
+    sink(k, Ray{x, y, z, L, M, N, i, opd});
   }
   r.x = x; r.y = y; r.z = z; r.L = L; r.M = M; r.N = N; r.i = i; r.opd = opd;
 }

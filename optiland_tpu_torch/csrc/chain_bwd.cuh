@@ -25,7 +25,13 @@
 //     coefficients, with the odd asphere's 1/r term;
 //   - the tilt rotations, with cotangents to the three angles;
 //   - opd += |t n| with a cotangent to the index table; sign(l.n) is
-//     constant almost everywhere and gets none.
+//     constant almost everywhere and gets none;
+//   - uniform absorption, i *= exp(-alpha t 1e3): the cotangent of t takes
+//     -alpha 1e3 i' di' (i' the intensity after the factor, di' its
+//     cotangent). Intensity only ever scales by per-surface factors, so
+//     i' di' is the same product i di at every surface: the caller passes
+//     it once, from the final state. alpha (the extinction tables) gets no
+//     cotangent: it is not differentiated, as in JAX.
 // Masks (valid root, aperture, TIR) carry no cotangent, as in JAX.
 //
 // Parameter cotangents leave each surface as one row of F_STRIDE slots in
@@ -295,12 +301,13 @@ __device__ __forceinline__ void interact_bwd(const Surface& s, float n_pre, floa
 // Reverse of one surface of trace_chain. e: the surface's record (entry
 // state, t, index before it, vertex z); g: cotangent of the state after the
 // surface on entry, of the entry state on exit; g_opd: the opd cotangent
-// (opd only accumulates, so it is the same at every surface). Adds the
-// surface's parameter cotangents to sg and the cotangent of its vertex z
-// to dpos.
+// (opd only accumulates, so it is the same at every surface); g_ip: the
+// product i di of the intensity and its cotangent (the same at every
+// surface). Adds the surface's parameter cotangents to sg and the
+// cotangent of its vertex z to dpos.
 __device__ __forceinline__ void surface_bwd(const Surface& s, const float* e, float g_opd,
-                                            Vec6& g, float& acc_n, float& dpos,
-                                            SurfGrad& sg) {
+                                            float g_ip, Vec6& g, float& acc_n,
+                                            float& dpos, SurfGrad& sg) {
   const float t = e[6], n_pre = e[7], pos = e[8];
   // recompute the surface's forward from its record
   Vec6 a[4];
@@ -350,9 +357,10 @@ __device__ __forceinline__ void surface_bwd(const Surface& s, const float* e, fl
   }
   // interaction
   interact_bwd(s, n_pre, xh, yh, lo.L, lo.M, lo.N, g, acc_n, sg);
-  // propagation x + t l and opd += |t n_pre|
+  // propagation x + t l, opd += |t n_pre| and the absorption factor
   const float so = sign_of(t * n_pre);
-  const float dt = g.x * lo.L + g.y * lo.M + g.z * lo.N + g_opd * so * n_pre;
+  float dt = g.x * lo.L + g.y * lo.M + g.z * lo.N + g_opd * so * n_pre;
+  if (s.absorbs) dt -= s.alpha * 1e3f * g_ip;
   acc_n += g_opd * so * t;
   g.L += g.x * t;
   g.M += g.y * t;
@@ -493,21 +501,23 @@ struct BlockRows {
 
 // The reverse sweep from surface S-1 down to 1, for every thread of the
 // block (dead threads, live = false, contribute zeros). g: the final
-// state's cotangent on entry, the starting ray's on exit. Rows 1..S-1 of
+// state's cotangent on entry, the starting ray's on exit; g_opd and g_ip
+// as for surface_bwd. Rows 1..S-1 of
 // `rows` get the surfaces' parameter cotangents (the thickness slot of row
 // k is d thickness[k], the sum over the vertices after k), row 0 the
 // cotangent of n_table[0].
 template <class Rows>
 __device__ __forceinline__ void reverse_chain(int S, const float* ft, const int* it,
                                               float (*rec)[REC], bool live,
-                                              float g_opd, Vec6& g, const Rows& rows) {
+                                              float g_opd, float g_ip, Vec6& g,
+                                              const Rows& rows) {
   float acc_n = 0.f, acc_pos = 0.f;
   for (int k = S - 1; k >= 1; --k) {
     const Surface s = load_surface(ft, it, k);
     SurfGrad sg;
     zero(sg);
     float dpos = 0.f;
-    if (live) surface_bwd(s, rec[k], g_opd, g, acc_n, dpos, sg);
+    if (live) surface_bwd(s, rec[k], g_opd, g_ip, g, acc_n, dpos, sg);
     sg.thick = acc_pos;
     acc_pos += dpos;
     float v[F_STRIDE];

@@ -6,10 +6,10 @@
 // Replaces the Pallas kernel `_fused_bwd` of optiland_tpu/trace/fused.py
 // (whose wavelength cotangent is zeros; the wrapper returns the same).
 // A NULL seed pointer is a zero seed. Each thread re-traces its ray with a
-// record (starting from i = 1, so the final i is the product of its
-// masks), runs the reverse sweep of chain_bwd.cuh and writes
-// (dx, dy, dz, dL, dM, dN) of the start, di = seed_i * masks and
-// dopd = seed_opd. The block sums the parameter cotangents into one
+// record (starting from i = 1, so the final i is the product of its masks
+// and absorption factors), runs the reverse sweep of chain_bwd.cuh (with
+// i di = seed_i * i_start * that product) and writes (dx, dy, dz, dL, dM,
+// dN) of the start, di = seed_i * product and dopd = seed_opd. The block sums the parameter cotangents into one
 // partial row per surface, summed by torch.sum in the wrapper (no float
 // atomics, bitwise reproducible).
 //
@@ -50,7 +50,8 @@ fused_trace_bwd_kernel(int n, int S, int n_newton, const float* __restrict__ fta
     g = otk::Vec6{sd[0], sd[1], sd[2], sd[3], sd[4], sd[5]};
   }
   const otk::BlockRows rows{partials + (size_t)blockIdx.x * S * otk::F_STRIDE, s_part};
-  otk::reverse_chain(S, s_ft, s_it, rec, live, sd[7], g, rows);
+  otk::reverse_chain(S, s_ft, s_it, rec, live, sd[7],
+                     live ? sd[6] * rays.p[6][idx] * mask : 0.f, g, rows);
   if (live) {
     const float v[8] = {g.x, g.y, g.z, g.L, g.M, g.N, sd[6] * mask, sd[7]};
 #pragma unroll

@@ -6,8 +6,9 @@
 // Replaces the Pallas kernel `_moments_bwd` of optiland_tpu/trace/fused.py.
 // Each thread regenerates its ray, re-traces it keeping each surface's
 // entry state (chain.cuh `trace_chain` with a record), seeds the final
-// (x, y) with i (c1 + 2 c3 x), i (c2 + 2 c3 y) and runs the reverse sweep of
-// chain_bwd.cuh, then the raygen adjoint. The block sums each surface's
+// (x, y) with i (c1 + 2 c3 x), i (c2 + 2 c3 y), and the intensity with
+// i di = i (c0 + c1 x + c2 y + c3 (x^2 + y^2)) for the absorption adjoint,
+// runs the reverse sweep of chain_bwd.cuh, then the raygen adjoint. The block sums each surface's
 // parameter cotangents into one partial row (warp shuffles, then shared
 // memory in a fixed order); partials[block] holds S table rows and one rg
 // row, summed by torch.sum in the wrapper: no float atomics, bitwise
@@ -41,7 +42,7 @@ moments_bwd_kernel(int n, int S, int n_newton, int field_angle, int object_infin
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   const bool live = idx < n;
   float rec[otk::MAX_SURFACES][otk::REC];
-  float hx = 0.f, hy = 0.f, px = 0.f, py = 0.f;
+  float hx = 0.f, hy = 0.f, px = 0.f, py = 0.f, g_ip = 0.f;
   otk::Vec6 g = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
   if (live) {
     hx = Hx[idx];
@@ -52,10 +53,11 @@ moments_bwd_kernel(int n, int S, int n_newton, int field_angle, int object_infin
     otk::trace_chain(S, n_newton, s_ft, s_it, r, rec);
     g.x = r.i * (c[1] + 2.f * c[3] * r.x);
     g.y = r.i * (c[2] + 2.f * c[3] * r.y);
+    g_ip = r.i * (c[0] + c[1] * r.x + c[2] * r.y + c[3] * (r.x * r.x + r.y * r.y));
   }
   const otk::BlockRows rows{partials + (size_t)blockIdx.x * (S + 1) * otk::F_STRIDE,
                             s_part};
-  otk::reverse_chain(S, s_ft, s_it, rec, live, 0.f, g, rows);
+  otk::reverse_chain(S, s_ft, s_it, rec, live, 0.f, g_ip, g, rows);
 
   float v[otk::F_STRIDE];
 #pragma unroll

@@ -5,7 +5,8 @@
 //
 // Replaces the Pallas kernel `_raygen_bwd` of optiland_tpu/trace/fused.py.
 // A NULL seed pointer is a zero seed (the outputs K3 was not asked for);
-// the seed of i reaches nothing, since the generated i is 1. Each thread
+// the seed of i reaches the table cotangents through the absorption
+// factors only, since the generated i is 1. Each thread
 // regenerates and re-traces its ray with a record, runs the reverse sweep
 // of chain_bwd.cuh and the raygen adjoint; the block sums the parameter
 // cotangents into one partial row per surface plus one rg row, summed by
@@ -41,7 +42,7 @@ raygen_trace_bwd_kernel(int n, int S, int n_newton, int field_angle, int object_
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   const bool live = idx < n;
   float rec[otk::MAX_SURFACES][otk::REC];
-  float hx = 0.f, hy = 0.f, px = 0.f, py = 0.f, g_opd = 0.f;
+  float hx = 0.f, hy = 0.f, px = 0.f, py = 0.f, g_opd = 0.f, g_ip = 0.f;
   otk::Vec6 g = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
   if (live) {
     hx = Hx[idx];
@@ -55,10 +56,11 @@ raygen_trace_bwd_kernel(int n, int S, int n_newton, int field_angle, int object_
     for (int k = 0; k < 8; ++k) sd[k] = seeds.p[k] ? seeds.p[k][idx] : 0.f;
     g = otk::Vec6{sd[0], sd[1], sd[2], sd[3], sd[4], sd[5]};
     g_opd = sd[7];
+    g_ip = sd[6] * r.i;
   }
   const otk::BlockRows rows{partials + (size_t)blockIdx.x * (S + 1) * otk::F_STRIDE,
                             s_part};
-  otk::reverse_chain(S, s_ft, s_it, rec, live, g_opd, g, rows);
+  otk::reverse_chain(S, s_ft, s_it, rec, live, g_opd, g_ip, g, rows);
 
   float v[otk::F_STRIDE];
 #pragma unroll

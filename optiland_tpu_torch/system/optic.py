@@ -3,14 +3,19 @@ for the ported surface types.
 
 `build(device=...)` compiles the description to a `(SystemStatic,
 SystemParams)` pair with the parameter tensors on that device; without
-`device=` it builds on the CUDA card.
+`device=` it builds on the CUDA card. `trace` and `trace_generic` trace
+a pupil distribution or explicit coordinates on that device and return
+the (S, N) `TraceHistory` (on the card in float32: kernel K7).
 """
 
 from __future__ import annotations
 
 import math
 
+import torch
+
 from optiland_tpu_torch import config
+from optiland_tpu_torch.core import distributions as dist
 from optiland_tpu_torch.materials.catalog import resolve_material
 from optiland_tpu_torch.system import paraxial as px
 from optiland_tpu_torch.system.spec import SurfaceSpec, build_system
@@ -91,6 +96,13 @@ class _FieldGroup:
         self.vx: list[float] = []
         self.vy: list[float] = []
 
+    def set_type(self, field_type: str):
+        if field_type not in ("angle", "object_height",
+                              "paraxial_image_height", "real_image_height"):
+            raise ValueError(f"Invalid field type: {field_type}.")
+        self.field_type = field_type
+        self._optic._dirty()
+
     def add(self, y: float = 0.0, x: float = 0.0, vx: float = 0.0,
             vy: float = 0.0):
         self.x.append(float(x))
@@ -158,6 +170,7 @@ class Optic:
         self.aperture_type: str | None = None
         self.aperture_value: float = 0.0
         self.device = None  # the device of the last build; None = CUDA
+        self.ray_aiming = "paraxial"
         self._built = {}
         self.paraxial = _ParaxialFacade(self)
 
@@ -175,11 +188,15 @@ class Optic:
         self._dirty()
 
     def set_field_type(self, field_type: str):
-        if field_type not in ("angle", "object_height",
-                              "paraxial_image_height", "real_image_height"):
-            raise ValueError(f"Invalid field type: {field_type}.")
-        self.fields.field_type = field_type
-        self._dirty()
+        self.fields.set_type(field_type)
+
+    def set_ray_aiming(self, mode: str):
+        """Choose the ray-aiming strategy; only "paraxial" is ported (the
+        iterative and robust aimers come with `trace/aiming.py`)."""
+        if mode not in ("paraxial", "iterative", "robust", "cached"):
+            raise ValueError(
+                "ray aiming must be paraxial, iterative, robust, or cached")
+        self.ray_aiming = mode
 
     def add_field(self, y: float = 0.0, x: float = 0.0, vx: float = 0.0,
                   vy: float = 0.0):
@@ -221,3 +238,60 @@ class Optic:
                 device=dev,
             )
         return self._built[key]
+
+    # -- tracing ---------------------------------------------------------
+    def _aim(self, Px, Py):
+        if self.ray_aiming != "paraxial":
+            raise NotImplementedError(
+                f"ray aiming {self.ray_aiming!r} is not ported yet "
+                "(trace/aiming.py, ROADMAP queue 1)")
+        return Px, Py
+
+    def trace(self, Hx=0.0, Hy=0.0, wavelength=None, num_rays: int = 100,
+              distribution="hexapolar", device=None):
+        """Trace a pupil distribution for field point(s) on `device` (None:
+        the CUDA card); returns the (S, N) TraceHistory (reference
+        `Optic.trace`, `optic/optic.py:715`). `distribution` is a name of
+        `core/distributions.py` (with `num_rays` its size) or a (Px, Py)
+        pair."""
+        from optiland_tpu_torch.trace.tracer import trace_system
+
+        static, params = self.build(device=device)
+        if wavelength is None:
+            wavelength = self.primary_wavelength
+        if isinstance(distribution, str):
+            Px, Py = dist.generate(distribution, num_rays)[:2]
+        else:
+            Px, Py = distribution
+        dt, dev = params.cv.dtype, params.cv.device
+        Px, Py, Hx, Hy = (torch.atleast_1d(torch.as_tensor(
+            a, dtype=dt, device=dev)) for a in (Px, Py, Hx, Hy))
+        nP = Px.shape[0]
+        Hx_full = Hx.repeat_interleave(nP)
+        Hy_full = Hy.repeat_interleave(nP)
+        Px_full, Py_full = self._aim(Px.repeat(Hx.shape[0]),
+                                     Py.repeat(Hx.shape[0]))
+        return trace_system(static, params, Hx_full, Hy_full, Px_full,
+                            Py_full, torch.as_tensor(wavelength, dtype=dt,
+                                                     device=dev), True)
+
+    def trace_generic(self, Hx, Hy, Px, Py, wavelength=None, device=None):
+        """Trace explicit (field, pupil) coordinate arrays on `device`.
+        Vignetting is applied to the pupil coordinates as in the
+        reference's `RealRayTracer.trace_generic`
+        (`raytrace/real_ray_tracer.py:120-154`)."""
+        from optiland_tpu_torch.trace.raygen import vignetting_factors
+        from optiland_tpu_torch.trace.tracer import trace_system
+
+        static, params = self.build(device=device)
+        if wavelength is None:
+            wavelength = self.primary_wavelength
+        dt, dev = params.cv.dtype, params.cv.device
+        Hx, Hy, Px, Py = torch.broadcast_tensors(*(torch.atleast_1d(
+            torch.as_tensor(a, dtype=dt, device=dev))
+            for a in (Hx, Hy, Px, Py)))
+        vxf, vyf = vignetting_factors(static, params, Hx, Hy)
+        Px, Py = self._aim(Px * (1.0 - vxf), Py * (1.0 - vyf))
+        return trace_system(static, params, Hx, Hy, Px, Py,
+                            torch.as_tensor(wavelength, dtype=dt, device=dev),
+                            True)

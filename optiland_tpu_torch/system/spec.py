@@ -8,7 +8,8 @@ Port of `optiland_tpu/system/spec.py`:
     field/wavelength tables. Autograd differentiates merits through it.
 
 `build_system` compiles a list of `SurfaceSpec`s for the ported surface
-types (plane, conic, even and odd aspheres; refract, reflect, none).
+types (plane, conic, even and odd aspheres; refract, reflect, none) and
+absorbing media (the tabulated extinction tables `k_wl`, `k_val`).
 `static_from_dict` and `params_from_numpy` carry a system built by the JAX
 package across, so both packages can run on the same tables.
 """
@@ -381,6 +382,11 @@ def build_system(
     decenter = np.zeros((S, 2))
     mat_w = max([MAX_COEFFS] + [s.material.n_coeffs for s in surfaces])
     mat_coeffs = np.zeros((S, mat_w))
+    KMAX = max((len(s.material.k_table[0]) for s in surfaces
+                if s.material.k_table is not None), default=1)
+    k_wl = np.ones((S, KMAX))
+    k_val = np.zeros((S, KMAX))
+    has_absorption = []
     ap_radius = np.full(S, np.inf)
     coating_params = np.zeros((S, 4))
 
@@ -391,9 +397,6 @@ def build_system(
                 f"surface_type {s.surface_type!r} is not ported yet "
                 "(ROADMAP queue 1, slice 2)")
         mat = s.material
-        if mat.k_table is not None:
-            raise NotImplementedError(
-                "absorbing media are not ported yet (ROADMAP queue 1, slice 2)")
         reflective = mat.mirror
         if not reflective:
             current_medium = mat
@@ -413,6 +416,15 @@ def build_system(
         mat_formulas.append(current_medium.formula)
         mat_n_coeffs.append(current_medium.n_coeffs)
         mat_coeffs[idx, : current_medium.n_coeffs] = current_medium.coefficients
+        kt = current_medium.k_table
+        has_absorption.append(kt is not None and any(v > 0 for v in kt[1]))
+        if kt is not None:
+            nk = len(kt[0])
+            k_wl[idx, :nk] = kt[0]
+            k_val[idx, :nk] = kt[1]
+            # pad by repeating the last point; interp clamps at the edges
+            k_wl[idx, nk:] = kt[0][-1]
+            k_val[idx, nk:] = kt[1][-1]
 
         has_tilt.append(bool(s.rx or s.ry or s.rz))
         has_decenter.append(bool(s.dx or s.dy))
@@ -475,7 +487,7 @@ def build_system(
         phase_kinds=tuple(PHASE_NONE for _ in range(S)),
         mat_formulas=tuple(mat_formulas),
         mat_n_coeffs=tuple(mat_n_coeffs),
-        has_absorption=tuple(False for _ in range(S)),
+        has_absorption=tuple(has_absorption),
         has_tilt=tuple(has_tilt),
         has_decenter=tuple(has_decenter),
         has_aperture=tuple(has_aperture),
@@ -501,8 +513,8 @@ def build_system(
     params = SystemParams(
         cv=t(cv), conic=t(conic), coeffs=t(coeffs), thickness=t(thickness),
         tilt=t(tilt), decenter=t(decenter), focal_length=t(np.zeros(S)),
-        mat_coeffs=t(mat_coeffs), k_wl=t(np.ones((S, 1))),
-        k_val=t(np.zeros((S, 1))), ap_radius=t(ap_radius),
+        mat_coeffs=t(mat_coeffs), k_wl=t(k_wl),
+        k_val=t(k_val), ap_radius=t(ap_radius),
         grating=t(np.zeros((S, 3))), coating_params=t(coating_params),
         phase_params=t(np.zeros((S, 8))), cs_pos=t(np.zeros((S, 3))),
         aperture_value=t(aperture_value), x_fields=t(x_fields),

@@ -1,8 +1,9 @@
 """Fused trace kernels: ray generation, the whole surface chain and the
 spot-moment reduction in one launch on the CUDA card, and their backward.
 
-Port of `optiland_tpu/trace/fused.py`: the six Pallas kernels of the
-trace-and-merit and trace-final paths, each a hand-written CUDA kernel.
+Port of `optiland_tpu/trace/fused.py`: the seven Pallas kernels of the
+trace-and-merit, trace-final and trace-history paths, each a hand-written
+CUDA kernel.
 
   K1 `moments_forward` replaces `_moments_forward`: in-kernel raygen from
      5 scalars, the surface chain, and the masked moments (sum i, sum x i,
@@ -22,32 +23,42 @@ trace-and-merit and trace-final paths, each a hand-written CUDA kernel.
   K6 `fused_trace_backward` replaces `_fused_bwd`: per-ray seeds of the 8
      final arrays -> the 8 starting-ray and the table cotangents.
      csrc/fused_trace_bwd.cu.
+  K7 `history_forward` replaces `_history_forward`: the chain on the
+     caller's rays at their own wavelengths (per-ray dispersion and
+     absorption), writing every surface's state: the (S, n) history of
+     `trace_system`. csrc/history_fwd.cu. As in JAX, its gradient is
+     autograd through the eager trace (`_FusedHistory`), not a kernel.
+
+K1-K6 take one wavelength, hoisted into the per-surface index and
+absorption tables (`_uniform_tables`); only K7 evaluates the dispersion
+formulas and extinction tables per ray.
 
 All run one ray per thread (csrc/chain.cuh; the backward kernels share the
-reverse sweep of csrc/chain_bwd.cuh). What bounds them on an H100: FP32
-arithmetic, not memory. At 2M rays K1 reads 32 MB (Hx, Hy, Px, Py in f32;
-the wavelength is hoisted into the per-surface index table), about 10 us
-at 3.35 TB/s, while the chain costs on the order of 10^3 FP32 operations
-per ray (counted per branch by `chip_smoke.py`), ~50 us at the 67 TFLOP/s
-non-tensor FP32 peak of NVIDIA's H100 SXM data sheet; a backward re-traces
-the ray and runs the adjoint, about three times that. The design keeps the
-forward's per-ray intermediates in registers, stages the small system
-tables in shared memory once per block, and reduces inside the block
-(warp shuffles, then shared memory) to one partial per block, summed by
-`torch.sum`: deterministic, no atomics. A backward keeps each surface's
-entry state in local memory for its reverse sweep.
+reverse sweep of csrc/chain_bwd.cuh). What bounds K1-K6 on an H100: FP32
+arithmetic, not memory. At 2M rays K1 reads 32 MB (Hx, Hy, Px, Py in f32),
+about 10 us at 3.35 TB/s, while the chain costs on the order of 10^3 FP32
+operations per ray (counted per branch by `chip_smoke.py`), ~50 us at the
+67 TFLOP/s non-tensor FP32 peak of NVIDIA's H100 SXM data sheet; a
+backward re-traces the ray and runs the adjoint, about three times that.
+K7 is bound by the bytes of the history it writes (8 S floats per ray).
+The design keeps the forward's per-ray intermediates in registers, stages
+the small system tables in shared memory once per block, and reduces
+inside the block (warp shuffles, then shared memory) to one partial per
+block, summed by `torch.sum`: deterministic, no atomics. A backward keeps
+each surface's entry state in local memory for its reverse sweep.
 
 Beside each kernel is its plain PyTorch version (`_moments_plain`,
 `_moments_bwd_plain`, `_raygen_trace_plain`, `_raygen_trace_bwd_plain`,
-`_fused_trace_plain`, `_fused_trace_bwd_plain`; a backward's plain
-version is autograd through its forward's): the wrapper takes it only for
-tensors on the CPU. On a CUDA tensor the wrapper launches the kernel or
-raises.
+`_fused_trace_plain`, `_fused_trace_bwd_plain`, `_history_plain`; a
+backward's plain version is autograd through its forward's): the wrapper
+takes it only for tensors on the CPU. On a CUDA tensor the wrapper
+launches the kernel or raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 from functools import lru_cache
 
 import torch
@@ -65,7 +76,11 @@ from optiland_tpu_torch.geometry.surfaces import (
     GEOM_TOROIDAL,
     GEOM_ZERNIKE,
 )
-from optiland_tpu_torch.materials.dispersion import material_index
+from optiland_tpu_torch.materials.dispersion import (
+    FORMULA_TABULATED,
+    _interp,
+    material_index,
+)
 from optiland_tpu_torch.system.spec import (
     COAT_NONE,
     COAT_SIMPLE,
@@ -105,11 +120,19 @@ _NEWTON_FUSED_MAX = 2
 # slots in the order csrc/chain.cuh names them (F_* and I_* there)
 _F_STRIDE = 32
 _F_COEFFS, _F_THICK, _F_TILT, _F_DEC, _F_NTAB = 2, 19, 20, 23, 25
-_I_STRIDE = 8
+_I_STRIDE = 16
+# leading material-coefficient columns K7 stages in shared memory: every
+# dispersion formula but the tabulated one has at most this many
+_MAT_SHARED = 17
 _MAX_SURFACES = 64
 _BLOCK = 256    # threads per block, one ray each (csrc/chain.cuh)
 
 _NAMES = ("x", "y", "z", "L", "M", "N", "intensity", "opd")
+_RAY_KEYS = ("x", "y", "z", "L", "M", "N", "i", "opd", "w")
+_KERNELS = {"K1": "moments_forward", "K2": "moments_backward",
+            "K3": "raygen_trace_forward", "K4": "raygen_trace_backward",
+            "K5": "fused_trace_forward", "K6": "fused_trace_backward",
+            "K7": "history_forward"}
 
 
 def supports_fused(static: SystemStatic) -> bool:
@@ -142,14 +165,17 @@ def supports_fused_raygen(static: SystemStatic) -> bool:
     )
 
 
-def _check_kernel_branches(static: SystemStatic, uniform_w: bool):
-    """Refuse the chain branches the CUDA kernels do not cover yet (each is
-    queued in ROADMAP queue 2, in this order)."""
+def _check_kernel_branches(static: SystemStatic, kernel: str,
+                           uniform_w: bool = True):
+    """Refuse the chain branches the CUDA kernel `kernel` ("K1".."K7") does
+    not cover yet (each is queued in ROADMAP queue 2). Per-ray wavelengths
+    reach K7 alone: K1-K6 take one wavelength, hoisted into the index and
+    absorption tables, and the backward kernels have no adjoint of per-ray
+    dispersion yet, so a forward kernel that took them would fail only at
+    `.backward()`."""
     missing = []
-    if not uniform_w:
+    if not uniform_w and kernel != "K7":
         missing.append("per-ray wavelengths")
-    if any(static.has_absorption):
-        missing.append("absorption")
     if any(c == COAT_SIMPLE for c, i in zip(static.coatings,
                                             static.interactions)
            if i != INT_NONE):
@@ -164,8 +190,8 @@ def _check_kernel_branches(static: SystemStatic, uniform_w: bool):
         missing.append("phase surfaces")
     if missing:
         raise NotImplementedError(
-            "fused CUDA chain branches not ported yet (ROADMAP queue 2): "
-            + ", ".join(missing))
+            f"{kernel} {_KERNELS[kernel]}: fused CUDA chain branches not "
+            "ported yet (ROADMAP queue 2): " + ", ".join(missing))
     if static.num_surfaces > _MAX_SURFACES:
         raise ValueError(f"the fused chain takes at most {_MAX_SURFACES} "
                          f"surfaces, got {static.num_surfaces}")
@@ -196,17 +222,21 @@ def _raygen_scalars(static: SystemStatic, params: SystemParams):
 def _uniform_tables(static: SystemStatic, params: SystemParams, w):
     """Hoist monochromatic dispersion out of the kernel: (n_table,
     alpha_table), the index after each surface (differentiable through
-    `mat_coeffs`) and the Beer-Lambert coefficient per gap."""
+    `mat_coeffs`) and the Beer-Lambert coefficient 4 pi k(w) / w of the
+    medium after each surface (the extinction tables are not differentiated,
+    as in JAX)."""
     w = torch.as_tensor(w, dtype=params.cv.dtype, device=params.cv.device)
+    S = static.num_surfaces
     n_table = torch.stack([
         material_index(static.mat_formulas[k], static.mat_n_coeffs[k],
                        params.mat_coeffs[k], w)
-        for k in range(static.num_surfaces)
+        for k in range(S)
     ])
-    if any(static.has_absorption):
-        raise NotImplementedError(
-            "absorption is not ported yet (ROADMAP queue 2)")
-    return n_table, torch.zeros_like(params.cv)
+    if not any(static.has_absorption):
+        return n_table, torch.zeros_like(params.cv)
+    kv = torch.stack([_interp(w, params.k_wl[k], params.k_val[k])
+                      for k in range(S)])
+    return n_table, 4.0 * math.pi * kv / w
 
 
 def _diff_params(params: SystemParams, n_table=None):
@@ -337,21 +367,53 @@ def _rotate(x, y, z, L, M, N, angles):
     return x, y, z, L, M, N
 
 
+def _kv_interp(w, kwl, kval):
+    """Unrolled linear interpolation of a (K,)-point extinction table:
+    jnp.interp semantics (edge-clamped) with float masks and a guarded
+    divide on the zero-width segments of a padded table. The arithmetic of
+    `kv_interp` in csrc/chain.cuh and of the JAX `_kv_interp`."""
+    K = kwl.shape[0]
+    one = torch.ones((), dtype=w.dtype, device=w.device)
+    lo = (w <= kwl[0]).to(w.dtype)
+    hi = (w > kwl[K - 1]).to(w.dtype)
+    kv = lo * kval[0] + hi * kval[K - 1]
+    for j in range(K - 1):
+        w0 = kwl[j]
+        w1 = kwl[j + 1]
+        dw = torch.where(torch.abs(w1 - w0) > _EPS, w1 - w0, one)
+        frac = (w - w0) / dw
+        val = kval[j] + frac * (kval[j + 1] - kval[j])
+        inseg = (w > w0).to(w.dtype) * (w <= w1).to(w.dtype)
+        kv = kv + inseg * val
+    return kv
+
+
 def _tile_trace(static: SystemStatic, diffp, nondiffp,
-                x, y, z, L, M, N, i, opd):
-    """The fused chain in PyTorch, monochromatic (indices from `n_table`),
-    for the branches the CUDA kernels cover; the arithmetic of
-    csrc/chain.cuh and of the JAX `_tile_trace` value pass. Newton runs on
-    a detached root and closes with one differentiable step, so autograd
-    through it gives the implicit-function-theorem derivative."""
-    (cv, conic, coeffs, thickness, tilt, decenter, _mat_coeffs,
+                x, y, z, L, M, N, i, opd, w=None, record=False):
+    """The fused chain in PyTorch for the branches the CUDA kernels cover;
+    the arithmetic of csrc/chain.cuh and of the JAX `_tile_trace` value
+    pass. `w=None`: one wavelength, hoisted into `n_table` and
+    `alpha_table` (K1-K6); otherwise the per-ray wavelengths, with
+    `material_index` and the extinction tables evaluated per ray (K7).
+    With `record`, returns every surface's state, row 0 the starting rays.
+    Newton runs on a detached root and closes with one differentiable
+    step, so autograd through it gives the implicit-function-theorem
+    derivative."""
+    (cv, conic, coeffs, thickness, tilt, decenter, mat_coeffs,
      _coating_params, n_table, _grating, _phase_params, _focal) = diffp
-    ap_radius = nondiffp[0]
+    ap_radius, k_wl, k_val, alpha_table = nondiffp
     pos_prev = torch.zeros((), dtype=cv.dtype, device=cv.device)
     one = torch.ones((), dtype=cv.dtype, device=cv.device)
     eps = _EPS * one
 
-    n_pre = n_table[0]
+    def n_of(k):
+        if w is None:
+            return n_table[k]
+        return material_index(static.mat_formulas[k], static.mat_n_coeffs[k],
+                              mat_coeffs[k], w)
+
+    records = [(x, y, z, L, M, N, i, opd)] if record else None
+    n_pre = n_of(0)
     for k in range(1, static.num_surfaces):
         pos_k = pos_prev + (thickness[k - 1] if k > 1 else 0.0)
         pos_prev = pos_k
@@ -415,6 +477,14 @@ def _tile_trace(static: SystemStatic, diffp, nondiffp,
         z = z + t * N
         opd = opd + torch.abs(t * n_pre)
         i = i * validf
+        if static.has_absorption[k - 1]:
+            # Beer-Lambert through the medium before this surface
+            if w is None:
+                alpha = alpha_table[k - 1]
+            else:
+                kv = _kv_interp(w, k_wl[k - 1], k_val[k - 1])
+                alpha = 4.0 * math.pi * kv / w
+            i = i * torch.exp(-alpha * t * 1e3)
         if static.has_aperture[k]:
             i = i * (x * x + y * y <= ap_radius[k] ** 2).to(i.dtype)
 
@@ -429,7 +499,7 @@ def _tile_trace(static: SystemStatic, diffp, nondiffp,
             if interaction == INT_REFLECT:
                 L, M, N = _reflect(L, M, N, nx, ny, nz)
             else:
-                n_post = n_table[k]
+                n_post = n_of(k)
                 L, M, N, okf = _refract(L, M, N, nx, ny, nz, n_pre / n_post)
                 i = i * okf
                 n_pre = n_post
@@ -443,14 +513,18 @@ def _tile_trace(static: SystemStatic, diffp, nondiffp,
         if tilted or decentered:
             x = x + tx
             y = y + ty
+        if record:
+            records.append((x, y, z, L, M, N, i, opd))
 
+    if record:
+        return records
     return x, y, z, L, M, N, i, opd
 
 
 def _moments_plain(static, diffp, nondiffp, rg, data):
     """Plain version of K1: (4,) = (sum i, sum x i, sum y i,
     sum (x^2+y^2) i) at the image surface."""
-    _check_kernel_branches(static, uniform_w=True)
+    _check_kernel_branches(static, "K1")
     rays8 = _tile_raygen(static, rg, *data)
     x, y, _, _, _, _, i, _ = _tile_trace(static, diffp, nondiffp, *rays8)
     return torch.stack([torch.sum(i), torch.sum(x * i), torch.sum(y * i),
@@ -460,7 +534,7 @@ def _moments_plain(static, diffp, nondiffp, rg, data):
 def _raygen_trace_plain(static, diffp, nondiffp, rg, data, out_keys):
     """Plain version of K3: the `out_keys` subset of the final
     (x, y, z, L, M, N, i, opd)."""
-    _check_kernel_branches(static, uniform_w=True)
+    _check_kernel_branches(static, "K3")
     rays8 = _tile_raygen(static, rg, *data)
     res = _tile_trace(static, diffp, nondiffp, *rays8)
     return tuple(res[k] for k in out_keys)
@@ -469,8 +543,18 @@ def _raygen_trace_plain(static, diffp, nondiffp, rg, data, out_keys):
 def _fused_trace_plain(static, diffp, nondiffp, rays8):
     """Plain version of K5: the final (x, y, z, L, M, N, i, opd) of the
     caller's rays."""
-    _check_kernel_branches(static, uniform_w=True)
+    _check_kernel_branches(static, "K5")
     return _tile_trace(static, diffp, nondiffp, *rays8)
+
+
+def _history_plain(static, diffp, nondiffp, rays9):
+    """Plain version of K7: the 8 (S, n) history arrays (x, y, z, L, M, N,
+    i, opd) of the caller's rays9 = (x, y, z, L, M, N, i, opd, w), at the
+    rays' own wavelengths; row 0 is the starting bundle."""
+    _check_kernel_branches(static, "K7", uniform_w=False)
+    recs = _tile_trace(static, diffp, nondiffp, *rays9[:8], w=rays9[8],
+                       record=True)
+    return tuple(torch.stack([r[j] for r in recs]) for j in range(8))
 
 
 def _vjp(fn, args, grad_mask, seeds):
@@ -550,6 +634,10 @@ _SIGNATURES = {
     # n, S, n_newton, ftab, itab, 8 ray pointers, 8 seed pointers (NULL =
     # zero seed), partials (num_blocks, S, 32), 8 cotangent pointers, stream
     "fused_trace_bwd": [_I] * 3 + [_P] * 28,
+    # n, S, n_newton, mat_w, K, ftab, itab, mat_coeffs (S, mat_w), k_wl and
+    # k_val (S, K), 9 ray pointers (x .. opd, w), 8 history pointers
+    # (S, n each), stream
+    "history_fwd": [_I] * 5 + [_P] * 23,
 }
 
 
@@ -566,16 +654,21 @@ def _kernel(name: str):
 
 @lru_cache(maxsize=64)
 def _int_table(static: SystemStatic, device: torch.device):
+    """The (S, 16) int table of static codes, in the slot order of
+    csrc/chain.cuh (I_* there); row k's absorption flag and formula code
+    are those of the medium after surface k."""
     rows = [[static.geom_codes[k], static.geom_n_coeffs[k],
              static.interactions[k], int(static.has_tilt[k]),
-             int(static.has_decenter[k]), int(static.has_aperture[k])]
-            + [0] * (_I_STRIDE - 6) for k in range(static.num_surfaces)]
+             int(static.has_decenter[k]), int(static.has_aperture[k]),
+             static.mat_formulas[k], static.mat_n_coeffs[k],
+             int(static.has_absorption[k])]
+            + [0] * (_I_STRIDE - 9) for k in range(static.num_surfaces)]
     return torch.tensor(rows, dtype=torch.int32).to(device)
 
 
 def _pack_tables(static: SystemStatic, diffp, nondiffp):
     """The per-surface float table (S, 32) in the slot layout of
-    csrc/chain.cuh, in the parameters' dtype, and the (S, 8) int table of
+    csrc/chain.cuh, in the parameters' dtype, and the (S, 16) int table of
     static codes."""
     (cv, conic, coeffs, thickness, tilt, decenter, _mat, coating_params,
      n_table, _grating, _phase, _focal) = diffp
@@ -621,15 +714,17 @@ def _check_arrays(named, dev):
                              f"{a.dtype} on {a.device}")
         if not a.is_contiguous():
             raise ValueError(f"{name}: expected a contiguous tensor")
-    per_ray = [a for name, a in named if name not in ("rg", "tables")]
+    per_ray = [a for name, a in named
+               if name not in ("rg", "tables", "mat_coeffs", "k_wl", "k_val")]
     n = per_ray[0].shape[0]
     if any(a.shape != (n,) for a in per_ray):
         raise ValueError("expected (n,) per-ray arrays of one length")
     return n
 
 
-def _launch_args(static, rg, diffp, nondiffp, data):
-    _check_kernel_branches(static, uniform_w=True)
+def _launch_args(static, rg, diffp, nondiffp, data, kernel):
+    """Tables and checked pointers of the raygen kernels (K1-K4)."""
+    _check_kernel_branches(static, kernel)
     ftab, itab = _pack_tables(static, diffp, nondiffp)
     if len(data) != 4 or rg.shape != (5,):
         raise ValueError("expected four (n,) ray arrays and a (5,) rg")
@@ -645,9 +740,9 @@ def _launch_args(static, rg, diffp, nondiffp, data):
     return n, head, ptrs, (ftab, itab)
 
 
-def _caller_ray_args(static, diffp, nondiffp, rays8):
+def _caller_ray_args(static, diffp, nondiffp, rays8, kernel):
     """Tables and checked pointers of the caller-ray kernels (K5, K6)."""
-    _check_kernel_branches(static, uniform_w=True)
+    _check_kernel_branches(static, kernel)
     ftab, itab = _pack_tables(static, diffp, nondiffp)
     if len(rays8) != 8:
         raise ValueError("expected the 8 ray arrays x, y, z, L, M, N, i, opd")
@@ -687,7 +782,8 @@ def moments_forward(static, diffp, nondiffp, rg, data):
     CPU tensors take `_moments_plain`; CUDA tensors launch the kernel."""
     if rg.device.type == "cpu":
         return _moments_plain(static, diffp, nondiffp, rg, data)
-    n, head, ptrs, keep = _launch_args(static, rg, diffp, nondiffp, data)
+    n, head, ptrs, keep = _launch_args(static, rg, diffp, nondiffp, data,
+                                       kernel="K1")
     blocks = -(-n // _BLOCK)
     partials = torch.empty((blocks, 4), dtype=torch.float32, device=rg.device)
     if n:
@@ -711,7 +807,8 @@ def moments_backward(static, diffp, nondiffp, rg, data, c, diff_data=True):
     if rg.device.type == "cpu":
         return _moments_bwd_plain(static, diffp, nondiffp, rg, data, c,
                                   diff_data)
-    n, head, ptrs, keep = _launch_args(static, rg, diffp, nondiffp, data)
+    n, head, ptrs, keep = _launch_args(static, rg, diffp, nondiffp, data,
+                                       kernel="K2")
     dev, S = rg.device, static.num_surfaces
     c = c.to(torch.float32).contiguous()
     partials = torch.empty((-(-n // _BLOCK), S + 1, _F_STRIDE),
@@ -741,7 +838,8 @@ def raygen_trace_forward(static, diffp, nondiffp, rg, data, out_keys):
     if rg.device.type == "cpu":
         return _raygen_trace_plain(static, diffp, nondiffp, rg, data,
                                    out_keys)
-    n, head, ptrs, keep = _launch_args(static, rg, diffp, nondiffp, data)
+    n, head, ptrs, keep = _launch_args(static, rg, diffp, nondiffp, data,
+                                       kernel="K3")
     outs = {k: torch.empty((n,), dtype=torch.float32, device=rg.device)
             for k in out_keys}
     mask = sum(1 << k for k in out_keys)
@@ -766,7 +864,8 @@ def raygen_trace_backward(static, diffp, nondiffp, rg, data, out_keys,
     if rg.device.type == "cpu":
         return _raygen_trace_bwd_plain(static, diffp, nondiffp, rg, data,
                                        out_keys, seeds)
-    n, head, ptrs, keep = _launch_args(static, rg, diffp, nondiffp, data)
+    n, head, ptrs, keep = _launch_args(static, rg, diffp, nondiffp, data,
+                                       kernel="K4")
     dev, S = rg.device, static.num_surfaces
     by_key = dict(zip(out_keys, seeds))
     seeds8, seed_ptrs = _seed_ptrs([by_key.get(k) for k in range(8)], n, dev)
@@ -794,7 +893,8 @@ def fused_trace_forward(static, diffp, nondiffp, rays8):
     `_fused_trace_plain`; CUDA tensors launch the kernel."""
     if rays8[0].device.type == "cpu":
         return _fused_trace_plain(static, diffp, nondiffp, rays8)
-    n, head, ptrs, keep = _caller_ray_args(static, diffp, nondiffp, rays8)
+    n, head, ptrs, keep = _caller_ray_args(static, diffp, nondiffp, rays8,
+                                           kernel="K5")
     dev = rays8[0].device
     outs = tuple(torch.empty(n, dtype=torch.float32, device=dev)
                  for _ in range(8))
@@ -815,7 +915,8 @@ def fused_trace_backward(static, diffp, nondiffp, rays8, seeds):
     `_fused_trace_bwd_plain`; CUDA tensors launch the kernel."""
     if rays8[0].device.type == "cpu":
         return _fused_trace_bwd_plain(static, diffp, nondiffp, rays8, seeds)
-    n, head, ptrs, keep = _caller_ray_args(static, diffp, nondiffp, rays8)
+    n, head, ptrs, keep = _caller_ray_args(static, diffp, nondiffp, rays8,
+                                           kernel="K6")
     dev, S = rays8[0].device, static.num_surfaces
     seeds8, seed_ptrs = _seed_ptrs(seeds, n, dev)
     partials = torch.empty((-(-n // _BLOCK), S, _F_STRIDE),
@@ -832,6 +933,46 @@ def fused_trace_backward(static, diffp, nondiffp, rays8, seeds):
 
 
 fused_trace_backward.launches = 0
+
+
+def history_forward(static, diffp, nondiffp, rays9):
+    """K7: the 8 (S, n) history arrays of the caller's rays9 = (x, y, z, L,
+    M, N, i, opd, w) at their own wavelengths. CPU tensors take
+    `_history_plain`; CUDA tensors launch the kernel. The material
+    coefficient rows and extinction tables go to the kernel whole: a
+    tabulated glass's row is as wide as its table."""
+    if rays9[0].device.type == "cpu":
+        return _history_plain(static, diffp, nondiffp, rays9)
+    _check_kernel_branches(static, "K7", uniform_w=False)
+    if len(rays9) != 9:
+        raise ValueError("expected the 9 ray arrays x, y, z, L, M, N, i, opd, w")
+    wide = [k for k in range(static.num_surfaces)
+            if static.mat_formulas[k] != FORMULA_TABULATED
+            and static.mat_n_coeffs[k] > _MAT_SHARED]
+    if wide:
+        raise ValueError(f"surfaces {wide}: a dispersion formula with more "
+                         f"than {_MAT_SHARED} coefficients")
+    ftab, itab = _pack_tables(static, diffp, nondiffp)
+    mat = diffp[6].contiguous()
+    k_wl, k_val = nondiffp[1].contiguous(), nondiffp[2].contiguous()
+    dev, S = ftab.device, static.num_surfaces
+    n = _check_arrays([("tables", ftab), ("mat_coeffs", mat), ("k_wl", k_wl),
+                       ("k_val", k_val)]
+                      + list(zip(_NAMES + ("w",), rays9)), dev)
+    outs = tuple(torch.empty((S, n), dtype=torch.float32, device=dev)
+                 for _ in range(8))
+    if n:
+        err = _kernel("history_fwd")(
+            n, S, min(static.newton_iters, _NEWTON_FUSED_MAX), mat.shape[1],
+            k_wl.shape[1], ftab.data_ptr(), itab.data_ptr(), mat.data_ptr(),
+            k_wl.data_ptr(), k_val.data_ptr(), *(r.data_ptr() for r in rays9),
+            *(o.data_ptr() for o in outs), _stream(dev))
+        _raise_on_error("history_fwd", err)
+        history_forward.launches += 1
+    return outs
+
+
+history_forward.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -904,6 +1045,58 @@ class _FusedTraceFinal(torch.autograd.Function):
         return (None, None, *d_diff, *[None] * len(nondiffp), *d_rays)
 
 
+def _hist_eager(static, diffp, nondiffp, rays9):
+    """The eager trace on K7's (diffp, nondiffp, rays9) parameterization,
+    the twin of the kernel that its backward differentiates (JAX
+    `_hist_xla`). The leaves the supported system class never reads are
+    placeholders."""
+    from optiland_tpu_torch.core.rays import Rays
+    from optiland_tpu_torch.trace.tracer import trace_rays
+
+    (cv, conic, coeffs, thickness, tilt, decenter, mat_coeffs,
+     coating_params, _n_table, grating, phase_params, focal_length) = diffp
+    ap_radius, k_wl, k_val, _alpha_table = nondiffp
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=cv.dtype, device=cv.device)
+
+    p = SystemParams(
+        cv=cv, conic=conic, coeffs=coeffs, thickness=thickness, tilt=tilt,
+        decenter=decenter, focal_length=focal_length, mat_coeffs=mat_coeffs,
+        k_wl=k_wl, k_val=k_val, ap_radius=ap_radius, grating=grating,
+        coating_params=coating_params, phase_params=phase_params,
+        cs_pos=zeros(cv.shape[0], 3), aperture_value=zeros(),
+        x_fields=zeros(1), y_fields=zeros(1), vx=zeros(1), vy=zeros(1),
+        wavelengths=zeros(1))
+    h = trace_rays(static, p, Rays(*rays9))
+    return (h.x, h.y, h.z, h.L, h.M, h.N, h.intensity, h.opd)
+
+
+class _FusedHistory(torch.autograd.Function):
+    """K7 at the autograd seam. JAX has no backward kernel for it, and
+    neither has the port: the backward is autograd through the eager twin
+    `_hist_eager` (JAX `_fused_history_bwd`). It returns cotangents for
+    every table, the non-differentiable ones included, and for the 9 ray
+    arrays, which carry the gradient back into the ray generation (EPD,
+    EPL, field angles, thickness). An unseeded output is a zero seed."""
+
+    @staticmethod
+    def forward(ctx, static, n_diff, *tensors):
+        ctx.static, ctx.n_diff = static, n_diff
+        ctx.save_for_backward(*tensors)
+        ctx.set_materialize_grads(False)
+        diffp, nondiffp, rays9 = _split(n_diff, tensors)
+        return history_forward(static, diffp, nondiffp, rays9)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        nd, tensors = ctx.n_diff, ctx.saved_tensors
+        g = _vjp(lambda *a: _hist_eager(ctx.static, a[:nd], a[nd:nd + 4],
+                                        a[nd + 4:]),
+                 tensors, [True] * len(tensors), grads)
+        return (None, None, *g)
+
+
 def fused_spot_moments(static, params_tuple, data, diff_data=True):
     """(m0, m1, m2, m3) through K1, differentiable through K2.
     `params_tuple` = (diffp, nondiffp, rg) as `_diff_params`,
@@ -933,15 +1126,24 @@ def fused_trace_final(static, params_tuple, rays8):
                                   *rays8)
 
 
-def _prepare(static, params, Hx, Hy, Px, Py, wavelength):
-    """Broadcast the per-ray data and build the kernel parameter tuple."""
+def fused_history(static, params_tuple, rays9):
+    """The 8 (S, n) history arrays of the caller's 9 ray arrays through K7,
+    differentiable through the eager twin. `params_tuple` = (diffp,
+    nondiffp)."""
+    diffp, nondiffp = params_tuple
+    return _FusedHistory.apply(static, len(diffp), *diffp, *nondiffp, *rays9)
+
+
+def _prepare(static, params, Hx, Hy, Px, Py, wavelength, kernel):
+    """Broadcast the per-ray data and build the kernel parameter tuple of
+    the raygen kernel `kernel` (K1 or K3)."""
     dt, dev = params.cv.dtype, params.cv.device
     Px = torch.as_tensor(Px, dtype=dt, device=dev)
     Py = torch.as_tensor(Py, dtype=dt, device=dev)
     Hx = torch.as_tensor(Hx, dtype=dt, device=dev).expand(Px.shape)
     Hy = torch.as_tensor(Hy, dtype=dt, device=dev).expand(Px.shape)
     if torch.as_tensor(wavelength).ndim != 0:
-        _check_kernel_branches(static, uniform_w=False)
+        _check_kernel_branches(static, kernel, uniform_w=False)
     n_table, alpha_table = _uniform_tables(static, params, wavelength)
     p = (_diff_params(params, n_table), _nondiff_params(params, alpha_table),
          _raygen_scalars(static, params))
@@ -953,7 +1155,7 @@ def trace_system_final_fused(static: SystemStatic, params: SystemParams,
     """Raygen+trace in one launch of K3 (backward: K4). The caller has
     checked `supports_fused` and `supports_fused_raygen`. `outputs`: names
     from ("x", "y", "z", "L", "M", "N", "intensity", "opd"); default all."""
-    p, data = _prepare(static, params, Hx, Hy, Px, Py, wavelength)
+    p, data = _prepare(static, params, Hx, Hy, Px, Py, wavelength, "K3")
     if outputs is None:
         out_keys = tuple(range(8))
     else:
@@ -973,7 +1175,7 @@ def trace_final(static: SystemStatic, params: SystemParams, rays0,
     if (supports_fused(static) and rays0.x.is_cuda
             and rays0.x.dtype == torch.float32):
         if wavelength is None or torch.as_tensor(wavelength).ndim != 0:
-            _check_kernel_branches(static, uniform_w=False)
+            _check_kernel_branches(static, "K5", uniform_w=False)
         n_table, alpha_table = _uniform_tables(static, params, wavelength)
         p = (_diff_params(params, n_table),
              _nondiff_params(params, alpha_table))
@@ -985,13 +1187,16 @@ def trace_final(static: SystemStatic, params: SystemParams, rays0,
 
 def trace_history_fused(static: SystemStatic, params: SystemParams, rays0):
     """Full (S, N) history. On a CUDA device in float32 a `supports_fused`
-    system is K7 `_history_forward`, not ported yet; otherwise the eager
-    trace."""
-    from optiland_tpu_torch.trace.tracer import trace_rays
+    system is one launch of K7 at the rays' own wavelengths, differentiable
+    through the eager twin (gradients reach the parameters and the starting
+    rays); a branch K7 does not cover raises. Otherwise the eager trace."""
+    from optiland_tpu_torch.trace.tracer import TraceHistory, trace_rays
 
     if (supports_fused(static) and rays0.x.is_cuda
             and rays0.x.dtype == torch.float32):
-        raise NotImplementedError("K7 _history_forward port: ROADMAP slice 3")
+        p = (_diff_params(params), _nondiff_params(params))
+        rays9 = tuple(getattr(rays0, k).contiguous() for k in _RAY_KEYS)
+        return TraceHistory(*fused_history(static, p, rays9))
     return trace_rays(static, params, rays0)
 
 
@@ -1008,7 +1213,7 @@ def spot_moments(static: SystemStatic, params: SystemParams,
     use_fused = (supports_fused(static) and supports_fused_raygen(static)
                  and params.cv.is_cuda and dtype == torch.float32)
     if use_fused:
-        p, data = _prepare(static, params, Hx, Hy, Px, Py, wavelength)
+        p, data = _prepare(static, params, Hx, Hy, Px, Py, wavelength, "K1")
         return fused_spot_moments(static, p, data, diff_data)
     from optiland_tpu_torch.trace.raygen import generate_rays
     from optiland_tpu_torch.trace.tracer import trace_rays

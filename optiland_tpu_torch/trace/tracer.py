@@ -2,10 +2,11 @@
 
 Port of `optiland_tpu/trace/tracer.py` for the ported surface and
 interaction set: plane/conic/even/odd-asphere geometries; refract, reflect
-and none; radial apertures; tilt and decenter; simple coatings (the only
-coating that acts on an unpolarized trace). Per surface:
-  localize -> intersect -> propagate -> OPD -> aperture clip -> interact
-  -> coating -> globalize -> record.
+and none; radial apertures; tilt and decenter; Beer-Lambert absorption in
+media with a tabulated extinction; simple coatings (the only coating that
+acts on an unpolarized trace). Per surface:
+  localize -> intersect -> propagate -> OPD -> absorption -> aperture clip
+  -> interact -> coating -> globalize -> record.
 
 It is the oracle of the port's CUDA kernels, and the path for everything
 the kernel gates refuse, as XLA is in the JAX package.
@@ -13,6 +14,7 @@ the kernel gates refuse, as XLA is in the JAX package.
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import torch
@@ -28,7 +30,7 @@ from optiland_tpu_torch.geometry.surfaces import (
     intersect_implicit,
     surface_normal,
 )
-from optiland_tpu_torch.materials.dispersion import material_index
+from optiland_tpu_torch.materials.dispersion import _interp, material_index
 from optiland_tpu_torch.system.spec import (
     COAT_SIMPLE,
     INT_NONE,
@@ -63,8 +65,6 @@ def _check_traceable(static: SystemStatic):
     if any(i not in (INT_REFRACT, INT_REFLECT, INT_NONE)
            for i in static.interactions):
         unported.append("thin-lens, grating and phase interactions")
-    if any(static.has_absorption):
-        unported.append("absorbing media")
     if static.has_abs_cs:
         unported.append("absolute coordinate systems")
     if any(b is not None for b in static.bsdfs):
@@ -129,6 +129,12 @@ def trace_rays(static: SystemStatic, params: SystemParams,
         n_pre = n_of(k - 1, rays.w)
         rays = R.propagate(rays, t)
         new_i = torch.where(valid, rays.i, torch.zeros_like(rays.i))
+        if static.has_absorption[k - 1]:
+            # Beer-Lambert through the medium before this surface, k(w)
+            # interpolated from the material's tabulated extinction
+            kv = _interp(rays.w, params.k_wl[k - 1], params.k_val[k - 1])
+            alpha = 4.0 * math.pi * kv / rays.w
+            new_i = new_i * torch.exp(-alpha * t * 1e3)
         rays = rays.replace(opd=rays.opd + torch.abs(t * n_pre), i=new_i)
 
         # physical aperture clip: zero intensity, keep tracing
@@ -186,8 +192,8 @@ def trace_system_final(static: SystemStatic, params: SystemParams, Hx, Hy,
 
     On a CUDA device in float32, a system both fused gates accept runs as
     one kernel launch (K3, raygen fused into the chain); a system only
-    `supports_fused` accepts goes to `trace_final` (K5, which raises until
-    it is ported). Everything else is the eager trace."""
+    `supports_fused` accepts goes to `trace_final` (K5, the chain on the
+    caller's rays). Everything else is the eager trace."""
     from optiland_tpu_torch.trace.fused import (
         supports_fused,
         supports_fused_raygen,
@@ -210,9 +216,10 @@ def trace_system_final(static: SystemStatic, params: SystemParams, Hx, Hy,
 def trace_system(static: SystemStatic, params: SystemParams, Hx, Hy, Px, Py,
                  wavelength, apply_vignetting: bool = True,
                  polarization=None) -> TraceHistory:
-    """Generate + aim + trace, returning the full (S, N) history. On a CUDA
-    device a `supports_fused` system goes to `trace_history_fused` (K7,
-    which raises in float32 until it is ported)."""
+    """Generate + aim + trace, returning the full (S, N) history; row 0 is
+    the starting bundle. `wavelength` is a scalar or per-ray. On a CUDA
+    device a `supports_fused` system goes to `trace_history_fused` (K7 in
+    float32, its gradient through the eager trace)."""
     if polarization is not None:
         raise NotImplementedError(
             "polarized traces are not ported yet (ROADMAP queue 1, slice 2)")

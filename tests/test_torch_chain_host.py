@@ -2,14 +2,16 @@
 
 `csrc/chain.cuh` and `csrc/chain_bwd.cuh` are C++ apart from CUDA
 qualifiers and intrinsics. Built by g++ in float64 with those defined away
-(one thread, one ray at a time), the per-ray bodies of K1, K2, K4, K5 and
-K6 run here on the CPU: the forward chain (`trace_chain`), the reverse
-sweep (`reverse_chain`) and the raygen adjoint (`tile_raygen_bwd`). Each is
-held against the plain PyTorch version that the kernel is held to on the
-card, in float64, at 1e-10 of each cotangent group's largest entry: a
-check of the kernels' arithmetic that needs no card. The block reduction,
-shared-memory staging and launch code run only on the card
-(tests/test_torch_cuda.py). Skips without g++."""
+(one thread, one ray at a time), the per-ray bodies of K1, K2, K4, K5, K6
+and K7 run here on the CPU: the forward chain (`trace_chain`, at one
+wavelength or, for K7, at each ray's own with its history recorded), the
+reverse sweep (`reverse_chain`, with the absorption adjoint), the raygen
+adjoint (`tile_raygen_bwd`) and the per-ray dispersion (`material_index`
+for every formula code). Each is held against the plain PyTorch version
+that the kernel is held to on the card, in float64, at 1e-10 of each
+cotangent group's largest entry: a check of the kernels' arithmetic that
+needs no card. The block reduction, shared-memory staging and launch code
+run only on the card (tests/test_torch_cuda.py). Skips without g++."""
 
 import ctypes
 import shutil
@@ -21,10 +23,14 @@ import pytest
 import torch
 
 from optiland_tpu_torch import config
+from optiland_tpu_torch.materials import catalog
+from optiland_tpu_torch.materials.dispersion import material_index
+from optiland_tpu_torch.models import CookeTriplet
 from optiland_tpu_torch.system.optic import Optic
 from optiland_tpu_torch.trace import fused
+from optiland_tpu_torch.trace.raygen import generate_rays
 
-from torch_port_helpers import bench_lens, singlet_lens
+from torch_port_helpers import bench_lens, singlet_lens, tabulated_doublet
 
 CSRC = fused.__file__.rsplit("/", 2)[0] + "/csrc"
 RTOL = 1e-10    # of each group's largest entry; float64 on both sides
@@ -44,6 +50,8 @@ _SHIM = r"""
 #define tanf std::tan
 #define cosf std::cos
 #define sinf std::sin
+#define powf std::pow
+#define expf std::exp
 struct Dim3 { int x; };
 static Dim3 threadIdx = {0}, blockDim = {1};
 inline void __syncthreads() {}
@@ -77,17 +85,19 @@ extern "C" void raygen_kernels(int mode, int n, int S, int nn, int fa, int oi,
       continue;
     }
     otk::Vec6 g = {0, 0, 0, 0, 0, 0};
-    double g_opd = 0;
+    double g_opd = 0, g_ip;
     if (mode == 1) {
       g.x = r.i * (c[1] + 2 * c[3] * r.x);
       g.y = r.i * (c[2] + 2 * c[3] * r.y);
+      g_ip = r.i * (c[0] + c[1] * r.x + c[2] * r.y + c[3] * (r.x * r.x + r.y * r.y));
     } else {
       g = otk::Vec6{seeds[idx], seeds[n + idx], seeds[2 * n + idx],
                     seeds[3 * n + idx], seeds[4 * n + idx], seeds[5 * n + idx]};
       g_opd = seeds[7 * n + idx];
+      g_ip = seeds[6 * n + idx] * r.i;
     }
     const Rows rows{tab};
-    otk::reverse_chain(S, ft, it, rec, true, g_opd, g, rows);
+    otk::reverse_chain(S, ft, it, rec, true, g_opd, g_ip, g, rows);
     double v[otk::F_STRIDE] = {0};
     double d4[4];
     otk::tile_raygen_bwd(fa, oi, rg, Hx[idx], Hy[idx], Px[idx], Py[idx], g, v, d4);
@@ -109,12 +119,44 @@ extern "C" void caller_kernels(int mode, int n, int S, int nn, const double* ft,
     if (mode == 1) {
       const double* s = seeds + idx;
       otk::Vec6 g = {s[0], s[n], s[2 * n], s[3 * n], s[4 * n], s[5 * n]};
-      otk::reverse_chain(S, ft, it, rec, true, s[7 * n], g, Rows{tab});
+      otk::reverse_chain(S, ft, it, rec, true, s[7 * n], s[6 * n] * p[6 * n] * r.i, g,
+                         Rows{tab});
       const double dv[8] = {g.x, g.y, g.z, g.L, g.M, g.N, s[6 * n] * r.i, s[7 * n]};
       for (int k = 0; k < 8; ++k) v[k] = dv[k];
     }
     for (int k = 0; k < 8; ++k) outs[k * n + idx] = v[k];
   }
+}
+
+// K7: rays (9, n) at their own wavelengths -> hist (8, S, n)
+struct HostSink {
+  double* h;
+  int n, S, idx;
+  void operator()(int k, const otk::Ray& r) const {
+    const double v[8] = {r.x, r.y, r.z, r.L, r.M, r.N, r.i, r.opd};
+    for (int q = 0; q < 8; ++q) h[((long)q * S + k) * n + idx] = v[q];
+  }
+};
+static double s_mat[otk::MAX_SURFACES * otk::MAT_SHARED];
+
+extern "C" void history_kernel(int n, int S, int nn, int mat_w, int K, const double* ft,
+                               const int* it, const double* mat, const double* kwl,
+                               const double* kval, const double* rays, double* hist) {
+  otk::stage_materials(S, mat_w, mat, s_mat);
+  for (int idx = 0; idx < n; ++idx) {
+    const double* p = rays + idx;
+    otk::Ray r = {p[0], p[n], p[2 * n], p[3 * n], p[4 * n], p[5 * n], p[6 * n], p[7 * n]};
+    const otk::Dispersion disp = {mat, s_mat, kwl, kval, mat_w, K, p[8 * n]};
+    const HostSink sink = {hist, n, S, idx};
+    sink(0, r);
+    otk::trace_chain(S, nn, ft, it, r, nullptr, &disp, sink);
+  }
+}
+
+// material_index of one material row at each of n wavelengths
+extern "C" void index_kernel(int formula, int nc, const double* row, int n, const double* w,
+                             double* out) {
+  for (int j = 0; j < n; ++j) out[j] = otk::material_index(formula, nc, row, row, w[j]);
 }
 """
 
@@ -127,6 +169,9 @@ _SYSTEMS = {
         O, asphere=False, field_type="object_height", object_distance=100.0),
     "angle_finite_object": lambda O: singlet_lens(O, object_distance=200.0),
     "bench": bench_lens,
+    # absorbing glasses at one wavelength: K1, K2, K4-K6 with the uniform
+    # absorption factor and its adjoint
+    "cooke": lambda O: CookeTriplet(),
 }
 
 
@@ -255,3 +300,74 @@ def test_device_code_matches_plain(host_lib, f64, name):
     for k in range(8):
         _close(outs[k], d_rays[k], f"K6 d{fused._NAMES[k]}")
     _close_params(tab, diffp, d_diff)
+
+
+def _index_cases():
+    """One material per formula code 0-11 and wavelengths inside its
+    range: catalog rows for the codes 1-9 (the first row of each), a short
+    tabulated row for 10 (with wavelengths outside it and on its nodes),
+    the Abbe model for 11."""
+    rows = catalog._load_catalog()
+    cases = {0: (catalog.resolve_material(1.5), np.linspace(0.4, 0.8, 5))}
+    for code in range(1, 10):
+        row = next(r for r in rows if r.get("formula") == code)
+        cases[code] = (catalog._spec_from_row(row, row["n"]),
+                       np.linspace(row["wmin"], row["wmax"], 7))
+    cases[10] = (catalog.MaterialSpec(10, (0.4, 0.5, 0.6, 0.7, 1.53, 1.52,
+                                           1.515, 1.51)),
+                 np.array([0.3, 0.4, 0.45, 0.5, 0.65, 0.7, 0.8]))
+    cases[11] = (catalog.abbe_material(1.5168, 64.17),
+                 np.linspace(0.4, 0.8, 5))
+    return cases
+
+
+@pytest.mark.parametrize("code", range(12))
+def test_material_index_matches_plain(host_lib, code):
+    spec, w = _index_cases()[code]
+    assert spec.formula == code
+    row = np.ascontiguousarray(spec.coefficients, dtype=np.float64)
+    w = np.ascontiguousarray(w)
+    got = np.zeros_like(w)
+    host_lib.index_kernel(code, spec.n_coeffs, _ptr(row), len(w), _ptr(w),
+                          _ptr(got))
+    ref = material_index(code, spec.n_coeffs, torch.from_numpy(row),
+                         torch.from_numpy(w))
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, _np(ref), rtol=RTOL, atol=0)
+
+
+_HISTORY_SYSTEMS = {
+    "cooke": lambda: CookeTriplet(),
+    "tabulated_doublet": lambda: tabulated_doublet(Optic),
+}
+
+
+@pytest.mark.parametrize("name", list(_HISTORY_SYSTEMS))
+def test_history_body_matches_plain(host_lib, f64, name):
+    """K7's per-ray body: the history at three wavelengths mixed over the
+    rays (per-ray material_index and absorption) against `_history_plain`."""
+    ts, tp = _HISTORY_SYSTEMS[name]().build(device="cpu")
+    assert any(ts.has_absorption)
+    diffp, nondiffp = fused._diff_params(tp), fused._nondiff_params(tp)
+    ftab, itab = (_np(t) for t in fused._pack_tables(ts, diffp, nondiffp))
+    rng = np.random.default_rng(7)
+    n = N_RAYS
+    Hy = rng.uniform(-1, 1, n)
+    Px, Py = rng.uniform(-0.7, 0.7, (2, n))
+    w = rng.choice([0.48, 0.55, 0.65], n)
+    rays0 = generate_rays(ts, tp, *(torch.from_numpy(a) for a in (
+        np.zeros(n), Hy, Px, Py)), torch.from_numpy(w))
+    rays9 = tuple(getattr(rays0, k).contiguous() for k in fused._RAY_KEYS)
+    rays_np = np.ascontiguousarray(np.stack([_np(r) for r in rays9]))
+    mat, kwl, kval = (_np(t) for t in (diffp[6], nondiffp[1], nondiffp[2]))
+    S = ts.num_surfaces
+    hist = np.zeros((8, S, n))
+    host_lib.history_kernel(
+        n, S, min(ts.newton_iters, fused._NEWTON_FUSED_MAX), mat.shape[1],
+        kwl.shape[1], _ptr(ftab), _ptr(itab), _ptr(mat), _ptr(kwl),
+        _ptr(kval), _ptr(rays_np), _ptr(hist))
+    ref = fused._history_plain(ts, diffp, nondiffp, rays9)
+    i_last = _np(ref[6])[-1]
+    assert 0.0 < i_last.max() < 1.0  # the glasses absorb
+    for k in range(8):
+        _close(hist[k], ref[k], fused._NAMES[k])

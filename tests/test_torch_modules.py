@@ -72,12 +72,12 @@ def test_material_index(formula, coeffs):
 def test_abbe_material_and_resolve():
     assert (tcat.abbe_material(1.5168, 64.17).coefficients
             == jcat.abbe_material(1.5168, 64.17).coefficients)
-    for spec in (1.52, "air", "mirror", None):
+    for spec in (1.52, "air", "mirror", None, "N-BK7"):
         a, b = tcat.resolve_material(spec), jcat.resolve_material(spec)
-        assert (a.formula, a.coefficients, a.mirror) == (
-            b.formula, b.coefficients, b.mirror)
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        tcat.resolve_material("N-BK7")
+        assert (a.formula, a.coefficients, a.mirror, a.k_table) == (
+            b.formula, b.coefficients, b.mirror, b.k_table)
+    with pytest.raises(KeyError, match="No matches"):
+        tcat.resolve_material("no-such-glass-xyz")
 
 
 _GEOMS = [

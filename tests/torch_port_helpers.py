@@ -83,6 +83,35 @@ def singlet_lens(Optic, field_type="angle", object_distance=math.inf,
     return lens
 
 
+def tabulated_doublet(Optic):
+    """A cemented doublet of two absorbing glasses (the port's MaterialSpec):
+    a tabulated n(w) glass (formula 10) and an Abbe-model glass (formula
+    11), with extinction tables of 5 and 3 points (the shorter one
+    padded)."""
+    from optiland_tpu_torch.materials import catalog as cat
+
+    wl = (0.4, 0.5, 0.6, 0.7)
+    tab = cat.MaterialSpec(
+        10, wl + (1.53, 1.52, 1.515, 1.51), name="tabulated",
+        k_table=(wl + (0.8,), (3e-7, 2e-7, 1e-7, 1e-7, 2e-7)))
+    abbe = cat.abbe_material(1.62, 36.4)
+    abbe = cat.MaterialSpec(abbe.formula, abbe.coefficients, name=abbe.name,
+                            k_table=((0.45, 0.55, 0.65), (4e-7, 2e-7, 3e-7)))
+    lens = Optic()
+    lens.add_surface(index=0, radius=math.inf, thickness=math.inf)
+    lens.add_surface(index=1, radius=40.0, thickness=6.0, material=tab,
+                     is_stop=True)
+    lens.add_surface(index=2, radius=-30.0, thickness=2.5, material=abbe)
+    lens.add_surface(index=3, radius=-150.0, thickness=60.0)
+    lens.add_surface(index=4)
+    lens.set_aperture("EPD", 10.0)
+    lens.set_field_type("angle")
+    lens.add_field(y=0.0)
+    lens.add_field(y=5.0)
+    lens.add_wavelength(0.55, is_primary=True)
+    return lens
+
+
 def jax_build_f64(lens):
     """Build a JAX-package lens in float64 whatever the JAX precision
     global holds, and restore it."""
