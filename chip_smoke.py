@@ -48,11 +48,25 @@ PyTorch built for CUDA. In order it:
      float64;
  17. (k) `CookeTriplet().trace(Hx=0, Hy=1, num_rays=6)`, the user's entry,
      reaches K7;
- 18. (g) times each kernel and its plain version with CUDA events (warm-up,
-     then the median of 25 calls), the training steps and the flagship
-     forward end to end, and prints one JSON line of kernels;
- 19. prints as its last line {"ok": true, "device": {...}}.
-Every path is driven with all seven launch counters set to 0 just before
+ 18. (w1) K8, the Huygens sum, on the inputs of the Cooke triplet's
+     `ScalarHuygensPSF` at its defaults (128 x 128 pupil samples and image
+     points, field (0, 1)) and of `HuygensMTF`'s (64 x 64, on axis): K8 and
+     the float32 plain version each against the float64 plain version on
+     the same inputs (PSF, Strehl, MTF), and two launches bitwise equal;
+ 19. (w2) `ScalarHuygensPSF` at its defaults, fields (0, 0) and (0, 1), in
+     float32 (K7 under `wavefront_data`, K8) against the same class in
+     float64 on the card;
+ 20. (w3) `HuygensMTF` at its defaults (K8) against float64;
+ 21. (w4) `ScalarFFTPSF`, `MMDFTPSF`, `ScalarFFTMTF` over the 3 fields,
+     `SampledMTF` and `ZernikeOPD` at their defaults, float32 (K7 under
+     `wavefront_data`) against float64;
+ 22. (g) times each kernel and its plain version with CUDA events (warm-up,
+     then the median of 25 calls), K8 also at the random inputs of
+     tools/bench_wave_optics.py and at 256 x 256, the training steps, the
+     flagship forward and the Huygens PSF end to end, and prints one JSON
+     line of kernels;
+ 23. prints as its last line {"ok": true, "device": {...}}.
+Every path is driven with all eight launch counters set to 0 just before
 it and read just after, and fails unless its kernels were launched.
 
 Any failed check raises and the script exits non-zero. Without a CUDA card,
@@ -131,6 +145,37 @@ GRAD_NOISE_FACTOR = 10
 # the flagship batch: `__graft_entry__._make_inputs(static, params, 222_222)`
 FLAGSHIP_RAYS_PER_FIELD = 222_222
 FLAGSHIP_WAVELENGTH = 0.55   # `dryrun_multichip`'s primary-wavelength phase
+
+# K8 against the float64 plain version on the same float32 inputs. float32
+# rounds R ~ 54 mm to ~4e-6 mm, up to 0.02 rad of phase at k = 1.1e4 /mm,
+# per term, and over a regular pupil grid those roundings are correlated
+# (R varies smoothly): the summed phase tilts a little, so the largest
+# errors sit on the PSF's slopes. The plain float32 version's own error is
+# 1.8e-3 to 2.1e-3 of the peak at the PSF's defaults on the CPU (1.8e-4 at
+# the peak itself, Strehl 1e-4, MTF 1.4e-4 to 2.5e-4). K8 is held to twice
+# the plain float32 version's error and to 1e-2 of the peak; Strehl and
+# the MTF to 1e-3 absolute.
+TOL_K8 = {"psf_of_peak": 1e-2, "plain_factor": 2.0, "strehl": 1e-3,
+          "mtf": 1e-3}
+# A whole float32 analysis against float64 also carries the float32
+# trace's OPD noise: paths of ~100 mm rounded to ~4e-6 mm give 0.014-0.018
+# waves rms (0.05 max) of OPD on the Cooke triplet's 128 x 128 pupil, the
+# eager float32 trace on the CPU against float64. Measured there, float32
+# against float64: Huygens PSF 4.6e-3 and 7.5e-3 of the peak, Strehl 9e-5
+# and 6.0e-4, pixel pitch 2.7e-4 relative (the spot's extent), Huygens MTF
+# 4.7e-3 (4.7e-3 with a float64 sum of the float32 wavefront: the trace,
+# not the sum); FFT and MMDFT PSF 2.2e-2 of the peak, Strehl 2.2e-3; FFT
+# MTF 9.3e-3; sampled MTF 4.4e-3; Zernike coefficients 5.4e-3 waves, RMS
+# 0.6%. Each tolerance is about 2.5x that.
+TOL_WAVE = {"huygens_psf_of_peak": 2e-2, "huygens_strehl": 2e-3,
+            "centroid_mm": 5e-4, "pixel_pitch_rel": 1e-3, "huygens_mtf": 1e-2,
+            "fft_psf_of_peak": 5e-2, "fft_strehl": 5e-3, "fft_mtf": 2.5e-2,
+            "sampled_mtf": 1.2e-2, "zernike_waves": 1.5e-2, "rms_rel": 2e-2}
+SAMPLED_FREQS = [(0.0, 0.0), (10.0, 0.0), (0.0, 30.0), (50.0, 50.0),
+                 (100.0, 0.0)]
+# sincosf's fast range reduction covers |phase| up to ~1.05e5 rad; above
+# it takes the slow, exact Payne-Hanek path
+SINCOS_FAST_LIMIT = 105615.0
 
 
 def check(cond, msg):
@@ -316,6 +361,43 @@ def history_ops_per_ray(static, fused, K):
     return ops
 
 
+def huygens_ops_per_contribution():
+    """FP32 operations per (image point, pupil sample) of K8
+    (csrc/huygens.cuh `huygens_term`), counted as `chain_ops_per_ray`
+    counts (an add, subtract, multiply, divide, sqrt, sin and cos one each,
+    an FMA two): the difference vector 3, R^2 5, sqrt 1, the dot product 5,
+    R Rp 1, the divide 1, the obliquity 2 (1 + cos, * 0.5), amp * it 1, / R
+    1, the phase 3 (R - Rp, - opd, * k), sin and cos 2, the two products
+    and sums 4. Each sqrt, divide and sincos is several instructions on the
+    card, so the kernel cannot run at this bound."""
+    return 3 + 5 + 1 + 5 + 1 + 1 + 2 + 1 + 1 + 3 + 2 + 4
+
+
+def huygens_bound(n_img, n_pup):
+    """(bytes, operations) of the Huygens sum at I image points and P pupil
+    samples: 3 I + 5 P floats in, I out; 29 operations a contribution, plus
+    the square of each point's field (3)."""
+    return ((3 * n_img + 5 * n_pup + n_img) * 4,
+            huygens_ops_per_contribution() * n_img * n_pup + 3 * n_img)
+
+
+def phase_range(args, rows=2048):
+    """(max |phase|, share of the (image, pupil) pairs whose |phase| is above
+    SINCOS_FAST_LIMIT) of a Huygens sum's arguments, over chunks of image
+    points."""
+    image, pupil, _, opd, wl_mm, Rp = args
+    ix, iy, iz = (a.reshape(-1) for a in image)
+    k = 2.0 * math.pi / wl_mm
+    top, slow = 0.0, 0
+    for s in range(0, ix.shape[0], rows):
+        d2 = sum((a[s:s + rows, None] - u[None, :]) ** 2
+                 for a, u in zip((ix, iy, iz), pupil))
+        ph = (k * ((torch.sqrt(d2) - Rp) - opd[None, :])).abs()
+        top = max(top, ph.max().item())
+        slow += (ph > SINCOS_FAST_LIMIT).sum().item()
+    return top, slow / (ix.shape[0] * pupil[0].shape[0])
+
+
 def bound_ms(n_bytes, n_ops):
     t_bytes = n_bytes / PEAK_BYTES_PER_S
     t_ops = n_ops / PEAK_FP32_FLOPS
@@ -401,15 +483,22 @@ def main():
     sys.path.insert(0, str(ROOT))
     from optiland_tpu_torch import _build, config
     from optiland_tpu_torch.models import CookeTriplet
+    from optiland_tpu_torch.mtf import HuygensMTF, SampledMTF, ScalarFFTMTF
+    from optiland_tpu_torch.mtf.fft import mtf_slices
     from optiland_tpu_torch.optimization.merits import (
         centroid_rms_from_moments,
         centroid_rms_spot,
     )
+    from optiland_tpu_torch.psf import MMDFTPSF, ScalarFFTPSF, ScalarHuygensPSF
+    from optiland_tpu_torch.psf import huygens
     from optiland_tpu_torch.system.optic import Optic
     from optiland_tpu_torch.trace import fused, tracer
     from optiland_tpu_torch.trace.raygen import generate_rays
+    from optiland_tpu_torch.wavefront import ZernikeOPD, wavefront_data
+    from optiland_tpu_torch.wavefront.core import pupil_grid_coords
 
     dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     counters = {"K1": fused.moments_forward, "K2": fused.moments_backward,
@@ -417,7 +506,8 @@ def main():
                 "K4": fused.raygen_trace_backward,
                 "K5": fused.fused_trace_forward,
                 "K6": fused.fused_trace_backward,
-                "K7": fused.history_forward}
+                "K7": fused.history_forward,
+                "K8": huygens.huygens_sum_forward}
 
     def reset_counts():
         for f in counters.values():
@@ -968,6 +1058,172 @@ def main():
           and all(bool(torch.isfinite(v).all()) for v in as_tuple(h_user)),
           "Optic.trace history: shape, device, finite")
 
+
+    # 18. (w1) K8 against its plain version, on the inputs of the Cooke
+    # triplet's ScalarHuygensPSF at its defaults (field (0, 1)) and of
+    # HuygensMTF's (on axis, 64 x 64)
+    t_wave = time.perf_counter()
+    print(f"phases before the wave optics: {t_wave - t_start:.1f} s")
+    lens32 = CookeTriplet()
+
+    def as64(args):
+        return tuple(tuple(a.double() for a in x) if isinstance(x, tuple)
+                     else (x.double() if torch.is_tensor(x) else x)
+                     for x in args)
+
+    def normalized(fn, image_args, peak_args):
+        return fn(*image_args) / fn(*peak_args)[0, 0] * 100.0
+
+    reset_counts()
+    img_args, peak_args, _, _, _ = huygens.huygens_psf_sums(
+        lens32, (0.0, 1.0), 0.55, 128, 128, device="cuda")
+    n_img, n_pup = img_args[0][0].numel(), img_args[1][0].numel()
+    check(n_img == 16384 and n_pup == 16384, "PSF defaults: 128 x 128 x 2")
+    psf_k8 = normalized(huygens.huygens_sum_forward, img_args, peak_args)
+    psf_k8_again = normalized(huygens.huygens_sum_forward, img_args,
+                              peak_args)
+    psf_32 = normalized(huygens.huygens_sum_plain, img_args, peak_args)
+    psf_64 = normalized(huygens.huygens_sum_plain, as64(img_args),
+                        as64(peak_args))
+    peak64 = psf_64.abs().max().item()
+    c = 64
+    k8_err = {
+        "psf_of_peak": max_abs(psf_k8, psf_64) / peak64,
+        "plain32_psf_of_peak": max_abs(psf_32, psf_64) / peak64,
+        "strehl": abs(psf_k8[c, c].item() - psf_64[c, c].item()) / 100.0,
+        "plain32_strehl": abs(psf_32[c, c].item()
+                              - psf_64[c, c].item()) / 100.0,
+        "strehl64": psf_64[c, c].item() / 100.0,
+    }
+    k8_abs = max_abs(psf_k8, psf_64)   # in the PSF's units (ideal peak 100)
+    mtf_args = huygens.huygens_psf_sums(lens32, (0, 0), 0.55, 64, 64,
+                                        device="cuda")[:2]
+    mtf_k8 = mtf_slices(normalized(huygens.huygens_sum_forward, *mtf_args))
+    mtf_64 = mtf_slices(normalized(huygens.huygens_sum_plain,
+                                   *(as64(a) for a in mtf_args)))
+    k8_err["mtf"] = max(max_abs(a, b) for a, b in zip(mtf_k8, mtf_64))
+    w1_launches = read_counts()
+    check(w1_launches["K8"] == 6 and w1_launches["K7"] >= 6,
+          f"w1 launched K8 (3 x image and peak) and K7: {w1_launches}")
+    print("K8 vs the float64 plain version on the same float32 inputs "
+          f"(PSF defaults, field (0, 1); MTF defaults, on axis): "
+          f"{json.dumps(k8_err)} tolerances {json.dumps(TOL_K8)}")
+    check(torch.equal(psf_k8, psf_k8_again), "K8 bitwise over two launches")
+    check(k8_err["psf_of_peak"] <= TOL_K8["psf_of_peak"], "K8 psf vs f64")
+    check(k8_err["psf_of_peak"] <= TOL_K8["plain_factor"]
+          * k8_err["plain32_psf_of_peak"], "K8 within 2x plain f32's error")
+    check(k8_err["strehl"] <= TOL_K8["strehl"], "K8 Strehl vs f64")
+    check(k8_err["mtf"] <= TOL_K8["mtf"], "K8 MTF vs f64")
+    del psf_k8_again, psf_32, psf_64, mtf_args
+    free()
+
+    # 19. (w2) ScalarHuygensPSF at its defaults, float32 against float64
+    config.set_precision("float64")
+    lens64 = CookeTriplet()
+    config.set_precision("float32")
+    wave_err, psf_launches = {}, {}
+    for field in ((0.0, 0.0), (0.0, 1.0)):
+        reset_counts()
+        p32 = ScalarHuygensPSF(lens32, field)
+        psf_launches[str(field)] = read_counts()
+        check(psf_launches[str(field)]["K8"] == 2
+              and psf_launches[str(field)]["K7"] >= 3,
+              f"ScalarHuygensPSF {field} launched K7 and K8 (image, peak)")
+        config.set_precision("float64")
+        p64 = ScalarHuygensPSF(lens64, field)
+        check(read_counts() == psf_launches[str(field)],
+              "float64 Huygens PSF ran the plain version")
+        config.set_precision("float32")
+        check(p32.psf.shape == (128, 128) and p32.psf.dtype == torch.float32
+              and bool(torch.isfinite(p32.psf).all()),
+              "Huygens PSF: shape, dtype, finite")
+        wave_err[f"psf {field}"] = {
+            "psf_of_peak": max_abs(p32.psf, p64.psf) / p64.psf.max().item(),
+            "strehl": abs(p32.strehl_ratio().item()
+                          - p64.strehl_ratio().item()),
+            "strehl32": p32.strehl_ratio().item(),
+            "strehl64": p64.strehl_ratio().item(),
+            "cx_mm": abs(p32.cx.item() - p64.cx.item()),
+            "cy_mm": abs(p32.cy.item() - p64.cy.item()),
+            "pixel_pitch_rel": abs(p32.pixel_pitch.item()
+                                   / p64.pixel_pitch.item() - 1.0),
+        }
+        e = wave_err[f"psf {field}"]
+        check(e["psf_of_peak"] <= TOL_WAVE["huygens_psf_of_peak"]
+              and e["strehl"] <= TOL_WAVE["huygens_strehl"]
+              and e["cx_mm"] <= TOL_WAVE["centroid_mm"]
+              and e["cy_mm"] <= TOL_WAVE["centroid_mm"]
+              and e["pixel_pitch_rel"] <= TOL_WAVE["pixel_pitch_rel"],
+              f"Huygens PSF {field} vs f64: {e}")
+    print(f"ScalarHuygensPSF launches {json.dumps(psf_launches)}")
+    del p32, p64
+
+    # 20. (w3) HuygensMTF at its defaults
+    reset_counts()
+    m32 = HuygensMTF(lens32, (0, 0), 0.55)
+    mtf_launches = read_counts()
+    check(mtf_launches["K8"] == 2, "HuygensMTF launched K8")
+    config.set_precision("float64")
+    m64 = HuygensMTF(lens64, (0, 0), 0.55)
+    config.set_precision("float32")
+    check(read_counts() == mtf_launches, "float64 Huygens MTF ran plain")
+    check(all(m.shape == (32,) and bool(torch.isfinite(m).all())
+              for m in m32.mtf), "Huygens MTF: shape, finite")
+    wave_err["huygens_mtf"] = max(max_abs(a, b)
+                                  for a, b in zip(m32.mtf, m64.mtf))
+    check(wave_err["huygens_mtf"] <= TOL_WAVE["huygens_mtf"],
+          "Huygens MTF vs f64")
+    print(f"HuygensMTF launches {json.dumps(mtf_launches)}")
+
+    # 21. (w4) the FFT and MMDFT PSFs, the FFT MTF over all fields, the
+    # sampled MTF and the Zernike OPD at their defaults; K7 under them
+    reset_counts()
+    an32 = dict(fft=ScalarFFTPSF(lens32, (0.0, 1.0)),
+                mmdft=MMDFTPSF(lens32, (0.0, 1.0)),
+                fftmtf=ScalarFFTMTF(lens32),
+                smtf=SampledMTF(lens32, (0.0, 1.0)),
+                zopd=ZernikeOPD(lens32, (0.0, 1.0)))
+    smtf32 = an32["smtf"].calculate_mtf(SAMPLED_FREQS)
+    an_launches = read_counts()
+    check(an_launches["K7"] >= 9, "the FFT analyses ran K7")
+    config.set_precision("float64")
+    an64 = dict(fft=ScalarFFTPSF(lens64, (0.0, 1.0)),
+                mmdft=MMDFTPSF(lens64, (0.0, 1.0)),
+                fftmtf=ScalarFFTMTF(lens64),
+                smtf=SampledMTF(lens64, (0.0, 1.0)),
+                zopd=ZernikeOPD(lens64, (0.0, 1.0)))
+    smtf64 = an64["smtf"].calculate_mtf(SAMPLED_FREQS)
+    config.set_precision("float32")
+    check(read_counts() == an_launches, "float64 FFT analyses ran eager")
+    for key in ("fft", "mmdft"):
+        a, b = an32[key], an64[key]
+        check(bool(torch.isfinite(a.psf).all()), f"{key}: finite")
+        wave_err[key] = {
+            "psf_of_peak": max_abs(a.psf, b.psf) / b.psf.max().item(),
+            "strehl": abs(a.strehl_ratio().item() - b.strehl_ratio().item()),
+            "strehl64": b.strehl_ratio().item()}
+        check(wave_err[key]["psf_of_peak"] <= TOL_WAVE["fft_psf_of_peak"]
+              and wave_err[key]["strehl"] <= TOL_WAVE["fft_strehl"],
+              f"{key} vs f64")
+    check(an32["fft"].pupils.dtype == torch.complex64, "complex64 pupils")
+    wave_err["fft_mtf"] = max(max_abs(a, b) for k in range(3)
+                              for a, b in zip(an32["fftmtf"].mtf[k],
+                                              an64["fftmtf"].mtf[k]))
+    wave_err["sampled_mtf"] = float(np.max(np.abs(np.subtract(smtf32,
+                                                              smtf64))))
+    wave_err["zernike_waves"] = max_abs(an32["zopd"].coeffs,
+                                        an64["zopd"].coeffs)
+    wave_err["rms_rel"] = abs(an32["zopd"].rms().item()
+                              / an64["zopd"].rms().item() - 1.0)
+    for key in ("fft_mtf", "sampled_mtf", "zernike_waves", "rms_rel"):
+        check(wave_err[key] <= TOL_WAVE[key], f"{key} vs f64")
+    print(f"FFT analyses launches {json.dumps(an_launches)}")
+    print("wave optics, float32 against float64 on the card: "
+          f"{json.dumps(wave_err)} tolerances {json.dumps(TOL_WAVE)}")
+    del an32, an64, m32, m64
+    free()
+    print(f"wave-optics phases: {time.perf_counter() - t_wave:.1f} s")
+
     # 13. (g) times and bounds, at the main paths' shapes. A kernel's time
     # is its bare launch (tables packed once, outside the timed region);
     # these launches bypass the wrappers and their counters.
@@ -990,9 +1246,30 @@ def main():
     kwl7, kval7 = p7[1][1].contiguous(), p7[1][2].contiguous()
     hist7 = [torch.empty((S_c, n_c), device=dev) for _ in range(8)]
 
+    def k8_launch_args(args):
+        """Chunk, k, pointers (Rp, 3 image, 5 pupil arrays) and the partial
+        buffer of a bare K8 launch on a Huygens sum's arguments, and the
+        tensors to keep alive while it may run."""
+        image, pupil, amp, opd, wl_mm, Rp = args
+        flat = [a.reshape(-1).contiguous() for a in image] + [
+            a.contiguous() for a in (*pupil, amp, opd)]
+        rp = Rp.reshape(1).contiguous()
+        ni, npu = flat[0].numel(), flat[3].numel()
+        chunk = huygens.pupil_chunk(ni, npu, huygens._sm_count(dev))
+        partial = torch.empty((-(-npu // chunk), 2, ni), device=dev)
+        return (chunk, 2.0 * math.pi / wl_mm,
+                [rp.data_ptr()] + [a.data_ptr() for a in flat], partial,
+                (flat, rp))
+
+    k8_chunk, k8_k, k8_ptrs, k8_partial, k8_keep = k8_launch_args(img_args)
+
     def launch(name, *args):
         err = fused._kernel(name)(*args, stream)
         check(err == 0, f"{name} launch: cudaError {err}")
+
+    def launch_k8(*args):
+        err = huygens._kernel()(*args, stream)
+        check(err == 0, f"huygens_sum launch: cudaError {err}")
 
     launches = {
         "K1": lambda: launch("moments_fwd", *head, *ptrs,
@@ -1017,6 +1294,8 @@ def main():
             itab7.data_ptr(), mat7.data_ptr(), kwl7.data_ptr(),
             kval7.data_ptr(), *(r.data_ptr() for r in rays9),
             *(h.data_ptr() for h in hist7)),
+        "K8": lambda: launch_k8(n_img, n_pup, k8_chunk, k8_k, *k8_ptrs,
+                                k8_partial.data_ptr()),
     }
     plains = {
         "K1": lambda: fused._moments_plain(static, *p, data),
@@ -1029,6 +1308,7 @@ def main():
         "K6": lambda: fused._fused_trace_bwd_plain(static_v, *p_v, rays8,
                                                    k6_seeds),
         "K7": lambda: fused._history_plain(static_c, *p7, rays9),
+        "K8": lambda: huygens.huygens_sum_plain(*img_args),
     }
     fwd_ops = chain_ops_per_ray(static, fused)
     bwd_ops = backward_ops_per_ray(static, fused)
@@ -1044,32 +1324,39 @@ def main():
         "K6": ((7 + 8 + 8) * 4 * nv, caller_bwd_ops * nv),
         # 9 arrays in, 8 (S, n) arrays out (row 0 the input bundle)
         "K7": ((9 + 8 * S_c) * 4 * n_c, hist_ops * n_c),
+        "K8": huygens_bound(n_img, n_pup),
     }
+    fused_py = "optiland_tpu/trace/fused.py"
     meta = {
-        "K1": ("_moments_forward", "moments_fwd.cu", 1431, k1_abs,
-               fwd_launches),
-        "K2": ("_moments_bwd", "moments_bwd.cu", 1509, k2_abs,
+        "K1": ("_moments_forward", "moments_fwd.cu", f"{fused_py}:1431",
+               k1_abs, fwd_launches),
+        "K2": ("_moments_bwd", "moments_bwd.cu", f"{fused_py}:1509", k2_abs,
                train_launches),
-        "K3": ("_raygen_forward", "raygen_trace_fwd.cu", 1011,
+        "K3": ("_raygen_forward", "raygen_trace_fwd.cu", f"{fused_py}:1011",
                max(v for k, v in k3_err.items() if k != "intensity_frac"),
                fwd_launches),
-        "K4": ("_raygen_bwd", "raygen_trace_bwd.cu", 1078, k4_abs,
-               final_launches),
-        "K5": ("_fused_forward", "fused_trace_fwd.cu", 848,
+        "K4": ("_raygen_bwd", "raygen_trace_bwd.cu", f"{fused_py}:1078",
+               k4_abs, final_launches),
+        "K5": ("_fused_forward", "fused_trace_fwd.cu", f"{fused_py}:848",
                max(v for k, v in k5_err.items() if k != "intensity_frac"),
                caller_launches),
-        "K6": ("_fused_bwd", "fused_trace_bwd.cu", 900, k6_abs,
+        "K6": ("_fused_bwd", "fused_trace_bwd.cu", f"{fused_py}:900", k6_abs,
                caller_launches),
-        "K7": ("_history_forward", "history_fwd.cu", 1258, k7_abs,
-               hist_launches),
+        "K7": ("_history_forward", "history_fwd.cu", f"{fused_py}:1258",
+               k7_abs, hist_launches),
+        # launches: the Huygens PSF at field (0, 1) (image and peak);
+        # max_abs_err: of that PSF, normalized to an ideal peak of 100
+        "K8": ("huygens_sum_pallas", "huygens_sum.cu",
+               "optiland_tpu/psf/huygens.py:127", k8_abs,
+               psf_launches[str((0.0, 1.0))]),
     }
     rows = []
-    for key, (fn_name, src, line, err, path_launches) in meta.items():
+    for key, (fn_name, src, replaces, err, path_launches) in meta.items():
         b_ms, b_by = bound_ms(*bounds[key])
         rows.append(dict(
             name=f"{key} {fn_name}", route="cuda",
             source=f"optiland_tpu_torch/csrc/{src}",
-            replaces=f"optiland_tpu/trace/fused.py:{line}",
+            replaces=replaces,
             launches=path_launches[key], max_abs_err=err,
             ms=time_ms(launches[key]), plain_ms=time_ms(plains[key]),
             bound_ms=b_ms, bound_by=b_by, library_ms=None))
@@ -1150,6 +1437,66 @@ def main():
           f"leaves) {step_c_ms:.4f} ms, {n_c / step_c_ms * 1e3:.6g} rays/s; "
           f"step split (ms) {json.dumps(split)}; step peak device memory "
           f"{peak_gb:.3f} GB")
+    # K8 at three shapes beside its FP32 bound: the PSF's defaults (its row
+    # in the kernels line), the random inputs of tools/bench_wave_optics.py
+    # (16384 image points x 8192 pupil samples, opd up to 20 mm, so phases
+    # up to ~2.3e5 rad) and num_rays = image_size = 256 (65536 x 65536)
+    rng = np.random.default_rng(0)
+
+    def on_card(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+
+    pupil_b = tuple(on_card(rng.uniform(-5, 5, 8192)) for _ in range(2))
+    pupil_b += (on_card(np.zeros(8192)),)
+    image_b = tuple(on_card(rng.uniform(-0.05, 0.05, 16384))
+                    for _ in range(2))
+    image_b += (on_card(np.full(16384, 60.0)),)
+    amp_b = on_card(rng.uniform(0.5, 1.0, 8192))
+    opd_b = on_card(rng.uniform(0, 20, 8192))
+    bench_args = (image_b, pupil_b, amp_b, opd_b, 0.55e-3,
+                  torch.tensor(60.0, device=dev))
+    big_args = huygens.huygens_psf_sums(lens32, (0.0, 1.0), 0.55, 256, 256,
+                                        device="cuda")[0]
+    k8_shapes = {}
+    for label, args, with_plain in (("psf_128", img_args, True),
+                                    ("bench_wave_optics", bench_args, True),
+                                    ("psf_256", big_args, False)):
+        chunk, k, ptrs, partial, _keep = k8_launch_args(args)
+        ni, npu = args[0][0].numel(), args[1][0].numel()
+        t_k8 = time_ms(lambda: launch_k8(ni, npu, chunk, k, *ptrs,
+                                         partial.data_ptr()))
+        b_ms, b_by = bound_ms(*huygens_bound(ni, npu))
+        top, slow = phase_range(args)
+        k8_shapes[label] = dict(
+            image=ni, pupil=npu, chunks=partial.shape[0], ms=t_k8,
+            bound_ms=b_ms, bound_by=b_by,
+            contributions_per_s=ni * npu / (t_k8 * 1e-3),
+            max_abs_phase_rad=top, slow_sincos_share=slow,
+            plain_ms=(time_ms(lambda: huygens.huygens_sum_plain(*args))
+                      if with_plain else None))
+        del partial, _keep
+        free()
+    print(f"K8 at three shapes, median of {TIMED_CALLS} bare launches "
+          f"({huygens_ops_per_contribution()} FP32 operations a "
+          f"contribution): {json.dumps(k8_shapes)}")
+
+    # the Huygens PSF call at its defaults on the host clock, and its split
+    psf_ms = host_ms(lambda: ScalarHuygensPSF(lens32, (0.0, 1.0)))
+    st32, pp32 = lens32.build(device="cuda")
+    px_g, py_g, _ = pupil_grid_coords(128, torch.float32, dev)
+    psf_split = {
+        "wavefront_data (K7), field and ideal": 2 * host_ms(
+            lambda: wavefront_data(st32, pp32, 0.0, 1.0, px_g, py_g, 0.55)),
+        "spot trace (K7)": host_ms(lambda: lens32.trace(
+            Hx=0.0, Hy=1.0, wavelength=0.55, num_rays=6)),
+        "K8 (image and peak, wrapper)": host_ms(lambda: (
+            huygens.huygens_sum(*img_args), huygens.huygens_sum(*peak_args))),
+    }
+    psf_split["rest"] = psf_ms - sum(psf_split.values())
+    print(f"ScalarHuygensPSF(CookeTriplet(), (0, 1)) at its defaults, float32, "
+          f"host clock, median of {TIMED_STEPS}: {psf_ms:.4f} ms; split (ms) "
+          f"{json.dumps(psf_split)}")
+    print(f"whole run: {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,9 @@
 """optiland_tpu_torch — the PyTorch/CUDA port of optiland_tpu.
 
 A second package beside the JAX one, with the same module layout and
-function names. Plain tensor code is PyTorch; the fused trace kernels are
-hand-written CUDA for Hopper (`csrc/`), built with nvcc at first use.
+function names. Plain tensor code is PyTorch; the fused trace kernels and
+the Huygens-Fresnel sum are hand-written CUDA for Hopper (`csrc/`), built
+with nvcc at first use.
 Entry points run on the CUDA card unless the caller passes device="cpu".
 """
 

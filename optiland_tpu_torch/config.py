@@ -37,6 +37,13 @@ def get_dtype():
     return _dtype
 
 
+def complex_dtype():
+    """The complex dtype of the precision policy: complex128 under float64,
+    complex64 under float32 (CUDA has both, so nothing drops to
+    complex64 as it must on a TPU)."""
+    return torch.complex128 if _dtype == torch.float64 else torch.complex64
+
+
 def resolve_device(device=None) -> torch.device:
     """`None` means the CUDA card. Raises RuntimeError when CUDA is asked
     for and no card is present, so a missing card never silently turns

@@ -1,0 +1,6 @@
+from optiland_tpu_torch.mtf.fft import FFTMTF, ScalarFFTMTF, get_working_FNO
+from optiland_tpu_torch.mtf.huygens import HuygensMTF
+from optiland_tpu_torch.mtf.sampled import SampledMTF
+
+__all__ = ["FFTMTF", "ScalarFFTMTF", "get_working_FNO", "HuygensMTF",
+           "SampledMTF"]

@@ -115,6 +115,19 @@ class _FieldGroup:
     def num_fields(self):
         return len(self.x)
 
+    @property
+    def max_field(self):
+        return max(
+            (math.hypot(xx, yy) for xx, yy in zip(self.x, self.y)), default=0.0
+        )
+
+    def get_field_coords(self):
+        """The fields as normalized (Hx, Hy) pairs."""
+        m = self.max_field
+        if m == 0:
+            return [(0.0, 0.0)]
+        return [(xx / m, yy / m) for xx, yy in zip(self.x, self.y)]
+
 
 _UNIT_TO_UM = {"nm": 1e-3, "um": 1.0, "mm": 1e3}
 

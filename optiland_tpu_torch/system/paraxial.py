@@ -111,6 +111,15 @@ def EPL(static: SystemStatic, params: SystemParams, wavelength=None):
     return y[-1] / u[-1]
 
 
+def XPL(static: SystemStatic, params: SystemParams, wavelength=None):
+    """Exit pupil location relative to the image surface."""
+    w = _primary(static, params) if wavelength is None else wavelength
+    pos = positions_of(static, params)
+    stop = static.stop_index
+    y, u = trace_generic(static, params, 0.0, 0.1, pos[stop], w, skip=stop + 1)
+    return -y[-1] / u[-1]
+
+
 def EPD(static: SystemStatic, params: SystemParams, wavelength=None):
     """Entrance pupil diameter per system-aperture type."""
     ap = static.aperture_type
@@ -137,6 +146,12 @@ def EPD(static: SystemStatic, params: SystemParams, wavelength=None):
         u0 = 0.1 * value / y[stop]
         return u0 * (epl - pos[0])
     raise ValueError(f"Unknown aperture type {ap!r}")
+
+
+def XPD(static, params, wavelength=None):
+    """Exit pupil diameter."""
+    ya, ua = marginal_ray(static, params, wavelength)
+    return 2.0 * (ya[-1] + ua[-1] * XPL(static, params, wavelength))
 
 
 def FNO(static, params, wavelength=None):

@@ -1,13 +1,15 @@
-"""The CUDA device code of the fused chain, compiled for the host.
+"""The CUDA device code of the fused chain and of K8, compiled for the host.
 
-`csrc/chain.cuh` and `csrc/chain_bwd.cuh` are C++ apart from CUDA
-qualifiers and intrinsics. Built by g++ in float64 with those defined away
+`csrc/chain.cuh`, `csrc/chain_bwd.cuh` and `csrc/huygens.cuh` are C++ apart
+from CUDA qualifiers and intrinsics. Built by g++ in float64 with those defined away
 (one thread, one ray at a time), the per-ray bodies of K1, K2, K4, K5, K6
 and K7 run here on the CPU: the forward chain (`trace_chain`, at one
 wavelength or, for K7, at each ray's own with its history recorded), the
 reverse sweep (`reverse_chain`, with the absorption adjoint), the raygen
 adjoint (`tile_raygen_bwd`) and the per-ray dispersion (`material_index`
-for every formula code). Each is held against the plain PyTorch version
+for every formula code); so does K8's per-image-point Huygens sum
+(`huygens_accumulate`) over pupil chunks, whose partial fields go through
+the wrapper's own reduction (`reduce_partials`). Each is held against the plain PyTorch version
 that the kernel is held to on the card, in float64, at 1e-10 of each
 cotangent group's largest entry: a check of the kernels' arithmetic that
 needs no card. The block reduction, shared-memory staging and launch code
@@ -52,11 +54,17 @@ _SHIM = r"""
 #define sinf std::sin
 #define powf std::pow
 #define expf std::exp
+#define sincosf host_sincos
+inline void host_sincos(double x, double* s, double* c) {
+  *s = std::sin(x);
+  *c = std::cos(x);
+}
 struct Dim3 { int x; };
 static Dim3 threadIdx = {0}, blockDim = {1};
 inline void __syncthreads() {}
 inline double __shfl_down_sync(unsigned, double v, int) { return v; }
 #include "chain_bwd.cuh"
+#include "huygens.cuh"
 
 struct Rows {
   double* out;
@@ -150,6 +158,23 @@ extern "C" void history_kernel(int n, int S, int nn, int mat_w, int K, const dou
     const HostSink sink = {hist, n, S, idx};
     sink(0, r);
     otk::trace_chain(S, nn, ft, it, r, nullptr, &disp, sink);
+  }
+}
+
+// K8: image (3, I), pupil (5, P) -> the (chunks, 2, I) partial fields of
+// pupil chunks of `chunk` samples, as the kernel's blocks write them
+extern "C" void huygens_kernel(int I, int P, int chunk, double k, double Rp,
+                               const double* img, const double* pup, double* partial) {
+  for (int c = 0; c * chunk < P; ++c) {
+    const int p0 = c * chunk, n = P - p0 < chunk ? P - p0 : chunk;
+    for (int i = 0; i < I; ++i) {
+      double re = 0, im = 0;
+      otk::huygens_accumulate(img[i], img[I + i], img[2 * I + i], pup + p0, pup + P + p0,
+                              pup + 2 * P + p0, pup + 3 * P + p0, pup + 4 * P + p0, n, k,
+                              Rp, re, im);
+      partial[2 * c * I + i] = re;
+      partial[(2 * c + 1) * I + i] = im;
+    }
   }
 }
 
@@ -371,3 +396,37 @@ def test_history_body_matches_plain(host_lib, f64, name):
     assert 0.0 < i_last.max() < 1.0  # the glasses absorb
     for k in range(8):
         _close(hist[k], ref[k], fused._NAMES[k])
+
+
+@pytest.mark.parametrize("field", [(0.0, 0.0), (0.0, 1.0)])
+def test_huygens_body_matches_plain(host_lib, f64, field):
+    """K8's per-image-point body over 5 pupil chunks, the partials reduced
+    by `reduce_partials` (summed, then squared), against
+    `huygens_sum_plain` on the Cooke triplet's wavefront."""
+    from optiland_tpu_torch.psf import huygens
+    from optiland_tpu_torch.wavefront.core import (pupil_grid_coords,
+                                                   wavefront_data)
+
+    ts, tp = CookeTriplet().build(device="cpu")
+    Px, Py, inside = pupil_grid_coords(24, torch.float64, "cpu")
+    data = wavefront_data(ts, tp, *field, Px, Py, 0.55)
+    amp = torch.sqrt(data.intensity) * inside
+    opd_mm = data.opd * 0.55e-3
+    c = data.center
+    g = torch.linspace(-0.01, 0.01, 10, dtype=torch.float64)
+    IX, IY = torch.meshgrid(g + c[0], g + c[1], indexing="xy")
+    image = (IX, IY, torch.zeros_like(IX) + c[2])
+    pupil = (data.pupil_x, data.pupil_y, data.pupil_z)
+    ref = huygens.huygens_sum_plain(image, pupil, amp, opd_mm, 0.55e-3,
+                                    data.radius)
+    I, P, chunk = IX.numel(), Px.numel(), 128
+    img = np.ascontiguousarray(np.stack([_np(a).ravel() for a in image]))
+    pup = np.ascontiguousarray(np.stack([_np(a) for a in (*pupil, amp,
+                                                          opd_mm)]))
+    partial = np.zeros((-(-P // chunk), 2, I))
+    assert partial.shape[0] >= 2
+    host_lib.huygens_kernel(I, P, chunk, ctypes.c_double(2 * np.pi / 0.55e-3),
+                            ctypes.c_double(float(data.radius)), _ptr(img),
+                            _ptr(pup), _ptr(partial))
+    got = huygens.reduce_partials(torch.from_numpy(partial)).reshape(IX.shape)
+    _close(_np(got), ref, "psf")

@@ -1,10 +1,11 @@
 """The port's CUDA kernels on the card (no JAX needed): K1-K7 against
 their plain PyTorch versions in float32 (K1-K6 also on the absorbing Cooke
-triplet, K7 at per-ray wavelengths), the bitwise reproducibility of the
-backward kernels' parameter cotangents, the dispatch of the public entry
-points (and their backward) to the kernels, and the explicit refusal of a
-branch a kernel does not take. Every test skips without a CUDA device and
-nvcc.
+triplet, K7 at per-ray wavelengths), K8 (the Huygens sum) against the
+float64 plain version, the bitwise reproducibility of the backward kernels'
+parameter cotangents and of K8, the dispatch of the public entry points
+(and their backward) to the kernels, and the explicit refusal of a branch
+or an input a kernel does not take. Every test skips without a CUDA device
+and nvcc.
 
 On a machine with the card, from the repository root:
 
@@ -20,9 +21,13 @@ import torch
 
 from optiland_tpu_torch import config
 from optiland_tpu_torch.models import CookeTriplet
+from optiland_tpu_torch.mtf import HuygensMTF
+from optiland_tpu_torch.psf import ScalarHuygensPSF
+from optiland_tpu_torch.psf import huygens
 from optiland_tpu_torch.system.optic import Optic
 from optiland_tpu_torch.trace import fused, tracer
 from optiland_tpu_torch.trace.raygen import generate_rays
+from optiland_tpu_torch.wavefront.core import pupil_grid_coords, wavefront_data
 
 from torch_port_helpers import bench_lens, singlet_lens
 
@@ -264,3 +269,82 @@ def test_wrapper_rejects_bad_inputs(cuda_f32):
     strided = tuple(torch.stack([d, d], 1)[:, 0] for d in data)
     with pytest.raises(ValueError, match="contiguous"):
         fused.moments_forward(ts, *args, strided)
+
+
+def _huygens_inputs(device, num_rays=64, image_size=64, field=(0.0, 1.0)):
+    """The Cooke triplet's pupil (amplitude, OPD in mm) at `field` and an
+    image grid around the chief ray's hit, as ScalarHuygensPSF builds them,
+    in the precision set."""
+    ts, tp = CookeTriplet().build(device=device)
+    Px, Py, inside = pupil_grid_coords(num_rays, tp.cv.dtype, device)
+    data = wavefront_data(ts, tp, *field, Px, Py, 0.55)
+    c = data.center
+    g = torch.linspace(-0.03, 0.03, image_size, dtype=tp.cv.dtype,
+                       device=device)
+    IX, IY = torch.meshgrid(g + c[0], g + c[1], indexing="xy")
+    return ((IX, IY, torch.zeros_like(IX) + c[2]),
+            (data.pupil_x, data.pupil_y, data.pupil_z),
+            torch.sqrt(data.intensity) * inside, data.opd * 0.55e-3, 0.55e-3,
+            data.radius)
+
+
+def test_huygens_kernel_matches_plain(cuda_f32):
+    """K8 against the plain version in float64 on the same (float32) inputs,
+    within twice the float32 plain version's own error and 1e-2 of the
+    peak (float32 rounds R ~ 54 mm to 4e-6 mm, up to 0.02 rad of phase per
+    term, correlated over the pupil grid: the plain float32 version is
+    2.3e-3 of the peak off on the CPU, 3.9e-3 on an H100); two launches
+    bitwise equal."""
+    args = _huygens_inputs(cuda_f32)
+    before = huygens.huygens_sum_forward.launches
+    got = huygens.huygens_sum(*args)
+    assert huygens.huygens_sum_forward.launches == before + 1
+    again = huygens.huygens_sum_forward(*args)
+    assert torch.equal(got, again)
+    ref = huygens.huygens_sum_plain(*(
+        tuple(a.double() for a in x) if isinstance(x, tuple)
+        else (x.double() if torch.is_tensor(x) else x) for x in args))
+    plain32 = huygens.huygens_sum_plain(*args)
+    peak = ref.abs().max()
+    err = ((got.double() - ref).abs().max() / peak).item()
+    err32 = ((plain32.double() - ref).abs().max() / peak).item()
+    assert got.shape == (64, 64) and bool(torch.isfinite(got).all())
+    assert err <= 1e-2 and err <= 2 * err32, (err, err32)
+
+
+def test_huygens_psf_launches_kernel(cuda_f32):
+    """ScalarHuygensPSF on the card: K7 under wavefront_data, K8 for the
+    image and for the normalizing peak; HuygensMTF through it; the plain
+    version only when asked (use_kernel=False)."""
+    lens = CookeTriplet()
+    k7, k8 = fused.history_forward.launches, huygens.huygens_sum_forward.launches
+    psf = ScalarHuygensPSF(lens, (0.0, 1.0), num_rays=32, image_size=32)
+    assert huygens.huygens_sum_forward.launches == k8 + 2
+    assert fused.history_forward.launches >= k7 + 3   # chief, bundle, spot
+    assert psf.psf.is_cuda and bool(torch.isfinite(psf.psf).all())
+    k8 = huygens.huygens_sum_forward.launches
+    mtf = HuygensMTF(lens, (0, 0), 0.55, num_rays=32, image_size=32)
+    assert huygens.huygens_sum_forward.launches == k8 + 2
+    assert all(bool(torch.isfinite(m).all()) for m in mtf.mtf)
+    plain = ScalarHuygensPSF(lens, (0.0, 1.0), num_rays=32, image_size=32,
+                             use_kernel=False)
+    assert huygens.huygens_sum_forward.launches == k8 + 2
+    # both float32, each ~2e-3 of the peak from float64 (rounding of R)
+    assert (plain.psf - psf.psf).abs().max() <= 1e-2 * plain.psf.max()
+
+
+def test_huygens_kernel_refuses(cuda_f32):
+    """K8 has no backward: an input that requires grad under grad mode
+    raises; float16 raises; float64 on the card takes the plain version."""
+    image, pupil, amp, opd, wl, Rp = _huygens_inputs(cuda_f32, 8, 4)
+    with pytest.raises(RuntimeError, match="no backward"):
+        huygens.huygens_sum(image, pupil, amp.clone().requires_grad_(True),
+                            opd, wl, Rp)
+    with pytest.raises(ValueError, match="float32"):
+        huygens.huygens_sum_forward(image, pupil, amp.half(), opd, wl, Rp)
+    before = huygens.huygens_sum_forward.launches
+    out = huygens.huygens_sum(tuple(a.double() for a in image),
+                              tuple(a.double() for a in pupil), amp.double(),
+                              opd.double(), wl, Rp.double())
+    assert out.dtype == torch.float64
+    assert huygens.huygens_sum_forward.launches == before

@@ -14,7 +14,6 @@ the parameters and the starting rays; the flagship merit of
 reordered sums over the surfaces' per-ray formulas), gradients at 1e-9 of
 each leaf's largest entry."""
 
-from contextlib import contextmanager
 from dataclasses import fields
 
 import numpy as np
@@ -25,7 +24,6 @@ import jax
 import jax.numpy as jnp
 
 import __graft_entry__ as graft
-import optiland_tpu
 from optiland_tpu.core import distributions as jdist
 from optiland_tpu.materials import catalog as jcat
 from optiland_tpu.models import CookeTriplet as JCooke
@@ -39,7 +37,7 @@ from optiland_tpu_torch.trace import fused as tfused
 from optiland_tpu_torch.trace import raygen as traygen
 from optiland_tpu_torch.trace import tracer as ttracer
 
-from torch_port_helpers import carry_across, jax_build_f64
+from torch_port_helpers import carry_across, jax_build_f64, jax_f64
 
 RTOL = 1e-10
 GRAD_ATOL = 1e-9   # of each leaf's largest entry
@@ -67,18 +65,6 @@ def test_unknown_glass_raises_key_error():
         tcat.resolve_material("no-such-glass-xyz")
     with pytest.raises(KeyError, match="No matches"):
         jcat.resolve_material("no-such-glass-xyz")
-
-
-@contextmanager
-def _jax_f64():
-    """The JAX package's precision global at float64, restored after."""
-    prev = optiland_tpu.get_dtype()
-    optiland_tpu.set_precision("float64")
-    try:
-        yield
-    finally:
-        optiland_tpu.set_precision("float32" if prev == np.float32
-                                   else "float64")
 
 
 @pytest.fixture(scope="module")
@@ -116,7 +102,7 @@ def flagship(cooke):
     js, jp, ts, tp, _, _ = cooke
     batch = graft._make_inputs(js, jp, rays_per_field=8)
     fn, _ = graft.entry()
-    with _jax_f64():
+    with jax_f64():
         (loss, hist), grad = jax.value_and_grad(
             lambda p: fn(p, *(jnp.asarray(a) for a in batch)),
             has_aux=True)(jp)
@@ -253,7 +239,7 @@ def test_flagship_merit_and_gradients_match_jax(cooke, flagship, via_seam):
 def test_optic_trace_matches_jax():
     """`Optic.trace` (hexapolar, 6 rings, two field points) against the
     JAX package's, float64."""
-    with _jax_f64():
+    with jax_f64():
         ref = JCooke().trace(Hx=[0.0, 0.0], Hy=[0.0, 1.0], num_rays=6)
     got = TCooke().trace(Hx=[0.0, 0.0], Hy=[0.0, 1.0], num_rays=6,
                           device="cpu")

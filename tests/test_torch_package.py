@@ -44,7 +44,8 @@ def test_port_files_import_no_jax():
 
 def test_import_leaves_jax_unloaded():
     code = ("import sys, optiland_tpu_torch, optiland_tpu_torch.trace.fused, "
-            "optiland_tpu_torch.optimization.merits\n"
+            "optiland_tpu_torch.optimization.merits, optiland_tpu_torch.psf, "
+            "optiland_tpu_torch.mtf, optiland_tpu_torch.wavefront\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'optax', 'optiland_tpu')]\n"
             "assert not bad, bad\n")
@@ -66,5 +67,9 @@ def test_build_defaults_to_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         lens.build()
+    from optiland_tpu_torch.psf import ScalarHuygensPSF
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ScalarHuygensPSF(lens, (0, 0), num_rays=4, image_size=2)
     static, params = lens.build(device="cpu")
     assert params.cv.device.type == "cpu"

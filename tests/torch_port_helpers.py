@@ -5,6 +5,7 @@ only by the functions that build the JAX side, so the tests on the card
 (tests/test_torch_cuda.py) run where JAX is not installed."""
 
 import math
+from contextlib import contextmanager
 from dataclasses import fields, replace
 
 import numpy as np
@@ -115,15 +116,8 @@ def tabulated_doublet(Optic):
 def jax_build_f64(lens):
     """Build a JAX-package lens in float64 whatever the JAX precision
     global holds, and restore it."""
-    import optiland_tpu
-
-    prev = optiland_tpu.get_dtype()
-    optiland_tpu.set_precision("float64")
-    try:
+    with jax_f64():
         return lens.build()
-    finally:
-        optiland_tpu.set_precision(
-            "float32" if prev == np.float32 else "float64")
 
 
 def carry_across(static, params, device="cpu", dtype=torch.float64):
@@ -156,3 +150,30 @@ def build_both(make, newton_iters=None):
         js = replace(js, newton_iters=newton_iters)
         ts = replace(ts, newton_iters=newton_iters)
     return (js, jp), (ts, tp)
+
+
+@contextmanager
+def jax_f64():
+    """The JAX package's precision global at float64, restored after."""
+    import optiland_tpu
+
+    prev = optiland_tpu.get_dtype()
+    optiland_tpu.set_precision("float64")
+    try:
+        yield
+    finally:
+        optiland_tpu.set_precision(
+            "float32" if prev == np.float32 else "float64")
+
+
+def assert_close(got, ref, tol, label="", scale=None):
+    """|got - ref| <= tol * scale elementwise; `scale` defaults to the
+    largest |ref| (a tensor, JAX or numpy array, or a number each)."""
+    got = (got.detach().cpu().numpy() if torch.is_tensor(got)
+           else np.asarray(got))
+    ref = np.asarray(ref)
+    assert got.shape == ref.shape, label
+    if scale is None:
+        scale = max(float(np.abs(ref).max()), 1e-300)
+    np.testing.assert_allclose(got / scale, ref / scale, rtol=0, atol=tol,
+                               err_msg=label)
