@@ -10,6 +10,10 @@ PyTorch built for CUDA. In order it:
   2. builds the CUDA kernels of optiland_tpu_torch/csrc with nvcc (one
      process per source, all at once) and prints the build time and nvcc's
      register report;
+  2b. (t) T1, the peak-rate chains of tools/vpu_peak.py: each of its three
+     kernels against its plain version on T1's input, then the port's tool
+     (`vpu_peak.run`, as `python -m optiland_tpu_torch.tools.vpu_peak`
+     runs it) for each, printing the four rates;
   3. builds the benchmark's 13-surface, 4-asphere lens in float32 on the
      card and draws 2,000,000 rays as bench.py draws them (seed 0);
   4. drives the forward path through the entry points a user calls,
@@ -66,8 +70,8 @@ PyTorch built for CUDA. In order it:
      flagship forward and the Huygens PSF end to end, and prints one JSON
      line of kernels;
  23. prints as its last line {"ok": true, "device": {...}}.
-Every path is driven with all eight launch counters set to 0 just before
-it and read just after, and fails unless its kernels were launched.
+Every path is driven with all the launch counters set to 0 just before it
+and read just after, and fails unless its kernels were launched.
 
 Any failed check raises and the script exits non-zero. Without a CUDA card,
 or without the repository around it, it exits non-zero and prints no
@@ -176,7 +180,26 @@ SAMPLED_FREQS = [(0.0, 0.0), (10.0, 0.0), (0.0, 30.0), (50.0, 50.0),
 # sincosf's fast range reduction covers |phase| up to ~1.05e5 rad; above
 # it takes the slow, exact Payne-Hanek path
 SINCOS_FAST_LIMIT = 105615.0
-
+# T1's kernels against their plain versions. At T1's step counts the FMA
+# chain's kernel rounds each step once (fmaf), the plain version twice (a
+# multiply, then an add): up to ~6e-8 relative a step over 512 steps, 3e-5
+# at worst, where the polynomial grows (x * 0.51 above 1); rsqrt has
+# converged to its fixed point and tan has underflowed to 0 in both, which
+# the script asserts rather than compares. So each chain is also held at 1
+# and 2 steps, where every element's value is still its own (tan ~1e-3 and
+# ~1e-6, rsqrt in [0.53, 0.71]), and the tan chain at 1 step on 1000 x
+# T1's input (tan over [1, 2), across its pole): within TOL_T1_ULPS units
+# in the last place of the plain version, one rounding of fmaf against two
+# a step, rsqrtf's and tanf's own against torch's.
+TOL_T1 = {"fma": ("rel", 1e-4), "rsqrt": ("rel", 1e-6)}
+TOL_T1_ULPS = 4.0
+T1_FIXED_POINT = 0.6776506   # a^2 (a + 1.5) = 1, the rsqrt chain's limit
+# T1's functions: FP32 operations an element (each rsqrt and tan one, as
+# `chain_ops_per_ray` counts) and the TPU kernel each replaces
+T1_OPS = {"fma": 1 + 2 * 512, "rsqrt": 2 * 64, "tan": 2 * 64}
+T1_REPLACES = {"fma": ("fma_kernel", "tools/vpu_peak.py:22"),
+               "rsqrt": ("sqrt_kernel", "tools/vpu_peak.py:32"),
+               "tan": ("tan_kernel", "tools/vpu_peak.py:39")}
 
 def check(cond, msg):
     if not cond:
@@ -430,6 +453,13 @@ def rel_err(got, ref, keep=None):
     return ((got.double() - ref.double()).abs().max() / scale).item()
 
 
+def ulp_err(got, ref):
+    """max |got - ref| in units in the last place of float32 ref."""
+    a = ref.float().abs()
+    ulp = (torch.nextafter(a, torch.full_like(a, math.inf)) - a).double()
+    return ((got.double() - ref.double()).abs() / ulp).max().item()
+
+
 def max_abs(got, ref, keep=None):
     if keep is not None:
         got, ref = got[keep], ref[keep]
@@ -492,6 +522,7 @@ def main():
     from optiland_tpu_torch.psf import MMDFTPSF, ScalarFFTPSF, ScalarHuygensPSF
     from optiland_tpu_torch.psf import huygens
     from optiland_tpu_torch.system.optic import Optic
+    from optiland_tpu_torch.tools import vpu_peak
     from optiland_tpu_torch.trace import fused, tracer
     from optiland_tpu_torch.trace.raygen import generate_rays
     from optiland_tpu_torch.wavefront import ZernikeOPD, wavefront_data
@@ -507,7 +538,10 @@ def main():
                 "K5": fused.fused_trace_forward,
                 "K6": fused.fused_trace_backward,
                 "K7": fused.history_forward,
-                "K8": huygens.huygens_sum_forward}
+                "K8": huygens.huygens_sum_forward,
+                "T1 fma": vpu_peak.fma_chain,
+                "T1 rsqrt": vpu_peak.rsqrt_chain,
+                "T1 tan": vpu_peak.tan_chain}
 
     def reset_counts():
         for f in counters.values():
@@ -544,6 +578,54 @@ def main():
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
+
+    # 2b. (t) T1: each chain against its plain version, at 1 and 2 steps
+    # and at T1's own counts, then the tool's own path, counters at 0 just
+    # before and read just after
+    x_t1 = vpu_peak.peak_input(dev)
+    plains_t1 = {"fma": vpu_peak.fma_plain, "rsqrt": vpu_peak.rsqrt_plain,
+                 "tan": vpu_peak.tan_plain}
+    t1_err, t1_ulps = {}, {}
+    for name, (wrapper, _) in vpu_peak.CHAINS.items():
+        cases = [(x_t1, 1), (x_t1, 2)] + ([(x_t1 * 1000.0, 1)]
+                                          if name == "tan" else [])
+        for i, (x, steps) in enumerate(cases):
+            got, ref = wrapper(x, steps), plains_t1[name](x, steps)
+            check(bool(torch.isfinite(got).all()) and bool((ref != 0).all()),
+                  f"T1 {name} at {steps} steps: finite, not settled")
+            t1_ulps[f"{name} {steps}{' x1000' if i == 2 else ''}"] = u = (
+                ulp_err(got, ref))
+            check(u <= TOL_T1_ULPS, f"T1 {name} at {steps} steps vs plain "
+                  f"({u} ulps)")
+        got, ref = wrapper(x_t1), plains_t1[name](x_t1)
+        check(got.shape == ref.shape and bool(torch.isfinite(got).all()),
+              f"T1 {name}: shape, finite")
+        err = max_abs(got, ref)
+        t1_err[name] = {"max_abs": err}
+        if name == "tan":   # underflowed in both: asserted, not compared
+            check(not got.any() and not ref.any(), "T1 tan: all zeros")
+            continue
+        kind, tol = TOL_T1[name]
+        t1_err[name][kind] = rel_err(got, ref)
+        check(t1_err[name][kind] <= tol, f"T1 {name} vs plain ({kind} {tol})")
+        if name == "rsqrt":
+            check(rel_err(got, torch.full_like(got, T1_FIXED_POINT)) <= 1e-6,
+                  "T1 rsqrt at its fixed point")
+    print(f"T1 vs plain at 1 and 2 steps, ulps: {json.dumps(t1_ulps)} "
+          f"(tolerance {TOL_T1_ULPS}); at T1's counts: {json.dumps(t1_err)} "
+          f"tolerances {json.dumps(TOL_T1)}, tan all zeros, rsqrt at "
+          f"{T1_FIXED_POINT}")
+    reset_counts()
+    t1_runs = {name: vpu_peak.run(name) for name in vpu_peak.CHAINS}
+    t1_launches = read_counts()
+    print(f"T1 vpu_peak.run launches: {t1_launches}")
+    for name in vpu_peak.CHAINS:
+        check(t1_launches[f"T1 {name}"] >= 1, f"vpu_peak.run launched {name}")
+    t1_rates = {"fma_per_s": t1_runs["fma"][0],
+                "fma_tflops_f32": t1_runs["fma"][0] * 2 / 1e12,
+                "rsqrt_per_s": t1_runs["rsqrt"][0],
+                "tan_per_s": t1_runs["tan"][0]}
+    print(f"T1 rates on {smi}: {json.dumps(t1_rates)}")
 
     # 3. the lens and the rays
     config.set_precision("float32")
@@ -1002,8 +1084,8 @@ def main():
     loss_j.backward()
     spot_launches = read_counts()
     print(f"Cooke centroid_rms_spot + backward launches: {spot_launches}")
-    check(spot_launches["K1"] >= 1 and spot_launches["K2"] >= 1,
-          "Cooke centroid_rms_spot launched K1 and K2")
+    check(spot_launches["K1"] == 1 and spot_launches["K2"] == 1,
+          "Cooke centroid_rms_spot launched K1 and K2 once each")
     config.set_precision("float64")
     leaves64_j, p64_j = leaves_of(params_c64, spot_names)
     loss64_j = centroid_rms_spot(static_c64, p64_j, *fb64[:4],
@@ -1235,7 +1317,15 @@ def main():
     blocks = -(-n // fused._BLOCK)
     S = static.num_surfaces
     partials = torch.empty((blocks, 4), device=dev)
-    partials_bwd = torch.empty((blocks, S + 1, fused._F_STRIDE), device=dev)
+    # the backward kernels' persistent grids, from the wrappers' helper
+    n_sm = config.sm_count(dev)
+    grid = {"K2": fused.backward_grid(n, n_sm),
+            "K4": fused.backward_grid(n, n_sm),
+            "K6": fused.backward_grid(nv, n_sm)}
+    print(f"backward grids (blocks, threads) at these shapes: "
+          f"{json.dumps(grid)}, {n_sm} SMs")
+    partials_bwd = torch.empty((max(b for b, _ in grid.values()), S + 1,
+                                fused._F_STRIDE), device=dev)
     outs = [torch.empty(n, device=dev) for _ in range(8)]
     c32 = c_loss.float().contiguous()
     k4_s8, k4_sp = fused._seed_ptrs([dict(zip(k4_keys, k4_seeds)).get(k)
@@ -1255,7 +1345,7 @@ def main():
             a.contiguous() for a in (*pupil, amp, opd)]
         rp = Rp.reshape(1).contiguous()
         ni, npu = flat[0].numel(), flat[3].numel()
-        chunk = huygens.pupil_chunk(ni, npu, huygens._sm_count(dev))
+        chunk = huygens.pupil_chunk(ni, npu, config.sm_count(dev))
         partial = torch.empty((-(-npu // chunk), 2, ni), device=dev)
         return (chunk, 2.0 * math.pi / wl_mm,
                 [rp.data_ptr()] + [a.data_ptr() for a in flat], partial,
@@ -1274,18 +1364,18 @@ def main():
     launches = {
         "K1": lambda: launch("moments_fwd", *head, *ptrs,
                              partials.data_ptr()),
-        "K2": lambda: launch("moments_bwd", *head, 0, *ptrs, c32.data_ptr(),
-                             partials_bwd.data_ptr(), None, None, None,
-                             None),
+        "K2": lambda: launch("moments_bwd", *head, *grid["K2"], 0, *ptrs,
+                             c32.data_ptr(), partials_bwd.data_ptr(), None,
+                             None, None, None),
         "K3": lambda: launch("raygen_trace_fwd", *head, 255, *ptrs,
                              *(o.data_ptr() for o in outs)),
-        "K4": lambda: launch("raygen_trace_bwd", *head, *ptrs, *k4_sp,
-                             partials_bwd.data_ptr(),
+        "K4": lambda: launch("raygen_trace_bwd", *head, *grid["K4"], *ptrs,
+                             *k4_sp, partials_bwd.data_ptr(),
                              *(o.data_ptr() for o in outs[:4])),
         "K5": lambda: launch("fused_trace_fwd", *head_v, *ptrs_v,
                              *(o.data_ptr() for o in outs)),
-        "K6": lambda: launch("fused_trace_bwd", *head_v, *ptrs_v, *k6_sp,
-                             partials_bwd.data_ptr(),
+        "K6": lambda: launch("fused_trace_bwd", *head_v, *grid["K6"],
+                             *ptrs_v, *k6_sp, partials_bwd.data_ptr(),
                              *(o.data_ptr() for o in outs)),
         "K7": lambda: launch(
             "history_fwd", n_c, S_c,
@@ -1361,6 +1451,17 @@ def main():
             ms=time_ms(launches[key]), plain_ms=time_ms(plains[key]),
             bound_ms=b_ms, bound_by=b_by, library_ms=None))
         free()
+    for name in vpu_peak.CHAINS:   # T1: input read once, output written once
+        fn_name, replaces = T1_REPLACES[name]
+        b_ms, b_by = bound_ms(2 * 4 * x_t1.numel(),
+                              T1_OPS[name] * x_t1.numel())
+        rows.append(dict(
+            name=f"T1 {fn_name}", route="cuda",
+            source="optiland_tpu_torch/csrc/vpu_peak.cu", replaces=replaces,
+            launches=t1_launches[f"T1 {name}"],
+            max_abs_err=t1_err[name]["max_abs"], ms=1e3 * t1_runs[name][1],
+            plain_ms=time_ms(lambda: plains_t1[name](x_t1)), bound_ms=b_ms,
+            bound_by=b_by, library_ms=None))
 
     def host_ms(fn, calls=TIMED_STEPS):
         """Median host-clock time of `fn` between two synchronizes, after
@@ -1461,9 +1562,9 @@ def main():
     for label, args, with_plain in (("psf_128", img_args, True),
                                     ("bench_wave_optics", bench_args, True),
                                     ("psf_256", big_args, False)):
-        chunk, k, ptrs, partial, _keep = k8_launch_args(args)
+        chunk, k, ptrs8, partial, _keep = k8_launch_args(args)
         ni, npu = args[0][0].numel(), args[1][0].numel()
-        t_k8 = time_ms(lambda: launch_k8(ni, npu, chunk, k, *ptrs,
+        t_k8 = time_ms(lambda: launch_k8(ni, npu, chunk, k, *ptrs8,
                                          partial.data_ptr()))
         b_ms, b_by = bound_ms(*huygens_bound(ni, npu))
         top, slow = phase_range(args)
@@ -1496,6 +1597,7 @@ def main():
     print(f"ScalarHuygensPSF(CookeTriplet(), (0, 1)) at its defaults, float32, "
           f"host clock, median of {TIMED_STEPS}: {psf_ms:.4f} ms; split (ms) "
           f"{json.dumps(psf_split)}")
+
     print(f"whole run: {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": rows}))

@@ -27,7 +27,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[1] / "build" / "optiland_tpu_torch"
 SOURCES = ("moments_fwd", "moments_bwd", "raygen_trace_fwd",
            "raygen_trace_bwd", "fused_trace_fwd", "fused_trace_bwd",
-           "history_fwd", "huygens_sum")
+           "history_fwd", "huygens_sum", "vpu_peak")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

@@ -11,6 +11,8 @@ choice into a `torch.device` and refuses "cuda" when no card is present.
 
 from __future__ import annotations
 
+from functools import lru_cache
+
 import torch
 
 _DTYPES = {
@@ -54,3 +56,9 @@ def resolve_device(device=None) -> torch.device:
             "CUDA device requested but torch.cuda.is_available() is False; "
             "pass device='cpu' to build on the CPU")
     return dev
+
+
+@lru_cache(maxsize=8)
+def sm_count(device: torch.device) -> int:
+    """The number of SMs of the CUDA card `device`, read once."""
+    return torch.cuda.get_device_properties(device).multi_processor_count

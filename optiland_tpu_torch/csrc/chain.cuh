@@ -77,9 +77,10 @@ constexpr float FOUR_PI = static_cast<float>(12.566370614359172);
 constexpr float INTERP_DX0 = static_cast<float>(1.4210854715202004e-14);
 
 // floats the re-trace of a backward kernel keeps per surface: the entry
-// state (x, y, z, L, M, N, global frame), the ray parameter t, the index
-// before the surface and the surface's vertex z
-constexpr int REC = 9;
+// state (x, y, z, L, M, N, global frame) and the ray parameter t. The
+// surface's vertex z and, at one wavelength, the index before it are the
+// same for every ray (chain_bwd.cuh `surface_frames`).
+constexpr int REC = 7;
 
 struct Ray {
   float x, y, z, L, M, N, i, opd;
@@ -506,10 +507,10 @@ struct NoSink {
 // The surface chain from surface 1 to S-1: `_tile_trace` (for_grad=False).
 // The vertex z of surface k is the running sum of thickness[1..k-1]
 // (thickness[0], infinite for an infinite object, never enters). With
-// `rec`, row k gets surface k's entry state, t, index before it and vertex
-// z (the re-trace of the backward kernels, chain_bwd.cuh). Without `disp`
-// the indices and absorption come from the tables' one wavelength; with
-// it, from the ray's own. `sink(k, ray)` sees the state after surface k.
+// `rec`, row k gets surface k's entry state and t (the re-trace of the
+// backward kernels, chain_bwd.cuh). Without `disp` the indices and
+// absorption come from the tables' one wavelength; with it, from the
+// ray's own. `sink(k, ray)` sees the state after surface k.
 template <class Sink = NoSink>
 __device__ __forceinline__ void trace_chain(int S, int n_newton, const float* ft,
                                             const int* it, Ray& r,
@@ -526,8 +527,6 @@ __device__ __forceinline__ void trace_chain(int S, int n_newton, const float* ft
     if (rec) {
       rec[k][0] = x; rec[k][1] = y; rec[k][2] = z;
       rec[k][3] = L; rec[k][4] = M; rec[k][5] = N;
-      rec[k][7] = n_pre;
-      rec[k][8] = pos_k;
     }
 
     to_local(s, pos_k, x, y, z, L, M, N);

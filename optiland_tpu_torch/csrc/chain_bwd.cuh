@@ -10,10 +10,11 @@
 // K6 with per-ray cotangents of the final state.
 //
 // Design: a backward kernel re-traces its ray with `trace_chain(..., rec)`,
-// which keeps each surface's entry state, t, index and vertex z (REC
-// floats per surface, in local memory), then `reverse_chain` walks the surfaces from
-// S-1 down to 1. Per surface it recomputes that surface's forward from the
-// record and runs its adjoint:
+// which keeps each surface's entry state and t (REC floats per surface, a
+// per-thread array in local memory, which L1 holds: measured on an H100,
+// the same record in shared memory ran slower, PERF.md), then
+// `reverse_chain` walks the surfaces from S-1 down to 1. Per surface it
+// recomputes that surface's forward from the record and runs its adjoint:
 //   - the closed-form adjoints of refraction and reflection
 //     (`_refract_cv_bwd`, `_reflect_cv_bwd` in the JAX file);
 //   - on every curved surface the implicit-function-theorem derivative of
@@ -34,10 +35,20 @@
 //     cotangent: it is not differentiated, as in JAX.
 // Masks (valid root, aperture, TIR) carry no cotangent, as in JAX.
 //
-// Parameter cotangents leave each surface as one row of F_STRIDE slots in
-// the packed-table layout, summed over the block by `BlockRows` (warp
-// shuffles, then the warps in a fixed order): one partial row per block,
-// no float atomics, bitwise reproducible.
+// Parameter cotangents leave each surface as one row of F_STRIDE slots,
+// held in a compact order (`table_slot`) so that the slots a surface uses
+// come first. A warp sums its 32 rays' row by a reduce-scatter of the
+// used width (`WarpRows`: lane j receives slot j's sum) and adds it to the
+// warp's own rows in shared memory, with no barrier. A backward grid is
+// persistent, at most one block an SM (the wrapper's `backward_grid`:
+// BWD_THREADS threads, fewer when a small n fits one smaller tile to an
+// SM): block b walks the tiles of blockDim.x rays b, b + blocks, ... with
+// one barrier a tile that keeps its warps in step (warps left to drift
+// apart ran slower on an H100, most likely because they then run
+// different parts of the kernel's ~8,000 instructions at once),
+// and at the end sums its warps' rows in a fixed order into one partial
+// per block (`write_partials`), summed by torch.sum in the wrapper: no
+// float atomics, bitwise reproducible on a given card.
 #pragma once
 
 #include "chain.cuh"
@@ -299,16 +310,17 @@ __device__ __forceinline__ void interact_bwd(const Surface& s, float n_pre, floa
 }
 
 // Reverse of one surface of trace_chain. e: the surface's record (entry
-// state, t, index before it, vertex z); g: cotangent of the state after the
-// surface on entry, of the entry state on exit; g_opd: the opd cotangent
-// (opd only accumulates, so it is the same at every surface); g_ip: the
-// product i di of the intensity and its cotangent (the same at every
-// surface). Adds the surface's parameter cotangents to sg and the
-// cotangent of its vertex z to dpos.
-__device__ __forceinline__ void surface_bwd(const Surface& s, const float* e, float g_opd,
+// state and t); n_pre, pos: the index before the surface and its vertex z;
+// g: cotangent of the state after the surface on entry, of the entry state
+// on exit; g_opd: the opd cotangent (opd only accumulates, so it is the
+// same at every surface); g_ip: the product i di of the intensity and its
+// cotangent (the same at every surface). Adds the surface's parameter
+// cotangents to sg and the cotangent of its vertex z to dpos.
+__device__ __forceinline__ void surface_bwd(const Surface& s, const float* e,
+                                            float n_pre, float pos, float g_opd,
                                             float g_ip, Vec6& g, float& acc_n,
                                             float& dpos, SurfGrad& sg) {
-  const float t = e[6], n_pre = e[7], pos = e[8];
+  const float t = e[6];
   // recompute the surface's forward from its record
   Vec6 a[4];
   a[0] = Vec6{e[0], e[1], e[2], e[3], e[4], e[5]};
@@ -441,74 +453,147 @@ __device__ __forceinline__ void tile_raygen_bwd(int field_angle, int object_infi
   dd[3] = dPy;
 }
 
-// The slots of row k that the reverse sweep fills.
-__device__ __forceinline__ unsigned used_slots(const Surface& s) {
-  unsigned used = (1u << F_CV) | (1u << F_CONIC) | (1u << F_THICK);
-  if (is_asphere(s)) used |= ((1u << s.nc) - 1u) << F_COEFFS;
-  if (s.tilted) used |= 7u << F_TILT;
-  if (s.tilted || s.decentered) used |= 3u << F_DEC;
-  if (s.inter == INT_REFRACT) used |= 1u << F_NTAB;
-  return used;
+// The compact order of a cotangent row: cv, conic, thickness and index
+// first, then the polynomial coefficients, tilt and decenter, so that the
+// slots a surface uses come first. `table_slot(c)` is the slot of compact
+// position c in the packed-table layout (F_* in chain.cuh).
+constexpr int C_CV = 0;
+constexpr int C_CONIC = 1;
+constexpr int C_THICK = 2;
+constexpr int C_NTAB = 3;
+constexpr int C_COEFFS = 4;
+constexpr int C_TILT = C_COEFFS + MAX_COEFFS;  // 21
+constexpr int C_DEC = C_TILT + 3;              // 24, then the unused 26-31
+
+__device__ __forceinline__ int table_slot(int c) {
+  if (c == C_CV) return F_CV;
+  if (c == C_CONIC) return F_CONIC;
+  if (c == C_THICK) return F_THICK;
+  if (c == C_NTAB) return F_NTAB;
+  if (c < C_TILT) return F_COEFFS + (c - C_COEFFS);
+  if (c < C_DEC + 2) return F_TILT + (c - C_TILT);  // tilt and decenter, 20-24
+  return c;
 }
 
-// A surface's cotangents as one row of the packed-table layout.
+// The width of row k that the reverse sweep fills: the power of two, at
+// least 4, that covers the compact slots the surface uses.
+__device__ __forceinline__ int row_width(const Surface& s) {
+  if (s.tilted || s.decentered) return F_STRIDE;
+  const int top = C_COEFFS + (is_asphere(s) ? s.nc : 0);
+  return top <= 4 ? 4 : (top <= 8 ? 8 : (top <= 16 ? 16 : F_STRIDE));
+}
+
+// A surface's cotangents as one row, in the compact order.
 __device__ __forceinline__ void grad_row(const SurfGrad& sg, float (&v)[F_STRIDE]) {
 #pragma unroll
   for (int j = 0; j < F_STRIDE; ++j) v[j] = 0.f;
-  v[F_CV] = sg.cv;
-  v[F_CONIC] = sg.conic;
+  v[C_CV] = sg.cv;
+  v[C_CONIC] = sg.conic;
+  v[C_THICK] = sg.thick;
+  v[C_NTAB] = sg.n;
 #pragma unroll
-  for (int ci = 0; ci < MAX_COEFFS; ++ci) v[F_COEFFS + ci] = sg.co[ci];
-  v[F_THICK] = sg.thick;
-  v[F_TILT] = sg.tilt[0];
-  v[F_TILT + 1] = sg.tilt[1];
-  v[F_TILT + 2] = sg.tilt[2];
-  v[F_DEC] = sg.dec[0];
-  v[F_DEC + 1] = sg.dec[1];
-  v[F_NTAB] = sg.n;
+  for (int ci = 0; ci < MAX_COEFFS; ++ci) v[C_COEFFS + ci] = sg.co[ci];
+  v[C_TILT] = sg.tilt[0];
+  v[C_TILT + 1] = sg.tilt[1];
+  v[C_TILT + 2] = sg.tilt[2];
+  v[C_DEC] = sg.dec[0];
+  v[C_DEC + 1] = sg.dec[1];
 }
 
-// Sums one row of F_STRIDE per-thread values over the block and writes it
-// to out[row * F_STRIDE ...]: warp shuffles, then the block's warps in a
-// fixed order. Slots outside `used` (uniform over the block) are written
-// as 0 without a reduction. Every thread of the block calls it.
-struct BlockRows {
-  float* out;     // this block's partial rows
-  float* s_part;  // shared, (BLOCK / 32) * F_STRIDE floats
-
-  __device__ __forceinline__ void put(int row, const float (&v)[F_STRIDE],
-                                      unsigned used) const {
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+// Reduce-scatter of M values over the 32 lanes of a warp, from xor offset
+// O down: while M > 1, each step keeps half the values (the lower half in
+// lanes whose bit O is clear), adds the partner lane's copy of that half
+// and sends it the other (M / 2 shuffles); once one value is left, plain
+// butterfly steps finish the sum. Lane l ends with the sum over all 32
+// lanes of slot l / (32 / M): W - 1 + 5 - log2(W) shuffles for width W
+// (31 for 32 slots, 9 for 8, 6 for 4).
+template <int M, int O>
+struct Scatter {
+  static __device__ __forceinline__ float run(float (&v)[F_STRIDE], int lane) {
+    if constexpr (O == 0) {
+      return v[0];
+    } else if constexpr (M > 1) {
+      const bool upper = (lane & O) != 0;
 #pragma unroll
-    for (int j = 0; j < F_STRIDE; ++j) {
-      if (used & (1u << j)) {
-        float x = v[j];
-        for (int off = 16; off > 0; off >>= 1) x += __shfl_down_sync(0xffffffffu, x, off);
-        if (lane == 0) s_part[warp * F_STRIDE + j] = x;
+      for (int i = 0; i < M / 2; ++i) {
+        const float send = upper ? v[i] : v[i + M / 2];
+        const float keep = upper ? v[i + M / 2] : v[i];
+        v[i] = keep + __shfl_xor_sync(0xffffffffu, send, O);
       }
+      return Scatter<M / 2, O / 2>::run(v, lane);
+    } else {
+      v[0] += __shfl_xor_sync(0xffffffffu, v[0], O);
+      return Scatter<1, O / 2>::run(v, lane);
     }
-    __syncthreads();
-    if (threadIdx.x < F_STRIDE) {
-      const int j = threadIdx.x;
-      float tot = 0.f;
-      if (used & (1u << j))
-        for (int w = 0; w < BLOCK / 32; ++w) tot += s_part[w * F_STRIDE + j];
-      out[row * F_STRIDE + j] = tot;
-    }
-    __syncthreads();
   }
 };
 
-// The reverse sweep from surface S-1 down to 1, for every thread of the
-// block (dead threads, live = false, contribute zeros). g: the final
-// state's cotangent on entry, the starting ray's on exit; g_opd and g_ip
-// as for surface_bwd. Rows 1..S-1 of
-// `rows` get the surfaces' parameter cotangents (the thickness slot of row
-// k is d thickness[k], the sum over the vertices after k), row 0 the
-// cotangent of n_table[0].
+// Sums rows of per-lane cotangents over a warp into that warp's own rows
+// (nrows x F_STRIDE floats in shared memory, compact order): a
+// reduce-scatter of the row's width, then the lane that holds slot j's sum
+// adds it to slot j. Each slot of a row is always added by the same lane,
+// so the warp needs no barrier. Every lane of the warp calls it.
+struct WarpRows {
+  float* rows;
+
+  __device__ __forceinline__ void put(int row, float (&v)[F_STRIDE], int width) const {
+    const int lane = threadIdx.x & 31;
+    float sum;
+    if (width == 4)
+      sum = Scatter<4, 16>::run(v, lane);
+    else if (width == 8)
+      sum = Scatter<8, 16>::run(v, lane);
+    else if (width == 16)
+      sum = Scatter<16, 16>::run(v, lane);
+    else
+      sum = Scatter<32, 16>::run(v, lane);
+    const int per = 32 / width;  // lanes holding each slot's sum
+    if ((lane & (per - 1)) == 0) rows[row * F_STRIDE + lane / per] += sum;
+  }
+};
+
+// The raygen scalars' cotangents as row `row`: their slots 0..4 of the
+// table layout are the compact positions C_CV, C_CONIC and C_COEFFS + 0..2.
+template <class Rows>
+__device__ __forceinline__ void put_raygen_row(const Rows& rows, int row, const float* drg) {
+  float v[F_STRIDE];
+#pragma unroll
+  for (int j = 0; j < F_STRIDE; ++j) v[j] = 0.f;
+  v[C_CV] = drg[0];
+  v[C_CONIC] = drg[1];
+  v[C_COEFFS] = drg[2];
+  v[C_COEFFS + 1] = drg[3];
+  v[C_COEFFS + 2] = drg[4];
+  rows.put(row, v, 8);
+}
+
+// Each surface's vertex z (pos) and, at one wavelength, the index of the
+// medium before it (npre), the same for every ray: the running values of
+// trace_chain, by the same arithmetic. Thread 0 of the block fills them.
+__device__ __forceinline__ void surface_frames(int S, const float* ft, const int* it,
+                                               float* pos, float* npre) {
+  if (threadIdx.x != 0) return;
+  float pos_prev = 0.f, n_pre = ft[F_NTAB];
+  for (int k = 1; k < S; ++k) {
+    pos[k] = pos_prev + (k > 1 ? ft[(k - 1) * F_STRIDE + F_THICK] : 0.f);
+    pos_prev = pos[k];
+    npre[k] = n_pre;
+    const int inter = it[k * I_STRIDE + I_INTER];
+    if (inter != INT_NONE && inter != INT_REFLECT) n_pre = ft[k * F_STRIDE + F_NTAB];
+  }
+}
+
+// The reverse sweep from surface S-1 down to 1, for every lane of the
+// warp (dead lanes, live = false, contribute zeros). rec: the record
+// trace_chain wrote; pos, npre: surface_frames'. g:
+// the final state's cotangent on entry, the starting ray's on exit; g_opd
+// and g_ip as for surface_bwd. Rows 1..S-1 of `rows` get the surfaces'
+// parameter cotangents (the thickness slot of row k is d thickness[k], the
+// sum over the vertices after k), row 0 the cotangent of n_table[0].
 template <class Rows>
 __device__ __forceinline__ void reverse_chain(int S, const float* ft, const int* it,
-                                              float (*rec)[REC], bool live,
+                                              const float* pos, const float* npre,
+                                              const float (*rec)[REC], bool live,
                                               float g_opd, float g_ip, Vec6& g,
                                               const Rows& rows) {
   float acc_n = 0.f, acc_pos = 0.f;
@@ -517,19 +602,88 @@ __device__ __forceinline__ void reverse_chain(int S, const float* ft, const int*
     SurfGrad sg;
     zero(sg);
     float dpos = 0.f;
-    if (live) surface_bwd(s, rec[k], g_opd, g_ip, g, acc_n, dpos, sg);
+    if (live) surface_bwd(s, rec[k], npre[k], pos[k], g_opd, g_ip, g, acc_n, dpos, sg);
     sg.thick = acc_pos;
     acc_pos += dpos;
     float v[F_STRIDE];
     grad_row(sg, v);
-    rows.put(k, v, used_slots(s));
+    rows.put(k, v, row_width(s));
   }
   SurfGrad sg;
   zero(sg);
   sg.n = acc_n;
   float v[F_STRIDE];
   grad_row(sg, v);
-  rows.put(0, v, 1u << F_NTAB);
+  rows.put(0, v, 4);
+}
+
+// The dynamic shared memory of a backward block with `nrows` cotangent
+// rows: the staged tables, surface_frames' pos and npre, the raygen
+// scalars and each warp's rows (nrows x F_STRIDE).
+struct BwdShared {
+  float* ft;
+  int* it;
+  float* pos;
+  float* npre;
+  float* rg;
+  float* rows;
+};
+
+// Threads of a backward block at most: 16 warps (the registers of these
+// kernels allow no more), one record each in local memory. The wrapper's
+// `backward_grid` takes 128 or 256 when n fits one such tile to an SM.
+constexpr int BWD_THREADS = 512;
+constexpr int MAX_DYN_SMEM = 232448;  // 227 KB, a Hopper block's most
+
+// Whether a backward block of `threads` threads is one these kernels run:
+// whole warps, at most BWD_THREADS.
+__host__ __forceinline__ bool bwd_threads_ok(int threads) {
+  return threads >= 32 && threads <= BWD_THREADS && threads % 32 == 0;
+}
+
+__host__ __device__ __forceinline__ size_t bwd_smem_bytes(int S, int nrows, int threads) {
+  return sizeof(float) * ((size_t)S * (F_STRIDE + I_STRIDE + 2) + 8 +
+                          (size_t)(threads / 32) * nrows * F_STRIDE);
+}
+
+// Carve the block's shared memory, stage the tables and the raygen scalars
+// (rg may be NULL), fill surface_frames and zero the warps' rows; every
+// thread of the block calls it.
+__device__ __forceinline__ BwdShared stage_backward(float* smem, int S, int nrows,
+                                                    const float* __restrict__ ftab,
+                                                    const int* __restrict__ itab,
+                                                    const float* __restrict__ rg) {
+  BwdShared b;
+  b.ft = smem;
+  b.it = reinterpret_cast<int*>(smem + S * F_STRIDE);
+  b.pos = smem + S * (F_STRIDE + I_STRIDE);
+  b.npre = b.pos + S;
+  b.rg = b.npre + S;
+  b.rows = b.rg + 8;
+  for (int j = threadIdx.x; j < (int)(blockDim.x / 32) * nrows * F_STRIDE; j += blockDim.x)
+    b.rows[j] = 0.f;
+  stage_tables(S, ftab, itab, rg, b.ft, b.it, b.rg);
+  surface_frames(S, b.ft, b.it, b.pos, b.npre);
+  __syncthreads();
+  return b;
+}
+
+// This warp's rows.
+__device__ __forceinline__ WarpRows warp_rows(const BwdShared& b, int nrows) {
+  return WarpRows{b.rows + (threadIdx.x / 32) * nrows * F_STRIDE};
+}
+
+// After the block's last group: the sum of its warps' rows, in warp order,
+// as this block's nrows partial rows in the packed-table layout. Every
+// thread of the block calls it.
+__device__ __forceinline__ void write_partials(const BwdShared& b, int nrows, float* out) {
+  __syncthreads();
+  const int warps = blockDim.x / 32, n = nrows * F_STRIDE;
+  for (int j = threadIdx.x; j < n; j += blockDim.x) {
+    float tot = 0.f;
+    for (int w = 0; w < warps; ++w) tot += b.rows[w * n + j];
+    out[(j / F_STRIDE) * F_STRIDE + table_slot(j % F_STRIDE)] = tot;
+  }
 }
 
 }  // namespace otk

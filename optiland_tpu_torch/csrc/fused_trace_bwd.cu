@@ -9,9 +9,11 @@
 // record (starting from i = 1, so the final i is the product of its masks
 // and absorption factors), runs the reverse sweep of chain_bwd.cuh (with
 // i di = seed_i * i_start * that product) and writes (dx, dy, dz, dL, dM,
-// dN) of the start, di = seed_i * product and dopd = seed_opd. The block sums the parameter cotangents into one
-// partial row per surface, summed by torch.sum in the wrapper (no float
-// atomics, bitwise reproducible).
+// dN) of the start, di = seed_i * product and dopd = seed_opd. The launch
+// geometry, the record and the warps' rows are K2's
+// (moments_bwd.cu): one partial of S rows per block of a persistent grid,
+// summed by torch.sum in the wrapper (no float atomics, bitwise
+// reproducible on a given card).
 //
 // Bound on an H100: FP32 operations of the re-trace plus the adjoint; it
 // moves 96 bytes per ray (8 arrays in, 8 seeds, 8 cotangents out).
@@ -25,52 +27,66 @@ struct Arrays {
   float* p[8];
 };
 
-__global__ void __launch_bounds__(otk::BLOCK)
+__global__ void __launch_bounds__(otk::BWD_THREADS)
 fused_trace_bwd_kernel(int n, int S, int n_newton, const float* __restrict__ ftab,
                        const int* __restrict__ itab, Arrays rays, Arrays seeds,
                        float* __restrict__ partials, Arrays d_rays) {
-  __shared__ float s_ft[otk::MAX_SURFACES * otk::F_STRIDE];
-  __shared__ int s_it[otk::MAX_SURFACES * otk::I_STRIDE];
-  __shared__ float s_part[(otk::BLOCK / 32) * otk::F_STRIDE];
-  otk::stage_tables(S, ftab, itab, nullptr, s_ft, s_it, nullptr);
-
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool live = idx < n;
+  extern __shared__ float smem[];
+  const int nrows = S;
+  const otk::BwdShared sh = otk::stage_backward(smem, S, nrows, ftab, itab, nullptr);
+  const otk::WarpRows rows = otk::warp_rows(sh, nrows);
   float rec[otk::MAX_SURFACES][otk::REC];
-  float sd[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  float mask = 0.f;
-  otk::Vec6 g = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  if (live) {
-    otk::Ray r = {rays.p[0][idx], rays.p[1][idx], rays.p[2][idx], rays.p[3][idx],
-                  rays.p[4][idx], rays.p[5][idx], 1.f, rays.p[7][idx]};
-    otk::trace_chain(S, n_newton, s_ft, s_it, r, rec);
-    mask = r.i;
+  const int tiles = (n + blockDim.x - 1) / blockDim.x;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    __syncthreads();  // the block's warps start each tile in step
+    const int idx = tile * blockDim.x + threadIdx.x;
+    const bool live = idx < n;
+    float sd[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    float mask = 0.f, g_ip = 0.f;
+    otk::Vec6 g = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    if (live) {
+      otk::Ray r = {rays.p[0][idx], rays.p[1][idx], rays.p[2][idx], rays.p[3][idx],
+                    rays.p[4][idx], rays.p[5][idx], 1.f, rays.p[7][idx]};
+      otk::trace_chain(S, n_newton, sh.ft, sh.it, r, rec);
+      mask = r.i;
 #pragma unroll
-    for (int k = 0; k < 8; ++k) sd[k] = seeds.p[k] ? seeds.p[k][idx] : 0.f;
-    g = otk::Vec6{sd[0], sd[1], sd[2], sd[3], sd[4], sd[5]};
-  }
-  const otk::BlockRows rows{partials + (size_t)blockIdx.x * S * otk::F_STRIDE, s_part};
-  otk::reverse_chain(S, s_ft, s_it, rec, live, sd[7],
-                     live ? sd[6] * rays.p[6][idx] * mask : 0.f, g, rows);
-  if (live) {
-    const float v[8] = {g.x, g.y, g.z, g.L, g.M, g.N, sd[6] * mask, sd[7]};
+      for (int k = 0; k < 8; ++k) sd[k] = seeds.p[k] ? seeds.p[k][idx] : 0.f;
+      g = otk::Vec6{sd[0], sd[1], sd[2], sd[3], sd[4], sd[5]};
+      g_ip = sd[6] * rays.p[6][idx] * mask;
+    }
+    otk::reverse_chain(S, sh.ft, sh.it, sh.pos, sh.npre, rec, live, sd[7],
+                       g_ip, g, rows);
+    if (live) {
+      const float v[8] = {g.x, g.y, g.z, g.L, g.M, g.N, sd[6] * mask, sd[7]};
 #pragma unroll
-    for (int k = 0; k < 8; ++k) d_rays.p[k][idx] = v[k];
+      for (int k = 0; k < 8; ++k) d_rays.p[k][idx] = v[k];
+    }
   }
+  otk::write_partials(sh, nrows, partials + (size_t)blockIdx.x * nrows * otk::F_STRIDE);
+}
+
+cudaError_t allow_smem() {
+  static const cudaError_t err =
+      cudaFuncSetAttribute(fused_trace_bwd_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, otk::MAX_DYN_SMEM);
+  return err;
 }
 
 }  // namespace
 
-// Launch K6 on `stream` over n rays; partials holds (blocks, S, F_STRIDE)
-// floats. Returns cudaGetLastError().
-extern "C" int fused_trace_bwd(int n, int S, int n_newton, const void* ftab,
-                               const void* itab, void* x, void* y, void* z, void* L,
+// Launch K6 on `stream` over n rays in `blocks` blocks of `threads`
+// threads (the wrapper's backward_grid); partials holds (blocks, S,
+// F_STRIDE) floats. Returns cudaGetLastError(), or cudaErrorInvalidValue
+// for a thread count the kernel does not run.
+extern "C" int fused_trace_bwd(int n, int S, int n_newton, int blocks, int threads,
+                               const void* ftab, const void* itab, void* x, void* y, void* z, void* L,
                                void* M, void* N, void* i, void* opd, void* sx, void* sy,
                                void* sz, void* sL, void* sM, void* sN, void* si,
                                void* sopd, void* partials, void* dx, void* dy, void* dz,
                                void* dL, void* dM, void* dN, void* di, void* dopd,
                                void* stream) {
-  const int blocks = (n + otk::BLOCK - 1) / otk::BLOCK;
+  if (!otk::bwd_threads_ok(threads)) return static_cast<int>(cudaErrorInvalidValue);
+  if (const cudaError_t err = allow_smem()) return static_cast<int>(err);
   Arrays rays = {{static_cast<float*>(x), static_cast<float*>(y), static_cast<float*>(z),
                   static_cast<float*>(L), static_cast<float*>(M), static_cast<float*>(N),
                   static_cast<float*>(i), static_cast<float*>(opd)}};
@@ -82,7 +98,8 @@ extern "C" int fused_trace_bwd(int n, int S, int n_newton, const void* ftab,
                     static_cast<float*>(dz), static_cast<float*>(dL),
                     static_cast<float*>(dM), static_cast<float*>(dN),
                     static_cast<float*>(di), static_cast<float*>(dopd)}};
-  fused_trace_bwd_kernel<<<blocks, otk::BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
+  fused_trace_bwd_kernel<<<blocks, threads, otk::bwd_smem_bytes(S, S, threads),
+                           static_cast<cudaStream_t>(stream)>>>(
       n, S, n_newton, static_cast<const float*>(ftab), static_cast<const int*>(itab), rays,
       seeds, static_cast<float*>(partials), d_rays);
   return static_cast<int>(cudaGetLastError());

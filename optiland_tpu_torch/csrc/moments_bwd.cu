@@ -8,23 +8,32 @@
 // entry state (chain.cuh `trace_chain` with a record), seeds the final
 // (x, y) with i (c1 + 2 c3 x), i (c2 + 2 c3 y), and the intensity with
 // i di = i (c0 + c1 x + c2 y + c3 (x^2 + y^2)) for the absorption adjoint,
-// runs the reverse sweep of chain_bwd.cuh, then the raygen adjoint. The block sums each surface's
-// parameter cotangents into one partial row (warp shuffles, then shared
-// memory in a fixed order); partials[block] holds S table rows and one rg
-// row, summed by torch.sum in the wrapper: no float atomics, bitwise
-// reproducible. Rays past n contribute nothing. Without diff_data the data
-// cotangents are neither computed nor written (their pointers are NULL).
+// runs the reverse sweep of chain_bwd.cuh, then the raygen adjoint. Rays
+// past n contribute nothing. Without diff_data the data cotangents are
+// neither computed nor written (their pointers are NULL).
 //
-// Bound on an H100: FP32 operations of the re-trace plus the adjoint (about
-// three times the forward's), not memory; the per-surface record lives in
-// local memory (REC floats per surface per thread).
+// Bound on an H100: FP32 operations of the re-trace plus the adjoint
+// (about three times the forward's), not memory. The design, as measured
+// on the card (PERF.md):
+//   - the re-trace record (REC floats per surface) is a per-thread array
+//     in local memory, which L1 holds (a block's 16 warps keep ~170 KB of
+//     it on the bench lens); moved to shared memory it ran slower;
+//   - each warp sums its rays' parameter cotangents per surface by a
+//     reduce-scatter of the row's used width into its own rows in shared
+//     memory, with no block barrier per surface;
+//   - the grid is persistent, one block of 512 threads an SM (the
+//     wrapper's `backward_grid`; 128 or 256 threads when n fits one such
+//     tile to an SM), walking tiles of blockDim.x rays with one barrier a
+//     tile, and each block writes one partial of S + 1 rows
+//     at the end (S table rows and the raygen row), summed by torch.sum in
+//     the wrapper: no float atomics, bitwise reproducible on a given card.
 #include <cstdint>
 
 #include "chain_bwd.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(otk::BLOCK)
+__global__ void __launch_bounds__(otk::BWD_THREADS)
 moments_bwd_kernel(int n, int S, int n_newton, int field_angle, int object_infinite,
                    int diff_data, const float* __restrict__ rg,
                    const float* __restrict__ ftab, const int* __restrict__ itab,
@@ -33,60 +42,71 @@ moments_bwd_kernel(int n, int S, int n_newton, int field_angle, int object_infin
                    const float* __restrict__ c, float* __restrict__ partials,
                    float* __restrict__ dHx, float* __restrict__ dHy,
                    float* __restrict__ dPx, float* __restrict__ dPy) {
-  __shared__ float s_ft[otk::MAX_SURFACES * otk::F_STRIDE];
-  __shared__ int s_it[otk::MAX_SURFACES * otk::I_STRIDE];
-  __shared__ float s_rg[5];
-  __shared__ float s_part[(otk::BLOCK / 32) * otk::F_STRIDE];
-  otk::stage_tables(S, ftab, itab, rg, s_ft, s_it, s_rg);
-
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool live = idx < n;
+  extern __shared__ float smem[];
+  const int nrows = S + 1;
+  const otk::BwdShared sh = otk::stage_backward(smem, S, nrows, ftab, itab, rg);
+  const otk::WarpRows rows = otk::warp_rows(sh, nrows);
   float rec[otk::MAX_SURFACES][otk::REC];
-  float hx = 0.f, hy = 0.f, px = 0.f, py = 0.f, g_ip = 0.f;
-  otk::Vec6 g = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  if (live) {
-    hx = Hx[idx];
-    hy = Hy[idx];
-    px = Px[idx];
-    py = Py[idx];
-    otk::Ray r = otk::tile_raygen(field_angle, object_infinite, s_rg, hx, hy, px, py);
-    otk::trace_chain(S, n_newton, s_ft, s_it, r, rec);
-    g.x = r.i * (c[1] + 2.f * c[3] * r.x);
-    g.y = r.i * (c[2] + 2.f * c[3] * r.y);
-    g_ip = r.i * (c[0] + c[1] * r.x + c[2] * r.y + c[3] * (r.x * r.x + r.y * r.y));
-  }
-  const otk::BlockRows rows{partials + (size_t)blockIdx.x * (S + 1) * otk::F_STRIDE,
-                            s_part};
-  otk::reverse_chain(S, s_ft, s_it, rec, live, 0.f, g_ip, g, rows);
-
-  float v[otk::F_STRIDE];
-#pragma unroll
-  for (int j = 0; j < otk::F_STRIDE; ++j) v[j] = 0.f;
-  if (live) {
-    float dd[4];
-    otk::tile_raygen_bwd(field_angle, object_infinite, s_rg, hx, hy, px, py, g, v, dd);
-    if (diff_data) {
-      dHx[idx] = dd[0];
-      dHy[idx] = dd[1];
-      dPx[idx] = dd[2];
-      dPy[idx] = dd[3];
+  const int tiles = (n + blockDim.x - 1) / blockDim.x;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    __syncthreads();  // the block's warps start each tile in step
+    const int idx = tile * blockDim.x + threadIdx.x;
+    const bool live = idx < n;
+    float hx = 0.f, hy = 0.f, px = 0.f, py = 0.f, g_ip = 0.f;
+    otk::Vec6 g = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    if (live) {
+      hx = Hx[idx];
+      hy = Hy[idx];
+      px = Px[idx];
+      py = Py[idx];
+      otk::Ray r = otk::tile_raygen(field_angle, object_infinite, sh.rg, hx, hy, px, py);
+      otk::trace_chain(S, n_newton, sh.ft, sh.it, r, rec);
+      g.x = r.i * (c[1] + 2.f * c[3] * r.x);
+      g.y = r.i * (c[2] + 2.f * c[3] * r.y);
+      g_ip = r.i * (c[0] + c[1] * r.x + c[2] * r.y + c[3] * (r.x * r.x + r.y * r.y));
     }
+    otk::reverse_chain(S, sh.ft, sh.it, sh.pos, sh.npre, rec, live, 0.f, g_ip,
+                       g, rows);
+    float drg[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
+    if (live) {
+      float dd[4];
+      otk::tile_raygen_bwd(field_angle, object_infinite, sh.rg, hx, hy, px, py, g, drg, dd);
+      if (diff_data) {
+        dHx[idx] = dd[0];
+        dHy[idx] = dd[1];
+        dPx[idx] = dd[2];
+        dPy[idx] = dd[3];
+      }
+    }
+    otk::put_raygen_row(rows, S, drg);
   }
-  rows.put(S, v, 0x1fu);
+  otk::write_partials(sh, nrows, partials + (size_t)blockIdx.x * nrows * otk::F_STRIDE);
+}
+
+cudaError_t allow_smem() {
+  static const cudaError_t err = cudaFuncSetAttribute(
+      moments_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, otk::MAX_DYN_SMEM);
+  return err;
 }
 
 }  // namespace
 
-// Launch K2 on `stream` over n rays; partials holds (blocks, S + 1,
-// F_STRIDE) floats. Returns cudaGetLastError().
+// Launch K2 on `stream` over n rays in `blocks` blocks of `threads`
+// threads (the wrapper's backward_grid); partials holds (blocks, S + 1,
+// F_STRIDE) floats. Returns cudaGetLastError(), which also reports a
+// dynamic shared memory request the card refuses, or cudaErrorInvalidValue
+// for a thread count the kernel does not run.
 extern "C" int moments_bwd(int n, int S, int n_newton, int field_angle,
-                           int object_infinite, int diff_data, const void* rg,
+                           int object_infinite, int blocks, int threads, int diff_data,
+                           const void* rg,
                            const void* ftab, const void* itab, const void* Hx,
                            const void* Hy, const void* Px, const void* Py, const void* c,
                            void* partials, void* dHx, void* dHy, void* dPx, void* dPy,
                            void* stream) {
-  const int blocks = (n + otk::BLOCK - 1) / otk::BLOCK;
-  moments_bwd_kernel<<<blocks, otk::BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
+  if (!otk::bwd_threads_ok(threads)) return static_cast<int>(cudaErrorInvalidValue);
+  if (const cudaError_t err = allow_smem()) return static_cast<int>(err);
+  moments_bwd_kernel<<<blocks, threads, otk::bwd_smem_bytes(S, S + 1, threads),
+                       static_cast<cudaStream_t>(stream)>>>(
       n, S, n_newton, field_angle, object_infinite, diff_data,
       static_cast<const float*>(rg), static_cast<const float*>(ftab),
       static_cast<const int*>(itab), static_cast<const float*>(Hx),

@@ -6,11 +6,12 @@
 // Replaces the Pallas kernel `_raygen_bwd` of optiland_tpu/trace/fused.py.
 // A NULL seed pointer is a zero seed (the outputs K3 was not asked for);
 // the seed of i reaches the table cotangents through the absorption
-// factors only, since the generated i is 1. Each thread
-// regenerates and re-traces its ray with a record, runs the reverse sweep
-// of chain_bwd.cuh and the raygen adjoint; the block sums the parameter
-// cotangents into one partial row per surface plus one rg row, summed by
-// torch.sum in the wrapper (no float atomics, bitwise reproducible).
+// factors only, since the generated i is 1. Each thread regenerates and
+// re-traces its ray with a record, runs the reverse sweep of chain_bwd.cuh
+// and the raygen adjoint. The launch geometry, the record and the warps'
+// rows are K2's (moments_bwd.cu): one partial of S + 1 rows
+// per block of a persistent grid, summed by torch.sum in the wrapper (no
+// float atomics, bitwise reproducible on a given card).
 //
 // Bound on an H100: FP32 operations of the re-trace plus the adjoint, not
 // the 40 bytes per ray it reads and writes.
@@ -24,7 +25,7 @@ struct Seeds {
   const float* p[8];
 };
 
-__global__ void __launch_bounds__(otk::BLOCK)
+__global__ void __launch_bounds__(otk::BWD_THREADS)
 raygen_trace_bwd_kernel(int n, int S, int n_newton, int field_angle, int object_infinite,
                         const float* __restrict__ rg, const float* __restrict__ ftab,
                         const int* __restrict__ itab, const float* __restrict__ Hx,
@@ -33,67 +34,79 @@ raygen_trace_bwd_kernel(int n, int S, int n_newton, int field_angle, int object_
                         float* __restrict__ partials, float* __restrict__ dHx,
                         float* __restrict__ dHy, float* __restrict__ dPx,
                         float* __restrict__ dPy) {
-  __shared__ float s_ft[otk::MAX_SURFACES * otk::F_STRIDE];
-  __shared__ int s_it[otk::MAX_SURFACES * otk::I_STRIDE];
-  __shared__ float s_rg[5];
-  __shared__ float s_part[(otk::BLOCK / 32) * otk::F_STRIDE];
-  otk::stage_tables(S, ftab, itab, rg, s_ft, s_it, s_rg);
-
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool live = idx < n;
+  extern __shared__ float smem[];
+  const int nrows = S + 1;
+  const otk::BwdShared sh = otk::stage_backward(smem, S, nrows, ftab, itab, rg);
+  const otk::WarpRows rows = otk::warp_rows(sh, nrows);
   float rec[otk::MAX_SURFACES][otk::REC];
-  float hx = 0.f, hy = 0.f, px = 0.f, py = 0.f, g_opd = 0.f, g_ip = 0.f;
-  otk::Vec6 g = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  if (live) {
-    hx = Hx[idx];
-    hy = Hy[idx];
-    px = Px[idx];
-    py = Py[idx];
-    otk::Ray r = otk::tile_raygen(field_angle, object_infinite, s_rg, hx, hy, px, py);
-    otk::trace_chain(S, n_newton, s_ft, s_it, r, rec);
-    float sd[8];
+  const int tiles = (n + blockDim.x - 1) / blockDim.x;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    __syncthreads();  // the block's warps start each tile in step
+    const int idx = tile * blockDim.x + threadIdx.x;
+    const bool live = idx < n;
+    float hx = 0.f, hy = 0.f, px = 0.f, py = 0.f, g_opd = 0.f, g_ip = 0.f;
+    otk::Vec6 g = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    if (live) {
+      hx = Hx[idx];
+      hy = Hy[idx];
+      px = Px[idx];
+      py = Py[idx];
+      otk::Ray r = otk::tile_raygen(field_angle, object_infinite, sh.rg, hx, hy, px, py);
+      otk::trace_chain(S, n_newton, sh.ft, sh.it, r, rec);
+      float sd[8];
 #pragma unroll
-    for (int k = 0; k < 8; ++k) sd[k] = seeds.p[k] ? seeds.p[k][idx] : 0.f;
-    g = otk::Vec6{sd[0], sd[1], sd[2], sd[3], sd[4], sd[5]};
-    g_opd = sd[7];
-    g_ip = sd[6] * r.i;
+      for (int k = 0; k < 8; ++k) sd[k] = seeds.p[k] ? seeds.p[k][idx] : 0.f;
+      g = otk::Vec6{sd[0], sd[1], sd[2], sd[3], sd[4], sd[5]};
+      g_opd = sd[7];
+      g_ip = sd[6] * r.i;
+    }
+    otk::reverse_chain(S, sh.ft, sh.it, sh.pos, sh.npre, rec, live, g_opd,
+                       g_ip, g, rows);
+    float drg[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
+    if (live) {
+      float dd[4];
+      otk::tile_raygen_bwd(field_angle, object_infinite, sh.rg, hx, hy, px, py, g, drg, dd);
+      dHx[idx] = dd[0];
+      dHy[idx] = dd[1];
+      dPx[idx] = dd[2];
+      dPy[idx] = dd[3];
+    }
+    otk::put_raygen_row(rows, S, drg);
   }
-  const otk::BlockRows rows{partials + (size_t)blockIdx.x * (S + 1) * otk::F_STRIDE,
-                            s_part};
-  otk::reverse_chain(S, s_ft, s_it, rec, live, g_opd, g_ip, g, rows);
+  otk::write_partials(sh, nrows, partials + (size_t)blockIdx.x * nrows * otk::F_STRIDE);
+}
 
-  float v[otk::F_STRIDE];
-#pragma unroll
-  for (int j = 0; j < otk::F_STRIDE; ++j) v[j] = 0.f;
-  if (live) {
-    float dd[4];
-    otk::tile_raygen_bwd(field_angle, object_infinite, s_rg, hx, hy, px, py, g, v, dd);
-    dHx[idx] = dd[0];
-    dHy[idx] = dd[1];
-    dPx[idx] = dd[2];
-    dPy[idx] = dd[3];
-  }
-  rows.put(S, v, 0x1fu);
+cudaError_t allow_smem() {
+  static const cudaError_t err =
+      cudaFuncSetAttribute(raygen_trace_bwd_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, otk::MAX_DYN_SMEM);
+  return err;
 }
 
 }  // namespace
 
-// Launch K4 on `stream` over n rays; partials holds (blocks, S + 1,
-// F_STRIDE) floats. Returns cudaGetLastError().
+// Launch K4 on `stream` over n rays in `blocks` blocks of `threads`
+// threads (the wrapper's backward_grid); partials holds (blocks, S + 1,
+// F_STRIDE) floats. Returns cudaGetLastError(), or cudaErrorInvalidValue
+// for a thread count the kernel does not run.
 extern "C" int raygen_trace_bwd(int n, int S, int n_newton, int field_angle,
-                                int object_infinite, const void* rg, const void* ftab,
-                                const void* itab, const void* Hx, const void* Hy,
-                                const void* Px, const void* Py, const void* sx,
+                                int object_infinite, int blocks, int threads,
+                                const void* rg,
+                                const void* ftab, const void* itab, const void* Hx,
+                                const void* Hy, const void* Px, const void* Py,
+                                const void* sx,
                                 const void* sy, const void* sz, const void* sL,
                                 const void* sM, const void* sN, const void* si,
                                 const void* sopd, void* partials, void* dHx, void* dHy,
                                 void* dPx, void* dPy, void* stream) {
-  const int blocks = (n + otk::BLOCK - 1) / otk::BLOCK;
+  if (!otk::bwd_threads_ok(threads)) return static_cast<int>(cudaErrorInvalidValue);
+  if (const cudaError_t err = allow_smem()) return static_cast<int>(err);
   Seeds seeds = {{static_cast<const float*>(sx), static_cast<const float*>(sy),
                   static_cast<const float*>(sz), static_cast<const float*>(sL),
                   static_cast<const float*>(sM), static_cast<const float*>(sN),
                   static_cast<const float*>(si), static_cast<const float*>(sopd)}};
-  raygen_trace_bwd_kernel<<<blocks, otk::BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
+  raygen_trace_bwd_kernel<<<blocks, threads, otk::bwd_smem_bytes(S, S + 1, threads),
+                            static_cast<cudaStream_t>(stream)>>>(
       n, S, n_newton, field_angle, object_infinite, static_cast<const float*>(rg),
       static_cast<const float*>(ftab), static_cast<const int*>(itab),
       static_cast<const float*>(Hx), static_cast<const float*>(Hy),

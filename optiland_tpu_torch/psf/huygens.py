@@ -23,6 +23,7 @@ from functools import lru_cache
 
 import torch
 
+from optiland_tpu_torch import config
 from optiland_tpu_torch.system import paraxial as px
 from optiland_tpu_torch.system.spec import positions_of
 from optiland_tpu_torch.wavefront.core import pupil_grid_coords, wavefront_data
@@ -82,11 +83,6 @@ def _kernel():
     return fn
 
 
-@lru_cache(maxsize=8)
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def pupil_chunk(n_image: int, n_pupil: int, n_sm: int) -> int:
     """Pupil samples per block of K8: the pupil axis is split into as many
     chunks as, beside the image blocks, fill `n_sm` SMs with
@@ -130,7 +126,7 @@ def huygens_sum_forward(image_xyz, pupil_xyz, pupil_amp, pupil_opd,
             a.dim() != 1 or a.shape[0] != n_pup for a in pupil):
         raise ValueError("expected 3 image arrays of one size and 5 (P,) "
                          "pupil arrays")
-    chunk = pupil_chunk(n_img, n_pup, _sm_count(dev))
+    chunk = pupil_chunk(n_img, n_pup, config.sm_count(dev))
     partial = torch.empty((-(-n_pup // chunk), 2, n_img), dtype=torch.float32,
                           device=dev)
     if n_img and n_pup:

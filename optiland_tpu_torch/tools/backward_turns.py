@@ -1,0 +1,208 @@
+"""The backward kernels K2, K4 and K6 of two checkouts of this repository,
+timed against each other on one CUDA card in turns.
+
+    python -m optiland_tpu_torch.tools.backward_turns --parent DIR [--n N ...]
+
+DIR is a checkout of another commit, for instance
+`git archive <commit> | tar -x -C build/parent`. Each tree runs in a
+process of its own, in the order parent, this tree, this tree, parent. A
+process builds its tree's kernels with that tree's own `_build`, and
+drives that tree's own wrappers (`fused.moments_backward`,
+`raygen_trace_backward`, `fused_trace_backward`) at each ray count N
+(default 16,384, 65,536 and 2,000,000) on the bench lens of chip_smoke.py
+(K6 with its vignetted field) and, for K2, on the absorbing Cooke triplet
+at 0.55 um. Each tree's wrappers pick their own launch signature and grid:
+the tool only wraps the tree's `fused._kernel` so that CUDA events are
+recorded on the launch stream just before and just after each C call, and
+a kernel's time is the median of those spans over TIMED launches after a
+warm-up. Before each start event the stream first spins for SPIN_CYCLES
+(`torch.cuda._sleep`), so that the launch is queued before the card reaches
+the event and the span holds the kernel alone, not the host's launch
+latency (which at 10^4 rays is a fifth of a kernel's time). At the largest N it also times the bench training step
+(`centroid_rms_spot(..., diff_inputs=False)`, `backward`, Adam) on the
+host clock. Prints one JSON line for each process, then the card's name and
+power limit and a JSON summary of every time in turns.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+TIMED, WARMUP, STEPS = 25, 3, 10
+SPIN_CYCLES = 200_000   # ~0.1 ms at an H100's clock
+COOKE_WAVELENGTH = 0.55
+DEFAULT_N = (16_384, 65_536, 2_000_000)
+
+
+def _smoke():
+    """This checkout's chip_smoke.py, for its bench lens, rays and step
+    settings (it is loaded, not run)."""
+    spec = importlib.util.spec_from_file_location(
+        "_chip_smoke", ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def worker(tree: Path, ns: list[int]) -> dict:
+    """Times of `tree`'s K2, K4 and K6 wrappers' launches at each n, and its
+    bench training step at the largest."""
+    tree = tree.resolve()
+    sys.path.insert(0, str(tree))
+    import numpy as np
+    import torch
+
+    import optiland_tpu_torch
+    from optiland_tpu_torch import _build, config
+    from optiland_tpu_torch.models import CookeTriplet
+    from optiland_tpu_torch.optimization.merits import centroid_rms_spot
+    from optiland_tpu_torch.system.optic import Optic
+    from optiland_tpu_torch.trace import fused
+    from optiland_tpu_torch.trace.raygen import generate_rays
+
+    pkg = Path(optiland_tpu_torch.__file__).resolve()
+    if not pkg.is_relative_to(tree):
+        raise RuntimeError(f"imported {pkg}, not the package of {tree}")
+    cs = _smoke()
+    dev = torch.device("cuda")
+    _build.build_all()
+    config.set_precision("float32")
+    spans = []
+    own_kernel = fused._kernel
+
+    def timed_kernel(name):
+        fn = own_kernel(name)
+
+        def launch(*args):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(SPIN_CYCLES)
+            start.record()
+            err = fn(*args)
+            end.record()
+            spans.append((start, end))
+            return err
+        return launch
+
+    fused._kernel = timed_kernel
+
+    def kernel_ms(call):
+        for _ in range(WARMUP):
+            call()
+        spans.clear()
+        for _ in range(TIMED):
+            call()
+        torch.cuda.synchronize()
+        if len(spans) != TIMED:
+            raise RuntimeError(f"{len(spans)} launches in {TIMED} calls")
+        return float(np.median([a.elapsed_time(b) for a, b in spans]))
+
+    def args_of(static, params, wl):
+        n_table, alpha = fused._uniform_tables(static, params, wl)
+        return (fused._diff_params(params, n_table),
+                fused._nondiff_params(params, alpha),
+                fused._raygen_scalars(static, params))
+
+    static, params = cs.bench_lens(Optic).build(device="cuda")
+    static_v, params_v = cs.bench_lens(Optic, vignetted=True).build(
+        device="cuda")
+    static_c, params_c = CookeTriplet().build(device="cuda")
+    p, p_v = args_of(static, params, cs.WAVELENGTH), args_of(
+        static_v, params_v, cs.WAVELENGTH)[:2]
+    p_c = args_of(static_c, params_c, COOKE_WAVELENGTH)
+    rays = cs.bench_rays(dev)
+    c = torch.tensor([0.3, -0.7, 0.5, 1.1], device=dev)
+    rng = np.random.default_rng(1)
+    ms = {}
+    for n in ns:
+        data = tuple(a[:n].contiguous() for a in rays)
+        seeds = [torch.from_numpy(rng.standard_normal(n).astype(
+            np.float32)).to(dev) for _ in range(8)]
+        ms[f"K2 {n}"] = kernel_ms(lambda: fused.moments_backward(
+            static, *p, data, c, diff_data=False))
+        ms[f"K4 {n}"] = kernel_ms(lambda: fused.raygen_trace_backward(
+            static, *p, data, (0, 1, 7), seeds[:3]))
+        r0 = generate_rays(static_v, params_v, *data, cs.WAVELENGTH)
+        rays8 = tuple(getattr(r0, k).detach().contiguous()
+                      for k in ("x", "y", "z", "L", "M", "N", "i", "opd"))
+        ms[f"K6 {n}"] = kernel_ms(lambda: fused.fused_trace_backward(
+            static_v, *p_v, rays8, seeds))
+        ms[f"K2 Cooke {n}"] = kernel_ms(lambda: fused.moments_backward(
+            static_c, *p_c, data, c, diff_data=False))
+        del seeds, r0, rays8
+        torch.cuda.empty_cache()
+    leaves = {k: getattr(params, k).detach().clone().requires_grad_(True)
+              for k in cs.TRAIN_LEAVES}
+    p_f = params.replace(**leaves)
+    opt = torch.optim.Adam(list(leaves.values()), lr=cs.ADAM_LR)
+    data = tuple(a[:max(ns)].contiguous() for a in rays)
+
+    def step():
+        opt.zero_grad()
+        centroid_rms_spot(static, p_f, *data, cs.WAVELENGTH,
+                          diff_inputs=False).backward()
+        opt.step()
+
+    times = []
+    for k in range(WARMUP + STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        if k >= WARMUP:
+            times.append(1e3 * (time.perf_counter() - t))
+    registers = {name: [line.split(":", 1)[-1].strip() for line in
+                        _build.build_log(name).splitlines()
+                        if "registers" in line]
+                 for name in ("moments_bwd", "raygen_trace_bwd",
+                              "fused_trace_bwd")}
+    return {"tree": str(tree), "kernel_ms": ms,
+            f"step_ms {max(ns)}": float(np.median(times)),
+            "ptxas": registers}
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--parent", type=Path, required=True,
+                        help="checkout of the commit to time against")
+    parser.add_argument("--n", type=int, nargs="+", default=list(DEFAULT_N))
+    parser.add_argument("--worker", type=Path, help=argparse.SUPPRESS)
+    opts = parser.parse_args(argv)
+    if opts.worker is not None:
+        print(json.dumps(worker(opts.worker, opts.n)))
+        return
+    import torch
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("backward_turns times CUDA kernels and needs a "
+                           "card")
+    runs = []
+    for tree in (opts.parent, ROOT, ROOT, opts.parent):
+        out = subprocess.run(
+            [sys.executable, __file__, "--parent", str(opts.parent),
+             "--worker", str(tree), "--n", *map(str, opts.n)],
+            capture_output=True, text=True, timeout=1200)
+        if out.returncode != 0:
+            raise RuntimeError(f"worker for {tree} failed:\n{out.stderr}")
+        print(out.stdout.strip().splitlines()[-1], flush=True)
+        runs.append(json.loads(out.stdout.strip().splitlines()[-1]))
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True,
+                         timeout=60).stdout.strip().splitlines()[0])
+    turns = {k: [r["kernel_ms"][k] for r in runs] for k in runs[0]["kernel_ms"]}
+    step_key = f"step_ms {max(opts.n)}"
+    turns[step_key] = [r[step_key] for r in runs]
+    print(json.dumps({"order": ["parent", "change", "change", "parent"],
+                      "ms": turns}))
+
+
+if __name__ == "__main__":
+    main()

@@ -45,7 +45,9 @@ The design keeps the forward's per-ray intermediates in registers, stages
 the small system tables in shared memory once per block, and reduces
 inside the block (warp shuffles, then shared memory) to one partial per
 block, summed by `torch.sum`: deterministic, no atomics. A backward keeps
-each surface's entry state in local memory for its reverse sweep.
+each surface's entry state for its reverse sweep in local memory (L1
+holds it) and sums its cotangents per warp, over a persistent grid of at
+most one block an SM (`backward_grid`).
 
 Beside each kernel is its plain PyTorch version (`_moments_plain`,
 `_moments_bwd_plain`, `_raygen_trace_plain`, `_raygen_trace_bwd_plain`,
@@ -63,6 +65,7 @@ from functools import lru_cache
 
 import torch
 
+from optiland_tpu_torch import config
 from optiland_tpu_torch.geometry.surfaces import (
     GEOM_BICONIC,
     GEOM_CHEBYSHEV,
@@ -126,6 +129,10 @@ _I_STRIDE = 16
 _MAT_SHARED = 17
 _MAX_SURFACES = 64
 _BLOCK = 256    # threads per block, one ray each (csrc/chain.cuh)
+# threads per block of the backward kernels K2, K4 and K6 at most
+# (csrc/chain_bwd.cuh BWD_THREADS) and at least (`backward_grid`)
+_BWD_THREADS = 512
+_BWD_MIN_THREADS = 128
 
 _NAMES = ("x", "y", "z", "L", "M", "N", "intensity", "opd")
 _RAY_KEYS = ("x", "y", "z", "L", "M", "N", "i", "opd", "w")
@@ -618,22 +625,23 @@ _SIGNATURES = {
     # n, S, n_newton, field_angle, object_infinite, rg, ftab, itab,
     # Hx, Hy, Px, Py, partials (num_blocks, 4), stream
     "moments_fwd": [_I] * 5 + [_P] * 9,
-    # n, S, n_newton, field_angle, object_infinite, diff_data, rg, ftab,
-    # itab, Hx, Hy, Px, Py, c, partials (num_blocks, S + 1, 32),
-    # dHx, dHy, dPx, dPy (NULL without diff_data), stream
-    "moments_bwd": [_I] * 6 + [_P] * 14,
+    # n, S, n_newton, field_angle, object_infinite, blocks, threads,
+    # diff_data, rg, ftab, itab, Hx, Hy, Px, Py, c, partials (blocks, S + 1,
+    # 32), dHx, dHy, dPx, dPy (NULL without diff_data), stream
+    "moments_bwd": [_I] * 8 + [_P] * 14,
     # n, S, n_newton, field_angle, object_infinite, out_mask, rg, ftab,
     # itab, Hx, Hy, Px, Py, 8 output pointers (NULL = not requested), stream
     "raygen_trace_fwd": [_I] * 6 + [_P] * 16,
-    # n, S, n_newton, field_angle, object_infinite, rg, ftab, itab,
-    # Hx, Hy, Px, Py, 8 seed pointers (NULL = zero seed), partials
-    # (num_blocks, S + 1, 32), dHx, dHy, dPx, dPy, stream
-    "raygen_trace_bwd": [_I] * 5 + [_P] * 21,
+    # n, S, n_newton, field_angle, object_infinite, blocks, threads, rg,
+    # ftab, itab, Hx, Hy, Px, Py, 8 seed pointers (NULL = zero seed),
+    # partials (blocks, S + 1, 32), dHx, dHy, dPx, dPy, stream
+    "raygen_trace_bwd": [_I] * 7 + [_P] * 21,
     # n, S, n_newton, ftab, itab, 8 ray pointers, 8 output pointers, stream
     "fused_trace_fwd": [_I] * 3 + [_P] * 19,
-    # n, S, n_newton, ftab, itab, 8 ray pointers, 8 seed pointers (NULL =
-    # zero seed), partials (num_blocks, S, 32), 8 cotangent pointers, stream
-    "fused_trace_bwd": [_I] * 3 + [_P] * 28,
+    # n, S, n_newton, blocks, threads, ftab, itab, 8 ray pointers, 8 seed
+    # pointers (NULL = zero seed), partials (blocks, S, 32), 8 cotangent
+    # pointers, stream
+    "fused_trace_bwd": [_I] * 5 + [_P] * 28,
     # n, S, n_newton, mat_w, K, ftab, itab, mat_coeffs (S, mat_w), k_wl and
     # k_val (S, K), 9 ray pointers (x .. opd, w), 8 history pointers
     # (S, n each), stream
@@ -650,6 +658,21 @@ def _kernel(name: str):
     fn.argtypes = _SIGNATURES[name]
     fn.restype = ctypes.c_int
     return fn
+
+
+def backward_grid(n: int, n_sm: int) -> tuple[int, int]:
+    """(blocks, threads) of the persistent grid of K2, K4 and K6 over n rays
+    on a card of `n_sm` SMs. Each block walks tiles of `threads` rays and
+    writes one partial row set. A small batch takes the smallest block of
+    _BWD_MIN_THREADS, twice or four times that whose tiles fit one to an SM,
+    so that it spreads over as many SMs as it can fill; a larger one takes
+    blocks of _BWD_THREADS, one an SM, each walking its tiles. (On an H100,
+    16,384 rays ran fastest in 128-thread tiles, 65,536 in 512-thread ones:
+    more rounds of smaller tiles cost more than an idle SM; PERF.md.)"""
+    threads = _BWD_MIN_THREADS
+    while threads < _BWD_THREADS and -(-n // threads) > n_sm:
+        threads *= 2
+    return min(-(-n // threads), n_sm), threads
 
 
 @lru_cache(maxsize=64)
@@ -811,13 +834,15 @@ def moments_backward(static, diffp, nondiffp, rg, data, c, diff_data=True):
                                        kernel="K2")
     dev, S = rg.device, static.num_surfaces
     c = c.to(torch.float32).contiguous()
-    partials = torch.empty((-(-n // _BLOCK), S + 1, _F_STRIDE),
-                           dtype=torch.float32, device=dev)
+    blocks, threads = backward_grid(n, config.sm_count(dev))
+    partials = torch.empty((blocks, S + 1, _F_STRIDE), dtype=torch.float32,
+                           device=dev)
     d_data = tuple(torch.empty(n, dtype=torch.float32, device=dev)
                    if diff_data else torch.zeros_like(d) for d in data)
     if n:
         err = _kernel("moments_bwd")(
-            *head, int(diff_data), *ptrs, c.data_ptr(), partials.data_ptr(),
+            *head, blocks, threads, int(diff_data), *ptrs, c.data_ptr(),
+            partials.data_ptr(),
             *(d.data_ptr() if diff_data else None for d in d_data),
             _stream(dev))
         _raise_on_error("moments_bwd", err)
@@ -869,13 +894,14 @@ def raygen_trace_backward(static, diffp, nondiffp, rg, data, out_keys,
     dev, S = rg.device, static.num_surfaces
     by_key = dict(zip(out_keys, seeds))
     seeds8, seed_ptrs = _seed_ptrs([by_key.get(k) for k in range(8)], n, dev)
-    partials = torch.empty((-(-n // _BLOCK), S + 1, _F_STRIDE),
-                           dtype=torch.float32, device=dev)
+    blocks, threads = backward_grid(n, config.sm_count(dev))
+    partials = torch.empty((blocks, S + 1, _F_STRIDE), dtype=torch.float32,
+                           device=dev)
     d_data = tuple(torch.empty(n, dtype=torch.float32, device=dev)
                    for _ in range(4))
     if n:
         err = _kernel("raygen_trace_bwd")(
-            *head, *ptrs, *seed_ptrs, partials.data_ptr(),
+            *head, blocks, threads, *ptrs, *seed_ptrs, partials.data_ptr(),
             *(d.data_ptr() for d in d_data), _stream(dev))
         _raise_on_error("raygen_trace_bwd", err)
         raygen_trace_backward.launches += 1
@@ -919,13 +945,14 @@ def fused_trace_backward(static, diffp, nondiffp, rays8, seeds):
                                            kernel="K6")
     dev, S = rays8[0].device, static.num_surfaces
     seeds8, seed_ptrs = _seed_ptrs(seeds, n, dev)
-    partials = torch.empty((-(-n // _BLOCK), S, _F_STRIDE),
-                           dtype=torch.float32, device=dev)
+    blocks, threads = backward_grid(n, config.sm_count(dev))
+    partials = torch.empty((blocks, S, _F_STRIDE), dtype=torch.float32,
+                           device=dev)
     d_rays = tuple(torch.empty(n, dtype=torch.float32, device=dev)
                    for _ in range(8))
     if n:
         err = _kernel("fused_trace_bwd")(
-            *head, *ptrs, *seed_ptrs, partials.data_ptr(),
+            *head, blocks, threads, *ptrs, *seed_ptrs, partials.data_ptr(),
             *(d.data_ptr() for d in d_rays), _stream(dev))
         _raise_on_error("fused_trace_bwd", err)
         fused_trace_backward.launches += 1

@@ -5,15 +5,18 @@ from CUDA qualifiers and intrinsics. Built by g++ in float64 with those defined 
 (one thread, one ray at a time), the per-ray bodies of K1, K2, K4, K5, K6
 and K7 run here on the CPU: the forward chain (`trace_chain`, at one
 wavelength or, for K7, at each ray's own with its history recorded), the
-reverse sweep (`reverse_chain`, with the absorption adjoint), the raygen
-adjoint (`tile_raygen_bwd`) and the per-ray dispersion (`material_index`
-for every formula code); so does K8's per-image-point Huygens sum
+reverse sweep (`reverse_chain`, with the absorption adjoint, and the
+cotangent rows in their compact order and widths), the raygen adjoint
+(`tile_raygen_bwd`) and the per-ray dispersion (`material_index` for every
+formula code); so does K8's per-image-point Huygens sum
 (`huygens_accumulate`) over pupil chunks, whose partial fields go through
 the wrapper's own reduction (`reduce_partials`). Each is held against the plain PyTorch version
 that the kernel is held to on the card, in float64, at 1e-10 of each
 cotangent group's largest entry: a check of the kernels' arithmetic that
-needs no card. The block reduction, shared-memory staging and launch code
-run only on the card (tests/test_torch_cuda.py). Skips without g++."""
+needs no card. The warp's reduce-scatter (`WarpRows`) runs on 32 host
+threads, one a lane, whose shuffles meet at a barrier. The shared-memory
+staging, the persistent grid and the launch code run only on the card
+(tests/test_torch_cuda.py). Skips without g++."""
 
 import ctypes
 import shutil
@@ -38,11 +41,16 @@ CSRC = fused.__file__.rsplit("/", 2)[0] + "/csrc"
 RTOL = 1e-10    # of each group's largest entry; float64 on both sides
 N_RAYS = 64
 
-# One thread's body of each kernel, looped over the rays; BlockRows becomes
-# a plain sum over rays into the (rows, 32) table.
+# One thread's body of each kernel, looped over the rays; WarpRows becomes
+# a plain sum over rays into the (rows, 32) table, in the table's layout.
 _SHIM = r"""
 #include <cmath>
+#include <condition_variable>
+#include <mutex>
+#include <thread>
+#include <vector>
 #define __device__
+#define __host__
 #define __forceinline__ inline
 #define float double
 #define rsqrtf(x) (1.0 / std::sqrt(x))
@@ -60,20 +68,62 @@ inline void host_sincos(double x, double* s, double* c) {
   *c = std::cos(x);
 }
 struct Dim3 { int x; };
-static Dim3 threadIdx = {0}, blockDim = {1};
+static thread_local Dim3 threadIdx = {0};
+static Dim3 blockDim = {1};
 inline void __syncthreads() {}
-inline double __shfl_down_sync(unsigned, double v, int) { return v; }
+// a warp's shuffle on 32 host threads (threadIdx.x the lane): each lane
+// posts its value, all meet, each reads its partner's, all meet again
+struct LaneBarrier {
+  std::mutex m;
+  std::condition_variable cv;
+  int count = 0, gen = 0;
+  void wait() {
+    std::unique_lock<std::mutex> lock(m);
+    const int g = gen;
+    if (++count == 32) {
+      count = 0;
+      ++gen;
+      cv.notify_all();
+    } else {
+      cv.wait(lock, [&] { return gen != g; });
+    }
+  }
+};
+static LaneBarrier lane_barrier;
+static double lane_post[32];
+inline double __shfl_xor_sync(unsigned, double v, int o) {
+  const int lane = threadIdx.x & 31;
+  lane_post[lane] = v;
+  lane_barrier.wait();
+  const double r = lane_post[lane ^ o];
+  lane_barrier.wait();
+  return r;
+}
 #include "chain_bwd.cuh"
 #include "huygens.cuh"
 
 struct Rows {
   double* out;
-  void put(int row, const double (&v)[otk::F_STRIDE], unsigned used) const {
-    for (int j = 0; j < otk::F_STRIDE; ++j)
-      if (used & (1u << j)) out[row * otk::F_STRIDE + j] += v[j];
+  void put(int row, const double (&v)[otk::F_STRIDE], int width) const {
+    for (int c = 0; c < width; ++c) out[row * otk::F_STRIDE + otk::table_slot(c)] += v[c];
   }
 };
 static double rec[otk::MAX_SURFACES][otk::REC];
+static double pos[otk::MAX_SURFACES], npre[otk::MAX_SURFACES];
+
+// the 32 lanes' rows v (32, F_STRIDE) through WarpRows::put at `width`,
+// one host thread a lane, into `row` (F_STRIDE, compact order)
+extern "C" void warp_rows_lanes(int width, const double* v, double* row) {
+  std::vector<std::thread> lanes;
+  for (int l = 0; l < 32; ++l)
+    lanes.emplace_back([=] {
+      threadIdx.x = l;
+      double x[otk::F_STRIDE];
+      for (int j = 0; j < otk::F_STRIDE; ++j) x[j] = v[l * otk::F_STRIDE + j];
+      otk::WarpRows{row}.put(0, x, width);
+    });
+  for (auto& t : lanes) t.join();
+}
 
 // mode 0: K1 moments (out4), 1: K2 with c, 2: K4 with seeds (8, n)
 extern "C" void raygen_kernels(int mode, int n, int S, int nn, int fa, int oi,
@@ -82,6 +132,7 @@ extern "C" void raygen_kernels(int mode, int n, int S, int nn, int fa, int oi,
                                const double* Py, const double* c, const double* seeds,
                                double* out4, double* tab, double* dd) {
   for (int q = 0; q < 4; ++q) out4[q] = 0;
+  otk::surface_frames(S, ft, it, pos, npre);
   for (int idx = 0; idx < n; ++idx) {
     otk::Ray r = otk::tile_raygen(fa, oi, rg, Hx[idx], Hy[idx], Px[idx], Py[idx]);
     otk::trace_chain(S, nn, ft, it, r, rec);
@@ -105,11 +156,11 @@ extern "C" void raygen_kernels(int mode, int n, int S, int nn, int fa, int oi,
       g_ip = seeds[6 * n + idx] * r.i;
     }
     const Rows rows{tab};
-    otk::reverse_chain(S, ft, it, rec, true, g_opd, g_ip, g, rows);
-    double v[otk::F_STRIDE] = {0};
+    otk::reverse_chain(S, ft, it, pos, npre, rec, true, g_opd, g_ip, g, rows);
+    double drg[5];
     double d4[4];
-    otk::tile_raygen_bwd(fa, oi, rg, Hx[idx], Hy[idx], Px[idx], Py[idx], g, v, d4);
-    rows.put(S, v, 0x1fu);
+    otk::tile_raygen_bwd(fa, oi, rg, Hx[idx], Hy[idx], Px[idx], Py[idx], g, drg, d4);
+    otk::put_raygen_row(rows, S, drg);
     for (int q = 0; q < 4; ++q) dd[q * n + idx] = d4[q];
   }
 }
@@ -118,6 +169,7 @@ extern "C" void raygen_kernels(int mode, int n, int S, int nn, int fa, int oi,
 extern "C" void caller_kernels(int mode, int n, int S, int nn, const double* ft,
                                const int* it, const double* rays, const double* seeds,
                                double* tab, double* outs) {
+  otk::surface_frames(S, ft, it, pos, npre);
   for (int idx = 0; idx < n; ++idx) {
     const double* p = rays + idx;
     otk::Ray r = {p[0], p[n], p[2 * n], p[3 * n], p[4 * n], p[5 * n],
@@ -127,8 +179,8 @@ extern "C" void caller_kernels(int mode, int n, int S, int nn, const double* ft,
     if (mode == 1) {
       const double* s = seeds + idx;
       otk::Vec6 g = {s[0], s[n], s[2 * n], s[3 * n], s[4 * n], s[5 * n]};
-      otk::reverse_chain(S, ft, it, rec, true, s[7 * n], s[6 * n] * p[6 * n] * r.i, g,
-                         Rows{tab});
+      otk::reverse_chain(S, ft, it, pos, npre, rec, true, s[7 * n],
+                         s[6 * n] * p[6 * n] * r.i, g, Rows{tab});
       const double dv[8] = {g.x, g.y, g.z, g.L, g.M, g.N, s[6 * n] * r.i, s[7 * n]};
       for (int k = 0; k < 8; ++k) v[k] = dv[k];
     }
@@ -210,6 +262,7 @@ def host_lib(tmp_path_factory):
     (out / "shim.cpp").write_text(_SHIM)
     lib = out / "libchainhost.so"
     build = subprocess.run([gxx, "-O1", "-std=c++17", "-shared", "-fPIC",
+                            "-pthread",
                             f"-I{out}", f"-I{CSRC}", "-o", str(lib),
                             str(out / "shim.cpp")],
                            capture_output=True, text=True)
@@ -430,3 +483,31 @@ def test_huygens_body_matches_plain(host_lib, f64, field):
                             _ptr(pup), _ptr(partial))
     got = huygens.reduce_partials(torch.from_numpy(partial)).reshape(IX.shape)
     _close(_np(got), ref, "psf")
+
+
+@pytest.mark.parametrize("width", [4, 8, 16, 32])
+def test_warp_rows_reduce_scatter(host_lib, width):
+    """`WarpRows::put` on 32 emulated lanes: the reduce-scatter leaves slot
+    j's sum over the lanes in the warp's row for j < width, the plain sum,
+    and touches no slot past the width."""
+    rng = np.random.default_rng(width)
+    v = np.ascontiguousarray(rng.normal(size=(32, 32)))
+    row = np.zeros(32)
+    host_lib.warp_rows_lanes(width, _ptr(v), _ptr(row))
+    np.testing.assert_allclose(row[:width], v.sum(axis=0)[:width], rtol=1e-13,
+                               atol=1e-13)
+    assert not row[width:].any()
+
+
+@pytest.mark.parametrize("n, n_sm, grid", [
+    (1, 132, (1, 128)), (16_384, 132, (128, 128)), (16_389, 132, (129, 128)),
+    (20_000, 132, (79, 256)), (65_536, 132, (128, 512)),
+    (2_000_000, 132, (132, 512)), (2_000_000, 8, (8, 512))])
+def test_backward_grid(n, n_sm, grid):
+    """K2, K4 and K6's launch geometry: the smallest block (128, 256 or 512
+    threads) whose tiles fit one to an SM, else one 512-thread block an SM;
+    the blocks' tiles cover every ray."""
+    blocks, threads = fused.backward_grid(n, n_sm)
+    assert (blocks, threads) == grid
+    assert blocks <= n_sm and threads % 32 == 0
+    assert -(-n // threads) <= blocks or blocks == n_sm

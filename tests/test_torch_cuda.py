@@ -1,17 +1,19 @@
 """The port's CUDA kernels on the card (no JAX needed): K1-K7 against
 their plain PyTorch versions in float32 (K1-K6 also on the absorbing Cooke
-triplet, K7 at per-ray wavelengths), K8 (the Huygens sum) against the
-float64 plain version, the bitwise reproducibility of the backward kernels'
-parameter cotangents and of K8, the dispatch of the public entry points
-(and their backward) to the kernels, and the explicit refusal of a branch
-or an input a kernel does not take. Every test skips without a CUDA device
-and nvcc.
+triplet, K7 at per-ray wavelengths; K2, K4 and K6 also at ragged ray counts
+around their 32-ray groups and at 2M + 17 rays), K8 (the Huygens sum)
+against the float64 plain version, T1's peak-rate chains against theirs,
+the bitwise reproducibility of the backward kernels' parameter cotangents
+and of K8, the dispatch of the public entry points (and their backward) to
+the kernels, and the explicit refusal of a branch or an input a kernel does
+not take. Every test skips without a CUDA device and nvcc.
 
 On a machine with the card, from the repository root:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
+import math
 import shutil
 from dataclasses import replace
 
@@ -25,6 +27,7 @@ from optiland_tpu_torch.mtf import HuygensMTF
 from optiland_tpu_torch.psf import ScalarHuygensPSF
 from optiland_tpu_torch.psf import huygens
 from optiland_tpu_torch.system.optic import Optic
+from optiland_tpu_torch.tools import vpu_peak
 from optiland_tpu_torch.trace import fused, tracer
 from optiland_tpu_torch.trace.raygen import generate_rays
 from optiland_tpu_torch.wavefront.core import pupil_grid_coords, wavefront_data
@@ -186,6 +189,96 @@ def test_backward_kernels_match_plain(cuda_f32, name):
         assert _rel(g, r, same) <= RAY_GRAD_RTOL, fused._NAMES[k]
     again = fused.fused_trace_backward(ts, diffp, nondiffp, rays8, seeds)
     assert all(torch.equal(a, b) for a, b in zip(again[1], got[1]))
+
+
+@pytest.mark.parametrize("n", [1, 31, 33, 16_389, 2_000_017])
+def test_backward_kernels_ragged(cuda_f32, n):
+    """K2, K4 and K6 on the bench lens at ray counts that leave a group of
+    32 rays part-filled, in 128-thread tiles (16,389 over 129 SMs) and, at
+    2M + 17, in a persistent grid of 512-thread blocks that walk many tiles:
+    against their plain versions at the tolerances above, and their
+    parameter cotangents bitwise equal over two launches."""
+    ts, tp, w = _build("bench", cuda_f32)
+    data = _data(n, cuda_f32, seed=n)
+    diffp, nondiffp, rg = _args(ts, tp, w)
+    keep = _lit_alike(
+        fused.raygen_trace_forward(ts, diffp, nondiffp, rg, data, (6,))[0],
+        fused._raygen_trace_plain(ts, diffp, nondiffp, rg, data, (6,))[0])
+    c = torch.tensor([0.3, -0.7, 0.5, 1.1], device=cuda_f32)
+    rng = np.random.default_rng(n)
+    seeds = [torch.tensor(rng.normal(size=n), dtype=torch.float32,
+                          device=cuda_f32) for _ in range(8)]
+    rays8 = tuple(r.contiguous() for r in fused._tile_raygen(
+        ts, rg, *data)[:6]) + (torch.ones_like(data[0]),
+                               torch.zeros_like(data[0]))
+    runs = {
+        "K2": (lambda: fused.moments_backward(ts, diffp, nondiffp, rg, data,
+                                              c, True),
+               lambda: fused._moments_bwd_plain(ts, diffp, nondiffp, rg, data,
+                                                c, True)),
+        "K4": (lambda: fused.raygen_trace_backward(
+                   ts, diffp, nondiffp, rg, data, tuple(range(8)), seeds),
+               lambda: fused._raygen_trace_bwd_plain(
+                   ts, diffp, nondiffp, rg, data, tuple(range(8)), seeds)),
+        "K6": (lambda: (None,) + fused.fused_trace_backward(
+                   ts, diffp, nondiffp, rays8, seeds)[::-1],
+               lambda: (None,) + fused._fused_trace_bwd_plain(
+                   ts, diffp, nondiffp, rays8, seeds)[::-1]),
+    }
+    for key, (kernel, plain) in runs.items():
+        got, again, ref = kernel(), kernel(), plain()
+        if key != "K6":
+            assert _rel(got[0], ref[0]) <= PARAM_GRAD_RTOL, key
+            assert torch.equal(got[0], again[0]), key
+        errs = _param_errs(got[1], ref[1])
+        assert errs and max(errs.values()) <= PARAM_GRAD_RTOL, (key, errs)
+        assert all(torch.equal(a, b) for a, b in zip(got[1], again[1])), key
+        for g, r in zip(got[2], ref[2]):
+            assert g.shape == (n,)
+            assert _rel(g, r, keep) <= RAY_GRAD_RTOL, key
+        del got, again, ref
+
+
+def _ulps(got, ref):
+    """max |got - ref| in units in the last place of float32 ref."""
+    a = ref.float().abs()
+    ulp = (torch.nextafter(a, torch.full_like(a, math.inf)) - a).double()
+    return ((got.double() - ref.double()).abs() / ulp).max().item()
+
+
+def test_vpu_peak_kernels_match_plain(cuda_f32):
+    """T1's three chains against their plain versions. At 1 and 2 steps,
+    before the chains settle (and tan at 1 step on 1000 x T1's input, over
+    its pole), within 4 ulps: fmaf rounds once a step where the plain
+    version rounds twice. At T1's own counts: FMA at 1e-4 relative (512
+    steps of that difference), rsqrt at its fixed point, tan underflowed to
+    0 in both. One launch a call, counted; `run` gives a rate."""
+    x = vpu_peak.peak_input(cuda_f32)
+    plains = {"fma": vpu_peak.fma_plain, "rsqrt": vpu_peak.rsqrt_plain,
+              "tan": vpu_peak.tan_plain}
+    for name, (wrapper, _) in vpu_peak.CHAINS.items():
+        cases = [(x, 1), (x, 2)] + ([(x * 1000.0, 1)] if name == "tan"
+                                    else [])
+        for xs, steps in cases:
+            ref = plains[name](xs, steps)
+            assert (ref != 0).all()
+            assert _ulps(wrapper(xs, steps), ref) <= 4.0, (name, steps)
+        before = wrapper.launches
+        got = wrapper(x)
+        assert wrapper.launches == before + 1
+        ref = plains[name](x)
+        if name == "fma":
+            torch.testing.assert_close(got, ref, rtol=1e-4, atol=0)
+        elif name == "rsqrt":
+            torch.testing.assert_close(got, ref, rtol=1e-6, atol=0)
+            torch.testing.assert_close(got, torch.full_like(got, 0.6776506),
+                                       rtol=1e-6, atol=0)
+        else:
+            assert not got.any() and not ref.any()
+    per_s, seconds = vpu_peak.run("rsqrt")
+    assert per_s > 0 and seconds > 0
+    with pytest.raises(ValueError, match="float32"):
+        vpu_peak.fma_chain(x.double())
 
 
 @pytest.mark.parametrize("name", ["cooke", "singlet"])

@@ -45,7 +45,9 @@ def test_port_files_import_no_jax():
 def test_import_leaves_jax_unloaded():
     code = ("import sys, optiland_tpu_torch, optiland_tpu_torch.trace.fused, "
             "optiland_tpu_torch.optimization.merits, optiland_tpu_torch.psf, "
-            "optiland_tpu_torch.mtf, optiland_tpu_torch.wavefront\n"
+            "optiland_tpu_torch.mtf, optiland_tpu_torch.wavefront, "
+            "optiland_tpu_torch.tools.vpu_peak, "
+            "optiland_tpu_torch.tools.backward_turns\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'optax', 'optiland_tpu')]\n"
             "assert not bad, bad\n")
@@ -71,5 +73,15 @@ def test_build_defaults_to_cuda(monkeypatch):
 
     with pytest.raises(RuntimeError, match="CUDA"):
         ScalarHuygensPSF(lens, (0, 0), num_rays=4, image_size=2)
+    from optiland_tpu_torch.tools import vpu_peak
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        vpu_peak.main()
+    with pytest.raises(ValueError, match="CPU"):
+        vpu_peak.run("fma", device="cpu")
+    from optiland_tpu_torch.tools import backward_turns
+
+    with pytest.raises(RuntimeError, match="card"):
+        backward_turns.main(["--parent", "."])
     static, params = lens.build(device="cpu")
     assert params.cv.device.type == "cpu"
