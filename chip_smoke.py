@@ -7,9 +7,10 @@ From the root of the repository, on a machine with a CUDA card, nvcc and
 PyTorch built for CUDA. In order it:
   1. prints the card (`nvidia-smi` name and power limit) and the torch and
      CUDA versions;
-  2. builds the CUDA kernels of optiland_tpu_torch/csrc with nvcc (one
-     process per source, all at once) and prints the build time and nvcc's
-     register report;
+  2. builds the CUDA kernels of optiland_tpu_torch/csrc with nvcc, with
+     K1's per-system variants for the bench lens and the Cooke triplet
+     (one process per source and per variant, all at once), and prints the
+     seconds of each and nvcc's register report;
   2b. (t) T1, the peak-rate chains of tools/vpu_peak.py: each of its three
      kernels against its plain version on T1's input, then the port's tool
      (`vpu_peak.run`, as `python -m optiland_tpu_torch.tools.vpu_peak`
@@ -22,7 +23,8 @@ PyTorch built for CUDA. In order it:
   5. checks its outputs: finite, of the expected shape, and in agreement
      with the port's eager float64 path on the card (an independent
      implementation: full Newton, autograd-friendly ops, no kernel);
-  6. holds K1 and K3 against their plain PyTorch versions;
+  6. holds K1 (the bench lens's variant) and K3 against their plain
+     PyTorch versions;
   7. (a) takes the training step at full width: `centroid_rms_spot(...,
      diff_inputs=False).backward()` (K1, K2), gradients of cv, conic,
      coeffs and thickness against the eager float64 path's autograd;
@@ -48,8 +50,8 @@ PyTorch built for CUDA. In order it:
      gradients on every leaf that agree with float64 autograd, and 5
      torch.optim.Adam steps (lr 1e-4) over every leaf;
  16. (j) `centroid_rms_spot(..., 0.55)` and its backward on the Cooke
-     triplet (K1 and K2 with absorption) against their plain versions and
-     float64;
+     triplet (K1's Cooke variant and K2 with absorption) against their
+     plain versions and float64;
  17. (k) `CookeTriplet().trace(Hx=0, Hy=1, num_rays=6)`, the user's entry,
      reaches K7;
  18. (w1) K8, the Huygens sum, on the inputs of the Cooke triplet's
@@ -57,6 +59,9 @@ PyTorch built for CUDA. In order it:
      points, field (0, 1)) and of `HuygensMTF`'s (64 x 64, on axis): K8 and
      the float32 plain version each against the float64 plain version on
      the same inputs (PSF, Strehl, MTF), and two launches bitwise equal;
+     the same for the PSF's normalizing peak sum alone (1 x 16384) and for
+     the random inputs of tools/bench_wave_optics.py (16384 x 8192, OPD up
+     to 20 mm: phases up to ~2.3e5 rad);
  19. (w2) `ScalarHuygensPSF` at its defaults, fields (0, 0) and (0, 1), in
      float32 (K7 under `wavefront_data`, K8) against the same class in
      float64 on the card;
@@ -65,8 +70,9 @@ PyTorch built for CUDA. In order it:
      `SampledMTF` and `ZernikeOPD` at their defaults, float32 (K7 under
      `wavefront_data`) against float64;
  22. (g) times each kernel and its plain version with CUDA events (warm-up,
-     then the median of 25 calls), K8 also at the random inputs of
-     tools/bench_wave_optics.py and at 256 x 256, the training steps, the
+     then the median of 25 calls), K1 also on the Cooke triplet, K8 also
+     at the peak sum, the random inputs of tools/bench_wave_optics.py and
+     256 x 256 (with the phase range each reduces), the training steps, the
      flagship forward and the Huygens PSF end to end, and prints one JSON
      line of kernels;
  23. prints as its last line {"ok": true, "device": {...}}.
@@ -158,7 +164,8 @@ FLAGSHIP_WAVELENGTH = 0.55   # `dryrun_multichip`'s primary-wavelength phase
 # 1.8e-3 to 2.1e-3 of the peak at the PSF's defaults on the CPU (1.8e-4 at
 # the peak itself, Strehl 1e-4, MTF 1.4e-4 to 2.5e-4). K8 is held to twice
 # the plain float32 version's error and to 1e-2 of the peak; Strehl and
-# the MTF to 1e-3 absolute.
+# the MTF to 1e-3 absolute. (K8 forms R - Rp and the OPD's phase without
+# those roundings, csrc/huygens.cuh, and lands well inside both.)
 TOL_K8 = {"psf_of_peak": 1e-2, "plain_factor": 2.0, "strehl": 1e-3,
           "mtf": 1e-3}
 # A whole float32 analysis against float64 also carries the float32
@@ -177,9 +184,6 @@ TOL_WAVE = {"huygens_psf_of_peak": 2e-2, "huygens_strehl": 2e-3,
             "sampled_mtf": 1.2e-2, "zernike_waves": 1.5e-2, "rms_rel": 2e-2}
 SAMPLED_FREQS = [(0.0, 0.0), (10.0, 0.0), (0.0, 30.0), (50.0, 50.0),
                  (100.0, 0.0)]
-# sincosf's fast range reduction covers |phase| up to ~1.05e5 rad; above
-# it takes the slow, exact Payne-Hanek path
-SINCOS_FAST_LIMIT = 105615.0
 # T1's kernels against their plain versions. At T1's step counts the FMA
 # chain's kernel rounds each step once (fmaf), the plain version twice (a
 # multiply, then an add): up to ~6e-8 relative a step over 512 steps, 3e-5
@@ -385,14 +389,15 @@ def history_ops_per_ray(static, fused, K):
 
 
 def huygens_ops_per_contribution():
-    """FP32 operations per (image point, pupil sample) of K8
-    (csrc/huygens.cuh `huygens_term`), counted as `chain_ops_per_ray`
-    counts (an add, subtract, multiply, divide, sqrt, sin and cos one each,
-    an FMA two): the difference vector 3, R^2 5, sqrt 1, the dot product 5,
-    R Rp 1, the divide 1, the obliquity 2 (1 + cos, * 0.5), amp * it 1, / R
-    1, the phase 3 (R - Rp, - opd, * k), sin and cos 2, the two products
-    and sums 4. Each sqrt, divide and sincos is several instructions on the
-    card, so the kernel cannot run at this bound."""
+    """FP32 operations per (image point, pupil sample) of the Huygens sum
+    as the reference writes it (`_huygens_kernel`, `huygens_sum_plain`),
+    counted as `chain_ops_per_ray` counts (an add, subtract, multiply,
+    divide, sqrt, sin and cos one each, an FMA two): the difference vector
+    3, R^2 5, sqrt 1, the dot product 5, R Rp 1, the divide 1, the
+    obliquity 2 (1 + cos, * 0.5), amp * it 1, / R 1, the phase 3 (R - Rp,
+    - opd, * k), sin and cos 2, the two products and sums 4. The bound is
+    the function's: K8 computes it with its own instruction mix (~24
+    FP32-pipe and 4 special-function instructions, csrc/huygens.cuh)."""
     return 3 + 5 + 1 + 5 + 1 + 1 + 2 + 1 + 1 + 3 + 2 + 4
 
 
@@ -404,21 +409,54 @@ def huygens_bound(n_img, n_pup):
             huygens_ops_per_contribution() * n_img * n_pup + 3 * n_img)
 
 
-def phase_range(args, rows=2048):
-    """(max |phase|, share of the (image, pupil) pairs whose |phase| is above
-    SINCOS_FAST_LIMIT) of a Huygens sum's arguments, over chunks of image
-    points."""
+def phase_reduction(args, rows=2048):
+    """What K8's phase reduction meets on a Huygens sum's arguments, in
+    float64 over chunks of image points: the reference's largest |phase|
+    k ((R - Rp) - opd) in rad and the float32 quantum at that phase (half
+    its ulp: the reference's rounding of the phase alone); the most cycles
+    K8 reduces, |R - Rp| / lambda + 1/2 (the OPD's whole cycles leave when a
+    sample is staged), and the float32 quantum there in rad."""
     image, pupil, _, opd, wl_mm, Rp = args
-    ix, iy, iz = (a.reshape(-1) for a in image)
+    ix, iy, iz = (a.reshape(-1).double() for a in image)
+    ux, uy, uz = (u.double()[None, :] for u in pupil)
     k = 2.0 * math.pi / wl_mm
-    top, slow = 0.0, 0
+    top, dr = 0.0, 0.0
     for s in range(0, ix.shape[0], rows):
-        d2 = sum((a[s:s + rows, None] - u[None, :]) ** 2
-                 for a, u in zip((ix, iy, iz), pupil))
-        ph = (k * ((torch.sqrt(d2) - Rp) - opd[None, :])).abs()
-        top = max(top, ph.max().item())
-        slow += (ph > SINCOS_FAST_LIMIT).sum().item()
-    return top, slow / (ix.shape[0] * pupil[0].shape[0])
+        R = torch.sqrt((ix[s:s + rows, None] - ux) ** 2 + (
+            iy[s:s + rows, None] - uy) ** 2 + (iz[s:s + rows, None] - uz) ** 2)
+        d = R - float(Rp)
+        top = max(top, (k * (d - opd.double()[None, :])).abs().max().item())
+        dr = max(dr, d.abs().max().item())
+    cycles = dr / wl_mm + 0.5
+
+    def quantum(v, scale):
+        a = torch.tensor(v, dtype=torch.float32)
+        ulp = (torch.nextafter(a, torch.tensor(math.inf)) - a).item()
+        return 0.5 * ulp * scale
+
+    return dict(max_abs_phase_rad=top,
+                reference_quantum_rad=quantum(top, 1.0),
+                max_abs_cycles=cycles,
+                k8_quantum_rad=quantum(cycles, 2.0 * math.pi))
+
+
+def bench_wave_optics_args(dev):
+    """The random inputs of tools/bench_wave_optics.py (seed 0): 16384 image
+    points at z = 60 within 0.05 mm of the axis, 8192 pupil samples in a
+    10 mm square at z = 0, amplitudes in [0.5, 1], OPD in [0, 20] mm,
+    lambda 0.55 um, Rp 60 mm."""
+    rng = np.random.default_rng(0)
+
+    def on_card(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+
+    pupil = tuple(on_card(rng.uniform(-5, 5, 8192)) for _ in range(2))
+    pupil += (on_card(np.zeros(8192)),)
+    image = tuple(on_card(rng.uniform(-0.05, 0.05, 16384)) for _ in range(2))
+    image += (on_card(np.full(16384, 60.0)),)
+    amp = on_card(rng.uniform(0.5, 1.0, 8192))
+    opd = on_card(rng.uniform(0, 20, 8192))
+    return (image, pupil, amp, opd, 0.55e-3, torch.tensor(60.0, device=dev))
 
 
 def bound_ms(n_bytes, n_ops):
@@ -569,12 +607,22 @@ def main():
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}")
 
-    # 2. build the kernels from the sources in the checkout
+    # 2. build the kernels from the sources in the checkout, with K1's
+    # variants for the two systems this run drives it on (their codes do
+    # not depend on the device or the precision)
+    k1_variants = {label: fused.k1_defines(lens.build(device="cpu")[0])
+                   for label, lens in (("bench lens", bench_lens(Optic)),
+                                       ("Cooke triplet", CookeTriplet()))}
     t0 = time.perf_counter()
-    built = _build.build_all()
+    built = _build.build_all(tuple(("moments_fwd", d)
+                                   for d in k1_variants.values()))
     print(f"build: {time.perf_counter() - t0:.1f} s wall "
           + ", ".join(f"{k} {v[1]:.1f} s" for k, v in built.items()))
-    for name in _build.SOURCES:
+    for label, d in k1_variants.items():
+        name = _build.variant_name("moments_fwd", d)
+        print(f"K1 variant for the {label}: {name}, built in "
+              f"{built[name][1]:.1f} s, {dict(d)}")
+    for name in built:
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
@@ -1198,6 +1246,30 @@ def main():
     check(k8_err["mtf"] <= TOL_K8["mtf"], "K8 MTF vs f64")
     del psf_k8_again, psf_32, psf_64, mtf_args
     free()
+    # the PSF's normalizing peak sum alone (1 image point, 16384 samples)
+    # and the random inputs of tools/bench_wave_optics.py (OPD to 20 mm),
+    # each raw sum relative to its float64 largest value
+    k8_more = {}
+    for label, args in (("peak_sum", peak_args),
+                        ("bench_wave_optics", bench_wave_optics_args(dev))):
+        got = huygens.huygens_sum_forward(*args)
+        again = huygens.huygens_sum_forward(*args)
+        ref = huygens.huygens_sum_plain(*as64(args))
+        top = ref.abs().max().item()
+        k8_more[label] = {
+            "psf_of_peak": max_abs(got, ref) / top,
+            "plain32_psf_of_peak": max_abs(
+                huygens.huygens_sum_plain(*args), ref) / top,
+            "bitwise": bool(torch.equal(got, again))}
+        del got, again, ref
+        free()
+    print("K8 vs the float64 plain version, peak sum and bench_wave_optics "
+          f"inputs: {json.dumps(k8_more)} tolerances {json.dumps(TOL_K8)}")
+    for label, e in k8_more.items():
+        check(e["bitwise"], f"K8 bitwise over two launches ({label})")
+        check(e["psf_of_peak"] <= TOL_K8["psf_of_peak"], f"K8 {label} vs f64")
+        check(e["psf_of_peak"] <= TOL_K8["plain_factor"]
+              * e["plain32_psf_of_peak"], f"K8 {label} within 2x plain f32's")
 
     # 19. (w2) ScalarHuygensPSF at its defaults, float32 against float64
     config.set_precision("float64")
@@ -1310,13 +1382,14 @@ def main():
     # is its bare launch (tables packed once, outside the timed region);
     # these launches bypass the wrappers and their counters.
     n, head, ptrs, keep_alive = fused._launch_args(static, p[2], p[0], p[1],
-                                                   data, "K1")
+                                                   data, "K3")
+    k1_fn, k1_args, k1_partials, k1_keep = fused.k1_launch(static, *p, data)
+    k1c_fn, k1c_args, k1c_partials, k1c_keep = fused.k1_launch(
+        static_c, *pc, data_c)
     nv, head_v, ptrs_v, keep_alive_v = fused._caller_ray_args(
         static_v, *p_v, rays8, "K5")
     stream = torch.cuda.current_stream(dev).cuda_stream
-    blocks = -(-n // fused._BLOCK)
     S = static.num_surfaces
-    partials = torch.empty((blocks, 4), device=dev)
     # the backward kernels' persistent grids, from the wrappers' helper
     n_sm = config.sm_count(dev)
     grid = {"K2": fused.backward_grid(n, n_sm),
@@ -1347,7 +1420,7 @@ def main():
         ni, npu = flat[0].numel(), flat[3].numel()
         chunk = huygens.pupil_chunk(ni, npu, config.sm_count(dev))
         partial = torch.empty((-(-npu // chunk), 2, ni), device=dev)
-        return (chunk, 2.0 * math.pi / wl_mm,
+        return (chunk, huygens.inv_wavelength(wl_mm),
                 [rp.data_ptr()] + [a.data_ptr() for a in flat], partial,
                 (flat, rp))
 
@@ -1357,13 +1430,16 @@ def main():
         err = fused._kernel(name)(*args, stream)
         check(err == 0, f"{name} launch: cudaError {err}")
 
+    def launch_k1(fn, args):
+        err = fn(*args, stream)
+        check(err == 0, f"moments_fwd launch: cudaError {err}")
+
     def launch_k8(*args):
         err = huygens._kernel()(*args, stream)
         check(err == 0, f"huygens_sum launch: cudaError {err}")
 
     launches = {
-        "K1": lambda: launch("moments_fwd", *head, *ptrs,
-                             partials.data_ptr()),
+        "K1": lambda: launch_k1(k1_fn, k1_args),
         "K2": lambda: launch("moments_bwd", *head, *grid["K2"], 0, *ptrs,
                              c32.data_ptr(), partials_bwd.data_ptr(), None,
                              None, None, None),
@@ -1384,7 +1460,7 @@ def main():
             itab7.data_ptr(), mat7.data_ptr(), kwl7.data_ptr(),
             kval7.data_ptr(), *(r.data_ptr() for r in rays9),
             *(h.data_ptr() for h in hist7)),
-        "K8": lambda: launch_k8(n_img, n_pup, k8_chunk, k8_k, *k8_ptrs,
+        "K8": lambda: launch_k8(n_img, n_pup, k8_chunk, *k8_k, *k8_ptrs,
                                 k8_partial.data_ptr()),
     }
     plains = {
@@ -1538,48 +1614,44 @@ def main():
           f"leaves) {step_c_ms:.4f} ms, {n_c / step_c_ms * 1e3:.6g} rays/s; "
           f"step split (ms) {json.dumps(split)}; step peak device memory "
           f"{peak_gb:.3f} GB")
-    # K8 at three shapes beside its FP32 bound: the PSF's defaults (its row
-    # in the kernels line), the random inputs of tools/bench_wave_optics.py
-    # (16384 image points x 8192 pupil samples, opd up to 20 mm, so phases
-    # up to ~2.3e5 rad) and num_rays = image_size = 256 (65536 x 65536)
-    rng = np.random.default_rng(0)
-
-    def on_card(a):
-        return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
-
-    pupil_b = tuple(on_card(rng.uniform(-5, 5, 8192)) for _ in range(2))
-    pupil_b += (on_card(np.zeros(8192)),)
-    image_b = tuple(on_card(rng.uniform(-0.05, 0.05, 16384))
-                    for _ in range(2))
-    image_b += (on_card(np.full(16384, 60.0)),)
-    amp_b = on_card(rng.uniform(0.5, 1.0, 8192))
-    opd_b = on_card(rng.uniform(0, 20, 8192))
-    bench_args = (image_b, pupil_b, amp_b, opd_b, 0.55e-3,
-                  torch.tensor(60.0, device=dev))
+    # K8 at four shapes beside its FP32 bound: the PSF's defaults (its row
+    # in the kernels line) and their normalizing peak sum, the random inputs
+    # of tools/bench_wave_optics.py (16384 image points x 8192 pupil
+    # samples, opd up to 20 mm, so phases up to ~2.3e5 rad) and num_rays =
+    # image_size = 256 (65536 x 65536); with the phase range each reduces
     big_args = huygens.huygens_psf_sums(lens32, (0.0, 1.0), 0.55, 256, 256,
                                         device="cuda")[0]
     k8_shapes = {}
-    for label, args, with_plain in (("psf_128", img_args, True),
-                                    ("bench_wave_optics", bench_args, True),
-                                    ("psf_256", big_args, False)):
-        chunk, k, ptrs8, partial, _keep = k8_launch_args(args)
+    for label, args, with_plain in (
+            ("psf_128", img_args, True), ("psf_128_peak", peak_args, True),
+            ("bench_wave_optics", bench_wave_optics_args(dev), True),
+            ("psf_256", big_args, False)):
+        chunk, inv_wl, ptrs8, partial, _keep = k8_launch_args(args)
         ni, npu = args[0][0].numel(), args[1][0].numel()
-        t_k8 = time_ms(lambda: launch_k8(ni, npu, chunk, k, *ptrs8,
+        t_k8 = time_ms(lambda: launch_k8(ni, npu, chunk, *inv_wl, *ptrs8,
                                          partial.data_ptr()))
         b_ms, b_by = bound_ms(*huygens_bound(ni, npu))
-        top, slow = phase_range(args)
         k8_shapes[label] = dict(
             image=ni, pupil=npu, chunks=partial.shape[0], ms=t_k8,
             bound_ms=b_ms, bound_by=b_by,
             contributions_per_s=ni * npu / (t_k8 * 1e-3),
-            max_abs_phase_rad=top, slow_sincos_share=slow,
             plain_ms=(time_ms(lambda: huygens.huygens_sum_plain(*args))
-                      if with_plain else None))
+                      if with_plain else None), **phase_reduction(args))
         del partial, _keep
         free()
-    print(f"K8 at three shapes, median of {TIMED_CALLS} bare launches "
+    print(f"K8 at four shapes, median of {TIMED_CALLS} bare launches "
           f"({huygens_ops_per_contribution()} FP32 operations a "
           f"contribution): {json.dumps(k8_shapes)}")
+    # K1's variants, bare launches: the bench lens (its row in the kernels
+    # line) and the Cooke triplet at 0.55 um
+    k1_ms = {"bench lens": time_ms(lambda: launch_k1(k1_fn, k1_args)),
+             "Cooke triplet": time_ms(lambda: launch_k1(k1c_fn, k1c_args))}
+    k1c_bound = bound_ms(4 * 4 * n_c,
+                         (chain_ops_per_ray(static_c, fused) + 10) * n_c)
+    print(f"K1 variants, median of {TIMED_CALLS} bare launches (ms): "
+          f"{json.dumps(k1_ms)}; grids (blocks) bench {k1_args[2]}, Cooke "
+          f"{k1c_args[2]}; Cooke bound {k1c_bound[0]:.4f} ms "
+          f"({k1c_bound[1]}) at {n_c} rays")
 
     # the Huygens PSF call at its defaults on the host clock, and its split
     psf_ms = host_ms(lambda: ScalarHuygensPSF(lens32, (0.0, 1.0)))

@@ -10,6 +10,15 @@ The libraries go to `build/optiland_tpu_torch/<digest>/` at the repository
 root, keyed by a hash of every source in `csrc/`, so an edited source is
 rebuilt and an unchanged one is reused. All sources are compiled in
 parallel, one nvcc process each. A failed build raises; nothing falls back.
+
+A per-system source (K1, `moments_fwd.cu`, with its own flags in
+PER_SYSTEM) is not built on its own: it takes a system's static codes as
+macro definitions (a header of them, `<variant>.h`, that nvcc includes
+first), and each set of definitions is a variant
+`lib<name>-<signature>.so` in the same directory, built at first use
+(`variant`) or up front with the others (`build_all(variants)`). The
+signature hashes the definitions and the flags alone, so new parameter
+values reuse a variant and new codes build another.
 """
 
 from __future__ import annotations
@@ -25,9 +34,13 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[1] / "build" / "optiland_tpu_torch"
-SOURCES = ("moments_fwd", "moments_bwd", "raygen_trace_fwd",
-           "raygen_trace_bwd", "fused_trace_fwd", "fused_trace_bwd",
-           "history_fwd", "huygens_sum", "vpu_peak")
+SOURCES = ("moments_bwd", "raygen_trace_fwd", "raygen_trace_bwd",
+           "fused_trace_fwd", "fused_trace_bwd", "history_fwd", "huygens_sum",
+           "vpu_peak")
+# sources built once per system, from its codes (`variant`), and their own
+# nvcc flags: K1 takes approximate division and square root, which held
+# every one of its checks and cut it by a third on an H100 (PERF.md)
+PER_SYSTEM = {"moments_fwd": ("-prec-div=false", "-prec-sqrt=false")}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -52,24 +65,43 @@ def _nvcc() -> str:
     return nvcc
 
 
-@lru_cache(maxsize=1)
-def build_all() -> dict:
-    """Compile every missing library, all nvcc processes at once; returns
-    {name: (library path, seconds spent building it or 0.0 if cached)}."""
+def variant_name(source: str, defines) -> str:
+    """The library name of `source` built with `defines`, ((macro, value),
+    ...): the source's name and a hash of the definitions and its flags."""
+    sig = hashlib.sha256(repr((tuple(defines), PER_SYSTEM.get(
+        source, ()))).encode()).hexdigest()[:12]
+    return f"{source}-{sig}"
+
+
+def defines_header(defines) -> str:
+    """The definitions ((macro, value), ...) as a header's #define lines."""
+    return "".join(f"#define {macro} {value}\n" for macro, value in defines)
+
+
+def _compile(jobs: dict) -> dict:
+    """Compile every missing library of `jobs` ({library name: (source,
+    defines)}), all nvcc processes at once; returns {library name: (path,
+    seconds spent building it or 0.0 if it was there)}."""
     out = build_dir()
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
     t0 = time.perf_counter()
-    for name in SOURCES:
+    for name, (source, defines) in jobs.items():
         lib = out / f"lib{name}.so"
         if lib.exists():
             continue
         tmp = out / f"lib{name}.{os.getpid()}.tmp.so"
         log = open(out / f"{name}.log", "w")
+        flags = list(PER_SYSTEM.get(source, ()))
+        if defines:   # a header, not -D: nvcc splits -D values at commas
+            header = out / f"{name}.h"
+            header.write_text(defines_header(defines))
+            flags += ["-include", str(header)]
         procs[name] = (subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            [_nvcc(), *NVCC_FLAGS, *flags, "-o", str(tmp),
+             str(CSRC / f"{source}.cu")],
             stdout=log, stderr=subprocess.STDOUT), tmp, lib, log)
-    result = {name: (out / f"lib{name}.so", 0.0) for name in SOURCES}
+    result = {name: (out / f"lib{name}.so", 0.0) for name in jobs}
     failed = []
     for name, (proc, tmp, lib, log) in procs.items():
         rc = proc.wait()
@@ -85,6 +117,17 @@ def build_all() -> dict:
     return result
 
 
+@lru_cache(maxsize=None)
+def build_all(variants=()) -> dict:
+    """Compile every missing library of SOURCES and of the per-system
+    `variants` ((source, defines), ...), all nvcc processes at once;
+    returns {library name: (path, seconds spent building it or 0.0 if
+    cached)}, a variant under `variant_name`."""
+    jobs = {name: (name, ()) for name in SOURCES}
+    jobs.update({variant_name(src, d): (src, tuple(d)) for src, d in variants})
+    return _compile(jobs)
+
+
 def build_log(name: str) -> str:
     """nvcc's output for `name` (registers, shared memory, spills), or ''
     when the library came from an earlier build."""
@@ -96,3 +139,12 @@ def build_log(name: str) -> str:
 def library(name: str) -> ctypes.CDLL:
     """The loaded shared library built from `csrc/<name>.cu`."""
     return ctypes.CDLL(str(build_all()[name][0]))
+
+
+@lru_cache(maxsize=None)
+def variant(source: str, defines) -> ctypes.CDLL:
+    """The loaded library of per-system `source` built with `defines`
+    ((macro, value), ...), compiled on first use; raises if nvcc fails."""
+    defines = tuple(defines)
+    name = variant_name(source, defines)
+    return ctypes.CDLL(str(_compile({name: (source, defines)})[name][0]))

@@ -13,9 +13,12 @@
 // before a launch. chain_bwd.cuh holds the reverse sweep built from the
 // same pieces.
 //
-// The JAX kernel unrolls the chain on static per-surface codes; here the
-// chain loops over the surfaces at run time and switches on the codes held
-// in the int table. Both tables are staged in shared memory once per block.
+// The JAX kernel unrolls the chain on static per-surface codes. Here one
+// surface's step (`surface_step`) is written once, and two chains call it:
+// `trace_chain` loops over the surfaces at run time and switches on the
+// codes held in the int table (K2-K7, both tables staged in shared memory
+// once per block), and system_chain.cuh unrolls it over codes that are
+// compile-time constants of one system (K1), so that its branches fold.
 //
 // Numerics kept from the JAX kernel: the closed-form conic seed with the
 // same 1e-12 safe-divides and root choice, min(newton_iters, 2) + 1 Newton
@@ -86,6 +89,13 @@ struct Ray {
   float x, y, z, L, M, N, i, opd;
 };
 
+// One surface's static codes: the int table's row, or a per-system
+// kernel's compile-time constants. `absorbs` is the medium's after it.
+struct Codes {
+  int geom, nc, inter;
+  bool tilted, decentered, aperture, absorbs;
+};
+
 // One surface's codes and values, read from the staged tables. `absorbs`
 // and `alpha` are those of the medium before the surface (row k - 1).
 struct Surface {
@@ -113,16 +123,24 @@ __device__ __forceinline__ float sign_of(float v) {
   return (v > 0.f) ? 1.f : ((v < 0.f) ? -1.f : 0.f);
 }
 
-__device__ __forceinline__ Surface load_surface(const float* ft, const int* it, int k) {
-  const float* f = ft + k * F_STRIDE;
+__device__ __forceinline__ Codes codes_at(const int* it, int k) {
   const int* c = it + k * I_STRIDE;
+  return Codes{c[I_GEOM], c[I_NCOEF], c[I_INTER], c[I_TILT] != 0,
+               c[I_DEC] != 0, c[I_AP] != 0, c[I_ABS] != 0};
+}
+
+// Surface k from its codes, the absorption flag of the medium before it
+// and the float table.
+__device__ __forceinline__ Surface make_surface(const Codes& c, bool absorbs_before,
+                                                const float* ft, int k) {
+  const float* f = ft + k * F_STRIDE;
   Surface s;
-  s.code = c[I_GEOM];
-  s.nc = c[I_NCOEF];
-  s.inter = c[I_INTER];
-  s.tilted = c[I_TILT] != 0;
-  s.decentered = c[I_DEC] != 0;
-  s.aperture = c[I_AP] != 0;
+  s.code = c.geom;
+  s.nc = c.nc;
+  s.inter = c.inter;
+  s.tilted = c.tilted;
+  s.decentered = c.decentered;
+  s.aperture = c.aperture;
   s.cv = f[F_CV];
   s.kk = 1.f + f[F_CONIC];
   s.tx = f[F_DEC];
@@ -133,9 +151,14 @@ __device__ __forceinline__ Surface load_surface(const float* ft, const int* it, 
   s.ap = f[F_AP];
   s.n = f[F_NTAB];
   s.co = f + F_COEFFS;
-  s.absorbs = k > 0 && it[(k - 1) * I_STRIDE + I_ABS] != 0;
+  s.absorbs = k > 0 && absorbs_before;
   s.alpha = k > 0 ? ft[(k - 1) * F_STRIDE + F_ALPHA] : 0.f;
   return s;
+}
+
+__device__ __forceinline__ Surface load_surface(const float* ft, const int* it, int k) {
+  return make_surface(codes_at(it, k), k > 0 && it[(k - 1) * I_STRIDE + I_ABS] != 0, ft,
+                      k);
 }
 
 __device__ __forceinline__ bool is_asphere(const Surface& s) {
@@ -504,59 +527,75 @@ struct NoSink {
   __device__ __forceinline__ void operator()(int, const Ray&) const {}
 };
 
-// The surface chain from surface 1 to S-1: `_tile_trace` (for_grad=False).
-// The vertex z of surface k is the running sum of thickness[1..k-1]
-// (thickness[0], infinite for an infinite object, never enters). With
-// `rec`, row k gets surface k's entry state and t (the re-trace of the
-// backward kernels, chain_bwd.cuh). Without `disp` the indices and
-// absorption come from the tables' one wavelength; with it, from the
-// ray's own. `sink(k, ray)` sees the state after surface k.
+// Surface k >= 1 of the chain on the running state r: into the surface's
+// frame at vertex z pos_k, the hit, the step, opd += |t n_pre|, validity,
+// Beer-Lambert absorption through the medium before it, the aperture, the
+// interaction (n_pre becomes the index after it), back to the global
+// frame. With `rec_k`, it gets the surface's entry state and t (the
+// re-trace of the backward kernels, chain_bwd.cuh). Without `disp` the
+// indices and absorption come from the tables' one wavelength; with it,
+// from the ray's own (and `it` names the media). `sink(k, ray)` sees the
+// state after the surface.
+template <class Sink = NoSink>
+__device__ __forceinline__ void surface_step(Surface s, int k, int n_newton, float pos_k,
+                                             Ray& r, float& n_pre, float* rec_k = nullptr,
+                                             const Dispersion* disp = nullptr,
+                                             const int* it = nullptr,
+                                             const Sink& sink = Sink()) {
+  float x = r.x, y = r.y, z = r.z, L = r.L, M = r.M, N = r.N, i = r.i, opd = r.opd;
+  if (rec_k) {
+    rec_k[0] = x; rec_k[1] = y; rec_k[2] = z;
+    rec_k[3] = L; rec_k[4] = M; rec_k[5] = N;
+  }
+
+  to_local(s, pos_k, x, y, z, L, M, N);
+  float validf;
+  const float t = intersect(s, n_newton, x, y, z, L, M, N, validf);
+  if (rec_k) rec_k[6] = t;
+
+  x = x + t * L;
+  y = y + t * M;
+  z = z + t * N;
+  opd = opd + fabsf(t * n_pre);
+  i = i * validf;
+  if (s.absorbs) {
+    // Beer-Lambert through the medium before this surface
+    float alpha = s.alpha;
+    if (disp) {
+      const size_t row = (size_t)(k - 1) * disp->K;
+      alpha = FOUR_PI * kv_interp(disp->w, disp->kwl + row, disp->kval + row, disp->K) /
+              disp->w;
+    }
+    i = i * expf(-alpha * t * 1e3f);
+  }
+  if (s.aperture) i = i * ((x * x + y * y <= s.ap * s.ap) ? 1.f : 0.f);
+
+  if (disp && s.inter != INT_NONE && s.inter != INT_REFLECT) s.n = index_at(*disp, it, k);
+  n_pre = interact(s, n_pre, x, y, L, M, N, i);
+  to_global(s, pos_k, x, y, z, L, M, N);
+  sink(k, Ray{x, y, z, L, M, N, i, opd});
+  r.x = x; r.y = y; r.z = z; r.L = L; r.M = M; r.N = N; r.i = i; r.opd = opd;
+}
+
+// The surface chain from surface 1 to S-1: `_tile_trace` (for_grad=False),
+// a run-time loop over the int table's codes. The vertex z of surface k is
+// the running sum of thickness[1..k-1] (thickness[0], infinite for an
+// infinite object, never enters). `rec`, `disp` and `sink` as for
+// surface_step, row k of `rec` for surface k.
 template <class Sink = NoSink>
 __device__ __forceinline__ void trace_chain(int S, int n_newton, const float* ft,
                                             const int* it, Ray& r,
                                             float (*rec)[REC] = nullptr,
                                             const Dispersion* disp = nullptr,
                                             const Sink& sink = Sink()) {
-  float x = r.x, y = r.y, z = r.z, L = r.L, M = r.M, N = r.N, i = r.i, opd = r.opd;
   float pos_prev = 0.f;
   float n_pre = disp ? index_at(*disp, it, 0) : ft[F_NTAB];
   for (int k = 1; k < S; ++k) {
-    Surface s = load_surface(ft, it, k);
     const float pos_k = pos_prev + (k > 1 ? ft[(k - 1) * F_STRIDE + F_THICK] : 0.f);
     pos_prev = pos_k;
-    if (rec) {
-      rec[k][0] = x; rec[k][1] = y; rec[k][2] = z;
-      rec[k][3] = L; rec[k][4] = M; rec[k][5] = N;
-    }
-
-    to_local(s, pos_k, x, y, z, L, M, N);
-    float validf;
-    const float t = intersect(s, n_newton, x, y, z, L, M, N, validf);
-    if (rec) rec[k][6] = t;
-
-    x = x + t * L;
-    y = y + t * M;
-    z = z + t * N;
-    opd = opd + fabsf(t * n_pre);
-    i = i * validf;
-    if (s.absorbs) {
-      // Beer-Lambert through the medium before this surface
-      float alpha = s.alpha;
-      if (disp) {
-        const size_t row = (size_t)(k - 1) * disp->K;
-        alpha = FOUR_PI * kv_interp(disp->w, disp->kwl + row, disp->kval + row, disp->K) /
-                disp->w;
-      }
-      i = i * expf(-alpha * t * 1e3f);
-    }
-    if (s.aperture) i = i * ((x * x + y * y <= s.ap * s.ap) ? 1.f : 0.f);
-
-    if (disp && s.inter != INT_NONE && s.inter != INT_REFLECT) s.n = index_at(*disp, it, k);
-    n_pre = interact(s, n_pre, x, y, L, M, N, i);
-    to_global(s, pos_k, x, y, z, L, M, N);
-    sink(k, Ray{x, y, z, L, M, N, i, opd});
+    surface_step(load_surface(ft, it, k), k, n_newton, pos_k, r, n_pre,
+                 rec ? rec[k] : nullptr, disp, it, sink);
   }
-  r.x = x; r.y = y; r.z = z; r.L = L; r.M = M; r.N = N; r.i = i; r.opd = opd;
 }
 
 }  // namespace otk

@@ -1,41 +1,62 @@
 // K1: in-kernel ray generation, the surface chain and the spot-moment
-// reduction, one ray per thread (Hopper, sm_90a).
+// reduction for one system, one ray per thread (Hopper, sm_90a).
 //
 // Replaces the Pallas kernel `_moments_forward` of
-// optiland_tpu/trace/fused.py. Each block of 256 threads reduces its
-// masked (i, x i, y i, (x^2 + y^2) i) by warp shuffles and then shared
-// memory to one partial per block, written to partials[block][0..3]; the
-// wrapper sums the partials with torch.sum (deterministic, no atomics).
-// Rays past n contribute nothing. Bound on an H100: FP32 operations of the
-// chain, not memory (see trace/fused.py).
+// optiland_tpu/trace/fused.py, which unrolls the chain on the system's
+// static codes. So does this kernel: it is built once per system, with the
+// codes as nvcc definitions (system_chain.cuh; trace/fused.py
+// `k1_defines`, _build.py `variant`), and the per-surface step of
+// chain.cuh runs with constant codes, unrolled, its untaken branches gone.
+//
+// Bound on an H100: the FP32 operations of the chain (~10^3 a ray on the
+// bench lens, chip_smoke.py:chain_ops_per_ray), not memory (16 bytes a
+// ray). The run-time chain of K2-K7 also pays, per surface, the reloads
+// of its codes, their branches, a run-time Newton count and coefficient
+// loops, and each block of one ray a thread stages both tables behind a
+// barrier. Here:
+//   - the codes are constants: no int table, no code branches;
+//   - the grid is persistent, `blocks` blocks of THREADS threads (the
+//     wrapper takes at most as many as fit the card at once,
+//     `moments_fwd_blocks_per_sm`), each staging the float table and the
+//     raygen scalars once and then walking tiles of THREADS rays;
+//   - each thread sums its rays' masked (i, x i, y i, (x^2 + y^2) i) in
+//     registers; at the end the block reduces them by warp shuffles and
+//     shared memory to one partial, partials[block][0..3], which the
+//     wrapper sums with torch.sum (deterministic, no atomics).
+//   - the arithmetic is the run-time chain's, compiled with approximate
+//     division and square root (-prec-div=false -prec-sqrt=false,
+//     _build.py PER_SYSTEM): with the control gone, the IEEE forms carried
+//     a third of the kernel's time on an H100, and the approximate ones
+//     hold every K1 check (PERF.md).
+// Rays past n contribute nothing.
 #include <cstdint>
 
-#include "chain.cuh"
+#include "system_chain.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(otk::BLOCK)
-moments_fwd_kernel(int n, int S, int n_newton, int field_angle, int object_infinite,
-                   const float* __restrict__ rg, const float* __restrict__ ftab,
-                   const int* __restrict__ itab, const float* __restrict__ Hx,
-                   const float* __restrict__ Hy, const float* __restrict__ Px,
-                   const float* __restrict__ Py, float* __restrict__ partials) {
-  __shared__ float s_ft[otk::MAX_SURFACES * otk::F_STRIDE];
-  __shared__ int s_it[otk::MAX_SURFACES * otk::I_STRIDE];
-  __shared__ float s_rg[5];
-  __shared__ float s_red[4][otk::BLOCK / 32];
-  otk::stage_tables(S, ftab, itab, rg, s_ft, s_it, s_rg);
+constexpr int THREADS = 256;
 
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+__global__ void __launch_bounds__(THREADS)
+moments_fwd_kernel(int n, const float* __restrict__ rg, const float* __restrict__ ftab,
+                   const float* __restrict__ Hx, const float* __restrict__ Hy,
+                   const float* __restrict__ Px, const float* __restrict__ Py,
+                   float* __restrict__ partials) {
+  __shared__ float s_ft[OTK_S * otk::F_STRIDE];
+  __shared__ float s_rg[5];
+  __shared__ float s_red[4][THREADS / 32];
+  for (int j = threadIdx.x; j < OTK_S * otk::F_STRIDE; j += THREADS) s_ft[j] = ftab[j];
+  if (threadIdx.x < 5) s_rg[threadIdx.x] = rg[threadIdx.x];
+  __syncthreads();
+
   float m[4] = {0.f, 0.f, 0.f, 0.f};
-  if (idx < n) {
-    otk::Ray r = otk::tile_raygen(field_angle, object_infinite, s_rg, Hx[idx],
-                                  Hy[idx], Px[idx], Py[idx]);
-    otk::trace_chain(S, n_newton, s_ft, s_it, r);
-    m[0] = r.i;
-    m[1] = r.x * r.i;
-    m[2] = r.y * r.i;
-    m[3] = (r.x * r.x + r.y * r.y) * r.i;
+  for (int idx = blockIdx.x * THREADS + threadIdx.x; idx < n; idx += gridDim.x * THREADS) {
+    otk::Ray r = otk::system_raygen(s_rg, Hx[idx], Hy[idx], Px[idx], Py[idx]);
+    otk::trace_system(s_ft, r);
+    m[0] += r.i;
+    m[1] += r.x * r.i;
+    m[2] += r.y * r.i;
+    m[3] += (r.x * r.x + r.y * r.y) * r.i;
   }
 #pragma unroll
   for (int q = 0; q < 4; ++q)
@@ -48,7 +69,7 @@ moments_fwd_kernel(int n, int S, int n_newton, int field_angle, int object_infin
   if (warp == 0) {
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
-      float v = (lane < otk::BLOCK / 32) ? s_red[q][lane] : 0.f;
+      float v = (lane < THREADS / 32) ? s_red[q][lane] : 0.f;
       for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
       if (lane == 0) partials[blockIdx.x * 4 + q] = v;
     }
@@ -57,16 +78,24 @@ moments_fwd_kernel(int n, int S, int n_newton, int field_angle, int object_infin
 
 }  // namespace
 
-// Launch K1 on `stream` over n rays; returns cudaGetLastError().
-extern "C" int moments_fwd(int n, int S, int n_newton, int field_angle,
-                           int object_infinite, const void* rg, const void* ftab,
-                           const void* itab, const void* Hx, const void* Hy,
-                           const void* Px, const void* Py, void* partials,
-                           void* stream) {
-  const int blocks = (n + otk::BLOCK - 1) / otk::BLOCK;
-  moments_fwd_kernel<<<blocks, otk::BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
-      n, S, n_newton, field_angle, object_infinite, static_cast<const float*>(rg),
-      static_cast<const float*>(ftab), static_cast<const int*>(itab),
+// K1 blocks that fit one SM at once (the occupancy of this build), or a
+// negative CUDA error.
+extern "C" int moments_fwd_blocks_per_sm() {
+  int blocks = 0;
+  const cudaError_t err =
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, moments_fwd_kernel, THREADS, 0);
+  return err == cudaSuccess ? blocks : -static_cast<int>(err);
+}
+
+// Launch K1 on `stream` over n rays of a system of S surfaces (this
+// build's OTK_S, else cudaErrorInvalidValue) in `blocks` blocks, each
+// writing one (4,) partial. Returns cudaGetLastError().
+extern "C" int moments_fwd(int n, int S, int blocks, const void* rg, const void* ftab,
+                           const void* Hx, const void* Hy, const void* Px, const void* Py,
+                           void* partials, void* stream) {
+  if (S != OTK_S || blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
+  moments_fwd_kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      n, static_cast<const float*>(rg), static_cast<const float*>(ftab),
       static_cast<const float*>(Hx), static_cast<const float*>(Hy),
       static_cast<const float*>(Px), static_cast<const float*>(Py),
       static_cast<float*>(partials));

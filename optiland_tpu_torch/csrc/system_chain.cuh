@@ -1,0 +1,73 @@
+// The surface chain of one system whose static codes are compile-time
+// constants (K1, csrc/moments_fwd.cu).
+//
+// The wrapper (trace/fused.py `k1_defines`) passes the system's codes to
+// nvcc as definitions (a header that nvcc includes first, _build.py):
+//   OTK_S                 the number of surfaces;
+//   OTK_NEWTON            the Newton updates after the first (n_newton);
+//   OTK_FIELD_ANGLE       1 for angle fields, 0 for object heights;
+//   OTK_OBJECT_INFINITE   1 for an object at infinity;
+//   OTK_SURFACES          each surface's codes, k = 0 .. S-1, packed as
+//                         `unpack_codes` reads them, separated by commas.
+// `trace_system` then calls chain.cuh's `surface_step`, the body of the
+// run-time `trace_chain`, once per surface with constant codes: the
+// surface loop, the Newton loop and the polynomial loops unroll, and the
+// branches the system does not take (tilt, decenter, aperture, absorption,
+// interaction, geometry) fold away. The values (curvatures, conics,
+// coefficients, thicknesses, indices, alpha, apertures) stay in the float
+// table that the kernel stages in shared memory.
+#pragma once
+
+#include "chain.cuh"
+
+#if !defined(OTK_S) || !defined(OTK_NEWTON) || !defined(OTK_FIELD_ANGLE) || \
+    !defined(OTK_OBJECT_INFINITE) || !defined(OTK_SURFACES)
+#error "system_chain.cuh needs the system's codes: OTK_S, OTK_NEWTON, OTK_FIELD_ANGLE, OTK_OBJECT_INFINITE, OTK_SURFACES"
+#endif
+
+namespace otk {
+
+// Codes packed in one word: geometry bits 0-7, coefficient count 8-15,
+// interaction 16-19, then one bit each for tilt, decenter, aperture and
+// the absorption of the medium after the surface (bits 20-23).
+__host__ __device__ constexpr Codes unpack_codes(unsigned v) {
+  return Codes{static_cast<int>(v & 0xffu), static_cast<int>((v >> 8) & 0xffu),
+               static_cast<int>((v >> 16) & 0xfu), ((v >> 20) & 1u) != 0,
+               ((v >> 21) & 1u) != 0, ((v >> 22) & 1u) != 0, ((v >> 23) & 1u) != 0};
+}
+
+// Surface k's packed codes.
+__host__ __device__ constexpr unsigned system_codes(int k) {
+  constexpr unsigned table[] = {OTK_SURFACES};
+  return table[k];
+}
+
+// Surfaces K .. S-1 on the running state; pos: the vertex z of surface
+// K - 1; n_pre: the index before surface K.
+template <int K>
+__device__ __forceinline__ void system_chain_from(const float* ft, Ray& r, float& pos,
+                                                  float& n_pre) {
+  if constexpr (K < OTK_S) {
+    constexpr Codes c = unpack_codes(system_codes(K));
+    constexpr bool absorbs_before = unpack_codes(system_codes(K - 1)).absorbs;
+    pos = pos + (K > 1 ? ft[(K - 1) * F_STRIDE + F_THICK] : 0.f);
+    surface_step(make_surface(c, absorbs_before, ft, K), K, OTK_NEWTON, pos, r, n_pre);
+    system_chain_from<K + 1>(ft, r, pos, n_pre);
+  }
+}
+
+// The chain from surface 1 to S-1 on the staged float table: what
+// trace_chain(OTK_S, OTK_NEWTON, ft, it, r) computes, by the same
+// arithmetic in the same order.
+__device__ __forceinline__ void trace_system(const float* ft, Ray& r) {
+  float pos = 0.f, n_pre = ft[F_NTAB];
+  system_chain_from<1>(ft, r, pos, n_pre);
+}
+
+// The system's ray generation (`tile_raygen` with its field codes).
+__device__ __forceinline__ Ray system_raygen(const float* rg, float Hx, float Hy, float Px,
+                                             float Py) {
+  return tile_raygen(OTK_FIELD_ANGLE, OTK_OBJECT_INFINITE, rg, Hx, Hy, Px, Py);
+}
+
+}  // namespace otk

@@ -21,6 +21,7 @@ import ctypes
 import math
 from functools import lru_cache
 
+import numpy as np
 import torch
 
 from optiland_tpu_torch import config
@@ -28,9 +29,9 @@ from optiland_tpu_torch.system import paraxial as px
 from optiland_tpu_torch.system.spec import positions_of
 from optiland_tpu_torch.wavefront.core import pupil_grid_coords, wavefront_data
 
-_BLOCK_I = 128   # image points per block (csrc/huygens_sum.cu BLOCK_I)
-_TILE_P = 256    # pupil samples per staged tile (TILE_P there)
-_BLOCKS_PER_SM = 32  # two waves of 16 resident 128-thread blocks an SM
+_BLOCK_I = 1024  # image points per block (csrc/huygens_sum.cu BLOCK_I)
+_TILE_P = 128    # pupil samples per staged tile (TILE_P there)
+_BLOCKS_PER_SM = 16  # blocks of the grid per SM: ~4 waves of 4 resident
 
 
 def _field_contrib(ix, iy, iz, ux, uy, uz, amp, opd, k, Rp):
@@ -75,12 +76,22 @@ def _kernel():
     from optiland_tpu_torch import _build
 
     fn = _build.library("huygens_sum").huygens_sum
-    # I, P, chunk, k, Rp (device pointer), ix, iy, iz, ux, uy, uz, amp,
-    # opd, partial (chunks, 2, I), stream
-    fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_float]
+    # I, P, chunk, 1 / wavelength as a float pair (`inv_wavelength`), Rp
+    # (device pointer), ix, iy, iz, ux, uy, uz, amp, opd, partial (chunks,
+    # 2, I), stream
+    fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_float] * 2
                    + [ctypes.c_void_p] * 11)
     fn.restype = ctypes.c_int
     return fn
+
+
+def inv_wavelength(wavelength_mm: float) -> tuple[float, float]:
+    """1 / wavelength_mm as float32 hi + lo: K8 takes the OPD's phase in
+    cycles, and 1 / lambda rounded to float32 alone would be off by up to
+    3e-8 relative, ~1e-3 cycles at an OPD of 20 mm."""
+    inv = 1.0 / wavelength_mm
+    hi = float(np.float32(inv))
+    return hi, float(np.float32(inv - hi))
 
 
 def pupil_chunk(n_image: int, n_pupil: int, n_sm: int) -> int:
@@ -130,7 +141,7 @@ def huygens_sum_forward(image_xyz, pupil_xyz, pupil_amp, pupil_opd,
     partial = torch.empty((-(-n_pup // chunk), 2, n_img), dtype=torch.float32,
                           device=dev)
     if n_img and n_pup:
-        err = _kernel()(n_img, n_pup, chunk, 2.0 * math.pi / wavelength_mm,
+        err = _kernel()(n_img, n_pup, chunk, *inv_wavelength(wavelength_mm),
                         *(a.data_ptr() for a in [Rp] + image + pupil),
                         partial.data_ptr(),
                         torch.cuda.current_stream(dev).cuda_stream)

@@ -1,27 +1,34 @@
-"""The backward kernels K2, K4 and K6 of two checkouts of this repository,
+"""The kernels K1, K2, K4, K6 and K8 of two checkouts of this repository,
 timed against each other on one CUDA card in turns.
 
-    python -m optiland_tpu_torch.tools.backward_turns --parent DIR [--n N ...]
+    python -m optiland_tpu_torch.tools.kernel_turns --parent DIR [--n N ...]
 
 DIR is a checkout of another commit, for instance
 `git archive <commit> | tar -x -C build/parent`. Each tree runs in a
 process of its own, in the order parent, this tree, this tree, parent. A
 process builds its tree's kernels with that tree's own `_build`, and
-drives that tree's own wrappers (`fused.moments_backward`,
-`raygen_trace_backward`, `fused_trace_backward`) at each ray count N
-(default 16,384, 65,536 and 2,000,000) on the bench lens of chip_smoke.py
-(K6 with its vignetted field) and, for K2, on the absorbing Cooke triplet
-at 0.55 um. Each tree's wrappers pick their own launch signature and grid:
-the tool only wraps the tree's `fused._kernel` so that CUDA events are
-recorded on the launch stream just before and just after each C call, and
-a kernel's time is the median of those spans over TIMED launches after a
-warm-up. Before each start event the stream first spins for SPIN_CYCLES
-(`torch.cuda._sleep`), so that the launch is queued before the card reaches
-the event and the span holds the kernel alone, not the host's launch
-latency (which at 10^4 rays is a fifth of a kernel's time). At the largest N it also times the bench training step
+drives that tree's own wrappers at each ray count N (default 16,384, 65,536
+and 2,000,000) on the bench lens of chip_smoke.py: `fused.moments_forward`
+(K1), `moments_backward` (K2), `raygen_trace_backward` (K4) and
+`fused_trace_backward` (K6, with its vignetted field); and, for K1 and K2,
+on the absorbing Cooke triplet at 0.55 um. It also drives
+`huygens.huygens_sum_forward` (K8) on the Cooke triplet's Huygens PSF at
+its defaults (128 x 128: the image sum and its normalizing peak sum), at
+256 x 256, and on the random inputs of tools/bench_wave_optics.py. Each
+tree's wrappers pick their own launch signature, grid and (for a K1 built
+per system) variant: the tool only wraps the tree's `fused._kernel` and
+`huygens._kernel` so that CUDA events are recorded on the launch stream
+just before and just after each C call, and a kernel's time is the median
+of those spans over TIMED launches after a warm-up (which also builds a
+per-system variant). Before each start event the stream first spins for
+SPIN_CYCLES (`torch.cuda._sleep`), so that the launch is queued before the
+card reaches the event and the span holds the kernel alone, not the
+host's launch latency (which at 10^4 rays is a fifth of a kernel's time).
+At the largest N it also times the bench training step
 (`centroid_rms_spot(..., diff_inputs=False)`, `backward`, Adam) on the
-host clock. Prints one JSON line for each process, then the card's name and
-power limit and a JSON summary of every time in turns.
+host clock. Prints one JSON line for each process (with nvcc's register
+lines of each library it built), then the card's name and power limit and
+a JSON summary of every time in turns.
 """
 
 from __future__ import annotations
@@ -42,8 +49,8 @@ DEFAULT_N = (16_384, 65_536, 2_000_000)
 
 
 def _smoke():
-    """This checkout's chip_smoke.py, for its bench lens, rays and step
-    settings (it is loaded, not run)."""
+    """This checkout's chip_smoke.py, for its bench lens, rays, Huygens
+    inputs and step settings (it is loaded, not run)."""
     spec = importlib.util.spec_from_file_location(
         "_chip_smoke", ROOT / "chip_smoke.py")
     mod = importlib.util.module_from_spec(spec)
@@ -52,8 +59,8 @@ def _smoke():
 
 
 def worker(tree: Path, ns: list[int]) -> dict:
-    """Times of `tree`'s K2, K4 and K6 wrappers' launches at each n, and its
-    bench training step at the largest."""
+    """Times of `tree`'s K1, K2, K4, K6 and K8 wrappers' launches (K1-K6 at
+    each n), and its bench training step at the largest n."""
     tree = tree.resolve()
     sys.path.insert(0, str(tree))
     import numpy as np
@@ -63,6 +70,7 @@ def worker(tree: Path, ns: list[int]) -> dict:
     from optiland_tpu_torch import _build, config
     from optiland_tpu_torch.models import CookeTriplet
     from optiland_tpu_torch.optimization.merits import centroid_rms_spot
+    from optiland_tpu_torch.psf import huygens
     from optiland_tpu_torch.system.optic import Optic
     from optiland_tpu_torch.trace import fused
     from optiland_tpu_torch.trace.raygen import generate_rays
@@ -75,23 +83,26 @@ def worker(tree: Path, ns: list[int]) -> dict:
     _build.build_all()
     config.set_precision("float32")
     spans = []
-    own_kernel = fused._kernel
 
-    def timed_kernel(name):
-        fn = own_kernel(name)
+    def timed(own):
+        """`own` (a module's `_kernel`) with each launch between events."""
+        def kernel(*key):
+            fn = own(*key)
 
-        def launch(*args):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            torch.cuda._sleep(SPIN_CYCLES)
-            start.record()
-            err = fn(*args)
-            end.record()
-            spans.append((start, end))
-            return err
-        return launch
+            def launch(*args):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                torch.cuda._sleep(SPIN_CYCLES)
+                start.record()
+                err = fn(*args)
+                end.record()
+                spans.append((start, end))
+                return err
+            return launch
+        return kernel
 
-    fused._kernel = timed_kernel
+    fused._kernel = timed(fused._kernel)
+    huygens._kernel = timed(huygens._kernel)
 
     def kernel_ms(call):
         for _ in range(WARMUP):
@@ -113,7 +124,8 @@ def worker(tree: Path, ns: list[int]) -> dict:
     static, params = cs.bench_lens(Optic).build(device="cuda")
     static_v, params_v = cs.bench_lens(Optic, vignetted=True).build(
         device="cuda")
-    static_c, params_c = CookeTriplet().build(device="cuda")
+    lens_c = CookeTriplet()
+    static_c, params_c = lens_c.build(device="cuda")
     p, p_v = args_of(static, params, cs.WAVELENGTH), args_of(
         static_v, params_v, cs.WAVELENGTH)[:2]
     p_c = args_of(static_c, params_c, COOKE_WAVELENGTH)
@@ -125,6 +137,10 @@ def worker(tree: Path, ns: list[int]) -> dict:
         data = tuple(a[:n].contiguous() for a in rays)
         seeds = [torch.from_numpy(rng.standard_normal(n).astype(
             np.float32)).to(dev) for _ in range(8)]
+        ms[f"K1 {n}"] = kernel_ms(lambda: fused.moments_forward(
+            static, *p, data))
+        ms[f"K1 Cooke {n}"] = kernel_ms(lambda: fused.moments_forward(
+            static_c, *p_c, data))
         ms[f"K2 {n}"] = kernel_ms(lambda: fused.moments_backward(
             static, *p, data, c, diff_data=False))
         ms[f"K4 {n}"] = kernel_ms(lambda: fused.raygen_trace_backward(
@@ -138,6 +154,17 @@ def worker(tree: Path, ns: list[int]) -> dict:
             static_c, *p_c, data, c, diff_data=False))
         del seeds, r0, rays8
         torch.cuda.empty_cache()
+    img, peak = huygens.huygens_psf_sums(lens_c, (0.0, 1.0), 0.55, 128, 128,
+                                         device="cuda")[:2]
+    big = huygens.huygens_psf_sums(lens_c, (0.0, 1.0), 0.55, 256, 256,
+                                   device="cuda")[0]
+    for label, args in (("psf_128", img), ("psf_128_peak", peak),
+                        ("bench_wave_optics", cs.bench_wave_optics_args(dev)),
+                        ("psf_256", big)):
+        ms[f"K8 {label}"] = kernel_ms(
+            lambda: huygens.huygens_sum_forward(*args))
+    del img, peak, big
+    torch.cuda.empty_cache()
     leaves = {k: getattr(params, k).detach().clone().requires_grad_(True)
               for k in cs.TRAIN_LEAVES}
     p_f = params.replace(**leaves)
@@ -158,11 +185,10 @@ def worker(tree: Path, ns: list[int]) -> dict:
         torch.cuda.synchronize()
         if k >= WARMUP:
             times.append(1e3 * (time.perf_counter() - t))
-    registers = {name: [line.split(":", 1)[-1].strip() for line in
-                        _build.build_log(name).splitlines()
-                        if "registers" in line]
-                 for name in ("moments_bwd", "raygen_trace_bwd",
-                              "fused_trace_bwd")}
+    registers = {log.stem: [line.split(":", 1)[-1].strip() for line in
+                            log.read_text().splitlines()
+                            if "registers" in line]
+                 for log in sorted(_build.build_dir().glob("*.log"))}
     return {"tree": str(tree), "kernel_ms": ms,
             f"step_ms {max(ns)}": float(np.median(times)),
             "ptxas": registers}
@@ -181,8 +207,7 @@ def main(argv=None):
     import torch
 
     if not torch.cuda.is_available():
-        raise RuntimeError("backward_turns times CUDA kernels and needs a "
-                           "card")
+        raise RuntimeError("kernel_turns times CUDA kernels and needs a card")
     runs = []
     for tree in (opts.parent, ROOT, ROOT, opts.parent):
         out = subprocess.run(

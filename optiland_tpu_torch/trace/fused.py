@@ -7,7 +7,9 @@ CUDA kernel.
 
   K1 `moments_forward` replaces `_moments_forward`: in-kernel raygen from
      5 scalars, the surface chain, and the masked moments (sum i, sum x i,
-     sum y i, sum (x^2+y^2) i). CUDA source: csrc/moments_fwd.cu.
+     sum y i, sum (x^2+y^2) i). CUDA source: csrc/moments_fwd.cu, built
+     once per system from its static codes (`k1_defines`), as the JAX
+     kernel is traced once per system.
   K2 `moments_backward` replaces `_moments_bwd`: the cotangents of c . m
      for the raygen scalars, the per-surface tables and (with `diff_data`)
      the per-ray inputs. csrc/moments_bwd.cu.
@@ -34,7 +36,8 @@ absorption tables (`_uniform_tables`); only K7 evaluates the dispersion
 formulas and extinction tables per ray.
 
 All run one ray per thread (csrc/chain.cuh; the backward kernels share the
-reverse sweep of csrc/chain_bwd.cuh). What bounds K1-K6 on an H100: FP32
+reverse sweep of csrc/chain_bwd.cuh; K1 unrolls the same per-surface step
+over its system's constant codes, csrc/system_chain.cuh). What bounds K1-K6 on an H100: FP32
 arithmetic, not memory. At 2M rays K1 reads 32 MB (Hx, Hy, Px, Py in f32),
 about 10 us at 3.35 TB/s, while the chain costs on the order of 10^3 FP32
 operations per ray (counted per branch by `chip_smoke.py`), ~50 us at the
@@ -128,7 +131,7 @@ _I_STRIDE = 16
 # dispersion formula but the tabulated one has at most this many
 _MAT_SHARED = 17
 _MAX_SURFACES = 64
-_BLOCK = 256    # threads per block, one ray each (csrc/chain.cuh)
+_K1_THREADS = 256   # threads per K1 block (csrc/moments_fwd.cu THREADS)
 # threads per block of the backward kernels K2, K4 and K6 at most
 # (csrc/chain_bwd.cuh BWD_THREADS) and at least (`backward_grid`)
 _BWD_THREADS = 512
@@ -622,9 +625,9 @@ def _fused_trace_bwd_plain(static, diffp, nondiffp, rays8, seeds):
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # n, S, n_newton, field_angle, object_infinite, rg, ftab, itab,
-    # Hx, Hy, Px, Py, partials (num_blocks, 4), stream
-    "moments_fwd": [_I] * 5 + [_P] * 9,
+    # n, S, blocks, rg, ftab, Hx, Hy, Px, Py, partials (blocks, 4), stream;
+    # the system's codes are the variant's (`k1_defines`)
+    "moments_fwd": [_I] * 3 + [_P] * 8,
     # n, S, n_newton, field_angle, object_infinite, blocks, threads,
     # diff_data, rg, ftab, itab, Hx, Hy, Px, Py, c, partials (blocks, S + 1,
     # 32), dHx, dHy, dPx, dPy (NULL without diff_data), stream
@@ -650,14 +653,51 @@ _SIGNATURES = {
 
 
 @lru_cache(maxsize=None)
-def _kernel(name: str):
-    """The C entry point `name` of csrc/<name>.cu, built on first use."""
+def _kernel(name: str, defines=()):
+    """The C entry point `name` of csrc/<name>.cu, built on first use; with
+    `defines`, of the per-system variant built with them."""
     from optiland_tpu_torch import _build
 
-    fn = getattr(_build.library(name), name)
+    lib = (_build.variant(name, defines) if defines
+           else _build.library(name))
+    fn = getattr(lib, name)
     fn.argtypes = _SIGNATURES[name]
     fn.restype = ctypes.c_int
     return fn
+
+
+def k1_defines(static: SystemStatic) -> tuple:
+    """The nvcc definitions ((macro, value), ...) of K1's variant for this
+    system: S, the Newton updates, the field and object codes, and each
+    surface's geometry code, coefficient count, interaction, and tilt,
+    decenter, aperture and absorption flags (the medium after it), packed
+    as csrc/system_chain.cuh `unpack_codes` reads them. Values
+    (curvatures, thicknesses, indices, ...) are not codes: they reach the
+    kernel in the float table, so one build serves every value of a
+    system."""
+    packed = (
+        static.geom_codes[k] | static.geom_n_coeffs[k] << 8
+        | static.interactions[k] << 16 | int(static.has_tilt[k]) << 20
+        | int(static.has_decenter[k]) << 21
+        | int(static.has_aperture[k]) << 22
+        | int(static.has_absorption[k]) << 23
+        for k in range(static.num_surfaces))
+    return (("OTK_S", str(static.num_surfaces)),
+            ("OTK_NEWTON", str(min(static.newton_iters, _NEWTON_FUSED_MAX))),
+            ("OTK_FIELD_ANGLE", str(int(static.field_type == "angle"))),
+            ("OTK_OBJECT_INFINITE", str(int(static.object_infinite))),
+            ("OTK_SURFACES", ", ".join(f"0x{c:x}u" for c in packed)))
+
+
+@lru_cache(maxsize=None)
+def _k1_blocks_per_sm(defines) -> int:
+    """K1 blocks that fit one SM at once, from the variant's occupancy."""
+    from optiland_tpu_torch import _build
+
+    per_sm = _build.variant("moments_fwd", defines).moments_fwd_blocks_per_sm()
+    if per_sm < 1:
+        raise RuntimeError(f"moments_fwd occupancy query failed: {per_sm}")
+    return per_sm
 
 
 def backward_grid(n: int, n_sm: int) -> tuple[int, int]:
@@ -800,20 +840,36 @@ def _stream(dev):
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+def k1_launch(static, diffp, nondiffp, rg, data):
+    """K1's variant for this system, its arguments up to the partials and
+    the stream, the (blocks, 4) partial buffer, and the tensors to keep
+    alive until the launch is enqueued. Builds the variant on first use."""
+    n, _, ptrs, keep = _launch_args(static, rg, diffp, nondiffp, data,
+                                    kernel="K1")
+    defines = k1_defines(static)
+    fn = _kernel("moments_fwd", defines)
+    # the persistent grid: a block a tile of rays, at most as many blocks
+    # as the card holds at once
+    blocks = max(1, min(-(-n // _K1_THREADS), config.sm_count(rg.device)
+                        * _k1_blocks_per_sm(defines)))
+    partials = torch.empty((blocks, 4), dtype=torch.float32, device=rg.device)
+    args = [n, static.num_surfaces, blocks, ptrs[0], ptrs[1], *ptrs[3:],
+            partials.data_ptr()]
+    return fn, args, partials, keep
+
+
 def moments_forward(static, diffp, nondiffp, rg, data):
     """K1: (4,) spot moments of rays made from data = (Hx, Hy, Px, Py).
-    CPU tensors take `_moments_plain`; CUDA tensors launch the kernel."""
+    CPU tensors take `_moments_plain`; CUDA tensors launch the kernel, the
+    system's own variant (built at first use; a failed build raises)."""
     if rg.device.type == "cpu":
         return _moments_plain(static, diffp, nondiffp, rg, data)
-    n, head, ptrs, keep = _launch_args(static, rg, diffp, nondiffp, data,
-                                       kernel="K1")
-    blocks = -(-n // _BLOCK)
-    partials = torch.empty((blocks, 4), dtype=torch.float32, device=rg.device)
-    if n:
-        err = _kernel("moments_fwd")(*head, *ptrs, partials.data_ptr(),
-                                     _stream(rg.device))
-        _raise_on_error("moments_fwd", err)
+    fn, args, partials, _keep = k1_launch(static, diffp, nondiffp, rg, data)
+    if args[0]:
+        _raise_on_error("moments_fwd", fn(*args, _stream(rg.device)))
         moments_forward.launches += 1
+    else:
+        partials.zero_()
     return torch.sum(partials, dim=0)
 
 

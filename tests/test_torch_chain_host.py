@@ -43,8 +43,9 @@ N_RAYS = 64
 
 # One thread's body of each kernel, looped over the rays; WarpRows becomes
 # a plain sum over rays into the (rows, 32) table, in the table's layout.
-_SHIM = r"""
+_PRELUDE = r"""
 #include <cmath>
+#include <limits>
 #include <condition_variable>
 #include <mutex>
 #include <thread>
@@ -63,10 +64,15 @@ _SHIM = r"""
 #define powf std::pow
 #define expf std::exp
 #define sincosf host_sincos
+#define __sincosf host_sincos
+#define __fdividef(a, b) ((a) / (b))
+#define fmaf std::fma
 inline void host_sincos(double x, double* s, double* c) {
   *s = std::sin(x);
   *c = std::cos(x);
 }
+struct float4 { double x, y, z, w; };
+inline float4 make_float4(double x, double y, double z, double w) { return {x, y, z, w}; }
 struct Dim3 { int x; };
 static thread_local Dim3 threadIdx = {0};
 static Dim3 blockDim = {1};
@@ -99,6 +105,9 @@ inline double __shfl_xor_sync(unsigned, double v, int o) {
   lane_barrier.wait();
   return r;
 }
+"""
+
+_SHIM = _PRELUDE + r"""
 #include "chain_bwd.cuh"
 #include "huygens.cuh"
 
@@ -214,18 +223,23 @@ extern "C" void history_kernel(int n, int S, int nn, int mat_w, int K, const dou
 }
 
 // K8: image (3, I), pupil (5, P) -> the (chunks, 2, I) partial fields of
-// pupil chunks of `chunk` samples, as the kernel's blocks write them
-extern "C" void huygens_kernel(int I, int P, int chunk, double k, double Rp,
+// pupil chunks of `chunk` samples, as the kernel's blocks write them: each
+// chunk's samples staged (stage_sample), then summed per image point
+extern "C" void huygens_kernel(int I, int P, int chunk, double inv_lambda, double Rp,
                                const double* img, const double* pup, double* partial) {
+  const otk::HuygensConsts h = otk::huygens_consts(Rp, inv_lambda, 0.0);
+  std::vector<float4> a(P), b(P);
+  for (int j = 0; j < P; ++j)
+    otk::stage_sample(pup[j], pup[P + j], pup[2 * P + j], pup[3 * P + j], pup[4 * P + j], h,
+                      a[j], b[j]);
   for (int c = 0; c * chunk < P; ++c) {
     const int p0 = c * chunk, n = P - p0 < chunk ? P - p0 : chunk;
     for (int i = 0; i < I; ++i) {
-      double re = 0, im = 0;
-      otk::huygens_accumulate(img[i], img[I + i], img[2 * I + i], pup + p0, pup + P + p0,
-                              pup + 2 * P + p0, pup + 3 * P + p0, pup + 4 * P + p0, n, k,
-                              Rp, re, im);
-      partial[2 * c * I + i] = re;
-      partial[(2 * c + 1) * I + i] = im;
+      double x[1] = {img[i]}, y[1] = {img[I + i]}, zR[1] = {img[2 * I + i] - Rp};
+      double re[1] = {0}, im[1] = {0};
+      otk::huygens_accumulate(x, y, zR, a.data() + p0, b.data() + p0, n, h, re, im);
+      partial[2 * c * I + i] = re[0];
+      partial[(2 * c + 1) * I + i] = im[0];
     }
   }
 }
@@ -234,6 +248,28 @@ extern "C" void huygens_kernel(int I, int P, int chunk, double k, double Rp,
 extern "C" void index_kernel(int formula, int nc, const double* row, int n, const double* w,
                              double* out) {
   for (int j = 0; j < n; ++j) out[j] = otk::material_index(formula, nc, row, row, w[j]);
+}
+"""
+
+# K1's per-system body over n rays: the moments (out4) and each ray's
+# final state (rays (8, n))
+_SYSTEM_SHIM = r"""
+#include "system_chain.cuh"
+
+extern "C" void system_moments(int n, const double* rg, const double* ft, const double* Hx,
+                               const double* Hy, const double* Px, const double* Py,
+                               double* out4, double* rays) {
+  for (int q = 0; q < 4; ++q) out4[q] = 0;
+  for (int idx = 0; idx < n; ++idx) {
+    otk::Ray r = otk::system_raygen(rg, Hx[idx], Hy[idx], Px[idx], Py[idx]);
+    otk::trace_system(ft, r);
+    out4[0] += r.i;
+    out4[1] += r.x * r.i;
+    out4[2] += r.y * r.i;
+    out4[3] += (r.x * r.x + r.y * r.y) * r.i;
+    const double v[8] = {r.x, r.y, r.z, r.L, r.M, r.N, r.i, r.opd};
+    for (int k = 0; k < 8; ++k) rays[k * n + idx] = v[k];
+  }
 }
 """
 
@@ -478,11 +514,143 @@ def test_huygens_body_matches_plain(host_lib, f64, field):
                                                           opd_mm)]))
     partial = np.zeros((-(-P // chunk), 2, I))
     assert partial.shape[0] >= 2
-    host_lib.huygens_kernel(I, P, chunk, ctypes.c_double(2 * np.pi / 0.55e-3),
+    host_lib.huygens_kernel(I, P, chunk, ctypes.c_double(1 / 0.55e-3),
                             ctypes.c_double(float(data.radius)), _ptr(img),
                             _ptr(pup), _ptr(partial))
     got = huygens.reduce_partials(torch.from_numpy(partial)).reshape(IX.shape)
     _close(_np(got), ref, "psf")
+
+
+@pytest.mark.parametrize("case", ["opd_20mm", "peak"])
+def test_huygens_body_random_and_peak(host_lib, case):
+    """K8's body on the inputs of tools/bench_wave_optics.py, cut to 64 x 96
+    (opd up to 20 mm: phases up to ~2.3e5 rad, the cycles' reduction far
+    from the origin), and on the normalizing peak's single image point
+    (I = 1, unit amplitude, zero OPD), against `huygens_sum_plain`."""
+    from optiland_tpu_torch.psf import huygens
+
+    rng = np.random.default_rng(3)
+    I, P, Rp = (64, 96, 60.0) if case == "opd_20mm" else (1, 200, 54.0)
+    if case == "opd_20mm":
+        pup = np.stack([*rng.uniform(-5, 5, (2, P)), np.zeros(P),
+                        rng.uniform(0.5, 1.0, P), rng.uniform(0, 20, P)])
+        img = np.stack([*rng.uniform(-0.05, 0.05, (2, I)), np.full(I, Rp)])
+    else:
+        # samples on the sphere of radius Rp about the image point
+        # (0, 0, 60), as wavefront_data places them
+        th = rng.uniform(0, 0.2, P)
+        ph = rng.uniform(0, 2 * np.pi, P)
+        pup = np.stack([Rp * np.sin(th) * np.cos(ph), Rp * np.sin(th)
+                        * np.sin(ph), 60.0 - Rp * np.cos(th), np.ones(P),
+                        np.zeros(P)])
+        img = np.array([[0.0], [0.0], [60.0]])
+    img, pup = np.ascontiguousarray(img), np.ascontiguousarray(pup)
+    t = [torch.from_numpy(a) for a in (*img, *pup)]
+    ref = huygens.huygens_sum_plain(t[:3], t[3:6], t[6], t[7], 0.55e-3,
+                                    torch.tensor(Rp, dtype=torch.float64))
+    partial = np.zeros((-(-P // 64), 2, I))
+    host_lib.huygens_kernel(I, P, 64, ctypes.c_double(1 / 0.55e-3),
+                            ctypes.c_double(Rp), _ptr(img), _ptr(pup),
+                            _ptr(partial))
+    got = huygens.reduce_partials(torch.from_numpy(partial))
+    _close(_np(got), ref, case)
+
+
+def _system_lib(out, gxx, name, defines):
+    """Popen of g++ building K1's per-system body for `defines`, written as
+    the header the card's build includes first (`_build.defines_header`)."""
+    from optiland_tpu_torch import _build
+
+    src = out / f"system_{name}.cpp"
+    src.write_text(_build.defines_header(defines) + _PRELUDE + _SYSTEM_SHIM)
+    return subprocess.Popen(
+        [gxx, "-O1", "-std=c++17", "-shared", "-fPIC", "-pthread",
+         f"-I{out}", f"-I{CSRC}", "-o", str(out / f"libsystem_{name}.so"),
+         str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+
+
+@pytest.fixture(scope="module")
+def system_libs(tmp_path_factory):
+    """K1's per-system body built for the bench lens and the Cooke triplet
+    from their `fused.k1_defines`, both g++ processes at once."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("no g++ to build the device code for the host")
+    out = tmp_path_factory.mktemp("system_host")
+    (out / "cuda_runtime.h").write_text("#pragma once\n")
+    procs = {}
+    for name in ("bench", "cooke"):
+        ts, _ = _SYSTEMS[name](Optic).build(device="cpu")
+        procs[name] = _system_lib(out, gxx, name, fused.k1_defines(ts))
+    libs = {}
+    for name, proc in procs.items():
+        log = proc.communicate()[0]
+        assert proc.returncode == 0, log
+        libs[name] = ctypes.CDLL(str(out / f"libsystem_{name}.so"))
+    return libs
+
+
+@pytest.mark.parametrize("name", ["bench", "cooke"])
+def test_system_chain_matches_plain(system_libs, f64, name):
+    """K1's per-system chain (csrc/system_chain.cuh), compiled with the
+    system's own codes, against `_moments_plain`: the moments and each
+    ray's final state."""
+    ts, tp = _SYSTEMS[name](Optic).build(device="cpu")
+    w = 0.5876 if name == "bench" else 0.55
+    n_table, alpha = fused._uniform_tables(ts, tp, w)
+    diffp = fused._diff_params(tp, n_table)
+    nondiffp = fused._nondiff_params(tp, alpha)
+    rg = fused._raygen_scalars(ts, tp)
+    ftab = _np(fused._pack_tables(ts, diffp, nondiffp)[0])
+    rng = np.random.default_rng(9)
+    n = N_RAYS
+    data_np = [np.ascontiguousarray(a) for a in (
+        *rng.uniform(-0.5, 0.5, (2, n)), *rng.uniform(-0.9, 0.9, (2, n)))]
+    data = tuple(torch.from_numpy(a) for a in data_np)
+    out4, rays = np.zeros(4), np.zeros((8, n))
+    system_libs[name].system_moments(n, _ptr(_np(rg)), _ptr(ftab),
+                                     *map(_ptr, data_np), _ptr(out4),
+                                     _ptr(rays))
+    np.testing.assert_allclose(out4, _np(fused._moments_plain(
+        ts, diffp, nondiffp, rg, data)), rtol=1e-12)
+    ref = fused._raygen_trace_plain(ts, diffp, nondiffp, rg, data,
+                                    tuple(range(8)))
+    for k in range(8):
+        np.testing.assert_allclose(rays[k], _np(ref[k]), rtol=1e-12,
+                                   atol=1e-12, err_msg=fused._NAMES[k])
+
+
+def test_k1_signature():
+    """K1's variant key: the same codes give the same key, new values keep
+    it, and a changed code (a surface type, a tilt, a decenter, an
+    aperture, a mirror, the field type, the Newton count) changes it."""
+    from optiland_tpu_torch import _build
+
+    def key(lens):
+        return _build.variant_name("moments_fwd", fused.k1_defines(
+            lens.build(device="cpu")[0]))
+
+    base = key(bench_lens(Optic))
+    assert key(bench_lens(Optic)) == base
+    ts, tp = bench_lens(Optic).build(device="cpu")
+    assert fused.k1_defines(replace(ts)) == fused.k1_defines(ts)
+    # other values, the same codes: a wider field, another object distance
+    assert key(singlet_lens(Optic, max_field=8.0)) == key(singlet_lens(Optic))
+    assert key(singlet_lens(Optic, object_distance=150.0)) == key(
+        singlet_lens(Optic, object_distance=200.0))
+    variants = [
+        singlet_lens(Optic), singlet_lens(Optic, tilt=True),
+        singlet_lens(Optic, decenter=True), singlet_lens(Optic, aperture=4.5),
+        singlet_lens(Optic, mirror=True), singlet_lens(Optic, odd=True),
+        singlet_lens(Optic, asphere=False),
+        singlet_lens(Optic, field_type="object_height",
+                     object_distance=100.0)]
+    keys = [key(v) for v in variants]
+    assert len(set(keys)) == len(keys)
+    assert base not in keys
+    assert (fused.k1_defines(replace(ts, newton_iters=1))
+            != fused.k1_defines(ts))
 
 
 @pytest.mark.parametrize("width", [4, 8, 16, 32])

@@ -1,12 +1,14 @@
 """The port's CUDA kernels on the card (no JAX needed): K1-K7 against
 their plain PyTorch versions in float32 (K1-K6 also on the absorbing Cooke
-triplet, K7 at per-ray wavelengths; K2, K4 and K6 also at ragged ray counts
-around their 32-ray groups and at 2M + 17 rays), K8 (the Huygens sum)
-against the float64 plain version, T1's peak-rate chains against theirs,
-the bitwise reproducibility of the backward kernels' parameter cotangents
-and of K8, the dispatch of the public entry points (and their backward) to
-the kernels, and the explicit refusal of a branch or an input a kernel does
-not take. Every test skips without a CUDA device and nvcc.
+triplet, K1 on every system built here, each its own variant; K7 at
+per-ray wavelengths; K1, K2, K4 and K6 also at ragged ray counts around
+their 32-ray groups and at 2M + 17 rays), K8 (the Huygens sum) against the
+float64 plain version, also at ragged block edges, T1's peak-rate chains
+against theirs, the bitwise reproducibility of the backward kernels'
+parameter cotangents, of K1 and of K8, the dispatch of the public entry
+points (and their backward) to the kernels, and the explicit refusal of a
+branch or an input a kernel does not take. Every test skips without a CUDA
+device and nvcc.
 
 On a machine with the card, from the repository root:
 
@@ -97,7 +99,7 @@ def _build(name, device):
     return replace(ts, newton_iters=4), tp, 0.55
 
 
-@pytest.mark.parametrize("name", list(_SYSTEMS) + ["cooke"])
+@pytest.mark.parametrize("name", list(_SYSTEMS) + ["bench", "cooke"])
 def test_kernels_match_plain(cuda_f32, name):
     ts, tp, _ = _build(name, cuda_f32)
     data = _data(5000, cuda_f32)
@@ -197,10 +199,19 @@ def test_backward_kernels_ragged(cuda_f32, n):
     32 rays part-filled, in 128-thread tiles (16,389 over 129 SMs) and, at
     2M + 17, in a persistent grid of 512-thread blocks that walk many tiles:
     against their plain versions at the tolerances above, and their
-    parameter cotangents bitwise equal over two launches."""
+    parameter cotangents bitwise equal over two launches. K1's persistent
+    grid at the same counts (a part-filled last tile; at 2M + 17 blocks
+    that walk many): the moments against the plain version, bitwise over
+    two launches."""
     ts, tp, w = _build("bench", cuda_f32)
     data = _data(n, cuda_f32, seed=n)
     diffp, nondiffp, rg = _args(ts, tp, w)
+    m = fused.moments_forward(ts, diffp, nondiffp, rg, data)
+    ref = fused._moments_plain(ts, diffp, nondiffp, rg, data)
+    scale = torch.stack([ref[0], (ref[0] * ref[3]).sqrt(),
+                         (ref[0] * ref[3]).sqrt(), ref[3]]).clamp_min(1e-30)
+    assert ((m - ref).abs() / scale).max().item() <= MOMENT_RTOL
+    assert torch.equal(m, fused.moments_forward(ts, diffp, nondiffp, rg, data))
     keep = _lit_alike(
         fused.raygen_trace_forward(ts, diffp, nondiffp, rg, data, (6,))[0],
         fused._raygen_trace_plain(ts, diffp, nondiffp, rg, data, (6,))[0])
@@ -403,6 +414,28 @@ def test_huygens_kernel_matches_plain(cuda_f32):
     err32 = ((plain32.double() - ref).abs().max() / peak).item()
     assert got.shape == (64, 64) and bool(torch.isfinite(got).all())
     assert err <= 1e-2 and err <= 2 * err32, (err, err32)
+
+
+@pytest.mark.parametrize("num_rays, image_size", [(13, 23), (40, 1), (9, 33)])
+def test_huygens_kernel_ragged(cuda_f32, num_rays, image_size):
+    """K8 where neither axis fills its block: 529 image points (a block
+    holds 1,024) over 169 pupil samples (a tile holds 128), the single image
+    point of a normalizing peak over 1,600 samples, and 1,089 over 81;
+    against the float64 plain version within 1e-2 of the peak and twice the
+    float32 plain version's own error (plus 1e-6 of the peak, where that
+    error is ~0), two launches bitwise equal."""
+    args = _huygens_inputs(cuda_f32, num_rays, image_size)
+    got = huygens.huygens_sum_forward(*args)
+    assert torch.equal(got, huygens.huygens_sum_forward(*args))
+    ref = huygens.huygens_sum_plain(*(
+        tuple(a.double() for a in x) if isinstance(x, tuple)
+        else (x.double() if torch.is_tensor(x) else x) for x in args))
+    plain32 = huygens.huygens_sum_plain(*args)
+    peak = ref.abs().max()
+    err = ((got.double() - ref).abs().max() / peak).item()
+    err32 = ((plain32.double() - ref).abs().max() / peak).item()
+    assert got.shape == (image_size, image_size)
+    assert err <= 1e-2 and err <= 2 * err32 + 1e-6, (err, err32)
 
 
 def test_huygens_psf_launches_kernel(cuda_f32):

@@ -47,7 +47,7 @@ def test_import_leaves_jax_unloaded():
             "optiland_tpu_torch.optimization.merits, optiland_tpu_torch.psf, "
             "optiland_tpu_torch.mtf, optiland_tpu_torch.wavefront, "
             "optiland_tpu_torch.tools.vpu_peak, "
-            "optiland_tpu_torch.tools.backward_turns\n"
+            "optiland_tpu_torch.tools.kernel_turns\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'optax', 'optiland_tpu')]\n"
             "assert not bad, bad\n")
@@ -79,9 +79,9 @@ def test_build_defaults_to_cuda(monkeypatch):
         vpu_peak.main()
     with pytest.raises(ValueError, match="CPU"):
         vpu_peak.run("fma", device="cpu")
-    from optiland_tpu_torch.tools import backward_turns
+    from optiland_tpu_torch.tools import kernel_turns
 
     with pytest.raises(RuntimeError, match="card"):
-        backward_turns.main(["--parent", "."])
+        kernel_turns.main(["--parent", "."])
     static, params = lens.build(device="cpu")
     assert params.cv.device.type == "cpu"
