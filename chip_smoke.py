@@ -8,9 +8,10 @@ PyTorch built for CUDA. In order it:
   1. prints the card (`nvidia-smi` name and power limit) and the torch and
      CUDA versions;
   2. builds the CUDA kernels of optiland_tpu_torch/csrc with nvcc, with
-     K1's per-system variants for the bench lens and the Cooke triplet
-     (one process per source and per variant, all at once), and prints the
-     seconds of each and nvcc's register report;
+     the per-system variants of K1 and K3 for the bench lens and the Cooke
+     triplet and of K5 for the vignetted bench lens (one process per source
+     and per variant, all at once), and prints the seconds of each and
+     nvcc's register report;
   2b. (t) T1, the peak-rate chains of tools/vpu_peak.py: each of its three
      kernels against its plain version on T1's input, then the port's tool
      (`vpu_peak.run`, as `python -m optiland_tpu_torch.tools.vpu_peak`
@@ -23,7 +24,7 @@ PyTorch built for CUDA. In order it:
   5. checks its outputs: finite, of the expected shape, and in agreement
      with the port's eager float64 path on the card (an independent
      implementation: full Newton, autograd-friendly ops, no kernel);
-  6. holds K1 (the bench lens's variant) and K3 against their plain
+  6. holds K1 and K3 (the bench lens's variants) against their plain
      PyTorch versions;
   7. (a) takes the training step at full width: `centroid_rms_spot(...,
      diff_inputs=False).backward()` (K1, K2), gradients of cv, conic,
@@ -33,8 +34,9 @@ PyTorch built for CUDA. In order it:
      gradients bit for bit and zero Hy cotangents;
   9. (c) the backward of `trace_system_final` (K3, K4);
  10. (d) the caller-ray path: a vignetted 14 degree field leaves in-kernel
-     raygen, so `trace_system_final` and its backward reach K5 and K6;
-     values against the eager float64 path;
+     raygen, so `trace_system_final` and its backward reach K5 (the
+     vignetted lens's variant) and K6; values against the eager float64
+     path;
  11. (e) holds K2, K4, K5 and K6 against their plain versions, and K2's and
      K6's parameter cotangents bitwise against a second launch;
  12. (f) a trainer: 5 torch.optim.Adam steps (lr 1e-4) of the training step;
@@ -51,7 +53,7 @@ PyTorch built for CUDA. In order it:
      torch.optim.Adam steps (lr 1e-4) over every leaf;
  16. (j) `centroid_rms_spot(..., 0.55)` and its backward on the Cooke
      triplet (K1's Cooke variant and K2 with absorption) against their
-     plain versions and float64;
+     plain versions and float64, the lit rays from K3's Cooke variant;
  17. (k) `CookeTriplet().trace(Hx=0, Hy=1, num_rays=6)`, the user's entry,
      reaches K7;
  18. (w1) K8, the Huygens sum, on the inputs of the Cooke triplet's
@@ -70,7 +72,7 @@ PyTorch built for CUDA. In order it:
      `SampledMTF` and `ZernikeOPD` at their defaults, float32 (K7 under
      `wavefront_data`) against float64;
  22. (g) times each kernel and its plain version with CUDA events (warm-up,
-     then the median of 25 calls), K1 also on the Cooke triplet, K8 also
+     then the median of 25 calls), K1 and K3 also on the Cooke triplet, K8 also
      at the peak sum, the random inputs of tools/bench_wave_optics.py and
      256 x 256 (with the phase range each reduces), the training steps, the
      flagship forward and the Huygens PSF end to end, and prints one JSON
@@ -201,6 +203,20 @@ T1_FIXED_POINT = 0.6776506   # a^2 (a + 1.5) = 1, the rsqrt chain's limit
 # T1's functions: FP32 operations an element (each rsqrt and tan one, as
 # `chain_ops_per_ray` counts) and the TPU kernel each replaces
 T1_OPS = {"fma": 1 + 2 * 512, "rsqrt": 2 * 64, "tan": 2 * 64}
+# The rsqrt and tan chains are special-function work: the bound of each is
+# its special-function instructions an element over the card's
+# special-function rate, SFU_PER_CLOCK_SM results a clock on each SM
+# (compute capability 9.0, the CUDA C++ Programming Guide's throughput
+# table: reciprocal, reciprocal square root, sine, cosine, log2, exp2, and
+# conversions from float to integer) at the card's maximum SM clock
+# (`nvidia-smi --query-gpu=clocks.max.sm`), ~4.2e12/s on an H100 SXM. The
+# counts are the instructions of that rate in each chain's step in the
+# SASS of csrc/vpu_peak.cu (`cuobjdump -sass`): rsqrtf emits one MUFU.RSQ;
+# tanf one F2I.NTZ (its quadrant) and one MUFU.RCP (predicated, the
+# reciprocal of the odd quadrants), beside ~25 FP32-pipe instructions of
+# its reduction and polynomial, which this bound leaves out.
+SFU_PER_CLOCK_SM = 16
+T1_SFU = {"rsqrt": 64, "tan": 2 * 64}
 T1_REPLACES = {"fma": ("fma_kernel", "tools/vpu_peak.py:22"),
                "rsqrt": ("sqrt_kernel", "tools/vpu_peak.py:32"),
                "tan": ("tan_kernel", "tools/vpu_peak.py:39")}
@@ -459,11 +475,24 @@ def bench_wave_optics_args(dev):
     return (image, pupil, amp, opd, 0.55e-3, torch.tensor(60.0, device=dev))
 
 
-def bound_ms(n_bytes, n_ops):
+def bound_ms(n_bytes, n_ops, ops_per_s=PEAK_FP32_FLOPS):
+    """The least time of a function that moves `n_bytes` and does `n_ops`
+    operations at `ops_per_s` (FP32 by default), and which of the two
+    bounds it."""
     t_bytes = n_bytes / PEAK_BYTES_PER_S
-    t_ops = n_ops / PEAK_FP32_FLOPS
+    t_ops = n_ops / ops_per_s
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops
                                        else "operations")
+
+
+def sfu_per_s(n_sm):
+    """The card's special-function results a second at its maximum SM
+    clock, and that clock in MHz."""
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.split()[0])
+    return n_sm * SFU_PER_CLOCK_SM * mhz * 1e6, mhz
 
 
 def time_ms(fn, calls=TIMED_CALLS):
@@ -607,21 +636,28 @@ def main():
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}")
 
-    # 2. build the kernels from the sources in the checkout, with K1's
-    # variants for the two systems this run drives it on (their codes do
-    # not depend on the device or the precision)
-    k1_variants = {label: fused.k1_defines(lens.build(device="cpu")[0])
-                   for label, lens in (("bench lens", bench_lens(Optic)),
-                                       ("Cooke triplet", CookeTriplet()))}
+    # 2. build the kernels from the sources in the checkout, with the
+    # per-system variants of K1, K3 and K5 for the systems this run drives
+    # them on (their codes do not depend on the device or the precision)
+    codes = {label: fused.system_defines(lens.build(device="cpu")[0])
+             for label, lens in (("bench lens", bench_lens(Optic)),
+                                 ("Cooke triplet", CookeTriplet()),
+                                 ("vignetted bench lens",
+                                  bench_lens(Optic, vignetted=True)))}
+    variants = (("K1", "moments_fwd", "bench lens"),
+                ("K1", "moments_fwd", "Cooke triplet"),
+                ("K3", "raygen_trace_fwd", "bench lens"),
+                ("K3", "raygen_trace_fwd", "Cooke triplet"),
+                ("K5", "fused_trace_fwd", "vignetted bench lens"))
     t0 = time.perf_counter()
-    built = _build.build_all(tuple(("moments_fwd", d)
-                                   for d in k1_variants.values()))
+    built = _build.build_all(tuple((src, codes[label])
+                                   for _, src, label in variants))
     print(f"build: {time.perf_counter() - t0:.1f} s wall "
           + ", ".join(f"{k} {v[1]:.1f} s" for k, v in built.items()))
-    for label, d in k1_variants.items():
-        name = _build.variant_name("moments_fwd", d)
-        print(f"K1 variant for the {label}: {name}, built in "
-              f"{built[name][1]:.1f} s, {dict(d)}")
+    for key, src, label in variants:
+        name = _build.variant_name(src, codes[label])
+        print(f"{key} variant for the {label}: {name}, built in "
+              f"{built[name][1]:.1f} s, {dict(codes[label])}")
     for name in built:
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
@@ -759,19 +795,26 @@ def main():
     keys = tuple(range(8))
     k3 = fused.raygen_trace_forward(static, *p, data, keys)
     k3_plain = fused._raygen_trace_plain(static, *p, data, keys)
-    keep = k3[6] == k3_plain[6]   # rays whose i both versions agree on
-    k3_err = {"intensity_frac": 1.0 - keep.float().mean().item()}
     tol_of = {"x": "position_mm", "y": "position_mm", "z": "position_mm",
               "L": "direction", "M": "direction", "N": "direction",
-              "opd": "opd_mm"}
-    for k, key in enumerate(fused._NAMES):
-        if key in tol_of:
-            k3_err[key] = (k3[k] - k3_plain[k])[keep].abs().max().item()
-    print("K3 vs plain: " + json.dumps(k3_err)
-          + f" tolerances {json.dumps(TOL)}")
-    check(k3_err["intensity_frac"] <= TOL["intensity_frac"], "K3 i")
-    for key, tol in tol_of.items():
-        check(k3_err[key] <= TOL[tol], f"K3 {key} vs plain")
+              "intensity": "intensity", "opd": "opd_mm"}
+
+    def final_errs(label, got, ref, keep):
+        """The largest error of each of the 8 final arrays `got` against
+        `ref` on the rays `keep` (and the share of the others), printed
+        beside TOL and checked."""
+        errs = {"intensity_frac": 1.0 - keep.float().mean().item()}
+        for k, key in enumerate(fused._NAMES):
+            errs[key] = (got[k] - ref[k])[keep].abs().max().item()
+        print(f"{label} vs plain: " + json.dumps(errs)
+              + f" tolerances {json.dumps(TOL)}")
+        check(errs["intensity_frac"] <= TOL["intensity_frac"], f"{label} i")
+        for key, tol in tol_of.items():
+            check(errs[key] <= TOL[tol], f"{label} {key} vs plain")
+        return errs
+
+    keep = k3[6] == k3_plain[6]   # rays whose i both versions agree on
+    k3_err = final_errs("K3", k3, k3_plain, keep)
     del k3, k3_plain
     free()
 
@@ -916,14 +959,7 @@ def main():
     k5 = fused.fused_trace_forward(static_v, *p_v, rays8)
     k5_plain = fused._fused_trace_plain(static_v, *p_v, rays8)
     keep_v = k5[6] == k5_plain[6]
-    k5_err = {"intensity_frac": 1.0 - keep_v.float().mean().item()}
-    for k, key in enumerate(fused._NAMES):
-        if key in tol_of:
-            k5_err[key] = (k5[k] - k5_plain[k])[keep_v].abs().max().item()
-    print("K5 vs plain: " + json.dumps(k5_err))
-    check(k5_err["intensity_frac"] <= TOL["intensity_frac"], "K5 i")
-    for key, tol in tol_of.items():
-        check(k5_err[key] <= TOL[tol], f"K5 {key} vs plain")
+    k5_err = final_errs("K5", k5, k5_plain, keep_v)
     del k5, k5_plain
     rng = np.random.default_rng(1)
     k6_seeds = tuple(torch.from_numpy(rng.standard_normal(N_RAYS).astype(
@@ -1166,10 +1202,13 @@ def main():
     mc_leaf = k1c.detach().requires_grad_(True)
     c_cooke, = torch.autograd.grad(
         centroid_rms_from_moments(*mc_leaf.unbind()), mc_leaf)
-    i_k3 = fused.raygen_trace_forward(static_c, *pc, data_c, (6,))[0]
-    i_k3p = fused._raygen_trace_plain(static_c, *pc, data_c, (6,))[0]
-    keep_cj = (i_k3 > 0) == (i_k3p > 0)
-    del i_k3, i_k3p
+    # K3's Cooke variant: the rays both versions leave lit (absorption
+    # only scales i), and every final array on them
+    k3c = fused.raygen_trace_forward(static_c, *pc, data_c, keys)
+    k3c_plain = fused._raygen_trace_plain(static_c, *pc, data_c, keys)
+    keep_cj = (k3c[6] > 0) == (k3c_plain[6] > 0)
+    final_errs("K3 (Cooke)", k3c, k3c_plain, keep_cj)
+    del k3c, k3c_plain
     k2c = fused.moments_backward(static_c, *pc, data_c, c_cooke, True)
     k2c_plain = fused._moments_bwd_plain(static_c, *pc, data_c, c_cooke, True)
     k2c_errs, k2c_rays, _ = cotangent_errs(k2c, k2c_plain, keep_cj)
@@ -1386,8 +1425,14 @@ def main():
     k1_fn, k1_args, k1_partials, k1_keep = fused.k1_launch(static, *p, data)
     k1c_fn, k1c_args, k1c_partials, k1c_keep = fused.k1_launch(
         static_c, *pc, data_c)
+    k3_fn, k3_args, k3_outs, k3_keep = fused.k3_launch(static, *p, data,
+                                                       keys)
+    k3c_fn, k3c_args, k3c_outs, k3c_keep = fused.k3_launch(
+        static_c, *pc, data_c, keys)
     nv, head_v, ptrs_v, keep_alive_v = fused._caller_ray_args(
-        static_v, *p_v, rays8, "K5")
+        static_v, *p_v, rays8, "K6")
+    k5_fn, k5_args, k5_outs, k5_keep = fused.k5_launch(static_v, *p_v,
+                                                       rays8)
     stream = torch.cuda.current_stream(dev).cuda_stream
     S = static.num_surfaces
     # the backward kernels' persistent grids, from the wrappers' helper
@@ -1430,26 +1475,25 @@ def main():
         err = fused._kernel(name)(*args, stream)
         check(err == 0, f"{name} launch: cudaError {err}")
 
-    def launch_k1(fn, args):
+    def launch_variant(fn, args):
+        """A bare launch of a per-system variant (K1, K3, K5)."""
         err = fn(*args, stream)
-        check(err == 0, f"moments_fwd launch: cudaError {err}")
+        check(err == 0, f"{fn.__name__} launch: cudaError {err}")
 
     def launch_k8(*args):
         err = huygens._kernel()(*args, stream)
         check(err == 0, f"huygens_sum launch: cudaError {err}")
 
     launches = {
-        "K1": lambda: launch_k1(k1_fn, k1_args),
+        "K1": lambda: launch_variant(k1_fn, k1_args),
         "K2": lambda: launch("moments_bwd", *head, *grid["K2"], 0, *ptrs,
                              c32.data_ptr(), partials_bwd.data_ptr(), None,
                              None, None, None),
-        "K3": lambda: launch("raygen_trace_fwd", *head, 255, *ptrs,
-                             *(o.data_ptr() for o in outs)),
+        "K3": lambda: launch_variant(k3_fn, k3_args),
         "K4": lambda: launch("raygen_trace_bwd", *head, *grid["K4"], *ptrs,
                              *k4_sp, partials_bwd.data_ptr(),
                              *(o.data_ptr() for o in outs[:4])),
-        "K5": lambda: launch("fused_trace_fwd", *head_v, *ptrs_v,
-                             *(o.data_ptr() for o in outs)),
+        "K5": lambda: launch_variant(k5_fn, k5_args),
         "K6": lambda: launch("fused_trace_bwd", *head_v, *grid["K6"],
                              *ptrs_v, *k6_sp, partials_bwd.data_ptr(),
                              *(o.data_ptr() for o in outs)),
@@ -1527,10 +1571,18 @@ def main():
             ms=time_ms(launches[key]), plain_ms=time_ms(plains[key]),
             bound_ms=b_ms, bound_by=b_by, library_ms=None))
         free()
+    sfu_rate, max_mhz = sfu_per_s(n_sm)
+    print(f"special-function rate {sfu_rate:.6g}/s ({n_sm} SMs x "
+          f"{SFU_PER_CLOCK_SM} a clock x {max_mhz:.0f} MHz); T1 "
+          f"special-function instructions an element {json.dumps(T1_SFU)}")
     for name in vpu_peak.CHAINS:   # T1: input read once, output written once
         fn_name, replaces = T1_REPLACES[name]
-        b_ms, b_by = bound_ms(2 * 4 * x_t1.numel(),
-                              T1_OPS[name] * x_t1.numel())
+        if name in T1_SFU:
+            b_ms, b_by = bound_ms(2 * 4 * x_t1.numel(),
+                                  T1_SFU[name] * x_t1.numel(), sfu_rate)
+        else:
+            b_ms, b_by = bound_ms(2 * 4 * x_t1.numel(),
+                                  T1_OPS[name] * x_t1.numel())
         rows.append(dict(
             name=f"T1 {fn_name}", route="cuda",
             source="optiland_tpu_torch/csrc/vpu_peak.cu", replaces=replaces,
@@ -1642,16 +1694,26 @@ def main():
     print(f"K8 at four shapes, median of {TIMED_CALLS} bare launches "
           f"({huygens_ops_per_contribution()} FP32 operations a "
           f"contribution): {json.dumps(k8_shapes)}")
-    # K1's variants, bare launches: the bench lens (its row in the kernels
-    # line) and the Cooke triplet at 0.55 um
-    k1_ms = {"bench lens": time_ms(lambda: launch_k1(k1_fn, k1_args)),
-             "Cooke triplet": time_ms(lambda: launch_k1(k1c_fn, k1c_args))}
-    k1c_bound = bound_ms(4 * 4 * n_c,
-                         (chain_ops_per_ray(static_c, fused) + 10) * n_c)
-    print(f"K1 variants, median of {TIMED_CALLS} bare launches (ms): "
-          f"{json.dumps(k1_ms)}; grids (blocks) bench {k1_args[2]}, Cooke "
-          f"{k1c_args[2]}; Cooke bound {k1c_bound[0]:.4f} ms "
-          f"({k1c_bound[1]}) at {n_c} rays")
+    # the per-system variants, bare launches: the bench lens (K1's and K3's
+    # rows in the kernels line; K5's vignetted twin has its row) and the
+    # Cooke triplet at 0.55 um
+    cooke_ops = chain_ops_per_ray(static_c, fused)
+    sys_ms = {
+        "K1 bench lens": time_ms(lambda: launch_variant(k1_fn, k1_args)),
+        "K1 Cooke triplet": time_ms(lambda: launch_variant(k1c_fn,
+                                                           k1c_args)),
+        "K3 bench lens": time_ms(lambda: launch_variant(k3_fn, k3_args)),
+        "K3 Cooke triplet": time_ms(lambda: launch_variant(k3c_fn,
+                                                           k3c_args)),
+        "K5 vignetted bench lens": time_ms(lambda: launch_variant(k5_fn,
+                                                                  k5_args))}
+    cooke_bounds = {"K1": bound_ms(4 * 4 * n_c, (cooke_ops + 10) * n_c),
+                    "K3": bound_ms((4 + 8) * 4 * n_c, cooke_ops * n_c)}
+    print(f"per-system variants, median of {TIMED_CALLS} bare launches (ms): "
+          f"{json.dumps(sys_ms)}; grids (blocks) K1 bench {k1_args[2]}, "
+          f"Cooke {k1c_args[2]}, K3 bench {k3_args[2]}, Cooke {k3c_args[2]}, "
+          f"K5 {k5_args[2]}; Cooke bounds at {n_c} rays "
+          f"{json.dumps(cooke_bounds)}")
 
     # the Huygens PSF call at its defaults on the host clock, and its split
     psf_ms = host_ms(lambda: ScalarHuygensPSF(lens32, (0.0, 1.0)))

@@ -16,9 +16,10 @@
 // The JAX kernel unrolls the chain on static per-surface codes. Here one
 // surface's step (`surface_step`) is written once, and two chains call it:
 // `trace_chain` loops over the surfaces at run time and switches on the
-// codes held in the int table (K2-K7, both tables staged in shared memory
-// once per block), and system_chain.cuh unrolls it over codes that are
-// compile-time constants of one system (K1), so that its branches fold.
+// codes held in the int table (K2, K4, K6 and K7, both tables staged in
+// shared memory once per block), and system_chain.cuh unrolls it over
+// codes that are compile-time constants of one system (K1, K3 and K5), so
+// that its branches fold.
 //
 // Numerics kept from the JAX kernel: the closed-form conic seed with the
 // same 1e-12 safe-divides and root choice, min(newton_iters, 2) + 1 Newton

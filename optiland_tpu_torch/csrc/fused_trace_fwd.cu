@@ -1,59 +1,86 @@
-// K5: the surface chain on rays the caller made, one ray per thread
-// (Hopper, sm_90a), writing the 8 final per-ray arrays.
+// K5: the surface chain of one system on rays the caller made, writing the
+// 8 final per-ray arrays (Hopper, sm_90a).
 //
 // Replaces the Pallas kernel `_fused_forward` of
-// optiland_tpu/trace/fused.py: K3 with the in-kernel raygen replaced by
-// loads of the caller's (x, y, z, L, M, N, i, opd). The per-ray wavelength
-// is not read: the wrapper takes only uniform wavelengths, hoisted into
-// the per-surface index table.
+// optiland_tpu/trace/fused.py: K3 (csrc/raygen_trace_fwd.cu) with the
+// in-kernel raygen replaced by loads of the caller's (x, y, z, L, M, N, i,
+// opd). Built once per system like K1 and K3 (system_chain.cuh; trace/fused.py
+// `system_defines`, _build.py `variant` and PER_SYSTEM's approximate
+// division and square root), each block staging the float table once and
+// then walking tiles of SYSTEM_THREADS rays, over the grid the wrapper
+// shapes from `fused_trace_fwd_blocks_per_sm` (`fused.system_grid`). The
+// per-ray wavelength is not read: the wrapper takes only uniform
+// wavelengths, hoisted into the per-surface index table.
 //
-// Bound on an H100: FP32 operations of the chain; it also moves 64 bytes
-// per ray (8 arrays in, 8 out), about 0.04 ms at 2M rays and 3.35 TB/s.
+// Registers: left free, nvcc gave the bench lens's K5 114 registers, two
+// blocks an SM; held to three blocks an SM (80 registers, no spills) it
+// ran 9% faster on an H100, where four or more spilled (PERF.md).
+//
+// Bound on an H100: FP32 operations of the chain. It also moves 64 bytes
+// a ray (8 arrays in, 8 out), about 0.04 ms at 2M rays and 3.35 TB/s,
+// below that bound: each thread loads its ray's 8 floats through
+// read-only pointers, neighbouring threads on neighbouring addresses, so
+// the warp's loads and stores coalesce without staging.
 #include <cstdint>
 
-#include "chain.cuh"
+#include "system_chain.cuh"
 
 namespace {
 
-struct Arrays {
-  float* p[8];
-};
+constexpr int THREADS = otk::SYSTEM_THREADS;
+constexpr int MIN_BLOCKS_PER_SM = 3;
 
-__global__ void __launch_bounds__(otk::BLOCK)
-fused_trace_fwd_kernel(int n, int S, int n_newton, const float* __restrict__ ftab,
-                       const int* __restrict__ itab, Arrays rays, Arrays outs) {
-  __shared__ float s_ft[otk::MAX_SURFACES * otk::F_STRIDE];
-  __shared__ int s_it[otk::MAX_SURFACES * otk::I_STRIDE];
-  otk::stage_tables(S, ftab, itab, nullptr, s_ft, s_it, nullptr);
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS_PER_SM)
+fused_trace_fwd_kernel(int n, const float* __restrict__ ftab, const float* __restrict__ x,
+                       const float* __restrict__ y, const float* __restrict__ z,
+                       const float* __restrict__ L, const float* __restrict__ M,
+                       const float* __restrict__ N, const float* __restrict__ i,
+                       const float* __restrict__ opd, float* __restrict__ ox,
+                       float* __restrict__ oy, float* __restrict__ oz,
+                       float* __restrict__ oL, float* __restrict__ oM,
+                       float* __restrict__ oN, float* __restrict__ oi,
+                       float* __restrict__ oopd) {
+  __shared__ float s_ft[OTK_S * otk::F_STRIDE];
+  otk::stage_system(ftab, nullptr, s_ft, nullptr);
 
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= n) return;
-  otk::Ray r = {rays.p[0][idx], rays.p[1][idx], rays.p[2][idx], rays.p[3][idx],
-                rays.p[4][idx], rays.p[5][idx], rays.p[6][idx], rays.p[7][idx]};
-  otk::trace_chain(S, n_newton, s_ft, s_it, r);
-  const float v[8] = {r.x, r.y, r.z, r.L, r.M, r.N, r.i, r.opd};
-#pragma unroll
-  for (int k = 0; k < 8; ++k) outs.p[k][idx] = v[k];
+  for (int idx = blockIdx.x * THREADS + threadIdx.x; idx < n; idx += gridDim.x * THREADS) {
+    otk::Ray r = {x[idx], y[idx], z[idx], L[idx], M[idx], N[idx], i[idx], opd[idx]};
+    otk::trace_system(s_ft, r);
+    ox[idx] = r.x;
+    oy[idx] = r.y;
+    oz[idx] = r.z;
+    oL[idx] = r.L;
+    oM[idx] = r.M;
+    oN[idx] = r.N;
+    oi[idx] = r.i;
+    oopd[idx] = r.opd;
+  }
 }
 
 }  // namespace
 
-// Launch K5 on `stream` over n rays; returns cudaGetLastError().
-extern "C" int fused_trace_fwd(int n, int S, int n_newton, const void* ftab,
-                               const void* itab, void* x, void* y, void* z, void* L,
-                               void* M, void* N, void* i, void* opd, void* ox, void* oy,
-                               void* oz, void* oL, void* oM, void* oN, void* oi,
+// K5 blocks that fit one SM at once (the occupancy of this build), or a
+// negative CUDA error.
+extern "C" int fused_trace_fwd_blocks_per_sm() {
+  int blocks = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, fused_trace_fwd_kernel, THREADS, 0);
+  return err == cudaSuccess ? blocks : -static_cast<int>(err);
+}
+
+// Launch K5 on `stream` over n rays of a system of S surfaces (this
+// build's OTK_S, else cudaErrorInvalidValue) in `blocks` blocks. Returns
+// cudaGetLastError().
+extern "C" int fused_trace_fwd(int n, int S, int blocks, const void* ftab, const void* x,
+                               const void* y, const void* z, const void* L, const void* M,
+                               const void* N, const void* i, const void* opd, void* ox,
+                               void* oy, void* oz, void* oL, void* oM, void* oN, void* oi,
                                void* oopd, void* stream) {
-  const int blocks = (n + otk::BLOCK - 1) / otk::BLOCK;
-  Arrays rays = {{static_cast<float*>(x), static_cast<float*>(y), static_cast<float*>(z),
-                  static_cast<float*>(L), static_cast<float*>(M), static_cast<float*>(N),
-                  static_cast<float*>(i), static_cast<float*>(opd)}};
-  Arrays outs = {{static_cast<float*>(ox), static_cast<float*>(oy),
-                  static_cast<float*>(oz), static_cast<float*>(oL),
-                  static_cast<float*>(oM), static_cast<float*>(oN),
-                  static_cast<float*>(oi), static_cast<float*>(oopd)}};
-  fused_trace_fwd_kernel<<<blocks, otk::BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
-      n, S, n_newton, static_cast<const float*>(ftab), static_cast<const int*>(itab), rays,
-      outs);
+  if (S != OTK_S || blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const auto in = [](const void* p) { return static_cast<const float*>(p); };
+  const auto out = [](void* p) { return static_cast<float*>(p); };
+  fused_trace_fwd_kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      n, in(ftab), in(x), in(y), in(z), in(L), in(M), in(N), in(i), in(opd), out(ox),
+      out(oy), out(oz), out(oL), out(oM), out(oN), out(oi), out(oopd));
   return static_cast<int>(cudaGetLastError());
 }

@@ -5,7 +5,7 @@
 // optiland_tpu/trace/fused.py, which unrolls the chain on the system's
 // static codes. So does this kernel: it is built once per system, with the
 // codes as nvcc definitions (system_chain.cuh; trace/fused.py
-// `k1_defines`, _build.py `variant`), and the per-surface step of
+// `system_defines`, _build.py `variant`), and the per-surface step of
 // chain.cuh runs with constant codes, unrolled, its untaken branches gone.
 //
 // Bound on an H100: the FP32 operations of the chain (~10^3 a ray on the
@@ -15,10 +15,12 @@
 // loops, and each block of one ray a thread stages both tables behind a
 // barrier. Here:
 //   - the codes are constants: no int table, no code branches;
-//   - the grid is persistent, `blocks` blocks of THREADS threads (the
-//     wrapper takes at most as many as fit the card at once,
-//     `moments_fwd_blocks_per_sm`), each staging the float table and the
-//     raygen scalars once and then walking tiles of THREADS rays;
+//   - `blocks` blocks of SYSTEM_THREADS threads, each staging the float
+//     table and the raygen scalars once and then walking tiles of
+//     SYSTEM_THREADS rays; at the 2-3 blocks an SM that K1's registers
+//     allow (`moments_fwd_blocks_per_sm`), the wrapper takes a persistent
+//     grid of at most as many blocks as fit the card at once
+//     (`fused.system_grid`);
 //   - each thread sums its rays' masked (i, x i, y i, (x^2 + y^2) i) in
 //     registers; at the end the block reduces them by warp shuffles and
 //     shared memory to one partial, partials[block][0..3], which the
@@ -35,7 +37,7 @@
 
 namespace {
 
-constexpr int THREADS = 256;
+constexpr int THREADS = otk::SYSTEM_THREADS;
 
 __global__ void __launch_bounds__(THREADS)
 moments_fwd_kernel(int n, const float* __restrict__ rg, const float* __restrict__ ftab,
@@ -45,9 +47,7 @@ moments_fwd_kernel(int n, const float* __restrict__ rg, const float* __restrict_
   __shared__ float s_ft[OTK_S * otk::F_STRIDE];
   __shared__ float s_rg[5];
   __shared__ float s_red[4][THREADS / 32];
-  for (int j = threadIdx.x; j < OTK_S * otk::F_STRIDE; j += THREADS) s_ft[j] = ftab[j];
-  if (threadIdx.x < 5) s_rg[threadIdx.x] = rg[threadIdx.x];
-  __syncthreads();
+  otk::stage_system(ftab, rg, s_ft, s_rg);
 
   float m[4] = {0.f, 0.f, 0.f, 0.f};
   for (int idx = blockIdx.x * THREADS + threadIdx.x; idx < n; idx += gridDim.x * THREADS) {

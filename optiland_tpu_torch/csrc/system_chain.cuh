@@ -1,7 +1,8 @@
 // The surface chain of one system whose static codes are compile-time
-// constants (K1, csrc/moments_fwd.cu).
+// constants: K1 (csrc/moments_fwd.cu), K3 (csrc/raygen_trace_fwd.cu) and
+// K5 (csrc/fused_trace_fwd.cu), each built once per system.
 //
-// The wrapper (trace/fused.py `k1_defines`) passes the system's codes to
+// The wrapper (trace/fused.py `system_defines`) passes the system's codes to
 // nvcc as definitions (a header that nvcc includes first, _build.py):
 //   OTK_S                 the number of surfaces;
 //   OTK_NEWTON            the Newton updates after the first (n_newton);
@@ -16,6 +17,13 @@
 // interaction, geometry) fold away. The values (curvatures, conics,
 // coefficients, thicknesses, indices, alpha, apertures) stay in the float
 // table that the kernel stages in shared memory.
+//
+// The three kernels share one launch shape: blocks of SYSTEM_THREADS
+// threads, each staging the float table (and the raygen scalars) once with
+// `stage_system`, then walking tiles of SYSTEM_THREADS rays; the wrapper
+// sizes the grid from the occupancy each source exports,
+// `<source>_blocks_per_sm` (trace/fused.py `system_grid`: a block a tile,
+// or a persistent grid of at most as many blocks as fit the card at once).
 #pragma once
 
 #include "chain.cuh"
@@ -26,6 +34,9 @@
 #endif
 
 namespace otk {
+
+// Threads a block of the per-system kernels (trace/fused.py _SYSTEM_THREADS).
+constexpr int SYSTEM_THREADS = 256;
 
 // Codes packed in one word: geometry bits 0-7, coefficient count 8-15,
 // interaction 16-19, then one bit each for tilt, decenter, aperture and
@@ -68,6 +79,18 @@ __device__ __forceinline__ void trace_system(const float* ft, Ray& r) {
 __device__ __forceinline__ Ray system_raygen(const float* rg, float Hx, float Hy, float Px,
                                              float Py) {
   return tile_raygen(OTK_FIELD_ANGLE, OTK_OBJECT_INFINITE, rg, Hx, Hy, Px, Py);
+}
+
+// Stage the system's (OTK_S, F_STRIDE) float table and, where rg is not
+// null, the five raygen scalars into shared memory; every thread of the
+// block calls it, once.
+__device__ __forceinline__ void stage_system(const float* __restrict__ ftab,
+                                             const float* __restrict__ rg, float* s_ft,
+                                             float* s_rg) {
+  for (int j = threadIdx.x; j < OTK_S * F_STRIDE; j += blockDim.x) s_ft[j] = ftab[j];
+  if (rg != nullptr)
+    for (int j = threadIdx.x; j < 5; j += blockDim.x) s_rg[j] = rg[j];
+  __syncthreads();
 }
 
 }  // namespace otk

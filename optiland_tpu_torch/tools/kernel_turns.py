@@ -1,5 +1,5 @@
-"""The kernels K1, K2, K4, K6 and K8 of two checkouts of this repository,
-timed against each other on one CUDA card in turns.
+"""The kernels K1-K6 and K8 of two checkouts of this repository, timed
+against each other on one CUDA card in turns.
 
     python -m optiland_tpu_torch.tools.kernel_turns --parent DIR [--n N ...]
 
@@ -9,14 +9,15 @@ process of its own, in the order parent, this tree, this tree, parent. A
 process builds its tree's kernels with that tree's own `_build`, and
 drives that tree's own wrappers at each ray count N (default 16,384, 65,536
 and 2,000,000) on the bench lens of chip_smoke.py: `fused.moments_forward`
-(K1), `moments_backward` (K2), `raygen_trace_backward` (K4) and
-`fused_trace_backward` (K6, with its vignetted field); and, for K1 and K2,
-on the absorbing Cooke triplet at 0.55 um. It also drives
+(K1), `moments_backward` (K2), `raygen_trace_forward` (K3, all 8 outputs),
+`raygen_trace_backward` (K4), and, on the eager rays of its vignetted twin,
+`fused_trace_forward` (K5) and `fused_trace_backward` (K6); and, for K1, K2
+and K3, on the absorbing Cooke triplet at 0.55 um. It also drives
 `huygens.huygens_sum_forward` (K8) on the Cooke triplet's Huygens PSF at
 its defaults (128 x 128: the image sum and its normalizing peak sum), at
 256 x 256, and on the random inputs of tools/bench_wave_optics.py. Each
-tree's wrappers pick their own launch signature, grid and (for a K1 built
-per system) variant: the tool only wraps the tree's `fused._kernel` and
+tree's wrappers pick their own launch signature, grid and (for a kernel
+built per system) variant: the tool only wraps the tree's `fused._kernel` and
 `huygens._kernel` so that CUDA events are recorded on the launch stream
 just before and just after each C call, and a kernel's time is the median
 of those spans over TIMED launches after a warm-up (which also builds a
@@ -59,8 +60,8 @@ def _smoke():
 
 
 def worker(tree: Path, ns: list[int]) -> dict:
-    """Times of `tree`'s K1, K2, K4, K6 and K8 wrappers' launches (K1-K6 at
-    each n), and its bench training step at the largest n."""
+    """Times of `tree`'s K1-K6 and K8 wrappers' launches (K1-K6 at each n),
+    and its bench training step at the largest n."""
     tree = tree.resolve()
     sys.path.insert(0, str(tree))
     import numpy as np
@@ -143,11 +144,17 @@ def worker(tree: Path, ns: list[int]) -> dict:
             static_c, *p_c, data))
         ms[f"K2 {n}"] = kernel_ms(lambda: fused.moments_backward(
             static, *p, data, c, diff_data=False))
+        ms[f"K3 {n}"] = kernel_ms(lambda: fused.raygen_trace_forward(
+            static, *p, data, tuple(range(8))))
+        ms[f"K3 Cooke {n}"] = kernel_ms(lambda: fused.raygen_trace_forward(
+            static_c, *p_c, data, tuple(range(8))))
         ms[f"K4 {n}"] = kernel_ms(lambda: fused.raygen_trace_backward(
             static, *p, data, (0, 1, 7), seeds[:3]))
         r0 = generate_rays(static_v, params_v, *data, cs.WAVELENGTH)
         rays8 = tuple(getattr(r0, k).detach().contiguous()
                       for k in ("x", "y", "z", "L", "M", "N", "i", "opd"))
+        ms[f"K5 {n}"] = kernel_ms(lambda: fused.fused_trace_forward(
+            static_v, *p_v, rays8))
         ms[f"K6 {n}"] = kernel_ms(lambda: fused.fused_trace_backward(
             static_v, *p_v, rays8, seeds))
         ms[f"K2 Cooke {n}"] = kernel_ms(lambda: fused.moments_backward(

@@ -8,20 +8,20 @@ CUDA kernel.
   K1 `moments_forward` replaces `_moments_forward`: in-kernel raygen from
      5 scalars, the surface chain, and the masked moments (sum i, sum x i,
      sum y i, sum (x^2+y^2) i). CUDA source: csrc/moments_fwd.cu, built
-     once per system from its static codes (`k1_defines`), as the JAX
+     once per system from its static codes (`system_defines`), as the JAX
      kernel is traced once per system.
   K2 `moments_backward` replaces `_moments_bwd`: the cotangents of c . m
      for the raygen scalars, the per-surface tables and (with `diff_data`)
      the per-ray inputs. csrc/moments_bwd.cu.
   K3 `raygen_trace_forward` replaces `_raygen_forward`: the same raygen and
      chain, writing the requested final per-ray arrays.
-     csrc/raygen_trace_fwd.cu.
+     csrc/raygen_trace_fwd.cu, built once per system like K1.
   K4 `raygen_trace_backward` replaces `_raygen_bwd`: per-ray seeds of the
      requested outputs -> raygen, table and data cotangents.
      csrc/raygen_trace_bwd.cu.
   K5 `fused_trace_forward` replaces `_fused_forward`: the chain on the
      caller's rays (the fields in-kernel raygen refuses: vignetted ones).
-     csrc/fused_trace_fwd.cu.
+     csrc/fused_trace_fwd.cu, built once per system like K1.
   K6 `fused_trace_backward` replaces `_fused_bwd`: per-ray seeds of the 8
      final arrays -> the 8 starting-ray and the table cotangents.
      csrc/fused_trace_bwd.cu.
@@ -36,8 +36,9 @@ absorption tables (`_uniform_tables`); only K7 evaluates the dispersion
 formulas and extinction tables per ray.
 
 All run one ray per thread (csrc/chain.cuh; the backward kernels share the
-reverse sweep of csrc/chain_bwd.cuh; K1 unrolls the same per-surface step
-over its system's constant codes, csrc/system_chain.cuh). What bounds K1-K6 on an H100: FP32
+reverse sweep of csrc/chain_bwd.cuh; K1, K3 and K5 unroll the same
+per-surface step over their system's constant codes, csrc/system_chain.cuh,
+on a grid that `system_grid` shapes). What bounds K1-K6 on an H100: FP32
 arithmetic, not memory. At 2M rays K1 reads 32 MB (Hx, Hy, Px, Py in f32),
 about 10 us at 3.35 TB/s, while the chain costs on the order of 10^3 FP32
 operations per ray (counted per branch by `chip_smoke.py`), ~50 us at the
@@ -131,7 +132,11 @@ _I_STRIDE = 16
 # dispersion formula but the tabulated one has at most this many
 _MAT_SHARED = 17
 _MAX_SURFACES = 64
-_K1_THREADS = 256   # threads per K1 block (csrc/moments_fwd.cu THREADS)
+# threads per block of K1, K3 and K5 (csrc/system_chain.cuh SYSTEM_THREADS)
+_SYSTEM_THREADS = 256
+# a per-system kernel of which an SM holds at least this many blocks at once
+# takes a block a tile (`system_grid`)
+_TILE_GRID_BLOCKS_PER_SM = 4
 # threads per block of the backward kernels K2, K4 and K6 at most
 # (csrc/chain_bwd.cuh BWD_THREADS) and at least (`backward_grid`)
 _BWD_THREADS = 512
@@ -626,21 +631,21 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     # n, S, blocks, rg, ftab, Hx, Hy, Px, Py, partials (blocks, 4), stream;
-    # the system's codes are the variant's (`k1_defines`)
+    # the system's codes are the variant's (`system_defines`), as for K3, K5
     "moments_fwd": [_I] * 3 + [_P] * 8,
     # n, S, n_newton, field_angle, object_infinite, blocks, threads,
     # diff_data, rg, ftab, itab, Hx, Hy, Px, Py, c, partials (blocks, S + 1,
     # 32), dHx, dHy, dPx, dPy (NULL without diff_data), stream
     "moments_bwd": [_I] * 8 + [_P] * 14,
-    # n, S, n_newton, field_angle, object_infinite, out_mask, rg, ftab,
-    # itab, Hx, Hy, Px, Py, 8 output pointers (NULL = not requested), stream
-    "raygen_trace_fwd": [_I] * 6 + [_P] * 16,
+    # n, S, blocks, out_mask, rg, ftab, Hx, Hy, Px, Py, 8 output pointers
+    # (NULL = not requested), stream
+    "raygen_trace_fwd": [_I] * 4 + [_P] * 15,
     # n, S, n_newton, field_angle, object_infinite, blocks, threads, rg,
     # ftab, itab, Hx, Hy, Px, Py, 8 seed pointers (NULL = zero seed),
     # partials (blocks, S + 1, 32), dHx, dHy, dPx, dPy, stream
     "raygen_trace_bwd": [_I] * 7 + [_P] * 21,
-    # n, S, n_newton, ftab, itab, 8 ray pointers, 8 output pointers, stream
-    "fused_trace_fwd": [_I] * 3 + [_P] * 19,
+    # n, S, blocks, ftab, 8 ray pointers, 8 output pointers, stream
+    "fused_trace_fwd": [_I] * 3 + [_P] * 18,
     # n, S, n_newton, blocks, threads, ftab, itab, 8 ray pointers, 8 seed
     # pointers (NULL = zero seed), partials (blocks, S, 32), 8 cotangent
     # pointers, stream
@@ -666,15 +671,15 @@ def _kernel(name: str, defines=()):
     return fn
 
 
-def k1_defines(static: SystemStatic) -> tuple:
-    """The nvcc definitions ((macro, value), ...) of K1's variant for this
-    system: S, the Newton updates, the field and object codes, and each
-    surface's geometry code, coefficient count, interaction, and tilt,
-    decenter, aperture and absorption flags (the medium after it), packed
-    as csrc/system_chain.cuh `unpack_codes` reads them. Values
-    (curvatures, thicknesses, indices, ...) are not codes: they reach the
-    kernel in the float table, so one build serves every value of a
-    system."""
+def system_defines(static: SystemStatic) -> tuple:
+    """The nvcc definitions ((macro, value), ...) of the per-system kernels'
+    variants (K1, K3, K5) for this system: S, the Newton updates, the
+    field and object codes, and each surface's geometry code, coefficient
+    count, interaction, and tilt, decenter, aperture and absorption flags
+    (the medium after it), packed as csrc/system_chain.cuh `unpack_codes`
+    reads them. Values (curvatures, thicknesses, indices, ...) are not
+    codes: they reach the kernel in the float table, so one build serves
+    every value of a system."""
     packed = (
         static.geom_codes[k] | static.geom_n_coeffs[k] << 8
         | static.interactions[k] << 16 | int(static.has_tilt[k]) << 20
@@ -690,14 +695,37 @@ def k1_defines(static: SystemStatic) -> tuple:
 
 
 @lru_cache(maxsize=None)
-def _k1_blocks_per_sm(defines) -> int:
-    """K1 blocks that fit one SM at once, from the variant's occupancy."""
+def _blocks_per_sm(source: str, defines) -> int:
+    """Blocks of the per-system kernel `source` that fit one SM at once,
+    from its variant's occupancy query (`<source>_blocks_per_sm`)."""
     from optiland_tpu_torch import _build
 
-    per_sm = _build.variant("moments_fwd", defines).moments_fwd_blocks_per_sm()
+    query = getattr(_build.variant(source, defines), f"{source}_blocks_per_sm")
+    per_sm = query()
     if per_sm < 1:
-        raise RuntimeError(f"moments_fwd occupancy query failed: {per_sm}")
+        raise RuntimeError(f"{source} occupancy query failed: {per_sm}")
     return per_sm
+
+
+def system_grid(n: int, n_sm: int, per_sm: int) -> int:
+    """Blocks of a per-system kernel (K1, K3, K5) over n rays on a card of
+    `n_sm` SMs, of which each holds `per_sm` of its blocks at once. Each
+    block walks tiles of _SYSTEM_THREADS rays. Where an SM holds
+    _TILE_GRID_BLOCKS_PER_SM or more, a block a tile, which the card
+    schedules as blocks end; where it holds fewer, a persistent grid of at
+    most `n_sm * per_sm` blocks, each staging the table once. On an H100 at
+    2M rays a block a tile was 6% faster for K3 at 6 blocks an SM, and 2-15%
+    slower for K1 and K5 at 2 or 3 (PERF.md)."""
+    tiles = max(1, -(-n // _SYSTEM_THREADS))
+    if per_sm >= _TILE_GRID_BLOCKS_PER_SM:
+        return tiles
+    return min(tiles, n_sm * per_sm)
+
+
+def _system_blocks(source: str, defines, n: int, device) -> int:
+    """`system_grid` for the per-system variant of `source` on `device`."""
+    return system_grid(n, config.sm_count(device),
+                       _blocks_per_sm(source, defines))
 
 
 def backward_grid(n: int, n_sm: int) -> tuple[int, int]:
@@ -846,12 +874,9 @@ def k1_launch(static, diffp, nondiffp, rg, data):
     alive until the launch is enqueued. Builds the variant on first use."""
     n, _, ptrs, keep = _launch_args(static, rg, diffp, nondiffp, data,
                                     kernel="K1")
-    defines = k1_defines(static)
+    defines = system_defines(static)
     fn = _kernel("moments_fwd", defines)
-    # the persistent grid: a block a tile of rays, at most as many blocks
-    # as the card holds at once
-    blocks = max(1, min(-(-n // _K1_THREADS), config.sm_count(rg.device)
-                        * _k1_blocks_per_sm(defines)))
+    blocks = _system_blocks("moments_fwd", defines, n, rg.device)
     partials = torch.empty((blocks, 4), dtype=torch.float32, device=rg.device)
     args = [n, static.num_surfaces, blocks, ptrs[0], ptrs[1], *ptrs[3:],
             partials.data_ptr()]
@@ -911,26 +936,39 @@ def moments_backward(static, diffp, nondiffp, rg, data, c, diff_data=True):
 moments_backward.launches = 0
 
 
+def k3_launch(static, diffp, nondiffp, rg, data, out_keys):
+    """K3's variant for this system, its arguments up to the stream, the
+    `out_keys` outputs it writes (others are neither allocated nor
+    written), and the tensors to keep alive until the launch is enqueued.
+    Builds the variant on first use."""
+    n, _, ptrs, keep = _launch_args(static, rg, diffp, nondiffp, data,
+                                    kernel="K3")
+    defines = system_defines(static)
+    fn = _kernel("raygen_trace_fwd", defines)
+    outs = {k: torch.empty((n,), dtype=torch.float32, device=rg.device)
+            for k in out_keys}
+    args = [n, static.num_surfaces,
+            _system_blocks("raygen_trace_fwd", defines, n, rg.device),
+            sum(1 << k for k in outs), ptrs[0], ptrs[1], *ptrs[3:],
+            *(outs[k].data_ptr() if k in outs else None for k in range(8))]
+    return fn, args, tuple(outs[k] for k in out_keys), keep
+
+
 def raygen_trace_forward(static, diffp, nondiffp, rg, data, out_keys):
     """K3: the `out_keys` subset of the final (x, y, z, L, M, N, i, opd) of
     rays made from data = (Hx, Hy, Px, Py). CPU tensors take
-    `_raygen_trace_plain`; CUDA tensors launch the kernel. Unrequested
+    `_raygen_trace_plain`; CUDA tensors launch the kernel, the system's own
+    variant (built at first use; a failed build raises). Unrequested
     outputs are neither allocated nor written."""
     if rg.device.type == "cpu":
         return _raygen_trace_plain(static, diffp, nondiffp, rg, data,
                                    out_keys)
-    n, head, ptrs, keep = _launch_args(static, rg, diffp, nondiffp, data,
-                                       kernel="K3")
-    outs = {k: torch.empty((n,), dtype=torch.float32, device=rg.device)
-            for k in out_keys}
-    mask = sum(1 << k for k in out_keys)
-    out_ptrs = [outs[k].data_ptr() if k in outs else None for k in range(8)]
-    if n:
-        err = _kernel("raygen_trace_fwd")(*head, mask, *ptrs, *out_ptrs,
-                                          _stream(rg.device))
-        _raise_on_error("raygen_trace_fwd", err)
+    fn, args, outs, _keep = k3_launch(static, diffp, nondiffp, rg, data,
+                                      out_keys)
+    if args[0]:
+        _raise_on_error("raygen_trace_fwd", fn(*args, _stream(rg.device)))
         raygen_trace_forward.launches += 1
-    return tuple(outs[k] for k in out_keys)
+    return outs
 
 
 raygen_trace_forward.launches = 0
@@ -969,21 +1007,34 @@ def raygen_trace_backward(static, diffp, nondiffp, rg, data, out_keys,
 raygen_trace_backward.launches = 0
 
 
+def k5_launch(static, diffp, nondiffp, rays8):
+    """K5's variant for this system, its arguments up to the stream, the 8
+    outputs it writes, and the tensors to keep alive until the launch is
+    enqueued. Builds the variant on first use."""
+    n, _, ptrs, keep = _caller_ray_args(static, diffp, nondiffp, rays8,
+                                        kernel="K5")
+    dev = rays8[0].device
+    defines = system_defines(static)
+    fn = _kernel("fused_trace_fwd", defines)
+    outs = tuple(torch.empty(n, dtype=torch.float32, device=dev)
+                 for _ in range(8))
+    args = [n, static.num_surfaces,
+            _system_blocks("fused_trace_fwd", defines, n, dev), ptrs[0],
+            *ptrs[2:], *(o.data_ptr() for o in outs)]
+    return fn, args, outs, keep
+
+
 def fused_trace_forward(static, diffp, nondiffp, rays8):
     """K5: the final (x, y, z, L, M, N, i, opd) of the caller's rays
     (rays8, the same 8 arrays at the start). CPU tensors take
-    `_fused_trace_plain`; CUDA tensors launch the kernel."""
+    `_fused_trace_plain`; CUDA tensors launch the kernel, the system's own
+    variant (built at first use; a failed build raises)."""
     if rays8[0].device.type == "cpu":
         return _fused_trace_plain(static, diffp, nondiffp, rays8)
-    n, head, ptrs, keep = _caller_ray_args(static, diffp, nondiffp, rays8,
-                                           kernel="K5")
-    dev = rays8[0].device
-    outs = tuple(torch.empty(n, dtype=torch.float32, device=dev)
-                 for _ in range(8))
-    if n:
-        err = _kernel("fused_trace_fwd")(
-            *head, *ptrs, *(o.data_ptr() for o in outs), _stream(dev))
-        _raise_on_error("fused_trace_fwd", err)
+    fn, args, outs, _keep = k5_launch(static, diffp, nondiffp, rays8)
+    if args[0]:
+        _raise_on_error("fused_trace_fwd",
+                        fn(*args, _stream(rays8[0].device)))
         fused_trace_forward.launches += 1
     return outs
 

@@ -1,14 +1,17 @@
 """The CUDA device code of the fused chain and of K8, compiled for the host.
 
-`csrc/chain.cuh`, `csrc/chain_bwd.cuh` and `csrc/huygens.cuh` are C++ apart
-from CUDA qualifiers and intrinsics. Built by g++ in float64 with those defined away
-(one thread, one ray at a time), the per-ray bodies of K1, K2, K4, K5, K6
-and K7 run here on the CPU: the forward chain (`trace_chain`, at one
-wavelength or, for K7, at each ray's own with its history recorded), the
+`csrc/chain.cuh`, `csrc/chain_bwd.cuh`, `csrc/system_chain.cuh` and
+`csrc/huygens.cuh` are C++ apart from CUDA qualifiers and intrinsics. Built
+by g++ in float64 with those defined away (one thread, one ray at a time),
+the per-ray bodies of K2, K4, K6 and K7 run here on the CPU: the run-time
+forward chain (`trace_chain`, at one wavelength as the backward kernels
+re-trace it, or, for K7, at each ray's own with its history recorded), the
 reverse sweep (`reverse_chain`, with the absorption adjoint, and the
 cotangent rows in their compact order and widths), the raygen adjoint
 (`tile_raygen_bwd`) and the per-ray dispersion (`material_index` for every
-formula code); so does K8's per-image-point Huygens sum
+formula code); so do K1's, K3's and K5's per-system bodies
+(`system_raygen`, `trace_system`, `stage_system`), built with each of four
+systems' own codes, and K8's per-image-point Huygens sum
 (`huygens_accumulate`) over pupil chunks, whose partial fields go through
 the wrapper's own reduction (`reduce_partials`). Each is held against the plain PyTorch version
 that the kernel is held to on the card, in float64, at 1e-10 of each
@@ -251,10 +254,14 @@ extern "C" void index_kernel(int formula, int nc, const double* row, int n, cons
 }
 """
 
-# K1's per-system body over n rays: the moments (out4) and each ray's
-# final state (rays (8, n))
+# The per-system bodies over n rays: K1's moments (out4) and each ray's
+# final state (rays (8, n)); K3's outputs of out_mask (outs (8, n), the
+# others untouched); K5's 8 outputs from the caller's rays (8, n). K3 and
+# K5 read the tables through `stage_system`, as on the card.
 _SYSTEM_SHIM = r"""
 #include "system_chain.cuh"
+
+static double s_ft[OTK_S * otk::F_STRIDE], s_rg[5];
 
 extern "C" void system_moments(int n, const double* rg, const double* ft, const double* Hx,
                                const double* Hy, const double* Px, const double* Py,
@@ -269,6 +276,31 @@ extern "C" void system_moments(int n, const double* rg, const double* ft, const 
     out4[3] += (r.x * r.x + r.y * r.y) * r.i;
     const double v[8] = {r.x, r.y, r.z, r.L, r.M, r.N, r.i, r.opd};
     for (int k = 0; k < 8; ++k) rays[k * n + idx] = v[k];
+  }
+}
+
+extern "C" void system_raygen_trace(int n, int out_mask, const double* rg, const double* ft,
+                                    const double* Hx, const double* Hy, const double* Px,
+                                    const double* Py, double* outs) {
+  otk::stage_system(ft, rg, s_ft, s_rg);
+  for (int idx = 0; idx < n; ++idx) {
+    otk::Ray r = otk::system_raygen(s_rg, Hx[idx], Hy[idx], Px[idx], Py[idx]);
+    otk::trace_system(s_ft, r);
+    const double v[8] = {r.x, r.y, r.z, r.L, r.M, r.N, r.i, r.opd};
+    for (int k = 0; k < 8; ++k)
+      if (out_mask & (1 << k)) outs[k * n + idx] = v[k];
+  }
+}
+
+extern "C" void system_caller_trace(int n, const double* ft, const double* rays,
+                                    double* outs) {
+  otk::stage_system(ft, nullptr, s_ft, nullptr);
+  for (int idx = 0; idx < n; ++idx) {
+    const double* p = rays + idx;
+    otk::Ray r = {p[0], p[n], p[2 * n], p[3 * n], p[4 * n], p[5 * n], p[6 * n], p[7 * n]};
+    otk::trace_system(s_ft, r);
+    const double v[8] = {r.x, r.y, r.z, r.L, r.M, r.N, r.i, r.opd};
+    for (int k = 0; k < 8; ++k) outs[k * n + idx] = v[k];
   }
 }
 """
@@ -557,8 +589,9 @@ def test_huygens_body_random_and_peak(host_lib, case):
 
 
 def _system_lib(out, gxx, name, defines):
-    """Popen of g++ building K1's per-system body for `defines`, written as
-    the header the card's build includes first (`_build.defines_header`)."""
+    """Popen of g++ building the per-system bodies (K1, K3, K5) for
+    `defines`, written as the header the card's build includes first
+    (`_build.defines_header`)."""
     from optiland_tpu_torch import _build
 
     src = out / f"system_{name}.cpp"
@@ -570,19 +603,25 @@ def _system_lib(out, gxx, name, defines):
         text=True)
 
 
+# the systems the per-system chain is built for here: the bench lens, the
+# absorbing Cooke triplet, and singlets with a tilt, a decenter and a clear
+# aperture, and with an odd asphere on a mirror
+_PER_SYSTEM = ("bench", "cooke", "tilt_decenter_aperture", "odd_asphere_mirror")
+
+
 @pytest.fixture(scope="module")
 def system_libs(tmp_path_factory):
-    """K1's per-system body built for the bench lens and the Cooke triplet
-    from their `fused.k1_defines`, both g++ processes at once."""
+    """The per-system bodies built for each of _PER_SYSTEM from its
+    `fused.system_defines`, all g++ processes at once."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("no g++ to build the device code for the host")
     out = tmp_path_factory.mktemp("system_host")
     (out / "cuda_runtime.h").write_text("#pragma once\n")
     procs = {}
-    for name in ("bench", "cooke"):
+    for name in _PER_SYSTEM:
         ts, _ = _SYSTEMS[name](Optic).build(device="cpu")
-        procs[name] = _system_lib(out, gxx, name, fused.k1_defines(ts))
+        procs[name] = _system_lib(out, gxx, name, fused.system_defines(ts))
     libs = {}
     for name, proc in procs.items():
         log = proc.communicate()[0]
@@ -591,23 +630,31 @@ def system_libs(tmp_path_factory):
     return libs
 
 
-@pytest.mark.parametrize("name", ["bench", "cooke"])
+def _system_inputs(ts, tp, w, seed=9):
+    """diffp, nondiffp, rg and the float table of a system at wavelength
+    w, and n (Hx, Hy, Px, Py) from `seed` as numpy and torch arrays."""
+    n_table, alpha = fused._uniform_tables(ts, tp, w)
+    diffp = fused._diff_params(tp, n_table)
+    nondiffp = fused._nondiff_params(tp, alpha)
+    rg = fused._raygen_scalars(ts, tp)
+    ftab = _np(fused._pack_tables(ts, diffp, nondiffp)[0])
+    rng = np.random.default_rng(seed)
+    data_np = [np.ascontiguousarray(a) for a in (
+        *rng.uniform(-0.5, 0.5, (2, N_RAYS)),
+        *rng.uniform(-0.9, 0.9, (2, N_RAYS)))]
+    return (diffp, nondiffp, rg, ftab, data_np,
+            tuple(torch.from_numpy(a) for a in data_np))
+
+
+@pytest.mark.parametrize("name", _PER_SYSTEM)
 def test_system_chain_matches_plain(system_libs, f64, name):
     """K1's per-system chain (csrc/system_chain.cuh), compiled with the
     system's own codes, against `_moments_plain`: the moments and each
     ray's final state."""
     ts, tp = _SYSTEMS[name](Optic).build(device="cpu")
     w = 0.5876 if name == "bench" else 0.55
-    n_table, alpha = fused._uniform_tables(ts, tp, w)
-    diffp = fused._diff_params(tp, n_table)
-    nondiffp = fused._nondiff_params(tp, alpha)
-    rg = fused._raygen_scalars(ts, tp)
-    ftab = _np(fused._pack_tables(ts, diffp, nondiffp)[0])
-    rng = np.random.default_rng(9)
+    diffp, nondiffp, rg, ftab, data_np, data = _system_inputs(ts, tp, w)
     n = N_RAYS
-    data_np = [np.ascontiguousarray(a) for a in (
-        *rng.uniform(-0.5, 0.5, (2, n)), *rng.uniform(-0.9, 0.9, (2, n)))]
-    data = tuple(torch.from_numpy(a) for a in data_np)
     out4, rays = np.zeros(4), np.zeros((8, n))
     system_libs[name].system_moments(n, _ptr(_np(rg)), _ptr(ftab),
                                      *map(_ptr, data_np), _ptr(out4),
@@ -621,20 +668,76 @@ def test_system_chain_matches_plain(system_libs, f64, name):
                                    atol=1e-12, err_msg=fused._NAMES[k])
 
 
+@pytest.mark.parametrize("name", _PER_SYSTEM)
+def test_system_raygen_trace_matches_plain(system_libs, f64, name):
+    """K3's per-system body against `_raygen_trace_plain`: the requested
+    outputs (x, y, N, opd: mask 0b10100011) agree, the others are left as
+    they were."""
+    ts, tp = _SYSTEMS[name](Optic).build(device="cpu")
+    w = 0.5876 if name == "bench" else 0.55
+    diffp, nondiffp, rg, ftab, data_np, data = _system_inputs(ts, tp, w,
+                                                              seed=13)
+    keys = (0, 1, 5, 7)
+    outs = np.full((8, N_RAYS), -7.0)
+    system_libs[name].system_raygen_trace(
+        N_RAYS, sum(1 << k for k in keys), _ptr(_np(rg)), _ptr(ftab),
+        *map(_ptr, data_np), _ptr(outs))
+    ref = fused._raygen_trace_plain(ts, diffp, nondiffp, rg, data, keys)
+    for k, r in zip(keys, ref):
+        np.testing.assert_allclose(outs[k], _np(r), rtol=1e-12, atol=1e-12,
+                                   err_msg=fused._NAMES[k])
+    assert (outs[[k for k in range(8) if k not in keys]] == -7.0).all()
+
+
+@pytest.mark.parametrize("name", ("bench_vignetted",) + _PER_SYSTEM[1:])
+def test_system_caller_trace_matches_plain(system_libs, f64, name):
+    """K5's per-system body on the eager `generate_rays` output (the
+    vignetted bench lens's, whose codes are the bench lens's: vignetting
+    acts in the raygen alone) against `_fused_trace_plain`."""
+    if name == "bench_vignetted":
+        ts, tp = bench_lens(Optic, vignetted=True).build(device="cpu")
+        assert ts.has_vignetting
+        assert fused.system_defines(ts) == fused.system_defines(
+            bench_lens(Optic).build(device="cpu")[0])
+        lib, w = system_libs["bench"], 0.5876
+    else:
+        ts, tp = _SYSTEMS[name](Optic).build(device="cpu")
+        lib, w = system_libs[name], 0.55
+    diffp, nondiffp, _, ftab, _, data = _system_inputs(ts, tp, w, seed=17)
+    rays0 = generate_rays(ts, tp, *data, w)
+    rays8 = tuple(getattr(rays0, k).expand(N_RAYS).contiguous()
+                  for k in fused._RAY_KEYS[:8])
+    rays_np = np.ascontiguousarray(np.stack([_np(r) for r in rays8]))
+    outs = np.zeros((8, N_RAYS))
+    lib.system_caller_trace(N_RAYS, _ptr(ftab), _ptr(rays_np), _ptr(outs))
+    ref = fused._fused_trace_plain(ts, diffp, nondiffp, rays8)
+    for k in range(8):
+        np.testing.assert_allclose(outs[k], _np(ref[k]), rtol=1e-12,
+                                   atol=1e-12, err_msg=fused._NAMES[k])
+
+
 def test_k1_signature():
-    """K1's variant key: the same codes give the same key, new values keep
-    it, and a changed code (a surface type, a tilt, a decenter, an
-    aperture, a mirror, the field type, the Newton count) changes it."""
+    """The per-system variants' key: the same codes give the same key, new
+    values keep it, and a changed code (a surface type, a tilt, a decenter,
+    an aperture, a mirror, the field type, the Newton count) changes it;
+    K1, K3 and K5 of one system are three libraries, each built per system
+    and none among the sources built once."""
     from optiland_tpu_torch import _build
 
     def key(lens):
-        return _build.variant_name("moments_fwd", fused.k1_defines(
+        return _build.variant_name("moments_fwd", fused.system_defines(
             lens.build(device="cpu")[0]))
 
     base = key(bench_lens(Optic))
     assert key(bench_lens(Optic)) == base
     ts, tp = bench_lens(Optic).build(device="cpu")
-    assert fused.k1_defines(replace(ts)) == fused.k1_defines(ts)
+    assert fused.system_defines(replace(ts)) == fused.system_defines(ts)
+    per_system = ("moments_fwd", "raygen_trace_fwd", "fused_trace_fwd")
+    assert set(_build.PER_SYSTEM) == set(per_system)
+    assert not set(_build.SOURCES) & set(per_system)
+    names = {_build.variant_name(src, fused.system_defines(ts))
+             for src in per_system}
+    assert len(names) == 3 and base in names
     # other values, the same codes: a wider field, another object distance
     assert key(singlet_lens(Optic, max_field=8.0)) == key(singlet_lens(Optic))
     assert key(singlet_lens(Optic, object_distance=150.0)) == key(
@@ -649,8 +752,8 @@ def test_k1_signature():
     keys = [key(v) for v in variants]
     assert len(set(keys)) == len(keys)
     assert base not in keys
-    assert (fused.k1_defines(replace(ts, newton_iters=1))
-            != fused.k1_defines(ts))
+    assert (fused.system_defines(replace(ts, newton_iters=1))
+            != fused.system_defines(ts))
 
 
 @pytest.mark.parametrize("width", [4, 8, 16, 32])
@@ -679,3 +782,18 @@ def test_backward_grid(n, n_sm, grid):
     assert (blocks, threads) == grid
     assert blocks <= n_sm and threads % 32 == 0
     assert -(-n // threads) <= blocks or blocks == n_sm
+
+
+@pytest.mark.parametrize("n, n_sm, per_sm, blocks", [
+    (0, 132, 2, 1), (1, 132, 2, 1), (65_536, 132, 2, 256),
+    (2_000_000, 132, 2, 264), (2_000_000, 132, 3, 396),
+    (2_000_000, 132, 6, 7813), (2_000_000, 8, 4, 7813),
+    (257, 132, 6, 2)])
+def test_system_grid(n, n_sm, per_sm, blocks):
+    """K1, K3 and K5's launch geometry: a block a tile of 256 rays where an
+    SM holds 4 or more blocks at once, else a persistent grid of at most
+    n_sm * per_sm blocks; the blocks' tiles cover every ray."""
+    got = fused.system_grid(n, n_sm, per_sm)
+    assert got == blocks
+    assert got >= 1 and (got * fused._SYSTEM_THREADS >= n
+                         or got == n_sm * per_sm)

@@ -1,8 +1,11 @@
 """The port's CUDA kernels on the card (no JAX needed): K1-K7 against
 their plain PyTorch versions in float32 (K1-K6 also on the absorbing Cooke
-triplet, K1 on every system built here, each its own variant; K7 at
-per-ray wavelengths; K1, K2, K4 and K6 also at ragged ray counts around
-their 32-ray groups and at 2M + 17 rays), K8 (the Huygens sum) against the
+triplet, K1, K3 and K5 on every system built here, each its own variant,
+all built at once by the module's `system_variants`; K7 at per-ray
+wavelengths; K1, K2, K4 and K6 also at ragged ray counts around their
+32-ray groups and at 2M + 17 rays, K3 and K5 around their 256-ray tiles;
+K3 leaving an unrequested output untouched; the per-system launchers
+refusing another system's S), K8 (the Huygens sum) against the
 float64 plain version, also at ragged block edges, T1's peak-rate chains
 against theirs, the bitwise reproducibility of the backward kernels'
 parameter cotangents, of K1 and of K8, the dispatch of the public entry
@@ -23,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+from optiland_tpu_torch import _build as kbuild
 from optiland_tpu_torch import config
 from optiland_tpu_torch.models import CookeTriplet
 from optiland_tpu_torch.mtf import HuygensMTF
@@ -59,10 +63,24 @@ _SYSTEMS = {
 }
 
 
-@pytest.fixture
-def cuda_f32():
+_PER_SYSTEM = ("moments_fwd", "raygen_trace_fwd", "fused_trace_fwd")
+
+
+@pytest.fixture(scope="module")
+def system_variants():
+    """Every per-system variant (K1, K3, K5) of the systems built here, and
+    the sources built once, compiled in one parallel nvcc round."""
     if not torch.cuda.is_available() or shutil.which("nvcc") is None:
         pytest.skip("no CUDA device / nvcc")
+    variants = tuple((src, fused.system_defines(_build(name, "cpu")[0]))
+                     for name in list(_SYSTEMS) + ["bench", "cooke"]
+                     for src in _PER_SYSTEM)
+    kbuild.build_all(variants)
+    return variants
+
+
+@pytest.fixture
+def cuda_f32(system_variants):
     prev = config.get_dtype()
     config.set_precision("float32")
     yield torch.device("cuda")
@@ -248,6 +266,75 @@ def test_backward_kernels_ragged(cuda_f32, n):
             assert g.shape == (n,)
             assert _rel(g, r, keep) <= RAY_GRAD_RTOL, key
         del got, again, ref
+
+
+@pytest.mark.parametrize("n", [0, 1, 255, 257, 65_537])
+def test_system_kernels_ragged(cuda_f32, n):
+    """K3 on the bench lens and K5 on its vignetted twin's eager rays at
+    counts around the 256-ray tiles (none, one, a part-filled tile, a tile
+    and one more, 256 tiles and one more ray) against their plain
+    versions; one launch each where there are rays."""
+    ts, tp, w = _build("bench", cuda_f32)
+    data = _data(n, cuda_f32, seed=n + 1)
+    diffp, nondiffp, rg = _args(ts, tp, w)
+    launches = fused.raygen_trace_forward.launches
+    outs = fused.raygen_trace_forward(ts, diffp, nondiffp, rg, data,
+                                      tuple(range(8)))
+    refs = fused._raygen_trace_plain(ts, diffp, nondiffp, rg, data,
+                                     tuple(range(8)))
+    assert fused.raygen_trace_forward.launches == launches + (n > 0)
+    tv, pv = bench_lens(Optic, vignetted=True).build(device=cuda_f32)
+    r0 = generate_rays(tv, pv, *data, w)
+    rays8 = tuple(getattr(r0, k).detach().expand(n).contiguous()
+                  for k in fused._RAY_KEYS[:8])
+    pv = _args(tv, pv, w)[:2]
+    launches = fused.fused_trace_forward.launches
+    outs_v = fused.fused_trace_forward(tv, *pv, rays8)
+    refs_v = fused._fused_trace_plain(tv, *pv, rays8)
+    assert fused.fused_trace_forward.launches == launches + (n > 0)
+    for got, ref in ((outs, refs), (outs_v, refs_v)):
+        assert all(g.shape == (n,) for g in got)
+        if not n:
+            continue
+        same = _lit_alike(got[6], ref[6])
+        assert same.float().mean().item() >= 1 - 1e-3
+        for k, tol in enumerate(_TOLS):
+            err = (got[k] - ref[k])[same].abs().max().item()
+            assert err <= tol, (fused._NAMES[k], err)
+
+
+def test_system_kernels_refuse_other_systems(cuda_f32):
+    """A per-system launcher refuses S other than its build's, and an empty
+    grid, with cudaErrorInvalidValue (1) before any launch; K3 writes no
+    output whose bit is clear, even where its pointer is given."""
+    ts, tp, w = _build("bench", cuda_f32)
+    data = _data(1000, cuda_f32)
+    diffp, nondiffp, rg = _args(ts, tp, w)
+    rays8 = tuple(r.contiguous() for r in fused._tile_raygen(
+        ts, rg, *data)[:6]) + (torch.ones_like(data[0]),
+                               torch.zeros_like(data[0]))
+    stream = torch.cuda.current_stream().cuda_stream
+    launches = (fused.k1_launch(ts, diffp, nondiffp, rg, data)[:2],
+                fused.k3_launch(ts, diffp, nondiffp, rg, data, (0,))[:2],
+                fused.k5_launch(ts, diffp, nondiffp, rays8)[:2])
+    for fn, args in launches:
+        S = args[1]
+        assert fn(*args[:1], S + 1, *args[2:], stream) == 1
+        assert fn(*args[:1], S - 1, *args[2:], stream) == 1
+        assert fn(*args[:2], 0, *args[3:], stream) == 1
+    # args: n, S, blocks, out_mask, rg, ftab, Hx, Hy, Px, Py, 8 outputs
+    fn, args, (x, i), _keep = fused.k3_launch(ts, diffp, nondiffp, rg, data,
+                                              (0, 6))
+    assert args[3] == 0b1000001 and args[10 + 1] is None
+    sentinel = torch.full((1000,), -7.0, device=cuda_f32)
+    args[10 + 1] = sentinel.data_ptr()   # y's pointer; its bit is clear
+    assert fn(*args, stream) == 0
+    torch.cuda.synchronize()
+    assert (sentinel == -7.0).all()
+    ref = fused._raygen_trace_plain(ts, diffp, nondiffp, rg, data, (0, 6))
+    same = _lit_alike(i, ref[1])
+    assert same.float().mean().item() >= 1 - 1e-3
+    assert (x - ref[0])[same].abs().max().item() <= POS_TOL
 
 
 def _ulps(got, ref):

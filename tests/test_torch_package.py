@@ -47,7 +47,8 @@ def test_import_leaves_jax_unloaded():
             "optiland_tpu_torch.optimization.merits, optiland_tpu_torch.psf, "
             "optiland_tpu_torch.mtf, optiland_tpu_torch.wavefront, "
             "optiland_tpu_torch.tools.vpu_peak, "
-            "optiland_tpu_torch.tools.kernel_turns\n"
+            "optiland_tpu_torch.tools.kernel_turns, "
+            "optiland_tpu_torch.tools.system_probes\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'optax', 'optiland_tpu')]\n"
             "assert not bad, bad\n")
@@ -83,5 +84,9 @@ def test_build_defaults_to_cuda(monkeypatch):
 
     with pytest.raises(RuntimeError, match="card"):
         kernel_turns.main(["--parent", "."])
+    from optiland_tpu_torch.tools import system_probes
+
+    with pytest.raises(RuntimeError, match="card"):
+        system_probes.main(["--parent", "."])
     static, params = lens.build(device="cpu")
     assert params.cv.device.type == "cpu"

@@ -15,9 +15,11 @@ from optiland_tpu_torch.system.optic import Optic as TOptic
 from optiland_tpu_torch.system.spec import params_from_numpy, static_from_dict
 
 
-def bench_lens(Optic):
+def bench_lens(Optic, vignetted=False):
     """The 10-surface, 4-even-asphere prescription the benchmark traces
-    (a copy: the benchmark module sets the JAX precision globally)."""
+    (a copy: the benchmark module sets the JAX precision globally);
+    `vignetted` gives the 14 degree field vignetting factors vx = vy = 0.1,
+    as chip_smoke.py's vignetted bench lens."""
     lens = Optic("Bench10")
     inf = math.inf
     asph = (1e-7, -2e-11, 3e-15)
@@ -41,7 +43,10 @@ def bench_lens(Optic):
     lens.set_aperture(aperture_type="imageFNO", value=5)
     lens.set_field_type("angle")
     lens.add_field(y=0)
-    lens.add_field(y=14)
+    if vignetted:
+        lens.add_field(y=14, vx=0.1, vy=0.1)
+    else:
+        lens.add_field(y=14)
     lens.add_wavelength(value=0.5876, is_primary=True)
     return lens
 
