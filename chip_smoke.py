@@ -9,9 +9,9 @@ PyTorch built for CUDA. In order it:
      CUDA versions;
   2. builds the CUDA kernels of optiland_tpu_torch/csrc with nvcc, with
      the per-system variants of K1 and K3 for the bench lens and the Cooke
-     triplet and of K5 for the vignetted bench lens (one process per source
-     and per variant, all at once), and prints the seconds of each and
-     nvcc's register report;
+     triplet, of K5 for the vignetted bench lens and of K7 for the Cooke
+     triplet (one process per source and per variant, all at once), and
+     prints the seconds of each and nvcc's register report;
   2b. (t) T1, the peak-rate chains of tools/vpu_peak.py: each of its three
      kernels against its plain version on T1's input, then the port's tool
      (`vpu_peak.run`, as `python -m optiland_tpu_torch.tools.vpu_peak`
@@ -72,8 +72,9 @@ PyTorch built for CUDA. In order it:
      `SampledMTF` and `ZernikeOPD` at their defaults, float32 (K7 under
      `wavefront_data`) against float64;
  22. (g) times each kernel and its plain version with CUDA events (warm-up,
-     then the median of 25 calls), K1 and K3 also on the Cooke triplet, K8 also
-     at the peak sum, the random inputs of tools/bench_wave_optics.py and
+     then the median of 25 calls), K1 and K3 also on the Cooke triplet, K7
+     also on the 16,384-ray bundle of `wavefront_data`, K8 also at the peak
+     sum, the random inputs of tools/bench_wave_optics.py and
      256 x 256 (with the phase range each reduces), the training steps, the
      flagship forward and the Huygens PSF end to end, and prints one JSON
      line of kernels;
@@ -387,19 +388,19 @@ FORMULA_OPS = {
 }
 
 
-def history_ops_per_ray(static, fused, K):
+def history_ops_per_ray(static, fused):
     """FP32 operations per ray of K7's function: the chain on loaded rays
     (`chain_ops_per_ray` without the raygen), the per-ray index of every
-    medium a refraction reads, and per absorbing medium the K-point
-    extinction interpolation as `_kv_interp` writes it (9 operations per
-    segment, 3 for the edges), alpha = 4 pi k / w and the exp factor."""
+    medium a refraction reads, and per absorbing medium the linear
+    interpolation of its extinction table on the one segment that holds
+    the ray's wavelength (5 operations; the search is compares and loads),
+    alpha = 4 pi k / w (2) and the exp factor (4)."""
     ops = chain_ops_per_ray(static, fused) - 32
     media = [0] + [k for k in range(1, static.num_surfaces)
                    if static.interactions[k] == 0]
     ops += sum(FORMULA_OPS[static.mat_formulas[k]](static.mat_n_coeffs[k])
                for k in media)
-    ops += sum(3 + 9 * (K - 1) + 2 + 4
-               for k in range(static.num_surfaces - 1)
+    ops += sum(5 + 2 + 4 for k in range(static.num_surfaces - 1)
                if static.has_absorption[k])
     return ops
 
@@ -637,27 +638,32 @@ def main():
           f"python {sys.version.split()[0]}")
 
     # 2. build the kernels from the sources in the checkout, with the
-    # per-system variants of K1, K3 and K5 for the systems this run drives
-    # them on (their codes do not depend on the device or the precision)
-    codes = {label: fused.system_defines(lens.build(device="cpu")[0])
-             for label, lens in (("bench lens", bench_lens(Optic)),
-                                 ("Cooke triplet", CookeTriplet()),
-                                 ("vignetted bench lens",
-                                  bench_lens(Optic, vignetted=True)))}
+    # per-system variants of K1, K3, K5 and K7 for the systems this run
+    # drives them on (their codes do not depend on the device or the
+    # precision; every K7 launch of this run is on the Cooke triplet)
+    statics = {label: lens.build(device="cpu")[0]
+               for label, lens in (("bench lens", bench_lens(Optic)),
+                                   ("Cooke triplet", CookeTriplet()),
+                                   ("vignetted bench lens",
+                                    bench_lens(Optic, vignetted=True)))}
     variants = (("K1", "moments_fwd", "bench lens"),
                 ("K1", "moments_fwd", "Cooke triplet"),
                 ("K3", "raygen_trace_fwd", "bench lens"),
                 ("K3", "raygen_trace_fwd", "Cooke triplet"),
-                ("K5", "fused_trace_fwd", "vignetted bench lens"))
+                ("K5", "fused_trace_fwd", "vignetted bench lens"),
+                ("K7", "history_fwd", "Cooke triplet"))
+    codes = {(src, label): (fused.history_defines if src == "history_fwd"
+                            else fused.system_defines)(statics[label])
+             for _, src, label in variants}
     t0 = time.perf_counter()
-    built = _build.build_all(tuple((src, codes[label])
+    built = _build.build_all(tuple((src, codes[src, label])
                                    for _, src, label in variants))
     print(f"build: {time.perf_counter() - t0:.1f} s wall "
           + ", ".join(f"{k} {v[1]:.1f} s" for k, v in built.items()))
     for key, src, label in variants:
-        name = _build.variant_name(src, codes[label])
+        name = _build.variant_name(src, codes[src, label])
         print(f"{key} variant for the {label}: {name}, built in "
-              f"{built[name][1]:.1f} s, {dict(codes[label])}")
+              f"{built[name][1]:.1f} s, {dict(codes[src, label])}")
     for name in built:
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
@@ -1449,10 +1455,7 @@ def main():
     k4_s8, k4_sp = fused._seed_ptrs([dict(zip(k4_keys, k4_seeds)).get(k)
                                      for k in range(8)], n, dev)
     k6_s8, k6_sp = fused._seed_ptrs(k6_seeds, nv, dev)
-    ftab7, itab7 = fused._pack_tables(static_c, *p7)
-    mat7 = p7[0][6].contiguous()
-    kwl7, kval7 = p7[1][1].contiguous(), p7[1][2].contiguous()
-    hist7 = [torch.empty((S_c, n_c), device=dev) for _ in range(8)]
+    k7_fn, k7_args, k7_outs, k7_keep = fused.k7_launch(static_c, *p7, rays9)
 
     def k8_launch_args(args):
         """Chunk, k, pointers (Rp, 3 image, 5 pupil arrays) and the partial
@@ -1476,7 +1479,7 @@ def main():
         check(err == 0, f"{name} launch: cudaError {err}")
 
     def launch_variant(fn, args):
-        """A bare launch of a per-system variant (K1, K3, K5)."""
+        """A bare launch of a per-system variant (K1, K3, K5, K7)."""
         err = fn(*args, stream)
         check(err == 0, f"{fn.__name__} launch: cudaError {err}")
 
@@ -1497,13 +1500,7 @@ def main():
         "K6": lambda: launch("fused_trace_bwd", *head_v, *grid["K6"],
                              *ptrs_v, *k6_sp, partials_bwd.data_ptr(),
                              *(o.data_ptr() for o in outs)),
-        "K7": lambda: launch(
-            "history_fwd", n_c, S_c,
-            min(static_c.newton_iters, fused._NEWTON_FUSED_MAX),
-            mat7.shape[1], kwl7.shape[1], ftab7.data_ptr(),
-            itab7.data_ptr(), mat7.data_ptr(), kwl7.data_ptr(),
-            kval7.data_ptr(), *(r.data_ptr() for r in rays9),
-            *(h.data_ptr() for h in hist7)),
+        "K7": lambda: launch_variant(k7_fn, k7_args),
         "K8": lambda: launch_k8(n_img, n_pup, k8_chunk, *k8_k, *k8_ptrs,
                                 k8_partial.data_ptr()),
     }
@@ -1524,7 +1521,7 @@ def main():
     bwd_ops = backward_ops_per_ray(static, fused)
     caller_fwd_ops = chain_ops_per_ray(static_v, fused) - 32
     caller_bwd_ops = backward_ops_per_ray(static_v, fused, raygen=False)
-    hist_ops = history_ops_per_ray(static_c, fused, kwl7.shape[1])
+    hist_ops = history_ops_per_ray(static_c, fused)
     bounds = {   # (bytes, operations) of each function at these inputs
         "K1": (4 * 4 * n, (fwd_ops + 10) * n),
         "K2": (4 * 4 * n, (bwd_ops + 8) * n),
@@ -1633,6 +1630,15 @@ def main():
 
     # the flagship forward and training step, and the step's split
     fwd_c_ms = host_ms(lambda: tracer.trace_system(static_c, params_c, *fb))
+    # its split: the eager ray generation, then the history (K7's wrapper:
+    # tables, output allocation, the launch) on those rays
+    r0_c = generate_rays(static_c, params_c, *fb)
+    fwd_split = {
+        "generate_rays": host_ms(lambda: generate_rays(static_c, params_c,
+                                                       *fb)),
+        "trace_history_fused (K7)": host_ms(
+            lambda: fused.trace_history_fused(static_c, params_c, r0_c))}
+    del r0_c
     step_c_ms = host_ms(flagship_step)
     split = {"generate_rays": [], "K7 forward + merit": [],
              "backward (eager twin)": [], "Adam": []}
@@ -1661,7 +1667,8 @@ def main():
     flagship_step()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"flagship (Cooke triplet, {n_c} rays, float32) host clock, "
-          f"median of {TIMED_STEPS}: trace_system {fwd_c_ms:.4f} ms; "
+          f"median of {TIMED_STEPS}: trace_system {fwd_c_ms:.4f} ms, split "
+          f"(ms) {json.dumps(fwd_split)}; "
           f"training step (merit, backward, Adam over {len(leaves_a)} "
           f"leaves) {step_c_ms:.4f} ms, {n_c / step_c_ms * 1e3:.6g} rays/s; "
           f"step split (ms) {json.dumps(split)}; step peak device memory "
@@ -1707,13 +1714,32 @@ def main():
                                                            k3c_args)),
         "K5 vignetted bench lens": time_ms(lambda: launch_variant(k5_fn,
                                                                   k5_args))}
+    # K7 on the bundle of `wavefront_data` (field (0, 1), 0.55 um, the 128 x
+    # 128 pupil grid of the Huygens PSF's defaults: 16,384 rays)
+    px_b, py_b, _ = pupil_grid_coords(128, torch.float32, dev)
+    r0_b = generate_rays(static_c, params_c, torch.zeros_like(px_b),
+                         torch.ones_like(px_b), px_b, py_b, 0.55,
+                         apply_vignetting=False)
+    rays9_b = tuple(getattr(r0_b, k).detach().contiguous()
+                    for k in fused._RAY_KEYS)
+    k7b_fn, k7b_args, _, k7b_keep = fused.k7_launch(static_c, *p7, rays9_b)
+    n_b = px_b.numel()
+    sys_ms["K7 Cooke triplet, flagship"] = time_ms(
+        lambda: launch_variant(k7_fn, k7_args))
+    sys_ms["K7 Cooke triplet, 16,384-ray wavefront bundle"] = time_ms(
+        lambda: launch_variant(k7b_fn, k7b_args))
     cooke_bounds = {"K1": bound_ms(4 * 4 * n_c, (cooke_ops + 10) * n_c),
-                    "K3": bound_ms((4 + 8) * 4 * n_c, cooke_ops * n_c)}
+                    "K3": bound_ms((4 + 8) * 4 * n_c, cooke_ops * n_c),
+                    "K7": bound_ms(*bounds["K7"]),
+                    "K7 16,384": bound_ms((9 + 8 * S_c) * 4 * n_b,
+                                          hist_ops * n_b)}
     print(f"per-system variants, median of {TIMED_CALLS} bare launches (ms): "
           f"{json.dumps(sys_ms)}; grids (blocks) K1 bench {k1_args[2]}, "
           f"Cooke {k1c_args[2]}, K3 bench {k3_args[2]}, Cooke {k3c_args[2]}, "
-          f"K5 {k5_args[2]}; Cooke bounds at {n_c} rays "
+          f"K5 {k5_args[2]}, K7 Cooke {k7_args[2]}, bundle {k7b_args[2]}; "
+          f"Cooke bounds at {n_c} rays (K7 also at {n_b}) "
           f"{json.dumps(cooke_bounds)}")
+    del r0_b, rays9_b, k7b_keep
 
     # the Huygens PSF call at its defaults on the host clock, and its split
     psf_ms = host_ms(lambda: ScalarHuygensPSF(lens32, (0.0, 1.0)))

@@ -11,9 +11,9 @@ root, keyed by a hash of every source in `csrc/`, so an edited source is
 rebuilt and an unchanged one is reused. All sources are compiled in
 parallel, one nvcc process each. A failed build raises; nothing falls back.
 
-A per-system source (K1 `moments_fwd.cu`, K3 `raygen_trace_fwd.cu` and K5
-`fused_trace_fwd.cu`, with their own flags in PER_SYSTEM) is not built on
-its own: it takes a system's static codes as
+A per-system source (K1 `moments_fwd.cu`, K3 `raygen_trace_fwd.cu`, K5
+`fused_trace_fwd.cu` and K7 `history_fwd.cu`, with their own flags in
+PER_SYSTEM) is not built on its own: it takes a system's static codes as
 macro definitions (a header of them, `<variant>.h`, that nvcc includes
 first), and each set of definitions is a variant
 `lib<name>-<signature>.so` in the same directory, built at first use
@@ -36,14 +36,18 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[1] / "build" / "optiland_tpu_torch"
 SOURCES = ("moments_bwd", "raygen_trace_bwd", "fused_trace_bwd",
-           "history_fwd", "huygens_sum", "vpu_peak")
+           "huygens_sum", "vpu_peak")
 # sources built once per system, from its codes (`variant`), and their own
 # nvcc flags: K1, K3 and K5 take approximate division and square root,
 # which held every one of K1's checks and cut it by a third on an H100
-# (PERF.md); not -use_fast_math, whose `__tanf` moved the raygen's field
+# (PERF.md); not -use_fast_math, whose `__tanf` moved the raygen's field.
+# K7, bound by its stores, keeps IEEE arithmetic: approximate division and
+# square root gained it 3% at 2M rays and changed 42% of its history's
+# floats, where IEEE leaves 99% of them as the run-time chain wrote them
+# (PERF.md, PR 8)
 _APPROX = ("-prec-div=false", "-prec-sqrt=false")
 PER_SYSTEM = {"moments_fwd": _APPROX, "raygen_trace_fwd": _APPROX,
-              "fused_trace_fwd": _APPROX}
+              "fused_trace_fwd": _APPROX, "history_fwd": ()}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

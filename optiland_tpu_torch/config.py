@@ -62,3 +62,8 @@ def resolve_device(device=None) -> torch.device:
 def sm_count(device: torch.device) -> int:
     """The number of SMs of the CUDA card `device`, read once."""
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def l2_bytes(device: torch.device) -> int:
+    """The L2 cache of the CUDA card `device`, in bytes."""
+    return torch.cuda.get_device_properties(device).L2_cache_size

@@ -6,27 +6,28 @@
 // port: plane / conic / even / odd asphere geometries, refract / reflect /
 // none interactions, radial apertures, tilt and decenter, Beer-Lambert
 // absorption; at one wavelength from the hoisted index and absorption
-// tables (K1-K6), or at each ray's own wavelength (`Dispersion`, K7:
-// `material_index` for every formula code of materials/dispersion.py and
-// `kv_interp` of the extinction tables). The Python wrappers
-// (trace/fused.py, `_check_kernel_branches`) refuse every other branch
-// before a launch. chain_bwd.cuh holds the reverse sweep built from the
-// same pieces.
+// tables (`TableMedia`, K1-K6), or at each ray's own wavelength (K7,
+// system_chain.cuh `RayMedia`: `material_index` for every formula code of
+// materials/dispersion.py and `kv_segment` of the extinction tables). The
+// Python wrappers (trace/fused.py, `_check_kernel_branches`) refuse every
+// other branch before a launch. chain_bwd.cuh holds the reverse sweep
+// built from the same pieces.
 //
 // The JAX kernel unrolls the chain on static per-surface codes. Here one
 // surface's step (`surface_step`) is written once, and two chains call it:
 // `trace_chain` loops over the surfaces at run time and switches on the
-// codes held in the int table (K2, K4, K6 and K7, both tables staged in
-// shared memory once per block), and system_chain.cuh unrolls it over
-// codes that are compile-time constants of one system (K1, K3 and K5), so
-// that its branches fold.
+// codes held in the int table (the re-trace of K2, K4 and K6, both tables
+// staged in shared memory once per block), and system_chain.cuh unrolls
+// it over codes that are compile-time constants of one system (K1, K3, K5
+// and K7), so that its branches fold.
 //
 // Numerics kept from the JAX kernel: the closed-form conic seed with the
 // same 1e-12 safe-divides and root choice, min(newton_iters, 2) + 1 Newton
 // updates for aspheres (none for pure conics), opd += |t n|, i *= valid,
 // aperture x^2 + y^2 <= r^2, normal orientation by sign(l.n), TIR
 // passthrough, i *= exp(-alpha t 1e3) in an absorbing medium. IEEE sqrtf /
-// tanf / powf / expf and no fast-math.
+// tanf / powf / expf and no fast-math (the per-system builds take
+// approximate division and square root, _build.py PER_SYSTEM).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -54,9 +55,7 @@ constexpr int I_INTER = 2;
 constexpr int I_TILT = 3;
 constexpr int I_DEC = 4;
 constexpr int I_AP = 5;
-constexpr int I_FORM = 6;  // dispersion formula of the medium after the surface
-constexpr int I_NMAT = 7;  // its number of coefficients
-constexpr int I_ABS = 8;   // 1 where that medium absorbs
+constexpr int I_ABS = 6;   // 1 where the medium after the surface absorbs
 constexpr int I_STRIDE = 16;
 
 constexpr int GEOM_PLANE = 0;
@@ -104,20 +103,6 @@ struct Surface {
   bool tilted, decentered, aperture, absorbs;
   float cv, kk, tx, ty, rx, ry, rz, ap, n, alpha;
   const float* co;
-};
-
-// Per-ray dispersion (K7): the system's materials at the ray's own
-// wavelength w. mat: the (S, mat_w) coefficient rows in global memory (a
-// tabulated glass's row is as wide as its table, up to tens of thousands of
-// floats); s_mat: their first MAT_SHARED columns, staged in shared memory;
-// kwl, kval: the (S, K) extinction tables, padded with their last point.
-struct Dispersion {
-  const float* mat;
-  const float* s_mat;
-  const float* kwl;
-  const float* kval;
-  int mat_w, K;
-  float w;
 };
 
 __device__ __forceinline__ float sign_of(float v) {
@@ -284,16 +269,79 @@ __device__ __forceinline__ float material_index(int formula, int nc, const float
   }
 }
 
-// The index of the medium after surface k at the ray's wavelength.
-__device__ __forceinline__ float index_at(const Dispersion& d, const int* it, int k) {
-  const int* c = it + k * I_STRIDE;
-  return material_index(c[I_FORM], c[I_NMAT], d.s_mat + k * MAT_SHARED,
-                        d.mat + (size_t)k * d.mat_w, d.w);
+// `material_index` of formula F with NC coefficients, both compile-time
+// constants of a per-system build (K7): the loops unroll and the switch
+// folds; the same arithmetic in the same order.
+template <int F, int NC>
+__device__ __forceinline__ float material_index(const float* c, const float* row, float w) {
+  if constexpr (F == 0) {  // ideal
+    return c[0];
+  } else if constexpr (F == 1 || F == 2) {  // Sellmeier
+    const float w2 = w * w;
+    float n2 = 1.f + c[0];
+#pragma unroll
+    for (int k = 1; k < NC - 1; k += 2) {
+      const float d = F == 1 ? c[k + 1] * c[k + 1] : c[k + 1];
+      n2 = n2 + c[k] * w2 / (w2 - d);
+    }
+    return sqrtf(n2);
+  } else if constexpr (F == 3) {  // polynomial
+    float n2 = c[0];
+#pragma unroll
+    for (int k = 1; k < NC - 1; k += 2) n2 = n2 + c[k] * powf(w, c[k + 1]);
+    return sqrtf(n2);
+  } else if constexpr (F == 4) {  // refractiveindex.info formula 4
+    const float w2 = w * w;
+    float n2 = c[0];
+    if constexpr (NC > 4) n2 = n2 + c[1] * powf(w, c[2]) / (w2 - powf(c[3], c[4]));
+    if constexpr (NC > 8) n2 = n2 + c[5] * powf(w, c[6]) / (w2 - powf(c[7], c[8]));
+#pragma unroll
+    for (int k = 9; k < NC - 1; k += 2) n2 = n2 + c[k] * powf(w, c[k + 1]);
+    return sqrtf(n2);
+  } else if constexpr (F == 5) {  // Cauchy
+    float n = c[0];
+#pragma unroll
+    for (int k = 1; k < NC - 1; k += 2) n = n + c[k] * powf(w, c[k + 1]);
+    return n;
+  } else if constexpr (F == 6) {  // gases
+    const float inv_w2 = 1.f / (w * w);
+    float n = 1.f + c[0];
+#pragma unroll
+    for (int k = 1; k < NC - 1; k += 2) n = n + c[k] / (c[k + 1] - inv_w2);
+    return n;
+  } else if constexpr (F == 7) {  // Herzberger
+    const float w2 = w * w;
+    const float g = 1.f / (w2 - static_cast<float>(0.028));
+    float n = c[0] + c[1] * g + c[2] * g * g;
+    float p = 1.f;
+#pragma unroll
+    for (int k = 3; k < NC; ++k) {
+      p = p * w2;
+      n = n + c[k] * p;
+    }
+    return n;
+  } else if constexpr (F == 8) {  // retro
+    const float w2 = w * w;
+    const float rhs = c[0] + c[1] * w2 / (w2 - c[2]) + c[3] * w2;
+    return sqrtf((2.f * rhs + 1.f) / (1.f - rhs));
+  } else if constexpr (F == 9) {  // exotic
+    const float w2 = w * w;
+    const float d = w - c[4];
+    return sqrtf(c[0] + c[1] / (w2 - c[2]) + c[3] * d / (d * d + c[5]));
+  } else if constexpr (F == FORMULA_TABULATED) {  // the whole row, in global memory
+    return interp(w, row, row + NC / 2, NC / 2);
+  } else {  // 11: polyval, highest power first
+    float n = c[0];
+#pragma unroll
+    for (int k = 1; k < NC; ++k) n = n * w + c[k];
+    return n;
+  }
 }
 
 // Unrolled linear interpolation of a (K,)-point extinction table with
 // float masks: the JAX `_kv_interp` as written (edge-clamped, a guarded
-// divide on the zero-width segments of a padded table).
+// divide on the zero-width segments of a padded table). `kv_segment`
+// computes the same float; this form is its oracle (tests).
 __device__ __forceinline__ float kv_interp(float w, const float* kwl, const float* kval,
                                            int K) {
   const float lo = (w <= kwl[0]) ? 1.f : 0.f;
@@ -308,6 +356,30 @@ __device__ __forceinline__ float kv_interp(float w, const float* kwl, const floa
     kv = kv + inseg * val;
   }
   return kv;
+}
+
+// `kv_interp` by its one segment (K7): the edge values outside the table
+// (and for a NaN w), else the segment w0 < w <= w1, found by a binary
+// search for the first point >= w, and its `val` by the same arithmetic.
+// Of kv_interp's masked sum every other term is 0 * val or 0 * kval, an
+// exact 0 for a finite table, so the two give the same float; no
+// zero-width segment of a padded table can hold w0 < w <= w1.
+__device__ __forceinline__ float kv_segment(float w, const float* kwl, const float* kval,
+                                            int K) {
+  if (!(w > kwl[0])) return kval[0];
+  if (w > kwl[K - 1]) return kval[K - 1];
+  int lo = 1, hi = K - 1;  // the first j >= 1 with kwl[j] >= w
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (kwl[mid] < w)
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  const float w0 = kwl[lo - 1], w1 = kwl[lo];
+  const float dw = (fabsf(w1 - w0) > EPS) ? w1 - w0 : 1.f;
+  const float frac = (w - w0) / dw;
+  return kval[lo - 1] + frac * (kval[lo] - kval[lo - 1]);
 }
 
 // Ray generation from rg = (epl, epd, fmax, a, b): `_tile_raygen`.
@@ -528,20 +600,32 @@ struct NoSink {
   __device__ __forceinline__ void operator()(int, const Ray&) const {}
 };
 
+// The indices and absorption of the media at the tables' one wavelength
+// (K1-K6): the Beer-Lambert alpha of the medium before a surface and the
+// index after it, as make_surface read them. system_chain.cuh `RayMedia`
+// gives them at each ray's own wavelength (K7). `at<k>()` is the view of
+// surface k that the per-system chain passes to surface_step.
+struct TableMedia {
+  __device__ __forceinline__ float alpha_before(const Surface& s) const { return s.alpha; }
+  __device__ __forceinline__ float index_after(const Surface& s) const { return s.n; }
+  template <int k>
+  __device__ __forceinline__ const TableMedia& at() const {
+    return *this;
+  }
+};
+
 // Surface k >= 1 of the chain on the running state r: into the surface's
 // frame at vertex z pos_k, the hit, the step, opd += |t n_pre|, validity,
 // Beer-Lambert absorption through the medium before it, the aperture, the
 // interaction (n_pre becomes the index after it), back to the global
 // frame. With `rec_k`, it gets the surface's entry state and t (the
-// re-trace of the backward kernels, chain_bwd.cuh). Without `disp` the
-// indices and absorption come from the tables' one wavelength; with it,
-// from the ray's own (and `it` names the media). `sink(k, ray)` sees the
-// state after the surface.
-template <class Sink = NoSink>
+// re-trace of the backward kernels, chain_bwd.cuh). `media` gives the
+// absorption and the index (`TableMedia` or a per-ray view); `sink(k,
+// ray)` sees the state after the surface.
+template <class Media = TableMedia, class Sink = NoSink>
 __device__ __forceinline__ void surface_step(Surface s, int k, int n_newton, float pos_k,
                                              Ray& r, float& n_pre, float* rec_k = nullptr,
-                                             const Dispersion* disp = nullptr,
-                                             const int* it = nullptr,
+                                             const Media& media = Media(),
                                              const Sink& sink = Sink()) {
   float x = r.x, y = r.y, z = r.z, L = r.L, M = r.M, N = r.N, i = r.i, opd = r.opd;
   if (rec_k) {
@@ -559,43 +643,32 @@ __device__ __forceinline__ void surface_step(Surface s, int k, int n_newton, flo
   z = z + t * N;
   opd = opd + fabsf(t * n_pre);
   i = i * validf;
-  if (s.absorbs) {
-    // Beer-Lambert through the medium before this surface
-    float alpha = s.alpha;
-    if (disp) {
-      const size_t row = (size_t)(k - 1) * disp->K;
-      alpha = FOUR_PI * kv_interp(disp->w, disp->kwl + row, disp->kval + row, disp->K) /
-              disp->w;
-    }
-    i = i * expf(-alpha * t * 1e3f);
-  }
+  // Beer-Lambert through the medium before this surface
+  if (s.absorbs) i = i * expf(-media.alpha_before(s) * t * 1e3f);
   if (s.aperture) i = i * ((x * x + y * y <= s.ap * s.ap) ? 1.f : 0.f);
 
-  if (disp && s.inter != INT_NONE && s.inter != INT_REFLECT) s.n = index_at(*disp, it, k);
+  if (s.inter != INT_NONE && s.inter != INT_REFLECT) s.n = media.index_after(s);
   n_pre = interact(s, n_pre, x, y, L, M, N, i);
   to_global(s, pos_k, x, y, z, L, M, N);
   sink(k, Ray{x, y, z, L, M, N, i, opd});
   r.x = x; r.y = y; r.z = z; r.L = L; r.M = M; r.N = N; r.i = i; r.opd = opd;
 }
 
-// The surface chain from surface 1 to S-1: `_tile_trace` (for_grad=False),
-// a run-time loop over the int table's codes. The vertex z of surface k is
-// the running sum of thickness[1..k-1] (thickness[0], infinite for an
-// infinite object, never enters). `rec`, `disp` and `sink` as for
-// surface_step, row k of `rec` for surface k.
-template <class Sink = NoSink>
+// The surface chain from surface 1 to S-1 at the tables' one wavelength:
+// `_tile_trace` (for_grad=False), a run-time loop over the int table's
+// codes. The vertex z of surface k is the running sum of
+// thickness[1..k-1] (thickness[0], infinite for an infinite object, never
+// enters). With `rec`, row k holds surface k's record (surface_step).
 __device__ __forceinline__ void trace_chain(int S, int n_newton, const float* ft,
                                             const int* it, Ray& r,
-                                            float (*rec)[REC] = nullptr,
-                                            const Dispersion* disp = nullptr,
-                                            const Sink& sink = Sink()) {
+                                            float (*rec)[REC] = nullptr) {
   float pos_prev = 0.f;
-  float n_pre = disp ? index_at(*disp, it, 0) : ft[F_NTAB];
+  float n_pre = ft[F_NTAB];
   for (int k = 1; k < S; ++k) {
     const float pos_k = pos_prev + (k > 1 ? ft[(k - 1) * F_STRIDE + F_THICK] : 0.f);
     pos_prev = pos_k;
     surface_step(load_surface(ft, it, k), k, n_newton, pos_k, r, n_pre,
-                 rec ? rec[k] : nullptr, disp, it, sink);
+                 rec ? rec[k] : nullptr);
   }
 }
 

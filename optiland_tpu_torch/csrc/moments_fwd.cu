@@ -10,7 +10,7 @@
 //
 // Bound on an H100: the FP32 operations of the chain (~10^3 a ray on the
 // bench lens, chip_smoke.py:chain_ops_per_ray), not memory (16 bytes a
-// ray). The run-time chain of K2-K7 also pays, per surface, the reloads
+// ray). The run-time chain of K2, K4, K6 also pays, per surface, the reloads
 // of its codes, their branches, a run-time Newton count and coefficient
 // loops, and each block of one ray a thread stages both tables behind a
 // barrier. Here:

@@ -1,6 +1,7 @@
 // The surface chain of one system whose static codes are compile-time
-// constants: K1 (csrc/moments_fwd.cu), K3 (csrc/raygen_trace_fwd.cu) and
-// K5 (csrc/fused_trace_fwd.cu), each built once per system.
+// constants: K1 (csrc/moments_fwd.cu), K3 (csrc/raygen_trace_fwd.cu), K5
+// (csrc/fused_trace_fwd.cu) and K7 (csrc/history_fwd.cu), each built once
+// per system.
 //
 // The wrapper (trace/fused.py `system_defines`) passes the system's codes to
 // nvcc as definitions (a header that nvcc includes first, _build.py):
@@ -9,16 +10,26 @@
 //   OTK_FIELD_ANGLE       1 for angle fields, 0 for object heights;
 //   OTK_OBJECT_INFINITE   1 for an object at infinity;
 //   OTK_SURFACES          each surface's codes, k = 0 .. S-1, packed as
-//                         `unpack_codes` reads them, separated by commas.
+//                         `unpack_codes` reads them, separated by commas;
+// and for K7 alone, which evaluates the dispersion formulas per ray
+// (trace/fused.py `history_defines`):
+//   OTK_MATERIALS         {formula, coefficient count} of the medium after
+//                         each surface, k = 0 .. S-1 (a tabulated glass's
+//                         count is its row's width, so it needs a word of
+//                         its own), separated by commas.
 // `trace_system` then calls chain.cuh's `surface_step`, the body of the
 // run-time `trace_chain`, once per surface with constant codes: the
 // surface loop, the Newton loop and the polynomial loops unroll, and the
 // branches the system does not take (tilt, decenter, aperture, absorption,
 // interaction, geometry) fold away. The values (curvatures, conics,
 // coefficients, thicknesses, indices, alpha, apertures) stay in the float
-// table that the kernel stages in shared memory.
+// table that the kernel stages in shared memory. K7's form of it takes the
+// ray's own wavelength (`RayMedia`): each medium's `material_index` with
+// its formula and coefficient count as template parameters, the
+// coefficients staged in shared memory, and the extinction table of each
+// absorbing medium interpolated by its one segment (`kv_segment`).
 //
-// The three kernels share one launch shape: blocks of SYSTEM_THREADS
+// The four kernels share one launch shape: blocks of SYSTEM_THREADS
 // threads, each staging the float table (and the raygen scalars) once with
 // `stage_system`, then walking tiles of SYSTEM_THREADS rays; the wrapper
 // sizes the grid from the occupancy each source exports,
@@ -54,16 +65,19 @@ __host__ __device__ constexpr unsigned system_codes(int k) {
 }
 
 // Surfaces K .. S-1 on the running state; pos: the vertex z of surface
-// K - 1; n_pre: the index before surface K.
-template <int K>
-__device__ __forceinline__ void system_chain_from(const float* ft, Ray& r, float& pos,
+// K - 1; n_pre: the index before surface K; `media.at<K>()` gives surface
+// K's absorption and index, `sink` each surface's state.
+template <int K, class Media, class Sink>
+__device__ __forceinline__ void system_chain_from(const float* ft, const Media& media,
+                                                  const Sink& sink, Ray& r, float& pos,
                                                   float& n_pre) {
   if constexpr (K < OTK_S) {
     constexpr Codes c = unpack_codes(system_codes(K));
     constexpr bool absorbs_before = unpack_codes(system_codes(K - 1)).absorbs;
     pos = pos + (K > 1 ? ft[(K - 1) * F_STRIDE + F_THICK] : 0.f);
-    surface_step(make_surface(c, absorbs_before, ft, K), K, OTK_NEWTON, pos, r, n_pre);
-    system_chain_from<K + 1>(ft, r, pos, n_pre);
+    surface_step(make_surface(c, absorbs_before, ft, K), K, OTK_NEWTON, pos, r, n_pre,
+                 nullptr, media.template at<K>(), sink);
+    system_chain_from<K + 1>(ft, media, sink, r, pos, n_pre);
   }
 }
 
@@ -72,8 +86,82 @@ __device__ __forceinline__ void system_chain_from(const float* ft, Ray& r, float
 // arithmetic in the same order.
 __device__ __forceinline__ void trace_system(const float* ft, Ray& r) {
   float pos = 0.f, n_pre = ft[F_NTAB];
-  system_chain_from<1>(ft, r, pos, n_pre);
+  system_chain_from<1>(ft, TableMedia(), NoSink(), r, pos, n_pre);
 }
+
+#ifdef OTK_MATERIALS
+// The medium after surface k: its dispersion formula and coefficient count.
+struct MaterialCodes {
+  int formula, nc;
+};
+
+__host__ __device__ constexpr MaterialCodes material_codes(int k) {
+  constexpr MaterialCodes table[] = {OTK_MATERIALS};
+  return table[k];
+}
+
+template <int k>
+struct RayMediaAt;
+
+// The system's media at one ray's wavelength w (K7). mat: the (OTK_S,
+// mat_w) coefficient rows in global memory (a tabulated glass's row is as
+// wide as its table, up to tens of thousands of floats); s_mat: their
+// first MAT_SHARED columns, staged in shared memory; kwl, kval: the
+// (OTK_S, K) extinction tables in global memory (a catalog table reaches
+// 21,394 points), padded with their last point.
+struct RayMedia {
+  const float* mat;
+  const float* s_mat;
+  const float* kwl;
+  const float* kval;
+  int mat_w, K;
+  float w;
+
+  // the index of the medium after surface k at w
+  template <int k>
+  __device__ __forceinline__ float index_after() const {
+    constexpr MaterialCodes m = material_codes(k);
+    return material_index<m.formula, m.nc>(s_mat + k * MAT_SHARED,
+                                           mat + (size_t)k * mat_w, w);
+  }
+
+  // the Beer-Lambert alpha = 4 pi k(w) / w of the medium after surface k
+  template <int k>
+  __device__ __forceinline__ float alpha_after() const {
+    const size_t row = (size_t)k * K;
+    return FOUR_PI * kv_segment(w, kwl + row, kval + row, K) / w;
+  }
+
+  template <int k>
+  __device__ __forceinline__ RayMediaAt<k> at() const {
+    return RayMediaAt<k>{*this};
+  }
+};
+
+// Surface k's view of RayMedia for surface_step: the medium before it
+// (row k - 1) absorbs, the one after it refracts.
+template <int k>
+struct RayMediaAt {
+  const RayMedia& m;
+  __device__ __forceinline__ float alpha_before(const Surface&) const {
+    return m.alpha_after<k - 1>();
+  }
+  __device__ __forceinline__ float index_after(const Surface&) const {
+    return m.index_after<k>();
+  }
+};
+
+// The chain from surface 1 to S-1 at the ray's own wavelength (K7): what
+// the run-time chain computed with per-ray dispersion, by the same
+// arithmetic in the same order, the index before surface 1 from medium 0;
+// `sink(k, ray)` sees the state after each surface.
+template <class Sink>
+__device__ __forceinline__ void trace_system(const float* ft, const RayMedia& media, Ray& r,
+                                             const Sink& sink) {
+  float pos = 0.f, n_pre = media.index_after<0>();
+  system_chain_from<1>(ft, media, sink, r, pos, n_pre);
+}
+#endif
 
 // The system's ray generation (`tile_raygen` with its field codes).
 __device__ __forceinline__ Ray system_raygen(const float* rg, float Hx, float Hy, float Px,

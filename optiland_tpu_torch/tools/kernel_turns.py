@@ -1,5 +1,5 @@
-"""The kernels K1-K6 and K8 of two checkouts of this repository, timed
-against each other on one CUDA card in turns.
+"""The kernels K1-K8 of two checkouts of this repository, timed against
+each other on one CUDA card in turns.
 
     python -m optiland_tpu_torch.tools.kernel_turns --parent DIR [--n N ...]
 
@@ -12,7 +12,12 @@ and 2,000,000) on the bench lens of chip_smoke.py: `fused.moments_forward`
 (K1), `moments_backward` (K2), `raygen_trace_forward` (K3, all 8 outputs),
 `raygen_trace_backward` (K4), and, on the eager rays of its vignetted twin,
 `fused_trace_forward` (K5) and `fused_trace_backward` (K6); and, for K1, K2
-and K3, on the absorbing Cooke triplet at 0.55 um. It also drives
+and K3, on the absorbing Cooke triplet at 0.55 um. It drives
+`fused.history_forward` (K7) on the Cooke triplet at two sizes: the
+flagship's 1,999,998 rays at per-ray wavelengths (chip_smoke.py
+`flagship_inputs`, as `__graft_entry__._make_inputs` makes them: 3 fields x
+3 wavelengths) and the 16,384-ray bundle of `wavefront_data` (field (0,
+1), 0.55 um, the 128 x 128 pupil grid). It also drives
 `huygens.huygens_sum_forward` (K8) on the Cooke triplet's Huygens PSF at
 its defaults (128 x 128: the image sum and its normalizing peak sum), at
 256 x 256, and on the random inputs of tools/bench_wave_optics.py. Each
@@ -60,8 +65,8 @@ def _smoke():
 
 
 def worker(tree: Path, ns: list[int]) -> dict:
-    """Times of `tree`'s K1-K6 and K8 wrappers' launches (K1-K6 at each n),
-    and its bench training step at the largest n."""
+    """Times of `tree`'s K1-K8 wrappers' launches (K1-K6 at each n), and
+    its bench training step at the largest n."""
     tree = tree.resolve()
     sys.path.insert(0, str(tree))
     import numpy as np
@@ -75,6 +80,7 @@ def worker(tree: Path, ns: list[int]) -> dict:
     from optiland_tpu_torch.system.optic import Optic
     from optiland_tpu_torch.trace import fused
     from optiland_tpu_torch.trace.raygen import generate_rays
+    from optiland_tpu_torch.wavefront.core import pupil_grid_coords
 
     pkg = Path(optiland_tpu_torch.__file__).resolve()
     if not pkg.is_relative_to(tree):
@@ -160,6 +166,21 @@ def worker(tree: Path, ns: list[int]) -> dict:
         ms[f"K2 Cooke {n}"] = kernel_ms(lambda: fused.moments_backward(
             static_c, *p_c, data, c, diff_data=False))
         del seeds, r0, rays8
+        torch.cuda.empty_cache()
+    p7 = (fused._diff_params(params_c), fused._nondiff_params(params_c))
+    px_b, py_b, _ = pupil_grid_coords(128, torch.float32, dev)
+    for label, r0 in (
+            ("flagship 1999998", generate_rays(
+                static_c, params_c, *cs.flagship_inputs(params_c, dev))),
+            ("wavefront bundle 16384", generate_rays(
+                static_c, params_c, torch.zeros_like(px_b),
+                torch.ones_like(px_b), px_b, py_b, COOKE_WAVELENGTH,
+                apply_vignetting=False))):
+        rays9 = tuple(getattr(r0, k).detach().contiguous()
+                      for k in fused._RAY_KEYS)
+        ms[f"K7 {label}"] = kernel_ms(lambda: fused.history_forward(
+            static_c, *p7, rays9))
+        del r0, rays9
         torch.cuda.empty_cache()
     img, peak = huygens.huygens_psf_sums(lens_c, (0.0, 1.0), 0.55, 128, 128,
                                          device="cuda")[:2]

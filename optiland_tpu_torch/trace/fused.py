@@ -28,15 +28,17 @@ CUDA kernel.
   K7 `history_forward` replaces `_history_forward`: the chain on the
      caller's rays at their own wavelengths (per-ray dispersion and
      absorption), writing every surface's state: the (S, n) history of
-     `trace_system`. csrc/history_fwd.cu. As in JAX, its gradient is
-     autograd through the eager trace (`_FusedHistory`), not a kernel.
+     `trace_system`. csrc/history_fwd.cu, built once per system like K1,
+     with its media's dispersion codes (`history_defines`). As in JAX, its
+     gradient is autograd through the eager trace (`_FusedHistory`), not a
+     kernel.
 
 K1-K6 take one wavelength, hoisted into the per-surface index and
 absorption tables (`_uniform_tables`); only K7 evaluates the dispersion
 formulas and extinction tables per ray.
 
 All run one ray per thread (csrc/chain.cuh; the backward kernels share the
-reverse sweep of csrc/chain_bwd.cuh; K1, K3 and K5 unroll the same
+reverse sweep of csrc/chain_bwd.cuh; K1, K3, K5 and K7 unroll the same
 per-surface step over their system's constant codes, csrc/system_chain.cuh,
 on a grid that `system_grid` shapes). What bounds K1-K6 on an H100: FP32
 arithmetic, not memory. At 2M rays K1 reads 32 MB (Hx, Hy, Px, Py in f32),
@@ -132,7 +134,8 @@ _I_STRIDE = 16
 # dispersion formula but the tabulated one has at most this many
 _MAT_SHARED = 17
 _MAX_SURFACES = 64
-# threads per block of K1, K3 and K5 (csrc/system_chain.cuh SYSTEM_THREADS)
+# threads per block of K1, K3, K5 and K7 (csrc/system_chain.cuh
+# SYSTEM_THREADS)
 _SYSTEM_THREADS = 256
 # a per-system kernel of which an SM holds at least this many blocks at once
 # takes a block a tile (`system_grid`)
@@ -650,10 +653,11 @@ _SIGNATURES = {
     # pointers (NULL = zero seed), partials (blocks, S, 32), 8 cotangent
     # pointers, stream
     "fused_trace_bwd": [_I] * 5 + [_P] * 28,
-    # n, S, n_newton, mat_w, K, ftab, itab, mat_coeffs (S, mat_w), k_wl and
-    # k_val (S, K), 9 ray pointers (x .. opd, w), 8 history pointers
-    # (S, n each), stream
-    "history_fwd": [_I] * 5 + [_P] * 23,
+    # n, S, blocks, bulk (`history_bulk`), mat_w, K, ftab, mat_coeffs
+    # (S, mat_w), k_wl and k_val (S, K), 9 ray pointers (x .. opd, w), 8
+    # history pointers (S, n each), stream; the codes, the media's
+    # included, are the variant's (`history_defines`)
+    "history_fwd": [_I] * 6 + [_P] * 22,
 }
 
 
@@ -673,13 +677,13 @@ def _kernel(name: str, defines=()):
 
 def system_defines(static: SystemStatic) -> tuple:
     """The nvcc definitions ((macro, value), ...) of the per-system kernels'
-    variants (K1, K3, K5) for this system: S, the Newton updates, the
-    field and object codes, and each surface's geometry code, coefficient
-    count, interaction, and tilt, decenter, aperture and absorption flags
-    (the medium after it), packed as csrc/system_chain.cuh `unpack_codes`
-    reads them. Values (curvatures, thicknesses, indices, ...) are not
-    codes: they reach the kernel in the float table, so one build serves
-    every value of a system."""
+    variants (K1, K3, K5; K7's add `history_defines`) for this system: S,
+    the Newton updates, the field and object codes, and each surface's
+    geometry code, coefficient count, interaction, and tilt, decenter,
+    aperture and absorption flags (the medium after it), packed as
+    csrc/system_chain.cuh `unpack_codes` reads them. Values (curvatures,
+    thicknesses, indices, ...) are not codes: they reach the kernel in the
+    float table, so one build serves every value of a system."""
     packed = (
         static.geom_codes[k] | static.geom_n_coeffs[k] << 8
         | static.interactions[k] << 16 | int(static.has_tilt[k]) << 20
@@ -692,6 +696,18 @@ def system_defines(static: SystemStatic) -> tuple:
             ("OTK_FIELD_ANGLE", str(int(static.field_type == "angle"))),
             ("OTK_OBJECT_INFINITE", str(int(static.object_infinite))),
             ("OTK_SURFACES", ", ".join(f"0x{c:x}u" for c in packed)))
+
+
+def history_defines(static: SystemStatic) -> tuple:
+    """K7's nvcc definitions for this system: `system_defines` and
+    OTK_MATERIALS, the dispersion formula and coefficient count of the
+    medium after each surface ({formula, count} pairs, as
+    csrc/system_chain.cuh `material_codes` reads them), so that each
+    medium's `material_index` unrolls. K1, K3 and K5 read one wavelength
+    from the tables and take `system_defines` alone."""
+    media = ", ".join(f"{{{f}, {nc}}}" for f, nc in zip(
+        static.mat_formulas, static.mat_n_coeffs))
+    return system_defines(static) + (("OTK_MATERIALS", media),)
 
 
 @lru_cache(maxsize=None)
@@ -708,8 +724,8 @@ def _blocks_per_sm(source: str, defines) -> int:
 
 
 def system_grid(n: int, n_sm: int, per_sm: int) -> int:
-    """Blocks of a per-system kernel (K1, K3, K5) over n rays on a card of
-    `n_sm` SMs, of which each holds `per_sm` of its blocks at once. Each
+    """Blocks of a per-system kernel (K1, K3, K5, K7) over n rays on a card
+    of `n_sm` SMs, of which each holds `per_sm` of its blocks at once. Each
     block walks tiles of _SYSTEM_THREADS rays. Where an SM holds
     _TILE_GRID_BLOCKS_PER_SM or more, a block a tile, which the card
     schedules as blocks end; where it holds fewer, a persistent grid of at
@@ -726,6 +742,20 @@ def _system_blocks(source: str, defines, n: int, device) -> int:
     """`system_grid` for the per-system variant of `source` on `device`."""
     return system_grid(n, config.sm_count(device),
                        _blocks_per_sm(source, defines))
+
+
+def history_bulk(S: int, n: int, l2_bytes: int) -> bool:
+    """Whether K7 sends the history of n rays through a system of S
+    surfaces by bulk copies from shared memory (its full tiles' rows, 1 KB
+    each) rather than one float a thread: where the rows do not start on
+    32-byte sectors (n not a multiple of 8), so that a warp's 128-byte
+    stores leave part-written sectors at both ends, and the 8 (S, n)
+    float32 arrays outgrow the card's L2 cache of `l2_bytes`, so that
+    those sectors reach device memory part-written. On an H100, on the
+    Cooke triplet, bulk copies took 2M rays from 0.284 to 0.248 ms and
+    1M from 0.148 to 0.136 with misaligned rows, while with aligned rows one
+    float a thread was 5-10% faster from 262,144 rays to 2M (PERF.md)."""
+    return n % 8 != 0 and 8 * 4 * S * n > l2_bytes
 
 
 def backward_grid(n: int, n_sm: int) -> tuple[int, int]:
@@ -745,15 +775,14 @@ def backward_grid(n: int, n_sm: int) -> tuple[int, int]:
 
 @lru_cache(maxsize=64)
 def _int_table(static: SystemStatic, device: torch.device):
-    """The (S, 16) int table of static codes, in the slot order of
-    csrc/chain.cuh (I_* there); row k's absorption flag and formula code
-    are those of the medium after surface k."""
+    """The (S, 16) int table of static codes of the run-time chain (K2, K4,
+    K6), in the slot order of csrc/chain.cuh (I_* there); row k's
+    absorption flag is that of the medium after surface k."""
     rows = [[static.geom_codes[k], static.geom_n_coeffs[k],
              static.interactions[k], int(static.has_tilt[k]),
              int(static.has_decenter[k]), int(static.has_aperture[k]),
-             static.mat_formulas[k], static.mat_n_coeffs[k],
              int(static.has_absorption[k])]
-            + [0] * (_I_STRIDE - 9) for k in range(static.num_surfaces)]
+            + [0] * (_I_STRIDE - 7) for k in range(static.num_surfaces)]
     return torch.tensor(rows, dtype=torch.int32).to(device)
 
 
@@ -1069,39 +1098,51 @@ def fused_trace_backward(static, diffp, nondiffp, rays8, seeds):
 fused_trace_backward.launches = 0
 
 
-def history_forward(static, diffp, nondiffp, rays9):
-    """K7: the 8 (S, n) history arrays of the caller's rays9 = (x, y, z, L,
-    M, N, i, opd, w) at their own wavelengths. CPU tensors take
-    `_history_plain`; CUDA tensors launch the kernel. The material
-    coefficient rows and extinction tables go to the kernel whole: a
-    tabulated glass's row is as wide as its table."""
-    if rays9[0].device.type == "cpu":
-        return _history_plain(static, diffp, nondiffp, rays9)
+def k7_launch(static, diffp, nondiffp, rays9):
+    """K7's variant for this system, its arguments up to the stream, the 8
+    (S, n) history arrays it writes, and the tensors to keep alive until
+    the launch is enqueued. The material coefficient rows and extinction
+    tables go to the kernel whole: a tabulated glass's row is as wide as
+    its table. Builds the variant on first use."""
     _check_kernel_branches(static, "K7", uniform_w=False)
     if len(rays9) != 9:
-        raise ValueError("expected the 9 ray arrays x, y, z, L, M, N, i, opd, w")
+        raise ValueError("expected the 9 ray arrays x, y, z, L, M, N, i, "
+                         "opd, w")
     wide = [k for k in range(static.num_surfaces)
             if static.mat_formulas[k] != FORMULA_TABULATED
             and static.mat_n_coeffs[k] > _MAT_SHARED]
     if wide:
         raise ValueError(f"surfaces {wide}: a dispersion formula with more "
                          f"than {_MAT_SHARED} coefficients")
-    ftab, itab = _pack_tables(static, diffp, nondiffp)
+    ftab, _ = _pack_tables(static, diffp, nondiffp)
     mat = diffp[6].contiguous()
     k_wl, k_val = nondiffp[1].contiguous(), nondiffp[2].contiguous()
     dev, S = ftab.device, static.num_surfaces
     n = _check_arrays([("tables", ftab), ("mat_coeffs", mat), ("k_wl", k_wl),
                        ("k_val", k_val)]
                       + list(zip(_NAMES + ("w",), rays9)), dev)
+    defines = history_defines(static)
+    fn = _kernel("history_fwd", defines)
     outs = tuple(torch.empty((S, n), dtype=torch.float32, device=dev)
                  for _ in range(8))
-    if n:
-        err = _kernel("history_fwd")(
-            n, S, min(static.newton_iters, _NEWTON_FUSED_MAX), mat.shape[1],
-            k_wl.shape[1], ftab.data_ptr(), itab.data_ptr(), mat.data_ptr(),
+    args = [n, S, _system_blocks("history_fwd", defines, n, dev),
+            int(history_bulk(S, n, config.l2_bytes(dev))), mat.shape[1],
+            k_wl.shape[1], ftab.data_ptr(), mat.data_ptr(),
             k_wl.data_ptr(), k_val.data_ptr(), *(r.data_ptr() for r in rays9),
-            *(o.data_ptr() for o in outs), _stream(dev))
-        _raise_on_error("history_fwd", err)
+            *(o.data_ptr() for o in outs)]
+    return fn, args, outs, (ftab, mat, k_wl, k_val)
+
+
+def history_forward(static, diffp, nondiffp, rays9):
+    """K7: the 8 (S, n) history arrays of the caller's rays9 = (x, y, z, L,
+    M, N, i, opd, w) at their own wavelengths. CPU tensors take
+    `_history_plain`; CUDA tensors launch the kernel, the system's own
+    variant (built at first use; a failed build raises)."""
+    if rays9[0].device.type == "cpu":
+        return _history_plain(static, diffp, nondiffp, rays9)
+    fn, args, outs, _keep = k7_launch(static, diffp, nondiffp, rays9)
+    if args[0]:
+        _raise_on_error("history_fwd", fn(*args, _stream(rays9[0].device)))
         history_forward.launches += 1
     return outs
 

@@ -3,15 +3,17 @@
 `csrc/chain.cuh`, `csrc/chain_bwd.cuh`, `csrc/system_chain.cuh` and
 `csrc/huygens.cuh` are C++ apart from CUDA qualifiers and intrinsics. Built
 by g++ in float64 with those defined away (one thread, one ray at a time),
-the per-ray bodies of K2, K4, K6 and K7 run here on the CPU: the run-time
+the per-ray bodies of K2, K4 and K6 run here on the CPU: the run-time
 forward chain (`trace_chain`, at one wavelength as the backward kernels
-re-trace it, or, for K7, at each ray's own with its history recorded), the
-reverse sweep (`reverse_chain`, with the absorption adjoint, and the
-cotangent rows in their compact order and widths), the raygen adjoint
-(`tile_raygen_bwd`) and the per-ray dispersion (`material_index` for every
-formula code); so do K1's, K3's and K5's per-system bodies
-(`system_raygen`, `trace_system`, `stage_system`), built with each of four
-systems' own codes, and K8's per-image-point Huygens sum
+re-trace it), the reverse sweep (`reverse_chain`, with the absorption
+adjoint, and the cotangent rows in their compact order and widths) and the
+raygen adjoint (`tile_raygen_bwd`); so do the per-ray dispersion
+(`material_index` for every formula code, run-time and compile-time) and
+the extinction tables' interpolation (`kv_segment` bit for bit against
+`kv_interp`), K1's, K3's, K5's and K7's per-system bodies (`system_raygen`,
+`trace_system` at one wavelength and at each ray's own with its history
+recorded, `stage_system`), built with each of five systems' own codes, and
+K8's per-image-point Huygens sum
 (`huygens_accumulate`) over pupil chunks, whose partial fields go through
 the wrapper's own reduction (`reduce_partials`). Each is held against the plain PyTorch version
 that the kernel is held to on the card, in float64, at 1e-10 of each
@@ -200,31 +202,6 @@ extern "C" void caller_kernels(int mode, int n, int S, int nn, const double* ft,
   }
 }
 
-// K7: rays (9, n) at their own wavelengths -> hist (8, S, n)
-struct HostSink {
-  double* h;
-  int n, S, idx;
-  void operator()(int k, const otk::Ray& r) const {
-    const double v[8] = {r.x, r.y, r.z, r.L, r.M, r.N, r.i, r.opd};
-    for (int q = 0; q < 8; ++q) h[((long)q * S + k) * n + idx] = v[q];
-  }
-};
-static double s_mat[otk::MAX_SURFACES * otk::MAT_SHARED];
-
-extern "C" void history_kernel(int n, int S, int nn, int mat_w, int K, const double* ft,
-                               const int* it, const double* mat, const double* kwl,
-                               const double* kval, const double* rays, double* hist) {
-  otk::stage_materials(S, mat_w, mat, s_mat);
-  for (int idx = 0; idx < n; ++idx) {
-    const double* p = rays + idx;
-    otk::Ray r = {p[0], p[n], p[2 * n], p[3 * n], p[4 * n], p[5 * n], p[6 * n], p[7 * n]};
-    const otk::Dispersion disp = {mat, s_mat, kwl, kval, mat_w, K, p[8 * n]};
-    const HostSink sink = {hist, n, S, idx};
-    sink(0, r);
-    otk::trace_chain(S, nn, ft, it, r, nullptr, &disp, sink);
-  }
-}
-
 // K8: image (3, I), pupil (5, P) -> the (chunks, 2, I) partial fields of
 // pupil chunks of `chunk` samples, as the kernel's blocks write them: each
 // chunk's samples staged (stage_sample), then summed per image point
@@ -252,12 +229,30 @@ extern "C" void index_kernel(int formula, int nc, const double* row, int n, cons
                              double* out) {
   for (int j = 0; j < n; ++j) out[j] = otk::material_index(formula, nc, row, row, w[j]);
 }
+
+// the (K,) extinction table at each of n wavelengths: kv_interp (mode 0)
+// or kv_segment (1)
+extern "C" void kv_kernel(int mode, int n, const double* w, int K, const double* kwl,
+                          const double* kval, double* out) {
+  for (int j = 0; j < n; ++j)
+    out[j] = mode ? otk::kv_segment(w[j], kwl, kval, K) : otk::kv_interp(w[j], kwl, kval, K);
+}
+"""
+
+# the compile-time material_index of formula {code} with {nc} coefficients
+_INDEX_CT = r"""
+extern "C" void index_ct_{code}(const double* row, int n, const double* w, double* out) {{
+  for (int j = 0; j < n; ++j)
+    out[j] = otk::material_index<{code}, {nc}>(row, row, w[j]);
+}}
 """
 
 # The per-system bodies over n rays: K1's moments (out4) and each ray's
 # final state (rays (8, n)); K3's outputs of out_mask (outs (8, n), the
-# others untouched); K5's 8 outputs from the caller's rays (8, n). K3 and
-# K5 read the tables through `stage_system`, as on the card.
+# others untouched); K5's 8 outputs from the caller's rays (8, n); with
+# K7's definitions, its history (8, S, n) of the caller's rays (9, n) at
+# their own wavelengths. K3, K5 and K7 read the tables through
+# `stage_system`, as on the card.
 _SYSTEM_SHIM = r"""
 #include "system_chain.cuh"
 
@@ -303,6 +298,33 @@ extern "C" void system_caller_trace(int n, const double* ft, const double* rays,
     for (int k = 0; k < 8; ++k) outs[k * n + idx] = v[k];
   }
 }
+
+#ifdef OTK_MATERIALS
+struct HostSink {
+  double* h;
+  int n, idx;
+  void operator()(int k, const otk::Ray& r) const {
+    const double v[8] = {r.x, r.y, r.z, r.L, r.M, r.N, r.i, r.opd};
+    for (int q = 0; q < 8; ++q) h[((long)q * OTK_S + k) * n + idx] = v[q];
+  }
+};
+static double s_mat[OTK_S * otk::MAT_SHARED];
+
+extern "C" void system_history(int n, int mat_w, int K, const double* ft, const double* mat,
+                               const double* kwl, const double* kval, const double* rays,
+                               double* hist) {
+  otk::stage_materials(OTK_S, mat_w, mat, s_mat);
+  otk::stage_system(ft, nullptr, s_ft, nullptr);
+  for (int idx = 0; idx < n; ++idx) {
+    const double* p = rays + idx;
+    otk::Ray r = {p[0], p[n], p[2 * n], p[3 * n], p[4 * n], p[5 * n], p[6 * n], p[7 * n]};
+    const otk::RayMedia media = {mat, s_mat, kwl, kval, mat_w, K, p[8 * n]};
+    const HostSink sink = {hist, n, idx};
+    sink(0, r);
+    otk::trace_system(s_ft, media, r, sink);
+  }
+}
+#endif
 """
 
 _SYSTEMS = {
@@ -327,7 +349,9 @@ def host_lib(tmp_path_factory):
         pytest.skip("no g++ to build the device code for the host")
     out = tmp_path_factory.mktemp("chain_host")
     (out / "cuda_runtime.h").write_text("#pragma once\n")
-    (out / "shim.cpp").write_text(_SHIM)
+    (out / "shim.cpp").write_text(_SHIM + "".join(
+        _INDEX_CT.format(code=code, nc=spec.n_coeffs)
+        for code, (spec, _) in _index_cases().items()))
     lib = out / "libchainhost.so"
     build = subprocess.run([gxx, "-O1", "-std=c++17", "-shared", "-fPIC",
                             "-pthread",
@@ -467,56 +491,67 @@ def _index_cases():
     return cases
 
 
-@pytest.mark.parametrize("code", range(12))
-def test_material_index_matches_plain(host_lib, code):
+def _index_case(code):
+    """The case of formula `code`: its material row and wavelengths as the
+    host code reads them, and the plain version's indices."""
     spec, w = _index_cases()[code]
     assert spec.formula == code
     row = np.ascontiguousarray(spec.coefficients, dtype=np.float64)
     w = np.ascontiguousarray(w)
+    ref = material_index(code, spec.n_coeffs, torch.from_numpy(row),
+                         torch.from_numpy(w))
+    return spec, row, w, _np(ref)
+
+
+@pytest.mark.parametrize("code", range(12))
+def test_material_index_matches_plain(host_lib, code):
+    spec, row, w, ref = _index_case(code)
     got = np.zeros_like(w)
     host_lib.index_kernel(code, spec.n_coeffs, _ptr(row), len(w), _ptr(w),
                           _ptr(got))
-    ref = material_index(code, spec.n_coeffs, torch.from_numpy(row),
-                         torch.from_numpy(w))
     assert np.isfinite(got).all()
-    np.testing.assert_allclose(got, _np(ref), rtol=RTOL, atol=0)
+    np.testing.assert_allclose(got, ref, rtol=RTOL, atol=0)
 
 
-_HISTORY_SYSTEMS = {
-    "cooke": lambda: CookeTriplet(),
-    "tabulated_doublet": lambda: tabulated_doublet(Optic),
-}
+@pytest.mark.parametrize("code", range(12))
+def test_compile_time_material_index_matches_plain(host_lib, code):
+    """K7's `material_index<F, NC>`, the formula and the coefficient count
+    as template parameters, against the plain version at each formula."""
+    _, row, w, ref = _index_case(code)
+    got = np.zeros_like(w)
+    getattr(host_lib, f"index_ct_{code}")(_ptr(row), len(w), _ptr(w),
+                                          _ptr(got))
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, ref, rtol=RTOL, atol=0)
 
 
-@pytest.mark.parametrize("name", list(_HISTORY_SYSTEMS))
-def test_history_body_matches_plain(host_lib, f64, name):
-    """K7's per-ray body: the history at three wavelengths mixed over the
-    rays (per-ray material_index and absorption) against `_history_plain`."""
-    ts, tp = _HISTORY_SYSTEMS[name]().build(device="cpu")
-    assert any(ts.has_absorption)
-    diffp, nondiffp = fused._diff_params(tp), fused._nondiff_params(tp)
-    ftab, itab = (_np(t) for t in fused._pack_tables(ts, diffp, nondiffp))
-    rng = np.random.default_rng(7)
-    n = N_RAYS
-    Hy = rng.uniform(-1, 1, n)
-    Px, Py = rng.uniform(-0.7, 0.7, (2, n))
-    w = rng.choice([0.48, 0.55, 0.65], n)
-    rays0 = generate_rays(ts, tp, *(torch.from_numpy(a) for a in (
-        np.zeros(n), Hy, Px, Py)), torch.from_numpy(w))
-    rays9 = tuple(getattr(rays0, k).contiguous() for k in fused._RAY_KEYS)
-    rays_np = np.ascontiguousarray(np.stack([_np(r) for r in rays9]))
-    mat, kwl, kval = (_np(t) for t in (diffp[6], nondiffp[1], nondiffp[2]))
-    S = ts.num_surfaces
-    hist = np.zeros((8, S, n))
-    host_lib.history_kernel(
-        n, S, min(ts.newton_iters, fused._NEWTON_FUSED_MAX), mat.shape[1],
-        kwl.shape[1], _ptr(ftab), _ptr(itab), _ptr(mat), _ptr(kwl),
-        _ptr(kval), _ptr(rays_np), _ptr(hist))
-    ref = fused._history_plain(ts, diffp, nondiffp, rays9)
-    i_last = _np(ref[6])[-1]
-    assert 0.0 < i_last.max() < 1.0  # the glasses absorb
-    for k in range(8):
-        _close(hist[k], ref[k], fused._NAMES[k])
+@pytest.mark.parametrize("K", [1, 5, 22])
+def test_kv_segment_is_kv_interp(host_lib, K):
+    """K7's extinction interpolation by its one segment (`kv_segment`) is
+    bit for bit the masked sum (`kv_interp`, JAX's `_kv_interp`): on a
+    (K,) table padded with its last point (zero-width segments), at every
+    knot, beside each, inside the segments, below the first point and
+    above the last."""
+    rng = np.random.default_rng(K)
+    n_pts = max(1, K - 2)
+    kwl = np.sort(rng.uniform(0.4, 0.8, n_pts))
+    kwl = np.ascontiguousarray(np.concatenate([kwl, np.full(K - n_pts,
+                                                            kwl[-1])]))
+    kval = rng.uniform(0.0, 3e-7, n_pts)
+    kval = np.ascontiguousarray(np.concatenate([kval, np.full(K - n_pts,
+                                                              kval[-1])]))
+    w = np.ascontiguousarray(np.concatenate([
+        kwl, rng.uniform(0.35, 0.85, 200), [0.3, 0.9],
+        np.nextafter(kwl, 0.0), np.nextafter(kwl, 1.0)]))
+    got = {}
+    for mode in (0, 1):
+        got[mode] = np.zeros_like(w)
+        host_lib.kv_kernel(mode, len(w), _ptr(w), K, _ptr(kwl), _ptr(kval),
+                           _ptr(got[mode]))
+    assert np.array_equal(got[1], got[0])
+    ref = fused._kv_interp(torch.from_numpy(w), torch.from_numpy(kwl),
+                           torch.from_numpy(kval))
+    assert np.array_equal(got[1], _np(ref))
 
 
 @pytest.mark.parametrize("field", [(0.0, 0.0), (0.0, 1.0)])
@@ -589,7 +624,7 @@ def test_huygens_body_random_and_peak(host_lib, case):
 
 
 def _system_lib(out, gxx, name, defines):
-    """Popen of g++ building the per-system bodies (K1, K3, K5) for
+    """Popen of g++ building the per-system bodies (K1, K3, K5, K7) for
     `defines`, written as the header the card's build includes first
     (`_build.defines_header`)."""
     from optiland_tpu_torch import _build
@@ -611,17 +646,19 @@ _PER_SYSTEM = ("bench", "cooke", "tilt_decenter_aperture", "odd_asphere_mirror")
 
 @pytest.fixture(scope="module")
 def system_libs(tmp_path_factory):
-    """The per-system bodies built for each of _PER_SYSTEM from its
-    `fused.system_defines`, all g++ processes at once."""
+    """The per-system bodies built for each of _PER_SYSTEM and for the
+    absorbing tabulated doublet from its `fused.history_defines` (K7's: K1's
+    with the media's dispersion codes, which K1, K3 and K5 do not read),
+    all g++ processes at once."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("no g++ to build the device code for the host")
     out = tmp_path_factory.mktemp("system_host")
     (out / "cuda_runtime.h").write_text("#pragma once\n")
     procs = {}
-    for name in _PER_SYSTEM:
-        ts, _ = _SYSTEMS[name](Optic).build(device="cpu")
-        procs[name] = _system_lib(out, gxx, name, fused.system_defines(ts))
+    for name in _PER_SYSTEM + ("tabulated_doublet",):
+        ts, _ = _HISTORY_SYSTEMS[name]().build(device="cpu")
+        procs[name] = _system_lib(out, gxx, name, fused.history_defines(ts))
     libs = {}
     for name, proc in procs.items():
         log = proc.communicate()[0]
@@ -716,12 +753,61 @@ def test_system_caller_trace_matches_plain(system_libs, f64, name):
                                    atol=1e-12, err_msg=fused._NAMES[k])
 
 
+_HISTORY_SYSTEMS = {
+    **{name: (lambda name=name: _SYSTEMS[name](Optic)) for name in _PER_SYSTEM},
+    "tabulated_doublet": lambda: tabulated_doublet(Optic),
+}
+# K7's cases: per-ray wavelengths (w) over the absorbing Cooke triplet and a
+# doublet of a tabulated glass (formula 10) and an Abbe glass (11), each
+# absorbing; "knots" puts the doublet's wavelengths on the knots of its
+# extinction tables (0.4 .. 0.8 and 0.45 .. 0.65 um, the second padded with
+# zero-width segments), below their first points and above their last
+_HISTORY_CASES = {
+    "cooke": ("cooke", (0.48, 0.55, 0.65)),
+    "tabulated_doublet": ("tabulated_doublet", (0.48, 0.55, 0.65)),
+    "knots": ("tabulated_doublet", (0.38, 0.4, 0.45, 0.5, 0.55, 0.6, 0.65,
+                                    0.7, 0.8, 0.85)),
+}
+
+
+@pytest.mark.parametrize("case", list(_HISTORY_CASES))
+def test_history_body_matches_plain(system_libs, f64, case):
+    """K7's per-system body: the history at per-ray wavelengths mixed over
+    the rays (per-ray `material_index` with the media's codes at compile
+    time, absorption by `kv_segment`) against `_history_plain`, all 8
+    arrays and all S rows."""
+    name, wavelengths = _HISTORY_CASES[case]
+    ts, tp = _HISTORY_SYSTEMS[name]().build(device="cpu")
+    assert any(ts.has_absorption)
+    diffp, nondiffp = fused._diff_params(tp), fused._nondiff_params(tp)
+    ftab = _np(fused._pack_tables(ts, diffp, nondiffp)[0])
+    rng = np.random.default_rng(7)
+    n = N_RAYS
+    Hy = rng.uniform(-1, 1, n)
+    Px, Py = rng.uniform(-0.7, 0.7, (2, n))
+    w = rng.choice(wavelengths, n)
+    rays0 = generate_rays(ts, tp, *(torch.from_numpy(a) for a in (
+        np.zeros(n), Hy, Px, Py)), torch.from_numpy(w))
+    rays9 = tuple(getattr(rays0, k).contiguous() for k in fused._RAY_KEYS)
+    rays_np = np.ascontiguousarray(np.stack([_np(r) for r in rays9]))
+    mat, kwl, kval = (_np(t) for t in (diffp[6], nondiffp[1], nondiffp[2]))
+    hist = np.zeros((8, ts.num_surfaces, n))
+    system_libs[name].system_history(
+        n, mat.shape[1], kwl.shape[1], _ptr(ftab), _ptr(mat), _ptr(kwl),
+        _ptr(kval), _ptr(rays_np), _ptr(hist))
+    ref = fused._history_plain(ts, diffp, nondiffp, rays9)
+    i_last = _np(ref[6])[-1]
+    assert 0.0 < i_last.max() < 1.0  # the glasses absorb
+    for k in range(8):
+        _close(hist[k], ref[k], fused._NAMES[k])
+
+
 def test_k1_signature():
     """The per-system variants' key: the same codes give the same key, new
     values keep it, and a changed code (a surface type, a tilt, a decenter,
     an aperture, a mirror, the field type, the Newton count) changes it;
-    K1, K3 and K5 of one system are three libraries, each built per system
-    and none among the sources built once."""
+    K1, K3, K5 and K7 of one system are four libraries, each built per
+    system and none among the sources built once."""
     from optiland_tpu_torch import _build
 
     def key(lens):
@@ -732,12 +818,13 @@ def test_k1_signature():
     assert key(bench_lens(Optic)) == base
     ts, tp = bench_lens(Optic).build(device="cpu")
     assert fused.system_defines(replace(ts)) == fused.system_defines(ts)
-    per_system = ("moments_fwd", "raygen_trace_fwd", "fused_trace_fwd")
+    per_system = ("moments_fwd", "raygen_trace_fwd", "fused_trace_fwd",
+                  "history_fwd")
     assert set(_build.PER_SYSTEM) == set(per_system)
     assert not set(_build.SOURCES) & set(per_system)
     names = {_build.variant_name(src, fused.system_defines(ts))
              for src in per_system}
-    assert len(names) == 3 and base in names
+    assert len(names) == 4 and base in names
     # other values, the same codes: a wider field, another object distance
     assert key(singlet_lens(Optic, max_field=8.0)) == key(singlet_lens(Optic))
     assert key(singlet_lens(Optic, object_distance=150.0)) == key(
@@ -754,6 +841,31 @@ def test_k1_signature():
     assert base not in keys
     assert (fused.system_defines(replace(ts, newton_iters=1))
             != fused.system_defines(ts))
+
+
+@pytest.mark.parametrize("name, digest, media", [
+    ("cooke", "3015ccfeb76f", "{0, 1}, {3, 11}, {0, 1}, {2, 7}, {0, 1}, "
+     "{3, 11}, {0, 1}, {0, 1}"),
+    ("bench", "c369d8e753d8", ", ".join(["{0, 1}"] * 13))])
+def test_history_defines(name, digest, media):
+    """K7's definitions are K1's with OTK_MATERIALS, the {formula,
+    coefficient count} of the medium after each surface, added; K1's, K3's
+    and K5's definitions and variant names are those they had before K7
+    was built per system (the names pinned here), and K7's variant is
+    another library, which a glass of another formula changes."""
+    from optiland_tpu_torch import _build
+
+    ts, _ = _HISTORY_SYSTEMS[name]().build(device="cpu")
+    k7 = fused.history_defines(ts)
+    assert k7 == fused.system_defines(ts) + (("OTK_MATERIALS", media),)
+    for src in ("moments_fwd", "raygen_trace_fwd", "fused_trace_fwd"):
+        assert _build.variant_name(src, fused.system_defines(ts)) == (
+            f"{src}-{digest}")
+    assert _build.variant_name("history_fwd", k7) != f"history_fwd-{digest}"
+    glass = replace(ts, mat_formulas=ts.mat_formulas[:1] + (11,)
+                    + ts.mat_formulas[2:])
+    assert fused.history_defines(glass) != k7
+    assert fused.system_defines(glass) == fused.system_defines(ts)
 
 
 @pytest.mark.parametrize("width", [4, 8, 16, 32])
@@ -797,3 +909,14 @@ def test_system_grid(n, n_sm, per_sm, blocks):
     assert got == blocks
     assert got >= 1 and (got * fused._SYSTEM_THREADS >= n
                          or got == n_sm * per_sm)
+
+
+@pytest.mark.parametrize("S, n, bulk", [
+    (8, 16_384, False), (8, 16_386, False), (8, 204_802, True),
+    (8, 1_999_998, True), (8, 1_999_872, False), (13, 126_030, False),
+    (13, 126_031, True)])
+def test_history_bulk(S, n, bulk):
+    """K7 sends its history by bulk copies where the rows start off 32-byte
+    sectors (n not a multiple of 8) and the 8 (S, n) float32 arrays
+    outgrow an H100's 50 MiB L2 cache, else one float a thread."""
+    assert fused.history_bulk(S, n, 50 * 2**20) is bulk

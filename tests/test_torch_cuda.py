@@ -1,9 +1,10 @@
 """The port's CUDA kernels on the card (no JAX needed): K1-K7 against
 their plain PyTorch versions in float32 (K1-K6 also on the absorbing Cooke
-triplet, K1, K3 and K5 on every system built here, each its own variant,
-all built at once by the module's `system_variants`; K7 at per-ray
-wavelengths; K1, K2, K4 and K6 also at ragged ray counts around their
-32-ray groups and at 2M + 17 rays, K3 and K5 around their 256-ray tiles;
+triplet, K1, K3, K5 and K7 on every system built here, each its own
+variant, all built at once by the module's `system_variants`; K7 at
+per-ray wavelengths; K1, K2, K4 and K6 also at ragged ray counts around
+their 32-ray groups and at 2M + 17 rays, K3, K5 and K7 around their
+256-ray tiles;
 K3 leaving an unrequested output untouched; the per-system launchers
 refusing another system's S), K8 (the Huygens sum) against the
 float64 plain version, also at ragged block edges, T1's peak-rate chains
@@ -68,13 +69,16 @@ _PER_SYSTEM = ("moments_fwd", "raygen_trace_fwd", "fused_trace_fwd")
 
 @pytest.fixture(scope="module")
 def system_variants():
-    """Every per-system variant (K1, K3, K5) of the systems built here, and
-    the sources built once, compiled in one parallel nvcc round."""
+    """Every per-system variant (K1, K3, K5 and K7) of the systems built
+    here, and the sources built once, compiled in one parallel nvcc
+    round."""
     if not torch.cuda.is_available() or shutil.which("nvcc") is None:
         pytest.skip("no CUDA device / nvcc")
-    variants = tuple((src, fused.system_defines(_build(name, "cpu")[0]))
-                     for name in list(_SYSTEMS) + ["bench", "cooke"]
-                     for src in _PER_SYSTEM)
+    statics = [_build(name, "cpu")[0]
+               for name in list(_SYSTEMS) + ["bench", "cooke"]]
+    variants = tuple((src, fused.system_defines(ts)) for ts in statics
+                     for src in _PER_SYSTEM) + tuple(
+        ("history_fwd", fused.history_defines(ts)) for ts in statics)
     kbuild.build_all(variants)
     return variants
 
@@ -304,19 +308,22 @@ def test_system_kernels_ragged(cuda_f32, n):
 
 
 def test_system_kernels_refuse_other_systems(cuda_f32):
-    """A per-system launcher refuses S other than its build's, and an empty
-    grid, with cudaErrorInvalidValue (1) before any launch; K3 writes no
-    output whose bit is clear, even where its pointer is given."""
+    """A per-system launcher (K1, K3, K5, K7) refuses S other than its
+    build's, and an empty grid, with cudaErrorInvalidValue (1) before any
+    launch; K3 writes no output whose bit is clear, even where its pointer
+    is given."""
     ts, tp, w = _build("bench", cuda_f32)
     data = _data(1000, cuda_f32)
     diffp, nondiffp, rg = _args(ts, tp, w)
     rays8 = tuple(r.contiguous() for r in fused._tile_raygen(
         ts, rg, *data)[:6]) + (torch.ones_like(data[0]),
                                torch.zeros_like(data[0]))
+    rays9 = rays8 + (torch.full_like(data[0], w),)
     stream = torch.cuda.current_stream().cuda_stream
     launches = (fused.k1_launch(ts, diffp, nondiffp, rg, data)[:2],
                 fused.k3_launch(ts, diffp, nondiffp, rg, data, (0,))[:2],
-                fused.k5_launch(ts, diffp, nondiffp, rays8)[:2])
+                fused.k5_launch(ts, diffp, nondiffp, rays8)[:2],
+                fused.k7_launch(ts, diffp, nondiffp, rays9)[:2])
     for fn, args in launches:
         S = args[1]
         assert fn(*args[:1], S + 1, *args[2:], stream) == 1
@@ -379,13 +386,18 @@ def test_vpu_peak_kernels_match_plain(cuda_f32):
         vpu_peak.fma_chain(x.double())
 
 
-@pytest.mark.parametrize("name", ["cooke", "singlet"])
-def test_history_kernel_matches_plain(cuda_f32, name):
+@pytest.mark.parametrize("name, n", [
+    ("cooke", 5000), ("singlet", 5000), ("cooke", 1), ("cooke", 255),
+    ("cooke", 257), ("cooke", 65_537), ("cooke", 262_145)])
+def test_history_kernel_matches_plain(cuda_f32, name, n):
     """K7 at per-ray wavelengths (three, mixed over the rays) against
-    `_history_plain`, all 8 arrays and all S rows."""
+    `_history_plain`, all 8 arrays and all S rows; at 5000 rays and at
+    counts around its 256-ray tiles (one ray, a part-filled tile, a tile
+    and one more, 256 tiles and one more ray), and at 262,145 rays, whose
+    history outgrows an H100's L2 cache: bulk copies of rows that start
+    off 16-byte boundaries (n = 1 mod 4), the last tile ragged."""
     ts, tp, _ = _build(name, cuda_f32)
     rng = np.random.default_rng(5)
-    n = 5000
     data = _data(n, cuda_f32)
     w = torch.tensor(rng.choice([0.48, 0.55, 0.65], n), dtype=torch.float32,
                      device=cuda_f32)
