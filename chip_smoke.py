@@ -10,8 +10,10 @@ PyTorch built for CUDA. In order it:
   2. builds the CUDA kernels of optiland_tpu_torch/csrc with nvcc, with
      the per-system variants of K1 and K3 for the bench lens and the Cooke
      triplet, of K5 for the vignetted bench lens and of K7 for the Cooke
-     triplet (one process per source and per variant, all at once), and
-     prints the seconds of each and nvcc's register report;
+     triplet, and the per-ray variants of K1-K6 for the Cooke triplet and
+     of K1 and K2 for a doublet of a tabulated glass (one process per
+     source and per variant, all at once), and prints the seconds of each
+     and nvcc's register report;
   2b. (t) T1, the peak-rate chains of tools/vpu_peak.py: each of its three
      kernels against its plain version on T1's input, then the port's tool
      (`vpu_peak.run`, as `python -m optiland_tpu_torch.tools.vpu_peak`
@@ -54,6 +56,15 @@ PyTorch built for CUDA. In order it:
  16. (j) `centroid_rms_spot(..., 0.55)` and its backward on the Cooke
      triplet (K1's Cooke variant and K2 with absorption) against their
      plain versions and float64, the lit rays from K3's Cooke variant;
+ 16b. (j2) the polychromatic merit: `centroid_rms_spot` at the flagship
+     batch's own per-ray wavelengths and its backward (the per-ray K1 and
+     K2, nothing eager), the loss and every leaf the kernels differentiate
+     (`mat_coeffs` included) against float64 autograd, 5 Adam steps; then
+     each per-ray kernel against its plain version on that batch (K1, K2;
+     K3 and K4 through `trace_system_final(..., w)` and its backward, K5
+     and K6 through `trace_final` of the rays `generate_rays` makes at w),
+     w's cotangents included, and the per-ray K1 and K2 on the tabulated
+     doublet at wavelengths below, in and above its glass's table;
  17. (k) `CookeTriplet().trace(Hx=0, Hy=1, num_rays=6)`, the user's entry,
      reaches K7;
  18. (w1) K8, the Huygens sum, on the inputs of the Cooke triplet's
@@ -75,7 +86,9 @@ PyTorch built for CUDA. In order it:
      then the median of 25 calls), K1 and K3 also on the Cooke triplet, K7
      also on the 16,384-ray bundle of `wavefront_data`, K8 also at the peak
      sum, the random inputs of tools/bench_wave_optics.py and
-     256 x 256 (with the phase range each reduces), the training steps, the
+     256 x 256 (with the phase range each reduces), K1-K6's per-ray
+     variants at 1,999,998 and 16,384 rays, the training steps (the
+     polychromatic one beside the monochromatic one and the flagship's), the
      flagship forward and the Huygens PSF end to end, and prints one JSON
      line of kernels;
  23. prints as its last line {"ok": true, "device": {...}}.
@@ -388,21 +401,56 @@ FORMULA_OPS = {
 }
 
 
-def history_ops_per_ray(static, fused):
-    """FP32 operations per ray of K7's function: the chain on loaded rays
-    (`chain_ops_per_ray` without the raygen), the per-ray index of every
-    medium a refraction reads, and per absorbing medium the linear
-    interpolation of its extinction table on the one segment that holds
-    the ray's wavelength (5 operations; the search is compares and loads),
-    alpha = 4 pi k / w (2) and the exp factor (4)."""
-    ops = chain_ops_per_ray(static, fused) - 32
+def media_ops_per_ray(static):
+    """FP32 operations per ray of the media at the ray's own wavelength:
+    the per-ray index of every medium a refraction reads, and per
+    absorbing medium the linear interpolation of its extinction table on
+    the one segment that holds the ray's wavelength (5 operations; the
+    search is compares and loads), alpha = 4 pi k / w (2) and the exp
+    factor (4). The per-ray kernels' bounds add it to the chain's count
+    (their adjoints' own operations are left out)."""
     media = [0] + [k for k in range(1, static.num_surfaces)
                    if static.interactions[k] == 0]
-    ops += sum(FORMULA_OPS[static.mat_formulas[k]](static.mat_n_coeffs[k])
-               for k in media)
-    ops += sum(5 + 2 + 4 for k in range(static.num_surfaces - 1)
-               if static.has_absorption[k])
-    return ops
+    ops = sum(FORMULA_OPS[static.mat_formulas[k]](static.mat_n_coeffs[k])
+              for k in media)
+    return ops + sum(5 + 2 + 4 for k in range(static.num_surfaces - 1)
+                     if static.has_absorption[k])
+
+
+def history_ops_per_ray(static, fused):
+    """FP32 operations per ray of K7's function: the chain on loaded rays
+    (`chain_ops_per_ray` without the raygen) and the media at the ray's
+    wavelength (`media_ops_per_ray`)."""
+    return chain_ops_per_ray(static, fused) - 32 + media_ops_per_ray(static)
+
+
+def tabulated_doublet(Optic):
+    """A cemented doublet of two absorbing glasses: a tabulated n(w) glass
+    (formula 10) and an Abbe-model glass (formula 11), with extinction
+    tables of 5 and 3 points (the shorter one padded); the test systems'
+    (tests/torch_port_helpers.py)."""
+    from optiland_tpu_torch.materials import catalog as cat
+
+    wl = (0.4, 0.5, 0.6, 0.7)
+    tab = cat.MaterialSpec(
+        10, wl + (1.53, 1.52, 1.515, 1.51), name="tabulated",
+        k_table=(wl + (0.8,), (3e-7, 2e-7, 1e-7, 1e-7, 2e-7)))
+    abbe = cat.abbe_material(1.62, 36.4)
+    abbe = cat.MaterialSpec(abbe.formula, abbe.coefficients, name=abbe.name,
+                            k_table=((0.45, 0.55, 0.65), (4e-7, 2e-7, 3e-7)))
+    lens = Optic()
+    lens.add_surface(index=0, radius=math.inf, thickness=math.inf)
+    lens.add_surface(index=1, radius=40.0, thickness=6.0, material=tab,
+                     is_stop=True)
+    lens.add_surface(index=2, radius=-30.0, thickness=2.5, material=abbe)
+    lens.add_surface(index=3, radius=-150.0, thickness=60.0)
+    lens.add_surface(index=4)
+    lens.set_aperture("EPD", 10.0)
+    lens.set_field_type("angle")
+    lens.add_field(y=0.0)
+    lens.add_field(y=5.0)
+    lens.add_wavelength(0.55, is_primary=True)
+    return lens
 
 
 def huygens_ops_per_contribution():
@@ -590,7 +638,7 @@ def main():
     from optiland_tpu_torch.psf import MMDFTPSF, ScalarFFTPSF, ScalarHuygensPSF
     from optiland_tpu_torch.psf import huygens
     from optiland_tpu_torch.system.optic import Optic
-    from optiland_tpu_torch.tools import vpu_peak
+    from optiland_tpu_torch.tools import kernel_turns, vpu_peak
     from optiland_tpu_torch.trace import fused, tracer
     from optiland_tpu_torch.trace.raygen import generate_rays
     from optiland_tpu_torch.wavefront import ZernikeOPD, wavefront_data
@@ -645,25 +693,41 @@ def main():
                for label, lens in (("bench lens", bench_lens(Optic)),
                                    ("Cooke triplet", CookeTriplet()),
                                    ("vignetted bench lens",
-                                    bench_lens(Optic, vignetted=True)))}
-    variants = (("K1", "moments_fwd", "bench lens"),
-                ("K1", "moments_fwd", "Cooke triplet"),
-                ("K3", "raygen_trace_fwd", "bench lens"),
-                ("K3", "raygen_trace_fwd", "Cooke triplet"),
-                ("K5", "fused_trace_fwd", "vignetted bench lens"),
-                ("K7", "history_fwd", "Cooke triplet"))
-    codes = {(src, label): (fused.history_defines if src == "history_fwd"
-                            else fused.system_defines)(statics[label])
-             for _, src, label in variants}
+                                    bench_lens(Optic, vignetted=True)),
+                                   ("tabulated doublet",
+                                    tabulated_doublet(Optic)))}
+    uniform, per_ray = fused.system_defines, fused.history_defines
+    variants = (("K1", "moments_fwd", "bench lens", uniform),
+                ("K1", "moments_fwd", "Cooke triplet", uniform),
+                ("K3", "raygen_trace_fwd", "bench lens", uniform),
+                ("K3", "raygen_trace_fwd", "Cooke triplet", uniform),
+                ("K5", "fused_trace_fwd", "vignetted bench lens", uniform),
+                ("K7", "history_fwd", "Cooke triplet", per_ray),
+                # the per-ray variants: K1, K3, K5 with K7's definitions,
+                # K2, K4, K6 with the media's codes alone
+                ("K1 per-ray", "moments_fwd", "Cooke triplet", per_ray),
+                ("K3 per-ray", "raygen_trace_fwd", "Cooke triplet", per_ray),
+                ("K5 per-ray", "fused_trace_fwd", "Cooke triplet", per_ray),
+                ("K2 per-ray", "moments_bwd", "Cooke triplet",
+                 fused.media_defines),
+                ("K4 per-ray", "raygen_trace_bwd", "Cooke triplet",
+                 fused.media_defines),
+                ("K6 per-ray", "fused_trace_bwd", "Cooke triplet",
+                 fused.media_defines),
+                ("K1 per-ray", "moments_fwd", "tabulated doublet", per_ray),
+                ("K2 per-ray", "moments_bwd", "tabulated doublet",
+                 fused.media_defines))
+    codes = {(key, label): of(statics[label])
+             for key, _, label, of in variants}
     t0 = time.perf_counter()
-    built = _build.build_all(tuple((src, codes[src, label])
-                                   for _, src, label in variants))
+    built = _build.build_all(tuple((src, codes[key, label])
+                                   for key, src, label, _ in variants))
     print(f"build: {time.perf_counter() - t0:.1f} s wall "
           + ", ".join(f"{k} {v[1]:.1f} s" for k, v in built.items()))
-    for key, src, label in variants:
-        name = _build.variant_name(src, codes[src, label])
+    for key, src, label, _ in variants:
+        name = _build.variant_name(src, codes[key, label])
         print(f"{key} variant for the {label}: {name}, built in "
-              f"{built[name][1]:.1f} s, {dict(codes[src, label])}")
+              f"{built[name][1]:.1f} s, {dict(codes[key, label])}")
     for name in built:
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
@@ -786,8 +850,7 @@ def main():
     free()
 
     # 6. K1 and K3 against their plain versions on the same inputs
-    p, data = fused._prepare(static, params, Hx, Hy, Px, Py, WAVELENGTH,
-                             "K1")
+    p, data = fused._prepare(static, params, Hx, Hy, Px, Py, WAVELENGTH)
     k1 = fused.moments_forward(static, *p, data)
     k1_plain = fused._moments_plain(static, *p, data)
     k1_scale = torch.stack([k1_plain[0], (k1_plain[0] * k1_plain[3]).sqrt(),
@@ -1195,7 +1258,7 @@ def main():
         check(v <= TOL_F64["grad_rel"], f"Cooke spot {k} gradient vs f64")
     del leaves64_j, p64_j, loss64_j
     pc, data_c = fused._prepare(static_c, params_c, *fb[:4],
-                                FLAGSHIP_WAVELENGTH, "K1")
+                                FLAGSHIP_WAVELENGTH)
     k1c = fused.moments_forward(static_c, *pc, data_c)
     k1c_plain = fused._moments_plain(static_c, *pc, data_c)
     k1c_scale = torch.stack([k1c_plain[0], (k1c_plain[0] * k1c_plain[3]).sqrt(),
@@ -1220,6 +1283,210 @@ def main():
     k2c_errs, k2c_rays, _ = cotangent_errs(k2c, k2c_plain, keep_cj)
     check_cotangents("K2 (Cooke)", k2c_errs, k2c_rays)
     del k2c, k2c_plain, leaves_j, p_j
+    free()
+
+    # 16b. (j2) the polychromatic merit: centroid_rms_spot at the flagship
+    # batch's own per-ray wavelengths (JAX's uniform_w=False) reaches the
+    # per-ray K1 and K2, with the adjoint of dispersion and absorption. The
+    # leaves are those the kernels differentiate: all but the vignetting
+    # factors and the extinction tables, which the fused path does not
+    # read or (as in JAX) differentiate, and which the eager path does
+    names_p = [k for k in names_c if k not in ("vx", "vy", "k_wl", "k_val")]
+    leaves_p, p_p = leaves_of(params_c, names_p)
+    reset_counts()
+    loss_p = centroid_rms_spot(static_c, p_p, *fb, diff_inputs=False)
+    loss_p.backward()
+    poly_launches = read_counts()
+    print(f"polychromatic centroid_rms_spot + backward launches: "
+          f"{poly_launches}")
+    check(poly_launches["K1"] == 1 and poly_launches["K2"] == 1
+          and sum(poly_launches.values()) == 2,
+          "polychromatic merit launched the per-ray K1 and K2 once each")
+    config.set_precision("float64")
+    leaves64_p, p64_p = leaves_of(params_c64, names_p)
+    loss64_p = centroid_rms_spot(static_c64, p64_p, *fb64)
+    loss64_p.backward()
+    check(read_counts() == poly_launches, "float64 polychromatic merit eager")
+    config.set_precision("float32")
+    leaves_pe, p_pe = leaves_of(params_c, names_p)
+    h_pe = tracer.trace_rays(static_c, p_pe, generate_rays(static_c, p_pe,
+                                                           *fb))
+    x_e, y_e, i_e = h_pe.x[-1], h_pe.y[-1], h_pe.intensity[-1]
+    centroid_rms_from_moments(i_e.sum(), (x_e * i_e).sum(), (y_e * i_e).sum(),
+                              ((x_e * x_e + y_e * y_e) * i_e).sum()).backward()
+    check(read_counts() == poly_launches, "float32 eager reference eager")
+    del h_pe, x_e, y_e, i_e
+    poly_err = {"loss_rel": abs(loss_p.item() - loss64_p.item())
+                / abs(loss64_p.item())}
+    poly_eager = {}
+    for k in names_p:
+        g32, g64 = grad_of(leaves_p, k), grad_of(leaves64_p, k)
+        if g64.abs().max() > 0 or g32.abs().max() > 0:
+            poly_err[k] = rel_err(g32, g64)
+            poly_eager[k] = rel_err(grad_of(leaves_pe, k), g64)
+    print("polychromatic centroid_rms_spot and gradients vs eager float64 "
+          f"autograd, relative to each leaf's largest entry: "
+          f"{json.dumps(poly_err)}; the eager float32 path's own: "
+          f"{json.dumps(poly_eager)}; tolerances loss_rel "
+          f"{TOL_F64['loss_rel']}, per leaf the larger of grad_rel "
+          f"{TOL_F64['grad_rel']} and {GRAD_NOISE_FACTOR}x the eager "
+          "float32 path's error")
+    check(poly_err.pop("loss_rel") <= TOL_F64["loss_rel"], "polychromatic loss")
+    check("mat_coeffs" in poly_err and "cv" in poly_err,
+          "the glasses' and curvatures' gradients reached")
+    check(all(v <= max(TOL_F64["grad_rel"], GRAD_NOISE_FACTOR * poly_eager[k])
+              for k, v in poly_err.items()), "polychromatic gradients vs f64")
+    del leaves64_p, p64_p, loss64_p, leaves_pe, p_pe, leaves_p, p_p, loss_p
+    free()
+
+    leaves_q, p_q = leaves_of(params_c, names_p)
+    start_q = {k: v.detach().clone() for k, v in leaves_q.items()}
+    opt_q = torch.optim.Adam(list(leaves_q.values()), lr=ADAM_LR)
+
+    def poly_step():
+        opt_q.zero_grad()
+        step_loss = centroid_rms_spot(static_c, p_q, *fb, diff_inputs=False)
+        step_loss.backward()
+        opt_q.step()
+        return step_loss
+
+    losses_q = []
+    for _ in range(ADAM_STEPS):
+        reset_counts()
+        losses_q.append(poly_step().item())
+        c_step = read_counts()
+        check(c_step["K1"] == 1 and c_step["K2"] == 1
+              and sum(c_step.values()) == 2,
+              f"polychromatic Adam step launched K1 and K2 once: {c_step}")
+    moved_q = {k: (v.detach() - start_q[k])[torch.isfinite(start_q[k])].abs(
+    ).max().item() for k, v in leaves_q.items()
+        if torch.isfinite(start_q[k]).any()}
+    print(f"polychromatic {ADAM_STEPS} Adam steps over {len(leaves_q)} leaves "
+          f"(lr {ADAM_LR}): losses {losses_q}, largest change "
+          f"{json.dumps(moved_q)}")
+    check(all(math.isfinite(v) for v in losses_q), "polychromatic losses")
+    check(any(v > 0 for v in moved_q.values()), "Adam moved some leaf")
+
+    # each per-ray kernel against its plain version on the flagship batch:
+    # K1 and K2 on the merit's inputs, K3 and K4 through
+    # trace_system_final at the per-ray w and its backward, K5 and K6
+    # through trace_final of the rays generate_rays makes at that w
+    pw, data_w = fused._prepare(static_c, params_c, *fb)
+    check(len(data_w) == 5, "per-ray data: Hx, Hy, Px, Py, w")
+
+    def moment_rel(got, ref):
+        scale = torch.stack([ref[0], (ref[0] * ref[3]).sqrt(),
+                             (ref[0] * ref[3]).sqrt(), ref[3]])
+        return ((got - ref).abs() / scale).max().item()
+
+    k1w = fused.moments_forward(static_c, *pw, data_w)
+    k1w_rel = moment_rel(k1w, fused._moments_plain(static_c, *pw, data_w))
+    k1w_abs = (k1w - fused._moments_plain(static_c, *pw, data_w)).abs().max(
+    ).item()
+    mw_leaf = k1w.detach().requires_grad_(True)
+    c_poly, = torch.autograd.grad(centroid_rms_from_moments(*mw_leaf.unbind()),
+                                  mw_leaf)
+    leaves_3, p_3 = leaves_of(params_c)
+    reset_counts()
+    out_w = tracer.trace_system_final(static_c, p_3, *fb)
+    (out_w["x"] ** 2 + out_w["y"] ** 2 + out_w["opd"]).sum().backward()
+    final_w_launches = read_counts()
+    check(final_w_launches["K3"] == 1 and final_w_launches["K4"] == 1
+          and sum(final_w_launches.values()) == 2,
+          f"per-ray trace_system_final launched K3 and K4: {final_w_launches}")
+    k3w = tuple(out_w[k].detach() for k in fused._NAMES)
+    k3w_plain = fused._raygen_trace_plain(static_c, *pw, data_w, keys)
+    keep_w = (k3w[6] > 0) == (k3w_plain[6] > 0)
+    k3w_err = final_errs("K3 per-ray", k3w, k3w_plain, keep_w)
+    k4w_seeds = (2.0 * k3w[0], 2.0 * k3w[1], torch.ones_like(k3w[0]))
+    del out_w, leaves_3, p_3, k3w, k3w_plain
+    errs_w = {"K1": k1w_rel}
+    k2w = fused.moments_backward(static_c, *pw, data_w, c_poly, True)
+    k2w_errs, k2w_rays, k2w_abs = cotangent_errs(
+        k2w, fused._moments_bwd_plain(static_c, *pw, data_w, c_poly, True),
+        keep_w)
+    check_cotangents("K2 per-ray", k2w_errs, k2w_rays)
+    check("mat_coeffs" in k2w_errs and "ray4" in k2w_rays,
+          "K2 per-ray: mat_coeffs' and w's cotangents")
+    k2w_again = fused.moments_backward(static_c, *pw, data_w, c_poly, True)
+    check(all(torch.equal(a, b) for a, b in zip(k2w_again[1], k2w[1])),
+          "K2 per-ray parameter cotangents bitwise over two launches")
+    del k2w, k2w_again
+    k4w_errs, k4w_rays, k4w_abs = cotangent_errs(
+        fused.raygen_trace_backward(static_c, *pw, data_w, k4_keys, k4w_seeds),
+        fused._raygen_trace_bwd_plain(static_c, *pw, data_w, k4_keys,
+                                      k4w_seeds), keep_w)
+    check_cotangents("K4 per-ray", k4w_errs, k4w_rays)
+    free()
+    rays0_w = generate_rays(static_c, params_c, *fb)
+    rays9_w = tuple(getattr(rays0_w, k).detach().contiguous()
+                    for k in fused._RAY_KEYS)
+    leaves_5, p_5 = leaves_of(params_c)
+    reset_counts()
+    out5 = fused.trace_final(static_c, p_5, rays0_w)
+    (out5["x"] ** 2 + out5["y"] ** 2 + out5["opd"]).sum().backward()
+    caller_w_launches = read_counts()
+    check(caller_w_launches["K5"] == 1 and caller_w_launches["K6"] == 1
+          and sum(caller_w_launches.values()) == 2,
+          f"per-ray trace_final launched K5 and K6: {caller_w_launches}")
+    p5 = (fused._diff_params(params_c), fused._nondiff_params(params_c))
+    k5w = tuple(out5[k].detach() for k in fused._NAMES)
+    k5w_plain = fused._fused_trace_plain(static_c, *p5, rays9_w)
+    keep5 = (k5w[6] > 0) == (k5w_plain[6] > 0)
+    k5w_err = final_errs("K5 per-ray", k5w, k5w_plain, keep5)
+    del out5, leaves_5, p_5, k5w, k5w_plain, rays0_w
+    rng_w = np.random.default_rng(3)
+    k6w_seeds = tuple(torch.from_numpy(rng_w.standard_normal(n_c).astype(
+        np.float32)).to(dev) for _ in range(8))
+    k6w = fused.fused_trace_backward(static_c, *p5, rays9_w, k6w_seeds)
+    k6w_plain = fused._fused_trace_bwd_plain(static_c, *p5, rays9_w, k6w_seeds)
+    k6w_errs, k6w_rays, k6w_abs = cotangent_errs(
+        (None, k6w[1], k6w[0]), (None, k6w_plain[1], k6w_plain[0]), keep5)
+    check_cotangents("K6 per-ray", k6w_errs, k6w_rays)
+    check("ray8" in k6w_rays, "K6 per-ray: w's cotangent")
+    del k6w, k6w_plain
+    free()
+
+    # a tabulated glass on the card: the per-ray K1 and K2 on the doublet of
+    # a tabulated (formula 10) and an Abbe glass, at wavelengths below, in
+    # and above the tabulated table (its cotangent a per-ray scatter on the
+    # segments, summed in a fixed order by the wrapper)
+    static_d, params_d = tabulated_doublet(Optic).build(device="cuda")
+    rng_d = np.random.default_rng(4)
+    r_d = np.sqrt(rng_d.uniform(size=n_c))
+    th_d = rng_d.uniform(0, 2 * np.pi, n_c)
+    data_d = tuple(torch.from_numpy(a.astype(np.float32)).to(dev) for a in (
+        np.zeros(n_c), rng_d.uniform(-1, 1, n_c), r_d * np.cos(th_d),
+        r_d * np.sin(th_d), rng_d.choice((0.38, 0.45, 0.48, 0.55, 0.65, 0.75),
+                                          n_c)))
+    pd, data_dw = fused._prepare(static_d, params_d, *data_d)
+    reset_counts()
+    k1d = fused.moments_forward(static_d, *pd, data_dw)
+    k1d_plain = fused._moments_plain(static_d, *pd, data_dw)
+    md_leaf = k1d.detach().requires_grad_(True)
+    c_d, = torch.autograd.grad(centroid_rms_from_moments(*md_leaf.unbind()),
+                               md_leaf)
+    k2d = fused.moments_backward(static_d, *pd, data_dw, c_d, True)
+    tab_launches = read_counts()
+    check(tab_launches["K1"] == 1 and tab_launches["K2"] == 1,
+          f"tabulated doublet: per-ray K1 and K2 launched: {tab_launches}")
+    keep_d = fused._raygen_trace_plain(static_d, *pd, data_dw, (6,))[0] > 0
+    k2d_errs, k2d_rays, _ = cotangent_errs(
+        k2d, fused._moments_bwd_plain(static_d, *pd, data_dw, c_d, True),
+        keep_d)
+    errs_w["K1 tabulated doublet"] = moment_rel(k1d, k1d_plain)
+    print(f"per-ray K1 vs plain (moment_rel): {json.dumps(errs_w)} "
+          f"(tolerance {TOL['moment_rel']})")
+    for k, v in errs_w.items():
+        check(v <= TOL["moment_rel"], f"{k} per-ray vs plain")
+    check_cotangents("K2 per-ray (tabulated doublet)", k2d_errs, k2d_rays)
+    check("mat_coeffs" in k2d_errs, "tabulated doublet: mat_coeffs cotangent")
+    k2d_again = fused.moments_backward(static_d, *pd, data_dw, c_d, True)
+    check(torch.equal(k2d_again[1][6], k2d[1][6]),
+          "tabulated glass cotangents bitwise over two launches")
+    k2d_ms = time_ms(lambda: fused.moments_backward(static_d, *pd, data_dw,
+                                                    c_d, False))
+    del k1d, k1d_plain, k2d, k2d_again
     free()
 
     # 17. (k) the user's entry: Optic.trace on the card
@@ -1588,6 +1855,85 @@ def main():
             plain_ms=time_ms(lambda: plains_t1[name](x_t1)), bound_ms=b_ms,
             bound_by=b_by, library_ms=None))
 
+    # the per-ray variants (the polychromatic merit's K1 and K2, K3 to K6 on
+    # the paths above), at the flagship batch's 1,999,998 rays and at its
+    # first 16,384: each kernel's time is the CUDA-event span around its C
+    # launch inside the wrapper call (kernel_turns.timed_launches), the
+    # median of 25
+    spans, restore = kernel_turns.timed_launches(fused)
+    def cut(arrays, m):
+        return tuple(a[:m].contiguous() for a in arrays)
+
+    def per_ray_calls(m):
+        """The six per-ray wrapper calls on the first m rays."""
+        d, r9 = cut(data_w, m), cut(rays9_w, m)
+        s3, s8 = cut(k4w_seeds, m), cut(k6w_seeds, m)
+        return {
+            "K1": lambda: fused.moments_forward(static_c, *pw, d),
+            "K2": lambda: fused.moments_backward(static_c, *pw, d, c_poly,
+                                                 False),
+            "K3": lambda: fused.raygen_trace_forward(static_c, *pw, d, keys),
+            "K4": lambda: fused.raygen_trace_backward(static_c, *pw, d,
+                                                      k4_keys, s3),
+            "K5": lambda: fused.fused_trace_forward(static_c, *p5, r9),
+            "K6": lambda: fused.fused_trace_backward(static_c, *p5, r9, s8)}
+
+    media_ops = media_ops_per_ray(static_c)
+    ops_w = {"K1": chain_ops_per_ray(static_c, fused) + 10,
+             "K2": backward_ops_per_ray(static_c, fused) + 8,
+             "K3": chain_ops_per_ray(static_c, fused),
+             "K4": backward_ops_per_ray(static_c, fused),
+             "K5": chain_ops_per_ray(static_c, fused) - 32,
+             "K6": backward_ops_per_ray(static_c, fused, raygen=False)}
+    # floats a ray moves: in (data or rays, seeds) and out (outputs,
+    # cotangents; K2 without its data cotangents, as timed)
+    floats_w = {"K1": 5, "K2": 5, "K3": 5 + 8, "K4": 5 + 3 + 5,
+                "K5": 9 + 8, "K6": 9 + 8 + 9}
+    plains_w = {
+        "K1": lambda: fused._moments_plain(static_c, *pw, data_w),
+        "K2": lambda: fused._moments_bwd_plain(static_c, *pw, data_w, c_poly,
+                                               False),
+        "K3": lambda: fused._raygen_trace_plain(static_c, *pw, data_w, keys),
+        "K4": lambda: fused._raygen_trace_bwd_plain(static_c, *pw, data_w,
+                                                    k4_keys, k4w_seeds),
+        "K5": lambda: fused._fused_trace_plain(static_c, *p5, rays9_w),
+        "K6": lambda: fused._fused_trace_bwd_plain(static_c, *p5, rays9_w,
+                                                   k6w_seeds)}
+    err_w = {"K1": k1w_abs, "K2": k2w_abs,
+             "K3": max(v for k, v in k3w_err.items() if k != "intensity_frac"),
+             "K4": k4w_abs,
+             "K5": max(v for k, v in k5w_err.items() if k != "intensity_frac"),
+             "K6": k6w_abs}
+    path_w = {"K1": poly_launches, "K2": poly_launches,
+              "K3": final_w_launches, "K4": final_w_launches,
+              "K5": caller_w_launches, "K6": caller_w_launches}
+    calls_w = {m: per_ray_calls(m) for m in (n_c, 16_384)}
+    per_ray_ms = {}
+    for key, (fn_name, src, replaces, _, _) in meta.items():
+        if key not in ops_w:
+            continue
+        ms = {m: kernel_turns.launch_ms(calls_w[m][key], spans)
+              for m in calls_w}
+        per_ray_ms[key] = {"1999998": ms[n_c], "16384": ms[16_384],
+                           "bound_16384": bound_ms(
+                               floats_w[key] * 4 * 16_384,
+                               (ops_w[key] + media_ops) * 16_384)[0]}
+        b_ms, b_by = bound_ms(floats_w[key] * 4 * n_c,
+                              (ops_w[key] + media_ops) * n_c)
+        rows.append(dict(
+            name=f"{key} {fn_name} (per-ray wavelengths)", route="cuda",
+            source=f"optiland_tpu_torch/csrc/{src}", replaces=replaces,
+            launches=path_w[key][key], max_abs_err=err_w[key], ms=ms[n_c],
+            plain_ms=time_ms(plains_w[key]), bound_ms=b_ms, bound_by=b_by,
+            library_ms=None))
+        free()
+    restore()
+    print(f"per-ray variants on the Cooke triplet, median of {TIMED_CALLS} "
+          f"launch spans (ms), with the 16,384-ray bound: "
+          f"{json.dumps(per_ray_ms)}; K2 wrapper on the tabulated doublet at "
+          f"{n_c} rays (launch, partial sums, the tabulated glass's segment "
+          f"sums) {k2d_ms:.4f} ms; media FP32 ops/ray {media_ops}")
+
     def host_ms(fn, calls=TIMED_STEPS):
         """Median host-clock time of `fn` between two synchronizes, after
         two warm-up calls."""
@@ -1666,6 +2012,25 @@ def main():
     torch.cuda.reset_peak_memory_stats()
     flagship_step()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # the polychromatic step (per-ray K1, K2) and the monochromatic one of
+    # phase (j) at 0.55 um, each with Adam over the same leaves
+    poly_ms = host_ms(poly_step)
+    leaves_m, p_m = leaves_of(params_c, names_p)
+    opt_m = torch.optim.Adam(list(leaves_m.values()), lr=ADAM_LR)
+
+    def mono_step():
+        opt_m.zero_grad()
+        centroid_rms_spot(static_c, p_m, *fb[:4], FLAGSHIP_WAVELENGTH,
+                          diff_inputs=False).backward()
+        opt_m.step()
+
+    mono_ms = host_ms(mono_step)
+    print(f"flagship (Cooke triplet, {n_c} rays, float32) host clock, "
+          f"median of {TIMED_STEPS}: polychromatic centroid_rms_spot step "
+          f"(per-ray K1, K2, Adam over {len(leaves_q)} leaves) {poly_ms:.4f} "
+          f"ms, {n_c / poly_ms * 1e3:.6g} rays/s; the monochromatic step at "
+          f"{FLAGSHIP_WAVELENGTH} um (K1, K2) {mono_ms:.4f} ms; the "
+          f"trace_system step below")
     print(f"flagship (Cooke triplet, {n_c} rays, float32) host clock, "
           f"median of {TIMED_STEPS}: trace_system {fwd_c_ms:.4f} ms, split "
           f"(ms) {json.dumps(fwd_split)}; "

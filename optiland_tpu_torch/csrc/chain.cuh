@@ -6,9 +6,10 @@
 // port: plane / conic / even / odd asphere geometries, refract / reflect /
 // none interactions, radial apertures, tilt and decenter, Beer-Lambert
 // absorption; at one wavelength from the hoisted index and absorption
-// tables (`TableMedia`, K1-K6), or at each ray's own wavelength (K7,
-// system_chain.cuh `RayMedia`: `material_index` for every formula code of
-// materials/dispersion.py and `kv_segment` of the extinction tables). The
+// tables (`TableMedia`), or at each ray's own wavelength (`RayMedia`:
+// `material_index` for every formula code of materials/dispersion.py and
+// `kv_segment` of the extinction tables; K7 and the per-ray variants of
+// K1-K6, built with the media's codes, OTK_MATERIALS). The
 // Python wrappers (trace/fused.py, `_check_kernel_branches`) refuse every
 // other branch before a launch. chain_bwd.cuh holds the reverse sweep
 // built from the same pieces.
@@ -176,10 +177,11 @@ __device__ __forceinline__ void stage_materials(int S, int mat_w,
   }
 }
 
-// jnp.interp(x, xp, fp) over a (K,) table in global memory: a binary search
-// for the first xp > x, clipped to [1, K - 1], a zero-width segment taking
-// its left value, edge-clamped outside [xp[0], xp[K-1]].
-__device__ __forceinline__ float interp(float x, const float* xp, const float* fp, int K) {
+// The segment (i0, i) of a (K,) table xp that jnp.interp reads for x: a
+// binary search for the first xp > x, clipped to [1, K - 1], i0 = i - 1
+// (both 0 for a one-point table).
+__device__ __forceinline__ void interp_segment(float x, const float* xp, int K, int& i0,
+                                               int& i) {
   int lo = 0, hi = K;
   while (lo < hi) {
     const int mid = (lo + hi) >> 1;
@@ -188,8 +190,16 @@ __device__ __forceinline__ float interp(float x, const float* xp, const float* f
     else
       hi = mid;
   }
-  const int i = K > 1 ? (lo < 1 ? 1 : (lo > K - 1 ? K - 1 : lo)) : 0;
-  const int i0 = K > 1 ? i - 1 : 0;
+  i = K > 1 ? (lo < 1 ? 1 : (lo > K - 1 ? K - 1 : lo)) : 0;
+  i0 = K > 1 ? i - 1 : 0;
+}
+
+// jnp.interp(x, xp, fp) over a (K,) table in global memory: the segment
+// `interp_segment` finds, a zero-width segment taking its left value,
+// edge-clamped outside [xp[0], xp[K-1]].
+__device__ __forceinline__ float interp(float x, const float* xp, const float* fp, int K) {
+  int i0, i;
+  interp_segment(x, xp, K, i0, i);
   const float dx = xp[i] - xp[i0];
   float f = (fabsf(dx) <= INTERP_DX0) ? fp[i0] : fp[i0] + ((x - xp[i0]) / dx) * (fp[i] - fp[i0]);
   if (x < xp[0]) f = fp[0];
@@ -358,14 +368,19 @@ __device__ __forceinline__ float kv_interp(float w, const float* kwl, const floa
   return kv;
 }
 
-// `kv_interp` by its one segment (K7): the edge values outside the table
-// (and for a NaN w), else the segment w0 < w <= w1, found by a binary
-// search for the first point >= w, and its `val` by the same arithmetic.
-// Of kv_interp's masked sum every other term is 0 * val or 0 * kval, an
-// exact 0 for a finite table, so the two give the same float; no
-// zero-width segment of a padded table can hold w0 < w <= w1.
-__device__ __forceinline__ float kv_segment(float w, const float* kwl, const float* kval,
-                                            int K) {
+// `kv_interp` by its one segment: the edge values outside the table (and
+// for a NaN w), else the segment w0 < w <= w1, found by a binary search
+// for the first point >= w, and its `val` by the same arithmetic. Of
+// kv_interp's masked sum every other term is 0 * val or 0 * kval, an exact
+// 0 for a finite table, so the two give the same float; no zero-width
+// segment of a padded table can hold w0 < w <= w1. Also gives the slope of
+// that segment, d kv / d w: 0 outside the table and at its first point,
+// where kv is an edge value (the derivative autograd takes of
+// `_kv_interp`, whose masks are constants; the backward kernels'
+// absorption adjoint).
+__device__ __forceinline__ float kv_segment(float w, const float* kwl, const float* kval, int K,
+                                            float& slope) {
+  slope = 0.f;
   if (!(w > kwl[0])) return kval[0];
   if (w > kwl[K - 1]) return kval[K - 1];
   int lo = 1, hi = K - 1;  // the first j >= 1 with kwl[j] >= w
@@ -378,8 +393,15 @@ __device__ __forceinline__ float kv_segment(float w, const float* kwl, const flo
   }
   const float w0 = kwl[lo - 1], w1 = kwl[lo];
   const float dw = (fabsf(w1 - w0) > EPS) ? w1 - w0 : 1.f;
-  const float frac = (w - w0) / dw;
-  return kval[lo - 1] + frac * (kval[lo] - kval[lo - 1]);
+  const float dk = kval[lo] - kval[lo - 1];
+  slope = dk / dw;
+  return kval[lo - 1] + ((w - w0) / dw) * dk;
+}
+
+__device__ __forceinline__ float kv_segment(float w, const float* kwl, const float* kval,
+                                            int K) {
+  float slope;  // unused: the compiler drops its division
+  return kv_segment(w, kwl, kval, K, slope);
 }
 
 // Ray generation from rg = (epl, epd, fmax, a, b): `_tile_raygen`.
@@ -602,9 +624,9 @@ struct NoSink {
 
 // The indices and absorption of the media at the tables' one wavelength
 // (K1-K6): the Beer-Lambert alpha of the medium before a surface and the
-// index after it, as make_surface read them. system_chain.cuh `RayMedia`
-// gives them at each ray's own wavelength (K7). `at<k>()` is the view of
-// surface k that the per-system chain passes to surface_step.
+// index after it, as make_surface read them. `RayMedia` gives them at each
+// ray's own wavelength (system_chain.cuh `RayMediaAt`). `at<k>()` is the
+// view of surface k that the per-system chain passes to surface_step.
 struct TableMedia {
   __device__ __forceinline__ float alpha_before(const Surface& s) const { return s.alpha; }
   __device__ __forceinline__ float index_after(const Surface& s) const { return s.n; }
@@ -671,5 +693,76 @@ __device__ __forceinline__ void trace_chain(int S, int n_newton, const float* ft
                  rec ? rec[k] : nullptr);
   }
 }
+
+#ifdef OTK_MATERIALS
+// The media of a build at per-ray wavelengths (K7, the per-ray variants of
+// K1-K6): OTK_MATERIALS holds {formula, coefficient count} of the medium
+// after each surface, k = 0 .. S-1 (a tabulated glass's count is its row's
+// width, so it needs a word of its own), separated by commas
+// (trace/fused.py `media_defines`).
+struct MaterialCodes {
+  int formula, nc;
+};
+
+__host__ __device__ constexpr MaterialCodes material_codes(int k) {
+  constexpr MaterialCodes table[] = {OTK_MATERIALS};
+  return table[k];
+}
+
+// the number of media: the system's S
+__host__ __device__ constexpr int media_count() {
+  constexpr MaterialCodes table[] = {OTK_MATERIALS};
+  return sizeof(table) / sizeof(table[0]);
+}
+constexpr int MEDIA = media_count();
+
+template <int k>
+struct RayMediaAt;  // system_chain.cuh: surface k's view for surface_step
+
+// The system's media at one ray's wavelength w. mat: the (S, mat_w)
+// coefficient rows in global memory (a tabulated glass's row is as wide as
+// its table, up to tens of thousands of floats); s_mat: their first
+// MAT_SHARED columns, staged in shared memory; kwl, kval: the (S, K)
+// extinction tables in global memory (a catalog table reaches 21,394
+// points), padded with their last point.
+struct RayMedia {
+  const float* mat;
+  const float* s_mat;
+  const float* kwl;
+  const float* kval;
+  int mat_w, K;
+  float w;
+
+  // the index of the medium after surface k at w
+  template <int k>
+  __device__ __forceinline__ float index_after() const {
+    constexpr MaterialCodes m = material_codes(k);
+    return material_index<m.formula, m.nc>(s_mat + k * MAT_SHARED,
+                                           mat + (size_t)k * mat_w, w);
+  }
+
+  // index_after<k>() for a k known at run time (the backward kernels' run-
+  // time chain): the formula of medium k is still a compile-time constant,
+  // chosen by comparisons on k that every lane of a warp takes alike
+  template <int M = 0>
+  __device__ __forceinline__ float index_after(int k) const {
+    if constexpr (M + 1 < MEDIA) {
+      if (k != M) return index_after<M + 1>(k);
+    }
+    return index_after<M>();
+  }
+
+  // the Beer-Lambert alpha = 4 pi k(w) / w of the medium after surface k
+  __device__ __forceinline__ float alpha_after(int k) const {
+    const size_t row = (size_t)k * K;
+    return FOUR_PI * kv_segment(w, kwl + row, kval + row, K) / w;
+  }
+
+  template <int k>
+  __device__ __forceinline__ RayMediaAt<k> at() const {
+    return RayMediaAt<k>{*this};
+  }
+};
+#endif
 
 }  // namespace otk

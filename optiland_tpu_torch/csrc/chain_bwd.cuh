@@ -668,6 +668,23 @@ __device__ __forceinline__ BwdShared stage_backward(float* smem, int S, int nrow
   return b;
 }
 
+// A per-ray block's shared memory (the per-ray variants of K2, K4, K6):
+// stage_backward's, then the first MAT_SHARED columns of the material rows.
+__host__ __device__ __forceinline__ size_t bwd_w_smem_bytes(int S, int nrows, int threads) {
+  return bwd_smem_bytes(S, nrows, threads) + sizeof(float) * S * MAT_SHARED;
+}
+
+// Stage the material columns past stage_backward's region and return them;
+// every thread of the block calls it, before stage_backward (whose
+// barriers it relies on).
+__device__ __forceinline__ const float* stage_backward_materials(float* smem, int S, int nrows,
+                                                                 int mat_w,
+                                                                 const float* __restrict__ mat) {
+  float* s_mat = smem + bwd_smem_bytes(S, nrows, blockDim.x) / sizeof(float);
+  stage_materials(S, mat_w, mat, s_mat);
+  return s_mat;
+}
+
 // This warp's rows.
 __device__ __forceinline__ WarpRows warp_rows(const BwdShared& b, int nrows) {
   return WarpRows{b.rows + (threadIdx.x / 32) * nrows * F_STRIDE};
@@ -685,5 +702,389 @@ __device__ __forceinline__ void write_partials(const BwdShared& b, int nrows, fl
     out[(j / F_STRIDE) * F_STRIDE + table_slot(j % F_STRIDE)] = tot;
   }
 }
+
+// ---------------------------------------------------------------------------
+// The adjoint at per-ray wavelengths: the derivatives of each medium's index
+// (`material_index`) in its coefficients and the ray's w, and of the
+// Beer-Lambert alpha = 4 pi k(w) / w in w. JAX differentiates the same
+// functions inside its per-ray kernels (`uniform_w=False`); the extinction
+// tables get no cotangent there, and none here.
+// ---------------------------------------------------------------------------
+
+// The adjoint of `interp(x, xp, fp, K)` (jnp.interp): dn -> the cotangents
+// v of (xp[i - 1], xp[i], fp[i - 1], fp[i]) on the segment i that interp
+// reads (seg = i; for a one-point table i - 1 = i = 0), and of x (added to
+// dx). Outside the table the edge value's cotangent lands on fp[0] or
+// fp[K - 1] and x gets none; a zero-width segment passes dn to its left
+// value and divides by nothing.
+__device__ __forceinline__ void interp_bwd(float x, const float* xp, const float* fp, int K,
+                                           float dn, int& seg, float (&v)[4], float& dx) {
+  int i0, i;
+  interp_segment(x, xp, K, i0, i);
+  seg = i;
+  v[0] = v[1] = v[2] = v[3] = 0.f;
+  if (x < xp[0]) {
+    v[2] = dn;  // fp[0]: i0 is 0 here
+  } else if (x > xp[K - 1]) {
+    v[3] = dn;  // fp[K - 1]: i is K - 1 here
+  } else {
+    const float d = xp[i] - xp[i0];
+    if (fabsf(d) <= INTERP_DX0) {
+      v[2] = dn;
+    } else {
+      const float q = (x - xp[i0]) / d;
+      const float gd = dn * (fp[i] - fp[i0]) / d;
+      v[0] = gd * (q - 1.f);
+      v[1] = -gd * q;
+      v[2] = dn - dn * q;
+      v[3] = dn * q;
+      dx += gd;
+    }
+  }
+}
+
+// dn times the derivatives of `material_index<F, NC>` at w in its
+// coefficients c (added to dc[0 .. NC)) and in w (added to dw), each
+// formula's closed form with its forward recomputed in the forward's
+// order. The exponents of formulas 3, 4 and 5 are coefficients: d/dc of
+// w^c takes log w (and of c'^c log c', as autograd of pow takes it, 0 at
+// c' = 0 for c >= 0). The tabulated formula (10) is `interp_bwd`'s.
+template <int F, int NC>
+__device__ __forceinline__ void material_index_bwd(const float* c, float w, float dn, float* dc,
+                                                   float& dw) {
+  if constexpr (F == 0) {  // ideal
+    dc[0] += dn;
+  } else if constexpr (F == 1 || F == 2) {  // Sellmeier
+    const float w2 = w * w;
+    float n2 = 1.f + c[0];
+#pragma unroll
+    for (int k = 1; k < NC - 1; k += 2) {
+      const float d = F == 1 ? c[k + 1] * c[k + 1] : c[k + 1];
+      n2 = n2 + c[k] * w2 / (w2 - d);
+    }
+    const float dn2 = dn * 0.5f / sqrtf(n2);
+    float dw2 = 0.f;
+    dc[0] += dn2;
+#pragma unroll
+    for (int k = 1; k < NC - 1; k += 2) {
+      const float d = F == 1 ? c[k + 1] * c[k + 1] : c[k + 1];
+      const float inv = 1.f / (w2 - d);
+      const float dd = dn2 * c[k] * w2 * inv * inv;  // d n2 / d d
+      dc[k] += dn2 * w2 * inv;
+      dc[k + 1] += F == 1 ? dd * 2.f * c[k + 1] : dd;
+      dw2 -= dd * d / w2;
+    }
+    dw += dw2 * 2.f * w;
+  } else if constexpr (F == 3 || F == 5) {  // polynomial in n^2, Cauchy in n
+    float p[NC > 1 ? NC : 1];
+    float s = c[0];
+#pragma unroll
+    for (int k = 1; k < NC - 1; k += 2) {
+      p[k] = powf(w, c[k + 1]);
+      s = s + c[k] * p[k];
+    }
+    const float ds = F == 3 ? dn * 0.5f / sqrtf(s) : dn;
+    const float lw = logf(w);
+    dc[0] += ds;
+#pragma unroll
+    for (int k = 1; k < NC - 1; k += 2) {
+      dc[k] += ds * p[k];
+      dc[k + 1] += ds * c[k] * p[k] * lw;
+      dw += ds * c[k] * c[k + 1] * p[k] / w;
+    }
+  } else if constexpr (F == 4) {  // refractiveindex.info formula 4
+    const float w2 = w * w;
+    float n2 = c[0];
+    float pa = 0.f, qa = 0.f, da = 1.f, pb = 0.f, qb = 0.f, db = 1.f;
+    if constexpr (NC > 4) {
+      pa = powf(w, c[2]);
+      qa = powf(c[3], c[4]);
+      da = w2 - qa;
+      n2 = n2 + c[1] * pa / da;
+    }
+    if constexpr (NC > 8) {
+      pb = powf(w, c[6]);
+      qb = powf(c[7], c[8]);
+      db = w2 - qb;
+      n2 = n2 + c[5] * pb / db;
+    }
+    float p[NC > 1 ? NC : 1];
+#pragma unroll
+    for (int k = 9; k < NC - 1; k += 2) {
+      p[k] = powf(w, c[k + 1]);
+      n2 = n2 + c[k] * p[k];
+    }
+    const float dn2 = dn * 0.5f / sqrtf(n2);
+    const float lw = logf(w);
+    float dw2 = 0.f;
+    dc[0] += dn2;
+    // c[j] w^c[j+1] / (w^2 - c[j+2]^c[j+3]) at j = 1 and 5
+    const auto pole = [&](int j, float pw, float q, float den) {
+      const float dp = dn2 * c[j] / den;
+      const float dden = -dn2 * c[j] * pw / (den * den);
+      dc[j] += dn2 * pw / den;
+      dc[j + 1] += dp * pw * lw;
+      dw += dp * c[j + 1] * pw / w;
+      dw2 += dden;
+      dc[j + 2] -= c[j + 3] == 0.f ? 0.f : dden * c[j + 3] * powf(c[j + 2], c[j + 3] - 1.f);
+      dc[j + 3] -= (c[j + 2] == 0.f && c[j + 3] >= 0.f) ? 0.f : dden * q * logf(c[j + 2]);
+    };
+    if constexpr (NC > 4) pole(1, pa, qa, da);
+    if constexpr (NC > 8) pole(5, pb, qb, db);
+#pragma unroll
+    for (int k = 9; k < NC - 1; k += 2) {
+      dc[k] += dn2 * p[k];
+      dc[k + 1] += dn2 * c[k] * p[k] * lw;
+      dw += dn2 * c[k] * c[k + 1] * p[k] / w;
+    }
+    dw += dw2 * 2.f * w;
+  } else if constexpr (F == 6) {  // gases
+    const float inv_w2 = 1.f / (w * w);
+    float dinv = 0.f;
+    dc[0] += dn;
+#pragma unroll
+    for (int k = 1; k < NC - 1; k += 2) {
+      const float inv = 1.f / (c[k + 1] - inv_w2);
+      const float dd = -dn * c[k] * inv * inv;
+      dc[k] += dn * inv;
+      dc[k + 1] += dd;
+      dinv -= dd;
+    }
+    dw -= dinv * 2.f * inv_w2 / w;
+  } else if constexpr (F == 7) {  // Herzberger
+    const float w2 = w * w;
+    const float g = 1.f / (w2 - static_cast<float>(0.028));
+    const float dg = dn * (c[1] + 2.f * c[2] * g);
+    float dw2 = -dg * g * g;
+    dc[0] += dn;
+    dc[1] += dn * g;
+    dc[2] += dn * g * g;
+    float p = 1.f;
+#pragma unroll
+    for (int k = 3; k < NC; ++k) {
+      p = p * w2;  // w2^(k - 2)
+      dc[k] += dn * p;
+      dw2 += dn * c[k] * (float)(k - 2) * p / w2;
+    }
+    dw += dw2 * 2.f * w;
+  } else if constexpr (F == 8) {  // retro
+    const float w2 = w * w;
+    const float den = w2 - c[2];
+    const float rhs = c[0] + c[1] * w2 / den + c[3] * w2;
+    const float top = 2.f * rhs + 1.f, bot = 1.f - rhs;
+    const float dq = dn * 0.5f / sqrtf(top / bot);
+    const float drhs = 2.f * dq / bot + dq * top / (bot * bot);
+    dc[0] += drhs;
+    dc[1] += drhs * w2 / den;
+    dc[2] += drhs * c[1] * w2 / (den * den);
+    dc[3] += drhs * w2;
+    dw += drhs * (c[3] - c[1] * c[2] / (den * den)) * 2.f * w;
+  } else if constexpr (F == 9) {  // exotic
+    const float w2 = w * w;
+    const float d = w - c[4];
+    const float d1 = w2 - c[2], e = d * d + c[5];
+    const float n2 = c[0] + c[1] / d1 + c[3] * d / e;
+    const float dn2 = dn * 0.5f / sqrtf(n2);
+    const float dd1 = -dn2 * c[1] / (d1 * d1);
+    const float de = -dn2 * c[3] * d / (e * e);
+    const float dd = dn2 * c[3] / e + de * 2.f * d;
+    dc[0] += dn2;
+    dc[1] += dn2 / d1;
+    dc[2] -= dd1;
+    dc[3] += dn2 * d / e;
+    dc[4] -= dd;
+    dc[5] += de;
+    dw += dd + dd1 * 2.f * w;
+  } else if constexpr (F == 11) {  // polyval, highest power first
+    float n = c[0], dndw = 0.f;
+#pragma unroll
+    for (int k = 1; k < NC; ++k) {
+      dndw = dndw * w + n;
+      n = n * w + c[k];
+    }
+    dw += dn * dndw;
+    float p = dn;  // dn w^(NC - 1 - k)
+#pragma unroll
+    for (int k = NC - 1; k >= 0; --k) {
+      dc[k] += p;
+      p = p * w;
+    }
+  }
+}
+
+#ifdef OTK_MATERIALS
+// A per-ray backward's record: REC, then the index after the surface (the
+// running index past it) and the Beer-Lambert alpha of the medium before it
+// at the ray's wavelength; row 0 holds the index of medium 0 at REC_N. Built
+// with OTK_MEDIA_RECOMPUTE (a probe: tools/system_probes.py --per-ray), the
+// record keeps REC floats and the reverse sweep evaluates the media again.
+constexpr int REC_N = REC;
+constexpr int REC_ALPHA = REC + 1;
+#ifdef OTK_MEDIA_RECOMPUTE
+constexpr int REC_W = REC;
+#else
+constexpr int REC_W = REC + 2;
+#endif
+
+// trace_chain at the ray's own wavelength: each surface's alpha and index
+// from `media` (run-time k, compile-time formulas), then surface_step on
+// them as on the tables; the record also keeps them (REC_N, REC_ALPHA), so
+// that the reverse sweep reads each surface's media from it.
+__device__ __forceinline__ void trace_chain_w(int S, int n_newton, const float* ft, const int* it,
+                                              const RayMedia& media, Ray& r,
+                                              float (*rec)[REC_W]) {
+  float pos_prev = 0.f;
+  float n_pre = media.index_after(0);
+#ifndef OTK_MEDIA_RECOMPUTE
+  rec[0][REC_N] = n_pre;
+#endif
+  for (int k = 1; k < S; ++k) {
+    const float pos_k = pos_prev + (k > 1 ? ft[(k - 1) * F_STRIDE + F_THICK] : 0.f);
+    pos_prev = pos_k;
+    Surface s = load_surface(ft, it, k);
+    s.alpha = s.absorbs ? media.alpha_after(k - 1) : 0.f;
+    if (s.inter == INT_REFRACT) s.n = media.index_after(k);
+    surface_step(s, k, n_newton, pos_k, r, n_pre, rec[k]);
+#ifndef OTK_MEDIA_RECOMPUTE
+    rec[k][REC_N] = n_pre;
+    rec[k][REC_ALPHA] = s.alpha;
+#endif
+  }
+}
+
+// The per-ray outputs of the tabulated glasses (trace/fused.py
+// `_tabulated_outputs`): slot t of ray idx gets its segment and the 4
+// cotangents of interp_bwd.
+struct TabulatedOut {
+  int* seg;
+  float* val;
+  size_t n;
+  int idx;
+  __device__ __forceinline__ void put(int t, int segment, const float (&v)[4]) const {
+    seg[t * n + idx] = segment;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) val[(t * 4 + q) * n + idx] = v[q];
+  }
+};
+
+// The slot of medium M among the tabulated media, in surface order.
+template <int M>
+__host__ __device__ constexpr int tabulated_slot() {
+  int t = 0;
+  for (int k = 0; k < M; ++k) t += material_codes(k).formula == FORMULA_TABULATED;
+  return t;
+}
+
+// The compact position of coefficient j in a material row: the one whose
+// table slot (`table_slot`) is j, so that `write_partials` leaves the row in
+// coefficient order (j < MAT_SHARED).
+__host__ __device__ constexpr int mat_compact(int j) {
+  return j == 0 ? C_CV : (j == 1 ? C_CONIC : C_COEFFS + j - 2);
+}
+
+// The width of a material row of NC coefficients (a power of two >= 4).
+template <int NC>
+__host__ __device__ constexpr int mat_width() {
+  const int top = mat_compact(NC - 1) + 1;
+  return top <= 4 ? 4 : (top <= 8 ? 8 : (top <= 16 ? 16 : F_STRIDE));
+}
+
+// The adjoint of medium k's index for this ray: dn -> its coefficients'
+// cotangents, summed by the warp into material row `row0 + k` of `rows`,
+// or for a tabulated glass its segment's, written per ray to `tab`; and
+// d w. Every lane of the warp calls it with the same k (the chain's k, at
+// run time: comparisons on it choose the medium's compile-time formula);
+// dead lanes (live false) add zeros.
+template <int M = 0, class Rows>
+__device__ __forceinline__ void medium_bwd(int k, const RayMedia& media, float dn, bool live,
+                                           const Rows& rows, int row0, const TabulatedOut& tab,
+                                           float& dw) {
+  if constexpr (M < MEDIA) {
+    if (k != M) {
+      medium_bwd<M + 1>(k, media, dn, live, rows, row0, tab, dw);
+      return;
+    }
+    constexpr MaterialCodes m = material_codes(M);
+    if constexpr (m.formula == FORMULA_TABULATED) {
+      if (live) {
+        int seg;
+        float v[4];
+        interp_bwd(media.w, media.mat + (size_t)M * media.mat_w,
+                   media.mat + (size_t)M * media.mat_w + m.nc / 2, m.nc / 2, dn, seg, v, dw);
+        tab.put(tabulated_slot<M>(), seg, v);
+      }
+    } else {
+      float dc[m.nc];
+#pragma unroll
+      for (int j = 0; j < m.nc; ++j) dc[j] = 0.f;
+      if (live)
+        material_index_bwd<m.formula, m.nc>(media.s_mat + M * MAT_SHARED, media.w, dn, dc, dw);
+      float v[F_STRIDE];
+#pragma unroll
+      for (int j = 0; j < F_STRIDE; ++j) v[j] = 0.f;
+#pragma unroll
+      for (int j = 0; j < m.nc; ++j) v[mat_compact(j)] = dc[j];
+      rows.put(row0 + M, v, mat_width<m.nc>());
+    }
+  }
+}
+
+// reverse_chain at the ray's own wavelength: each surface's index and
+// alpha from the record (trace_chain_w); where a refraction completes the
+// cotangent of the medium after it (surface_bwd's n slot: the refraction at
+// k and at the next refracting surface, and the opd terms between), and
+// for medium 0 at the end, `medium_bwd` turns it into that medium's
+// coefficient cotangents and d w before any sum over rays, so the n_table
+// slots stay 0; each absorbing medium adds -t 1e3 (i di) d alpha / d w,
+// with d alpha / d w = 4 pi (kv' / w - kv / w^2). Material rows go to
+// `row0 + k`; dw returns the ray's w cotangent.
+template <class Rows>
+__device__ __forceinline__ void reverse_chain_w(int S, const float* ft, const int* it,
+                                                const float* pos, const RayMedia& media,
+                                                const float (*rec)[REC_W], bool live,
+                                                float g_opd, float g_ip, Vec6& g,
+                                                const Rows& rows, int row0,
+                                                const TabulatedOut& tab, float& dw) {
+  float acc_n = 0.f, acc_pos = 0.f;
+  dw = 0.f;
+  for (int k = S - 1; k >= 1; --k) {
+    Surface s = load_surface(ft, it, k);
+    SurfGrad sg;
+    zero(sg);
+    float dpos = 0.f;
+    if (live) {
+#ifdef OTK_MEDIA_RECOMPUTE
+      int before = 0;  // the medium before surface k: its last refraction
+      for (int j = 1; j < k; ++j)
+        if (it[j * I_STRIDE + I_INTER] == INT_REFRACT) before = j;
+      if (s.inter == INT_REFRACT) s.n = media.index_after(k);
+      s.alpha = s.absorbs ? media.alpha_after(k - 1) : 0.f;
+      const float n_pre = media.index_after(before);
+#else
+      s.n = rec[k][REC_N];
+      s.alpha = rec[k][REC_ALPHA];
+      const float n_pre = rec[k - 1][REC_N];
+#endif
+      surface_bwd(s, rec[k], n_pre, pos[k], g_opd, g_ip, g, acc_n, dpos, sg);
+      if (s.absorbs) {
+        const size_t row = (size_t)(k - 1) * media.K;
+        float slope;
+        const float kv = kv_segment(media.w, media.kwl + row, media.kval + row, media.K, slope);
+        const float w = media.w;
+        dw -= rec[k][6] * 1e3f * g_ip * (FOUR_PI * slope / w - FOUR_PI * kv / (w * w));
+      }
+    }
+    sg.thick = acc_pos;
+    acc_pos += dpos;
+    const float dn = sg.n;
+    sg.n = 0.f;
+    float v[F_STRIDE];
+    grad_row(sg, v);
+    rows.put(k, v, row_width(s));
+    if (s.inter == INT_REFRACT) medium_bwd(k, media, dn, live, rows, row0, tab, dw);
+  }
+  medium_bwd(0, media, acc_n, live, rows, row0, tab, dw);
+}
+#endif
 
 }  // namespace otk

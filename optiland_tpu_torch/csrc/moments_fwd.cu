@@ -31,6 +31,15 @@
 //     a third of the kernel's time on an H100, and the approximate ones
 //     hold every K1 check (PERF.md).
 // Rays past n contribute nothing.
+//
+// Built with the media's codes too (OTK_MATERIALS, trace/fused.py
+// `history_defines`), it is the per-ray variant, the `uniform_w=False`
+// configuration of the JAX kernel: each ray brings its wavelength w, and
+// each medium's index and absorption come from its dispersion formula
+// (compile-time codes, the coefficients staged in shared memory) and
+// extinction table at w (chain.cuh `RayMedia`, as K7's); its entry point is
+// `moments_fwd_w`. Without them the code is the one-wavelength K1 as it
+// was, token for token.
 #include <cstdint>
 
 #include "system_chain.cuh"
@@ -40,19 +49,34 @@ namespace {
 constexpr int THREADS = otk::SYSTEM_THREADS;
 
 __global__ void __launch_bounds__(THREADS)
-moments_fwd_kernel(int n, const float* __restrict__ rg, const float* __restrict__ ftab,
+moments_fwd_kernel(int n,
+#ifdef OTK_MATERIALS
+                   int mat_w, int K, const float* __restrict__ mat,
+                   const float* __restrict__ kwl, const float* __restrict__ kval,
+                   const float* __restrict__ w,
+#endif
+                   const float* __restrict__ rg, const float* __restrict__ ftab,
                    const float* __restrict__ Hx, const float* __restrict__ Hy,
                    const float* __restrict__ Px, const float* __restrict__ Py,
                    float* __restrict__ partials) {
   __shared__ float s_ft[OTK_S * otk::F_STRIDE];
   __shared__ float s_rg[5];
   __shared__ float s_red[4][THREADS / 32];
+#ifdef OTK_MATERIALS
+  __shared__ float s_mat[OTK_S * otk::MAT_SHARED];
+  otk::stage_materials(OTK_S, mat_w, mat, s_mat);
+#endif
   otk::stage_system(ftab, rg, s_ft, s_rg);
 
   float m[4] = {0.f, 0.f, 0.f, 0.f};
   for (int idx = blockIdx.x * THREADS + threadIdx.x; idx < n; idx += gridDim.x * THREADS) {
     otk::Ray r = otk::system_raygen(s_rg, Hx[idx], Hy[idx], Px[idx], Py[idx]);
+#ifdef OTK_MATERIALS
+    otk::trace_system(s_ft, otk::RayMedia{mat, s_mat, kwl, kval, mat_w, K, w[idx]}, r,
+                      otk::NoSink());
+#else
     otk::trace_system(s_ft, r);
+#endif
     m[0] += r.i;
     m[1] += r.x * r.i;
     m[2] += r.y * r.i;
@@ -87,6 +111,22 @@ extern "C" int moments_fwd_blocks_per_sm() {
   return err == cudaSuccess ? blocks : -static_cast<int>(err);
 }
 
+#ifdef OTK_MATERIALS
+// Launch the per-ray K1 as `moments_fwd` does, with the material rows mat
+// (S, mat_w), the extinction tables kwl and kval (S, K) and each ray's w.
+extern "C" int moments_fwd_w(int n, int S, int blocks, int mat_w, int K, const void* rg,
+                             const void* ftab, const void* mat, const void* kwl,
+                             const void* kval, const void* Hx, const void* Hy,
+                             const void* Px, const void* Py, const void* w, void* partials,
+                             void* stream) {
+  if (S != OTK_S || blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const auto in = [](const void* p) { return static_cast<const float*>(p); };
+  moments_fwd_kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      n, mat_w, K, in(mat), in(kwl), in(kval), in(w), in(rg), in(ftab), in(Hx), in(Hy),
+      in(Px), in(Py), static_cast<float*>(partials));
+  return static_cast<int>(cudaGetLastError());
+}
+#else
 // Launch K1 on `stream` over n rays of a system of S surfaces (this
 // build's OTK_S, else cudaErrorInvalidValue) in `blocks` blocks, each
 // writing one (4,) partial. Returns cudaGetLastError().
@@ -101,3 +141,4 @@ extern "C" int moments_fwd(int n, int S, int blocks, const void* rg, const void*
       static_cast<float*>(partials));
   return static_cast<int>(cudaGetLastError());
 }
+#endif

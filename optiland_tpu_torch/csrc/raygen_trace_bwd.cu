@@ -15,6 +15,11 @@
 //
 // Bound on an H100: FP32 operations of the re-trace plus the adjoint, not
 // the 40 bytes per ray it reads and writes.
+//
+// Built with the media's codes (OTK_MATERIALS) it is the per-ray variant,
+// entry point `raygen_trace_bwd_w`: K2's per-ray sweep (moments_bwd.cu),
+// with w's cotangent written per ray (dw). Without them the code is the
+// one-wavelength K4 as it was, token for token.
 #include <cstdint>
 
 #include "chain_bwd.cuh"
@@ -27,6 +32,12 @@ struct Seeds {
 
 __global__ void __launch_bounds__(otk::BWD_THREADS)
 raygen_trace_bwd_kernel(int n, int S, int n_newton, int field_angle, int object_infinite,
+#ifdef OTK_MATERIALS
+                        int mat_w, int K, const float* __restrict__ mat,
+                        const float* __restrict__ kwl, const float* __restrict__ kval,
+                        const float* __restrict__ w, float* __restrict__ dw,
+                        int* __restrict__ tab_seg, float* __restrict__ tab_val,
+#endif
                         const float* __restrict__ rg, const float* __restrict__ ftab,
                         const int* __restrict__ itab, const float* __restrict__ Hx,
                         const float* __restrict__ Hy, const float* __restrict__ Px,
@@ -35,10 +46,19 @@ raygen_trace_bwd_kernel(int n, int S, int n_newton, int field_angle, int object_
                         float* __restrict__ dHy, float* __restrict__ dPx,
                         float* __restrict__ dPy) {
   extern __shared__ float smem[];
+#ifdef OTK_MATERIALS
+  const int nrows = 2 * S + 1;
+  const float* s_mat = otk::stage_backward_materials(smem, S, nrows, mat_w, mat);
+#else
   const int nrows = S + 1;
+#endif
   const otk::BwdShared sh = otk::stage_backward(smem, S, nrows, ftab, itab, rg);
   const otk::WarpRows rows = otk::warp_rows(sh, nrows);
+#ifdef OTK_MATERIALS
+  float rec[otk::MEDIA][otk::REC_W];
+#else
   float rec[otk::MAX_SURFACES][otk::REC];
+#endif
   const int tiles = (n + blockDim.x - 1) / blockDim.x;
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     __syncthreads();  // the block's warps start each tile in step
@@ -46,13 +66,20 @@ raygen_trace_bwd_kernel(int n, int S, int n_newton, int field_angle, int object_
     const bool live = idx < n;
     float hx = 0.f, hy = 0.f, px = 0.f, py = 0.f, g_opd = 0.f, g_ip = 0.f;
     otk::Vec6 g = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+#ifdef OTK_MATERIALS
+    const otk::RayMedia media = {mat, s_mat, kwl, kval, mat_w, K, live ? w[idx] : 1.f};
+#endif
     if (live) {
       hx = Hx[idx];
       hy = Hy[idx];
       px = Px[idx];
       py = Py[idx];
       otk::Ray r = otk::tile_raygen(field_angle, object_infinite, sh.rg, hx, hy, px, py);
+#ifdef OTK_MATERIALS
+      otk::trace_chain_w(S, n_newton, sh.ft, sh.it, media, r, rec);
+#else
       otk::trace_chain(S, n_newton, sh.ft, sh.it, r, rec);
+#endif
       float sd[8];
 #pragma unroll
       for (int k = 0; k < 8; ++k) sd[k] = seeds.p[k] ? seeds.p[k][idx] : 0.f;
@@ -60,8 +87,14 @@ raygen_trace_bwd_kernel(int n, int S, int n_newton, int field_angle, int object_
       g_opd = sd[7];
       g_ip = sd[6] * r.i;
     }
+#ifdef OTK_MATERIALS
+    float d_w;
+    otk::reverse_chain_w(S, sh.ft, sh.it, sh.pos, media, rec, live, g_opd, g_ip, g, rows,
+                         S + 1, otk::TabulatedOut{tab_seg, tab_val, (size_t)n, idx}, d_w);
+#else
     otk::reverse_chain(S, sh.ft, sh.it, sh.pos, sh.npre, rec, live, g_opd,
                        g_ip, g, rows);
+#endif
     float drg[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
     if (live) {
       float dd[4];
@@ -70,6 +103,9 @@ raygen_trace_bwd_kernel(int n, int S, int n_newton, int field_angle, int object_
       dHy[idx] = dd[1];
       dPx[idx] = dd[2];
       dPy[idx] = dd[3];
+#ifdef OTK_MATERIALS
+      dw[idx] = d_w;
+#endif
     }
     otk::put_raygen_row(rows, S, drg);
   }
@@ -85,6 +121,38 @@ cudaError_t allow_smem() {
 
 }  // namespace
 
+#ifdef OTK_MATERIALS
+// Launch the per-ray K4 as `raygen_trace_bwd` does, with the material rows
+// mat (S, mat_w), the extinction tables kwl and kval (S, K), each ray's w,
+// its cotangent dw and the tabulated glasses' per-ray outputs tab_seg (T,
+// n) and tab_val (T, 4, n); partials holds (blocks, 2 S + 1, F_STRIDE)
+// floats. cudaErrorInvalidValue also for an S other than this build's.
+extern "C" int raygen_trace_bwd_w(int n, int S, int n_newton, int field_angle,
+                                  int object_infinite, int blocks, int threads, int mat_w,
+                                  int K, const void* rg, const void* ftab, const void* itab,
+                                  const void* mat, const void* kwl, const void* kval,
+                                  const void* Hx, const void* Hy, const void* Px,
+                                  const void* Py, const void* w, const void* sx,
+                                  const void* sy, const void* sz, const void* sL,
+                                  const void* sM, const void* sN, const void* si,
+                                  const void* sopd, void* partials, void* dHx, void* dHy,
+                                  void* dPx, void* dPy, void* dw, void* tab_seg,
+                                  void* tab_val, void* stream) {
+  if (!otk::bwd_threads_ok(threads) || S != otk::MEDIA)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (const cudaError_t err = allow_smem()) return static_cast<int>(err);
+  const auto in = [](const void* p) { return static_cast<const float*>(p); };
+  const auto out = [](void* p) { return static_cast<float*>(p); };
+  const Seeds seeds = {{in(sx), in(sy), in(sz), in(sL), in(sM), in(sN), in(si), in(sopd)}};
+  raygen_trace_bwd_kernel<<<blocks, threads, otk::bwd_w_smem_bytes(S, 2 * S + 1, threads),
+                            static_cast<cudaStream_t>(stream)>>>(
+      n, S, n_newton, field_angle, object_infinite, mat_w, K, in(mat), in(kwl), in(kval),
+      in(w), out(dw), static_cast<int*>(tab_seg), out(tab_val), in(rg), in(ftab),
+      static_cast<const int*>(itab), in(Hx), in(Hy), in(Px), in(Py), seeds, out(partials),
+      out(dHx), out(dHy), out(dPx), out(dPy));
+  return static_cast<int>(cudaGetLastError());
+}
+#else
 // Launch K4 on `stream` over n rays in `blocks` blocks of `threads`
 // threads (the wrapper's backward_grid); partials holds (blocks, S + 1,
 // F_STRIDE) floats. Returns cudaGetLastError(), or cudaErrorInvalidValue
@@ -115,3 +183,4 @@ extern "C" int raygen_trace_bwd(int n, int S, int n_newton, int field_angle,
       static_cast<float*>(dPx), static_cast<float*>(dPy));
   return static_cast<int>(cudaGetLastError());
 }
+#endif

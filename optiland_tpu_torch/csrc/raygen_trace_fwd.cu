@@ -21,6 +21,10 @@
 // Bound on an H100: the FP32 operations of the chain (~10^3 a ray on the
 // bench lens, chip_smoke.py:chain_ops_per_ray), not memory (16 bytes in
 // and at most 32 out a ray).
+//
+// Built with the media's codes too (OTK_MATERIALS), it is the per-ray
+// variant, entry point `raygen_trace_fwd_w`: each ray's index and
+// absorption at its own w, as K1's per-ray variant (csrc/moments_fwd.cu).
 #include <cstdint>
 
 #include "system_chain.cuh"
@@ -34,17 +38,32 @@ struct Outs {
 };
 
 __global__ void __launch_bounds__(THREADS)
-raygen_trace_fwd_kernel(int n, int out_mask, const float* __restrict__ rg,
+raygen_trace_fwd_kernel(int n, int out_mask,
+#ifdef OTK_MATERIALS
+                        int mat_w, int K, const float* __restrict__ mat,
+                        const float* __restrict__ kwl, const float* __restrict__ kval,
+                        const float* __restrict__ w,
+#endif
+                        const float* __restrict__ rg,
                         const float* __restrict__ ftab, const float* __restrict__ Hx,
                         const float* __restrict__ Hy, const float* __restrict__ Px,
                         const float* __restrict__ Py, Outs outs) {
   __shared__ float s_ft[OTK_S * otk::F_STRIDE];
   __shared__ float s_rg[5];
+#ifdef OTK_MATERIALS
+  __shared__ float s_mat[OTK_S * otk::MAT_SHARED];
+  otk::stage_materials(OTK_S, mat_w, mat, s_mat);
+#endif
   otk::stage_system(ftab, rg, s_ft, s_rg);
 
   for (int idx = blockIdx.x * THREADS + threadIdx.x; idx < n; idx += gridDim.x * THREADS) {
     otk::Ray r = otk::system_raygen(s_rg, Hx[idx], Hy[idx], Px[idx], Py[idx]);
+#ifdef OTK_MATERIALS
+    otk::trace_system(s_ft, otk::RayMedia{mat, s_mat, kwl, kval, mat_w, K, w[idx]}, r,
+                      otk::NoSink());
+#else
     otk::trace_system(s_ft, r);
+#endif
     const float v[8] = {r.x, r.y, r.z, r.L, r.M, r.N, r.i, r.opd};
 #pragma unroll
     for (int k = 0; k < 8; ++k)
@@ -63,6 +82,27 @@ extern "C" int raygen_trace_fwd_blocks_per_sm() {
   return err == cudaSuccess ? blocks : -static_cast<int>(err);
 }
 
+#ifdef OTK_MATERIALS
+// Launch the per-ray K3 as `raygen_trace_fwd` does, with the material rows
+// mat (S, mat_w), the extinction tables kwl and kval (S, K) and each ray's
+// w.
+extern "C" int raygen_trace_fwd_w(int n, int S, int blocks, int out_mask, int mat_w, int K,
+                                  const void* rg, const void* ftab, const void* mat,
+                                  const void* kwl, const void* kval, const void* Hx,
+                                  const void* Hy, const void* Px, const void* Py,
+                                  const void* w, void* ox, void* oy, void* oz, void* oL,
+                                  void* oM, void* oN, void* oi, void* oopd, void* stream) {
+  if (S != OTK_S || blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const auto in = [](const void* p) { return static_cast<const float*>(p); };
+  const auto out = [](void* p) { return static_cast<float*>(p); };
+  const Outs outs = {{out(ox), out(oy), out(oz), out(oL), out(oM), out(oN), out(oi),
+                      out(oopd)}};
+  raygen_trace_fwd_kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      n, out_mask, mat_w, K, in(mat), in(kwl), in(kval), in(w), in(rg), in(ftab), in(Hx),
+      in(Hy), in(Px), in(Py), outs);
+  return static_cast<int>(cudaGetLastError());
+}
+#else
 // Launch K3 on `stream` over n rays of a system of S surfaces (this
 // build's OTK_S, else cudaErrorInvalidValue) in `blocks` blocks. Returns
 // cudaGetLastError().
@@ -82,3 +122,4 @@ extern "C" int raygen_trace_fwd(int n, int S, int blocks, int out_mask, const vo
       static_cast<const float*>(Px), static_cast<const float*>(Py), outs);
   return static_cast<int>(cudaGetLastError());
 }
+#endif

@@ -11,12 +11,10 @@
 //   OTK_OBJECT_INFINITE   1 for an object at infinity;
 //   OTK_SURFACES          each surface's codes, k = 0 .. S-1, packed as
 //                         `unpack_codes` reads them, separated by commas;
-// and for K7 alone, which evaluates the dispersion formulas per ray
+// and for the builds at per-ray wavelengths, K7 and the per-ray variants of
+// K1, K3 and K5, which evaluate the dispersion formulas per ray
 // (trace/fused.py `history_defines`):
-//   OTK_MATERIALS         {formula, coefficient count} of the medium after
-//                         each surface, k = 0 .. S-1 (a tabulated glass's
-//                         count is its row's width, so it needs a word of
-//                         its own), separated by commas.
+//   OTK_MATERIALS         the media's codes (chain.cuh `material_codes`).
 // `trace_system` then calls chain.cuh's `surface_step`, the body of the
 // run-time `trace_chain`, once per surface with constant codes: the
 // surface loop, the Newton loop and the polynomial loops unroll, and the
@@ -90,61 +88,13 @@ __device__ __forceinline__ void trace_system(const float* ft, Ray& r) {
 }
 
 #ifdef OTK_MATERIALS
-// The medium after surface k: its dispersion formula and coefficient count.
-struct MaterialCodes {
-  int formula, nc;
-};
-
-__host__ __device__ constexpr MaterialCodes material_codes(int k) {
-  constexpr MaterialCodes table[] = {OTK_MATERIALS};
-  return table[k];
-}
-
-template <int k>
-struct RayMediaAt;
-
-// The system's media at one ray's wavelength w (K7). mat: the (OTK_S,
-// mat_w) coefficient rows in global memory (a tabulated glass's row is as
-// wide as its table, up to tens of thousands of floats); s_mat: their
-// first MAT_SHARED columns, staged in shared memory; kwl, kval: the
-// (OTK_S, K) extinction tables in global memory (a catalog table reaches
-// 21,394 points), padded with their last point.
-struct RayMedia {
-  const float* mat;
-  const float* s_mat;
-  const float* kwl;
-  const float* kval;
-  int mat_w, K;
-  float w;
-
-  // the index of the medium after surface k at w
-  template <int k>
-  __device__ __forceinline__ float index_after() const {
-    constexpr MaterialCodes m = material_codes(k);
-    return material_index<m.formula, m.nc>(s_mat + k * MAT_SHARED,
-                                           mat + (size_t)k * mat_w, w);
-  }
-
-  // the Beer-Lambert alpha = 4 pi k(w) / w of the medium after surface k
-  template <int k>
-  __device__ __forceinline__ float alpha_after() const {
-    const size_t row = (size_t)k * K;
-    return FOUR_PI * kv_segment(w, kwl + row, kval + row, K) / w;
-  }
-
-  template <int k>
-  __device__ __forceinline__ RayMediaAt<k> at() const {
-    return RayMediaAt<k>{*this};
-  }
-};
-
 // Surface k's view of RayMedia for surface_step: the medium before it
 // (row k - 1) absorbs, the one after it refracts.
 template <int k>
 struct RayMediaAt {
   const RayMedia& m;
   __device__ __forceinline__ float alpha_before(const Surface&) const {
-    return m.alpha_after<k - 1>();
+    return m.alpha_after(k - 1);
   }
   __device__ __forceinline__ float index_after(const Surface&) const {
     return m.index_after<k>();

@@ -17,7 +17,11 @@ and K3, on the absorbing Cooke triplet at 0.55 um. It drives
 flagship's 1,999,998 rays at per-ray wavelengths (chip_smoke.py
 `flagship_inputs`, as `__graft_entry__._make_inputs` makes them: 3 fields x
 3 wavelengths) and the 16,384-ray bundle of `wavefront_data` (field (0,
-1), 0.55 um, the 128 x 128 pupil grid). It also drives
+1), 0.55 um, the 128 x 128 pupil grid). On the Cooke triplet it also
+drives K1-K6's per-ray variants at the flagship batch's own wavelengths,
+at its 1,999,998 rays and its first 16,384 (K2 without the data
+cotangents, K4 seeded on x, y and opd, K5 and K6 on the eager rays of that
+batch); a tree without them records None there. It also drives
 `huygens.huygens_sum_forward` (K8) on the Cooke triplet's Huygens PSF at
 its defaults (128 x 128: the image sum and its normalizing peak sum), at
 256 x 256, and on the random inputs of tools/bench_wave_optics.py. Each
@@ -33,8 +37,10 @@ host's launch latency (which at 10^4 rays is a fifth of a kernel's time).
 At the largest N it also times the bench training step
 (`centroid_rms_spot(..., diff_inputs=False)`, `backward`, Adam) on the
 host clock. Prints one JSON line for each process (with nvcc's register
-lines of each library it built), then the card's name and power limit and
-a JSON summary of every time in turns.
+lines of each library it built), then the card's name and power limit, a
+JSON summary of every time in turns, and, for every library the two trees
+built under one name (the same source, definitions and flags), whether
+their SASS (`cuobjdump -sass`, the instructions) is the same.
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ from __future__ import annotations
 import argparse
 import importlib.util
 import json
+import re
 import subprocess
 import sys
 import time
@@ -62,6 +69,60 @@ def _smoke():
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def timed_launches(*modules):
+    """Wrap each module's `_kernel` (the C entry points of its kernels) so
+    that every launch through it runs between two CUDA events on the
+    stream, after a `torch.cuda._sleep` spin (SPIN_CYCLES) that queues the
+    launch before the card reaches the first event: a span holds the
+    kernel alone, not the host's launch latency. Returns the list the
+    spans (start, end) go to and a function that restores the modules."""
+    import torch
+
+    spans = []
+    owns = [(m, m._kernel) for m in modules]
+
+    def timed(own):
+        def kernel(*key):
+            fn = own(*key)
+
+            def launch(*args):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                torch.cuda._sleep(SPIN_CYCLES)
+                start.record()
+                err = fn(*args)
+                end.record()
+                spans.append((start, end))
+                return err
+            return launch
+        return kernel
+
+    for m, own in owns:
+        m._kernel = timed(own)
+
+    def restore():
+        for m, own in owns:
+            m._kernel = own
+    return spans, restore
+
+
+def launch_ms(call, spans):
+    """Median span, over TIMED calls of `call` after WARMUP, of the one
+    launch each makes through a module `timed_launches` wrapped."""
+    import numpy as np
+    import torch
+
+    for _ in range(WARMUP):
+        call()
+    spans.clear()
+    for _ in range(TIMED):
+        call()
+    torch.cuda.synchronize()
+    if len(spans) != TIMED:
+        raise RuntimeError(f"{len(spans)} launches in {TIMED} calls")
+    return float(np.median([a.elapsed_time(b) for a, b in spans]))
 
 
 def worker(tree: Path, ns: list[int]) -> dict:
@@ -89,38 +150,10 @@ def worker(tree: Path, ns: list[int]) -> dict:
     dev = torch.device("cuda")
     _build.build_all()
     config.set_precision("float32")
-    spans = []
-
-    def timed(own):
-        """`own` (a module's `_kernel`) with each launch between events."""
-        def kernel(*key):
-            fn = own(*key)
-
-            def launch(*args):
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                torch.cuda._sleep(SPIN_CYCLES)
-                start.record()
-                err = fn(*args)
-                end.record()
-                spans.append((start, end))
-                return err
-            return launch
-        return kernel
-
-    fused._kernel = timed(fused._kernel)
-    huygens._kernel = timed(huygens._kernel)
+    spans, _ = timed_launches(fused, huygens)
 
     def kernel_ms(call):
-        for _ in range(WARMUP):
-            call()
-        spans.clear()
-        for _ in range(TIMED):
-            call()
-        torch.cuda.synchronize()
-        if len(spans) != TIMED:
-            raise RuntimeError(f"{len(spans)} launches in {TIMED} calls")
-        return float(np.median([a.elapsed_time(b) for a, b in spans]))
+        return launch_ms(call, spans)
 
     def args_of(static, params, wl):
         n_table, alpha = fused._uniform_tables(static, params, wl)
@@ -168,6 +201,33 @@ def worker(tree: Path, ns: list[int]) -> dict:
         del seeds, r0, rays8
         torch.cuda.empty_cache()
     p7 = (fused._diff_params(params_c), fused._nondiff_params(params_c))
+    fb = cs.flagship_inputs(params_c, dev)
+    r0 = generate_rays(static_c, params_c, *fb)
+    rays9 = tuple(getattr(r0, k).detach().contiguous()
+                  for k in fused._RAY_KEYS)
+    pw = p7 + (fused._raygen_scalars(static_c, params_c),)
+    has_per_ray = hasattr(fused, "media_defines")
+    for n in (16_384, fb[0].shape[0]):
+        d, r9 = (tuple(a[:n].contiguous() for a in x) for x in (fb, rays9))
+        seeds = [torch.from_numpy(rng.standard_normal(n).astype(
+            np.float32)).to(dev) for _ in range(8)]
+        calls = {
+            "K1": lambda: fused.moments_forward(static_c, *pw, d),
+            "K2": lambda: fused.moments_backward(static_c, *pw, d, c,
+                                                 diff_data=False),
+            "K3": lambda: fused.raygen_trace_forward(static_c, *pw, d,
+                                                     tuple(range(8))),
+            "K4": lambda: fused.raygen_trace_backward(
+                static_c, *pw, d, (0, 1, 7), seeds[:3]),
+            "K5": lambda: fused.fused_trace_forward(static_c, *p7, r9),
+            "K6": lambda: fused.fused_trace_backward(static_c, *p7, r9,
+                                                     seeds)}
+        for key, call in calls.items():
+            ms[f"{key} Cooke per-ray {n}"] = (kernel_ms(call) if has_per_ray
+                                              else None)
+        del d, r9, seeds
+    del fb, r0, rays9
+    torch.cuda.empty_cache()
     px_b, py_b, _ = pupil_grid_coords(128, torch.float32, dev)
     for label, r0 in (
             ("flagship 1999998", generate_rays(
@@ -222,6 +282,37 @@ def worker(tree: Path, ns: list[int]) -> dict:
             "ptxas": registers}
 
 
+def sass_same(parent: Path) -> dict:
+    """{library: true, or its first differing SASS line in each tree} for
+    every library built under one name in the parent's build directory and
+    in this tree's (the same source, definitions and flags). Compared: each
+    function's instructions, symbol names (which nvcc derives in part from
+    the source's path, for an anonymous namespace) left out."""
+    from optiland_tpu_torch import _build
+
+    theirs = max((parent / "build" / "optiland_tpu_torch").glob("*/"),
+                 key=lambda d: d.stat().st_mtime)
+    cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
+    symbol = re.compile(r"_Z\w+")
+
+    def sass(lib):
+        out = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                             capture_output=True, text=True,
+                             check=True).stdout
+        return [symbol.sub("", line.strip()) for line in out.splitlines()
+                if "/*0" in line or "Function :" in line]
+
+    same = {}
+    for lib in sorted(theirs.glob("lib*.so")):
+        mine = _build.build_dir() / lib.name
+        if mine.exists():
+            a, b = sass(lib), sass(mine)
+            same[lib.name] = a == b or next(
+                ([x, y] for x, y in zip(a, b) if x != y),
+                [f"{len(a)} lines", f"{len(b)} lines"])
+    return same
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--parent", type=Path, required=True,
@@ -255,6 +346,7 @@ def main(argv=None):
     turns[step_key] = [r[step_key] for r in runs]
     print(json.dumps({"order": ["parent", "change", "change", "parent"],
                       "ms": turns}))
+    print(json.dumps({"same SASS as the parent": sass_same(opts.parent)}))
 
 
 if __name__ == "__main__":

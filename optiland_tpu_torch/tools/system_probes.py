@@ -4,6 +4,7 @@ in one process.
 
     python -m optiland_tpu_torch.tools.system_probes --parent DIR
     python -m optiland_tpu_torch.tools.system_probes --parent DIR --k7
+    python -m optiland_tpu_torch.tools.system_probes --per-ray
 
 DIR is a checkout of the commit before K3 and K5 were built per system
 (their run-time chain), for instance `git archive <commit> | tar -x -C
@@ -65,6 +66,19 @@ held against `_history_plain` on the rays both leave lit at every surface
 share of floats that differ, bit for bit), and timed as above; and, on
 the CPU, the shared
 logarithm's accuracy over the catalog (`shared_log_excess`).
+
+With --per-ray (no DIR), the probes are the per-ray variants of the
+backward kernels K2, K4 and K6 on the Cooke triplet at the flagship's
+1,999,998 rays at per-ray wavelengths and at their first 16,384: the
+committed build, whose re-trace records each surface's index and alpha
+at the ray's w (two floats a surface more in the per-thread record), and
+a build with OTK_MEDIA_RECOMPUTE, whose reverse sweep evaluates them
+again from w; both through the wrappers (K2 without the data cotangents,
+K4 seeded on x, y and opd, K6 on 8 seeds), each launch timed as
+kernel_turns times it, in four rounds of alternating order, the
+one-wavelength Cooke K2 at 0.55 um beside; each build's K2 held to its
+plain version (`chip_smoke.cotangent_errs`) and its registers, stack
+frame and SASS count printed.
 """
 
 from __future__ import annotations
@@ -84,7 +98,8 @@ from optiland_tpu_torch import _build, config
 from optiland_tpu_torch.models import CookeTriplet
 from optiland_tpu_torch.system.optic import Optic
 from optiland_tpu_torch.tools.kernel_turns import SPIN_CYCLES, TIMED, WARMUP
-from optiland_tpu_torch.tools.kernel_turns import _smoke
+from optiland_tpu_torch.tools.kernel_turns import _smoke, launch_ms
+from optiland_tpu_torch.tools.kernel_turns import timed_launches
 from optiland_tpu_torch.trace import fused
 from optiland_tpu_torch.trace.raygen import generate_rays
 
@@ -750,16 +765,109 @@ def _kernel_ms(call):
     return float(np.median([a.elapsed_time(b) for a, b in spans]))
 
 
+BWD_SOURCES = {"K2": "moments_bwd", "K4": "raygen_trace_bwd",
+               "K6": "fused_trace_bwd"}
+
+
+def per_ray_main():
+    """--per-ray: the per-ray backward kernels with the media recorded
+    (committed) or recomputed in the reverse sweep (module docstring)."""
+    cs = _smoke()
+    config.set_precision("float32")
+    dev = torch.device("cuda")
+    static, params = CookeTriplet().build(device="cuda")
+    fb = cs.flagship_inputs(params, dev)
+    p, data = fused._prepare(static, params, *fb)
+    r0 = generate_rays(static, params, *fb)
+    rays9 = tuple(getattr(r0, k).detach().contiguous() for k in fused._RAY_KEYS)
+    p9 = p[:2]
+    p_one, data_one = fused._prepare(static, params, *fb[:4], 0.55)
+    rng = np.random.default_rng(1)
+    c = torch.tensor([0.3, -0.7, 0.5, 1.1], device=dev)
+    own_defines = fused.media_defines
+    builds = {"record": own_defines,
+              "recompute": lambda st: own_defines(st) + (
+                  ("OTK_MEDIA_RECOMPUTE", "1"),)}
+    _build.build_all(tuple((src, of(static)) for of in builds.values()
+                           for src in BWD_SOURCES.values()))
+    cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
+    report = {}
+    for build, of in builds.items():
+        for key, src in BWD_SOURCES.items():
+            name = _build.variant_name(src, of(static))
+            log = _build.build_log(name)
+            sass = subprocess.run(
+                [str(cuobjdump), "-sass", str(_build.build_dir()
+                                              / f"lib{name}.so")],
+                capture_output=True, text=True).stdout
+            report[f"{key} {build}"] = {
+                "registers": re.findall(r"Used (\d+) registers", log),
+                "stack_bytes": re.findall(r"(\d+) bytes stack frame", log),
+                "spill_bytes": re.findall(r"(\d+) bytes spill stores", log),
+                "sass": len(re.findall(r"/\*[0-9a-f]{4,}\*/", sass))}
+    def calls(n):
+        d, r9 = (tuple(a[:n].contiguous() for a in x) for x in (data, rays9))
+        seeds = [torch.from_numpy(rng.standard_normal(n).astype(
+            np.float32)).to(dev) for _ in range(8)]
+        return {
+            "K2": lambda: fused.moments_backward(static, *p, d, c, False),
+            "K4": lambda: fused.raygen_trace_backward(static, *p, d,
+                                                      (0, 1, 7), seeds[:3]),
+            "K6": lambda: fused.fused_trace_backward(static, *p9, r9, seeds)}
+
+    ns = (fb[0].shape[0], 16_384)
+    runs = {n: calls(n) for n in ns}
+    one = {n: (lambda n=n: fused.moments_backward(
+        static, *p_one, tuple(a[:n].contiguous() for a in data_one), c,
+        False)) for n in ns}
+    ms, errs = {}, {}
+    spans, restore = timed_launches(fused)
+    try:
+        for rnd in range(4):
+            order = list(builds) if rnd % 2 == 0 else list(builds)[::-1]
+            for build in order:
+                fused.media_defines = builds[build]
+                for n in ns:
+                    for key, call in runs[n].items():
+                        ms.setdefault(f"{key} {build} {n}", []).append(
+                            launch_ms(call, spans))
+            for n in ns:
+                ms.setdefault(f"K2 one wavelength {n}", []).append(
+                    launch_ms(one[n], spans))
+        for build in builds:
+            fused.media_defines = builds[build]
+            got = fused.moments_backward(static, *p, data, c, True)
+            ref = fused._moments_bwd_plain(static, *p, data, c, True)
+            keep = fused._raygen_trace_plain(static, *p, data, (6,))[0] > 0
+            errs[build] = cs.cotangent_errs(got, ref, keep)[:2]
+    finally:
+        restore()
+        fused.media_defines = own_defines
+    print(json.dumps({"builds": report, "K2 vs plain": errs}))
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True,
+                         timeout=60).stdout.strip().splitlines()[0])
+    print(json.dumps({"rounds": 4, "ms": ms}))
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--parent", type=Path, required=True,
+    parser.add_argument("--parent", type=Path,
                         help="checkout of the commit with the run-time "
                              "kernels probed")
     parser.add_argument("--k7", action="store_true",
                         help="probe K7 against DIR's run-time K7")
+    parser.add_argument("--per-ray", action="store_true",
+                        help="probe the per-ray backward kernels' record")
     opts = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("system_probes times CUDA kernels and needs a card")
+    if opts.per_ray:
+        per_ray_main()
+        return
+    if opts.parent is None:
+        parser.error("--parent is required unless --per-ray")
     if opts.k7:
         k7_main(opts.parent.resolve() / "optiland_tpu_torch" / "csrc")
         return

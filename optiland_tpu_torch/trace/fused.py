@@ -33,9 +33,16 @@ CUDA kernel.
      gradient is autograd through the eager trace (`_FusedHistory`), not a
      kernel.
 
-K1-K6 take one wavelength, hoisted into the per-surface index and
-absorption tables (`_uniform_tables`); only K7 evaluates the dispersion
-formulas and extinction tables per ray.
+K1-K6 run in the two configurations of their JAX kernels (`uniform_w`):
+at one wavelength, hoisted into the per-surface index and absorption
+tables (`_uniform_tables`), or at each ray's own wavelength, the ray data
+gaining w (Hx, Hy, Px, Py, w for K1-K4, a 9th ray array for K5 and K6, as
+K7's), with the dispersion formulas and extinction tables evaluated per
+ray and, in K2, K4 and K6, differentiated into `mat_coeffs` and each ray's
+w. As in JAX, a scalar wavelength takes the first and any array the
+second. Each configuration is its own build: the per-ray forward
+variants take the media's dispersion codes (`history_defines`, K7's), the
+per-ray backward variants those codes alone (`media_defines`).
 
 All run one ray per thread (csrc/chain.cuh; the backward kernels share the
 reverse sweep of csrc/chain_bwd.cuh; K1, K3, K5 and K7 unroll the same
@@ -144,6 +151,9 @@ _TILE_GRID_BLOCKS_PER_SM = 4
 # (csrc/chain_bwd.cuh BWD_THREADS) and at least (`backward_grid`)
 _BWD_THREADS = 512
 _BWD_MIN_THREADS = 128
+# the dynamic shared memory a block may take on Hopper (csrc/chain_bwd.cuh
+# MAX_DYN_SMEM)
+_MAX_SMEM = 232_448
 
 _NAMES = ("x", "y", "z", "L", "M", "N", "intensity", "opd")
 _RAY_KEYS = ("x", "y", "z", "L", "M", "N", "i", "opd", "w")
@@ -183,17 +193,11 @@ def supports_fused_raygen(static: SystemStatic) -> bool:
     )
 
 
-def _check_kernel_branches(static: SystemStatic, kernel: str,
-                           uniform_w: bool = True):
+def _check_kernel_branches(static: SystemStatic, kernel: str):
     """Refuse the chain branches the CUDA kernel `kernel` ("K1".."K7") does
-    not cover yet (each is queued in ROADMAP queue 2). Per-ray wavelengths
-    reach K7 alone: K1-K6 take one wavelength, hoisted into the index and
-    absorption tables, and the backward kernels have no adjoint of per-ray
-    dispersion yet, so a forward kernel that took them would fail only at
-    `.backward()`."""
+    not cover yet (each is queued in ROADMAP queue 2), at one wavelength or
+    at per-ray wavelengths alike: every kernel takes both."""
     missing = []
-    if not uniform_w and kernel != "K7":
-        missing.append("per-ray wavelengths")
     if any(c == COAT_SIMPLE for c, i in zip(static.coatings,
                                             static.interactions)
            if i != INT_NONE):
@@ -411,8 +415,10 @@ def _tile_trace(static: SystemStatic, diffp, nondiffp,
     """The fused chain in PyTorch for the branches the CUDA kernels cover;
     the arithmetic of csrc/chain.cuh and of the JAX `_tile_trace` value
     pass. `w=None`: one wavelength, hoisted into `n_table` and
-    `alpha_table` (K1-K6); otherwise the per-ray wavelengths, with
-    `material_index` and the extinction tables evaluated per ray (K7).
+    `alpha_table`; otherwise the per-ray wavelengths, with
+    `material_index` and the extinction tables evaluated per ray (K1-K6
+    in their per-ray configuration, K7), differentiable into `mat_coeffs`
+    and w (the extinction tables are not differentiated, as in JAX).
     With `record`, returns every surface's state, row 0 the starting rays.
     Newton runs on a detached root and closes with one differentiable
     step, so autograd through it gives the implicit-function-theorem
@@ -541,37 +547,40 @@ def _tile_trace(static: SystemStatic, diffp, nondiffp,
 
 def _moments_plain(static, diffp, nondiffp, rg, data):
     """Plain version of K1: (4,) = (sum i, sum x i, sum y i,
-    sum (x^2+y^2) i) at the image surface."""
+    sum (x^2+y^2) i) at the image surface. data = (Hx, Hy, Px, Py) at the
+    tables' wavelength, or (Hx, Hy, Px, Py, w) at per-ray wavelengths (the
+    raygen does not read w)."""
     _check_kernel_branches(static, "K1")
-    rays8 = _tile_raygen(static, rg, *data)
-    x, y, _, _, _, _, i, _ = _tile_trace(static, diffp, nondiffp, *rays8)
+    rays8 = _tile_raygen(static, rg, *data[:4])
+    x, y, _, _, _, _, i, _ = _tile_trace(static, diffp, nondiffp, *rays8,
+                                         *data[4:])
     return torch.stack([torch.sum(i), torch.sum(x * i), torch.sum(y * i),
                         torch.sum((x * x + y * y) * i)])
 
 
 def _raygen_trace_plain(static, diffp, nondiffp, rg, data, out_keys):
     """Plain version of K3: the `out_keys` subset of the final
-    (x, y, z, L, M, N, i, opd)."""
+    (x, y, z, L, M, N, i, opd); data as `_moments_plain`'s."""
     _check_kernel_branches(static, "K3")
-    rays8 = _tile_raygen(static, rg, *data)
-    res = _tile_trace(static, diffp, nondiffp, *rays8)
+    rays8 = _tile_raygen(static, rg, *data[:4])
+    res = _tile_trace(static, diffp, nondiffp, *rays8, *data[4:])
     return tuple(res[k] for k in out_keys)
 
 
-def _fused_trace_plain(static, diffp, nondiffp, rays8):
+def _fused_trace_plain(static, diffp, nondiffp, rays):
     """Plain version of K5: the final (x, y, z, L, M, N, i, opd) of the
-    caller's rays."""
+    caller's rays, (x, y, z, L, M, N, i, opd) at the tables' wavelength or
+    (x, ..., opd, w) at per-ray wavelengths."""
     _check_kernel_branches(static, "K5")
-    return _tile_trace(static, diffp, nondiffp, *rays8)
+    return _tile_trace(static, diffp, nondiffp, *rays)
 
 
 def _history_plain(static, diffp, nondiffp, rays9):
     """Plain version of K7: the 8 (S, n) history arrays (x, y, z, L, M, N,
     i, opd) of the caller's rays9 = (x, y, z, L, M, N, i, opd, w), at the
     rays' own wavelengths; row 0 is the starting bundle."""
-    _check_kernel_branches(static, "K7", uniform_w=False)
-    recs = _tile_trace(static, diffp, nondiffp, *rays9[:8], w=rays9[8],
-                       record=True)
+    _check_kernel_branches(static, "K7")
+    recs = _tile_trace(static, diffp, nondiffp, *rays9, record=True)
     return tuple(torch.stack([r[j] for r in recs]) for j in range(8))
 
 
@@ -598,11 +607,13 @@ def _vjp(fn, args, grad_mask, seeds):
 
 def _moments_bwd_plain(static, diffp, nondiffp, rg, data, c, diff_data):
     """Plain version of K2: autograd of c . `_moments_plain`. Returns
-    (d_rg, d_diffp, d_data); d_data is zeros without `diff_data`."""
+    (d_rg, d_diffp, d_data), d_data one cotangent per data array (w's the
+    5th at per-ray wavelengths), zeros without `diff_data`."""
     nd = len(diffp)
     g = _vjp(lambda rg_, *a: (_moments_plain(static, a[:nd], nondiffp, rg_,
                                              a[nd:]),),
-             (rg, *diffp, *data), [True] * (1 + nd) + [diff_data] * 4, (c,))
+             (rg, *diffp, *data), [True] * (1 + nd) + [diff_data] * len(data),
+             (c,))
     return g[0], tuple(g[1:1 + nd]), tuple(g[1 + nd:])
 
 
@@ -614,16 +625,17 @@ def _raygen_trace_bwd_plain(static, diffp, nondiffp, rg, data, out_keys,
     nd = len(diffp)
     g = _vjp(lambda rg_, *a: _raygen_trace_plain(static, a[:nd], nondiffp,
                                                  rg_, a[nd:], out_keys),
-             (rg, *diffp, *data), [True] * (5 + nd), seeds)
+             (rg, *diffp, *data), [True] * (1 + nd + len(data)), seeds)
     return g[0], tuple(g[1:1 + nd]), tuple(g[1 + nd:])
 
 
-def _fused_trace_bwd_plain(static, diffp, nondiffp, rays8, seeds):
+def _fused_trace_bwd_plain(static, diffp, nondiffp, rays, seeds):
     """Plain version of K6: autograd of `_fused_trace_plain` against the 8
-    per-ray `seeds` (None = zero). Returns (d_rays8, d_diffp)."""
+    per-ray `seeds` (None = zero). Returns (d_rays, d_diffp), a cotangent
+    per ray array (w's the 9th at per-ray wavelengths)."""
     nd = len(diffp)
     g = _vjp(lambda *a: _fused_trace_plain(static, a[:nd], nondiffp, a[nd:]),
-             (*diffp, *rays8), [True] * (8 + nd), seeds)
+             (*diffp, *rays), [True] * (nd + len(rays)), seeds)
     return tuple(g[nd:]), tuple(g[:nd])
 
 
@@ -658,19 +670,33 @@ _SIGNATURES = {
     # history pointers (S, n each), stream; the codes, the media's
     # included, are the variant's (`history_defines`)
     "history_fwd": [_I] * 6 + [_P] * 22,
+    # the per-ray variants (`_kernel(..., per_ray=True)`): the uniform
+    # signature with mat_w and K after its int arguments, the material rows
+    # and extinction tables (mat, k_wl, k_val) after the tables, and w
+    # after the per-ray inputs; a backward adds w's cotangent after the
+    # others and the tabulated glasses' per-ray segments and cotangents
+    # (`_tabulated_outputs`) before the stream
+    "moments_fwd_w": [_I] * 5 + [_P] * 12,
+    "raygen_trace_fwd_w": [_I] * 6 + [_P] * 19,
+    "fused_trace_fwd_w": [_I] * 5 + [_P] * 22,
+    "moments_bwd_w": [_I] * 10 + [_P] * 21,
+    "raygen_trace_bwd_w": [_I] * 9 + [_P] * 28,
+    "fused_trace_bwd_w": [_I] * 7 + [_P] * 35,
 }
 
 
 @lru_cache(maxsize=None)
-def _kernel(name: str, defines=()):
+def _kernel(name: str, defines=(), per_ray: bool = False):
     """The C entry point `name` of csrc/<name>.cu, built on first use; with
-    `defines`, of the per-system variant built with them."""
+    `defines`, of the variant built with them; `per_ray`, its per-ray
+    entry `<name>_w` (a variant with the media's codes)."""
     from optiland_tpu_torch import _build
 
     lib = (_build.variant(name, defines) if defines
            else _build.library(name))
-    fn = getattr(lib, name)
-    fn.argtypes = _SIGNATURES[name]
+    entry = f"{name}_w" if per_ray else name
+    fn = getattr(lib, entry)
+    fn.argtypes = _SIGNATURES[entry]
     fn.restype = ctypes.c_int
     return fn
 
@@ -698,16 +724,24 @@ def system_defines(static: SystemStatic) -> tuple:
             ("OTK_SURFACES", ", ".join(f"0x{c:x}u" for c in packed)))
 
 
-def history_defines(static: SystemStatic) -> tuple:
-    """K7's nvcc definitions for this system: `system_defines` and
-    OTK_MATERIALS, the dispersion formula and coefficient count of the
-    medium after each surface ({formula, count} pairs, as
-    csrc/system_chain.cuh `material_codes` reads them), so that each
-    medium's `material_index` unrolls. K1, K3 and K5 read one wavelength
-    from the tables and take `system_defines` alone."""
+def media_defines(static: SystemStatic) -> tuple:
+    """OTK_MATERIALS, the dispersion formula and coefficient count of the
+    medium after each surface ({formula, count} pairs, as csrc/chain.cuh
+    `material_codes` reads them), so that each medium's `material_index`
+    and its adjoint unroll: the definitions of the per-ray variants of the
+    backward kernels K2, K4 and K6, whose chain reads the system's codes
+    from the int table at run time."""
     media = ", ".join(f"{{{f}, {nc}}}" for f, nc in zip(
         static.mat_formulas, static.mat_n_coeffs))
-    return system_defines(static) + (("OTK_MATERIALS", media),)
+    return (("OTK_MATERIALS", media),)
+
+
+def history_defines(static: SystemStatic) -> tuple:
+    """The nvcc definitions of K7 and of the per-ray variants of K1, K3 and
+    K5 for this system: `system_defines` and `media_defines`. At one
+    wavelength K1, K3 and K5 read the tables and take `system_defines`
+    alone."""
+    return system_defines(static) + media_defines(static)
 
 
 @lru_cache(maxsize=None)
@@ -807,12 +841,14 @@ def _pack_tables(static: SystemStatic, diffp, nondiffp):
     return ftab, _int_table(static, cv.device)
 
 
-def _unpack_table_grads(tab, diffp):
+def _unpack_table_grads(tab, diffp, d_mat=None):
     """The (S, 32) table cotangents of a backward kernel as the 12
     `_diff_params` cotangents: cv, conic, coeffs (cut back or padded with
     zeros to its width), thickness, tilt, decenter and n_table from their
-    slots; zeros for the tables the chain does not read (mat_coeffs,
-    coating_params, grating, phase_params, focal_length)."""
+    slots; `d_mat` for mat_coeffs at per-ray wavelengths (at one wavelength
+    the n_table slot's cotangent reaches mat_coeffs by autograd through
+    `_uniform_tables`); zeros for the tables the chain does not read
+    (coating_params, grating, phase_params, focal_length)."""
     coeffs = diffp[2]
     nco = coeffs.shape[1]
     co = tab[:, _F_COEFFS:_F_COEFFS + min(nco, MAX_GEOM_COEFFS)]
@@ -821,6 +857,8 @@ def _unpack_table_grads(tab, diffp):
     slots = {0: tab[:, 0], 1: tab[:, 1], 2: co, 3: tab[:, _F_THICK],
              4: tab[:, _F_TILT:_F_TILT + 3], 5: tab[:, _F_DEC:_F_DEC + 2],
              8: tab[:, _F_NTAB]}
+    if d_mat is not None:
+        slots[6] = d_mat
     return tuple(slots[j].to(p.dtype).reshape(p.shape) if j in slots
                  else torch.zeros_like(p) for j, p in enumerate(diffp))
 
@@ -836,20 +874,45 @@ def _check_arrays(named, dev):
             raise ValueError(f"{name}: expected a contiguous tensor")
     per_ray = [a for name, a in named
                if name not in ("rg", "tables", "mat_coeffs", "k_wl", "k_val")]
-    n = per_ray[0].shape[0]
+    n = per_ray[0].shape[0] if per_ray else 0
     if any(a.shape != (n,) for a in per_ray):
         raise ValueError("expected (n,) per-ray arrays of one length")
     return n
 
 
+def _media_args(static, diffp, nondiffp, per_ray):
+    """The media arguments of a per-ray kernel: ([mat_w, K], the pointers
+    of the material rows (S, mat_w) and the extinction tables k_wl, k_val
+    (S, K), checked, and those tensors, to keep alive until the launch is
+    enqueued); empty lists at one wavelength. The rows go to the kernel
+    whole: a tabulated glass's row is as wide as its table."""
+    if not per_ray:
+        return [], [], ()
+    wide = [k for k in range(static.num_surfaces)
+            if static.mat_formulas[k] != FORMULA_TABULATED
+            and static.mat_n_coeffs[k] > _MAT_SHARED]
+    if wide:
+        raise ValueError(f"surfaces {wide}: a dispersion formula with more "
+                         f"than {_MAT_SHARED} coefficients")
+    mat = diffp[6].contiguous()
+    k_wl, k_val = nondiffp[1].contiguous(), nondiffp[2].contiguous()
+    _check_arrays([("mat_coeffs", mat), ("k_wl", k_wl), ("k_val", k_val)],
+                  mat.device)
+    return ([mat.shape[1], k_wl.shape[1]],
+            [mat.data_ptr(), k_wl.data_ptr(), k_val.data_ptr()],
+            (mat, k_wl, k_val))
+
+
 def _launch_args(static, rg, diffp, nondiffp, data, kernel):
-    """Tables and checked pointers of the raygen kernels (K1-K4)."""
+    """Tables and checked pointers of the raygen kernels (K1-K4): data =
+    (Hx, Hy, Px, Py), or (Hx, Hy, Px, Py, w) at per-ray wavelengths."""
     _check_kernel_branches(static, kernel)
     ftab, itab = _pack_tables(static, diffp, nondiffp)
-    if len(data) != 4 or rg.shape != (5,):
-        raise ValueError("expected four (n,) ray arrays and a (5,) rg")
+    if len(data) not in (4, 5) or rg.shape != (5,):
+        raise ValueError("expected four (n,) ray arrays (five with w) and a "
+                         "(5,) rg")
     n = _check_arrays([("rg", rg), ("tables", ftab)] + list(
-        zip(("Hx", "Hy", "Px", "Py"), data)), rg.device)
+        zip(("Hx", "Hy", "Px", "Py", "w"), data)), rg.device)
     head = [n, static.num_surfaces,
             min(static.newton_iters, _NEWTON_FUSED_MAX),
             int(static.field_type == "angle"), int(static.object_infinite)]
@@ -860,17 +923,19 @@ def _launch_args(static, rg, diffp, nondiffp, data, kernel):
     return n, head, ptrs, (ftab, itab)
 
 
-def _caller_ray_args(static, diffp, nondiffp, rays8, kernel):
-    """Tables and checked pointers of the caller-ray kernels (K5, K6)."""
+def _caller_ray_args(static, diffp, nondiffp, rays, kernel):
+    """Tables and checked pointers of the caller-ray kernels (K5, K6): rays
+    = (x, y, z, L, M, N, i, opd), or with w at per-ray wavelengths."""
     _check_kernel_branches(static, kernel)
     ftab, itab = _pack_tables(static, diffp, nondiffp)
-    if len(rays8) != 8:
-        raise ValueError("expected the 8 ray arrays x, y, z, L, M, N, i, opd")
-    n = _check_arrays([("tables", ftab)] + list(zip(_NAMES, rays8)),
+    if len(rays) not in (8, 9):
+        raise ValueError("expected the 8 ray arrays x, y, z, L, M, N, i, opd "
+                         "(9 with w)")
+    n = _check_arrays([("tables", ftab)] + list(zip(_RAY_KEYS, rays)),
                       ftab.device)
     head = [n, static.num_surfaces,
             min(static.newton_iters, _NEWTON_FUSED_MAX)]
-    ptrs = [ftab.data_ptr(), itab.data_ptr()] + [r.data_ptr() for r in rays8]
+    ptrs = [ftab.data_ptr(), itab.data_ptr()] + [r.data_ptr() for r in rays]
     return n, head, ptrs, (ftab, itab)
 
 
@@ -888,6 +953,68 @@ def _seed_ptrs(seeds, n, dev):
     return out, [None if s is None else s.data_ptr() for s in out]
 
 
+def _backward_launch(static, n, dev, n_rows, per_ray):
+    """(blocks, threads) of a backward kernel over n rays, its (blocks,
+    rows, 32) partial buffer and, at per-ray wavelengths, the tabulated
+    glasses' outputs (`_tabulated_outputs`). A per-ray block keeps a
+    material row per medium beside the `n_rows` table and raygen rows, and
+    takes fewer threads where they would outgrow a block's shared memory
+    (csrc/chain_bwd.cuh MAX_DYN_SMEM: 64 surfaces at 512 threads)."""
+    S = static.num_surfaces
+    blocks, threads = backward_grid(n, config.sm_count(dev))
+    rows = n_rows + (S if per_ray else 0)
+
+    def smem(t):   # csrc/chain_bwd.cuh bwd_w_smem_bytes
+        return 4 * (S * (_F_STRIDE + _I_STRIDE + 2 + _MAT_SHARED) + 8
+                    + t // 32 * rows * _F_STRIDE)
+
+    while per_ray and threads > 32 and smem(threads) > _MAX_SMEM:
+        threads //= 2
+        blocks = min(-(-n // threads), config.sm_count(dev))
+    partials = torch.empty((blocks, rows, _F_STRIDE), dtype=torch.float32,
+                           device=dev)
+    return blocks, threads, partials, (
+        _tabulated_outputs(static, n, dev) if per_ray else ())
+
+
+def _tabulated_outputs(static, n, dev):
+    """The per-ray outputs of the tabulated glasses (formula 10) of a
+    per-ray backward kernel, T of them in surface order: each ray's segment
+    i (the knots i - 1 and i; (T, n) int32, 1 where a glass is not
+    refracted through) and the cotangents of (w[i - 1], w[i], n[i - 1],
+    n[i]) of that glass's row ((T, 4, n), zeros there)."""
+    T = sum(f == FORMULA_TABULATED for f in static.mat_formulas)
+    return (torch.ones((T, n), dtype=torch.int32, device=dev),
+            torch.zeros((T, 4, n), dtype=torch.float32, device=dev))
+
+
+def _material_grads(static, rows, tabulated, mat):
+    """d mat_coeffs (S, mat_w) of a per-ray backward kernel: the formula
+    glasses' coefficient cotangents from the kernel's material rows (S,
+    32), each tabulated glass's from its per-ray (segment, cotangents)
+    (`_tabulated_outputs`). Those land on 4 entries of a row as wide as
+    the glass's table, a scatter: the 4 n entries of every ray are sorted
+    by position (a stable sort) and summed by `torch.segment_reduce` in
+    that order, so the sums are reproducible bit for bit, with no float
+    atomics, as the kernels' partials are."""
+    d_mat = torch.zeros(mat.shape, dtype=rows.dtype, device=rows.device)
+    d_mat[:, :_MAT_SHARED] = rows[:, :_MAT_SHARED]
+    seg, val = tabulated
+    tab = [k for k, f in enumerate(static.mat_formulas)
+           if f == FORMULA_TABULATED]
+    for t, k in enumerate(tab if seg.shape[1] else ()):
+        K = static.mat_n_coeffs[k] // 2
+        i = seg[t].long()
+        i0 = (i - 1).clamp(min=0)
+        pos, order = torch.sort(torch.cat([i0, i, K + i0, K + i]),
+                                stable=True)
+        at, counts = torch.unique_consecutive(pos, return_counts=True)
+        d_mat[k, :_MAT_SHARED] = 0.0
+        d_mat[k, at] = torch.segment_reduce(val[t].reshape(-1)[order], "sum",
+                                            lengths=counts)
+    return d_mat.to(mat.dtype)
+
+
 def _raise_on_error(name, err):
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
@@ -898,24 +1025,28 @@ def _stream(dev):
 
 
 def k1_launch(static, diffp, nondiffp, rg, data):
-    """K1's variant for this system, its arguments up to the partials and
-    the stream, the (blocks, 4) partial buffer, and the tensors to keep
-    alive until the launch is enqueued. Builds the variant on first use."""
+    """K1's variant for this system (its per-ray variant where data holds
+    w), its arguments up to the partials and the stream, the (blocks, 4)
+    partial buffer, and the tensors to keep alive until the launch is
+    enqueued. Builds the variant on first use."""
     n, _, ptrs, keep = _launch_args(static, rg, diffp, nondiffp, data,
                                     kernel="K1")
-    defines = system_defines(static)
-    fn = _kernel("moments_fwd", defines)
+    per_ray = len(data) == 5
+    sizes, media, media_keep = _media_args(static, diffp, nondiffp, per_ray)
+    defines = (history_defines if per_ray else system_defines)(static)
+    fn = _kernel("moments_fwd", defines, per_ray)
     blocks = _system_blocks("moments_fwd", defines, n, rg.device)
     partials = torch.empty((blocks, 4), dtype=torch.float32, device=rg.device)
-    args = [n, static.num_surfaces, blocks, ptrs[0], ptrs[1], *ptrs[3:],
-            partials.data_ptr()]
-    return fn, args, partials, keep
+    args = [n, static.num_surfaces, blocks, *sizes, ptrs[0], ptrs[1], *media,
+            *ptrs[3:], partials.data_ptr()]
+    return fn, args, partials, keep + media_keep
 
 
 def moments_forward(static, diffp, nondiffp, rg, data):
-    """K1: (4,) spot moments of rays made from data = (Hx, Hy, Px, Py).
-    CPU tensors take `_moments_plain`; CUDA tensors launch the kernel, the
-    system's own variant (built at first use; a failed build raises)."""
+    """K1: (4,) spot moments of rays made from data = (Hx, Hy, Px, Py), or
+    (Hx, Hy, Px, Py, w) at per-ray wavelengths. CPU tensors take
+    `_moments_plain`; CUDA tensors launch the kernel, the system's own
+    variant (built at first use; a failed build raises)."""
     if rg.device.type == "cpu":
         return _moments_plain(static, diffp, nondiffp, rg, data)
     fn, args, partials, _keep = k1_launch(static, diffp, nondiffp, rg, data)
@@ -932,33 +1063,41 @@ moments_forward.launches = 0
 
 def moments_backward(static, diffp, nondiffp, rg, data, c, diff_data=True):
     """K2: the cotangents of c . m (m the K1 moments, c of shape (4,)):
-    (d_rg, d_diffp, d_data). Without `diff_data` the data cotangents are
-    explicit zeros that the kernel neither computes nor writes. CPU tensors
-    take `_moments_bwd_plain`; CUDA tensors launch the kernel. Parameter
-    cotangents are per-block partials summed by torch.sum: reproducible
-    bit for bit."""
+    (d_rg, d_diffp, d_data), a cotangent per data array (w's the 5th at
+    per-ray wavelengths, with `mat_coeffs`' in d_diffp). Without
+    `diff_data` the data cotangents are explicit zeros that the kernel
+    neither computes nor writes. CPU tensors take `_moments_bwd_plain`;
+    CUDA tensors launch the kernel. Parameter cotangents are per-block
+    partials summed by torch.sum: reproducible bit for bit."""
     if rg.device.type == "cpu":
         return _moments_bwd_plain(static, diffp, nondiffp, rg, data, c,
                                   diff_data)
     n, head, ptrs, keep = _launch_args(static, rg, diffp, nondiffp, data,
                                        kernel="K2")
-    dev, S = rg.device, static.num_surfaces
+    dev, S, per_ray = rg.device, static.num_surfaces, len(data) == 5
+    sizes, media, _media_keep = _media_args(static, diffp, nondiffp, per_ray)
     c = c.to(torch.float32).contiguous()
-    blocks, threads = backward_grid(n, config.sm_count(dev))
-    partials = torch.empty((blocks, S + 1, _F_STRIDE), dtype=torch.float32,
-                           device=dev)
+    blocks, threads, partials, tabulated = _backward_launch(
+        static, n, dev, S + 1, per_ray)
     d_data = tuple(torch.empty(n, dtype=torch.float32, device=dev)
                    if diff_data else torch.zeros_like(d) for d in data)
-    if n:
+    d_ptrs = [d.data_ptr() if diff_data else None for d in d_data]
+    if n and per_ray:
+        err = _kernel("moments_bwd", media_defines(static), True)(
+            *head, blocks, threads, int(diff_data), *sizes, *ptrs[:3],
+            *media, *ptrs[3:], c.data_ptr(), partials.data_ptr(), *d_ptrs,
+            *(t.data_ptr() for t in tabulated), _stream(dev))
+    elif n:
         err = _kernel("moments_bwd")(
             *head, blocks, threads, int(diff_data), *ptrs, c.data_ptr(),
-            partials.data_ptr(),
-            *(d.data_ptr() if diff_data else None for d in d_data),
-            _stream(dev))
+            partials.data_ptr(), *d_ptrs, _stream(dev))
+    if n:
         _raise_on_error("moments_bwd", err)
         moments_backward.launches += 1
     tab = torch.sum(partials, dim=0)
-    return (tab[S, :5].to(rg.dtype), _unpack_table_grads(tab[:S], diffp),
+    d_mat = (_material_grads(static, tab[S + 1:], tabulated, diffp[6])
+             if per_ray else None)
+    return (tab[S, :5].to(rg.dtype), _unpack_table_grads(tab[:S], diffp, d_mat),
             d_data)
 
 
@@ -966,29 +1105,33 @@ moments_backward.launches = 0
 
 
 def k3_launch(static, diffp, nondiffp, rg, data, out_keys):
-    """K3's variant for this system, its arguments up to the stream, the
-    `out_keys` outputs it writes (others are neither allocated nor
-    written), and the tensors to keep alive until the launch is enqueued.
-    Builds the variant on first use."""
+    """K3's variant for this system (its per-ray variant where data holds
+    w), its arguments up to the stream, the `out_keys` outputs it writes
+    (others are neither allocated nor written), and the tensors to keep
+    alive until the launch is enqueued. Builds the variant on first use."""
     n, _, ptrs, keep = _launch_args(static, rg, diffp, nondiffp, data,
                                     kernel="K3")
-    defines = system_defines(static)
-    fn = _kernel("raygen_trace_fwd", defines)
+    per_ray = len(data) == 5
+    sizes, media, media_keep = _media_args(static, diffp, nondiffp, per_ray)
+    defines = (history_defines if per_ray else system_defines)(static)
+    fn = _kernel("raygen_trace_fwd", defines, per_ray)
     outs = {k: torch.empty((n,), dtype=torch.float32, device=rg.device)
             for k in out_keys}
     args = [n, static.num_surfaces,
             _system_blocks("raygen_trace_fwd", defines, n, rg.device),
-            sum(1 << k for k in outs), ptrs[0], ptrs[1], *ptrs[3:],
+            sum(1 << k for k in outs), *sizes, ptrs[0], ptrs[1], *media,
+            *ptrs[3:],
             *(outs[k].data_ptr() if k in outs else None for k in range(8))]
-    return fn, args, tuple(outs[k] for k in out_keys), keep
+    return fn, args, tuple(outs[k] for k in out_keys), keep + media_keep
 
 
 def raygen_trace_forward(static, diffp, nondiffp, rg, data, out_keys):
     """K3: the `out_keys` subset of the final (x, y, z, L, M, N, i, opd) of
-    rays made from data = (Hx, Hy, Px, Py). CPU tensors take
-    `_raygen_trace_plain`; CUDA tensors launch the kernel, the system's own
-    variant (built at first use; a failed build raises). Unrequested
-    outputs are neither allocated nor written."""
+    rays made from data = (Hx, Hy, Px, Py), or with w at per-ray
+    wavelengths. CPU tensors take `_raygen_trace_plain`; CUDA tensors
+    launch the kernel, the system's own variant (built at first use; a
+    failed build raises). Unrequested outputs are neither allocated nor
+    written."""
     if rg.device.type == "cpu":
         return _raygen_trace_plain(static, diffp, nondiffp, rg, data,
                                    out_keys)
@@ -1007,63 +1150,74 @@ def raygen_trace_backward(static, diffp, nondiffp, rg, data, out_keys,
                           seeds):
     """K4: the cotangents (d_rg, d_diffp, d_data) of the K3 outputs
     `out_keys` against per-ray `seeds` (one per key; None is a zero seed,
-    never read). CPU tensors take `_raygen_trace_bwd_plain`; CUDA tensors
+    never read), d_data one per data array (w's the 5th at per-ray
+    wavelengths). CPU tensors take `_raygen_trace_bwd_plain`; CUDA tensors
     launch the kernel."""
     if rg.device.type == "cpu":
         return _raygen_trace_bwd_plain(static, diffp, nondiffp, rg, data,
                                        out_keys, seeds)
     n, head, ptrs, keep = _launch_args(static, rg, diffp, nondiffp, data,
                                        kernel="K4")
-    dev, S = rg.device, static.num_surfaces
+    dev, S, per_ray = rg.device, static.num_surfaces, len(data) == 5
+    sizes, media, _media_keep = _media_args(static, diffp, nondiffp, per_ray)
     by_key = dict(zip(out_keys, seeds))
     seeds8, seed_ptrs = _seed_ptrs([by_key.get(k) for k in range(8)], n, dev)
-    blocks, threads = backward_grid(n, config.sm_count(dev))
-    partials = torch.empty((blocks, S + 1, _F_STRIDE), dtype=torch.float32,
-                           device=dev)
+    blocks, threads, partials, tabulated = _backward_launch(
+        static, n, dev, S + 1, per_ray)
     d_data = tuple(torch.empty(n, dtype=torch.float32, device=dev)
-                   for _ in range(4))
-    if n:
+                   for _ in data)
+    if n and per_ray:
+        err = _kernel("raygen_trace_bwd", media_defines(static), True)(
+            *head, blocks, threads, *sizes, *ptrs[:3], *media, *ptrs[3:],
+            *seed_ptrs, partials.data_ptr(), *(d.data_ptr() for d in d_data),
+            *(t.data_ptr() for t in tabulated), _stream(dev))
+    elif n:
         err = _kernel("raygen_trace_bwd")(
             *head, blocks, threads, *ptrs, *seed_ptrs, partials.data_ptr(),
             *(d.data_ptr() for d in d_data), _stream(dev))
+    if n:
         _raise_on_error("raygen_trace_bwd", err)
         raygen_trace_backward.launches += 1
     tab = torch.sum(partials, dim=0)
-    return (tab[S, :5].to(rg.dtype), _unpack_table_grads(tab[:S], diffp),
+    d_mat = (_material_grads(static, tab[S + 1:], tabulated, diffp[6])
+             if per_ray else None)
+    return (tab[S, :5].to(rg.dtype), _unpack_table_grads(tab[:S], diffp, d_mat),
             d_data)
 
 
 raygen_trace_backward.launches = 0
 
 
-def k5_launch(static, diffp, nondiffp, rays8):
-    """K5's variant for this system, its arguments up to the stream, the 8
-    outputs it writes, and the tensors to keep alive until the launch is
-    enqueued. Builds the variant on first use."""
-    n, _, ptrs, keep = _caller_ray_args(static, diffp, nondiffp, rays8,
+def k5_launch(static, diffp, nondiffp, rays):
+    """K5's variant for this system (its per-ray variant for 9 ray arrays),
+    its arguments up to the stream, the 8 outputs it writes, and the
+    tensors to keep alive until the launch is enqueued. Builds the variant
+    on first use."""
+    n, _, ptrs, keep = _caller_ray_args(static, diffp, nondiffp, rays,
                                         kernel="K5")
-    dev = rays8[0].device
-    defines = system_defines(static)
-    fn = _kernel("fused_trace_fwd", defines)
+    dev, per_ray = rays[0].device, len(rays) == 9
+    sizes, media, media_keep = _media_args(static, diffp, nondiffp, per_ray)
+    defines = (history_defines if per_ray else system_defines)(static)
+    fn = _kernel("fused_trace_fwd", defines, per_ray)
     outs = tuple(torch.empty(n, dtype=torch.float32, device=dev)
                  for _ in range(8))
     args = [n, static.num_surfaces,
-            _system_blocks("fused_trace_fwd", defines, n, dev), ptrs[0],
-            *ptrs[2:], *(o.data_ptr() for o in outs)]
-    return fn, args, outs, keep
+            _system_blocks("fused_trace_fwd", defines, n, dev), *sizes,
+            ptrs[0], *media, *ptrs[2:], *(o.data_ptr() for o in outs)]
+    return fn, args, outs, keep + media_keep
 
 
-def fused_trace_forward(static, diffp, nondiffp, rays8):
-    """K5: the final (x, y, z, L, M, N, i, opd) of the caller's rays
-    (rays8, the same 8 arrays at the start). CPU tensors take
-    `_fused_trace_plain`; CUDA tensors launch the kernel, the system's own
-    variant (built at first use; a failed build raises)."""
-    if rays8[0].device.type == "cpu":
-        return _fused_trace_plain(static, diffp, nondiffp, rays8)
-    fn, args, outs, _keep = k5_launch(static, diffp, nondiffp, rays8)
+def fused_trace_forward(static, diffp, nondiffp, rays):
+    """K5: the final (x, y, z, L, M, N, i, opd) of the caller's rays (the
+    same 8 arrays at the start, and w at per-ray wavelengths). CPU tensors
+    take `_fused_trace_plain`; CUDA tensors launch the kernel, the
+    system's own variant (built at first use; a failed build raises)."""
+    if rays[0].device.type == "cpu":
+        return _fused_trace_plain(static, diffp, nondiffp, rays)
+    fn, args, outs, _keep = k5_launch(static, diffp, nondiffp, rays)
     if args[0]:
         _raise_on_error("fused_trace_fwd",
-                        fn(*args, _stream(rays8[0].device)))
+                        fn(*args, _stream(rays[0].device)))
         fused_trace_forward.launches += 1
     return outs
 
@@ -1071,28 +1225,38 @@ def fused_trace_forward(static, diffp, nondiffp, rays8):
 fused_trace_forward.launches = 0
 
 
-def fused_trace_backward(static, diffp, nondiffp, rays8, seeds):
-    """K6: the cotangents (d_rays8, d_diffp) of the K5 outputs against the 8
-    per-ray `seeds` (None is a zero seed). CPU tensors take
+def fused_trace_backward(static, diffp, nondiffp, rays, seeds):
+    """K6: the cotangents (d_rays, d_diffp) of the K5 outputs against the 8
+    per-ray `seeds` (None is a zero seed), a cotangent per ray array (w's
+    the 9th at per-ray wavelengths). CPU tensors take
     `_fused_trace_bwd_plain`; CUDA tensors launch the kernel."""
-    if rays8[0].device.type == "cpu":
-        return _fused_trace_bwd_plain(static, diffp, nondiffp, rays8, seeds)
-    n, head, ptrs, keep = _caller_ray_args(static, diffp, nondiffp, rays8,
+    if rays[0].device.type == "cpu":
+        return _fused_trace_bwd_plain(static, diffp, nondiffp, rays, seeds)
+    n, head, ptrs, keep = _caller_ray_args(static, diffp, nondiffp, rays,
                                            kernel="K6")
-    dev, S = rays8[0].device, static.num_surfaces
+    dev, S, per_ray = rays[0].device, static.num_surfaces, len(rays) == 9
+    sizes, media, _media_keep = _media_args(static, diffp, nondiffp, per_ray)
     seeds8, seed_ptrs = _seed_ptrs(seeds, n, dev)
-    blocks, threads = backward_grid(n, config.sm_count(dev))
-    partials = torch.empty((blocks, S, _F_STRIDE), dtype=torch.float32,
-                           device=dev)
+    blocks, threads, partials, tabulated = _backward_launch(
+        static, n, dev, S, per_ray)
     d_rays = tuple(torch.empty(n, dtype=torch.float32, device=dev)
-                   for _ in range(8))
-    if n:
+                   for _ in rays)
+    if n and per_ray:
+        err = _kernel("fused_trace_bwd", media_defines(static), True)(
+            *head, blocks, threads, *sizes, *ptrs[:2], *media, *ptrs[2:],
+            *seed_ptrs, partials.data_ptr(), *(d.data_ptr() for d in d_rays),
+            *(t.data_ptr() for t in tabulated), _stream(dev))
+    elif n:
         err = _kernel("fused_trace_bwd")(
             *head, blocks, threads, *ptrs, *seed_ptrs, partials.data_ptr(),
             *(d.data_ptr() for d in d_rays), _stream(dev))
+    if n:
         _raise_on_error("fused_trace_bwd", err)
         fused_trace_backward.launches += 1
-    return d_rays, _unpack_table_grads(torch.sum(partials, dim=0), diffp)
+    tab = torch.sum(partials, dim=0)
+    d_mat = (_material_grads(static, tab[S:], tabulated, diffp[6])
+             if per_ray else None)
+    return d_rays, _unpack_table_grads(tab[:S], diffp, d_mat)
 
 
 fused_trace_backward.launches = 0
@@ -1101,36 +1265,24 @@ fused_trace_backward.launches = 0
 def k7_launch(static, diffp, nondiffp, rays9):
     """K7's variant for this system, its arguments up to the stream, the 8
     (S, n) history arrays it writes, and the tensors to keep alive until
-    the launch is enqueued. The material coefficient rows and extinction
-    tables go to the kernel whole: a tabulated glass's row is as wide as
-    its table. Builds the variant on first use."""
-    _check_kernel_branches(static, "K7", uniform_w=False)
+    the launch is enqueued. Builds the variant on first use."""
+    _check_kernel_branches(static, "K7")
     if len(rays9) != 9:
         raise ValueError("expected the 9 ray arrays x, y, z, L, M, N, i, "
                          "opd, w")
-    wide = [k for k in range(static.num_surfaces)
-            if static.mat_formulas[k] != FORMULA_TABULATED
-            and static.mat_n_coeffs[k] > _MAT_SHARED]
-    if wide:
-        raise ValueError(f"surfaces {wide}: a dispersion formula with more "
-                         f"than {_MAT_SHARED} coefficients")
     ftab, _ = _pack_tables(static, diffp, nondiffp)
-    mat = diffp[6].contiguous()
-    k_wl, k_val = nondiffp[1].contiguous(), nondiffp[2].contiguous()
+    sizes, media, media_keep = _media_args(static, diffp, nondiffp, True)
     dev, S = ftab.device, static.num_surfaces
-    n = _check_arrays([("tables", ftab), ("mat_coeffs", mat), ("k_wl", k_wl),
-                       ("k_val", k_val)]
-                      + list(zip(_NAMES + ("w",), rays9)), dev)
+    n = _check_arrays([("tables", ftab)] + list(zip(_RAY_KEYS, rays9)), dev)
     defines = history_defines(static)
     fn = _kernel("history_fwd", defines)
     outs = tuple(torch.empty((S, n), dtype=torch.float32, device=dev)
                  for _ in range(8))
     args = [n, S, _system_blocks("history_fwd", defines, n, dev),
-            int(history_bulk(S, n, config.l2_bytes(dev))), mat.shape[1],
-            k_wl.shape[1], ftab.data_ptr(), mat.data_ptr(),
-            k_wl.data_ptr(), k_val.data_ptr(), *(r.data_ptr() for r in rays9),
+            int(history_bulk(S, n, config.l2_bytes(dev))), *sizes,
+            ftab.data_ptr(), *media, *(r.data_ptr() for r in rays9),
             *(o.data_ptr() for o in outs)]
-    return fn, args, outs, (ftab, mat, k_wl, k_val)
+    return fn, args, outs, (ftab,) + media_keep
 
 
 def history_forward(static, diffp, nondiffp, rays9):
@@ -1160,7 +1312,8 @@ def _split(n_diff, tensors):
 
 
 class _FusedSpotMoments(torch.autograd.Function):
-    """K1 at the autograd seam; its backward is K2."""
+    """K1 at the autograd seam; its backward is K2. Per-ray data (with w)
+    get w's cotangent as the others'."""
 
     @staticmethod
     def forward(ctx, static, n_diff, diff_data, rg, *tensors):
@@ -1202,7 +1355,8 @@ class _FusedRaygenTraceFinal(torch.autograd.Function):
 
 
 class _FusedTraceFinal(torch.autograd.Function):
-    """K5 at the autograd seam; its backward is K6."""
+    """K5 at the autograd seam; its backward is K6 (9 ray arrays at per-ray
+    wavelengths, w's cotangent the 9th)."""
 
     @staticmethod
     def forward(ctx, static, n_diff, *tensors):
@@ -1276,8 +1430,9 @@ def fused_spot_moments(static, params_tuple, data, diff_data=True):
     """(m0, m1, m2, m3) through K1, differentiable through K2.
     `params_tuple` = (diffp, nondiffp, rg) as `_diff_params`,
     `_nondiff_params`, `_raygen_scalars` give them; `data` = (Hx, Hy, Px,
-    Py). `diff_data=False` declares the data cotangents unwanted: they come
-    back as zeros and the backward kernel skips them."""
+    Py), or (Hx, Hy, Px, Py, w) at per-ray wavelengths. `diff_data=False`
+    declares the data cotangents unwanted: they come back as zeros and the
+    backward kernel skips them."""
     diffp, nondiffp, rg = params_tuple
     m = _FusedSpotMoments.apply(static, len(diffp), diff_data, rg, *diffp,
                                 *nondiffp, *data)
@@ -1292,13 +1447,13 @@ def fused_raygen_trace_final(static, out_keys, params_tuple, data):
                                         rg, *diffp, *nondiffp, *data)
 
 
-def fused_trace_final(static, params_tuple, rays8):
-    """The final (x, y, z, L, M, N, i, opd) of the caller's 8 ray arrays
-    through K5, differentiable through K6. `params_tuple` = (diffp,
-    nondiffp)."""
+def fused_trace_final(static, params_tuple, rays):
+    """The final (x, y, z, L, M, N, i, opd) of the caller's 8 ray arrays (9
+    with w at per-ray wavelengths) through K5, differentiable through K6.
+    `params_tuple` = (diffp, nondiffp)."""
     diffp, nondiffp = params_tuple
     return _FusedTraceFinal.apply(static, len(diffp), *diffp, *nondiffp,
-                                  *rays8)
+                                  *rays)
 
 
 def fused_history(static, params_tuple, rays9):
@@ -1309,20 +1464,33 @@ def fused_history(static, params_tuple, rays9):
     return _FusedHistory.apply(static, len(diffp), *diffp, *nondiffp, *rays9)
 
 
-def _prepare(static, params, Hx, Hy, Px, Py, wavelength, kernel):
+def _per_ray(wavelength) -> bool:
+    """JAX's test for the per-ray configuration (`uniform_w` false): a
+    wavelength that is an array, even of equal values."""
+    return torch.as_tensor(wavelength).ndim != 0
+
+
+def _prepare(static, params, Hx, Hy, Px, Py, wavelength):
     """Broadcast the per-ray data and build the kernel parameter tuple of
-    the raygen kernel `kernel` (K1 or K3)."""
+    the raygen kernels (K1-K4). A scalar `wavelength` fills the index and
+    absorption tables (`_uniform_tables`) and data = (Hx, Hy, Px, Py); an
+    array leaves those slots as unused placeholders and data gains w,
+    broadcast to the rays."""
     dt, dev = params.cv.dtype, params.cv.device
     Px = torch.as_tensor(Px, dtype=dt, device=dev)
     Py = torch.as_tensor(Py, dtype=dt, device=dev)
     Hx = torch.as_tensor(Hx, dtype=dt, device=dev).expand(Px.shape)
     Hy = torch.as_tensor(Hy, dtype=dt, device=dev).expand(Px.shape)
-    if torch.as_tensor(wavelength).ndim != 0:
-        _check_kernel_branches(static, kernel, uniform_w=False)
-    n_table, alpha_table = _uniform_tables(static, params, wavelength)
+    data = (Hx, Hy, Px, Py)
+    if _per_ray(wavelength):
+        n_table = alpha_table = None
+        data += (torch.as_tensor(wavelength, dtype=dt,
+                                 device=dev).expand(Px.shape),)
+    else:
+        n_table, alpha_table = _uniform_tables(static, params, wavelength)
     p = (_diff_params(params, n_table), _nondiff_params(params, alpha_table),
          _raygen_scalars(static, params))
-    return p, tuple(a.contiguous() for a in (Hx, Hy, Px, Py))
+    return p, tuple(a.contiguous() for a in data)
 
 
 def trace_system_final_fused(static: SystemStatic, params: SystemParams,
@@ -1330,7 +1498,7 @@ def trace_system_final_fused(static: SystemStatic, params: SystemParams,
     """Raygen+trace in one launch of K3 (backward: K4). The caller has
     checked `supports_fused` and `supports_fused_raygen`. `outputs`: names
     from ("x", "y", "z", "L", "M", "N", "intensity", "opd"); default all."""
-    p, data = _prepare(static, params, Hx, Hy, Px, Py, wavelength, "K3")
+    p, data = _prepare(static, params, Hx, Hy, Px, Py, wavelength)
     if outputs is None:
         out_keys = tuple(range(8))
     else:
@@ -1342,21 +1510,25 @@ def trace_system_final_fused(static: SystemStatic, params: SystemParams,
 def trace_final(static: SystemStatic, params: SystemParams, rays0,
                 wavelength=None):
     """Final-surface state from a caller-made bundle. On a CUDA device in
-    float32 a `supports_fused` system is one launch of K5 (backward: K6),
-    for a uniform `wavelength` (the one the bundle was made with); per-ray
-    wavelengths raise. Otherwise the eager trace."""
+    float32 a `supports_fused` system is one launch of K5 (backward: K6):
+    at a scalar `wavelength` (the one the bundle was made with) from the
+    index and absorption tables; at per-ray wavelengths (an array, or
+    `None`, as in JAX) at the bundle's own w, which K6 differentiates.
+    Otherwise the eager trace."""
     from optiland_tpu_torch.trace.tracer import _final, trace_rays
 
     if (supports_fused(static) and rays0.x.is_cuda
             and rays0.x.dtype == torch.float32):
-        if wavelength is None or torch.as_tensor(wavelength).ndim != 0:
-            _check_kernel_branches(static, "K5", uniform_w=False)
-        n_table, alpha_table = _uniform_tables(static, params, wavelength)
+        if wavelength is None or _per_ray(wavelength):
+            n_table = alpha_table = None
+            keys = _RAY_KEYS
+        else:
+            n_table, alpha_table = _uniform_tables(static, params, wavelength)
+            keys = _RAY_KEYS[:8]
         p = (_diff_params(params, n_table),
              _nondiff_params(params, alpha_table))
-        rays8 = tuple(getattr(rays0, k).contiguous()
-                      for k in ("x", "y", "z", "L", "M", "N", "i", "opd"))
-        return dict(zip(_NAMES, fused_trace_final(static, p, rays8)))
+        rays = tuple(getattr(rays0, k).contiguous() for k in keys)
+        return dict(zip(_NAMES, fused_trace_final(static, p, rays)))
     return _final(trace_rays(static, params, rays0))
 
 
@@ -1380,15 +1552,16 @@ def spot_moments(static: SystemStatic, params: SystemParams,
     """Weighted spot moments (m0, m1, m2, m3) = (sum i, sum x i, sum y i,
     sum (x^2+y^2) i) at the image surface. On a CUDA device in float32 a
     system both gates accept is one launch of K1, and its gradient one
-    launch of K2; `diff_data=False` then declares the (Hx, Hy, Px, Py)
-    cotangents unwanted (they come back as zeros, the parameter gradients
-    are unchanged). On the CPU, and in float64, the eager generate_rays ->
+    launch of K2, at a scalar `wavelength` or per-ray ones (an array: the
+    polychromatic merit); `diff_data=False` then declares the (Hx, Hy, Px,
+    Py, w) cotangents unwanted (they come back as zeros, the parameter
+    gradients are unchanged). On the CPU, and in float64, the eager generate_rays ->
     trace_rays pipeline under autograd, which differentiates everything."""
     dtype = params.cv.dtype
     use_fused = (supports_fused(static) and supports_fused_raygen(static)
                  and params.cv.is_cuda and dtype == torch.float32)
     if use_fused:
-        p, data = _prepare(static, params, Hx, Hy, Px, Py, wavelength, "K1")
+        p, data = _prepare(static, params, Hx, Hy, Px, Py, wavelength)
         return fused_spot_moments(static, p, data, diff_data)
     from optiland_tpu_torch.trace.raygen import generate_rays
     from optiland_tpu_torch.trace.tracer import trace_rays

@@ -193,7 +193,8 @@ def trace_system_final(static: SystemStatic, params: SystemParams, Hx, Hy,
     On a CUDA device in float32, a system both fused gates accept runs as
     one kernel launch (K3, raygen fused into the chain); a system only
     `supports_fused` accepts goes to `trace_final` (K5, the chain on the
-    caller's rays). Everything else is the eager trace."""
+    caller's rays). Either kernel takes a scalar `wavelength` or per-ray
+    ones (an array), as JAX's. Everything else is the eager trace."""
     from optiland_tpu_torch.trace.fused import (
         supports_fused,
         supports_fused_raygen,
@@ -222,7 +223,7 @@ def trace_system(static: SystemStatic, params: SystemParams, Hx, Hy, Px, Py,
     float32, its gradient through the eager trace)."""
     if polarization is not None:
         raise NotImplementedError(
-            "polarized traces are not ported yet (ROADMAP queue 1, slice 2)")
+            "polarized traces are not ported yet (ROADMAP queue 1, item 15)")
     rays0 = generate_rays(static, params, Hx, Hy, Px, Py, wavelength,
                           apply_vignetting=apply_vignetting)
     from optiland_tpu_torch.trace.fused import supports_fused, trace_history_fused

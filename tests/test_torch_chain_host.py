@@ -8,9 +8,13 @@ forward chain (`trace_chain`, at one wavelength as the backward kernels
 re-trace it), the reverse sweep (`reverse_chain`, with the absorption
 adjoint, and the cotangent rows in their compact order and widths) and the
 raygen adjoint (`tile_raygen_bwd`); so do the per-ray dispersion
-(`material_index` for every formula code, run-time and compile-time) and
-the extinction tables' interpolation (`kv_segment` bit for bit against
-`kv_interp`), K1's, K3's, K5's and K7's per-system bodies (`system_raygen`,
+(`material_index` for every formula code, run-time and compile-time, and
+its adjoint `material_index_bwd` / `interp_bwd` against autograd) and the
+extinction tables' interpolation (`kv_segment` bit for bit against
+`kv_interp`), the per-ray variants' bodies (K1, K3 and K5 by the
+per-system chain at each ray's w, K2, K4 and K6 by the per-ray sweep,
+`trace_chain_w` and `reverse_chain_w`, with `mat_coeffs`' and w's
+cotangents), K1's, K3's, K5's and K7's per-system bodies (`system_raygen`,
 `trace_system` at one wavelength and at each ray's own with its history
 recorded, `stage_system`), built with each of five systems' own codes, and
 K8's per-image-point Huygens sum
@@ -68,6 +72,7 @@ _PRELUDE = r"""
 #define sinf std::sin
 #define powf std::pow
 #define expf std::exp
+#define logf std::log
 #define sincosf host_sincos
 #define __sincosf host_sincos
 #define __fdividef(a, b) ((a) / (b))
@@ -239,11 +244,34 @@ extern "C" void kv_kernel(int mode, int n, const double* w, int K, const double*
 }
 """
 
-# the compile-time material_index of formula {code} with {nc} coefficients
+# the compile-time material_index of formula {code} with {nc} coefficients,
+# and its adjoint at each of n wavelengths against the cotangents dn: the
+# coefficients' summed over the points (dc, the row's width; a tabulated
+# row's 4 entries of each point's segment, interp_bwd's), w's per point
 _INDEX_CT = r"""
 extern "C" void index_ct_{code}(const double* row, int n, const double* w, double* out) {{
   for (int j = 0; j < n; ++j)
     out[j] = otk::material_index<{code}, {nc}>(row, row, w[j]);
+}}
+
+extern "C" void index_bwd_ct_{code}(const double* row, int n, const double* w,
+                                    const double* dn, double* dc, double* dw) {{
+  for (int j = 0; j < n; ++j) {{
+    dw[j] = 0;
+    if constexpr ({code} == otk::FORMULA_TABULATED) {{
+      const int K = {nc} / 2;
+      int seg;
+      double v[4];
+      otk::interp_bwd(w[j], row, row + K, K, dn[j], seg, v, dw[j]);
+      const int i0 = seg > 0 ? seg - 1 : 0;
+      dc[i0] += v[0];
+      dc[seg] += v[1];
+      dc[K + i0] += v[2];
+      dc[K + seg] += v[3];
+    }} else {{
+      otk::material_index_bwd<{code}, {nc}>(row, w[j], dn[j], dc, dw[j]);
+    }}
+  }}
 }}
 """
 
@@ -255,6 +283,7 @@ extern "C" void index_ct_{code}(const double* row, int n, const double* w, doubl
 # `stage_system`, as on the card.
 _SYSTEM_SHIM = r"""
 #include "system_chain.cuh"
+#include "chain_bwd.cuh"
 
 static double s_ft[OTK_S * otk::F_STRIDE], s_rg[5];
 
@@ -324,6 +353,99 @@ extern "C" void system_history(int n, int mat_w, int K, const double* ft, const 
     otk::trace_system(s_ft, media, r, sink);
   }
 }
+
+// The per-ray variants' bodies: K1 (mode 0: the moments and each ray's
+// final state, rays (8, n), by the per-system chain at w) and K2 and K4
+// (modes 1 and 2, the run-time chain's per-ray sweep: table, raygen and
+// material rows (2 S + 1, 32), the data cotangents dd (5, n), w's the
+// 5th, the tabulated glasses' seg (T, n) and val (T, 4, n)); K5 (mode 0:
+// the final state of the caller's rays (9, n)) and K6 (mode 1: rows (2 S,
+// 32), the 9 ray cotangents in outs).
+struct RowsW {
+  double* out;
+  void put(int row, const double (&v)[otk::F_STRIDE], int width) const {
+    for (int c = 0; c < width; ++c) out[row * otk::F_STRIDE + otk::table_slot(c)] += v[c];
+  }
+};
+static double rec_w[otk::MEDIA][otk::REC_W], pos_w[otk::MEDIA], npre_w[otk::MEDIA];
+
+extern "C" void raygen_kernels_w(int mode, int n, int nn, int mat_w, int K, const double* rg,
+                                 const double* ft, const int* it, const double* mat,
+                                 const double* kwl, const double* kval, const double* Hx,
+                                 const double* Hy, const double* Px, const double* Py,
+                                 const double* w, const double* c, const double* seeds,
+                                 double* out4, double* rays, double* tab, double* dd,
+                                 int* seg, double* val) {
+  otk::stage_materials(OTK_S, mat_w, mat, s_mat);
+  otk::surface_frames(OTK_S, ft, it, pos_w, npre_w);
+  for (int q = 0; q < 4; ++q) out4[q] = 0;
+  for (int idx = 0; idx < n; ++idx) {
+    const otk::RayMedia media = {mat, s_mat, kwl, kval, mat_w, K, w[idx]};
+    otk::Ray r = otk::system_raygen(rg, Hx[idx], Hy[idx], Px[idx], Py[idx]);
+    if (mode == 0) {
+      otk::trace_system(ft, media, r, otk::NoSink());
+      out4[0] += r.i;
+      out4[1] += r.x * r.i;
+      out4[2] += r.y * r.i;
+      out4[3] += (r.x * r.x + r.y * r.y) * r.i;
+      const double v[8] = {r.x, r.y, r.z, r.L, r.M, r.N, r.i, r.opd};
+      for (int k = 0; k < 8; ++k) rays[k * n + idx] = v[k];
+      continue;
+    }
+    otk::trace_chain_w(OTK_S, nn, ft, it, media, r, rec_w);
+    otk::Vec6 g = {0, 0, 0, 0, 0, 0};
+    double g_opd = 0, g_ip;
+    if (mode == 1) {
+      g.x = r.i * (c[1] + 2 * c[3] * r.x);
+      g.y = r.i * (c[2] + 2 * c[3] * r.y);
+      g_ip = r.i * (c[0] + c[1] * r.x + c[2] * r.y + c[3] * (r.x * r.x + r.y * r.y));
+    } else {
+      g = otk::Vec6{seeds[idx], seeds[n + idx], seeds[2 * n + idx],
+                    seeds[3 * n + idx], seeds[4 * n + idx], seeds[5 * n + idx]};
+      g_opd = seeds[7 * n + idx];
+      g_ip = seeds[6 * n + idx] * r.i;
+    }
+    const RowsW rows{tab};
+    double d_w;
+    otk::reverse_chain_w(OTK_S, ft, it, pos_w, media, rec_w, true, g_opd, g_ip, g, rows,
+                         OTK_S + 1, otk::TabulatedOut{seg, val, (size_t)n, idx}, d_w);
+    double drg[5], d4[4];
+    otk::tile_raygen_bwd(OTK_FIELD_ANGLE, OTK_OBJECT_INFINITE, rg, Hx[idx], Hy[idx], Px[idx],
+                         Py[idx], g, drg, d4);
+    otk::put_raygen_row(rows, OTK_S, drg);
+    for (int q = 0; q < 4; ++q) dd[q * n + idx] = d4[q];
+    dd[4 * n + idx] = d_w;
+  }
+}
+
+extern "C" void caller_kernels_w(int mode, int n, int nn, int mat_w, int K, const double* ft,
+                                 const int* it, const double* mat, const double* kwl,
+                                 const double* kval, const double* rays, const double* seeds,
+                                 double* tab, double* outs, int* seg, double* val) {
+  otk::stage_materials(OTK_S, mat_w, mat, s_mat);
+  otk::surface_frames(OTK_S, ft, it, pos_w, npre_w);
+  for (int idx = 0; idx < n; ++idx) {
+    const double* p = rays + idx;
+    const otk::RayMedia media = {mat, s_mat, kwl, kval, mat_w, K, p[8 * n]};
+    otk::Ray r = {p[0], p[n], p[2 * n], p[3 * n], p[4 * n], p[5 * n],
+                  mode == 0 ? p[6 * n] : 1.0, p[7 * n]};
+    if (mode == 0) {
+      otk::trace_system(ft, media, r, otk::NoSink());
+      const double v[8] = {r.x, r.y, r.z, r.L, r.M, r.N, r.i, r.opd};
+      for (int k = 0; k < 8; ++k) outs[k * n + idx] = v[k];
+      continue;
+    }
+    otk::trace_chain_w(OTK_S, nn, ft, it, media, r, rec_w);
+    const double* s = seeds + idx;
+    otk::Vec6 g = {s[0], s[n], s[2 * n], s[3 * n], s[4 * n], s[5 * n]};
+    double d_w;
+    otk::reverse_chain_w(OTK_S, ft, it, pos_w, media, rec_w, true, s[7 * n],
+                         s[6 * n] * p[6 * n] * r.i, g, RowsW{tab}, OTK_S,
+                         otk::TabulatedOut{seg, val, (size_t)n, idx}, d_w);
+    const double dv[9] = {g.x, g.y, g.z, g.L, g.M, g.N, s[6 * n] * r.i, s[7 * n], d_w};
+    for (int k = 0; k < 9; ++k) outs[k * n + idx] = dv[k];
+  }
+}
 #endif
 """
 
@@ -386,12 +508,14 @@ def _close(got, ref, label):
                                err_msg=label)
 
 
+_GROUP_NAMES = ("cv", "conic", "coeffs", "thickness", "tilt", "decenter",
+                "mat_coeffs", "coating_params", "n_table", "grating",
+                "phase_params", "focal_length")
+
+
 def _close_params(tab, diffp, ref_diff):
-    names = ("cv", "conic", "coeffs", "thickness", "tilt", "decenter",
-             "mat_coeffs", "coating_params", "n_table", "grating",
-             "phase_params", "focal_length")
     got = fused._unpack_table_grads(torch.from_numpy(tab), diffp)
-    for name, g, r in zip(names, got, ref_diff):
+    for name, g, r in zip(_GROUP_NAMES, got, ref_diff):
         _close(_np(g), r, name)
 
 
@@ -523,6 +647,32 @@ def test_compile_time_material_index_matches_plain(host_lib, code):
                                           _ptr(got))
     assert np.isfinite(got).all()
     np.testing.assert_allclose(got, ref, rtol=RTOL, atol=0)
+
+
+@pytest.mark.parametrize("code", range(12))
+def test_material_index_bwd_matches_autograd(host_lib, code):
+    """`material_index_bwd<F, NC>` (and `interp_bwd` for the tabulated
+    formula, its cotangent on each point's segment) against autograd of
+    the port's `material_index`: the coefficients' cotangents summed over
+    the points and w's per point, under random cotangents dn. The
+    tabulated case's points lie below its table, on its knots, inside its
+    segments and above it."""
+    spec, row, w, _ = _index_case(code)
+    dn = np.random.default_rng(code).normal(size=len(w))
+    c = torch.from_numpy(row.copy()).requires_grad_(True)
+    wt = torch.from_numpy(w.copy()).requires_grad_(True)
+    n = material_index(code, spec.n_coeffs, c, wt)
+    ref_c, ref_w = torch.autograd.grad(n, (c, wt), torch.from_numpy(dn),
+                                       allow_unused=True,
+                                       materialize_grads=True)
+    dc, dw = np.zeros(len(row)), np.zeros_like(w)
+    getattr(host_lib, f"index_bwd_ct_{code}")(_ptr(row), len(w), _ptr(w),
+                                              _ptr(dn), _ptr(dc), _ptr(dw))
+    assert np.isfinite(dc).all() and np.isfinite(dw).all()
+    _close(dc, ref_c, f"formula {code} coefficients")
+    _close(dw, ref_w, f"formula {code} w")
+    if code:   # the ideal index does not depend on w
+        assert np.abs(dw).max() > 0
 
 
 @pytest.mark.parametrize("K", [1, 5, 22])
@@ -802,6 +952,115 @@ def test_history_body_matches_plain(system_libs, f64, case):
         _close(hist[k], ref[k], fused._NAMES[k])
 
 
+# the per-ray sweep's cases: per-ray wavelengths mixed over the rays, on
+# the Cooke triplet (Sellmeier and polynomial glasses) and on the doublet
+# of a tabulated and an Abbe glass, also at its tables' knots and edges
+_PER_RAY_CASES = {name: _HISTORY_CASES[name]
+                  for name in ("cooke", "tabulated_doublet", "knots")}
+
+
+@pytest.mark.parametrize("case", list(_PER_RAY_CASES))
+def test_per_ray_bodies_match_plain(system_libs, f64, case):
+    """The per-ray variants' bodies, built with the system's
+    `history_defines`: K1's moments and K3's final arrays by the
+    per-system chain at each ray's w; K2 and K4, the run-time chain's
+    per-ray sweep (`trace_chain_w`, `reverse_chain_w`): the raygen and
+    table cotangents, `mat_coeffs`' from the material rows and the
+    tabulated glass's per-ray segments (the wrapper's `_material_grads`),
+    the 5 data cotangents, w's included; K5 and K6 on the caller's rays
+    with w the 9th array, its cotangent the 9th. Against the plain
+    versions at per-ray wavelengths."""
+    name, wavelengths = _PER_RAY_CASES[case]
+    ts, tp = _HISTORY_SYSTEMS[name]().build(device="cpu")
+    lib, S, n = system_libs[name], ts.num_surfaces, N_RAYS
+    diffp, nondiffp = fused._diff_params(tp), fused._nondiff_params(tp)
+    rg = fused._raygen_scalars(ts, tp)
+    ftab, itab = (_np(t) for t in fused._pack_tables(ts, diffp, nondiffp))
+    mat, kwl, kval = (_np(t) for t in (diffp[6], nondiffp[1], nondiffp[2]))
+    rng = np.random.default_rng(21)
+    data_np = [np.ascontiguousarray(a) for a in (
+        *rng.uniform(-0.5, 0.5, (2, n)), *rng.uniform(-0.7, 0.7, (2, n)),
+        rng.choice(wavelengths, n))]
+    data = tuple(torch.from_numpy(a) for a in data_np)
+    seeds = np.ascontiguousarray(rng.normal(size=(8, n)))
+    T = sum(f == 10 for f in ts.mat_formulas)
+    nn = min(ts.newton_iters, fused._NEWTON_FUSED_MAX)
+    media = (nn, mat.shape[1], kwl.shape[1])
+
+    def sweep(fn, mode, rows, *args, n_out):
+        tab = np.zeros((rows, 32))
+        out = np.zeros((n_out, n))
+        seg = np.ones((max(T, 1), n), dtype=np.int32)
+        val = np.zeros((max(T, 1), 4, n))
+        fn(mode, n, *media, *args, _ptr(tab), _ptr(out), _ptr(seg), _ptr(val))
+        d_mat = fused._material_grads(ts, torch.from_numpy(tab[rows - S:]), (
+            torch.from_numpy(seg), torch.from_numpy(val)), diffp[6])
+        return tab, out, fused._unpack_table_grads(torch.from_numpy(tab[:S]),
+                                                   diffp, d_mat)
+
+    def raygen(mode, c=np.zeros(4), s=np.zeros((8, n))):
+        out4, rays = np.zeros(4), np.zeros((8, n))
+        tab, dd, d_diff = sweep(
+            lambda *a: lib.raygen_kernels_w(
+                *a[:5], _ptr(_np(rg)), _ptr(ftab), _ptr(itab), _ptr(mat),
+                _ptr(kwl), _ptr(kval), *map(_ptr, data_np), _ptr(c), _ptr(s),
+                _ptr(out4), _ptr(rays), *a[5:]), mode, 2 * S + 1, n_out=5)
+        return out4, rays, tab[S, :5], d_diff, dd
+
+    # K1 and K3
+    m, rays, _, _, _ = raygen(0)
+    np.testing.assert_allclose(m, _np(fused._moments_plain(
+        ts, diffp, nondiffp, rg, data)), rtol=1e-12)
+    ref = fused._raygen_trace_plain(ts, diffp, nondiffp, rg, data,
+                                    tuple(range(8)))
+    for k in range(8):
+        _close(rays[k], ref[k], f"K3 {fused._NAMES[k]}")
+    assert 0.0 < rays[6].max() < 1.0  # the glasses absorb
+    # K2 and K4
+    c = np.array([0.3, -0.7, 0.5, 1.1])
+    for label, got, ref in (
+            ("K2", raygen(1, c=c), fused._moments_bwd_plain(
+                ts, diffp, nondiffp, rg, data, torch.from_numpy(c), True)),
+            ("K4", raygen(2, s=seeds), fused._raygen_trace_bwd_plain(
+                ts, diffp, nondiffp, rg, data, tuple(range(8)),
+                tuple(torch.from_numpy(a) for a in seeds)))):
+        _close(got[2], ref[0], f"{label} rg")
+        for key, g, r in zip(_GROUP_NAMES, got[3], ref[1]):
+            _close(_np(g), r, f"{label} {key}")
+        for q in range(5):
+            _close(got[4][q], ref[2][q], f"{label} data {q}")
+        assert np.abs(got[4][4]).max() > 0 and got[3][6].abs().max() > 0
+
+    # K5 and K6 on the raygen's rays with a caller's intensity and opd
+    rays9 = [r.detach().expand(n).clone() for r in fused._tile_raygen(
+        ts, rg, *data[:4])[:6]]
+    rays9 += [torch.from_numpy(rng.uniform(0.5, 1.0, n)),
+              torch.from_numpy(rng.uniform(0.0, 1.0, n)), data[4]]
+    rays_np = np.ascontiguousarray(np.stack([_np(r) for r in rays9]))
+
+    def caller(mode):
+        return sweep(lambda *a: lib.caller_kernels_w(
+            *a[:5], _ptr(ftab), _ptr(itab), _ptr(mat), _ptr(kwl), _ptr(kval),
+            _ptr(rays_np), _ptr(seeds), *a[5:]), mode, 2 * S, n_out=9)
+
+    _, outs, _ = caller(0)
+    ref = fused._fused_trace_plain(ts, diffp, nondiffp, rays9)
+    for k in range(8):
+        _close(outs[k], ref[k], f"K5 {fused._NAMES[k]}")
+    _, outs, d_diff = caller(1)
+    d_rays, ref_diff = fused._fused_trace_bwd_plain(
+        ts, diffp, nondiffp, rays9, tuple(torch.from_numpy(a) for a in seeds))
+    for k in range(9):
+        _close(outs[k], d_rays[k], f"K6 d{fused._RAY_KEYS[k]}")
+    for key, g, r in zip(_GROUP_NAMES, d_diff, ref_diff):
+        _close(_np(g), r, f"K6 {key}")
+    # no rays: no segments to sum
+    empty = (torch.ones((max(T, 1), 0), dtype=torch.int32),
+             torch.zeros((max(T, 1), 4, 0)))
+    assert not fused._material_grads(ts, torch.zeros((S, 32)), empty,
+                                     diffp[6]).any()
+
+
 def test_k1_signature():
     """The per-system variants' key: the same codes give the same key, new
     values keep it, and a changed code (a surface type, a tilt, a decenter,
@@ -850,21 +1109,34 @@ def test_k1_signature():
 def test_history_defines(name, digest, media):
     """K7's definitions are K1's with OTK_MATERIALS, the {formula,
     coefficient count} of the medium after each surface, added; K1's, K3's
-    and K5's definitions and variant names are those they had before K7
-    was built per system (the names pinned here), and K7's variant is
-    another library, which a glass of another formula changes."""
+    and K5's definitions and variant names at one wavelength are those they
+    had before K7 was built per system (the names pinned here), and K7's
+    variant is another library, which a glass of another formula changes.
+    The per-ray variants: K1, K3 and K5 built with K7's definitions, K2, K4
+    and K6 with OTK_MATERIALS alone (`media_defines`), each a library of
+    its own, none the one-wavelength one's."""
     from optiland_tpu_torch import _build
 
     ts, _ = _HISTORY_SYSTEMS[name]().build(device="cpu")
     k7 = fused.history_defines(ts)
     assert k7 == fused.system_defines(ts) + (("OTK_MATERIALS", media),)
+    assert fused.media_defines(ts) == (("OTK_MATERIALS", media),)
     for src in ("moments_fwd", "raygen_trace_fwd", "fused_trace_fwd"):
         assert _build.variant_name(src, fused.system_defines(ts)) == (
             f"{src}-{digest}")
     assert _build.variant_name("history_fwd", k7) != f"history_fwd-{digest}"
+    per_ray = {_build.variant_name(src, k7) for src in (
+        "moments_fwd", "raygen_trace_fwd", "fused_trace_fwd", "history_fwd")}
+    per_ray |= {_build.variant_name(src, fused.media_defines(ts)) for src in (
+        "moments_bwd", "raygen_trace_bwd", "fused_trace_bwd")}
+    assert len(per_ray) == 7
+    assert not per_ray & {f"{src}-{digest}" for src in (
+        "moments_fwd", "raygen_trace_fwd", "fused_trace_fwd")}
+    assert not per_ray & set(_build.SOURCES)
     glass = replace(ts, mat_formulas=ts.mat_formulas[:1] + (11,)
                     + ts.mat_formulas[2:])
     assert fused.history_defines(glass) != k7
+    assert fused.media_defines(glass) != fused.media_defines(ts)
     assert fused.system_defines(glass) == fused.system_defines(ts)
 
 

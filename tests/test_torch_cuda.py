@@ -2,7 +2,8 @@
 their plain PyTorch versions in float32 (K1-K6 also on the absorbing Cooke
 triplet, K1, K3, K5 and K7 on every system built here, each its own
 variant, all built at once by the module's `system_variants`; K7 at
-per-ray wavelengths; K1, K2, K4 and K6 also at ragged ray counts around
+per-ray wavelengths, and K1-K6's per-ray variants on the Cooke triplet and
+on a doublet of a tabulated glass; K1, K2, K4 and K6 also at ragged ray counts around
 their 32-ray groups and at 2M + 17 rays, K3, K5 and K7 around their
 256-ray tiles;
 K3 leaving an unrequested output untouched; the per-system launchers
@@ -39,7 +40,7 @@ from optiland_tpu_torch.trace import fused, tracer
 from optiland_tpu_torch.trace.raygen import generate_rays
 from optiland_tpu_torch.wavefront.core import pupil_grid_coords, wavefront_data
 
-from torch_port_helpers import bench_lens, singlet_lens
+from torch_port_helpers import bench_lens, singlet_lens, tabulated_doublet
 
 pytestmark = pytest.mark.cuda
 
@@ -79,6 +80,12 @@ def system_variants():
     variants = tuple((src, fused.system_defines(ts)) for ts in statics
                      for src in _PER_SYSTEM) + tuple(
         ("history_fwd", fused.history_defines(ts)) for ts in statics)
+    # the per-ray variants of K1-K6
+    for ts in (_build("cooke", "cpu")[0], _build("doublet", "cpu")[0]):
+        variants += tuple((src, fused.history_defines(ts))
+                          for src in _PER_SYSTEM)
+        variants += tuple((src, fused.media_defines(ts)) for src in (
+            "moments_bwd", "raygen_trace_bwd", "fused_trace_bwd"))
     kbuild.build_all(variants)
     return variants
 
@@ -117,6 +124,8 @@ def _build(name, device):
         return (*bench_lens(Optic).build(device=device), 0.5876)
     if name == "cooke":
         return (*CookeTriplet().build(device=device), 0.55)
+    if name == "doublet":
+        return (*tabulated_doublet(Optic).build(device=device), 0.55)
     ts, tp = singlet_lens(Optic, **_SYSTEMS[name]).build(device=device)
     return replace(ts, newton_iters=4), tp, 0.55
 
@@ -416,6 +425,82 @@ def test_history_kernel_matches_plain(cuda_f32, name, n):
         assert err <= tol, (fused._NAMES[k], err)
 
 
+@pytest.mark.parametrize("name, n", [
+    ("cooke", 5000), ("doublet", 5000), ("cooke", 33), ("cooke", 257),
+    ("doublet", 65_537)])
+def test_per_ray_kernels_match_plain(cuda_f32, name, n):
+    """K1-K6's per-ray variants against their plain versions, at three
+    wavelengths mixed over the rays (on the doublet also below and above
+    its tabulated glass's table): K1's moments, K3's and K5's final arrays,
+    and K2's, K4's and K6's cotangents, `mat_coeffs`' and w's included;
+    their parameter cotangents bitwise over two launches; one launch a
+    call. The doublet's tabulated glass takes its cotangents by per-ray
+    segments summed in the wrapper."""
+    ts, tp, _ = _build(name, cuda_f32)
+    rng = np.random.default_rng(n)
+    waves = (0.48, 0.55, 0.65) + ((0.38, 0.75) if name == "doublet" else ())
+    data = _data(n, cuda_f32, seed=n) + (torch.tensor(
+        rng.choice(waves, n), dtype=torch.float32, device=cuda_f32),)
+    diffp, nondiffp, rg = (fused._diff_params(tp), fused._nondiff_params(tp),
+                           fused._raygen_scalars(ts, tp))
+    counters = (fused.moments_forward, fused.moments_backward,
+                fused.raygen_trace_forward, fused.raygen_trace_backward,
+                fused.fused_trace_forward, fused.fused_trace_backward)
+    before = [f.launches for f in counters]
+    got = fused.moments_forward(ts, diffp, nondiffp, rg, data)
+    ref = fused._moments_plain(ts, diffp, nondiffp, rg, data)
+    scale = torch.stack([ref[0], (ref[0] * ref[3]).sqrt(),
+                         (ref[0] * ref[3]).sqrt(), ref[3]]).clamp_min(1e-30)
+    assert ((got - ref).abs() / scale).max().item() <= MOMENT_RTOL
+    outs = fused.raygen_trace_forward(ts, diffp, nondiffp, rg, data,
+                                      tuple(range(8)))
+    refs = fused._raygen_trace_plain(ts, diffp, nondiffp, rg, data,
+                                     tuple(range(8)))
+    keep = _lit_alike(outs[6], refs[6])
+    assert keep.float().mean().item() >= 1 - 1e-3
+    for k, tol in enumerate(_TOLS):
+        assert (outs[k] - refs[k])[keep].abs().max().item() <= tol
+    seeds = [torch.tensor(rng.normal(size=n), dtype=torch.float32,
+                          device=cuda_f32) for _ in range(8)]
+    rays9 = tuple(r.contiguous() for r in fused._tile_raygen(
+        ts, rg, *data[:4])[:6]) + (
+        torch.tensor(rng.uniform(0.5, 1.0, n), dtype=torch.float32,
+                     device=cuda_f32), torch.zeros_like(data[0]), data[4])
+    outs5 = fused.fused_trace_forward(ts, diffp, nondiffp, rays9)
+    refs5 = fused._fused_trace_plain(ts, diffp, nondiffp, rays9)
+    same = _lit_alike(outs5[6], refs5[6])
+    for k, tol in enumerate(_TOLS):
+        assert (outs5[k] - refs5[k])[same].abs().max().item() <= tol
+    c = torch.tensor([0.3, -0.7, 0.5, 1.1], device=cuda_f32)
+    runs = {
+        "K2": lambda: fused.moments_backward(ts, diffp, nondiffp, rg, data, c,
+                                             True),
+        "K4": lambda: fused.raygen_trace_backward(
+            ts, diffp, nondiffp, rg, data, tuple(range(8)), seeds),
+        "K6": lambda: (None,) + fused.fused_trace_backward(
+            ts, diffp, nondiffp, rays9, seeds)[::-1]}
+    plains = {
+        "K2": lambda: fused._moments_bwd_plain(ts, diffp, nondiffp, rg, data,
+                                               c, True),
+        "K4": lambda: fused._raygen_trace_bwd_plain(
+            ts, diffp, nondiffp, rg, data, tuple(range(8)), seeds),
+        "K6": lambda: (None,) + fused._fused_trace_bwd_plain(
+            ts, diffp, nondiffp, rays9, seeds)[::-1]}
+    for key in runs:
+        got, again, ref = runs[key](), runs[key](), plains[key]()
+        if key != "K6":
+            assert _rel(got[0], ref[0]) <= PARAM_GRAD_RTOL, key
+        errs = _param_errs(got[1], ref[1])
+        assert 6 in errs and max(errs.values()) <= PARAM_GRAD_RTOL, (key,
+                                                                     errs)
+        assert all(torch.equal(a, b) for a, b in zip(got[1], again[1])), key
+        assert len(got[2]) == len(ref[2]) == (9 if key == "K6" else 5)
+        for g, r in zip(got[2], ref[2]):
+            assert _rel(g, r, same if key == "K6" else keep) <= RAY_GRAD_RTOL
+    assert [f.launches - b for f, b in zip(counters, before)] == [
+        1, 2, 1, 2, 1, 2]
+
+
 def test_requested_outputs_only(cuda_f32):
     ts, tp = singlet_lens(Optic).build(device=cuda_f32)
     data = _data(1000, cuda_f32)
@@ -459,8 +544,13 @@ def test_entry_points_launch_kernels(cuda_f32):
     coated = replace(ts, coatings=(0, 1) + ts.coatings[2:])
     with pytest.raises(NotImplementedError, match="K7.*simple coatings"):
         tracer.trace_system(coated, tp, *data, 0.5876)
-    with pytest.raises(NotImplementedError, match="K1.*per-ray wavelengths"):
-        fused.spot_moments(ts, tp, *data, torch.full_like(data[0], 0.5876))
+    # per-ray wavelengths, even all equal, take the per-ray K1 and K2
+    before = [f.launches for f in counters[:2]]
+    tp.cv.grad = None
+    m = fused.spot_moments(ts, tp, *data, torch.full_like(data[0], 0.5876))
+    m[3].backward()
+    assert [f.launches - b for f, b in zip(counters[:2], before)] == [1, 1]
+    assert bool(torch.isfinite(tp.cv.grad).all()) and tp.cv.grad.any()
 
 
 def test_wrapper_rejects_bad_inputs(cuda_f32):

@@ -139,7 +139,10 @@ def test_unported_chain_branches_raise():
     with pytest.raises(NotImplementedError, match="simple coatings"):
         tfused._moments_plain(coated, *_port_args(ts, tp, 0.55),
                               _t(_data(n=8)))
-    with pytest.raises(NotImplementedError, match="per-ray wavelengths"):
-        tfused.trace_system_final_fused(ts, tp, *_t(_data(n=8)),
+    # per-ray wavelengths are a configuration of every kernel, no branch:
+    # a coated system at per-ray wavelengths names the coatings alone
+    with pytest.raises(NotImplementedError,
+                       match=r"K3 raygen_trace_forward: .*: simple coatings$"):
+        tfused.trace_system_final_fused(coated, tp, *_t(_data(n=8)),
                                         torch.full((8,), 0.55,
                                                    dtype=torch.float64))
