@@ -10,10 +10,12 @@ PyTorch built for CUDA. In order it:
   2. builds the CUDA kernels of optiland_tpu_torch/csrc with nvcc, with
      the per-system variants of K1 and K3 for the bench lens and the Cooke
      triplet, of K5 for the vignetted bench lens and of K7 for the Cooke
-     triplet, and the per-ray variants of K1-K6 for the Cooke triplet and
-     of K1 and K2 for a doublet of a tabulated glass (one process per
-     source and per variant, all at once), and prints the seconds of each
-     and nvcc's register report;
+     triplet, the per-ray variants of K1-K6 for the Cooke triplet and
+     of K1 and K2 for a doublet of a tabulated glass, and the variants of
+     phase (j3)'s systems (their backward kernels built with
+     OTK_INTERACTIONS, `fused.backward_defines`), one process per source
+     and per variant, all at once, and prints the seconds of each and
+     nvcc's register report;
   2b. (t) T1, the peak-rate chains of tools/vpu_peak.py: each of its three
      kernels against its plain version on T1's input, then the port's tool
      (`vpu_peak.run`, as `python -m optiland_tpu_torch.tools.vpu_peak`
@@ -65,6 +67,20 @@ PyTorch built for CUDA. In order it:
      and K6 through `trace_final` of the rays `generate_rays` makes at w),
      w's cotangents included, and the per-ray K1 and K2 on the tabulated
      doublet at wavelengths below, in and above its glass's table;
+ 16c. (j3) the coating, thin-lens and grating branches at the flagship's
+     1,999,998 rays (`flagship_inputs`): system A, the Cooke triplet with
+     the simple coating (0.98, 0.01) on its six refracting surfaces; B, a
+     thin-lens transmission-grating spectrograph (`spectrograph`: object
+     heights, a 600 lines/mm grating, its vignetted twin for K5 and K6);
+     C, the concave reflective grating (`concave_grating`). Through the
+     user's entry points, each with the counters at 0 just before and read
+     just after: the polychromatic and the 0.55 um `centroid_rms_spot` with
+     backward (K1, K2 in both configurations; the polychromatic loss and
+     gradients against float64), 5 Adam steps of the polychromatic step,
+     `trace_system_final` and its backward at 0.55 um and per-ray (K3, K4;
+     on B's vignetted twin K5, K6), and `trace_system` (K7) with a backward
+     through the eager twin on A and B; each kernel in each configuration
+     against its plain version on the same inputs at TOL;
  17. (k) `CookeTriplet().trace(Hx=0, Hy=1, num_rays=6)`, the user's entry,
      reaches K7;
  18. (w1) K8, the Huygens sum, on the inputs of the Cooke triplet's
@@ -87,8 +103,9 @@ PyTorch built for CUDA. In order it:
      also on the 16,384-ray bundle of `wavefront_data`, K8 also at the peak
      sum, the random inputs of tools/bench_wave_optics.py and
      256 x 256 (with the phase range each reduces), K1-K6's per-ray
-     variants at 1,999,998 and 16,384 rays, the training steps (the
-     polychromatic one beside the monochromatic one and the flagship's), the
+     variants at 1,999,998 and 16,384 rays, phase (j3)'s kernels, the
+     training steps (the polychromatic one beside the monochromatic one,
+     the flagship's and those of phase (j3)'s systems), the
      flagship forward and the Huygens PSF end to end, and prints one JSON
      line of kernels;
  23. prints as its last line {"ok": true, "device": {...}}.
@@ -287,13 +304,45 @@ def bench_rays(device):
     return torch.zeros_like(Hy), Hy, Px, Py
 
 
+def raygen_ops(static):
+    """FP32 operations per ray of the in-kernel raygen (csrc/chain.cuh
+    `tile_raygen`): 32 for an angle field with an infinite object, 30 with
+    a finite one (no pupil term in the origin), 24 for object heights (no
+    tangents)."""
+    if static.field_type != "angle":
+        return 24
+    return 32 if static.object_infinite else 30
+
+
+# FP32 operations per ray of the coating, thin-lens and grating branches
+# (csrc/chain.cuh `thin_lens`, `grating_frame`, `diffract`), counted as
+# `chain_ops_per_ray` counts: the thin lens's bending and OPD term; the
+# grating equation on its frame (the projected period, the oriented normal,
+# the tangential parts, T, Q, the root and the renormalized direction),
+# the frame a plane's (cos, sin and a sign) or a curved carrier's (the
+# conic's sag gradient and normal, the lifted groove tangent and the unit
+# cross product); a coating's factor one multiply
+THIN_LENS_OPS = 23
+GRATING_OPS = 71
+GRATING_FRAME_OPS = {"plane": 3, "curved": 49}
+COATING_OPS = 1
+# and of their adjoints (csrc/chain_bwd.cuh `thin_lens_bwd`,
+# `diffract_bwd`): the cotangents the closed forms make, the curved frame's
+# through the sag gradient (31, the conic's `sag_grad_bwd`) besides; a
+# coating's cotangent i_pre di_post and the intensity cotangent's passage
+# through the surface
+THIN_LENS_BWD_OPS = 56
+GRATING_BWD_OPS = {"plane": 150, "curved": 250}
+COATING_BWD_OPS = 3
+
+
 def chain_ops_per_ray(static, fused):
     """FP32 operations per ray of the chain in csrc/chain.cuh for this
     system, counted from its branches: each add, subtract, multiply,
     divide, sqrt, rsqrt, tan, sin and cos counts one (an FMA two), the way
     the 67 TFLOP/s peak counts them; selects and compares count none. The
     Newton loop has a fixed trip count, so the count holds for any data."""
-    ops = 32  # raygen, angle field with an infinite object
+    ops = raygen_ops(static)
     n_newton = min(static.newton_iters, fused._NEWTON_FUSED_MAX)
     for k in range(1, static.num_surfaces):
         code, nc = static.geom_codes[k], static.geom_n_coeffs[k]
@@ -308,9 +357,17 @@ def chain_ops_per_ray(static, fused):
             ops += (n_newton + 1) * (29 + 7 * nc + (6 if odd else 0))
         if static.has_aperture[k]:
             ops += 5
-        if static.interactions[k] != 3:  # normal, orientation, l.n
+        inter = static.interactions[k]
+        if inter == fused.INT_THIN_LENS:
+            ops += THIN_LENS_OPS
+        elif inter == fused.INT_DIFFRACT:
+            ops += GRATING_OPS + GRATING_FRAME_OPS[
+                "plane" if code == 0 else "curved"]
+        elif inter != 3:  # normal, orientation, l.n
             ops += 28 + 4 * nc + (6 if odd else 0) + 5
-            ops += 7 if static.interactions[k] == 1 else 18
+            ops += 7 if inter == 1 else 18
+        if fused._coated(static, k):
+            ops += COATING_OPS
     return ops
 
 
@@ -327,7 +384,7 @@ def backward_ops_per_ray(static, fused, raygen=True):
     add per ray for each slot. With `raygen`, the raygen adjoint and its
     row; without it (K6) the forward starts from loaded rays."""
     ops = chain_ops_per_ray(static, fused)
-    ops += 56 + 5 if raygen else -32
+    ops += 56 + 5 if raygen else -raygen_ops(static)
     for k in range(1, static.num_surfaces):
         code, nc = static.geom_codes[k], static.geom_n_coeffs[k]
         asphere = code in (2, 3) and nc > 0
@@ -338,15 +395,23 @@ def backward_ops_per_ray(static, fused, raygen=True):
         ops += 16 + 3                # propagation and opd; vertex z, thickness
         ops += 4 if moved else 0     # decenter
         ops += 6 * 20 if tilted else 0   # the six rotations
-        if inter != 3:   # reflection or refraction, normal, sag gradient
+        if inter == fused.INT_THIN_LENS:
+            ops += THIN_LENS_BWD_OPS
+        elif inter == fused.INT_DIFFRACT:
+            ops += GRATING_BWD_OPS["plane" if code == 0 else "curved"]
+        elif inter != 3:   # reflection or refraction, normal, sag gradient
             ops += (24 if inter == 1 else 57) + 17
             ops += (31 if not asphere else
                     (34 if odd else 28) + 7 * nc)
+        if fused._coated(static, k):
+            ops += COATING_BWD_OPS
         # the hit: a plane's closed form; the IFT, with the sag's
         # denominator and top power, which the forward does not form
         ops += 56 if code == 0 else 34 + 2 * nc + int(asphere)
         slots = 3 + (nc if asphere else 0) + (3 if tilted else 0) + (
-            2 if moved else 0) + (1 if inter == 0 else 0)
+            2 if moved else 0) + (1 if inter in (0, 2, 4) else 0) + {
+            fused.INT_THIN_LENS: 1, fused.INT_DIFFRACT: 3}.get(inter, 0) + (
+            1 if fused._coated(static, k) else 0)
         ops += slots
     return ops + 1   # n_table[0]
 
@@ -403,16 +468,19 @@ FORMULA_OPS = {
 
 def media_ops_per_ray(static):
     """FP32 operations per ray of the media at the ray's own wavelength:
-    the per-ray index of every medium a refraction reads, and per
+    the per-ray index of every medium a refraction, a thin lens or a
+    grating reads, a grating's order times w, and per
     absorbing medium the linear interpolation of its extinction table on
     the one segment that holds the ray's wavelength (5 operations; the
     search is compares and loads), alpha = 4 pi k / w (2) and the exp
     factor (4). The per-ray kernels' bounds add it to the chain's count
     (their adjoints' own operations are left out)."""
     media = [0] + [k for k in range(1, static.num_surfaces)
-                   if static.interactions[k] == 0]
+                   if static.interactions[k] in (0, 2, 4)]
     ops = sum(FORMULA_OPS[static.mat_formulas[k]](static.mat_n_coeffs[k])
               for k in media)
+    # a grating's order times the ray's w
+    ops += sum(1 for i in static.interactions if i == 4)
     return ops + sum(5 + 2 + 4 for k in range(static.num_surfaces - 1)
                      if static.has_absorption[k])
 
@@ -421,7 +489,8 @@ def history_ops_per_ray(static, fused):
     """FP32 operations per ray of K7's function: the chain on loaded rays
     (`chain_ops_per_ray` without the raygen) and the media at the ray's
     wavelength (`media_ops_per_ray`)."""
-    return chain_ops_per_ray(static, fused) - 32 + media_ops_per_ray(static)
+    return (chain_ops_per_ray(static, fused) - raygen_ops(static)
+            + media_ops_per_ray(static))
 
 
 def tabulated_doublet(Optic):
@@ -450,6 +519,72 @@ def tabulated_doublet(Optic):
     lens.add_field(y=0.0)
     lens.add_field(y=5.0)
     lens.add_wavelength(0.55, is_primary=True)
+    return lens
+
+
+def coated_cooke(CookeTriplet):
+    """System A: the flagship Cooke triplet with the simple coating (T, R)
+    = (0.98, 0.01) on each of its six refracting surfaces."""
+    lens = CookeTriplet()
+    for spec in lens.surfaces.specs[1:-1]:
+        spec.coating = ("simple", 0.98, 0.01)
+    lens._dirty()
+    return lens
+
+
+def spectrograph(Optic, vignetted=False):
+    """System B, a thin-lens transmission-grating spectrograph: a slit 100
+    mm before a thin-lens collimator (f = 100 mm, at the stop, EPD 20), a
+    plane grating of 600 lines/mm (period 1.6667 um) in first order 20 mm
+    after it, a thin-lens camera (f = 100 mm) 20 mm after that and the
+    image plane 98 mm after the camera, 2 mm inside its focus (at the focus
+    of ideal lenses every pupil ray meets one point: the spot merit and the
+    pupil's cotangents would be 0); object heights 0, 0.5 and 1 mm, 0.48,
+    0.55 and 0.65 um; `vignetted` gives the 1 mm field vx = vy = 0.1 (the
+    prescription of tests/torch_port_helpers.py `spectrograph`)."""
+    lens = Optic()
+    lens.add_surface(index=0, radius=math.inf, thickness=100.0)
+    lens.add_surface(index=1, surface_type="paraxial", f=100.0,
+                     thickness=20.0, is_stop=True)
+    lens.add_surface(index=2, radius=math.inf, thickness=20.0,
+                     surface_type="grating", grating_order=1,
+                     grating_period=1e3 / 600.0,
+                     groove_orientation_angle=0.0)
+    lens.add_surface(index=3, surface_type="paraxial", f=100.0,
+                     thickness=98.0)
+    lens.add_surface(index=4)
+    lens.set_aperture("EPD", 20.0)
+    lens.set_field_type("object_height")
+    lens.add_field(y=0.0)
+    lens.add_field(y=0.5)
+    if vignetted:
+        lens.add_field(y=1.0, vx=0.1, vy=0.1)
+    else:
+        lens.add_field(y=1.0)
+    for w in (0.48, 0.55, 0.65):
+        lens.add_wavelength(w, is_primary=w == 0.55)
+    return lens
+
+
+def concave_grating(Optic):
+    """System C, the concave reflective grating of the JAX package's
+    tests/test_fused_kernel.py (`test_fused_curved_grating_parity`): R =
+    -100 mm, a mirror, order -1, period 5 um, EPD 6, the image plane 30 mm
+    from it; here with angle fields 0, 1 and 2 degrees and 0.48, 0.55 and
+    0.65 um."""
+    lens = Optic()
+    lens.add_surface(index=0, radius=math.inf, thickness=math.inf)
+    lens.add_surface(index=1, radius=-100.0, thickness=30.0, is_stop=True,
+                     surface_type="grating", material="mirror",
+                     grating_order=-1, grating_period=5.0,
+                     groove_orientation_angle=0.0)
+    lens.add_surface(index=2)
+    lens.set_aperture("EPD", 6.0)
+    lens.set_field_type("angle")
+    for y in (0.0, 1.0, 2.0):
+        lens.add_field(y=y)
+    for w in (0.48, 0.55, 0.65):
+        lens.add_wavelength(w, is_primary=w == 0.55)
     return lens
 
 
@@ -695,7 +830,12 @@ def main():
                                    ("vignetted bench lens",
                                     bench_lens(Optic, vignetted=True)),
                                    ("tabulated doublet",
-                                    tabulated_doublet(Optic)))}
+                                    tabulated_doublet(Optic)),
+                                   ("system A", coated_cooke(CookeTriplet)),
+                                   ("system B", spectrograph(Optic)),
+                                   ("system B vignetted",
+                                    spectrograph(Optic, vignetted=True)),
+                                   ("system C", concave_grating(Optic)))}
     uniform, per_ray = fused.system_defines, fused.history_defines
     variants = (("K1", "moments_fwd", "bench lens", uniform),
                 ("K1", "moments_fwd", "Cooke triplet", uniform),
@@ -717,6 +857,27 @@ def main():
                 ("K1 per-ray", "moments_fwd", "tabulated doublet", per_ray),
                 ("K2 per-ray", "moments_bwd", "tabulated doublet",
                  fused.media_defines))
+    # phase (j3), the coating, thin-lens and grating branches: each kernel
+    # of systems A, B (its vignetted twin for K5 and K6) and C in each
+    # configuration the phase drives; the backward kernels take
+    # OTK_INTERACTIONS (`fused.backward_defines`: at one wavelength one
+    # library for every such system)
+    bwd_uniform = (lambda st: fused.backward_defines(st, False))
+    bwd_per_ray = (lambda st: fused.backward_defines(st, True))
+    for label, keys_j3 in (("system A", "K1 K2 K3 K1p K2p K3p K4p K7"),
+                           ("system B", "K1 K2 K3 K4 K1p K2p K3p K4p K7"),
+                           ("system B vignetted", "K5 K6 K5p K6p"),
+                           ("system C", "K1 K2 K3 K4 K1p K2p K3p K4p")):
+        for key in keys_j3.split():
+            k, pr = key[:2], key.endswith("p")
+            src = {"K1": "moments_fwd", "K2": "moments_bwd",
+                   "K3": "raygen_trace_fwd", "K4": "raygen_trace_bwd",
+                   "K5": "fused_trace_fwd", "K6": "fused_trace_bwd",
+                   "K7": "history_fwd"}[k]
+            of = ((bwd_per_ray if pr else bwd_uniform) if k in ("K2", "K4",
+                                                                "K6")
+                  else (per_ray if pr or k == "K7" else uniform))
+            variants += ((k + (" per-ray" if pr else ""), src, label, of),)
     codes = {(key, label): of(statics[label])
              for key, _, label, of in variants}
     t0 = time.perf_counter()
@@ -1489,6 +1650,304 @@ def main():
     del k1d, k1d_plain, k2d, k2d_again
     free()
 
+    # 16c. (j3) the coating, thin-lens and grating branches at the
+    # flagship's 1,999,998 rays (3 fields x 3 wavelengths,
+    # `flagship_inputs`), float32: system A, the coated Cooke triplet; B,
+    # the thin-lens grating spectrograph (object heights; its vignetted
+    # twin leaves in-kernel raygen for K5 and K6); C, the concave
+    # reflective grating. Each path is driven through the user's entry
+    # points with the counters at 0 just before and read just after; each
+    # kernel is held against its plain version on the same inputs at TOL,
+    # at one wavelength (0.55 um) and at the batch's per-ray wavelengths;
+    # A's and B's polychromatic merits against the eager float64 path at
+    # TOL_F64 (each leaf also within GRAD_NOISE_FACTOR of the eager float32
+    # path's own error), then Adam steps; C's too.
+    j3 = {}      # key -> (wrapper call, plain call, bytes, ops, launches, err)
+    j3_steps = {}
+
+    def j3_build(make):
+        """`make()`'s system on the card in float32 and its flagship batch,
+        and its float64 twin."""
+        st, pr = make().build(device="cuda")
+        check(fused.supports_fused(st) and fused.branch_defines(st),
+              f"{st.num_surfaces}-surface system of phase j3: inside the "
+              "gate, with the new branches")
+        config.set_precision("float64")
+        twin64 = make().build(device="cuda")
+        config.set_precision("float32")
+        return st, pr, flagship_inputs(pr, dev), twin64
+
+    def j3_merit(label, st, pr, fbx, twin64):
+        """The polychromatic merit's training step (per-ray K1, K2) and the
+        monochromatic one at 0.55 um (K1, K2), each launching its two
+        kernels once; the polychromatic loss and gradients against the
+        eager float64 path of the twin `twin64`. Returns the leaves'
+        names."""
+        names = [f.name for f in dataclasses.fields(pr)
+                 if getattr(pr, f.name) is not None
+                 and getattr(pr, f.name).numel()
+                 and f.name not in ("vx", "vy", "k_wl", "k_val")]
+        for wl in (None, FLAGSHIP_WAVELENGTH):
+            leaves, p_m = leaves_of(pr, names)
+            reset_counts()
+            args = fbx if wl is None else fbx[:4] + (wl,)
+            loss = centroid_rms_spot(st, p_m, *args, diff_inputs=False)
+            loss.backward()
+            got = read_counts()
+            check(got["K1"] == 1 and got["K2"] == 1
+                  and sum(got.values()) == 2,
+                  f"{label} merit at {wl or 'per-ray w'} launched K1, K2: "
+                  f"{got}")
+            check(all(v.grad is None or bool(torch.isfinite(v.grad).all())
+                      for v in leaves.values()), f"{label} gradients finite")
+            j3_launch[label, wl] = got
+        st64, pr64 = twin64
+        leaves64, p64 = leaves_of(pr64, names)
+        loss64 = centroid_rms_spot(st64, p64, *(a.double() for a in fbx))
+        loss64.backward()
+        leaves_e, p_e = leaves_of(pr, names)
+        h_e = tracer.trace_rays(st, p_e, generate_rays(st, p_e, *fbx))
+        x_e, y_e, i_e = h_e.x[-1], h_e.y[-1], h_e.intensity[-1]
+        centroid_rms_from_moments(
+            i_e.sum(), (x_e * i_e).sum(), (y_e * i_e).sum(),
+            ((x_e * x_e + y_e * y_e) * i_e).sum()).backward()
+        leaves, p_m = leaves_of(pr, names)
+        loss = centroid_rms_spot(st, p_m, *fbx, diff_inputs=False)
+        loss.backward()
+        err = {"loss_rel": abs(loss.item() - loss64.item())
+               / abs(loss64.item())}
+        eager = {}
+        for k in names:
+            g32, g64 = grad_of(leaves, k), grad_of(leaves64, k)
+            if g64.abs().max() > 0 or g32.abs().max() > 0:
+                err[k] = rel_err(g32, g64)
+                eager[k] = rel_err(grad_of(leaves_e, k), g64)
+        print(f"system {label} polychromatic centroid_rms_spot and gradients "
+              f"vs eager float64: {json.dumps(err)}; the eager float32 "
+              f"path's own: {json.dumps(eager)}")
+        check(err.pop("loss_rel") <= TOL_F64["loss_rel"], f"{label} loss")
+        check(all(v <= max(TOL_F64["grad_rel"],
+                           GRAD_NOISE_FACTOR * eager[k])
+                  for k, v in err.items()), f"{label} gradients vs f64")
+        return names
+
+    def j3_adam(label, st, pr, fbx, names):
+        """ADAM_STEPS Adam steps of the polychromatic merit (per-ray K1 and
+        K2 once a step), then the step timed on the host clock."""
+        leaves, p_m = leaves_of(pr, names)
+        opt = torch.optim.Adam(list(leaves.values()), lr=ADAM_LR)
+
+        def step():
+            opt.zero_grad()
+            loss = centroid_rms_spot(st, p_m, *fbx, diff_inputs=False)
+            loss.backward()
+            opt.step()
+            return loss
+
+        losses = []
+        for _ in range(ADAM_STEPS):
+            reset_counts()
+            losses.append(step().item())
+            got = read_counts()
+            check(got["K1"] == 1 and got["K2"] == 1
+                  and sum(got.values()) == 2,
+                  f"{label} Adam step launched K1, K2 once: {got}")
+        check(all(math.isfinite(v) for v in losses), f"{label} losses")
+        j3_steps[label] = (losses, step)
+
+    def j3_raygen(label, st, pr, fbx, wl):
+        """K1-K4 of system `label` at `wl` (None: per-ray) against their
+        plain versions; `trace_system_final` and its backward launch K3
+        and K4 once each."""
+        cfg = "per-ray" if wl is None else f"{wl} um"
+        args = fbx if wl is None else fbx[:4] + (wl,)
+        leaves, p_m = leaves_of(pr)
+        reset_counts()
+        out = tracer.trace_system_final(st, p_m, *args)
+        (out["x"] ** 2 + out["y"] ** 2 + out["opd"]).sum().backward()
+        got = read_counts()
+        check(got["K3"] == 1 and got["K4"] == 1 and sum(got.values()) == 2,
+              f"{label} trace_system_final at {cfg} launched K3, K4: {got}")
+        del out, leaves, p_m
+        pj, dj = fused._prepare(st, pr, *args)
+        n_j = dj[0].shape[0]
+        k3 = fused.raygen_trace_forward(st, *pj, dj, keys)
+        k3_plain = fused._raygen_trace_plain(st, *pj, dj, keys)
+        keep_j = (k3[6] > 0) == (k3_plain[6] > 0)
+        e3 = final_errs(f"K3 ({label}, {cfg})", k3, k3_plain, keep_j)
+        # seeds on x, y, i and opd: a coating's cotangent needs i's (the
+        # moments' c below is fixed for the same reason: the merit's own
+        # is nearly blind to a factor every ray takes)
+        seeds4 = (2.0 * k3[0], 2.0 * k3[1], torch.ones_like(k3[0]),
+                  torch.ones_like(k3[0]))
+        del k3, k3_plain
+        k1 = fused.moments_forward(st, *pj, dj)
+        k1_plain = fused._moments_plain(st, *pj, dj)
+        e1 = moment_rel(k1, k1_plain)
+        print(f"K1 ({label}, {cfg}) vs plain: moment_rel {e1:.6g} "
+              f"(tolerance {TOL['moment_rel']})")
+        check(e1 <= TOL["moment_rel"], f"K1 ({label}, {cfg}) vs plain")
+        c_j = torch.tensor([0.3, -0.7, 0.5, 1.1], device=dev)
+        errs2, rays2, abs2 = cotangent_errs(
+            fused.moments_backward(st, *pj, dj, c_j, True),
+            fused._moments_bwd_plain(st, *pj, dj, c_j, True), keep_j)
+        check_cotangents(f"K2 ({label}, {cfg})", errs2, rays2)
+        errs4, rays4, abs4 = cotangent_errs(
+            fused.raygen_trace_backward(st, *pj, dj, keys4, seeds4),
+            fused._raygen_trace_bwd_plain(st, *pj, dj, keys4, seeds4),
+            keep_j)
+        check_cotangents(f"K4 ({label}, {cfg})", errs4, rays4)
+        branch_leaf = "coating_params" if label == "A" else "grating"
+        check(branch_leaf in errs2 and branch_leaf in errs4,
+              f"{label}: the branch's cotangents reached K2 and K4")
+        nd = len(dj)
+        ops_f = chain_ops_per_ray(st, fused) + (
+            media_ops_per_ray(st) if wl is None else 0)
+        ops_b = backward_ops_per_ray(st, fused) + (
+            media_ops_per_ray(st) if wl is None else 0)
+        j3[f"K1 (system {label}, {cfg})"] = (
+            lambda: fused.moments_forward(st, *pj, dj),
+            lambda: fused._moments_plain(st, *pj, dj), nd * 4 * n_j,
+            (ops_f + 10) * n_j, j3_launch[label, wl]["K1"],
+            (k1 - k1_plain).abs().max().item())
+        j3[f"K2 (system {label}, {cfg})"] = (
+            lambda: fused.moments_backward(st, *pj, dj, c_j, False),
+            lambda: fused._moments_bwd_plain(st, *pj, dj, c_j, False),
+            nd * 4 * n_j, (ops_b + 8) * n_j, j3_launch[label, wl]["K2"],
+            abs2)
+        j3[f"K3 (system {label}, {cfg})"] = (
+            lambda: fused.raygen_trace_forward(st, *pj, dj, keys),
+            lambda: fused._raygen_trace_plain(st, *pj, dj, keys),
+            (nd + 8) * 4 * n_j, ops_f * n_j, got["K3"],
+            max(v for k, v in e3.items() if k != "intensity_frac"))
+        j3[f"K4 (system {label}, {cfg})"] = (
+            lambda: fused.raygen_trace_backward(st, *pj, dj, keys4, seeds4),
+            lambda: fused._raygen_trace_bwd_plain(st, *pj, dj, keys4,
+                                                  seeds4),
+            (2 * nd + 4) * 4 * n_j, ops_b * n_j, got["K4"], abs4)
+        free()
+
+    def j3_caller(label, st, pr, fbx, wl):
+        """K5 and K6 on the eager rays of the vignetted twin at `wl`
+        (None: per-ray): `trace_system_final` and its backward launch them
+        once each; each against its plain version."""
+        cfg = "per-ray" if wl is None else f"{wl} um"
+        args = fbx if wl is None else fbx[:4] + (wl,)
+        leaves, p_m = leaves_of(pr)
+        reset_counts()
+        out = tracer.trace_system_final(st, p_m, *args)
+        (out["x"] ** 2 + out["y"] ** 2 + out["opd"]).sum().backward()
+        got = read_counts()
+        check(got["K5"] == 1 and got["K6"] == 1 and sum(got.values()) == 2,
+              f"{label} trace_system_final at {cfg} launched K5, K6: {got}")
+        del out, leaves, p_m
+        r0 = generate_rays(st, pr, *args)
+        if wl is None:
+            pj = (fused._diff_params(pr), fused._nondiff_params(pr))
+            rk = fused._RAY_KEYS
+        else:
+            n_t, a_t = fused._uniform_tables(st, pr, wl)
+            pj = (fused._diff_params(pr, n_t, fused._uniform_grating(
+                st, pr, wl)), fused._nondiff_params(pr, a_t))
+            rk = fused._RAY_KEYS[:8]
+        rj = tuple(getattr(r0, k).detach().contiguous() for k in rk)
+        n_j = rj[0].shape[0]
+        del r0
+        k5 = fused.fused_trace_forward(st, *pj, rj)
+        k5_plain = fused._fused_trace_plain(st, *pj, rj)
+        keep_j = (k5[6] > 0) == (k5_plain[6] > 0)
+        e5 = final_errs(f"K5 ({label}, {cfg})", k5, k5_plain, keep_j)
+        del k5, k5_plain
+        rng_j = np.random.default_rng(8)
+        seeds8 = tuple(torch.from_numpy(rng_j.standard_normal(n_j).astype(
+            np.float32)).to(dev) for _ in range(8))
+        k6 = fused.fused_trace_backward(st, *pj, rj, seeds8)
+        k6_plain = fused._fused_trace_bwd_plain(st, *pj, rj, seeds8)
+        errs6, rays6, abs6 = cotangent_errs(
+            (None, k6[1], k6[0]), (None, k6_plain[1], k6_plain[0]), keep_j)
+        check_cotangents(f"K6 ({label}, {cfg})", errs6, rays6)
+        check("grating" in errs6, f"K6 ({label}): the grating's cotangent")
+        del k6, k6_plain
+        nr = len(rj)
+        media = media_ops_per_ray(st) if wl is None else 0
+        j3[f"K5 (system {label}, {cfg})"] = (
+            lambda: fused.fused_trace_forward(st, *pj, rj),
+            lambda: fused._fused_trace_plain(st, *pj, rj),
+            (nr + 8) * 4 * n_j,
+            (chain_ops_per_ray(st, fused) - raygen_ops(st) + media) * n_j,
+            got["K5"], max(v for k, v in e5.items()
+                           if k != "intensity_frac"))
+        j3[f"K6 (system {label}, {cfg})"] = (
+            lambda: fused.fused_trace_backward(st, *pj, rj, seeds8),
+            lambda: fused._fused_trace_bwd_plain(st, *pj, rj, seeds8),
+            (2 * nr + 8) * 4 * n_j,
+            (backward_ops_per_ray(st, fused, raygen=False) + media) * n_j,
+            got["K6"], abs6)
+        free()
+
+    def j3_history(label, st, pr, fbx):
+        """`trace_system` at per-ray wavelengths launches K7 once, its
+        history against the plain version; a merit's backward through the
+        eager twin (no kernel: the flagship merit plus the mean image
+        intensity, a throughput term that a coating moves) gives finite
+        gradients that reach the branch's leaf."""
+        leaves, p_m = leaves_of(pr, ("cv", "coating_params", "grating",
+                                     "focal_length"))
+        reset_counts()
+        h = tracer.trace_system(st, p_m, *fbx)
+        (flagship_merit(h) + h.intensity[-1].mean()).backward()
+        got = read_counts()
+        check(got["K7"] == 1 and sum(got.values()) == 1,
+              f"{label} trace_system step launched K7 once: {got}")
+        branch_leaf = "coating_params" if label == "A" else "grating"
+        check(all(v.grad is None or bool(torch.isfinite(v.grad).all())
+                  for v in leaves.values())
+              and leaves[branch_leaf].grad.abs().max() > 0,
+              f"{label} trace_system gradients through the eager twin")
+        del h, leaves, p_m
+        r0 = generate_rays(st, pr, *fbx)
+        r9 = tuple(getattr(r0, k).detach().contiguous()
+                   for k in fused._RAY_KEYS)
+        del r0
+        pj = (fused._diff_params(pr), fused._nondiff_params(pr))
+        e7 = history_errs(fused.history_forward(st, *pj, r9),
+                          fused._history_plain(st, *pj, r9))
+        print(f"K7 ({label}) vs plain, all rows: {json.dumps(e7)}")
+        check(e7["intensity_frac"] <= TOL["intensity_frac"], f"K7 {label} i")
+        for key, tol in hist_tol.items():
+            check(e7[key] <= TOL[tol], f"K7 ({label}) {key} vs plain")
+        n_j, S_j = r9[0].shape[0], st.num_surfaces
+        j3[f"K7 (system {label}, per-ray)"] = (
+            lambda: fused.history_forward(st, *pj, r9),
+            lambda: fused._history_plain(st, *pj, r9),
+            (9 + 8 * S_j) * 4 * n_j, history_ops_per_ray(st, fused) * n_j,
+            got["K7"], max(v for k, v in e7.items()
+                           if k != "intensity_frac"))
+        free()
+
+    t_j3 = time.perf_counter()
+    j3_launch = {}
+    keys4 = (0, 1, 6, 7)
+    sys_a, sys_b, sys_bv, sys_c = (j3_build(make) for make in (
+        lambda: coated_cooke(CookeTriplet), lambda: spectrograph(Optic),
+        lambda: spectrograph(Optic, vignetted=True),
+        lambda: concave_grating(Optic)))
+    check(sys_bv[0].has_vignetting and not fused.supports_fused_raygen(
+        sys_bv[0]), "the vignetted spectrograph leaves in-kernel raygen")
+    # A, B, C: the merits, K1-K4 in both configurations; B's vignetted
+    # twin: K5, K6 in both; K7 on A and B
+    for label, sysx in (("A", sys_a), ("B", sys_b), ("C", sys_c)):
+        j3_adam(label, *sysx[:3], j3_merit(label, *sysx))
+        for wl in (FLAGSHIP_WAVELENGTH, None):
+            j3_raygen(label, *sysx[:3], wl)
+    for wl in (FLAGSHIP_WAVELENGTH, None):
+        j3_caller("B", *sys_bv[:3], wl)
+    j3_history("A", *sys_a[:3])
+    j3_history("B", *sys_b[:3])
+    print(f"phase j3 (systems A, B, C at {n_c} rays): "
+          f"{time.perf_counter() - t_j3:.1f} s; Adam losses "
+          + json.dumps({k: v[0] for k, v in j3_steps.items()}))
+
     # 17. (k) the user's entry: Optic.trace on the card
     reset_counts()
     h_user = CookeTriplet().trace(Hx=0, Hy=1, num_rays=6)
@@ -1927,7 +2386,25 @@ def main():
             plain_ms=time_ms(plains_w[key]), bound_ms=b_ms, bound_by=b_by,
             library_ms=None))
         free()
+    # phase j3's configurations: the coating, thin-lens and grating
+    # branches on systems A, B and C at the flagship batch's rays, each
+    # kernel's launch span (median of 25) beside the median of 5 calls of
+    # its plain version
+    j3_ms = {}
+    for key, (call, plain, n_bytes, n_ops, n_launch, err) in j3.items():
+        fn_name, src, replaces = meta[key[:2]][:3]
+        j3_ms[key] = kernel_turns.launch_ms(call, spans)
+        b_ms, b_by = bound_ms(n_bytes, n_ops)
+        rows.append(dict(
+            name=f"{key[:2]} {fn_name} {key[3:]}", route="cuda",
+            source=f"optiland_tpu_torch/csrc/{src}", replaces=replaces,
+            launches=n_launch, max_abs_err=err, ms=j3_ms[key],
+            plain_ms=time_ms(plain, calls=5), bound_ms=b_ms, bound_by=b_by,
+            library_ms=None))
+        free()
     restore()
+    print(f"phase j3 kernels, median of {TIMED_CALLS} launch spans (ms): "
+          f"{json.dumps(j3_ms)}")
     print(f"per-ray variants on the Cooke triplet, median of {TIMED_CALLS} "
           f"launch spans (ms), with the 16,384-ray bound: "
           f"{json.dumps(per_ray_ms)}; K2 wrapper on the tabulated doublet at "
@@ -2025,6 +2502,11 @@ def main():
         opt_m.step()
 
     mono_ms = host_ms(mono_step)
+    j3_step_ms = {f"system {k}": host_ms(v[1]) for k, v in j3_steps.items()}
+    print(f"phase j3 polychromatic training steps (centroid_rms_spot at "
+          f"per-ray w, backward, Adam; per-ray K1 and K2) at {n_c} rays, "
+          f"host clock, median of {TIMED_STEPS} (ms): "
+          f"{json.dumps(j3_step_ms)}")
     print(f"flagship (Cooke triplet, {n_c} rays, float32) host clock, "
           f"median of {TIMED_STEPS}: polychromatic centroid_rms_spot step "
           f"(per-ray K1, K2, Adam over {len(leaves_q)} leaves) {poly_ms:.4f} "

@@ -4,7 +4,8 @@ Port of `optiland_tpu/core/rays.py`: a `Rays` dataclass of same-shape
 tensors plus pure functions that return new bundles. Conventions are the
 JAX package's: normalized direction cosines, `clip` zeroes intensity but
 keeps tracing, the normal is sign-aligned with the incident direction, and
-total internal reflection is masked (intensity 0) instead of producing NaN.
+total internal reflection and evanescent grating orders are masked
+(intensity 0) instead of producing NaN.
 """
 
 from __future__ import annotations
@@ -101,6 +102,45 @@ def refract(rays: Rays, nx, ny, nz, n1, n2) -> Rays:
         M=torch.where(tir, rays.M, ty),
         N=torch.where(tir, rays.N, tz),
         i=torch.where(tir, torch.zeros_like(rays.i), rays.i),
+    )
+
+
+def grating_diffract(rays: Rays, nx, ny, nz, fx, fy, fz, m, d, n1, n2,
+                     is_reflective: bool) -> Rays:
+    """Vector grating diffraction, in the tangential-momentum form
+
+        out = (n1 d u0_t + m w f_t - n sqrt(Q)) / (d n2')
+
+    with u0_t the tangential incident direction, f the (unit) grating
+    vector, w the per-ray wavelength (um), d the local grating period (um),
+    n2' = -n2 for reflection, and Q = d^2 n2^2 - |n1 d u0_t + m w f_t|^2.
+    Evanescent orders (Q < 0) keep their direction and get intensity 0.
+    The x and y components carry -n sqrt(Q) while z carries +nz sqrt(Q)
+    (mirrored for reflection), then the direction is renormalized: the
+    JAX package's sign convention, kept as it is."""
+    nx, ny, nz, cosi = _align_normal(rays, nx, ny, nz)
+    u_t = (rays.L - cosi * nx, rays.M - cosi * ny, rays.N - cosi * nz)
+    fdotn = fx * nx + fy * ny + fz * nz
+    f_t = (fx - fdotn * nx, fy - fdotn * ny, fz - fdotn * nz)
+
+    n2c = -n2 if is_reflective else n2
+    Tx = n1 * d * u_t[0] + m * rays.w * f_t[0]
+    Ty = n1 * d * u_t[1] + m * rays.w * f_t[1]
+    Tz = n1 * d * u_t[2] + m * rays.w * f_t[2]
+    Q = d * d * n2 * n2 - (Tx * Tx + Ty * Ty + Tz * Tz)
+    evanescent = Q < 0.0
+    root = torch.sqrt(torch.where(evanescent, torch.zeros_like(Q), Q))
+    den = d * n2c
+    s = -1.0 if is_reflective else 1.0
+    L = (Tx - nx * root) / den
+    M = (Ty - ny * root) / den
+    N = (Tz + s * nz * root) / den
+    mag = torch.sqrt(L * L + M * M + N * N)
+    return rays.replace(
+        L=torch.where(evanescent, rays.L, L / mag),
+        M=torch.where(evanescent, rays.M, M / mag),
+        N=torch.where(evanescent, rays.N, N / mag),
+        i=torch.where(evanescent, torch.zeros_like(rays.i), rays.i),
     )
 
 

@@ -5,8 +5,11 @@
 // `trace_chain` is `_tile_trace` (value pass) for the branches of the
 // port: plane / conic / even / odd asphere geometries, refract / reflect /
 // none interactions, radial apertures, tilt and decenter, Beer-Lambert
-// absorption; at one wavelength from the hoisted index and absorption
-// tables (`TableMedia`), or at each ray's own wavelength (`RayMedia`:
+// absorption, and, in a build with OTK_INTERACTIONS (trace/fused.py
+// `branch_defines`: a system that has them), simple coatings, the ideal
+// thin lens and gratings on plane and curved carriers; at one wavelength
+// from the hoisted index, absorption and grating tables (`TableMedia`),
+// or at each ray's own wavelength (`RayMedia`:
 // `material_index` for every formula code of materials/dispersion.py and
 // `kv_segment` of the extinction tables; K7 and the per-ray variants of
 // K1-K6, built with the media's codes, OTK_MATERIALS). The
@@ -45,9 +48,14 @@ constexpr int F_DEC = 23;    // dx, dy
 constexpr int F_NTAB = 25;   // index after the surface at the wavelength
 constexpr int F_ALPHA = 26;  // Beer-Lambert alpha of the medium after the surface
 constexpr int F_AP = 27;     // radial semi-aperture
-constexpr int F_COAT = 28;   // coating T, R (not used by this slice)
+constexpr int F_COAT = 28;   // a simple coating's factor: T, or R after a reflection
 constexpr int F_STRIDE = 32;
 constexpr int MAX_COEFFS = F_THICK - F_COEFFS;
+// a thin lens or a grating is a plane or a conic: its first coefficient
+// slots hold the focal length, or the grating's order times the wavelength
+// (the order alone at per-ray wavelengths), period (um) and groove angle
+constexpr int F_FOCAL = F_COEFFS;
+constexpr int F_GRATING = F_COEFFS;
 
 // per-surface int slots
 constexpr int I_GEOM = 0;
@@ -57,6 +65,8 @@ constexpr int I_TILT = 3;
 constexpr int I_DEC = 4;
 constexpr int I_AP = 5;
 constexpr int I_ABS = 6;   // 1 where the medium after the surface absorbs
+constexpr int I_COAT = 7;  // 1 where the surface applies a simple coating's factor
+constexpr int I_REFL = 8;  // 1 for a reflective grating
 constexpr int I_STRIDE = 16;
 
 constexpr int GEOM_PLANE = 0;
@@ -64,7 +74,9 @@ constexpr int GEOM_EVEN_ASPHERE = 2;
 constexpr int GEOM_ODD_ASPHERE = 3;
 constexpr int INT_REFRACT = 0;
 constexpr int INT_REFLECT = 1;
+constexpr int INT_THIN_LENS = 2;
 constexpr int INT_NONE = 3;
+constexpr int INT_DIFFRACT = 4;
 constexpr int FORMULA_TABULATED = 10;
 // leading material coefficients staged in shared memory (K7): every formula
 // but the tabulated one has at most this many
@@ -81,10 +93,16 @@ constexpr float FOUR_PI = static_cast<float>(12.566370614359172);
 constexpr float INTERP_DX0 = static_cast<float>(1.4210854715202004e-14);
 
 // floats the re-trace of a backward kernel keeps per surface: the entry
-// state (x, y, z, L, M, N, global frame) and the ray parameter t. The
-// surface's vertex z and, at one wavelength, the index before it are the
-// same for every ray (chain_bwd.cuh `surface_frames`).
+// state (x, y, z, L, M, N, global frame) and the ray parameter t; with
+// OTK_INTERACTIONS also the entry intensity (REC_I, for the coatings'
+// cotangents). The surface's vertex z and, at one wavelength, the index
+// before it are the same for every ray (chain_bwd.cuh `surface_frames`).
+#ifdef OTK_INTERACTIONS
+constexpr int REC_I = 7;
+constexpr int REC = 8;
+#else
 constexpr int REC = 7;
+#endif
 
 struct Ray {
   float x, y, z, L, M, N, i, opd;
@@ -95,15 +113,24 @@ struct Ray {
 struct Codes {
   int geom, nc, inter;
   bool tilted, decentered, aperture, absorbs;
+#ifdef OTK_INTERACTIONS
+  bool coated, reflective;  // a simple coating's factor; a reflective grating
+#endif
 };
 
 // One surface's codes and values, read from the staged tables. `absorbs`
 // and `alpha` are those of the medium before the surface (row k - 1).
+// With OTK_INTERACTIONS: `coat` is the coating's factor, `gm` a grating's
+// order times the ray's wavelength (surface_step sets it from the media).
 struct Surface {
   int code, nc, inter;
   bool tilted, decentered, aperture, absorbs;
   float cv, kk, tx, ty, rx, ry, rz, ap, n, alpha;
   const float* co;
+#ifdef OTK_INTERACTIONS
+  bool coated, reflective;
+  float coat, gm;
+#endif
 };
 
 __device__ __forceinline__ float sign_of(float v) {
@@ -113,7 +140,22 @@ __device__ __forceinline__ float sign_of(float v) {
 __device__ __forceinline__ Codes codes_at(const int* it, int k) {
   const int* c = it + k * I_STRIDE;
   return Codes{c[I_GEOM], c[I_NCOEF], c[I_INTER], c[I_TILT] != 0,
-               c[I_DEC] != 0, c[I_AP] != 0, c[I_ABS] != 0};
+               c[I_DEC] != 0, c[I_AP] != 0, c[I_ABS] != 0
+#ifdef OTK_INTERACTIONS
+               , c[I_COAT] != 0, c[I_REFL] != 0
+#endif
+  };
+}
+
+// Whether the index changes at a surface of interaction `inter` (JAX's
+// n_of(k) after it): a refraction, and with OTK_INTERACTIONS a thin lens or
+// a grating.
+__device__ __forceinline__ bool changes_index(int inter) {
+#ifdef OTK_INTERACTIONS
+  return inter != INT_NONE && inter != INT_REFLECT;
+#else
+  return inter == INT_REFRACT;
+#endif
 }
 
 // Surface k from its codes, the absorption flag of the medium before it
@@ -140,6 +182,12 @@ __device__ __forceinline__ Surface make_surface(const Codes& c, bool absorbs_bef
   s.co = f + F_COEFFS;
   s.absorbs = k > 0 && absorbs_before;
   s.alpha = k > 0 ? ft[(k - 1) * F_STRIDE + F_ALPHA] : 0.f;
+#ifdef OTK_INTERACTIONS
+  s.coated = c.coated;
+  s.reflective = c.reflective;
+  s.coat = c.coated ? f[F_COAT] : 1.f;
+  s.gm = c.inter == INT_DIFFRACT ? f[F_GRATING] : 0.f;
+#endif
   return s;
 }
 
@@ -616,6 +664,123 @@ __device__ __forceinline__ float interact(const Surface& s, float n_pre, float x
   return n_post;
 }
 
+#ifdef OTK_INTERACTIONS
+// The ideal thin lens of focal length f between indices n1 and n2 at the
+// local hit (x, y) (JAX `_tile_trace`, INT_THIN_LENS): the slopes (L/N,
+// M/N) obey the lens equation (n1 u - y / f) / n2, and the OPD takes the
+// lens's quadratic phase -(x^2 + y^2) / 2f.
+__device__ __forceinline__ void thin_lens(float f, float n1, float n2, float x, float y,
+                                          float& L, float& M, float& N, float& opd) {
+  const float ux = L / N;
+  const float uy = M / N;
+  const float ux2 = (n1 * ux - x / f) / n2;
+  const float uy2 = (n1 * uy - y / f) / n2;
+  N = rsqrtf(1.f + ux2 * ux2 + uy2 * uy2);
+  L = ux2 * N;
+  M = uy2 * N;
+  opd = opd - (x * x + y * y) / (2.f * f);
+}
+
+// A grating's carrier frame at the local hit (x, y): its raw normal n0 and
+// its unit grating vector f. A plane takes n0 = (0, 0, 1) and f = (-sin a,
+// cos a, 0); a curved carrier the sag's normal (nz < 0, with its gradient
+// gx, gy and inv = 1 / |(gx, gy, -1)|) and f = -(u x t) / |u x t|, u = -n0
+// the upward normal and t = (cos a, sin a, gx cos a + gy sin a) the groove
+// tangent lifted onto the sag (JAX `_tile_diffract`).
+struct GratingFrame {
+  float n0x, n0y, n0z, fx, fy, fz;
+  float gx, gy, inv, ca, sa, rx, ry, rz, rinv;  // curved: the sag, t and u x t
+};
+
+__device__ __forceinline__ GratingFrame grating_frame(const Surface& s, float x, float y) {
+  GratingFrame q;
+  const float ang = s.co[F_GRATING + 2 - F_COEFFS];
+  q.ca = cosf(ang);
+  q.sa = sinf(ang);
+  if (s.code == GEOM_PLANE) {
+    q.n0x = 0.f;
+    q.n0y = 0.f;
+    q.n0z = 1.f;
+    q.fx = -q.sa;
+    q.fy = q.ca;
+    q.fz = 0.f;
+    return q;
+  }
+  float sv;
+  sag_grad(s.code, s.nc, s.co, s.cv, s.kk, x, y, false, sv, q.gx, q.gy);
+  q.inv = rsqrtf(q.gx * q.gx + q.gy * q.gy + 1.f);
+  q.n0x = q.gx * q.inv;
+  q.n0y = q.gy * q.inv;
+  q.n0z = -q.inv;
+  const float tz = q.gx * q.ca + q.gy * q.sa;
+  const float ux = -q.n0x, uy = -q.n0y, uz = -q.n0z;
+  q.rx = uy * tz - uz * q.sa;
+  q.ry = uz * q.ca - ux * tz;
+  q.rz = ux * q.sa - uy * q.ca;
+  q.rinv = rsqrtf(q.rx * q.rx + q.ry * q.ry + q.rz * q.rz);
+  q.fx = -q.rx * q.rinv;
+  q.fy = -q.ry * q.rinv;
+  q.fz = -q.rz * q.rinv;
+  return q;
+}
+
+// The vector grating equation at the local hit (x, y) between indices n1
+// and n2 (JAX `_tile_diffract`): with the normal n oriented along the
+// incident l, the tangential parts u_t = l - |l.n| n and f_t = f - (f.n) n,
+// the period projected, p = d / |(fx, fy)|, and T = n1 p u_t + m w f_t,
+// Q = p^2 n2^2 - |T|^2; the outgoing direction is (T - n sqrt Q) / (p n2')
+// renormalized, its z component taking +nz sqrt Q (mirrored, and n2' = -n2,
+// on a reflective grating): the JAX package's sign convention. An
+// evanescent order (Q < 0) keeps its direction with i = 0.
+__device__ __forceinline__ void diffract(const Surface& s, float n1, float n2, float x,
+                                         float y, float& L, float& M, float& N, float& i) {
+  const GratingFrame q = grating_frame(s, x, y);
+  const float d = s.co[F_GRATING + 1 - F_COEFFS];
+  const float pp = d * rsqrtf(q.fx * q.fx + q.fy * q.fy);
+  const float dot = L * q.n0x + M * q.n0y + N * q.n0z;
+  const float sg = sign_of(dot);
+  const float nx = q.n0x * sg, ny = q.n0y * sg, nz = q.n0z * sg;
+  const float c = fabsf(dot);
+  const float utx = L - c * nx, uty = M - c * ny, utz = N - c * nz;
+  const float fn = q.fx * nx + q.fy * ny + q.fz * nz;
+  const float ftx = q.fx - fn * nx, fty = q.fy - fn * ny, ftz = q.fz - fn * nz;
+  const float a = n1 * pp;
+  const float Tx = a * utx + s.gm * ftx;
+  const float Ty = a * uty + s.gm * fty;
+  const float Tz = a * utz + s.gm * ftz;
+  const float Q = pp * pp * n2 * n2 - (Tx * Tx + Ty * Ty + Tz * Tz);
+  if (Q >= 0.f) {
+    const float root = sqrtf(Q);
+    const float inv_den = 1.f / (pp * (s.reflective ? -n2 : n2));
+    const float zs = s.reflective ? -nz : nz;
+    const float Lr = (Tx - nx * root) * inv_den;
+    const float Mr = (Ty - ny * root) * inv_den;
+    const float Nr = (Tz + zs * root) * inv_den;
+    const float inv_mag = rsqrtf(Lr * Lr + Mr * Mr + Nr * Nr);
+    L = Lr * inv_mag;
+    M = Mr * inv_mag;
+    N = Nr * inv_mag;
+  } else {
+    i = 0.f * i;
+  }
+}
+
+// interact() with the thin lens (which writes the OPD) and the grating.
+__device__ __forceinline__ float interact(const Surface& s, float n_pre, float x, float y,
+                                          float& L, float& M, float& N, float& i,
+                                          float& opd) {
+  if (s.inter == INT_THIN_LENS) {
+    thin_lens(s.co[F_FOCAL - F_COEFFS], n_pre, s.n, x, y, L, M, N, opd);
+    return s.n;
+  }
+  if (s.inter == INT_DIFFRACT) {
+    diffract(s, n_pre, s.n, x, y, L, M, N, i);
+    return s.n;
+  }
+  return interact(s, n_pre, x, y, L, M, N, i);
+}
+#endif
+
 // Receives each surface's state after the chain has passed it (K7 writes
 // it to the history); the default receives nothing.
 struct NoSink {
@@ -630,6 +795,10 @@ struct NoSink {
 struct TableMedia {
   __device__ __forceinline__ float alpha_before(const Surface& s) const { return s.alpha; }
   __device__ __forceinline__ float index_after(const Surface& s) const { return s.n; }
+#ifdef OTK_INTERACTIONS
+  // a grating's order times the wavelength: the table holds it hoisted
+  __device__ __forceinline__ float order_w(const Surface& s) const { return s.gm; }
+#endif
   template <int k>
   __device__ __forceinline__ const TableMedia& at() const {
     return *this;
@@ -639,11 +808,12 @@ struct TableMedia {
 // Surface k >= 1 of the chain on the running state r: into the surface's
 // frame at vertex z pos_k, the hit, the step, opd += |t n_pre|, validity,
 // Beer-Lambert absorption through the medium before it, the aperture, the
-// interaction (n_pre becomes the index after it), back to the global
-// frame. With `rec_k`, it gets the surface's entry state and t (the
-// re-trace of the backward kernels, chain_bwd.cuh). `media` gives the
-// absorption and the index (`TableMedia` or a per-ray view); `sink(k,
-// ray)` sees the state after the surface.
+// interaction (n_pre becomes the index after it), a simple coating's
+// factor, back to the global frame. With `rec_k`, it gets the surface's
+// entry state, t and (OTK_INTERACTIONS) the entry intensity (the re-trace
+// of the backward kernels, chain_bwd.cuh). `media` gives the absorption,
+// the index and a grating's m w (`TableMedia` or a per-ray view);
+// `sink(k, ray)` sees the state after the surface.
 template <class Media = TableMedia, class Sink = NoSink>
 __device__ __forceinline__ void surface_step(Surface s, int k, int n_newton, float pos_k,
                                              Ray& r, float& n_pre, float* rec_k = nullptr,
@@ -653,6 +823,9 @@ __device__ __forceinline__ void surface_step(Surface s, int k, int n_newton, flo
   if (rec_k) {
     rec_k[0] = x; rec_k[1] = y; rec_k[2] = z;
     rec_k[3] = L; rec_k[4] = M; rec_k[5] = N;
+#ifdef OTK_INTERACTIONS
+    rec_k[REC_I] = i;
+#endif
   }
 
   to_local(s, pos_k, x, y, z, L, M, N);
@@ -670,7 +843,14 @@ __device__ __forceinline__ void surface_step(Surface s, int k, int n_newton, flo
   if (s.aperture) i = i * ((x * x + y * y <= s.ap * s.ap) ? 1.f : 0.f);
 
   if (s.inter != INT_NONE && s.inter != INT_REFLECT) s.n = media.index_after(s);
+#ifdef OTK_INTERACTIONS
+  if (s.inter == INT_DIFFRACT) s.gm = media.order_w(s);
+  n_pre = interact(s, n_pre, x, y, L, M, N, i, opd);
+  // simple coating: R after a reflection, T after any other interaction
+  if (s.coated) i = i * s.coat;
+#else
   n_pre = interact(s, n_pre, x, y, L, M, N, i);
+#endif
   to_global(s, pos_k, x, y, z, L, M, N);
   sink(k, Ray{x, y, z, L, M, N, i, opd});
   r.x = x; r.y = y; r.z = z; r.L = L; r.M = M; r.N = N; r.i = i; r.opd = opd;

@@ -33,6 +33,16 @@
 //     i' di' is the same product i di at every surface: the caller passes
 //     it once, from the final state. alpha (the extinction tables) gets no
 //     cotangent: it is not differentiated, as in JAX.
+//   - with OTK_INTERACTIONS, the closed-form adjoints of the thin lens (into
+//     the ray, its OPD term, the focal length and the two indices) and of
+//     the grating equation (into the ray, the order times the wavelength,
+//     the period, the groove angle, the carrier's curvature and conic
+//     through the sag gradient, and the two indices), and a simple
+//     coating's cotangent i_pre di_post: the reverse sweep carries the
+//     intensity's cotangent di (g_i) beside i di, and each surface's
+//     intensity factors (validity, absorption, aperture, TIR or an
+//     evanescent order) are recomputed from the record, so that no factor,
+//     the coating's T = 0 or R = 0 included, is ever divided by.
 // Masks (valid root, aperture, TIR) carry no cotangent, as in JAX.
 //
 // Parameter cotangents leave each surface as one row of F_STRIDE slots,
@@ -59,13 +69,20 @@ struct Vec6 {
   float x, y, z, L, M, N;
 };
 
-// One surface's parameter cotangents.
+// One surface's parameter cotangents; a thin lens's focal length and a
+// grating's (m w, d, angle) take co[0..2], as their table slots do.
 struct SurfGrad {
   float cv, conic, co[MAX_COEFFS], thick, tilt[3], dec[2], n;
+#ifdef OTK_INTERACTIONS
+  float coat;
+#endif
 };
 
 __device__ __forceinline__ void zero(SurfGrad& g) {
   g.cv = g.conic = g.thick = g.n = 0.f;
+#ifdef OTK_INTERACTIONS
+  g.coat = 0.f;
+#endif
 #pragma unroll
   for (int ci = 0; ci < MAX_COEFFS; ++ci) g.co[ci] = 0.f;
   g.tilt[0] = g.tilt[1] = g.tilt[2] = 0.f;
@@ -309,17 +326,169 @@ __device__ __forceinline__ void interact_bwd(const Surface& s, float n_pre, floa
   sag_grad_bwd(s, x, y, dgx, dgy, g.x, g.y, sg);
 }
 
+#ifdef OTK_INTERACTIONS
+// Reverse of thin_lens() at the local hit (x, y) with incident direction
+// (L, M, N): g holds the cotangent of (x, y, z, L', M', N') on entry and of
+// (x, y, z, L, M, N) on exit; g_opd, the OPD's cotangent, reaches x, y and
+// the focal length through -(x^2 + y^2) / 2f. The focal length's cotangent
+// goes to co[0], the indices' as interact_bwd's.
+__device__ __forceinline__ void thin_lens_bwd(const Surface& s, float n1, float x, float y,
+                                              float L, float M, float N, float g_opd,
+                                              Vec6& g, float& acc_n, SurfGrad& sg) {
+  const float f = s.co[F_FOCAL - F_COEFFS], n2 = s.n;
+  const float ux = L / N, uy = M / N;
+  const float ux2 = (n1 * ux - x / f) / n2;
+  const float uy2 = (n1 * uy - y / f) / n2;
+  const float Np = rsqrtf(1.f + ux2 * ux2 + uy2 * uy2);
+  // L' = ux2 N', M' = uy2 N', N' = (1 + ux2^2 + uy2^2)^(-1/2)
+  const float dNp = g.L * ux2 + g.M * uy2 + g.N;
+  const float ds = -0.5f * dNp * Np * Np * Np;
+  const float dux2 = g.L * Np + 2.f * ux2 * ds;
+  const float duy2 = g.M * Np + 2.f * uy2 * ds;
+  const float dax = dux2 / n2, day = duy2 / n2;
+  const float dn2 = -(dux2 * ux2 + duy2 * uy2) / n2;
+  const float dn1 = dax * ux + day * uy;
+  const float dux = dax * n1, duy = day * n1;
+  g.x += -dax / f - g_opd * x / f;
+  g.y += -day / f - g_opd * y / f;
+  sg.co[0] += (dax * x + day * y) / (f * f) + g_opd * (x * x + y * y) / (2.f * f * f);
+  g.L = dux / N;
+  g.M = duy / N;
+  g.N = -(dux * ux + duy * uy) / N;
+  sg.n += acc_n + dn2;
+  acc_n = dn1;
+}
+
+// Reverse of diffract() at the local hit (x, y) with incident direction
+// (L, M, N), as interact_bwd: the cotangents of the ray, of the grating's
+// (m w, d, angle) into co[0..2], of a curved carrier's cv and conic
+// through its sag gradient (sag_grad_bwd, which also adds to x and y), and
+// of the two indices. An evanescent order passes its direction's cotangent
+// through and gives nothing else.
+__device__ __forceinline__ void diffract_bwd(const Surface& s, float n1, float x, float y,
+                                             float L, float M, float N, Vec6& g,
+                                             float& acc_n, SurfGrad& sg) {
+  const GratingFrame q = grating_frame(s, x, y);
+  const float d = s.co[F_GRATING + 1 - F_COEFFS], n2 = s.n, mw = s.gm;
+  const float h = rsqrtf(q.fx * q.fx + q.fy * q.fy);
+  const float pp = d * h;
+  const float dot = L * q.n0x + M * q.n0y + N * q.n0z;
+  const float sg_ = sign_of(dot);
+  const float nx = q.n0x * sg_, ny = q.n0y * sg_, nz = q.n0z * sg_;
+  const float c = fabsf(dot);
+  const float utx = L - c * nx, uty = M - c * ny, utz = N - c * nz;
+  const float fn = q.fx * nx + q.fy * ny + q.fz * nz;
+  const float ftx = q.fx - fn * nx, fty = q.fy - fn * ny, ftz = q.fz - fn * nz;
+  const float a = n1 * pp;
+  const float Tx = a * utx + mw * ftx, Ty = a * uty + mw * fty, Tz = a * utz + mw * ftz;
+  const float Q = pp * pp * n2 * n2 - (Tx * Tx + Ty * Ty + Tz * Tz);
+  if (!(Q >= 0.f)) {  // evanescent: l' = l, a mask
+    sg.n += acc_n;
+    acc_n = 0.f;
+    return;
+  }
+  const float root = sqrtf(Q);
+  const float zsign = s.reflective ? -1.f : 1.f;
+  const float n2c = zsign * n2;
+  const float inv_den = 1.f / (pp * n2c);
+  const float Lr = (Tx - nx * root) * inv_den;
+  const float Mr = (Ty - ny * root) * inv_den;
+  const float Nr = (Tz + zsign * nz * root) * inv_den;
+  const float im = rsqrtf(Lr * Lr + Mr * Mr + Nr * Nr);
+  // l' = r / |r|
+  const float ox = Lr * im, oy = Mr * im, oz = Nr * im;
+  const float go = g.L * ox + g.M * oy + g.N * oz;
+  const float dLr = (g.L - go * ox) * im, dMr = (g.M - go * oy) * im,
+              dNr = (g.N - go * oz) * im;
+  // r = (T - (nx, ny, -zsign nz) root) / (p n2')
+  float dTx = dLr * inv_den, dTy = dMr * inv_den, dTz = dNr * inv_den;
+  const float droot = (-nx * dLr - ny * dMr + zsign * nz * dNr) * inv_den;
+  float dnx = -dLr * root * inv_den, dny = -dMr * root * inv_den,
+        dnz = zsign * dNr * root * inv_den;
+  const float dD = -(dLr * Lr + dMr * Mr + dNr * Nr) * inv_den;  // D = p n2'
+  float dpp = dD * n2c;
+  float dn2 = dD * pp * zsign;
+  // root = sqrt(Q), Q = p^2 n2^2 - |T|^2
+  const float dQ = 0.5f * droot / fmaxf(root, EPS);
+  dpp += dQ * 2.f * pp * n2 * n2;
+  dn2 += dQ * 2.f * pp * pp * n2;
+  dTx -= 2.f * dQ * Tx;
+  dTy -= 2.f * dQ * Ty;
+  dTz -= 2.f * dQ * Tz;
+  // T = n1 p u_t + m w f_t
+  const float dut_x = dTx * a, dut_y = dTy * a, dut_z = dTz * a;
+  const float da = dTx * utx + dTy * uty + dTz * utz;
+  sg.co[0] += dTx * ftx + dTy * fty + dTz * ftz;
+  const float dftx = dTx * mw, dfty = dTy * mw, dftz = dTz * mw;
+  const float dn1 = da * pp;
+  dpp += da * n1;
+  // f_t = f - (f.n) n, u_t = l - c n
+  const float dfn = -(dftx * nx + dfty * ny + dftz * nz);
+  float dfx = dftx + dfn * nx, dfy = dfty + dfn * ny, dfz = dftz + dfn * nz;
+  dnx += -fn * dftx + dfn * q.fx;
+  dny += -fn * dfty + dfn * q.fy;
+  dnz += -fn * dftz + dfn * q.fz;
+  const float dc = -(dut_x * nx + dut_y * ny + dut_z * nz);
+  dnx -= c * dut_x;
+  dny -= c * dut_y;
+  dnz -= c * dut_z;
+  // c = |l.n0| and n = sign(l.n0) n0, the sign constant
+  const float ddot = dc * sg_;
+  g.L = dut_x + ddot * q.n0x;
+  g.M = dut_y + ddot * q.n0y;
+  g.N = dut_z + ddot * q.n0z;
+  float dn0x = sg_ * dnx + ddot * L, dn0y = sg_ * dny + ddot * M, dn0z = sg_ * dnz + ddot * N;
+  // p = d / |(fx, fy)|
+  sg.co[1] += dpp * h;
+  const float dh3 = dpp * d * h * h * h;
+  dfx -= dh3 * q.fx;
+  dfy -= dh3 * q.fy;
+  sg.n += acc_n + dn2;
+  acc_n = dn1;
+  if (s.code == GEOM_PLANE) {  // f = (-sin a, cos a, 0), n0 constant
+    sg.co[2] += -dfx * q.ca - dfy * q.sa;
+    return;
+  }
+  // f = -r / |r|, r = u x t with u = -n0, t = (cos a, sin a, tz)
+  const float rhx = q.rx * q.rinv, rhy = q.ry * q.rinv, rhz = q.rz * q.rinv;
+  const float gr = -(dfx * rhx + dfy * rhy + dfz * rhz);
+  const float drx = (-dfx - gr * rhx) * q.rinv;
+  const float dry = (-dfy - gr * rhy) * q.rinv;
+  const float drz = (-dfz - gr * rhz) * q.rinv;
+  const float ux = -q.n0x, uy = -q.n0y, uz = -q.n0z;
+  const float tz = q.gx * q.ca + q.gy * q.sa;
+  dn0x -= -dry * tz + drz * q.sa;
+  dn0y -= drx * tz - drz * q.ca;
+  dn0z -= -drx * q.sa + dry * q.ca;
+  const float dtz = drx * uy - dry * ux;
+  const float dsa = -drx * uz + drz * ux + dtz * q.gy;
+  const float dca = dry * uz - drz * uy + dtz * q.gx;
+  sg.co[2] += -dca * q.sa + dsa * q.ca;
+  // n0 = (gx, gy, -1) / |(gx, gy, -1)|
+  const float dI = dn0x * q.gx + dn0y * q.gy - dn0z;
+  const float im3 = q.inv * q.inv * q.inv;
+  const float dgx = dtz * q.ca + dn0x * q.inv - dI * q.gx * im3;
+  const float dgy = dtz * q.sa + dn0y * q.inv - dI * q.gy * im3;
+  sag_grad_bwd(s, x, y, dgx, dgy, g.x, g.y, sg);
+}
+#endif
+
 // Reverse of one surface of trace_chain. e: the surface's record (entry
 // state and t); n_pre, pos: the index before the surface and its vertex z;
 // g: cotangent of the state after the surface on entry, of the entry state
 // on exit; g_opd: the opd cotangent (opd only accumulates, so it is the
 // same at every surface); g_ip: the product i di of the intensity and its
 // cotangent (the same at every surface). Adds the surface's parameter
-// cotangents to sg and the cotangent of its vertex z to dpos.
+// cotangents to sg and the cotangent of its vertex z to dpos. With
+// OTK_INTERACTIONS, g_i is the intensity's cotangent after the surface on
+// entry and before it on exit, and a coating's cotangent is g_i times the
+// intensity it scaled (the record's entry intensity times the surface's
+// other factors, recomputed); without it g_i is not read.
 __device__ __forceinline__ void surface_bwd(const Surface& s, const float* e,
                                             float n_pre, float pos, float g_opd,
                                             float g_ip, Vec6& g, float& acc_n,
-                                            float& dpos, SurfGrad& sg) {
+                                            float& dpos, SurfGrad& sg,
+                                            float* g_i = nullptr) {
   const float t = e[6];
   // recompute the surface's forward from its record
   Vec6 a[4];
@@ -344,7 +513,31 @@ __device__ __forceinline__ void surface_bwd(const Surface& s, const float* e,
   Vec6 b[4];
   b[0] = Vec6{xh, yh, zh, lo.L, lo.M, lo.N};
   float i_dummy = 1.f;
+#ifdef OTK_INTERACTIONS
+  float opd_dummy = 0.f;
+  interact(s, n_pre, xh, yh, b[0].L, b[0].M, b[0].N, i_dummy, opd_dummy);
+  {
+    // the intensity factors before the coating: validity (the conic
+    // root's, as intersect() forms it), absorption, aperture and the
+    // interaction's (i_dummy: 0 after TIR or an evanescent order)
+    const float cv = s.cv, kk = s.kk;
+    const float A = cv * (lo.L * lo.L + lo.M * lo.M + kk * lo.N * lo.N);
+    const float B = 2.f * (cv * (lo.L * lo.x + lo.M * lo.y + kk * lo.N * lo.z) - lo.N);
+    const float C = cv * (lo.x * lo.x + lo.y * lo.y + kk * lo.z * lo.z) - 2.f * lo.z;
+    const float disc = B * B - 4.f * A * C;
+    float q = (fabsf(A) > EPS && !(disc >= 0.f)) ? 0.f : 1.f;
+    if (s.absorbs) q = q * expf(-s.alpha * t * 1e3f);
+    if (s.aperture) q = q * ((xh * xh + yh * yh <= s.ap * s.ap) ? 1.f : 0.f);
+    q = q * i_dummy;
+    if (s.coated) {
+      sg.coat += *g_i * (e[REC_I] * q);
+      *g_i = *g_i * s.coat;
+    }
+    *g_i = *g_i * q;
+  }
+#else
   interact(s, n_pre, xh, yh, b[0].L, b[0].M, b[0].N, i_dummy);
+#endif
   b[1] = b[0];
   b[2] = b[0];
   b[3] = b[0];
@@ -368,7 +561,14 @@ __device__ __forceinline__ void surface_bwd(const Surface& s, const float* e,
     sg.tilt[0] += rotate_bwd(0, s.rx, b[1], g);
   }
   // interaction
-  interact_bwd(s, n_pre, xh, yh, lo.L, lo.M, lo.N, g, acc_n, sg);
+#ifdef OTK_INTERACTIONS
+  if (s.inter == INT_THIN_LENS)
+    thin_lens_bwd(s, n_pre, xh, yh, lo.L, lo.M, lo.N, g_opd, g, acc_n, sg);
+  else if (s.inter == INT_DIFFRACT)
+    diffract_bwd(s, n_pre, xh, yh, lo.L, lo.M, lo.N, g, acc_n, sg);
+  else
+#endif
+    interact_bwd(s, n_pre, xh, yh, lo.L, lo.M, lo.N, g, acc_n, sg);
   // propagation x + t l, opd += |t n_pre| and the absorption factor
   const float so = sign_of(t * n_pre);
   float dt = g.x * lo.L + g.y * lo.M + g.z * lo.N + g_opd * so * n_pre;
@@ -454,24 +654,37 @@ __device__ __forceinline__ void tile_raygen_bwd(int field_angle, int object_infi
 }
 
 // The compact order of a cotangent row: cv, conic, thickness and index
-// first, then the polynomial coefficients, tilt and decenter, so that the
-// slots a surface uses come first. `table_slot(c)` is the slot of compact
-// position c in the packed-table layout (F_* in chain.cuh).
+// first, then (with OTK_INTERACTIONS) the coating's factor, then the
+// polynomial coefficients (a thin lens's focal length, a grating's m w, d
+// and angle), tilt and decenter, so that the slots a surface uses come
+// first. `table_slot(c)` is the slot of compact position c in the
+// packed-table layout (F_* in chain.cuh), a permutation of the 32 slots.
 constexpr int C_CV = 0;
 constexpr int C_CONIC = 1;
 constexpr int C_THICK = 2;
 constexpr int C_NTAB = 3;
+#ifdef OTK_INTERACTIONS
+constexpr int C_COAT = 4;
+constexpr int C_COEFFS = 5;
+#else
 constexpr int C_COEFFS = 4;
-constexpr int C_TILT = C_COEFFS + MAX_COEFFS;  // 21
-constexpr int C_DEC = C_TILT + 3;              // 24, then the unused 26-31
+#endif
+constexpr int C_TILT = C_COEFFS + MAX_COEFFS;  // 21 (22 with OTK_INTERACTIONS)
+constexpr int C_DEC = C_TILT + 3;              // 24 (25), then the unused slots
 
 __device__ __forceinline__ int table_slot(int c) {
   if (c == C_CV) return F_CV;
   if (c == C_CONIC) return F_CONIC;
   if (c == C_THICK) return F_THICK;
   if (c == C_NTAB) return F_NTAB;
+#ifdef OTK_INTERACTIONS
+  if (c == C_COAT) return F_COAT;
+#endif
   if (c < C_TILT) return F_COEFFS + (c - C_COEFFS);
   if (c < C_DEC + 2) return F_TILT + (c - C_TILT);  // tilt and decenter, 20-24
+#ifdef OTK_INTERACTIONS
+  if (c < C_DEC + 4) return c - 1;  // 27-28: the alpha and aperture slots
+#endif
   return c;
 }
 
@@ -479,7 +692,13 @@ __device__ __forceinline__ int table_slot(int c) {
 // least 4, that covers the compact slots the surface uses.
 __device__ __forceinline__ int row_width(const Surface& s) {
   if (s.tilted || s.decentered) return F_STRIDE;
+#ifdef OTK_INTERACTIONS
+  const int used = is_asphere(s) ? s.nc
+                   : (s.inter == INT_THIN_LENS ? 1 : (s.inter == INT_DIFFRACT ? 3 : 0));
+  const int top = (used || s.coated) ? C_COEFFS + used : 4;
+#else
   const int top = C_COEFFS + (is_asphere(s) ? s.nc : 0);
+#endif
   return top <= 4 ? 4 : (top <= 8 ? 8 : (top <= 16 ? 16 : F_STRIDE));
 }
 
@@ -491,6 +710,9 @@ __device__ __forceinline__ void grad_row(const SurfGrad& sg, float (&v)[F_STRIDE
   v[C_CONIC] = sg.conic;
   v[C_THICK] = sg.thick;
   v[C_NTAB] = sg.n;
+#ifdef OTK_INTERACTIONS
+  v[C_COAT] = sg.coat;
+#endif
 #pragma unroll
   for (int ci = 0; ci < MAX_COEFFS; ++ci) v[C_COEFFS + ci] = sg.co[ci];
   v[C_TILT] = sg.tilt[0];
@@ -589,20 +811,23 @@ __device__ __forceinline__ void surface_frames(int S, const float* ft, const int
 // the final state's cotangent on entry, the starting ray's on exit; g_opd
 // and g_ip as for surface_bwd. Rows 1..S-1 of `rows` get the surfaces'
 // parameter cotangents (the thickness slot of row k is d thickness[k], the
-// sum over the vertices after k), row 0 the cotangent of n_table[0].
+// sum over the vertices after k), row 0 the cotangent of n_table[0]. g_i:
+// the final intensity's cotangent times the starting intensity (read with
+// OTK_INTERACTIONS only, for the coatings' cotangents).
 template <class Rows>
 __device__ __forceinline__ void reverse_chain(int S, const float* ft, const int* it,
                                               const float* pos, const float* npre,
                                               const float (*rec)[REC], bool live,
                                               float g_opd, float g_ip, Vec6& g,
-                                              const Rows& rows) {
+                                              const Rows& rows, float g_i = 0.f) {
   float acc_n = 0.f, acc_pos = 0.f;
   for (int k = S - 1; k >= 1; --k) {
     const Surface s = load_surface(ft, it, k);
     SurfGrad sg;
     zero(sg);
     float dpos = 0.f;
-    if (live) surface_bwd(s, rec[k], npre[k], pos[k], g_opd, g_ip, g, acc_n, dpos, sg);
+    if (live)
+      surface_bwd(s, rec[k], npre[k], pos[k], g_opd, g_ip, g, acc_n, dpos, sg, &g_i);
     sg.thick = acc_pos;
     acc_pos += dpos;
     float v[F_STRIDE];
@@ -943,7 +1168,10 @@ __device__ __forceinline__ void trace_chain_w(int S, int n_newton, const float* 
     pos_prev = pos_k;
     Surface s = load_surface(ft, it, k);
     s.alpha = s.absorbs ? media.alpha_after(k - 1) : 0.f;
-    if (s.inter == INT_REFRACT) s.n = media.index_after(k);
+    if (changes_index(s.inter)) s.n = media.index_after(k);
+#ifdef OTK_INTERACTIONS
+    if (s.inter == INT_DIFFRACT) s.gm = s.gm * media.w;  // the table's m, times w
+#endif
     surface_step(s, k, n_newton, pos_k, r, n_pre, rec[k]);
 #ifndef OTK_MEDIA_RECOMPUTE
     rec[k][REC_N] = n_pre;
@@ -1036,15 +1264,17 @@ __device__ __forceinline__ void medium_bwd(int k, const RayMedia& media, float d
 // for medium 0 at the end, `medium_bwd` turns it into that medium's
 // coefficient cotangents and d w before any sum over rays, so the n_table
 // slots stay 0; each absorbing medium adds -t 1e3 (i di) d alpha / d w,
-// with d alpha / d w = 4 pi (kv' / w - kv / w^2). Material rows go to
-// `row0 + k`; dw returns the ray's w cotangent.
+// with d alpha / d w = 4 pi (kv' / w - kv / w^2); a grating's m w gives
+// w its m and m its w. Material rows go to `row0 + k`; dw returns the
+// ray's w cotangent; g_i as reverse_chain's.
 template <class Rows>
 __device__ __forceinline__ void reverse_chain_w(int S, const float* ft, const int* it,
                                                 const float* pos, const RayMedia& media,
                                                 const float (*rec)[REC_W], bool live,
                                                 float g_opd, float g_ip, Vec6& g,
                                                 const Rows& rows, int row0,
-                                                const TabulatedOut& tab, float& dw) {
+                                                const TabulatedOut& tab, float& dw,
+                                                float g_i = 0.f) {
   float acc_n = 0.f, acc_pos = 0.f;
   dw = 0.f;
   for (int k = S - 1; k >= 1; --k) {
@@ -1056,8 +1286,8 @@ __device__ __forceinline__ void reverse_chain_w(int S, const float* ft, const in
 #ifdef OTK_MEDIA_RECOMPUTE
       int before = 0;  // the medium before surface k: its last refraction
       for (int j = 1; j < k; ++j)
-        if (it[j * I_STRIDE + I_INTER] == INT_REFRACT) before = j;
-      if (s.inter == INT_REFRACT) s.n = media.index_after(k);
+        if (changes_index(it[j * I_STRIDE + I_INTER])) before = j;
+      if (changes_index(s.inter)) s.n = media.index_after(k);
       s.alpha = s.absorbs ? media.alpha_after(k - 1) : 0.f;
       const float n_pre = media.index_after(before);
 #else
@@ -1065,7 +1295,17 @@ __device__ __forceinline__ void reverse_chain_w(int S, const float* ft, const in
       s.alpha = rec[k][REC_ALPHA];
       const float n_pre = rec[k - 1][REC_N];
 #endif
-      surface_bwd(s, rec[k], n_pre, pos[k], g_opd, g_ip, g, acc_n, dpos, sg);
+#ifdef OTK_INTERACTIONS
+      const float m = s.gm;  // a grating's order
+      if (s.inter == INT_DIFFRACT) s.gm = m * media.w;
+#endif
+      surface_bwd(s, rec[k], n_pre, pos[k], g_opd, g_ip, g, acc_n, dpos, sg, &g_i);
+#ifdef OTK_INTERACTIONS
+      if (s.inter == INT_DIFFRACT) {  // sg.co[0] is m w's cotangent
+        dw += sg.co[0] * m;
+        sg.co[0] = sg.co[0] * media.w;
+      }
+#endif
       if (s.absorbs) {
         const size_t row = (size_t)(k - 1) * media.K;
         float slope;
@@ -1081,7 +1321,7 @@ __device__ __forceinline__ void reverse_chain_w(int S, const float* ft, const in
     float v[F_STRIDE];
     grad_row(sg, v);
     rows.put(k, v, row_width(s));
-    if (s.inter == INT_REFRACT) medium_bwd(k, media, dn, live, rows, row0, tab, dw);
+    if (changes_index(s.inter)) medium_bwd(k, media, dn, live, rows, row0, tab, dw);
   }
   medium_bwd(0, media, acc_n, live, rows, row0, tab, dw);
 }

@@ -24,6 +24,13 @@
 // function (JAX's `_fused_bwd` returns zeros for it, where its eager trace
 // differentiates w). Without the media's codes the code is the
 // one-wavelength K6 as it was, token for token.
+//
+// Built with OTK_INTERACTIONS (a system with a simple coating, a thin lens
+// or a grating, trace/fused.py `branch_defines`, in either configuration),
+// the re-trace takes those branches and the sweep their adjoints
+// (chain_bwd.cuh), seeded with g_i, the final intensity's cotangent, for
+// the coatings' cotangents. Without it g_i is not read and the kernel
+// compiles as the one-wavelength K6 did before those branches.
 #include <cstdint>
 
 #include "chain_bwd.cuh"
@@ -68,7 +75,9 @@ fused_trace_bwd_kernel(int n, int S, int n_newton,
     const int idx = tile * blockDim.x + threadIdx.x;
     const bool live = idx < n;
     float sd[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    float mask = 0.f, g_ip = 0.f;
+    // g_i: the final intensity's cotangent times the starting intensity
+    // (the re-trace starts from i = 1; the coatings', OTK_INTERACTIONS)
+    float mask = 0.f, g_ip = 0.f, g_i = 0.f;
     otk::Vec6 g = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
 #ifdef OTK_MATERIALS
     const otk::RayMedia media = {mat, s_mat, kwl, kval, mat_w, K, live ? rays.p[8][idx] : 1.f};
@@ -86,11 +95,12 @@ fused_trace_bwd_kernel(int n, int S, int n_newton,
       for (int k = 0; k < 8; ++k) sd[k] = seeds.p[k] ? seeds.p[k][idx] : 0.f;
       g = otk::Vec6{sd[0], sd[1], sd[2], sd[3], sd[4], sd[5]};
       g_ip = sd[6] * rays.p[6][idx] * mask;
+      g_i = sd[6] * rays.p[6][idx];
     }
 #ifdef OTK_MATERIALS
     float d_w;
     otk::reverse_chain_w(S, sh.ft, sh.it, sh.pos, media, rec, live, sd[7], g_ip, g, rows, S,
-                         otk::TabulatedOut{tab_seg, tab_val, (size_t)n, idx}, d_w);
+                         otk::TabulatedOut{tab_seg, tab_val, (size_t)n, idx}, d_w, g_i);
     if (live) {
       const float v[9] = {g.x, g.y, g.z, g.L, g.M, g.N, sd[6] * mask, sd[7], d_w};
 #pragma unroll
@@ -98,7 +108,7 @@ fused_trace_bwd_kernel(int n, int S, int n_newton,
     }
 #else
     otk::reverse_chain(S, sh.ft, sh.it, sh.pos, sh.npre, rec, live, sd[7],
-                       g_ip, g, rows);
+                       g_ip, g, rows, g_i);
     if (live) {
       const float v[8] = {g.x, g.y, g.z, g.L, g.M, g.N, sd[6] * mask, sd[7]};
 #pragma unroll

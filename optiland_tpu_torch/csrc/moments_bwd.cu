@@ -40,6 +40,13 @@
 // (tab_seg, tab_val), summed in a fixed order by the wrapper. With
 // diff_data it writes w's cotangent too (dw). Without the media's codes the
 // code is the one-wavelength K2 as it was, token for token.
+//
+// Built with OTK_INTERACTIONS (a system with a simple coating, a thin lens
+// or a grating, trace/fused.py `branch_defines`, in either configuration),
+// the re-trace takes those branches and the sweep their adjoints
+// (chain_bwd.cuh), seeded with g_i, the final intensity's cotangent, for
+// the coatings' cotangents. Without it g_i is not read and the kernel
+// compiles as the one-wavelength K2 did before those branches.
 #include <cstdint>
 
 #include "chain_bwd.cuh"
@@ -81,7 +88,8 @@ moments_bwd_kernel(int n, int S, int n_newton, int field_angle, int object_infin
     __syncthreads();  // the block's warps start each tile in step
     const int idx = tile * blockDim.x + threadIdx.x;
     const bool live = idx < n;
-    float hx = 0.f, hy = 0.f, px = 0.f, py = 0.f, g_ip = 0.f;
+    // g_i: the final intensity's cotangent (the coatings', OTK_INTERACTIONS)
+    float hx = 0.f, hy = 0.f, px = 0.f, py = 0.f, g_ip = 0.f, g_i = 0.f;
     otk::Vec6 g = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
 #ifdef OTK_MATERIALS
     // a dead lane's w: 1, finite in every formula (JAX pads with it)
@@ -101,14 +109,15 @@ moments_bwd_kernel(int n, int S, int n_newton, int field_angle, int object_infin
       g.x = r.i * (c[1] + 2.f * c[3] * r.x);
       g.y = r.i * (c[2] + 2.f * c[3] * r.y);
       g_ip = r.i * (c[0] + c[1] * r.x + c[2] * r.y + c[3] * (r.x * r.x + r.y * r.y));
+      g_i = c[0] + c[1] * r.x + c[2] * r.y + c[3] * (r.x * r.x + r.y * r.y);
     }
 #ifdef OTK_MATERIALS
     float d_w;
     otk::reverse_chain_w(S, sh.ft, sh.it, sh.pos, media, rec, live, 0.f, g_ip, g, rows, S + 1,
-                         otk::TabulatedOut{tab_seg, tab_val, (size_t)n, idx}, d_w);
+                         otk::TabulatedOut{tab_seg, tab_val, (size_t)n, idx}, d_w, g_i);
 #else
     otk::reverse_chain(S, sh.ft, sh.it, sh.pos, sh.npre, rec, live, 0.f, g_ip,
-                       g, rows);
+                       g, rows, g_i);
 #endif
     float drg[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
     if (live) {

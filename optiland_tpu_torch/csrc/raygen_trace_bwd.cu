@@ -20,6 +20,13 @@
 // entry point `raygen_trace_bwd_w`: K2's per-ray sweep (moments_bwd.cu),
 // with w's cotangent written per ray (dw). Without them the code is the
 // one-wavelength K4 as it was, token for token.
+//
+// Built with OTK_INTERACTIONS (a system with a simple coating, a thin lens
+// or a grating, trace/fused.py `branch_defines`, in either configuration),
+// the re-trace takes those branches and the sweep their adjoints
+// (chain_bwd.cuh), seeded with g_i, the final intensity's cotangent, for
+// the coatings' cotangents. Without it g_i is not read and the kernel
+// compiles as the one-wavelength K4 did before those branches.
 #include <cstdint>
 
 #include "chain_bwd.cuh"
@@ -64,7 +71,8 @@ raygen_trace_bwd_kernel(int n, int S, int n_newton, int field_angle, int object_
     __syncthreads();  // the block's warps start each tile in step
     const int idx = tile * blockDim.x + threadIdx.x;
     const bool live = idx < n;
-    float hx = 0.f, hy = 0.f, px = 0.f, py = 0.f, g_opd = 0.f, g_ip = 0.f;
+    // g_i: the final intensity's cotangent (the coatings', OTK_INTERACTIONS)
+    float hx = 0.f, hy = 0.f, px = 0.f, py = 0.f, g_opd = 0.f, g_ip = 0.f, g_i = 0.f;
     otk::Vec6 g = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
 #ifdef OTK_MATERIALS
     const otk::RayMedia media = {mat, s_mat, kwl, kval, mat_w, K, live ? w[idx] : 1.f};
@@ -86,14 +94,16 @@ raygen_trace_bwd_kernel(int n, int S, int n_newton, int field_angle, int object_
       g = otk::Vec6{sd[0], sd[1], sd[2], sd[3], sd[4], sd[5]};
       g_opd = sd[7];
       g_ip = sd[6] * r.i;
+      g_i = sd[6];
     }
 #ifdef OTK_MATERIALS
     float d_w;
     otk::reverse_chain_w(S, sh.ft, sh.it, sh.pos, media, rec, live, g_opd, g_ip, g, rows,
-                         S + 1, otk::TabulatedOut{tab_seg, tab_val, (size_t)n, idx}, d_w);
+                         S + 1, otk::TabulatedOut{tab_seg, tab_val, (size_t)n, idx}, d_w,
+                         g_i);
 #else
     otk::reverse_chain(S, sh.ft, sh.it, sh.pos, sh.npre, rec, live, g_opd,
-                       g_ip, g, rows);
+                       g_ip, g, rows, g_i);
 #endif
     float drg[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
     if (live) {

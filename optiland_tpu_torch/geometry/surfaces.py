@@ -5,7 +5,7 @@ first slice: plane, conic, even asphere and odd asphere. A geometry is a
 static integer code plus a `(cv, k, coeffs)` parameter triple of tensors.
 The other geometry codes are defined so that system tables carried across
 from the JAX package keep their meaning; their sag raises
-NotImplementedError until they are ported (ROADMAP queue 1, slice 2).
+NotImplementedError until they are ported (ROADMAP queue 1, item 14).
 """
 
 from __future__ import annotations
@@ -38,7 +38,7 @@ _EPS = 1e-14
 def _unported(code):
     return NotImplementedError(
         f"geometry code {code}: only plane, conic, even and odd aspheres are "
-        "ported (other geometries: ROADMAP queue 1, slice 2)")
+        "ported (other geometries: ROADMAP queue 1, item 14)")
 
 
 def _conic_sag(x, y, cv, k):

@@ -54,17 +54,31 @@ class _SurfaceCollection:
         ry: float = 0.0,
         rz: float = 0.0,
         aperture: float | None = None,
+        f: float = 0.0,
         coating=None,
         comment: str = "",
+        **geom_kwargs,
     ):
+        """Add a surface. `surface_type="paraxial"` is an ideal thin lens of
+        focal length `f`; `"grating"` takes `grating_order`,
+        `grating_period` (um) and `groove_orientation_angle` (rad) as
+        keywords, as in the JAX package."""
         geometry = "standard"
         if surface_type in ("even_asphere", "odd_asphere"):
             geometry = surface_type
             surface_type = "standard"
-        if surface_type != "standard":
+        if surface_type not in ("standard", "paraxial", "grating"):
             raise NotImplementedError(
                 f"surface_type {surface_type!r} is not ported yet; ported: "
-                "standard, even_asphere, odd_asphere (ROADMAP queue 1, slice 2)")
+                "standard, even_asphere, odd_asphere, paraxial, grating "
+                "(ROADMAP queue 1, items 14 and 15)")
+        grating_keys = {"grating_order", "grating_period",
+                        "groove_orientation_angle"}
+        if set(geom_kwargs) - grating_keys or (
+                geom_kwargs and surface_type != "grating"):
+            raise NotImplementedError(
+                f"surface keywords {sorted(geom_kwargs)} are not ported yet "
+                "(ROADMAP queue 1, items 14 and 15)")
         spec = SurfaceSpec(
             radius=float(radius),
             thickness=float(thickness),
@@ -76,7 +90,9 @@ class _SurfaceCollection:
             is_stop=is_stop,
             semi_aperture=None if aperture is None else float(aperture),
             dx=dx, dy=dy, rx=rx, ry=ry, rz=rz,
+            focal_length=f,
             coating=coating,
+            geom_params=geom_kwargs,
             comment=comment,
         )
         if index is None or index == len(self._specs):

@@ -8,15 +8,16 @@ Port of `optiland_tpu/system/spec.py`:
     field/wavelength tables. Autograd differentiates merits through it.
 
 `build_system` compiles a list of `SurfaceSpec`s for the ported surface
-types (plane, conic, even and odd aspheres; refract, reflect, none) and
-absorbing media (the tabulated extinction tables `k_wl`, `k_val`).
+types (plane, conic, even and odd aspheres; refract, reflect, none, the
+ideal thin lens and gratings) and absorbing media (the tabulated
+extinction tables `k_wl`, `k_val`).
 `static_from_dict` and `params_from_numpy` carry a system built by the JAX
 package across, so both packages can run on the same tables.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass, fields, replace
+from dataclasses import dataclass, field, fields, replace
 
 import numpy as np
 import torch
@@ -92,7 +93,7 @@ class SurfaceSpec:
     coefficients: tuple[float, ...] = ()
     material: MaterialSpec = AIR  # medium *after* this surface
     geometry: str = "standard"
-    surface_type: str = "standard"
+    surface_type: str = "standard"  # "standard" | "paraxial" | "grating"
     is_stop: bool = False
     semi_aperture: float | None = None  # radial clip aperture (None = open)
     dx: float = 0.0
@@ -100,7 +101,11 @@ class SurfaceSpec:
     rx: float = 0.0
     ry: float = 0.0
     rz: float = 0.0
+    focal_length: float = 0.0  # thin-lens surfaces only
     coating: object = None  # None | name str | ("simple", T, R)
+    # a grating's grating_order, grating_period (um) and
+    # groove_orientation_angle (rad)
+    geom_params: dict = field(default_factory=dict)
     comment: str = ""
 
 
@@ -215,7 +220,7 @@ def static_from_dict(d: dict) -> SystemStatic:
             or any(t is not None for t in d.get("thin_films", ()))):
         raise NotImplementedError(
             "apodization, BSDFs, aperture masks and thin films are not "
-            "ported yet (ROADMAP queue 1, slice 2)")
+            "ported yet (ROADMAP queue 1, items 13 and 15)")
     return SystemStatic(**{k: (tuple(v) if isinstance(v, list) else v)
                            for k, v in d.items()})
 
@@ -319,7 +324,7 @@ def _pack_geometry(s: SurfaceSpec):
     if s.geometry not in _GEOM_BY_TYPE:
         raise NotImplementedError(
             f"geometry {s.geometry!r} is not ported yet (ROADMAP queue 1, "
-            "slice 2)")
+            "item 14)")
     geom = _GEOM_BY_TYPE[s.geometry]
     if geom == GEOM_CONIC and _safe_cv(s.radius) == 0.0:
         geom = GEOM_PLANE
@@ -338,7 +343,7 @@ def _coating_code(coat):
     }.get(kind)
     if code is None:
         raise NotImplementedError(
-            f"coating {kind!r} is not ported yet (ROADMAP queue 1, slice 2)")
+            f"coating {kind!r} is not ported yet (ROADMAP queue 1, item 15)")
     return code, tuple(cp)
 
 
@@ -389,13 +394,16 @@ def build_system(
     has_absorption = []
     ap_radius = np.full(S, np.inf)
     coating_params = np.zeros((S, 4))
+    focal_length = np.zeros(S)
+    grating = np.zeros((S, 3))
 
     current_medium = AIR
     for idx, s in enumerate(surfaces):
-        if s.surface_type != "standard":
+        if s.surface_type not in ("standard", "paraxial", "grating"):
             raise NotImplementedError(
                 f"surface_type {s.surface_type!r} is not ported yet "
-                "(ROADMAP queue 1, slice 2)")
+                "(ROADMAP queue 1, item 15; phase surfaces: queue 2, "
+                "branch 6)")
         mat = s.material
         reflective = mat.mirror
         if not reflective:
@@ -408,6 +416,14 @@ def build_system(
 
         if idx == 0 or idx == S - 1:
             interactions.append(INT_NONE)
+        elif s.surface_type == "paraxial":
+            interactions.append(INT_THIN_LENS)
+        elif s.surface_type == "grating":
+            interactions.append(INT_DIFFRACT)
+            gp = s.geom_params
+            grating[idx] = (gp.get("grating_order", 1),
+                            gp.get("grating_period", 1.0),
+                            gp.get("groove_orientation_angle", 0.0))
         elif reflective:
             interactions.append(INT_REFLECT)
         else:
@@ -444,6 +460,7 @@ def build_system(
         thickness[idx] = s.thickness
         tilt[idx] = (s.rx, s.ry, s.rz)
         decenter[idx] = (s.dx, s.dy)
+        focal_length[idx] = s.focal_length
         if s.semi_aperture is not None:
             ap_radius[idx] = s.semi_aperture
 
@@ -512,10 +529,10 @@ def build_system(
 
     params = SystemParams(
         cv=t(cv), conic=t(conic), coeffs=t(coeffs), thickness=t(thickness),
-        tilt=t(tilt), decenter=t(decenter), focal_length=t(np.zeros(S)),
+        tilt=t(tilt), decenter=t(decenter), focal_length=t(focal_length),
         mat_coeffs=t(mat_coeffs), k_wl=t(k_wl),
         k_val=t(k_val), ap_radius=t(ap_radius),
-        grating=t(np.zeros((S, 3))), coating_params=t(coating_params),
+        grating=t(grating), coating_params=t(coating_params),
         phase_params=t(np.zeros((S, 8))), cs_pos=t(np.zeros((S, 3))),
         aperture_value=t(aperture_value), x_fields=t(x_fields),
         y_fields=t(y_fields), vx=t(vx), vy=t(vy), wavelengths=t(wavelengths),

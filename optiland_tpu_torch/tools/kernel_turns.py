@@ -21,7 +21,11 @@ flagship's 1,999,998 rays at per-ray wavelengths (chip_smoke.py
 drives K1-K6's per-ray variants at the flagship batch's own wavelengths,
 at its 1,999,998 rays and its first 16,384 (K2 without the data
 cotangents, K4 seeded on x, y and opd, K5 and K6 on the eager rays of that
-batch); a tree without them records None there. It also drives
+batch); a tree without them records None there. It drives the coating,
+thin-lens and grating configurations of chip_smoke.py's phase j3 at the
+same two sizes (`branch_ms`: K1-K4 of systems A, B and C at 0.55 um and
+per-ray, K5 and K6 on B's vignetted twin, K7 on A and B); a tree without
+those branches records None there. It also drives
 `huygens.huygens_sum_forward` (K8) on the Cooke triplet's Huygens PSF at
 its defaults (128 x 128: the image sum and its normalizing peak sum), at
 256 x 256, and on the random inputs of tools/bench_wave_optics.py. Each
@@ -228,6 +232,8 @@ def worker(tree: Path, ns: list[int]) -> dict:
         del d, r9, seeds
     del fb, r0, rays9
     torch.cuda.empty_cache()
+    ms.update(branch_ms(cs, fused, kernel_ms, Optic, CookeTriplet, dev, rng,
+                        c))
     px_b, py_b, _ = pupil_grid_coords(128, torch.float32, dev)
     for label, r0 in (
             ("flagship 1999998", generate_rays(
@@ -280,6 +286,76 @@ def worker(tree: Path, ns: list[int]) -> dict:
     return {"tree": str(tree), "kernel_ms": ms,
             f"step_ms {max(ns)}": float(np.median(times)),
             "ptxas": registers}
+
+
+def branch_ms(cs, fused, kernel_ms, Optic, CookeTriplet, dev, rng, c):
+    """The coating, thin-lens and grating configurations of chip_smoke.py's
+    phase j3, timed at the flagship batch's 1,999,998 rays and its first
+    16,384: K1-K4 of system A (the coated Cooke triplet), B (the
+    spectrograph) and C (the concave reflective grating) at 0.55 um and at
+    the batch's per-ray wavelengths, K5 and K6 on the eager rays of B's
+    vignetted twin in both configurations, K7 on A and B. None for every
+    key where the tree has no such branches (`fused.branch_defines`)."""
+    import numpy as np
+    import torch
+
+    from optiland_tpu_torch.trace.raygen import generate_rays
+
+    keys = [f"{k} {label} {cfg}" for label in ("A", "B", "C")
+            for cfg in ("0.55", "per-ray") for k in ("K1", "K2", "K3", "K4")]
+    keys += [f"{k} B vignetted {cfg}" for cfg in ("0.55", "per-ray")
+             for k in ("K5", "K6")]
+    keys += ["K7 A per-ray", "K7 B per-ray"]
+    ns = (16_384, 1_999_998)
+    if not hasattr(fused, "branch_defines"):
+        return {f"{key} {n}": None for key in keys for n in ns}
+    systems = {"A": cs.coated_cooke(CookeTriplet), "B": cs.spectrograph(Optic),
+               "C": cs.concave_grating(Optic),
+               "B vignetted": cs.spectrograph(Optic, vignetted=True)}
+    ms = {}
+    for label, lens in systems.items():
+        static, params = lens.build(device="cuda")
+        fb = cs.flagship_inputs(params, dev)
+        for n in ns:
+            d = tuple(a[:n].contiguous() for a in fb)
+            seeds = [torch.from_numpy(rng.standard_normal(
+                d[0].shape[0]).astype(np.float32)).to(dev) for _ in range(8)]
+            for cfg, args in (("0.55", d[:4] + (COOKE_WAVELENGTH,)),
+                              ("per-ray", d)):
+                p, data = fused._prepare(static, params, *args)
+                if label == "B vignetted":
+                    r0 = generate_rays(static, params, *args)
+                    rk = fused._RAY_KEYS[:8] if cfg == "0.55" else (
+                        fused._RAY_KEYS)
+                    r = tuple(getattr(r0, k).detach().contiguous()
+                              for k in rk)
+                    pc = p[:2]
+                    ms[f"K5 {label} {cfg} {n}"] = kernel_ms(
+                        lambda: fused.fused_trace_forward(static, *pc, r))
+                    ms[f"K6 {label} {cfg} {n}"] = kernel_ms(
+                        lambda: fused.fused_trace_backward(static, *pc, r,
+                                                           seeds))
+                    continue
+                calls = {
+                    "K1": lambda: fused.moments_forward(static, *p, data),
+                    "K2": lambda: fused.moments_backward(
+                        static, *p, data, c, diff_data=False),
+                    "K3": lambda: fused.raygen_trace_forward(
+                        static, *p, data, tuple(range(8))),
+                    "K4": lambda: fused.raygen_trace_backward(
+                        static, *p, data, (0, 1, 6, 7), seeds[:4])}
+                for key, call in calls.items():
+                    ms[f"{key} {label} {cfg} {n}"] = kernel_ms(call)
+            if label in ("A", "B"):
+                r0 = generate_rays(static, params, *d)
+                r9 = tuple(getattr(r0, k).detach().contiguous()
+                           for k in fused._RAY_KEYS)
+                p7 = (fused._diff_params(params),
+                      fused._nondiff_params(params))
+                ms[f"K7 {label} per-ray {n}"] = kernel_ms(
+                    lambda: fused.history_forward(static, *p7, r9))
+            torch.cuda.empty_cache()
+    return {f"{key} {n}": ms[f"{key} {n}"] for key in keys for n in ns}
 
 
 def sass_same(parent: Path) -> dict:

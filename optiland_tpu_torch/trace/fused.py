@@ -44,6 +44,16 @@ second. Each configuration is its own build: the per-ray forward
 variants take the media's dispersion codes (`history_defines`, K7's), the
 per-ray backward variants those codes alone (`media_defines`).
 
+The chain's interactions are JAX's `_tile_trace` branches but the phase
+surfaces: refraction, reflection, simple coatings (T, or R after a
+reflection), the ideal thin lens and gratings on plane and curved
+carriers, each with its adjoint in K2, K4 and K6. A system with a coating,
+a thin lens or a grating is built with OTK_INTERACTIONS
+(`branch_defines`), its one-wavelength K2, K4 and K6 too; a system
+without them builds the code as it was before those branches. At one
+wavelength a grating's order column holds m w (`_uniform_grating`), as
+the index table holds n(w).
+
 All run one ray per thread (csrc/chain.cuh; the backward kernels share the
 reverse sweep of csrc/chain_bwd.cuh; K1, K3, K5 and K7 unroll the same
 per-surface step over their system's constant codes, csrc/system_chain.cuh,
@@ -136,6 +146,11 @@ _NEWTON_FUSED_MAX = 2
 # slots in the order csrc/chain.cuh names them (F_* and I_* there)
 _F_STRIDE = 32
 _F_COEFFS, _F_THICK, _F_TILT, _F_DEC, _F_NTAB = 2, 19, 20, 23, 25
+# a thin lens's focal length and a grating's (m w or m, d, angle) take the
+# first coefficient slots (their surfaces are planes or conics); a coated
+# surface's factor (T, or R after a reflection) takes _F_COAT
+_F_FOCAL = _F_GRATING = _F_COEFFS
+_F_COAT = 28
 _I_STRIDE = 16
 # leading material-coefficient columns K7 stages in shared memory: every
 # dispersion formula but the tabulated one has at most this many
@@ -195,19 +210,12 @@ def supports_fused_raygen(static: SystemStatic) -> bool:
 
 def _check_kernel_branches(static: SystemStatic, kernel: str):
     """Refuse the chain branches the CUDA kernel `kernel` ("K1".."K7") does
-    not cover yet (each is queued in ROADMAP queue 2), at one wavelength or
-    at per-ray wavelengths alike: every kernel takes both."""
+    not cover yet (freeform geometries and phase surfaces, queued in
+    ROADMAP queue 2), at one wavelength or at per-ray wavelengths alike:
+    every kernel takes both."""
     missing = []
-    if any(c == COAT_SIMPLE for c, i in zip(static.coatings,
-                                            static.interactions)
-           if i != INT_NONE):
-        missing.append("simple coatings")
-    if INT_THIN_LENS in static.interactions:
-        missing.append("thin lens")
     if any(g not in _INLINE_GEOMS for g in static.geom_codes):
         missing.append("freeform geometries")
-    if INT_DIFFRACT in static.interactions:
-        missing.append("gratings")
     if INT_PHASE in static.interactions:
         missing.append("phase surfaces")
     if missing:
@@ -220,6 +228,15 @@ def _check_kernel_branches(static: SystemStatic, kernel: str):
     if max(static.geom_n_coeffs) > MAX_GEOM_COEFFS:
         raise ValueError(f"the fused chain takes at most {MAX_GEOM_COEFFS} "
                          "asphere coefficients per surface")
+    aspheres = [k for k in range(static.num_surfaces)
+                if static.interactions[k] in (INT_THIN_LENS, INT_DIFFRACT)
+                and static.geom_codes[k] not in (GEOM_PLANE, GEOM_CONIC)]
+    if aspheres:
+        # their coefficient slots hold the focal length or the grating
+        # (`_pack_tables`); `Optic.add_surface` gives them the standard
+        # geometry
+        raise ValueError(f"surfaces {aspheres}: a thin lens or grating "
+                         "on a geometry other than plane or conic")
 
 
 def _raygen_scalars(static: SystemStatic, params: SystemParams):
@@ -261,12 +278,29 @@ def _uniform_tables(static: SystemStatic, params: SystemParams, w):
     return n_table, 4.0 * math.pi * kv / w
 
 
-def _diff_params(params: SystemParams, n_table=None):
+def _uniform_grating(static: SystemStatic, params: SystemParams, w):
+    """The grating table at one wavelength w: the order column of each
+    grating holds m w, the product the grating equation takes (w hoisted
+    out of the kernel as the indices are), differentiable in m and w;
+    JAX's kernel forms the same m * w from each ray's w. A system without
+    a grating keeps its table as it is."""
+    g = params.grating
+    if INT_DIFFRACT not in static.interactions:
+        return g
+    w = torch.as_tensor(w, dtype=g.dtype, device=g.device)
+    return torch.cat([g[:, :1] * w, g[:, 1:]], dim=1)
+
+
+def _diff_params(params: SystemParams, n_table=None, grating=None):
+    """The 12 differentiable tables of the chain (JAX `_diff_params`); at
+    one wavelength `n_table` and `grating` are the hoisted ones
+    (`_uniform_tables`, `_uniform_grating`)."""
     if n_table is None:
         n_table = torch.zeros_like(params.cv)
     return (params.cv, params.conic, params.coeffs, params.thickness,
             params.tilt, params.decenter, params.mat_coeffs,
-            params.coating_params, n_table, params.grating,
+            params.coating_params, n_table,
+            params.grating if grating is None else grating,
             params.phase_params, params.focal_length)
 
 
@@ -389,6 +423,74 @@ def _rotate(x, y, z, L, M, N, angles):
     return x, y, z, L, M, N
 
 
+def _thin_lens(L, M, N, x, y, opd, f, n1, n2):
+    """Ideal thin-lens bending and its quadratic OPD term (JAX
+    `_tile_trace`'s INT_THIN_LENS branch)."""
+    ux = L / N
+    uy = M / N
+    ux2 = (n1 * ux - x / f) / n2
+    uy2 = (n1 * uy - y / f) / n2
+    N = torch.rsqrt(1.0 + ux2 * ux2 + uy2 * uy2)
+    return ux2 * N, uy2 * N, N, opd - (x * x + y * y) / (2.0 * f)
+
+
+def _diffract(plane, reflective, mw, d, angle, L, M, N, i, nx, ny, nz, gx,
+              gy, n1, n2):
+    """Grating diffraction (JAX `_tile_diffract`) with `mw` the order times
+    the wavelength (JAX's m * w): (nx, ny, nz) is the carrier's raw normal
+    (nz < 0) and (gx, gy) its sag gradient. Returns (L, M, N, i); an
+    evanescent order keeps its direction with i = 0."""
+    one = torch.ones_like(L)
+    if plane:
+        nxx = torch.zeros_like(L)
+        nyy = torch.zeros_like(L)
+        nzz = one
+        fx = -torch.sin(angle) * one
+        fy = torch.cos(angle) * one
+        fz = torch.zeros_like(L)
+    else:
+        nxx, nyy, nzz = nx, ny, nz
+        ca, sa = torch.cos(angle), torch.sin(angle)
+        tz_ = gx * ca + gy * sa
+        ux, uy, uz = -nxx, -nyy, -nzz
+        fx = uy * tz_ - uz * sa
+        fy = uz * ca - ux * tz_
+        fz = ux * sa - uy * ca
+        inv = torch.rsqrt(fx * fx + fy * fy + fz * fz)
+        fx, fy, fz = -fx * inv, -fy * inv, -fz * inv
+
+    pp = d * torch.rsqrt(fx * fx + fy * fy)
+    dot = L * nxx + M * nyy + N * nzz
+    sgn = torch.sign(dot)
+    nxx, nyy, nzz = nxx * sgn, nyy * sgn, nzz * sgn
+    cosi = torch.abs(dot)
+    utx = L - cosi * nxx
+    uty = M - cosi * nyy
+    utz = N - cosi * nzz
+    fdotn = fx * nxx + fy * nyy + fz * nzz
+    ftx = fx - fdotn * nxx
+    fty = fy - fdotn * nyy
+    ftz = fz - fdotn * nzz
+
+    n2c = -n2 if reflective else n2
+    Tx = n1 * pp * utx + mw * ftx
+    Ty = n1 * pp * uty + mw * fty
+    Tz = n1 * pp * utz + mw * ftz
+    Q = pp * pp * n2 * n2 - (Tx * Tx + Ty * Ty + Tz * Tz)
+    okf = (Q >= 0.0).to(L.dtype)
+    root = torch.sqrt(torch.clamp(Q, min=0.0))
+    inv_den = 1.0 / (pp * n2c)
+    s = -1.0 if reflective else 1.0
+    Lr = (Tx - nxx * root) * inv_den
+    Mr = (Ty - nyy * root) * inv_den
+    Nr = (Tz + s * nzz * root) * inv_den
+    inv_mag = torch.rsqrt(Lr * Lr + Mr * Mr + Nr * Nr)
+    L = okf * Lr * inv_mag + (1.0 - okf) * L
+    M = okf * Mr * inv_mag + (1.0 - okf) * M
+    N = okf * Nr * inv_mag + (1.0 - okf) * N
+    return L, M, N, i * okf
+
+
 def _kv_interp(w, kwl, kval):
     """Unrolled linear interpolation of a (K,)-point extinction table:
     jnp.interp semantics (edge-clamped) with float masks and a guarded
@@ -414,17 +516,18 @@ def _tile_trace(static: SystemStatic, diffp, nondiffp,
                 x, y, z, L, M, N, i, opd, w=None, record=False):
     """The fused chain in PyTorch for the branches the CUDA kernels cover;
     the arithmetic of csrc/chain.cuh and of the JAX `_tile_trace` value
-    pass. `w=None`: one wavelength, hoisted into `n_table` and
-    `alpha_table`; otherwise the per-ray wavelengths, with
-    `material_index` and the extinction tables evaluated per ray (K1-K6
-    in their per-ray configuration, K7), differentiable into `mat_coeffs`
-    and w (the extinction tables are not differentiated, as in JAX).
+    pass. `w=None`: one wavelength, hoisted into `n_table`, `alpha_table`
+    and the gratings' m w (`_uniform_grating`); otherwise the per-ray
+    wavelengths, with `material_index`, the extinction tables and m w
+    evaluated per ray (K1-K6 in their per-ray configuration, K7),
+    differentiable into `mat_coeffs` and w (the extinction tables are not
+    differentiated, as in JAX).
     With `record`, returns every surface's state, row 0 the starting rays.
     Newton runs on a detached root and closes with one differentiable
     step, so autograd through it gives the implicit-function-theorem
     derivative."""
     (cv, conic, coeffs, thickness, tilt, decenter, mat_coeffs,
-     _coating_params, n_table, _grating, _phase_params, _focal) = diffp
+     coating_params, n_table, grating, _phase_params, focal_length) = diffp
     ap_radius, k_wl, k_val, alpha_table = nondiffp
     pos_prev = torch.zeros((), dtype=cv.dtype, device=cv.device)
     one = torch.ones((), dtype=cv.dtype, device=cv.device)
@@ -518,15 +621,35 @@ def _tile_trace(static: SystemStatic, diffp, nondiffp,
                                      False)
             inv_mag = torch.rsqrt(gx * gx + gy * gy + 1.0)
             nx, ny, nz = gx * inv_mag, gy * inv_mag, -inv_mag
-            sgn = torch.sign(L * nx + M * ny + N * nz)
-            nx, ny, nz = nx * sgn, ny * sgn, nz * sgn
-            if interaction == INT_REFLECT:
-                L, M, N = _reflect(L, M, N, nx, ny, nz)
-            else:
+            if interaction == INT_THIN_LENS:
                 n_post = n_of(k)
-                L, M, N, okf = _refract(L, M, N, nx, ny, nz, n_pre / n_post)
-                i = i * okf
+                L, M, N, opd = _thin_lens(L, M, N, x, y, opd,
+                                          focal_length[k], n_pre, n_post)
                 n_pre = n_post
+            elif interaction == INT_DIFFRACT:
+                n_post = n_of(k)
+                mw = grating[k, 0] if w is None else grating[k, 0] * w
+                L, M, N, i = _diffract(
+                    code == GEOM_PLANE, static.is_reflective[k], mw,
+                    grating[k, 1], grating[k, 2], L, M, N, i, nx, ny, nz, gx,
+                    gy, n_pre, n_post)
+                n_pre = n_post
+            else:
+                sgn = torch.sign(L * nx + M * ny + N * nz)
+                nx, ny, nz = nx * sgn, ny * sgn, nz * sgn
+                if interaction == INT_REFLECT:
+                    L, M, N = _reflect(L, M, N, nx, ny, nz)
+                else:
+                    n_post = n_of(k)
+                    L, M, N, okf = _refract(L, M, N, nx, ny, nz,
+                                            n_pre / n_post)
+                    i = i * okf
+                    n_pre = n_post
+            if static.coatings[k] == COAT_SIMPLE:
+                # fixed-R/T coating: R after a reflection, T after every
+                # other interaction (a reflective grating's included)
+                i = i * coating_params[k, 1 if interaction == INT_REFLECT
+                                       else 0]
 
         if tilted:
             x, y, z, L, M, N = _rotate(x, y, z, L, M, N, (
@@ -701,27 +824,57 @@ def _kernel(name: str, defines=(), per_ray: bool = False):
     return fn
 
 
+def _coated(static: SystemStatic, k: int) -> bool:
+    """Whether surface k applies a simple coating's factor (an interacting
+    surface with COAT_SIMPLE)."""
+    return (static.coatings[k] == COAT_SIMPLE
+            and static.interactions[k] != INT_NONE)
+
+
+def _reflective_grating(static: SystemStatic, k: int) -> bool:
+    """Whether surface k is a grating on a mirror."""
+    return (static.interactions[k] == INT_DIFFRACT
+            and bool(static.is_reflective[k]))
+
+
+def branch_defines(static: SystemStatic) -> tuple:
+    """OTK_INTERACTIONS where the system has a simple coating, a thin lens
+    or a grating: the definition that compiles those branches of the chain
+    and of its reverse sweep (csrc/chain.cuh, csrc/chain_bwd.cuh) and the
+    coating's intensity cotangent in the record. A system without them
+    builds the code without those branches, as it was before them."""
+    new = (any(_coated(static, k) for k in range(static.num_surfaces))
+           or INT_THIN_LENS in static.interactions
+           or INT_DIFFRACT in static.interactions)
+    return (("OTK_INTERACTIONS", "1"),) if new else ()
+
+
 def system_defines(static: SystemStatic) -> tuple:
     """The nvcc definitions ((macro, value), ...) of the per-system kernels'
     variants (K1, K3, K5; K7's add `history_defines`) for this system: S,
     the Newton updates, the field and object codes, and each surface's
     geometry code, coefficient count, interaction, and tilt, decenter,
-    aperture and absorption flags (the medium after it), packed as
-    csrc/system_chain.cuh `unpack_codes` reads them. Values (curvatures,
-    thicknesses, indices, ...) are not codes: they reach the kernel in the
-    float table, so one build serves every value of a system."""
+    aperture and absorption flags (the medium after it), a coated
+    surface's flag and a reflective grating's, packed as
+    csrc/system_chain.cuh `unpack_codes` reads them, then
+    `branch_defines`. Values (curvatures, thicknesses, indices, ...) are
+    not codes: they reach the kernel in the float table, so one build
+    serves every value of a system."""
     packed = (
         static.geom_codes[k] | static.geom_n_coeffs[k] << 8
         | static.interactions[k] << 16 | int(static.has_tilt[k]) << 20
         | int(static.has_decenter[k]) << 21
         | int(static.has_aperture[k]) << 22
         | int(static.has_absorption[k]) << 23
+        | int(_coated(static, k)) << 24
+        | int(_reflective_grating(static, k)) << 25
         for k in range(static.num_surfaces))
     return (("OTK_S", str(static.num_surfaces)),
             ("OTK_NEWTON", str(min(static.newton_iters, _NEWTON_FUSED_MAX))),
             ("OTK_FIELD_ANGLE", str(int(static.field_type == "angle"))),
             ("OTK_OBJECT_INFINITE", str(int(static.object_infinite))),
-            ("OTK_SURFACES", ", ".join(f"0x{c:x}u" for c in packed)))
+            ("OTK_SURFACES", ", ".join(f"0x{c:x}u" for c in packed))
+            ) + branch_defines(static)
 
 
 def media_defines(static: SystemStatic) -> tuple:
@@ -734,6 +887,15 @@ def media_defines(static: SystemStatic) -> tuple:
     media = ", ".join(f"{{{f}, {nc}}}" for f, nc in zip(
         static.mat_formulas, static.mat_n_coeffs))
     return (("OTK_MATERIALS", media),)
+
+
+def backward_defines(static: SystemStatic, per_ray: bool) -> tuple:
+    """The nvcc definitions of the backward kernels K2, K4 and K6 for this
+    system, whose chain reads the system's codes from the int table at run
+    time: `media_defines` at per-ray wavelengths, then `branch_defines`.
+    Empty (the library built once) at one wavelength for a system without
+    the coating, thin-lens and grating branches."""
+    return (media_defines(static) if per_ray else ()) + branch_defines(static)
 
 
 def history_defines(static: SystemStatic) -> tuple:
@@ -815,25 +977,55 @@ def _int_table(static: SystemStatic, device: torch.device):
     rows = [[static.geom_codes[k], static.geom_n_coeffs[k],
              static.interactions[k], int(static.has_tilt[k]),
              int(static.has_decenter[k]), int(static.has_aperture[k]),
-             int(static.has_absorption[k])]
-            + [0] * (_I_STRIDE - 7) for k in range(static.num_surfaces)]
+             int(static.has_absorption[k]), int(_coated(static, k)),
+             int(_reflective_grating(static, k))]
+            + [0] * (_I_STRIDE - 9) for k in range(static.num_surfaces)]
     return torch.tensor(rows, dtype=torch.int32).to(device)
+
+
+@lru_cache(maxsize=64)
+def _surface_masks(static: SystemStatic, device: torch.device):
+    """(S, 1) bool columns on `device`: thin-lens surfaces, gratings, coated
+    surfaces (`_coated`) and coated mirrors (whose factor is R)."""
+    S = static.num_surfaces
+
+    def col(pred):
+        return torch.tensor([[pred(k)] for k in range(S)], device=device)
+
+    return (col(lambda k: static.interactions[k] == INT_THIN_LENS),
+            col(lambda k: static.interactions[k] == INT_DIFFRACT),
+            col(lambda k: _coated(static, k)),
+            col(lambda k: _coated(static, k)
+                and static.interactions[k] == INT_REFLECT))
 
 
 def _pack_tables(static: SystemStatic, diffp, nondiffp):
     """The per-surface float table (S, 32) in the slot layout of
     csrc/chain.cuh, in the parameters' dtype, and the (S, 16) int table of
-    static codes."""
+    static codes. A thin lens's focal length and a grating's row (m w at
+    one wavelength, m at per-ray wavelengths; d; the groove angle) take
+    the first coefficient slots, and a coated surface's factor slot
+    _F_COAT."""
     (cv, conic, coeffs, thickness, tilt, decenter, _mat, coating_params,
-     n_table, _grating, _phase, _focal) = diffp
+     n_table, grating, _phase, focal_length) = diffp
     ap_radius, _k_wl, _k_val, alpha_table = nondiffp
     S = static.num_surfaces
     co = coeffs[:, :MAX_GEOM_COEFFS]
     if co.shape[1] < MAX_GEOM_COEFFS:
         co = torch.nn.functional.pad(co, (0, MAX_GEOM_COEFFS - co.shape[1]))
+    coat = coating_params[:, :1]   # not read without OTK_INTERACTIONS
+    if branch_defines(static):
+        thin, grat, coated, coated_mirror = _surface_masks(static, cv.device)
+        lead = torch.where(grat, grating, co[:, :3])
+        lead = torch.where(thin, torch.nn.functional.pad(
+            focal_length[:, None], (0, 2)), lead)
+        co = torch.cat([lead, co[:, 3:]], dim=1)
+        coat = torch.where(coated, torch.where(
+            coated_mirror, coating_params[:, 1:2], coat),
+            torch.zeros_like(coat))
     col = [cv[:, None], conic[:, None], co, thickness[:, None], tilt,
            decenter, n_table[:, None], alpha_table[:, None],
-           ap_radius[:, None], coating_params[:, :2]]
+           ap_radius[:, None], coat]
     used = sum(c.shape[1] for c in col)
     col.append(torch.zeros((S, _F_STRIDE - used), dtype=cv.dtype,
                            device=cv.device))
@@ -841,22 +1033,39 @@ def _pack_tables(static: SystemStatic, diffp, nondiffp):
     return ftab, _int_table(static, cv.device)
 
 
-def _unpack_table_grads(tab, diffp, d_mat=None):
+def _unpack_table_grads(static, tab, diffp, d_mat=None):
     """The (S, 32) table cotangents of a backward kernel as the 12
     `_diff_params` cotangents: cv, conic, coeffs (cut back or padded with
-    zeros to its width), thickness, tilt, decenter and n_table from their
-    slots; `d_mat` for mat_coeffs at per-ray wavelengths (at one wavelength
-    the n_table slot's cotangent reaches mat_coeffs by autograd through
-    `_uniform_tables`); zeros for the tables the chain does not read
-    (coating_params, grating, phase_params, focal_length)."""
+    zeros to its width; zeros on thin lenses and gratings, whose slots hold
+    their own), thickness, tilt, decenter and n_table from their slots;
+    focal_length and grating from a thin lens's and a grating's first
+    coefficient slots (the grating's m w at one wavelength: autograd
+    through `_uniform_grating` takes it to m and w); coating_params' T or
+    R from a coated surface's factor slot; `d_mat` for mat_coeffs at
+    per-ray wavelengths (at one wavelength the n_table slot's cotangent
+    reaches mat_coeffs by autograd through `_uniform_tables`); zeros for
+    phase_params, which the chain does not read."""
     coeffs = diffp[2]
     nco = coeffs.shape[1]
     co = tab[:, _F_COEFFS:_F_COEFFS + min(nco, MAX_GEOM_COEFFS)]
-    if nco > MAX_GEOM_COEFFS:
-        co = torch.nn.functional.pad(co, (0, nco - MAX_GEOM_COEFFS))
-    slots = {0: tab[:, 0], 1: tab[:, 1], 2: co, 3: tab[:, _F_THICK],
+    slots = {0: tab[:, 0], 1: tab[:, 1], 3: tab[:, _F_THICK],
              4: tab[:, _F_TILT:_F_TILT + 3], 5: tab[:, _F_DEC:_F_DEC + 2],
              8: tab[:, _F_NTAB]}
+    if branch_defines(static):
+        thin, grat, coated, coated_mirror = _surface_masks(static, tab.device)
+        co = torch.where(thin | grat, torch.zeros_like(co), co)
+        zero = torch.zeros_like(tab[:, :1])
+        coat = torch.where(coated, tab[:, _F_COAT:_F_COAT + 1], zero)
+        slots[7] = torch.cat([torch.where(coated_mirror, zero, coat),
+                              torch.where(coated_mirror, coat, zero)]
+                             + [zero] * (diffp[7].shape[1] - 2), dim=1)
+        slots[9] = torch.where(grat, tab[:, _F_GRATING:_F_GRATING + 3],
+                               torch.zeros_like(tab[:, :3]))
+        slots[11] = torch.where(thin[:, 0], tab[:, _F_FOCAL],
+                                torch.zeros_like(tab[:, 0]))
+    if nco > MAX_GEOM_COEFFS:
+        co = torch.nn.functional.pad(co, (0, nco - MAX_GEOM_COEFFS))
+    slots[2] = co
     if d_mat is not None:
         slots[6] = d_mat
     return tuple(slots[j].to(p.dtype).reshape(p.shape) if j in slots
@@ -1083,12 +1292,13 @@ def moments_backward(static, diffp, nondiffp, rg, data, c, diff_data=True):
                    if diff_data else torch.zeros_like(d) for d in data)
     d_ptrs = [d.data_ptr() if diff_data else None for d in d_data]
     if n and per_ray:
-        err = _kernel("moments_bwd", media_defines(static), True)(
+        err = _kernel("moments_bwd", backward_defines(static, True),
+                      True)(
             *head, blocks, threads, int(diff_data), *sizes, *ptrs[:3],
             *media, *ptrs[3:], c.data_ptr(), partials.data_ptr(), *d_ptrs,
             *(t.data_ptr() for t in tabulated), _stream(dev))
     elif n:
-        err = _kernel("moments_bwd")(
+        err = _kernel("moments_bwd", backward_defines(static, False))(
             *head, blocks, threads, int(diff_data), *ptrs, c.data_ptr(),
             partials.data_ptr(), *d_ptrs, _stream(dev))
     if n:
@@ -1097,8 +1307,8 @@ def moments_backward(static, diffp, nondiffp, rg, data, c, diff_data=True):
     tab = torch.sum(partials, dim=0)
     d_mat = (_material_grads(static, tab[S + 1:], tabulated, diffp[6])
              if per_ray else None)
-    return (tab[S, :5].to(rg.dtype), _unpack_table_grads(tab[:S], diffp, d_mat),
-            d_data)
+    return (tab[S, :5].to(rg.dtype),
+            _unpack_table_grads(static, tab[:S], diffp, d_mat), d_data)
 
 
 moments_backward.launches = 0
@@ -1167,12 +1377,13 @@ def raygen_trace_backward(static, diffp, nondiffp, rg, data, out_keys,
     d_data = tuple(torch.empty(n, dtype=torch.float32, device=dev)
                    for _ in data)
     if n and per_ray:
-        err = _kernel("raygen_trace_bwd", media_defines(static), True)(
+        err = _kernel("raygen_trace_bwd", backward_defines(static, True),
+                      True)(
             *head, blocks, threads, *sizes, *ptrs[:3], *media, *ptrs[3:],
             *seed_ptrs, partials.data_ptr(), *(d.data_ptr() for d in d_data),
             *(t.data_ptr() for t in tabulated), _stream(dev))
     elif n:
-        err = _kernel("raygen_trace_bwd")(
+        err = _kernel("raygen_trace_bwd", backward_defines(static, False))(
             *head, blocks, threads, *ptrs, *seed_ptrs, partials.data_ptr(),
             *(d.data_ptr() for d in d_data), _stream(dev))
     if n:
@@ -1181,8 +1392,8 @@ def raygen_trace_backward(static, diffp, nondiffp, rg, data, out_keys,
     tab = torch.sum(partials, dim=0)
     d_mat = (_material_grads(static, tab[S + 1:], tabulated, diffp[6])
              if per_ray else None)
-    return (tab[S, :5].to(rg.dtype), _unpack_table_grads(tab[:S], diffp, d_mat),
-            d_data)
+    return (tab[S, :5].to(rg.dtype),
+            _unpack_table_grads(static, tab[:S], diffp, d_mat), d_data)
 
 
 raygen_trace_backward.launches = 0
@@ -1242,12 +1453,13 @@ def fused_trace_backward(static, diffp, nondiffp, rays, seeds):
     d_rays = tuple(torch.empty(n, dtype=torch.float32, device=dev)
                    for _ in rays)
     if n and per_ray:
-        err = _kernel("fused_trace_bwd", media_defines(static), True)(
+        err = _kernel("fused_trace_bwd", backward_defines(static, True),
+                      True)(
             *head, blocks, threads, *sizes, *ptrs[:2], *media, *ptrs[2:],
             *seed_ptrs, partials.data_ptr(), *(d.data_ptr() for d in d_rays),
             *(t.data_ptr() for t in tabulated), _stream(dev))
     elif n:
-        err = _kernel("fused_trace_bwd")(
+        err = _kernel("fused_trace_bwd", backward_defines(static, False))(
             *head, blocks, threads, *ptrs, *seed_ptrs, partials.data_ptr(),
             *(d.data_ptr() for d in d_rays), _stream(dev))
     if n:
@@ -1256,7 +1468,7 @@ def fused_trace_backward(static, diffp, nondiffp, rays, seeds):
     tab = torch.sum(partials, dim=0)
     d_mat = (_material_grads(static, tab[S:], tabulated, diffp[6])
              if per_ray else None)
-    return d_rays, _unpack_table_grads(tab[:S], diffp, d_mat)
+    return d_rays, _unpack_table_grads(static, tab[:S], diffp, d_mat)
 
 
 fused_trace_backward.launches = 0
@@ -1470,12 +1682,14 @@ def _per_ray(wavelength) -> bool:
     return torch.as_tensor(wavelength).ndim != 0
 
 
-def _prepare(static, params, Hx, Hy, Px, Py, wavelength):
+def _prepare(static, params, Hx, Hy, Px, Py, wavelength, diff_w=True):
     """Broadcast the per-ray data and build the kernel parameter tuple of
     the raygen kernels (K1-K4). A scalar `wavelength` fills the index and
-    absorption tables (`_uniform_tables`) and data = (Hx, Hy, Px, Py); an
-    array leaves those slots as unused placeholders and data gains w,
-    broadcast to the rays."""
+    absorption tables (`_uniform_tables`) and the gratings' m w
+    (`_uniform_grating`; with `diff_w` false w enters it detached, as
+    JAX's K2 returns no w cotangent without its data cotangents) and data
+    = (Hx, Hy, Px, Py); an array leaves the index and absorption slots as
+    unused placeholders and data gains w, broadcast to the rays."""
     dt, dev = params.cv.dtype, params.cv.device
     Px = torch.as_tensor(Px, dtype=dt, device=dev)
     Py = torch.as_tensor(Py, dtype=dt, device=dev)
@@ -1483,12 +1697,16 @@ def _prepare(static, params, Hx, Hy, Px, Py, wavelength):
     Hy = torch.as_tensor(Hy, dtype=dt, device=dev).expand(Px.shape)
     data = (Hx, Hy, Px, Py)
     if _per_ray(wavelength):
-        n_table = alpha_table = None
+        n_table = alpha_table = grating = None
         data += (torch.as_tensor(wavelength, dtype=dt,
                                  device=dev).expand(Px.shape),)
     else:
         n_table, alpha_table = _uniform_tables(static, params, wavelength)
-    p = (_diff_params(params, n_table), _nondiff_params(params, alpha_table),
+        w = torch.as_tensor(wavelength, dtype=dt, device=dev)
+        grating = _uniform_grating(static, params,
+                                   w if diff_w else w.detach())
+    p = (_diff_params(params, n_table, grating),
+         _nondiff_params(params, alpha_table),
          _raygen_scalars(static, params))
     return p, tuple(a.contiguous() for a in data)
 
@@ -1512,20 +1730,23 @@ def trace_final(static: SystemStatic, params: SystemParams, rays0,
     """Final-surface state from a caller-made bundle. On a CUDA device in
     float32 a `supports_fused` system is one launch of K5 (backward: K6):
     at a scalar `wavelength` (the one the bundle was made with) from the
-    index and absorption tables; at per-ray wavelengths (an array, or
-    `None`, as in JAX) at the bundle's own w, which K6 differentiates.
-    Otherwise the eager trace."""
+    index, absorption and grating tables (w detached from the gratings'
+    m w: JAX's K6 returns no w cotangent); at per-ray wavelengths (an
+    array, or `None`, as in JAX) at the bundle's own w, which K6
+    differentiates. Otherwise the eager trace."""
     from optiland_tpu_torch.trace.tracer import _final, trace_rays
 
     if (supports_fused(static) and rays0.x.is_cuda
             and rays0.x.dtype == torch.float32):
         if wavelength is None or _per_ray(wavelength):
-            n_table = alpha_table = None
+            n_table = alpha_table = grating = None
             keys = _RAY_KEYS
         else:
             n_table, alpha_table = _uniform_tables(static, params, wavelength)
+            grating = _uniform_grating(static, params, torch.as_tensor(
+                wavelength).detach())
             keys = _RAY_KEYS[:8]
-        p = (_diff_params(params, n_table),
+        p = (_diff_params(params, n_table, grating),
              _nondiff_params(params, alpha_table))
         rays = tuple(getattr(rays0, k).contiguous() for k in keys)
         return dict(zip(_NAMES, fused_trace_final(static, p, rays)))
@@ -1561,7 +1782,8 @@ def spot_moments(static: SystemStatic, params: SystemParams,
     use_fused = (supports_fused(static) and supports_fused_raygen(static)
                  and params.cv.is_cuda and dtype == torch.float32)
     if use_fused:
-        p, data = _prepare(static, params, Hx, Hy, Px, Py, wavelength)
+        p, data = _prepare(static, params, Hx, Hy, Px, Py, wavelength,
+                           diff_w=diff_data)
         return fused_spot_moments(static, p, data, diff_data)
     from optiland_tpu_torch.trace.raygen import generate_rays
     from optiland_tpu_torch.trace.tracer import trace_rays

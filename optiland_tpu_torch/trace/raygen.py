@@ -64,7 +64,7 @@ def _ray_origins(static: SystemStatic, params: SystemParams, Hx, Hy, Px, Py,
 
     raise NotImplementedError(
         f"field type {static.field_type!r} is not ported yet (ROADMAP queue "
-        "1, slice 2)")
+        "1, item 23)")
 
 
 def generate_rays(static: SystemStatic, params: SystemParams, Hx, Hy, Px, Py,
@@ -77,7 +77,7 @@ def generate_rays(static: SystemStatic, params: SystemParams, Hx, Hy, Px, Py,
     if static.apodization is not None or static.telecentric:
         raise NotImplementedError(
             "apodization and telecentric aiming are not ported yet (ROADMAP "
-            "queue 1, slice 2)")
+            "queue 1, item 13)")
     dt, dev = params.cv.dtype, params.cv.device
 
     def as1d(a):

@@ -1,10 +1,11 @@
 """The real-ray trace in eager PyTorch, under autograd.
 
 Port of `optiland_tpu/trace/tracer.py` for the ported surface and
-interaction set: plane/conic/even/odd-asphere geometries; refract, reflect
-and none; radial apertures; tilt and decenter; Beer-Lambert absorption in
-media with a tabulated extinction; simple coatings (the only coating that
-acts on an unpolarized trace). Per surface:
+interaction set: plane/conic/even/odd-asphere geometries; refract, reflect,
+none, the ideal thin lens and gratings on plane and curved carriers;
+radial apertures; tilt and decenter; Beer-Lambert absorption in media with
+a tabulated extinction; simple coatings (the only coating that acts on an
+unpolarized trace). Per surface:
   localize -> intersect -> propagate -> OPD -> absorption -> aperture clip
   -> interact -> coating -> globalize -> record.
 
@@ -24,18 +25,22 @@ from optiland_tpu_torch.core import transforms as T
 from optiland_tpu_torch.core.rays import Rays
 from optiland_tpu_torch.geometry.surfaces import (
     _CLOSED_FORM,
+    GEOM_PLANE,
     SLICE_GEOMS,
     _conic_intersect,
     intersect,
     intersect_implicit,
+    sag_and_grad,
     surface_normal,
 )
 from optiland_tpu_torch.materials.dispersion import _interp, material_index
 from optiland_tpu_torch.system.spec import (
     COAT_SIMPLE,
+    INT_DIFFRACT,
     INT_NONE,
     INT_REFLECT,
     INT_REFRACT,
+    INT_THIN_LENS,
     SystemParams,
     SystemStatic,
     positions_of,
@@ -61,19 +66,72 @@ def _check_traceable(static: SystemStatic):
     """Refuse what the eager tracer does not implement yet."""
     unported = []
     if any(g not in SLICE_GEOMS for g in static.geom_codes):
-        unported.append("freeform geometries")
-    if any(i not in (INT_REFRACT, INT_REFLECT, INT_NONE)
-           for i in static.interactions):
-        unported.append("thin-lens, grating and phase interactions")
+        unported.append("freeform geometries (item 14)")
+    if any(i not in (INT_REFRACT, INT_REFLECT, INT_NONE, INT_THIN_LENS,
+                     INT_DIFFRACT) for i in static.interactions):
+        unported.append("phase interactions (item 15)")
     if static.has_abs_cs:
-        unported.append("absolute coordinate systems")
+        unported.append("absolute coordinate systems (item 23)")
     if any(b is not None for b in static.bsdfs):
-        unported.append("BSDF scattering")
+        unported.append("BSDF scattering (item 15)")
     if any(m is not None for m in static.aperture_masks):
-        unported.append("aperture masks")
+        unported.append("aperture masks (item 13)")
     if unported:
         raise NotImplementedError(
-            "not ported yet (ROADMAP queue 1, slice 2): " + ", ".join(unported))
+            "not ported yet (ROADMAP queue 1): " + ", ".join(unported))
+
+
+def _thin_lens_interact(rays: Rays, f, n1, n2) -> Rays:
+    """Ideal thin-lens bending (JAX `tracer._thin_lens_interact`): the ray
+    height is kept, the slopes (L/N, M/N) obey the ideal lens equation
+    (n1 u - y / f) / n2, and the lens's quadratic phase -(x^2 + y^2) / 2f
+    enters the OPD, so that a perfect lens images with zero wavefront
+    error."""
+    ux = rays.L / rays.N
+    uy = rays.M / rays.N
+    ux2 = (n1 * ux - rays.x / f) / n2
+    uy2 = (n1 * uy - rays.y / f) / n2
+    N2 = 1.0 / torch.sqrt(1.0 + ux2**2 + uy2**2)
+    opd = rays.opd - (rays.x**2 + rays.y**2) / (2.0 * f)
+    return rays.replace(L=ux2 * N2, M=uy2 * N2, N=N2, opd=opd)
+
+
+def _grating_interact(static, params, k, rays: Rays, n1, n2) -> Rays:
+    """Grating diffraction at surface k (JAX `tracer._grating_interact`):
+    the grating vector from the groove orientation, the period corrected
+    by its in-plane projection, then the vector grating equation
+    (`rays.grating_diffract`). A plane grating takes f = (-sin a, cos a, 0)
+    and the normal (0, 0, 1); a curved one f = -(n_up x t) / |n_up x t|,
+    t the groove tangent lifted onto the sag, n_up the upward normal."""
+    m = params.grating[k, 0]
+    d = params.grating[k, 1]
+    angle = params.grating[k, 2]
+    code = static.geom_codes[k]
+    one = torch.ones_like(rays.x)
+    if code == GEOM_PLANE:
+        nx = torch.zeros_like(rays.x)
+        ny = torch.zeros_like(rays.x)
+        nz = one
+        fx = -torch.sin(angle) * one
+        fy = torch.cos(angle) * one
+        fz = torch.zeros_like(rays.x)
+    else:
+        nc, cv, conic, co = (static.geom_n_coeffs[k], params.cv[k],
+                             params.conic[k], params.coeffs[k])
+        nx, ny, nz = surface_normal(code, nc, rays.x, rays.y, cv, conic, co)
+        _, gx, gy = sag_and_grad(code, nc, rays.x, rays.y, cv, conic, co)
+        ca, sa = torch.cos(angle), torch.sin(angle)
+        tx, ty, tz = ca, sa, gx * ca + gy * sa
+        # surface_normal has nz < 0; f is built from the upward normal
+        ux, uy, uz = -nx, -ny, -nz
+        fx = uy * tz - uz * ty
+        fy = uz * tx - ux * tz
+        fz = ux * ty - uy * tx
+        mag = torch.sqrt(fx * fx + fy * fy + fz * fz)
+        fx, fy, fz = -fx / mag, -fy / mag, -fz / mag
+    pp = d / torch.sqrt(fx * fx + fy * fy)
+    return R.grating_diffract(rays, nx, ny, nz, fx, fy, fz, m, pp, n1, n2,
+                              static.is_reflective[k])
 
 
 def trace_rays(static: SystemStatic, params: SystemParams,
@@ -153,9 +211,16 @@ def trace_rays(static: SystemStatic, params: SystemParams,
                 code, static.geom_n_coeffs[k], rays.x, rays.y,
                 params.cv[k], params.conic[k], params.coeffs[k])
             rays = R.refract(rays, nx, ny, nz, n_pre, n_of(k, rays.w))
+        elif interaction == INT_THIN_LENS:
+            rays = _thin_lens_interact(rays, params.focal_length[k], n_pre,
+                                       n_of(k, rays.w))
+        elif interaction == INT_DIFFRACT:
+            rays = _grating_interact(static, params, k, rays, n_pre,
+                                     n_of(k, rays.w))
 
-        # fixed-R/T coating: intensity scale (T on refract, R on reflect);
-        # polarization coatings do not act on an unpolarized trace
+        # fixed-R/T coating: intensity scale (R after a reflection, T after
+        # every other interaction, a reflective grating's included, as in
+        # JAX); polarization coatings do not act on an unpolarized trace
         if interaction != INT_NONE and static.coatings[k] == COAT_SIMPLE:
             cp = params.coating_params[k]
             rays = rays.replace(

@@ -44,7 +44,16 @@ from optiland_tpu_torch.system.optic import Optic
 from optiland_tpu_torch.trace import fused
 from optiland_tpu_torch.trace.raygen import generate_rays
 
-from torch_port_helpers import bench_lens, singlet_lens, tabulated_doublet
+from torch_port_helpers import (
+    bench_lens,
+    coated_cooke,
+    coated_singlet,
+    curved_grating,
+    plane_grating,
+    singlet_lens,
+    tabulated_doublet,
+    thin_lens_system,
+)
 
 CSRC = fused.__file__.rsplit("/", 2)[0] + "/csrc"
 RTOL = 1e-10    # of each group's largest entry; float64 on both sides
@@ -163,19 +172,21 @@ extern "C" void raygen_kernels(int mode, int n, int S, int nn, int fa, int oi,
       continue;
     }
     otk::Vec6 g = {0, 0, 0, 0, 0, 0};
-    double g_opd = 0, g_ip;
+    double g_opd = 0, g_ip, g_i;
     if (mode == 1) {
       g.x = r.i * (c[1] + 2 * c[3] * r.x);
       g.y = r.i * (c[2] + 2 * c[3] * r.y);
-      g_ip = r.i * (c[0] + c[1] * r.x + c[2] * r.y + c[3] * (r.x * r.x + r.y * r.y));
+      g_i = c[0] + c[1] * r.x + c[2] * r.y + c[3] * (r.x * r.x + r.y * r.y);
+      g_ip = r.i * g_i;
     } else {
       g = otk::Vec6{seeds[idx], seeds[n + idx], seeds[2 * n + idx],
                     seeds[3 * n + idx], seeds[4 * n + idx], seeds[5 * n + idx]};
       g_opd = seeds[7 * n + idx];
-      g_ip = seeds[6 * n + idx] * r.i;
+      g_i = seeds[6 * n + idx];
+      g_ip = g_i * r.i;
     }
     const Rows rows{tab};
-    otk::reverse_chain(S, ft, it, pos, npre, rec, true, g_opd, g_ip, g, rows);
+    otk::reverse_chain(S, ft, it, pos, npre, rec, true, g_opd, g_ip, g, rows, g_i);
     double drg[5];
     double d4[4];
     otk::tile_raygen_bwd(fa, oi, rg, Hx[idx], Hy[idx], Px[idx], Py[idx], g, drg, d4);
@@ -199,7 +210,7 @@ extern "C" void caller_kernels(int mode, int n, int S, int nn, const double* ft,
       const double* s = seeds + idx;
       otk::Vec6 g = {s[0], s[n], s[2 * n], s[3 * n], s[4 * n], s[5 * n]};
       otk::reverse_chain(S, ft, it, pos, npre, rec, true, s[7 * n],
-                         s[6 * n] * p[6 * n] * r.i, g, Rows{tab});
+                         s[6 * n] * p[6 * n] * r.i, g, Rows{tab}, s[6 * n] * p[6 * n]);
       const double dv[8] = {g.x, g.y, g.z, g.L, g.M, g.N, s[6 * n] * r.i, s[7 * n]};
       for (int k = 0; k < 8; ++k) v[k] = dv[k];
     }
@@ -394,21 +405,23 @@ extern "C" void raygen_kernels_w(int mode, int n, int nn, int mat_w, int K, cons
     }
     otk::trace_chain_w(OTK_S, nn, ft, it, media, r, rec_w);
     otk::Vec6 g = {0, 0, 0, 0, 0, 0};
-    double g_opd = 0, g_ip;
+    double g_opd = 0, g_ip, g_i;
     if (mode == 1) {
       g.x = r.i * (c[1] + 2 * c[3] * r.x);
       g.y = r.i * (c[2] + 2 * c[3] * r.y);
-      g_ip = r.i * (c[0] + c[1] * r.x + c[2] * r.y + c[3] * (r.x * r.x + r.y * r.y));
+      g_i = c[0] + c[1] * r.x + c[2] * r.y + c[3] * (r.x * r.x + r.y * r.y);
+      g_ip = r.i * g_i;
     } else {
       g = otk::Vec6{seeds[idx], seeds[n + idx], seeds[2 * n + idx],
                     seeds[3 * n + idx], seeds[4 * n + idx], seeds[5 * n + idx]};
       g_opd = seeds[7 * n + idx];
-      g_ip = seeds[6 * n + idx] * r.i;
+      g_i = seeds[6 * n + idx];
+      g_ip = g_i * r.i;
     }
     const RowsW rows{tab};
     double d_w;
     otk::reverse_chain_w(OTK_S, ft, it, pos_w, media, rec_w, true, g_opd, g_ip, g, rows,
-                         OTK_S + 1, otk::TabulatedOut{seg, val, (size_t)n, idx}, d_w);
+                         OTK_S + 1, otk::TabulatedOut{seg, val, (size_t)n, idx}, d_w, g_i);
     double drg[5], d4[4];
     otk::tile_raygen_bwd(OTK_FIELD_ANGLE, OTK_OBJECT_INFINITE, rg, Hx[idx], Hy[idx], Px[idx],
                          Py[idx], g, drg, d4);
@@ -441,7 +454,8 @@ extern "C" void caller_kernels_w(int mode, int n, int nn, int mat_w, int K, cons
     double d_w;
     otk::reverse_chain_w(OTK_S, ft, it, pos_w, media, rec_w, true, s[7 * n],
                          s[6 * n] * p[6 * n] * r.i, g, RowsW{tab}, OTK_S,
-                         otk::TabulatedOut{seg, val, (size_t)n, idx}, d_w);
+                         otk::TabulatedOut{seg, val, (size_t)n, idx}, d_w,
+                         s[6 * n] * p[6 * n]);
     const double dv[9] = {g.x, g.y, g.z, g.L, g.M, g.N, s[6 * n] * r.i, s[7 * n], d_w};
     for (int k = 0; k < 9; ++k) outs[k * n + idx] = dv[k];
   }
@@ -513,8 +527,8 @@ _GROUP_NAMES = ("cv", "conic", "coeffs", "thickness", "tilt", "decenter",
                 "phase_params", "focal_length")
 
 
-def _close_params(tab, diffp, ref_diff):
-    got = fused._unpack_table_grads(torch.from_numpy(tab), diffp)
+def _close_params(ts, tab, diffp, ref_diff):
+    got = fused._unpack_table_grads(ts, torch.from_numpy(tab), diffp)
     for name, g, r in zip(_GROUP_NAMES, got, ref_diff):
         _close(_np(g), r, name)
 
@@ -524,9 +538,16 @@ def test_device_code_matches_plain(host_lib, f64, name):
     ts, tp = _SYSTEMS[name](Optic).build(device="cpu")
     if name != "bench":
         ts = replace(ts, newton_iters=4)
-    w = 0.5876 if name == "bench" else 0.55
+    _check_run_time_bodies(host_lib, ts, tp,
+                           0.5876 if name == "bench" else 0.55)
+
+
+def _check_run_time_bodies(host_lib, ts, tp, w):
+    """The run-time chain's bodies at one wavelength w (K1's moments, K2,
+    K4, K5 and K6 on the raygen's rays with a caller's intensity and opd)
+    against the plain versions; returns K2's and K6's table cotangents."""
     n_table, alpha = fused._uniform_tables(ts, tp, w)
-    diffp = fused._diff_params(tp, n_table)
+    diffp = fused._diff_params(tp, n_table, fused._uniform_grating(ts, tp, w))
     nondiffp = fused._nondiff_params(tp, alpha)
     rg = fused._raygen_scalars(ts, tp)
     ftab, itab = fused._pack_tables(ts, diffp, nondiffp)
@@ -561,7 +582,8 @@ def test_device_code_matches_plain(host_lib, f64, name):
     d_rg, d_diff, d_data = fused._moments_bwd_plain(
         ts, diffp, nondiffp, rg, data, torch.from_numpy(c), True)
     _close(tab[S, :5], d_rg, "K2 rg")
-    _close_params(tab[:S], diffp, d_diff)
+    _close_params(ts, tab[:S], diffp, d_diff)
+    k2_tab = tab[:S].copy()
     for q in range(4):
         _close(dd[q], d_data[q], f"K2 data {q}")
     # K4, all eight seeds (the seed of i reaches nothing)
@@ -570,7 +592,7 @@ def test_device_code_matches_plain(host_lib, f64, name):
         ts, diffp, nondiffp, rg, data, tuple(range(8)),
         tuple(torch.from_numpy(a) for a in seeds))
     _close(tab[S, :5], d_rg, "K4 rg")
-    _close_params(tab[:S], diffp, d_diff)
+    _close_params(ts, tab[:S], diffp, d_diff)
     for q in range(4):
         _close(dd[q], d_data[q], f"K4 data {q}")
 
@@ -593,7 +615,8 @@ def test_device_code_matches_plain(host_lib, f64, name):
         ts, diffp, nondiffp, rays8, tuple(torch.from_numpy(a) for a in seeds))
     for k in range(8):
         _close(outs[k], d_rays[k], f"K6 d{fused._NAMES[k]}")
-    _close_params(tab, diffp, d_diff)
+    _close_params(ts, tab, diffp, d_diff)
+    return k2_tab, tab
 
 
 def _index_cases():
@@ -821,7 +844,7 @@ def _system_inputs(ts, tp, w, seed=9):
     """diffp, nondiffp, rg and the float table of a system at wavelength
     w, and n (Hx, Hy, Px, Py) from `seed` as numpy and torch arrays."""
     n_table, alpha = fused._uniform_tables(ts, tp, w)
-    diffp = fused._diff_params(tp, n_table)
+    diffp = fused._diff_params(tp, n_table, fused._uniform_grating(ts, tp, w))
     nondiffp = fused._nondiff_params(tp, alpha)
     rg = fused._raygen_scalars(ts, tp)
     ftab = _np(fused._pack_tables(ts, diffp, nondiffp)[0])
@@ -972,7 +995,19 @@ def test_per_ray_bodies_match_plain(system_libs, f64, case):
     versions at per-ray wavelengths."""
     name, wavelengths = _PER_RAY_CASES[case]
     ts, tp = _HISTORY_SYSTEMS[name]().build(device="cpu")
-    lib, S, n = system_libs[name], ts.num_surfaces, N_RAYS
+    got = _check_per_ray_bodies(system_libs[name], ts, tp, wavelengths)
+    assert 0.0 < got["K3"][6].max() < 1.0  # the glasses absorb
+    for label in ("K2", "K4"):
+        assert (np.abs(got[label][4][4]).max() > 0
+                and got[label][3][6].abs().max() > 0)
+
+
+def _check_per_ray_bodies(lib, ts, tp, wavelengths):
+    """The per-ray variants' bodies of `lib` on 64 rays at wavelengths
+    drawn from `wavelengths`, against the plain versions (see
+    test_per_ray_bodies_match_plain); returns K3's final arrays, K2's and
+    K4's (d_rg, d_diff, d_data) and K6's (d_rays, d_diff)."""
+    S, n = ts.num_surfaces, N_RAYS
     diffp, nondiffp = fused._diff_params(tp), fused._nondiff_params(tp)
     rg = fused._raygen_scalars(ts, tp)
     ftab, itab = (_np(t) for t in fused._pack_tables(ts, diffp, nondiffp))
@@ -995,8 +1030,8 @@ def test_per_ray_bodies_match_plain(system_libs, f64, case):
         fn(mode, n, *media, *args, _ptr(tab), _ptr(out), _ptr(seg), _ptr(val))
         d_mat = fused._material_grads(ts, torch.from_numpy(tab[rows - S:]), (
             torch.from_numpy(seg), torch.from_numpy(val)), diffp[6])
-        return tab, out, fused._unpack_table_grads(torch.from_numpy(tab[:S]),
-                                                   diffp, d_mat)
+        return tab, out, fused._unpack_table_grads(
+            ts, torch.from_numpy(tab[:S]), diffp, d_mat)
 
     def raygen(mode, c=np.zeros(4), s=np.zeros((8, n))):
         out4, rays = np.zeros(4), np.zeros((8, n))
@@ -1015,7 +1050,7 @@ def test_per_ray_bodies_match_plain(system_libs, f64, case):
                                     tuple(range(8)))
     for k in range(8):
         _close(rays[k], ref[k], f"K3 {fused._NAMES[k]}")
-    assert 0.0 < rays[6].max() < 1.0  # the glasses absorb
+    res = {"K3": rays}
     # K2 and K4
     c = np.array([0.3, -0.7, 0.5, 1.1])
     for label, got, ref in (
@@ -1029,7 +1064,7 @@ def test_per_ray_bodies_match_plain(system_libs, f64, case):
             _close(_np(g), r, f"{label} {key}")
         for q in range(5):
             _close(got[4][q], ref[2][q], f"{label} data {q}")
-        assert np.abs(got[4][4]).max() > 0 and got[3][6].abs().max() > 0
+        res[label] = got
 
     # K5 and K6 on the raygen's rays with a caller's intensity and opd
     rays9 = [r.detach().expand(n).clone() for r in fused._tile_raygen(
@@ -1059,6 +1094,8 @@ def test_per_ray_bodies_match_plain(system_libs, f64, case):
              torch.zeros((max(T, 1), 4, 0)))
     assert not fused._material_grads(ts, torch.zeros((S, 32)), empty,
                                      diffp[6]).any()
+    res["K6"] = (outs, d_diff)
+    return res
 
 
 def test_k1_signature():
@@ -1192,3 +1229,184 @@ def test_history_bulk(S, n, bulk):
     sectors (n not a multiple of 8) and the 8 (S, n) float32 arrays
     outgrow an H100's 50 MiB L2 cache, else one float a thread."""
     assert fused.history_bulk(S, n, 50 * 2**20) is bulk
+
+
+# The chain's coating, thin-lens and grating branches and their adjoints,
+# built with OTK_INTERACTIONS (`fused.branch_defines`): a coated singlet,
+# the same at T = 0 on its first surface, a coated mirror at R = 0 (whose factor is R), the
+# coated thin lens, the plane grating, the concave reflective grating
+# coated at (T, R) = (0.9, 0) (a reflective grating takes T, as in JAX),
+# and the coated, absorbing Cooke triplet
+def _coated_t0():
+    """The coated singlet with T = 0 on its first surface alone."""
+    lens = coated_singlet(Optic, T=0.0)
+    lens.surfaces[2].coating = ("simple", 0.9, 0.05)
+    lens._dirty()
+    return lens
+
+
+_BRANCH_SYSTEMS = {
+    "coated_singlet": lambda: coated_singlet(Optic),
+    "coated_t0": _coated_t0,
+    "coated_mirror_r0": lambda: coated_singlet(Optic, R=0.0, mirror=True),
+    "thin_lens": lambda: thin_lens_system(Optic),
+    "plane_grating": lambda: plane_grating(Optic),
+    "curved_grating": lambda: curved_grating(Optic, ("simple", 0.9, 0.0)),
+    "coated_cooke": lambda: coated_cooke(Optic),
+}
+
+
+@pytest.fixture(scope="module")
+def branch_libs(tmp_path_factory):
+    """The run-time bodies (the host shim, "run_time") and each of
+    _BRANCH_SYSTEMS' per-system bodies, built with its
+    `fused.history_defines` (OTK_INTERACTIONS among them), all g++
+    processes at once; systems of the same codes share a build."""
+    from optiland_tpu_torch import _build
+
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("no g++ to build the device code for the host")
+    out = tmp_path_factory.mktemp("branch_host")
+    (out / "cuda_runtime.h").write_text("#pragma once\n")
+    src = out / "shim.cpp"
+    src.write_text(_build.defines_header((("OTK_INTERACTIONS", "1"),))
+                   + _SHIM)
+    procs = {"run_time": subprocess.Popen(
+        [gxx, "-O1", "-std=c++17", "-shared", "-fPIC", "-pthread",
+         f"-I{out}", f"-I{CSRC}", "-o", str(out / "librun_time.so"),
+         str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)}
+    by_codes = {}
+    for name, make in _BRANCH_SYSTEMS.items():
+        defines = fused.history_defines(make().build(device="cpu")[0])
+        if defines not in by_codes:
+            by_codes[defines] = name
+            procs[name] = _system_lib(out, gxx, name, defines)
+    libs = {}
+    for name, proc in procs.items():
+        log = proc.communicate()[0]
+        assert proc.returncode == 0, log
+        libs[name] = ctypes.CDLL(str(out / f"lib{name}.so" if name ==
+                                     "run_time" else
+                                     out / f"libsystem_{name}.so"))
+    for name, make in _BRANCH_SYSTEMS.items():
+        defines = fused.history_defines(make().build(device="cpu")[0])
+        libs[name] = libs[by_codes[defines]]
+    return libs
+
+
+def _branch_system(name):
+    ts, tp = _BRANCH_SYSTEMS[name]().build(device="cpu")
+    assert fused.branch_defines(ts) == (("OTK_INTERACTIONS", "1"),)
+    return ts, tp
+
+
+def _lit(ts, tp):
+    """The surfaces that light reaches: those before and at the first
+    surface whose coating's factor is 0 (after it the intensity is 0, and
+    so are the cotangents of every branch)."""
+    for k in range(1, ts.num_surfaces - 1):
+        refl = ts.interactions[k] == fused.INT_REFLECT
+        if fused._coated(ts, k) and tp.coating_params[k, int(refl)] == 0:
+            return range(1, k + 1)
+    return range(1, ts.num_surfaces - 1)
+
+
+def _branch_slots(ts, tp, tab):
+    """Each branch's cotangents in a (S, 32) table on the lit surfaces
+    (`_lit`): the coated surfaces' factor slot, the thin lenses' focal
+    slot and the gratings' 3 slots."""
+    got = []
+    for k in _lit(ts, tp):
+        if fused._coated(ts, k):
+            got.append(tab[k, fused._F_COAT])
+        if ts.interactions[k] == fused.INT_THIN_LENS:
+            got.append(tab[k, fused._F_FOCAL])
+        if ts.interactions[k] == fused.INT_DIFFRACT:
+            got += list(tab[k, fused._F_GRATING:fused._F_GRATING + 3])
+    return np.asarray(got)
+
+
+@pytest.mark.parametrize("name", list(_BRANCH_SYSTEMS))
+def test_branch_run_time_bodies_match_plain(branch_libs, f64, name):
+    """The run-time chain's coating, thin-lens and grating branches at one
+    wavelength (K1's moments, K2, K4, K5, K6, the gratings' m w hoisted
+    into the table) against the plain versions at 1e-10, T = 0 and R = 0
+    included; each branch's parameter cotangents are there (not 0) in
+    K2's and K6's tables."""
+    ts, tp = _branch_system(name)
+    k2, k6 = _check_run_time_bodies(branch_libs["run_time"], ts, tp, 0.55)
+    for tab in (k2, k6):
+        assert np.all(np.abs(_branch_slots(ts, tp, tab)) > 0)
+
+
+@pytest.mark.parametrize("name", list(_BRANCH_SYSTEMS))
+def test_branch_system_bodies_match_plain(branch_libs, f64, name):
+    """The per-system bodies built with the system's codes and
+    OTK_INTERACTIONS: K1's moments and each ray's final state, K3's
+    requested outputs and K5's on `generate_rays` output at one
+    wavelength, and K7's history at per-ray wavelengths, against the plain
+    versions."""
+    ts, tp = _branch_system(name)
+    lib, n = branch_libs[name], N_RAYS
+    diffp, nondiffp, rg, ftab, data_np, data = _system_inputs(ts, tp, 0.55)
+    out4, rays = np.zeros(4), np.zeros((8, n))
+    lib.system_moments(n, _ptr(_np(rg)), _ptr(ftab), *map(_ptr, data_np),
+                       _ptr(out4), _ptr(rays))
+    _close(out4, fused._moments_plain(ts, diffp, nondiffp, rg, data), "K1")
+    ref = fused._raygen_trace_plain(ts, diffp, nondiffp, rg, data,
+                                    tuple(range(8)))
+    for k in range(8):
+        _close(rays[k], ref[k], f"K1 {fused._NAMES[k]}")
+    keys = (0, 1, 5, 6, 7)
+    outs = np.full((8, n), -7.0)
+    lib.system_raygen_trace(n, sum(1 << k for k in keys), _ptr(_np(rg)),
+                            _ptr(ftab), *map(_ptr, data_np), _ptr(outs))
+    for k in keys:
+        _close(outs[k], ref[k], f"K3 {fused._NAMES[k]}")
+    assert (outs[[2, 3, 4]] == -7.0).all()
+    rays0 = generate_rays(ts, tp, *data, 0.55)
+    rays8 = tuple(getattr(rays0, k).expand(n).contiguous()
+                  for k in fused._RAY_KEYS[:8])
+    rays_np = np.ascontiguousarray(np.stack([_np(r) for r in rays8]))
+    lib.system_caller_trace(n, _ptr(ftab), _ptr(rays_np), _ptr(outs))
+    ref = fused._fused_trace_plain(ts, diffp, nondiffp, rays8)
+    for k in range(8):
+        _close(outs[k], ref[k], f"K5 {fused._NAMES[k]}")
+    # K7 at per-ray wavelengths
+    w = np.random.default_rng(3).choice((0.48, 0.55, 0.65), n)
+    rays0 = generate_rays(ts, tp, *data, torch.from_numpy(w))
+    rays9 = tuple(getattr(rays0, k).expand(n).contiguous()
+                  for k in fused._RAY_KEYS)
+    rays_np = np.ascontiguousarray(np.stack([_np(r) for r in rays9]))
+    diffp, nondiffp = fused._diff_params(tp), fused._nondiff_params(tp)
+    ftab = _np(fused._pack_tables(ts, diffp, nondiffp)[0])
+    mat, kwl, kval = (_np(t) for t in (diffp[6], nondiffp[1], nondiffp[2]))
+    hist = np.zeros((8, ts.num_surfaces, n))
+    lib.system_history(n, mat.shape[1], kwl.shape[1], _ptr(ftab), _ptr(mat),
+                       _ptr(kwl), _ptr(kval), _ptr(rays_np), _ptr(hist))
+    ref = fused._history_plain(ts, diffp, nondiffp, rays9)
+    for k in range(8):
+        _close(hist[k], ref[k], f"K7 {fused._NAMES[k]}")
+
+
+@pytest.mark.parametrize("name", list(_BRANCH_SYSTEMS))
+def test_branch_per_ray_bodies_match_plain(branch_libs, f64, name):
+    """The per-ray variants' bodies with the coating, thin-lens and
+    grating branches (K1, K3 by the per-system chain at each ray's w; K2,
+    K4, K5, K6 by the per-ray sweep, a grating's m w turned into m's and
+    w's cotangents) against the plain versions at per-ray wavelengths;
+    each branch's parameter cotangents are there, and a grating gives w a
+    cotangent even in a dispersionless medium."""
+    ts, tp = _branch_system(name)
+    got = _check_per_ray_bodies(branch_libs[name], ts, tp, (0.48, 0.55, 0.65))
+    d_diff = got["K2"][3]
+    for k in _lit(ts, tp):
+        if fused._coated(ts, k):
+            assert d_diff[7][k].abs().max() > 0
+        if ts.interactions[k] == fused.INT_THIN_LENS:
+            assert d_diff[11][k] != 0
+        if ts.interactions[k] == fused.INT_DIFFRACT:
+            assert d_diff[9][k].abs().min() > 0
+            assert np.abs(got["K2"][4][4]).max() > 0

@@ -40,7 +40,16 @@ from optiland_tpu_torch.trace import fused, tracer
 from optiland_tpu_torch.trace.raygen import generate_rays
 from optiland_tpu_torch.wavefront.core import pupil_grid_coords, wavefront_data
 
-from torch_port_helpers import bench_lens, singlet_lens, tabulated_doublet
+from torch_port_helpers import (
+    bench_lens,
+    coated_cooke,
+    coated_singlet,
+    curved_grating,
+    singlet_lens,
+    spectrograph,
+    tabulated_doublet,
+    thin_lens_system,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -66,6 +75,13 @@ _SYSTEMS = {
 
 
 _PER_SYSTEM = ("moments_fwd", "raygen_trace_fwd", "fused_trace_fwd")
+_BACKWARD = ("moments_bwd", "raygen_trace_bwd", "fused_trace_bwd")
+# the systems of the coating, thin-lens and grating branches
+# (OTK_INTERACTIONS): the coated singlet and Cooke triplet, the coated thin
+# lens, the spectrograph (thin lenses and a plane grating, object heights)
+# and the concave reflective grating, coated
+_BRANCHES = ("coated_singlet", "coated_cooke", "thin_lens", "spectrograph",
+             "curved_grating")
 
 
 @pytest.fixture(scope="module")
@@ -76,16 +92,22 @@ def system_variants():
     if not torch.cuda.is_available() or shutil.which("nvcc") is None:
         pytest.skip("no CUDA device / nvcc")
     statics = [_build(name, "cpu")[0]
-               for name in list(_SYSTEMS) + ["bench", "cooke"]]
+               for name in list(_SYSTEMS) + ["bench", "cooke"]
+               + list(_BRANCHES)]
     variants = tuple((src, fused.system_defines(ts)) for ts in statics
                      for src in _PER_SYSTEM) + tuple(
         ("history_fwd", fused.history_defines(ts)) for ts in statics)
-    # the per-ray variants of K1-K6
-    for ts in (_build("cooke", "cpu")[0], _build("doublet", "cpu")[0]):
+    # the per-ray variants of K1-K6, and the backward kernels' builds of
+    # the branch systems (`backward_defines`)
+    for name in ("cooke", "doublet") + _BRANCHES:
+        ts = _build(name, "cpu")[0]
         variants += tuple((src, fused.history_defines(ts))
                           for src in _PER_SYSTEM)
-        variants += tuple((src, fused.media_defines(ts)) for src in (
-            "moments_bwd", "raygen_trace_bwd", "fused_trace_bwd"))
+        variants += tuple((src, fused.backward_defines(ts, True))
+                          for src in _BACKWARD)
+        if fused.branch_defines(ts):
+            variants += tuple((src, fused.backward_defines(ts, False))
+                              for src in _BACKWARD)
     kbuild.build_all(variants)
     return variants
 
@@ -114,8 +136,9 @@ def _data(n, device, seed=11):
 
 def _args(ts, tp, w):
     n_table, alpha = fused._uniform_tables(ts, tp, w)
-    return (fused._diff_params(tp, n_table), fused._nondiff_params(tp, alpha),
-            fused._raygen_scalars(ts, tp))
+    return (fused._diff_params(tp, n_table,
+                               fused._uniform_grating(ts, tp, w)),
+            fused._nondiff_params(tp, alpha), fused._raygen_scalars(ts, tp))
 
 
 def _build(name, device):
@@ -126,11 +149,21 @@ def _build(name, device):
         return (*CookeTriplet().build(device=device), 0.55)
     if name == "doublet":
         return (*tabulated_doublet(Optic).build(device=device), 0.55)
+    if name in _BRANCHES:
+        make = {"coated_singlet": coated_singlet, "coated_cooke": coated_cooke,
+                # 5 mm inside the focus: at the focus the pupil's
+                # cotangents are 0, the float32 kernel's rounding noise
+                "thin_lens": lambda O: thin_lens_system(O, 95.0),
+                "spectrograph": spectrograph,
+                "curved_grating": lambda O: curved_grating(
+                    O, ("simple", 0.9, 0.0))}[name]
+        return (*make(Optic).build(device=device), 0.55)
     ts, tp = singlet_lens(Optic, **_SYSTEMS[name]).build(device=device)
     return replace(ts, newton_iters=4), tp, 0.55
 
 
-@pytest.mark.parametrize("name", list(_SYSTEMS) + ["bench", "cooke"])
+@pytest.mark.parametrize("name", list(_SYSTEMS) + ["bench", "cooke"]
+                         + list(_BRANCHES))
 def test_kernels_match_plain(cuda_f32, name):
     ts, tp, _ = _build(name, cuda_f32)
     data = _data(5000, cuda_f32)
@@ -163,7 +196,8 @@ def _param_errs(got, ref):
             if r.abs().max() > 0 or g.abs().max() > 0}
 
 
-@pytest.mark.parametrize("name", list(_SYSTEMS) + ["bench", "cooke"])
+@pytest.mark.parametrize("name", list(_SYSTEMS) + ["bench", "cooke"]
+                         + list(_BRANCHES))
 def test_backward_kernels_match_plain(cuda_f32, name):
     """K2 (with and without the data cotangents), K4, K5 and K6 against
     their plain versions; K2's and K6's parameter cotangents bitwise equal
@@ -397,7 +431,8 @@ def test_vpu_peak_kernels_match_plain(cuda_f32):
 
 @pytest.mark.parametrize("name, n", [
     ("cooke", 5000), ("singlet", 5000), ("cooke", 1), ("cooke", 255),
-    ("cooke", 257), ("cooke", 65_537), ("cooke", 262_145)])
+    ("cooke", 257), ("cooke", 65_537), ("cooke", 262_145)]
+    + [(name, 5000) for name in _BRANCHES])
 def test_history_kernel_matches_plain(cuda_f32, name, n):
     """K7 at per-ray wavelengths (three, mixed over the rays) against
     `_history_plain`, all 8 arrays and all S rows; at 5000 rays and at
@@ -427,7 +462,7 @@ def test_history_kernel_matches_plain(cuda_f32, name, n):
 
 @pytest.mark.parametrize("name, n", [
     ("cooke", 5000), ("doublet", 5000), ("cooke", 33), ("cooke", 257),
-    ("doublet", 65_537)])
+    ("doublet", 65_537)] + [(name, 5000) for name in _BRANCHES])
 def test_per_ray_kernels_match_plain(cuda_f32, name, n):
     """K1-K6's per-ray variants against their plain versions, at three
     wavelengths mixed over the rays (on the doublet also below and above
@@ -541,9 +576,10 @@ def test_entry_points_launch_kernels(cuda_f32):
     assert h.x.shape == (ts.num_surfaces, 4096)
     assert bool(torch.isfinite(tp.cv.grad).all()) and tp.cv.grad.any()
     # a branch the kernels do not take raises, naming kernel and branch
-    coated = replace(ts, coatings=(0, 1) + ts.coatings[2:])
-    with pytest.raises(NotImplementedError, match="K7.*simple coatings"):
-        tracer.trace_system(coated, tp, *data, 0.5876)
+    phased = replace(ts, interactions=(3, fused.INT_PHASE) + ts.interactions[2:],
+                     phase_kinds=(0, fused.PHASE_CONSTANT) + ts.phase_kinds[2:])
+    with pytest.raises(NotImplementedError, match="K7.*phase surfaces"):
+        tracer.trace_system(phased, tp, *data, 0.5876)
     # per-ray wavelengths, even all equal, take the per-ray K1 and K2
     before = [f.launches for f in counters[:2]]
     tp.cv.grad = None

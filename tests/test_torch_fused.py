@@ -131,18 +131,30 @@ def test_kernel_seams_refuse_backward(bench_pair):
 
 
 def test_unported_chain_branches_raise():
+    """The chain branches still to port (queue 2: phase surfaces, freeform
+    geometries) raise before a launch, naming the kernel and the branch;
+    the coating, thin-lens and grating branches are ported and pass."""
     (_, _), (ts, tp) = build_both(
         lambda O: singlet_lens(O, asphere=False))
     from dataclasses import replace
 
-    coated = replace(ts, coatings=(0, 1, 0, 0))
-    with pytest.raises(NotImplementedError, match="simple coatings"):
-        tfused._moments_plain(coated, *_port_args(ts, tp, 0.55),
+    phased = replace(ts, interactions=(3, tfused.INT_PHASE, 0, 3),
+                     phase_kinds=(0, tfused.PHASE_CONSTANT, 0, 0))
+    assert tfused.supports_fused(phased)
+    with pytest.raises(NotImplementedError, match="phase surfaces"):
+        tfused._moments_plain(phased, *_port_args(ts, tp, 0.55),
                               _t(_data(n=8)))
     # per-ray wavelengths are a configuration of every kernel, no branch:
-    # a coated system at per-ray wavelengths names the coatings alone
+    # a phase system at per-ray wavelengths names the phase surfaces alone
     with pytest.raises(NotImplementedError,
-                       match=r"K3 raygen_trace_forward: .*: simple coatings$"):
-        tfused.trace_system_final_fused(coated, tp, *_t(_data(n=8)),
+                       match=r"K3 raygen_trace_forward: .*: phase surfaces$"):
+        tfused.trace_system_final_fused(phased, tp, *_t(_data(n=8)),
                                         torch.full((8,), 0.55,
                                                    dtype=torch.float64))
+    freeform = replace(ts, geom_codes=(0, tfused.GEOM_BICONIC, 1, 0))
+    with pytest.raises(NotImplementedError,
+                       match=r"K1 moments_forward: .*: freeform geometries$"):
+        tfused._moments_plain(freeform, *_port_args(ts, tp, 0.55),
+                              _t(_data(n=8)))
+    coated = replace(ts, coatings=(0, 1, 0, 0))
+    tfused._moments_plain(coated, *_port_args(ts, tp, 0.55), _t(_data(n=8)))

@@ -118,6 +118,142 @@ def tabulated_doublet(Optic):
     return lens
 
 
+def coated_singlet(Optic, T=0.9, R=0.05, mirror=False):
+    """The singlet of tests/test_fused_kernel.py (`_singlet`, conic) with
+    the simple coating (T, R) on its interacting surfaces; `mirror` makes
+    surface 1 the concave mirror (whose factor is R). Fields 0 and 5."""
+    lens = Optic()
+    lens.add_surface(index=0, radius=math.inf, thickness=math.inf)
+    coat = ("simple", T, R)
+    if mirror:
+        lens.add_surface(index=1, radius=-100.0, material="mirror",
+                         is_stop=True, thickness=-40.0, coating=coat)
+        lens.add_surface(index=2, radius=math.inf, thickness=0.0)
+        lens.add_surface(index=3)
+    else:
+        lens.add_surface(index=1, radius=50.0, thickness=5.0, material=1.52,
+                         is_stop=True, coating=coat)
+        lens.add_surface(index=2, radius=-50.0, thickness=47.0, coating=coat)
+        lens.add_surface(index=3)
+    lens.set_aperture("EPD", 10.0)
+    lens.set_field_type("angle")
+    lens.add_field(y=0.0)
+    lens.add_field(y=5.0)
+    lens.add_wavelength(0.55, is_primary=True)
+    return lens
+
+
+def thin_lens_system(Optic, image_distance=100.0):
+    """The ideal thin lens of tests/test_fused_kernel.py
+    (`test_fused_thin_lens_parity`), f = 100 mm at the stop, coated, with
+    fields 0 and 3 degrees, the image plane `image_distance` after it (at
+    its focus by default, where the image does not depend on the pupil)."""
+    lens = Optic()
+    lens.add_surface(index=0, radius=math.inf, thickness=math.inf)
+    lens.add_surface(index=1, surface_type="paraxial", f=100.0,
+                     thickness=image_distance, is_stop=True,
+                     coating=("simple", 0.95, 0.02))
+    lens.add_surface(index=2)
+    lens.set_aperture("EPD", 10.0)
+    lens.set_field_type("angle")
+    lens.add_field(y=0.0)
+    lens.add_field(y=3.0)
+    lens.add_wavelength(0.55, is_primary=True)
+    return lens
+
+
+def plane_grating(Optic):
+    """The plane transmission grating of tests/test_fused_kernel.py
+    (`test_fused_grating_parity`): order 1, period 2 um, grooves at 0.3
+    rad; fields 0 and 3 degrees."""
+    lens = Optic()
+    lens.add_surface(index=0, radius=math.inf, thickness=math.inf)
+    lens.add_surface(index=1, radius=math.inf, thickness=30.0, is_stop=True,
+                     surface_type="grating", grating_order=1,
+                     grating_period=2.0, groove_orientation_angle=0.3)
+    lens.add_surface(index=2)
+    lens.set_aperture("EPD", 6.0)
+    lens.set_field_type("angle")
+    lens.add_field(y=0.0)
+    lens.add_field(y=3.0)
+    lens.add_wavelength(0.55, is_primary=True)
+    return lens
+
+
+def curved_grating(Optic, coating=None):
+    """The concave reflective grating of tests/test_fused_kernel.py
+    (`test_fused_curved_grating_parity`): R = -100 mm, order -1, period 5
+    um; fields 0 and 2 degrees; `coating` on the grating (a reflective
+    grating takes T, as in JAX)."""
+    lens = Optic()
+    lens.add_surface(index=0, radius=math.inf, thickness=math.inf)
+    lens.add_surface(index=1, radius=-100.0, thickness=30.0, is_stop=True,
+                     surface_type="grating", material="mirror",
+                     grating_order=-1, grating_period=5.0,
+                     groove_orientation_angle=0.0, coating=coating)
+    lens.add_surface(index=2)
+    lens.set_aperture("EPD", 6.0)
+    lens.set_field_type("angle")
+    lens.add_field(y=0.0)
+    lens.add_field(y=2.0)
+    lens.add_wavelength(0.55, is_primary=True)
+    return lens
+
+
+def coat(lens, coating=("simple", 0.98, 0.01)):
+    """`lens` (either package's `Optic`) with `coating` on each of its
+    interacting surfaces, 1 .. S-2."""
+    for spec in lens.surfaces.specs[1:-1]:
+        spec.coating = coating
+    lens._dirty()
+    return lens
+
+
+def coated_cooke(Optic):
+    """The Cooke triplet of `Optic`'s package (the flagship) with the simple
+    coating (T, R) = (0.98, 0.01) on each of its six refracting
+    surfaces."""
+    import importlib
+
+    models = importlib.import_module(Optic.__module__.split(".")[0]
+                                     + ".models")
+    return coat(models.CookeTriplet())
+
+
+def spectrograph(Optic, vignetted=False):
+    """A thin-lens transmission-grating spectrograph: a slit 100 mm before
+    a thin-lens collimator (f = 100 mm, at the stop, EPD 20), a plane
+    grating of 600 lines/mm in first order 20 mm after it, a thin-lens
+    camera (f = 100 mm) 20 mm after that and the image plane 98 mm after
+    the camera, 2 mm inside its focus (at the focus of ideal lenses the
+    spot is a point whatever the pupil, and so its merit and the pupil's
+    cotangents are 0); object heights 0, 0.5 and 1 mm, wavelengths 0.48,
+    0.55 and 0.65 um; `vignetted` gives the 1 mm field vx = vy = 0.1. The
+    same prescription as chip_smoke.py's system B."""
+    lens = Optic()
+    lens.add_surface(index=0, radius=math.inf, thickness=100.0)
+    lens.add_surface(index=1, surface_type="paraxial", f=100.0,
+                     thickness=20.0, is_stop=True)
+    lens.add_surface(index=2, radius=math.inf, thickness=20.0,
+                     surface_type="grating", grating_order=1,
+                     grating_period=1e3 / 600.0,
+                     groove_orientation_angle=0.0)
+    lens.add_surface(index=3, surface_type="paraxial", f=100.0,
+                     thickness=98.0)
+    lens.add_surface(index=4)
+    lens.set_aperture("EPD", 20.0)
+    lens.set_field_type("object_height")
+    lens.add_field(y=0.0)
+    lens.add_field(y=0.5)
+    if vignetted:
+        lens.add_field(y=1.0, vx=0.1, vy=0.1)
+    else:
+        lens.add_field(y=1.0)
+    for w in (0.48, 0.55, 0.65):
+        lens.add_wavelength(w, is_primary=w == 0.55)
+    return lens
+
+
 def jax_build_f64(lens):
     """Build a JAX-package lens in float64 whatever the JAX precision
     global holds, and restore it."""
