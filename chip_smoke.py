@@ -81,6 +81,13 @@ PyTorch built for CUDA. In order it:
      on B's vignetted twin K5, K6), and `trace_system` (K7) with a backward
      through the eager twin on A and B; each kernel in each configuration
      against its plain version on the same inputs at TOL;
+ 16d. (j4) the phase sheets through the same paths and checks: system D,
+     the hybrid achromat (`hybrid_achromat`); E, the coated metalens on a
+     conic carrier (`curved_metalens`); F, the tilted reflective
+     linear-grating sheet past its cutoff at 0.65 um (`phase_mirror`, its
+     vignetted twin for K5 and K6); a cotangent group past TOL passes
+     only by `near_float64`; then one eager `trace_system` of a cubic
+     grid-phase sheet (`grid_sheet`) on the card against float64;
  17. (k) `CookeTriplet().trace(Hx=0, Hy=1, num_rays=6)`, the user's entry,
      reaches K7;
  18. (w1) K8, the Huygens sum, on the inputs of the Cooke triplet's
@@ -185,6 +192,21 @@ TOL_F64 = {"position_mm": 5e-4, "direction": 1e-5, "moment_rel": 1e-4,
 # is held to the larger of TOL_F64["grad_rel"] and this factor times the
 # eager float32 path's own error on the same leaf.
 GRAD_NOISE_FACTOR = 10
+# A check of phase j4's systems only (D, E, F): some of their backward
+# kernels' parameter cotangents are near-cancellations under fixed seeds
+# (the hybrid achromat's front conic under K2's moment weights c, the
+# metalens's highest radial slot, whose rays' terms weigh r^14), whose
+# float32 sums miss float64 by more than TOL["param_grad_rel"] in every
+# float32 version, kernel and plain, on the card and on the CPU, each with
+# its own rounding and reduction order. A group that misses
+# TOL["param_grad_rel"] against the plain version passes only if the
+# kernel is within the larger of that and F64_FACTOR times the float32
+# noise of the plain version run in float64 on the same inputs, the noise
+# being the larger of the plain float32 version's own errors against it on
+# the card and on the CPU (`float64_errs`, printed). Every other phase,
+# and every group within TOL, is held to TOL alone.
+F64_FACTOR = 2
+PHASE_SYSTEMS = ("D", "E", "F")
 # the flagship batch: `__graft_entry__._make_inputs(static, params, 222_222)`
 FLAGSHIP_RAYS_PER_FIELD = 222_222
 FLAGSHIP_WAVELENGTH = 0.55   # `dryrun_multichip`'s primary-wavelength phase
@@ -334,6 +356,19 @@ COATING_OPS = 1
 THIN_LENS_BWD_OPS = 56
 GRATING_BWD_OPS = {"plane": 150, "curved": 250}
 COATING_BWD_OPS = 3
+# of a phase sheet (csrc/chain.cuh `phase_sheet`): the carrier's raw
+# normal (21), the scaled gradient, l.n, e, the tangential wavevector, R^2,
+# the signed root, the outgoing direction renormalized and the OPD term
+# (49), and its profile's value and gradient (`phase_vg`) by kind: a
+# constant none, the radial sum over its 8 slots 55, the linear grating 3;
+# and of its adjoint (csrc/chain_bwd.cuh `phase_sheet_bwd`, 136: the
+# normalization's, the root's, the projections', the OPD term's, the
+# normal's and the conic's `sag_grad_bwd`) and of `phase_vg_bwd` by kind
+# (the radial kind's second derivative sum and its 8 slots' cotangents)
+PHASE_OPS = 70
+PHASE_VG_OPS = {1: 0, 2: 55, 3: 3}
+PHASE_BWD_OPS = 136
+PHASE_VG_BWD_OPS = {1: 1, 2: 87, 3: 8}
 
 
 def chain_ops_per_ray(static, fused):
@@ -363,6 +398,8 @@ def chain_ops_per_ray(static, fused):
         elif inter == fused.INT_DIFFRACT:
             ops += GRATING_OPS + GRATING_FRAME_OPS[
                 "plane" if code == 0 else "curved"]
+        elif inter == fused.INT_PHASE:
+            ops += PHASE_OPS + PHASE_VG_OPS[static.phase_kinds[k]]
         elif inter != 3:  # normal, orientation, l.n
             ops += 28 + 4 * nc + (6 if odd else 0) + 5
             ops += 7 if inter == 1 else 18
@@ -399,6 +436,8 @@ def backward_ops_per_ray(static, fused, raygen=True):
             ops += THIN_LENS_BWD_OPS
         elif inter == fused.INT_DIFFRACT:
             ops += GRATING_BWD_OPS["plane" if code == 0 else "curved"]
+        elif inter == fused.INT_PHASE:
+            ops += PHASE_BWD_OPS + PHASE_VG_BWD_OPS[static.phase_kinds[k]]
         elif inter != 3:   # reflection or refraction, normal, sag gradient
             ops += (24 if inter == 1 else 57) + 17
             ops += (31 if not asphere else
@@ -409,8 +448,9 @@ def backward_ops_per_ray(static, fused, raygen=True):
         # denominator and top power, which the forward does not form
         ops += 56 if code == 0 else 34 + 2 * nc + int(asphere)
         slots = 3 + (nc if asphere else 0) + (3 if tilted else 0) + (
-            2 if moved else 0) + (1 if inter in (0, 2, 4) else 0) + {
-            fused.INT_THIN_LENS: 1, fused.INT_DIFFRACT: 3}.get(inter, 0) + (
+            2 if moved else 0) + (1 if inter in (0, 2, 4, 5) else 0) + {
+            fused.INT_THIN_LENS: 1, fused.INT_DIFFRACT: 3,
+            fused.INT_PHASE: 9}.get(inter, 0) + (
             1 if fused._coated(static, k) else 0)
         ops += slots
     return ops + 1   # n_table[0]
@@ -468,19 +508,20 @@ FORMULA_OPS = {
 
 def media_ops_per_ray(static):
     """FP32 operations per ray of the media at the ray's own wavelength:
-    the per-ray index of every medium a refraction, a thin lens or a
-    grating reads, a grating's order times w, and per
+    the per-ray index of every medium a refraction, a thin lens, a grating
+    or a phase sheet reads, a grating's order times w, a phase sheet's
+    1 / k0 per um times w, and per
     absorbing medium the linear interpolation of its extinction table on
     the one segment that holds the ray's wavelength (5 operations; the
     search is compares and loads), alpha = 4 pi k / w (2) and the exp
     factor (4). The per-ray kernels' bounds add it to the chain's count
     (their adjoints' own operations are left out)."""
     media = [0] + [k for k in range(1, static.num_surfaces)
-                   if static.interactions[k] in (0, 2, 4)]
+                   if static.interactions[k] in (0, 2, 4, 5)]
     ops = sum(FORMULA_OPS[static.mat_formulas[k]](static.mat_n_coeffs[k])
               for k in media)
-    # a grating's order times the ray's w
-    ops += sum(1 for i in static.interactions if i == 4)
+    # a grating's order and a phase sheet's 1 / k0 per um times the ray's w
+    ops += sum(1 for i in static.interactions if i in (4, 5))
     return ops + sum(5 + 2 + 4 for k in range(static.num_surfaces - 1)
                      if static.has_absorption[k])
 
@@ -585,6 +626,125 @@ def concave_grating(Optic):
         lens.add_field(y=y)
     for w in (0.48, 0.55, 0.65):
         lens.add_wavelength(w, is_primary=w == 0.55)
+    return lens
+
+
+# the wavenumber at 0.55 um, 1/mm
+K0_055 = 2.0 * math.pi / 0.55e-3
+
+
+def hybrid_achromat(Optic):
+    """System D, a hybrid refractive-diffractive achromat: an N-BK7
+    plano-convex singlet (R 54.46 mm, 4 mm thick, at the stop, EPD 20)
+    whose flat back face carries the radial phase p0 r^2 + p1 r^4 with
+    5.1% of the power at 0.5876 um (f_DOE = 1957.9 mm, p0 = -k0 / 2 f_DOE,
+    k0 at 0.5876 um): the split phi_DOE / phi = V_DOE / (V_DOE - V_glass)
+    that cancels primary axial colour at F, d and C, with the glass's Abbe
+    number 64.14 and the DOE's 0.5876 / (0.4861 - 0.6563) = -3.45; p1 =
+    3e-3 corrects most of the spherical aberration. A constant-phase sheet
+    (2.5 rad) stands in air 10 mm behind the lens and the image plane
+    87.62 mm behind that: the back focal distance of the total power (f =
+    100 mm) at 0.5876 um, 97.62 mm, from a paraxial trace by hand through
+    both powers (the glass's (n - 1) / R at its vertex, then the DOE's
+    -2 p0 / k0 at the back face), since the paraxial engine sees the
+    carriers alone (their power: the first face's). The F and C foci fall
+    within 0.06 mm of each other there. Fields 0, 3 and 5 degrees; F, d and
+    C. The card tests build systems D-F from here."""
+    k0_d = 2.0 * math.pi / 0.5876e-3
+    lens = Optic()
+    lens.add_surface(index=0, radius=math.inf, thickness=math.inf)
+    lens.add_surface(index=1, radius=54.46, thickness=4.0, material="N-BK7",
+                     is_stop=True)
+    lens.add_surface(index=2, radius=math.inf, thickness=10.0,
+                     surface_type="phase",
+                     phase_profile=("radial", [-k0_d / (2 * 1957.9), 3e-3]))
+    lens.add_surface(index=3, radius=math.inf, thickness=87.62,
+                     surface_type="phase", phase_profile=("constant", 2.5))
+    lens.add_surface(index=4)
+    lens.set_aperture("EPD", 20.0)
+    lens.set_field_type("angle")
+    for y in (0.0, 3.0, 5.0):
+        lens.add_field(y=y)
+    for w in (0.4861, 0.5876, 0.6563):
+        lens.add_wavelength(w, is_primary=w == 0.5876)
+    return lens
+
+
+def curved_metalens(Optic):
+    """System E, the metalens on a curved carrier of the JAX package's
+    tests/test_phase.py (`test_phase_on_curved_carrier_stays_forward`): the
+    radial phase -k0 r^2 / 2f (k0 at 0.55 um, f = 100 mm) on a conic carrier
+    of radius 200 mm at the stop, EPD 10, coated (0.95, 0.04), the image
+    plane 100 mm after it; fields 0, 1 and 2 degrees; 0.48, 0.55 and 0.65
+    um."""
+    lens = Optic()
+    lens.add_surface(index=0, radius=math.inf, thickness=math.inf)
+    lens.add_surface(index=1, radius=200.0, thickness=100.0, is_stop=True,
+                     surface_type="phase", coating=("simple", 0.95, 0.04),
+                     phase_profile=("radial", [-K0_055 / (2 * 100.0)]))
+    lens.add_surface(index=2)
+    lens.set_aperture("EPD", 10.0)
+    lens.set_field_type("angle")
+    for y in (0.0, 1.0, 2.0):
+        lens.add_field(y=y)
+    for w in (0.48, 0.55, 0.65):
+        lens.add_wavelength(w, is_primary=w == 0.55)
+    return lens
+
+
+def phase_mirror(Optic, vignetted=False):
+    """System F, a reflective linear-grating phase sheet: a flat mirror
+    tilted 5 degrees about x at the stop (EPD 10) carrying Kx x + Ky y with
+    Kx = 0.1 k0 and Ky = 0.7 k0 (k0 at 0.55 um), the image plane 10 mm
+    before it; fields 0, 3 and 6 degrees; 0.48, 0.55 and 0.65 um. In units
+    of k0 the tangential wavevector grows with w (K / k0 = K w 1e-3 / 2 pi),
+    so at 0.65 um the 6 degree field passes the cutoff (R^2 = -0.05:
+    evanescent, i = 0) and the 3 degree field is the surviving ray nearest
+    it (R^2 = 0.052). `vignetted`, its twin for K5 and K6: the 6 degree
+    field with vx = vy = 0.1 (out of in-kernel raygen) and a clear aperture
+    of radius 25 mm 5 mm before the mirror."""
+    lens = Optic()
+    lens.add_surface(index=0, radius=math.inf, thickness=math.inf)
+    lens.add_surface(index=1, radius=math.inf, material="mirror",
+                     thickness=-5.0 if vignetted else -10.0, is_stop=True,
+                     rx=math.radians(5.0), surface_type="phase",
+                     phase_profile=("linear_grating", 0.1 * K0_055,
+                                    0.7 * K0_055))
+    if vignetted:
+        lens.add_surface(index=2, radius=math.inf, thickness=-5.0,
+                         aperture=25.0)
+    lens.add_surface(index=len(lens.surfaces))
+    lens.set_aperture("EPD", 10.0)
+    lens.set_field_type("angle")
+    lens.add_field(y=0.0)
+    lens.add_field(y=3.0)
+    v = 0.1 if vignetted else 0.0
+    lens.add_field(y=6.0, vx=v, vy=v)
+    for w in (0.48, 0.55, 0.65):
+        lens.add_wavelength(w, is_primary=w == 0.55)
+    return lens
+
+
+def grid_sheet(Optic):
+    """A plane grid-phase sheet at the stop (EPD 6): a 15 x 15 table over 8
+    x 8 mm of a lens-like phase with a tilt and a saddle, sampled by the
+    bicubic spline; the image plane 40 mm after it; fields 0 and 3
+    degrees; 0.55 um (tests/test_torch_phase.py's cubic grid sheet). JAX's
+    kernels do not take it (`supports_fused`): it traces eagerly."""
+    xs = np.linspace(-4.0, 4.0, 15)
+    grid = np.array([[-K0_055 * (x * x + y * y) / 400.0 + 0.05 * K0_055 * y
+                      + 0.02 * K0_055 * x * y for x in xs] for y in xs])
+    lens = Optic()
+    lens.add_surface(index=0, radius=math.inf, thickness=math.inf)
+    lens.add_surface(index=1, radius=math.inf, thickness=40.0, is_stop=True,
+                     surface_type="phase",
+                     phase_profile=("grid", xs, xs, grid))
+    lens.add_surface(index=2)
+    lens.set_aperture("EPD", 6.0)
+    lens.set_field_type("angle")
+    lens.add_field(y=0.0)
+    lens.add_field(y=3.0)
+    lens.add_wavelength(0.55, is_primary=True)
     return lens
 
 
@@ -717,39 +877,86 @@ def max_abs(got, ref, keep=None):
     return (got.double() - ref.double()).abs().max().item()
 
 
+# the 12 `_diff_params` groups, in order
+PARAM_GROUPS = ("cv", "conic", "coeffs", "thickness", "tilt", "decenter",
+                "mat_coeffs", "coating_params", "n_table", "grating",
+                "phase_params", "focal_length")
+
+
 def cotangent_errs(got, ref, keep):
     """Relative errors of a backward kernel against its plain version:
     rg, the `_diff_params` groups either side fills, and the per-ray
     cotangents (on `keep`). Returns (errors, max abs error of the
     parameter cotangents)."""
-    names = ("cv", "conic", "coeffs", "thickness", "tilt", "decenter",
-             "mat_coeffs", "coating_params", "n_table", "grating",
-             "phase_params", "focal_length")
     d_rg, d_diff, d_ray = got
     r_rg, r_diff, r_ray = ref
     errs, worst = {}, 0.0
     if d_rg is not None:
         errs["rg"] = rel_err(d_rg, r_rg)
         worst = max_abs(d_rg, r_rg)
-    for name, g, r in zip(names, d_diff, r_diff):
+    for name, g, r in zip(PARAM_GROUPS, d_diff, r_diff):
         if r.abs().max() > 0 or g.abs().max() > 0:
             errs[name] = rel_err(g, r)
             worst = max(worst, max_abs(g, r))
     rays = {}
-    for j, (g, r) in enumerate(zip(d_ray, r_ray)):
-        if r.abs().max() > 0 or g.abs().max() > 0:
-            rays[f"ray{j}"] = rel_err(g, r, keep)
+    if keep is not None:
+        for j, (g, r) in enumerate(zip(d_ray, r_ray)):
+            if r.abs().max() > 0 or g.abs().max() > 0:
+                rays[f"ray{j}"] = rel_err(g, r, keep)
     return errs, rays, worst
 
 
-def check_cotangents(label, errs, rays):
+def check_cotangents(label, errs, rays, float64=None):
+    """Each parameter cotangent group within TOL["param_grad_rel"], each
+    per-ray one within TOL["ray_grad_rel"]. With `float64` (phase j4's
+    systems), a group that misses TOL passes if `near_float64` holds for
+    it in `float64()` (`float64_errs`), which runs only then."""
     print(f"{label} vs plain: params {json.dumps(errs)} per-ray "
           f"{json.dumps(rays)} tolerances param_grad_rel "
           f"{TOL['param_grad_rel']} ray_grad_rel {TOL['ray_grad_rel']}")
-    for k, v in errs.items():
-        check(v <= TOL["param_grad_rel"], f"{label} {k} vs plain")
+    miss = [k for k, v in errs.items() if v > TOL["param_grad_rel"]]
+    if miss and float64 is not None:
+        far = float64()
+        print(f"{label}, the groups past TOL against the plain version run "
+              f"in float64: " + json.dumps({
+                  k: {"kernel": far[k][0], "float32_noise": far[k][1],
+                      "bound": max(TOL["param_grad_rel"],
+                                   F64_FACTOR * far[k][1])} for k in miss}))
+        miss = [k for k in miss
+                if not near_float64(far[k], TOL["param_grad_rel"])]
+    for k in errs:
+        check(k not in miss, f"{label} {k} vs plain")
     for k, v in rays.items():
         check(v <= TOL["ray_grad_rel"], f"{label} {k} vs plain")
+
+
+def tree_map(fn, x):
+    """`fn` on each tensor of a nested tuple or list (None kept)."""
+    if isinstance(x, (tuple, list)):
+        return type(x)(tree_map(fn, y) for y in x)
+    return fn(x) if torch.is_tensor(x) else x
+
+
+def float64_errs(got, plain, args):
+    """Per parameter group (`cotangent_errs`' names): the backward kernel's
+    result `got` against its plain version run in float64 on the same
+    inputs, `plain(*args)` with `args` in float64, and the float32 noise,
+    the larger of the plain float32 version's own errors against that run
+    on the card and on the CPU. Returns {group: (kernel, noise)}."""
+    ref = plain(*tree_map(torch.Tensor.double, args))
+    kernel = cotangent_errs(got, ref, None)[0]
+    card = cotangent_errs(plain(*args), ref, None)[0]
+    dev = ref[1][0].device
+    cpu = cotangent_errs(tree_map(lambda t: t.to(dev), plain(*tree_map(
+        lambda t: t.cpu(), args))), ref, None)[0]
+    return {k: (v, max(card.get(k, 0.0), cpu.get(k, 0.0)))
+            for k, v in kernel.items()}
+
+
+def near_float64(pair, tol):
+    """Whether a group's (kernel, noise) of `float64_errs` has the kernel
+    within the larger of `tol` and F64_FACTOR times the noise."""
+    return pair[0] <= max(tol, F64_FACTOR * pair[1])
 
 
 def main():
@@ -835,7 +1042,12 @@ def main():
                                    ("system B", spectrograph(Optic)),
                                    ("system B vignetted",
                                     spectrograph(Optic, vignetted=True)),
-                                   ("system C", concave_grating(Optic)))}
+                                   ("system C", concave_grating(Optic)),
+                                   ("system D", hybrid_achromat(Optic)),
+                                   ("system E", curved_metalens(Optic)),
+                                   ("system F", phase_mirror(Optic)),
+                                   ("system F vignetted",
+                                    phase_mirror(Optic, vignetted=True)))}
     uniform, per_ray = fused.system_defines, fused.history_defines
     variants = (("K1", "moments_fwd", "bench lens", uniform),
                 ("K1", "moments_fwd", "Cooke triplet", uniform),
@@ -857,17 +1069,23 @@ def main():
                 ("K1 per-ray", "moments_fwd", "tabulated doublet", per_ray),
                 ("K2 per-ray", "moments_bwd", "tabulated doublet",
                  fused.media_defines))
-    # phase (j3), the coating, thin-lens and grating branches: each kernel
-    # of systems A, B (its vignetted twin for K5 and K6) and C in each
-    # configuration the phase drives; the backward kernels take
+    # phases (j3) and (j4), the coating, thin-lens, grating and phase
+    # branches: each kernel of systems A, B (its vignetted twin for K5 and
+    # K6) and C, and of D, E and F (F's vignetted twin for K5 and K6), in
+    # each configuration the phases drive; the backward kernels take
     # OTK_INTERACTIONS (`fused.backward_defines`: at one wavelength one
-    # library for every such system)
+    # library for every such system without a phase sheet, one for every
+    # system with one, which adds OTK_PHASE)
     bwd_uniform = (lambda st: fused.backward_defines(st, False))
     bwd_per_ray = (lambda st: fused.backward_defines(st, True))
+    every = "K1 K2 K3 K4 K1p K2p K3p K4p K7"
     for label, keys_j3 in (("system A", "K1 K2 K3 K1p K2p K3p K4p K7"),
-                           ("system B", "K1 K2 K3 K4 K1p K2p K3p K4p K7"),
+                           ("system B", every),
                            ("system B vignetted", "K5 K6 K5p K6p"),
-                           ("system C", "K1 K2 K3 K4 K1p K2p K3p K4p")):
+                           ("system C", "K1 K2 K3 K4 K1p K2p K3p K4p"),
+                           ("system D", every), ("system E", every),
+                           ("system F", every),
+                           ("system F vignetted", "K5 K6 K5p K6p")):
         for key in keys_j3.split():
             k, pr = key[:2], key.endswith("p")
             src = {"K1": "moments_fwd", "K2": "moments_bwd",
@@ -1662,8 +1880,13 @@ def main():
     # A's and B's polychromatic merits against the eager float64 path at
     # TOL_F64 (each leaf also within GRAD_NOISE_FACTOR of the eager float32
     # path's own error), then Adam steps; C's too.
+    # phases j3 and j4 share these helpers and records
     j3 = {}      # key -> (wrapper call, plain call, bytes, ops, launches, err)
     j3_steps = {}
+    # each system's branch leaf: its cotangent must reach K2, K4 and K6
+    branch_leaf = {"A": "coating_params", "B": "grating", "C": "grating",
+                   "D": "phase_params", "E": "phase_params",
+                   "F": "phase_params"}
 
     def j3_build(make):
         """`make()`'s system on the card in float32 and its flagship batch,
@@ -1717,14 +1940,28 @@ def main():
         err = {"loss_rel": abs(loss.item() - loss64.item())
                / abs(loss64.item())}
         eager = {}
+        # the reference's flat-surface rule (ROADMAP queue 3): the eager
+        # path leaves a flat surface's normal at (0, 0, 1) whatever its cv,
+        # the kernels' follows cv, so the cv of a flat surface whose
+        # normal acts (a refraction, a reflection, a phase sheet) is left
+        # out of the comparison
+        flat = [k for k in range(st.num_surfaces) if st.geom_codes[k] == 0
+                and st.interactions[k] in (0, 1, fused.INT_PHASE)]
         for k in names:
-            g32, g64 = grad_of(leaves, k), grad_of(leaves64, k)
+            g32, g64, ge = (grad_of(lv, k) for lv in (leaves, leaves64,
+                                                      leaves_e))
+            if k == "cv" and flat:
+                g32, g64, ge = (g.clone() for g in (g32, g64, ge))
+                for g in (g32, g64, ge):
+                    g[flat] = 0.0
             if g64.abs().max() > 0 or g32.abs().max() > 0:
                 err[k] = rel_err(g32, g64)
-                eager[k] = rel_err(grad_of(leaves_e, k), g64)
+                eager[k] = rel_err(ge, g64)
         print(f"system {label} polychromatic centroid_rms_spot and gradients "
               f"vs eager float64: {json.dumps(err)}; the eager float32 "
-              f"path's own: {json.dumps(eager)}")
+              f"path's own: {json.dumps(eager)}"
+              + (f"; cv of the flat surfaces {flat} left out" if flat
+                 else ""))
         check(err.pop("loss_rel") <= TOL_F64["loss_rel"], f"{label} loss")
         check(all(v <= max(TOL_F64["grad_rel"],
                            GRAD_NOISE_FACTOR * eager[k])
@@ -1733,7 +1970,12 @@ def main():
 
     def j3_adam(label, st, pr, fbx, names):
         """ADAM_STEPS Adam steps of the polychromatic merit (per-ray K1 and
-        K2 once a step), then the step timed on the host clock."""
+        K2 once a step), then the step timed on the host clock. Adam moves
+        every coordinate by about lr a step whatever its scale: a phase
+        sheet's radial slots multiply r^2 .. r^16 (a step of 1e-4 in the
+        last is 1.5e7 rad at r = 5 mm), so, as the bench trainer leaves the
+        asphere coefficients, it steps the other leaves."""
+        names = [k for k in names if k != "phase_params"]
         leaves, p_m = leaves_of(pr, names)
         opt = torch.optim.Adam(list(leaves.values()), lr=ADAM_LR)
 
@@ -1788,17 +2030,24 @@ def main():
               f"(tolerance {TOL['moment_rel']})")
         check(e1 <= TOL["moment_rel"], f"K1 ({label}, {cfg}) vs plain")
         c_j = torch.tensor([0.3, -0.7, 0.5, 1.1], device=dev)
-        errs2, rays2, abs2 = cotangent_errs(
-            fused.moments_backward(st, *pj, dj, c_j, True),
-            fused._moments_bwd_plain(st, *pj, dj, c_j, True), keep_j)
-        check_cotangents(f"K2 ({label}, {cfg})", errs2, rays2)
-        errs4, rays4, abs4 = cotangent_errs(
-            fused.raygen_trace_backward(st, *pj, dj, keys4, seeds4),
-            fused._raygen_trace_bwd_plain(st, *pj, dj, keys4, seeds4),
-            keep_j)
-        check_cotangents(f"K4 ({label}, {cfg})", errs4, rays4)
-        branch_leaf = "coating_params" if label == "A" else "grating"
-        check(branch_leaf in errs2 and branch_leaf in errs4,
+        plain2 = (lambda *a: fused._moments_bwd_plain(st, *a, True))
+        got2 = fused.moments_backward(st, *pj, dj, c_j, True)
+        errs2, rays2, abs2 = cotangent_errs(got2, plain2(*pj, dj, c_j),
+                                            keep_j)
+        check_cotangents(f"K2 ({label}, {cfg})", errs2, rays2, (
+            lambda: float64_errs(got2, plain2, (*pj, dj, c_j)))
+            if label in PHASE_SYSTEMS else None)
+        del got2
+        plain4 = (lambda *a: fused._raygen_trace_bwd_plain(
+            st, *a[:-1], keys4, a[-1]))
+        got4 = fused.raygen_trace_backward(st, *pj, dj, keys4, seeds4)
+        errs4, rays4, abs4 = cotangent_errs(got4, plain4(*pj, dj, seeds4),
+                                            keep_j)
+        check_cotangents(f"K4 ({label}, {cfg})", errs4, rays4, (
+            lambda: float64_errs(got4, plain4, (*pj, dj, seeds4)))
+            if label in PHASE_SYSTEMS else None)
+        del got4
+        check(branch_leaf[label] in errs2 and branch_leaf[label] in errs4,
               f"{label}: the branch's cotangents reached K2 and K4")
         nd = len(dj)
         ops_f = chain_ops_per_ray(st, fused) + (
@@ -1846,9 +2095,7 @@ def main():
             pj = (fused._diff_params(pr), fused._nondiff_params(pr))
             rk = fused._RAY_KEYS
         else:
-            n_t, a_t = fused._uniform_tables(st, pr, wl)
-            pj = (fused._diff_params(pr, n_t, fused._uniform_grating(
-                st, pr, wl)), fused._nondiff_params(pr, a_t))
+            pj = fused._uniform_params(st, pr, wl, diff_w=False)
             rk = fused._RAY_KEYS[:8]
         rj = tuple(getattr(r0, k).detach().contiguous() for k in rk)
         n_j = rj[0].shape[0]
@@ -1862,11 +2109,20 @@ def main():
         seeds8 = tuple(torch.from_numpy(rng_j.standard_normal(n_j).astype(
             np.float32)).to(dev) for _ in range(8))
         k6 = fused.fused_trace_backward(st, *pj, rj, seeds8)
-        k6_plain = fused._fused_trace_bwd_plain(st, *pj, rj, seeds8)
+
+        def plain6(*a):
+            d_rays, d_diff = fused._fused_trace_bwd_plain(st, *a)
+            return None, d_diff, d_rays
+
+        k6_plain = plain6(*pj, rj, seeds8)
         errs6, rays6, abs6 = cotangent_errs(
-            (None, k6[1], k6[0]), (None, k6_plain[1], k6_plain[0]), keep_j)
-        check_cotangents(f"K6 ({label}, {cfg})", errs6, rays6)
-        check("grating" in errs6, f"K6 ({label}): the grating's cotangent")
+            (None, k6[1], k6[0]), k6_plain, keep_j)
+        check_cotangents(f"K6 ({label}, {cfg})", errs6, rays6, (
+            lambda: float64_errs((None, k6[1], k6[0]), plain6,
+                                 (*pj, rj, seeds8)))
+            if label in PHASE_SYSTEMS else None)
+        check(branch_leaf[label] in errs6,
+              f"K6 ({label}): the branch's cotangent")
         del k6, k6_plain
         nr = len(rj)
         media = media_ops_per_ray(st) if wl is None else 0
@@ -1892,17 +2148,16 @@ def main():
         intensity, a throughput term that a coating moves) gives finite
         gradients that reach the branch's leaf."""
         leaves, p_m = leaves_of(pr, ("cv", "coating_params", "grating",
-                                     "focal_length"))
+                                     "focal_length", "phase_params"))
         reset_counts()
         h = tracer.trace_system(st, p_m, *fbx)
         (flagship_merit(h) + h.intensity[-1].mean()).backward()
         got = read_counts()
         check(got["K7"] == 1 and sum(got.values()) == 1,
               f"{label} trace_system step launched K7 once: {got}")
-        branch_leaf = "coating_params" if label == "A" else "grating"
         check(all(v.grad is None or bool(torch.isfinite(v.grad).all())
                   for v in leaves.values())
-              and leaves[branch_leaf].grad.abs().max() > 0,
+              and leaves[branch_leaf[label]].grad.abs().max() > 0,
               f"{label} trace_system gradients through the eager twin")
         del h, leaves, p_m
         r0 = generate_rays(st, pr, *fbx)
@@ -1947,6 +2202,95 @@ def main():
     print(f"phase j3 (systems A, B, C at {n_c} rays): "
           f"{time.perf_counter() - t_j3:.1f} s; Adam losses "
           + json.dumps({k: v[0] for k, v in j3_steps.items()}))
+
+    # 16d. (j4) the phase sheets at the flagship's 1,999,998 rays (3 fields
+    # x 3 wavelengths, `flagship_inputs`), float32: system D, the hybrid
+    # achromat (a radial and a constant sheet behind N-BK7); E, the coated
+    # metalens on a conic carrier; F, the tilted reflective linear-grating
+    # sheet, whose 6 degree field passes the cutoff at 0.65 um (its
+    # vignetted twin leaves in-kernel raygen for K5 and K6). Through the
+    # same paths and checks as phase j3: the polychromatic and the 0.55 um
+    # merits with backward (K1, K2), 5 Adam steps, `trace_system_final` and
+    # its backward in both configurations (K3, K4; K5, K6 on F's twin),
+    # `trace_system` (K7) with a backward through the eager twin on each,
+    # every kernel against its plain version at TOL, the polychromatic loss
+    # and gradients against the eager float64 path. Then one eager
+    # `trace_system` of a cubic grid-phase sheet on the card, which no
+    # kernel takes, against its float64 trace on the CPU.
+    t_j4 = time.perf_counter()
+    sys_d, sys_e, sys_f, sys_fv = (j3_build(make) for make in (
+        lambda: hybrid_achromat(Optic), lambda: curved_metalens(Optic),
+        lambda: phase_mirror(Optic), lambda: phase_mirror(Optic, True)))
+    check(sys_fv[0].has_vignetting and not fused.supports_fused_raygen(
+        sys_fv[0]), "F's vignetted twin leaves in-kernel raygen")
+    # no ray of the batch may cross a radial sheet on its axis, where the
+    # eager path's derivative of the gradient (0) and the kernels' (2 p0)
+    # differ by design (ROADMAP queue 3): D's and E's sheets are centred,
+    # so that ray would be the pupil's centre on the on-axis field
+    fbx = sys_d[2]
+    centre = int(((fbx[0] == 0) & (fbx[1] == 0) & (fbx[2] == 0)
+                  & (fbx[3] == 0)).sum().item())
+    print(f"phase j4: rays of the batch on a radial sheet's axis: {centre}")
+    check(centre == 0, "no ray of the batch on a radial sheet's axis")
+    # F: how near its surviving rays come to the cutoff, from the float64
+    # trace: |k_out| = n2 k0, so R^2 / (n2 k0)^2 is the square of the
+    # outgoing direction's component along the mirror's normal (its local
+    # N, the rotation of the global (M, N) by -5 degrees about x)
+    st64, pr64 = sys_f[3]
+    h64 = tracer.trace_system(st64, pr64, *(a.double() for a in sys_f[2]))
+    c5, s5 = math.cos(-math.radians(5.0)), math.sin(-math.radians(5.0))
+    n_loc = h64.M[1] * s5 + h64.N[1] * c5
+    alive = h64.intensity[1] > 0
+    margin = (n_loc[alive] ** 2).min().item()
+    print(f"system F: {int((~alive).sum().item())} of {alive.numel()} rays "
+          f"evanescent at the sheet; the surviving ray nearest the cutoff "
+          f"has R^2 / (n2 k0)^2 = {margin:.6g}")
+    check((~alive).any().item() and margin > 0.01,
+          "F: part of the bundle past the cutoff, the rest away from it")
+    del h64, n_loc, alive
+    free()
+    for label, sysx in (("D", sys_d), ("E", sys_e), ("F", sys_f)):
+        j3_adam(label, *sysx[:3], j3_merit(label, *sysx))
+        for wl in (FLAGSHIP_WAVELENGTH, None):
+            j3_raygen(label, *sysx[:3], wl)
+    for wl in (FLAGSHIP_WAVELENGTH, None):
+        j3_caller("F", *sys_fv[:3], wl)
+    for label, sysx in (("D", sys_d), ("E", sys_e), ("F", sys_f)):
+        j3_history(label, *sysx[:3])
+    # the eager trace of a cubic grid-phase sheet on the card
+    st_g, pr_g = grid_sheet(Optic).build(device="cuda")
+    check(not fused.supports_fused(st_g), "the grid sheet takes no kernel")
+    config.set_precision("float64")
+    st_g64, pr_g64 = grid_sheet(Optic).build(device="cpu")
+    config.set_precision("float32")
+    rng_g = np.random.default_rng(12)
+    n_g = 65_536
+    r_g = np.sqrt(rng_g.uniform(size=n_g))
+    th_g = rng_g.uniform(0, 2 * np.pi, n_g)
+    grid_in = (np.zeros(n_g), rng_g.uniform(-1, 1, n_g), r_g * np.cos(th_g),
+               r_g * np.sin(th_g))
+    reset_counts()
+    h_g = tracer.trace_system(st_g, pr_g, *(torch.tensor(
+        a, dtype=torch.float32, device=dev) for a in grid_in), 0.55)
+    got_g = read_counts()
+    h_g64 = tracer.trace_system(st_g64, pr_g64, *(torch.from_numpy(a)
+                                                  for a in grid_in), 0.55)
+    g_err = {key: (getattr(h_g, key)[-1].double().cpu()
+                   - getattr(h_g64, key)[-1]).abs().max().item()
+             for key in ("x", "y", "L", "M", "N", "opd")}
+    print(f"grid-phase sheet, eager trace_system on the card (float32, "
+          f"{n_g} rays) vs float64 on the CPU: {json.dumps(g_err)}; "
+          f"launches {got_g}")
+    check(sum(got_g.values()) == 0, "the grid sheet traced eagerly")
+    check(all(g_err[k] <= TOL_F64["position_mm"] for k in ("x", "y"))
+          and all(g_err[k] <= TOL_F64["direction"] for k in ("L", "M", "N"))
+          and g_err["opd"] <= TOL_F64["opd_mm"],
+          "grid-phase sheet on the card vs float64")
+    del h_g, h_g64
+    free()
+    print(f"phase j4 (systems D, E, F at {n_c} rays, the grid sheet at "
+          f"{n_g}): {time.perf_counter() - t_j4:.1f} s; Adam losses "
+          + json.dumps({k: j3_steps[k][0] for k in "DEF"}))
 
     # 17. (k) the user's entry: Optic.trace on the card
     reset_counts()
@@ -2386,8 +2730,8 @@ def main():
             plain_ms=time_ms(plains_w[key]), bound_ms=b_ms, bound_by=b_by,
             library_ms=None))
         free()
-    # phase j3's configurations: the coating, thin-lens and grating
-    # branches on systems A, B and C at the flagship batch's rays, each
+    # phase j3's and j4's configurations: the coating, thin-lens, grating
+    # and phase branches on systems A-F at the flagship batch's rays, each
     # kernel's launch span (median of 25) beside the median of 5 calls of
     # its plain version
     j3_ms = {}
@@ -2403,8 +2747,8 @@ def main():
             library_ms=None))
         free()
     restore()
-    print(f"phase j3 kernels, median of {TIMED_CALLS} launch spans (ms): "
-          f"{json.dumps(j3_ms)}")
+    print(f"phase j3 and j4 kernels, median of {TIMED_CALLS} launch spans "
+          f"(ms): {json.dumps(j3_ms)}")
     print(f"per-ray variants on the Cooke triplet, median of {TIMED_CALLS} "
           f"launch spans (ms), with the 16,384-ray bound: "
           f"{json.dumps(per_ray_ms)}; K2 wrapper on the tabulated doublet at "
@@ -2503,7 +2847,7 @@ def main():
 
     mono_ms = host_ms(mono_step)
     j3_step_ms = {f"system {k}": host_ms(v[1]) for k, v in j3_steps.items()}
-    print(f"phase j3 polychromatic training steps (centroid_rms_spot at "
+    print(f"phase j3 and j4 polychromatic training steps (centroid_rms_spot at "
           f"per-ray w, backward, Adam; per-ray K1 and K2) at {n_c} rays, "
           f"host clock, median of {TIMED_STEPS} (ms): "
           f"{json.dumps(j3_step_ms)}")

@@ -7,8 +7,10 @@
 // none interactions, radial apertures, tilt and decenter, Beer-Lambert
 // absorption, and, in a build with OTK_INTERACTIONS (trace/fused.py
 // `branch_defines`: a system that has them), simple coatings, the ideal
-// thin lens and gratings on plane and curved carriers; at one wavelength
-// from the hoisted index, absorption and grating tables (`TableMedia`),
+// thin lens and gratings on plane and curved carriers, and with OTK_PHASE
+// too, phase sheets of the constant, radial and linear-grating kinds on
+// plane and conic carriers; at one wavelength from the hoisted index,
+// absorption, grating and phase tables (`TableMedia`),
 // or at each ray's own wavelength (`RayMedia`:
 // `material_index` for every formula code of materials/dispersion.py and
 // `kv_segment` of the extinction tables; K7 and the per-ray variants of
@@ -56,6 +58,12 @@ constexpr int MAX_COEFFS = F_THICK - F_COEFFS;
 // (the order alone at per-ray wavelengths), period (um) and groove angle
 constexpr int F_FOCAL = F_COEFFS;
 constexpr int F_GRATING = F_COEFFS;
+// a phase sheet (a plane or a conic) holds its profile's PHASE_SLOTS slots
+// there, then 1 / k0 (mm) at one wavelength, 1 / k0 per um of wavelength at
+// per-ray wavelengths
+constexpr int PHASE_SLOTS = 8;
+constexpr int F_PHASE = F_COEFFS;
+constexpr int F_PHASE_IK = F_PHASE + PHASE_SLOTS;
 
 // per-surface int slots
 constexpr int I_GEOM = 0;
@@ -66,7 +74,8 @@ constexpr int I_DEC = 4;
 constexpr int I_AP = 5;
 constexpr int I_ABS = 6;   // 1 where the medium after the surface absorbs
 constexpr int I_COAT = 7;  // 1 where the surface applies a simple coating's factor
-constexpr int I_REFL = 8;  // 1 for a reflective grating
+constexpr int I_REFL = 8;   // 1 for a reflective grating or phase sheet
+constexpr int I_PHASE = 9;  // a phase sheet's kind (PHASE_*), else 0
 constexpr int I_STRIDE = 16;
 
 constexpr int GEOM_PLANE = 0;
@@ -77,6 +86,10 @@ constexpr int INT_REFLECT = 1;
 constexpr int INT_THIN_LENS = 2;
 constexpr int INT_NONE = 3;
 constexpr int INT_DIFFRACT = 4;
+constexpr int INT_PHASE = 5;
+constexpr int PHASE_CONSTANT = 1;
+constexpr int PHASE_RADIAL = 2;
+constexpr int PHASE_LINEAR_GRATING = 3;
 constexpr int FORMULA_TABULATED = 10;
 // leading material coefficients staged in shared memory (K7): every formula
 // but the tabulated one has at most this many
@@ -114,14 +127,20 @@ struct Codes {
   int geom, nc, inter;
   bool tilted, decentered, aperture, absorbs;
 #ifdef OTK_INTERACTIONS
-  bool coated, reflective;  // a simple coating's factor; a reflective grating
+  // a simple coating's factor; a reflective grating or phase sheet
+  bool coated, reflective;
+#endif
+#ifdef OTK_PHASE
+  int pk;  // a phase sheet's kind
 #endif
 };
 
 // One surface's codes and values, read from the staged tables. `absorbs`
 // and `alpha` are those of the medium before the surface (row k - 1).
 // With OTK_INTERACTIONS: `coat` is the coating's factor, `gm` a grating's
-// order times the ray's wavelength (surface_step sets it from the media).
+// order times the ray's wavelength (surface_step sets it from the media);
+// with OTK_PHASE: `pk` a phase sheet's kind, `ik` its 1 / k0 at the ray's
+// wavelength (surface_step sets it from the media).
 struct Surface {
   int code, nc, inter;
   bool tilted, decentered, aperture, absorbs;
@@ -130,6 +149,10 @@ struct Surface {
 #ifdef OTK_INTERACTIONS
   bool coated, reflective;
   float coat, gm;
+#endif
+#ifdef OTK_PHASE
+  int pk;
+  float ik;
 #endif
 };
 
@@ -144,12 +167,15 @@ __device__ __forceinline__ Codes codes_at(const int* it, int k) {
 #ifdef OTK_INTERACTIONS
                , c[I_COAT] != 0, c[I_REFL] != 0
 #endif
+#ifdef OTK_PHASE
+               , c[I_PHASE]
+#endif
   };
 }
 
 // Whether the index changes at a surface of interaction `inter` (JAX's
-// n_of(k) after it): a refraction, and with OTK_INTERACTIONS a thin lens or
-// a grating.
+// n_of(k) after it): a refraction, and with OTK_INTERACTIONS a thin lens, a
+// grating or a phase sheet (on a mirror too: the medium's row after it).
 __device__ __forceinline__ bool changes_index(int inter) {
 #ifdef OTK_INTERACTIONS
   return inter != INT_NONE && inter != INT_REFLECT;
@@ -187,6 +213,10 @@ __device__ __forceinline__ Surface make_surface(const Codes& c, bool absorbs_bef
   s.reflective = c.reflective;
   s.coat = c.coated ? f[F_COAT] : 1.f;
   s.gm = c.inter == INT_DIFFRACT ? f[F_GRATING] : 0.f;
+#endif
+#ifdef OTK_PHASE
+  s.pk = c.pk;
+  s.ik = c.inter == INT_PHASE ? f[F_PHASE_IK] : 0.f;
 #endif
   return s;
 }
@@ -765,7 +795,80 @@ __device__ __forceinline__ void diffract(const Surface& s, float n1, float n2, f
   }
 }
 
-// interact() with the thin lens (which writes the OPD) and the grating.
+#ifdef OTK_PHASE
+// The phase phi and its gradient (gx, gy) at (x, y) of a profile of kind
+// `kind` with slots p (JAX `_phase_vg_inline`): a constant p0; the radial
+// sum of p_j r^(2 (j + 1)) over all PHASE_SLOTS slots, its d phi / d(r^2)
+// carried from r^0 = 1 (so that the gradient's derivative at r = 0 is the
+// true 2 p0); or the linear grating p0 x + p1 y.
+__device__ __forceinline__ void phase_vg(int kind, const float* p, float x, float y,
+                                         float& ph, float& gx, float& gy) {
+  if (kind == PHASE_CONSTANT) {
+    ph = p[0];
+    gx = 0.f;
+    gy = 0.f;
+  } else if (kind == PHASE_RADIAL) {
+    const float r2 = x * x + y * y;
+    float phase = 0.f, d = 0.f, rp = r2, rp_prev = 1.f;
+#pragma unroll
+    for (int ci = 0; ci < PHASE_SLOTS; ++ci) {
+      phase = phase + p[ci] * rp;
+      d = d + p[ci] * (float)(ci + 1) * rp_prev;
+      rp_prev = rp;
+      rp = rp * r2;
+    }
+    ph = phase;
+    gx = 2.f * x * d;
+    gy = 2.f * y * d;
+  } else {  // PHASE_LINEAR_GRATING
+    ph = p[0] * x + p[1] * y;
+    gx = p[0];
+    gy = p[1];
+  }
+}
+
+// A phase sheet's generalized Snell law at the local hit (x, y) between
+// indices n1 and n2 (JAX `_tile_phase`), in units of k0 (s.ik = 1 / k0):
+// with the carrier's raw normal n (nz < 0), the scaled gradient (a, b) =
+// grad(phi) / k0, c = l.n and e = n1 c + a nx + b ny, the tangential
+// wavevector kp = n1 l + (a, b, 0) - e n, the projections of n1 k0 l and of
+// grad(phi) onto the tangent plane, and R^2 = n2^2 - |kp|^2 (n2 = n1 on a
+// mirror); the outgoing direction is kp + s sqrt(R^2) n renormalized, s =
+// sign(c), negated on a mirror. An evanescent ray (R^2 < 0) keeps its
+// direction with i = 0. The OPD takes -phi / k0.
+__device__ __forceinline__ void phase_sheet(const Surface& s, float n1, float n2, float x,
+                                            float y, float& L, float& M, float& N, float& i,
+                                            float& opd) {
+  float sv, gxs, gys;
+  sag_grad(s.code, s.nc, s.co, s.cv, s.kk, x, y, false, sv, gxs, gys);
+  const float inv = rsqrtf(gxs * gxs + gys * gys + 1.f);
+  const float nx = gxs * inv, ny = gys * inv, nz = -inv;
+  if (s.reflective) n2 = n1;
+  float ph, gpx, gpy;
+  phase_vg(s.pk, s.co + (F_PHASE - F_COEFFS), x, y, ph, gpx, gpy);
+  const float a = s.ik * gpx, b = s.ik * gpy;
+  const float c = L * nx + M * ny + N * nz;
+  const float e = n1 * c + a * nx + b * ny;
+  const float kpx = n1 * L + a - e * nx;
+  const float kpy = n1 * M + b - e * ny;
+  const float kpz = n1 * N - e * nz;
+  const float Q = n2 * n2 - (kpx * kpx + kpy * kpy + kpz * kpz);
+  if (Q >= 0.f) {
+    const float al = (s.reflective ? -1.f : 1.f) * sign_of(c) * sqrtf(Q);
+    const float kox = kpx + al * nx, koy = kpy + al * ny, koz = kpz + al * nz;
+    const float im = rsqrtf(kox * kox + koy * koy + koz * koz);
+    L = kox * im;
+    M = koy * im;
+    N = koz * im;
+  } else {
+    i = 0.f * i;
+  }
+  opd = opd - ph * s.ik;
+}
+#endif
+
+// interact() with the thin lens (which writes the OPD), the grating and
+// (OTK_PHASE) the phase sheet.
 __device__ __forceinline__ float interact(const Surface& s, float n_pre, float x, float y,
                                           float& L, float& M, float& N, float& i,
                                           float& opd) {
@@ -777,6 +880,12 @@ __device__ __forceinline__ float interact(const Surface& s, float n_pre, float x
     diffract(s, n_pre, s.n, x, y, L, M, N, i);
     return s.n;
   }
+#ifdef OTK_PHASE
+  if (s.inter == INT_PHASE) {
+    phase_sheet(s, n_pre, s.n, x, y, L, M, N, i, opd);
+    return s.n;
+  }
+#endif
   return interact(s, n_pre, x, y, L, M, N, i);
 }
 #endif
@@ -799,6 +908,10 @@ struct TableMedia {
   // a grating's order times the wavelength: the table holds it hoisted
   __device__ __forceinline__ float order_w(const Surface& s) const { return s.gm; }
 #endif
+#ifdef OTK_PHASE
+  // a phase sheet's 1 / k0: the table holds it hoisted
+  __device__ __forceinline__ float phase_ik(const Surface& s) const { return s.ik; }
+#endif
   template <int k>
   __device__ __forceinline__ const TableMedia& at() const {
     return *this;
@@ -812,7 +925,8 @@ struct TableMedia {
 // factor, back to the global frame. With `rec_k`, it gets the surface's
 // entry state, t and (OTK_INTERACTIONS) the entry intensity (the re-trace
 // of the backward kernels, chain_bwd.cuh). `media` gives the absorption,
-// the index and a grating's m w (`TableMedia` or a per-ray view);
+// the index, a grating's m w and a phase sheet's 1 / k0 (`TableMedia` or a
+// per-ray view);
 // `sink(k, ray)` sees the state after the surface.
 template <class Media = TableMedia, class Sink = NoSink>
 __device__ __forceinline__ void surface_step(Surface s, int k, int n_newton, float pos_k,
@@ -845,6 +959,9 @@ __device__ __forceinline__ void surface_step(Surface s, int k, int n_newton, flo
   if (s.inter != INT_NONE && s.inter != INT_REFLECT) s.n = media.index_after(s);
 #ifdef OTK_INTERACTIONS
   if (s.inter == INT_DIFFRACT) s.gm = media.order_w(s);
+#ifdef OTK_PHASE
+  if (s.inter == INT_PHASE) s.ik = media.phase_ik(s);
+#endif
   n_pre = interact(s, n_pre, x, y, L, M, N, i, opd);
   // simple coating: R after a reflection, T after any other interaction
   if (s.coated) i = i * s.coat;

@@ -42,7 +42,11 @@
 //     intensity's cotangent di (g_i) beside i di, and each surface's
 //     intensity factors (validity, absorption, aperture, TIR or an
 //     evanescent order) are recomputed from the record, so that no factor,
-//     the coating's T = 0 or R = 0 included, is ever divided by.
+//     the coating's T = 0 or R = 0 included, is ever divided by;
+//   - with OTK_PHASE, the closed-form adjoint of the phase sheet's
+//     generalized Snell law (into the ray, its OPD term, the profile's
+//     slots, 1 / k0, the carrier's curvature and conic through the sag
+//     gradient, and the two indices).
 // Masks (valid root, aperture, TIR) carry no cotangent, as in JAX.
 //
 // Parameter cotangents leave each surface as one row of F_STRIDE slots,
@@ -69,8 +73,9 @@ struct Vec6 {
   float x, y, z, L, M, N;
 };
 
-// One surface's parameter cotangents; a thin lens's focal length and a
-// grating's (m w, d, angle) take co[0..2], as their table slots do.
+// One surface's parameter cotangents; a thin lens's focal length, a
+// grating's (m w, d, angle) and a phase sheet's profile slots and 1 / k0
+// take co[0..], as their table slots do.
 struct SurfGrad {
   float cv, conic, co[MAX_COEFFS], thick, tilt[3], dec[2], n;
 #ifdef OTK_INTERACTIONS
@@ -473,6 +478,130 @@ __device__ __forceinline__ void diffract_bwd(const Surface& s, float n1, float x
 }
 #endif
 
+#ifdef OTK_PHASE
+// Reverse of phase_vg: the cotangents (dph, dgx, dgy) of the phase and its
+// gradient -> those of x and y (added to dx, dy) and of the profile's slots
+// (added to dp). The radial kind's gradient is 2 (x, y) D with D = d phi /
+// d(r^2) = sum (j + 1) p_j r^(2 j), whose own derivative in r^2 is D2 = sum
+// (j + 1) j p_j r^(2 (j - 1)).
+__device__ __forceinline__ void phase_vg_bwd(int kind, const float* p, float x, float y,
+                                             float dph, float dgx, float dgy, float& dx,
+                                             float& dy, float* dp) {
+  if (kind == PHASE_CONSTANT) {
+    dp[0] += dph;
+  } else if (kind == PHASE_RADIAL) {
+    const float r2 = x * x + y * y;
+    float d = 0.f, d2 = 0.f, rp_prev = 1.f, rp_prev2 = 0.f;
+#pragma unroll
+    for (int ci = 0; ci < PHASE_SLOTS; ++ci) {
+      d = d + p[ci] * (float)(ci + 1) * rp_prev;
+      if (ci > 0) d2 = d2 + p[ci] * (float)((ci + 1) * ci) * rp_prev2;
+      rp_prev2 = rp_prev;
+      rp_prev = rp_prev * r2;
+    }
+    const float dd = 2.f * (x * dgx + y * dgy);
+    float rp = r2, rq = 1.f;  // r^(2 (j + 1)) and r^(2 j)
+#pragma unroll
+    for (int ci = 0; ci < PHASE_SLOTS; ++ci) {
+      dp[ci] += dph * rp + dd * (float)(ci + 1) * rq;
+      rq = rp;
+      rp = rp * r2;
+    }
+    const float dr2 = dph * d + dd * d2;
+    dx += 2.f * d * dgx + 2.f * x * dr2;
+    dy += 2.f * d * dgy + 2.f * y * dr2;
+  } else {  // PHASE_LINEAR_GRATING
+    dp[0] += dph * x + dgx;
+    dp[1] += dph * y + dgy;
+    dx += dph * p[0];
+    dy += dph * p[1];
+  }
+}
+
+// Reverse of phase_sheet() at the local hit (x, y) with incident direction
+// (L, M, N), as interact_bwd: g holds the cotangent of (x, y, z, L', M',
+// N') on entry and of (x, y, z, L, M, N) on exit; g_opd, the OPD's
+// cotangent, reaches the phase and 1 / k0 through -phi / k0. The profile's
+// slots and 1 / k0 take co[0 .. PHASE_SLOTS], a curved carrier's cv and
+// conic their cotangents through its sag gradient (sag_grad_bwd, which
+// also adds to x and y), and the two indices theirs (on a mirror the
+// interaction's n2 is n1). An evanescent ray passes its direction's
+// cotangent through.
+__device__ __forceinline__ void phase_sheet_bwd(const Surface& s, float n1, float x, float y,
+                                                float L, float M, float N, float g_opd,
+                                                Vec6& g, float& acc_n, SurfGrad& sg) {
+  float sv, gxs, gys;
+  sag_grad(s.code, s.nc, s.co, s.cv, s.kk, x, y, false, sv, gxs, gys);
+  const float inv = rsqrtf(gxs * gxs + gys * gys + 1.f);
+  const float nx = gxs * inv, ny = gys * inv, nz = -inv;
+  const float n2 = s.reflective ? n1 : s.n, ik = s.ik;
+  const float* p = s.co + (F_PHASE - F_COEFFS);
+  float ph, gpx, gpy;
+  phase_vg(s.pk, p, x, y, ph, gpx, gpy);
+  const float a = ik * gpx, b = ik * gpy;
+  const float c = L * nx + M * ny + N * nz;
+  const float e = n1 * c + a * nx + b * ny;
+  const float kpx = n1 * L + a - e * nx;
+  const float kpy = n1 * M + b - e * ny;
+  const float kpz = n1 * N - e * nz;
+  const float Q = n2 * n2 - (kpx * kpx + kpy * kpy + kpz * kpz);
+  // opd' = opd - phi ik
+  const float dph = -g_opd * ik;
+  float dik = -g_opd * ph;
+  float dgpx = 0.f, dgpy = 0.f, dnx = 0.f, dny = 0.f, dnz = 0.f, dn1 = 0.f, dn2 = 0.f;
+  if (Q >= 0.f) {
+    const float sgn = (s.reflective ? -1.f : 1.f) * sign_of(c);
+    const float rt = sqrtf(Q);
+    const float al = sgn * rt;
+    const float kox = kpx + al * nx, koy = kpy + al * ny, koz = kpz + al * nz;
+    const float im = rsqrtf(kox * kox + koy * koy + koz * koz);
+    // l' = ko / |ko|
+    const float ox = kox * im, oy = koy * im, oz = koz * im;
+    const float go = g.L * ox + g.M * oy + g.N * oz;
+    const float dkox = (g.L - go * ox) * im, dkoy = (g.M - go * oy) * im,
+                dkoz = (g.N - go * oz) * im;
+    // ko = kp + al n, al = sgn sqrt(Q), Q = n2^2 - |kp|^2
+    const float dal = dkox * nx + dkoy * ny + dkoz * nz;
+    dnx = al * dkox;
+    dny = al * dkoy;
+    dnz = al * dkoz;
+    const float dQ = dal * sgn * 0.5f / fmaxf(rt, EPS);
+    dn2 = 2.f * n2 * dQ;
+    const float dkpx = dkox - 2.f * kpx * dQ, dkpy = dkoy - 2.f * kpy * dQ,
+                dkpz = dkoz - 2.f * kpz * dQ;
+    // kp = n1 l + (a, b, 0) - e n, e = n1 c + a nx + b ny, c = l.n
+    const float de = -(dkpx * nx + dkpy * ny + dkpz * nz);
+    const float dc = de * n1;
+    dn1 = de * c + dkpx * L + dkpy * M + dkpz * N;
+    const float da = dkpx + de * nx, db = dkpy + de * ny;
+    dnx += -e * dkpx + de * a + dc * L;
+    dny += -e * dkpy + de * b + dc * M;
+    dnz += -e * dkpz + dc * N;
+    g.L = n1 * dkpx + dc * nx;
+    g.M = n1 * dkpy + dc * ny;
+    g.N = n1 * dkpz + dc * nz;
+    // (a, b) = ik grad(phi)
+    dik += da * gpx + db * gpy;
+    dgpx = da * ik;
+    dgpy = db * ik;
+  }
+  if (s.reflective) {
+    dn1 += dn2;
+    dn2 = 0.f;
+  }
+  sg.n += acc_n + dn2;
+  acc_n = dn1;
+  sg.co[PHASE_SLOTS] += dik;
+  phase_vg_bwd(s.pk, p, x, y, dph, dgpx, dgpy, g.x, g.y, sg.co);
+  // n = (gx, gy, -1) / |(gx, gy, -1)|
+  const float dI = dnx * gxs + dny * gys - dnz;
+  const float im3 = inv * inv * inv;
+  const float dgx = dnx * inv - dI * gxs * im3;
+  const float dgy = dny * inv - dI * gys * im3;
+  sag_grad_bwd(s, x, y, dgx, dgy, g.x, g.y, sg);
+}
+#endif
+
 // Reverse of one surface of trace_chain. e: the surface's record (entry
 // state and t); n_pre, pos: the index before the surface and its vertex z;
 // g: cotangent of the state after the surface on entry, of the entry state
@@ -568,6 +697,11 @@ __device__ __forceinline__ void surface_bwd(const Surface& s, const float* e,
     diffract_bwd(s, n_pre, xh, yh, lo.L, lo.M, lo.N, g, acc_n, sg);
   else
 #endif
+#ifdef OTK_PHASE
+  if (s.inter == INT_PHASE)
+    phase_sheet_bwd(s, n_pre, xh, yh, lo.L, lo.M, lo.N, g_opd, g, acc_n, sg);
+  else
+#endif
     interact_bwd(s, n_pre, xh, yh, lo.L, lo.M, lo.N, g, acc_n, sg);
   // propagation x + t l, opd += |t n_pre| and the absorption factor
   const float so = sign_of(t * n_pre);
@@ -656,7 +790,7 @@ __device__ __forceinline__ void tile_raygen_bwd(int field_angle, int object_infi
 // The compact order of a cotangent row: cv, conic, thickness and index
 // first, then (with OTK_INTERACTIONS) the coating's factor, then the
 // polynomial coefficients (a thin lens's focal length, a grating's m w, d
-// and angle), tilt and decenter, so that the slots a surface uses come
+// and angle, a phase sheet's profile slots and 1 / k0), tilt and decenter, so that the slots a surface uses come
 // first. `table_slot(c)` is the slot of compact position c in the
 // packed-table layout (F_* in chain.cuh), a permutation of the 32 slots.
 constexpr int C_CV = 0;
@@ -693,8 +827,15 @@ __device__ __forceinline__ int table_slot(int c) {
 __device__ __forceinline__ int row_width(const Surface& s) {
   if (s.tilted || s.decentered) return F_STRIDE;
 #ifdef OTK_INTERACTIONS
+#ifdef OTK_PHASE
+  const int used = is_asphere(s) ? s.nc
+                   : (s.inter == INT_THIN_LENS ? 1
+                      : (s.inter == INT_DIFFRACT ? 3
+                         : (s.inter == INT_PHASE ? PHASE_SLOTS + 1 : 0)));
+#else
   const int used = is_asphere(s) ? s.nc
                    : (s.inter == INT_THIN_LENS ? 1 : (s.inter == INT_DIFFRACT ? 3 : 0));
+#endif
   const int top = (used || s.coated) ? C_COEFFS + used : 4;
 #else
   const int top = C_COEFFS + (is_asphere(s) ? s.nc : 0);
@@ -1172,6 +1313,9 @@ __device__ __forceinline__ void trace_chain_w(int S, int n_newton, const float* 
 #ifdef OTK_INTERACTIONS
     if (s.inter == INT_DIFFRACT) s.gm = s.gm * media.w;  // the table's m, times w
 #endif
+#ifdef OTK_PHASE
+    if (s.inter == INT_PHASE) s.ik = s.ik * media.w;  // the table's 1 / k0 per um, times w
+#endif
     surface_step(s, k, n_newton, pos_k, r, n_pre, rec[k]);
 #ifndef OTK_MEDIA_RECOMPUTE
     rec[k][REC_N] = n_pre;
@@ -1265,7 +1409,8 @@ __device__ __forceinline__ void medium_bwd(int k, const RayMedia& media, float d
 // coefficient cotangents and d w before any sum over rays, so the n_table
 // slots stay 0; each absorbing medium adds -t 1e3 (i di) d alpha / d w,
 // with d alpha / d w = 4 pi (kv' / w - kv / w^2); a grating's m w gives
-// w its m and m its w. Material rows go to `row0 + k`; dw returns the
+// w its m and m its w, a phase sheet's 1 / k0 = C w (C the table's 1 / k0
+// per um) gives w its C. Material rows go to `row0 + k`; dw returns the
 // ray's w cotangent; g_i as reverse_chain's.
 template <class Rows>
 __device__ __forceinline__ void reverse_chain_w(int S, const float* ft, const int* it,
@@ -1299,11 +1444,21 @@ __device__ __forceinline__ void reverse_chain_w(int S, const float* ft, const in
       const float m = s.gm;  // a grating's order
       if (s.inter == INT_DIFFRACT) s.gm = m * media.w;
 #endif
+#ifdef OTK_PHASE
+      const float ik_per_w = s.ik;  // a phase sheet's 1 / k0 per um
+      if (s.inter == INT_PHASE) s.ik = ik_per_w * media.w;
+#endif
       surface_bwd(s, rec[k], n_pre, pos[k], g_opd, g_ip, g, acc_n, dpos, sg, &g_i);
 #ifdef OTK_INTERACTIONS
       if (s.inter == INT_DIFFRACT) {  // sg.co[0] is m w's cotangent
         dw += sg.co[0] * m;
         sg.co[0] = sg.co[0] * media.w;
+      }
+#endif
+#ifdef OTK_PHASE
+      if (s.inter == INT_PHASE) {  // 1 / k0's cotangent: w's, C a constant
+        dw += sg.co[PHASE_SLOTS] * ik_per_w;
+        sg.co[PHASE_SLOTS] = 0.f;
       }
 #endif
       if (s.absorbs) {

@@ -12,8 +12,11 @@
 //   OTK_SURFACES          each surface's codes, k = 0 .. S-1, packed as
 //                         `unpack_codes` reads them, separated by commas;
 //   OTK_INTERACTIONS      where the system has a simple coating, a thin
-//                         lens or a grating (`branch_defines`): the chain's
-//                         branches for them (chain.cuh);
+//                         lens, a grating or a phase sheet
+//                         (`branch_defines`): the chain's branches for them
+//                         (chain.cuh);
+//   OTK_PHASE             where it has a phase sheet: the phase branch, and
+//                         each surface's phase kind in its codes;
 // and for the builds at per-ray wavelengths, K7 and the per-ray variants of
 // K1, K3 and K5, which evaluate the dispersion formulas per ray
 // (trace/fused.py `history_defines`):
@@ -53,14 +56,18 @@ constexpr int SYSTEM_THREADS = 256;
 // Codes packed in one word: geometry bits 0-7, coefficient count 8-15,
 // interaction 16-19, then one bit each for tilt, decenter, aperture and
 // the absorption of the medium after the surface (bits 20-23), and for a
-// simple coating's factor and a reflective grating (bits 24-25, set only
-// in systems built with OTK_INTERACTIONS).
+// simple coating's factor and a reflective grating or phase sheet (bits
+// 24-25, set only in systems built with OTK_INTERACTIONS), then a phase
+// sheet's kind (bits 26-28, set only in systems built with OTK_PHASE).
 __host__ __device__ constexpr Codes unpack_codes(unsigned v) {
   return Codes{static_cast<int>(v & 0xffu), static_cast<int>((v >> 8) & 0xffu),
                static_cast<int>((v >> 16) & 0xfu), ((v >> 20) & 1u) != 0,
                ((v >> 21) & 1u) != 0, ((v >> 22) & 1u) != 0, ((v >> 23) & 1u) != 0
 #ifdef OTK_INTERACTIONS
                , ((v >> 24) & 1u) != 0, ((v >> 25) & 1u) != 0
+#endif
+#ifdef OTK_PHASE
+               , static_cast<int>((v >> 26) & 0x7u)
 #endif
   };
 }
@@ -111,6 +118,11 @@ struct RayMediaAt {
 #ifdef OTK_INTERACTIONS
   // a grating's order (the table's) times the ray's wavelength
   __device__ __forceinline__ float order_w(const Surface& s) const { return s.gm * m.w; }
+#endif
+#ifdef OTK_PHASE
+  // a phase sheet's 1 / k0: the table's 1 / k0 per um times the ray's
+  // wavelength
+  __device__ __forceinline__ float phase_ik(const Surface& s) const { return s.ik * m.w; }
 #endif
 };
 

@@ -62,23 +62,27 @@ class _SurfaceCollection:
         """Add a surface. `surface_type="paraxial"` is an ideal thin lens of
         focal length `f`; `"grating"` takes `grating_order`,
         `grating_period` (um) and `groove_orientation_angle` (rad) as
-        keywords, as in the JAX package."""
+        keywords; `"phase"` a thin phase sheet on the plane or conic of
+        `radius` and `conic`, its `phase_profile` one of ("constant", v),
+        ("radial", [c1, c2, ...]) (c_j r^(2j)), ("linear_grating", kx, ky),
+        ("grid", xs, ys, grid) or ("height_profile", xs, ys, h, material),
+        as in the JAX package."""
         geometry = "standard"
         if surface_type in ("even_asphere", "odd_asphere"):
             geometry = surface_type
             surface_type = "standard"
-        if surface_type not in ("standard", "paraxial", "grating"):
+        if surface_type not in ("standard", "paraxial", "grating", "phase"):
             raise NotImplementedError(
                 f"surface_type {surface_type!r} is not ported yet; ported: "
-                "standard, even_asphere, odd_asphere, paraxial, grating "
-                "(ROADMAP queue 1, items 14 and 15)")
-        grating_keys = {"grating_order", "grating_period",
-                        "groove_orientation_angle"}
-        if set(geom_kwargs) - grating_keys or (
-                geom_kwargs and surface_type != "grating"):
+                "standard, even_asphere, odd_asphere, paraxial, grating, "
+                "phase (ROADMAP queue 1, item 14)")
+        keys = {"grating": {"grating_order", "grating_period",
+                            "groove_orientation_angle"},
+                "phase": {"phase_profile"}}.get(surface_type, set())
+        if set(geom_kwargs) - keys:
             raise NotImplementedError(
-                f"surface keywords {sorted(geom_kwargs)} are not ported yet "
-                "(ROADMAP queue 1, items 14 and 15)")
+                f"surface keywords {sorted(set(geom_kwargs) - keys)} are not "
+                "ported yet (ROADMAP queue 1, items 14 and 15)")
         spec = SurfaceSpec(
             radius=float(radius),
             thickness=float(thickness),
@@ -273,7 +277,7 @@ class Optic:
         if self.ray_aiming != "paraxial":
             raise NotImplementedError(
                 f"ray aiming {self.ray_aiming!r} is not ported yet "
-                "(trace/aiming.py, ROADMAP queue 1)")
+                "(trace/aiming.py, ROADMAP queue 1, item 13)")
         return Px, Py
 
     def trace(self, Hx=0.0, Hy=0.0, wavelength=None, num_rays: int = 100,

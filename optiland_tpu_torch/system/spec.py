@@ -9,8 +9,8 @@ Port of `optiland_tpu/system/spec.py`:
 
 `build_system` compiles a list of `SurfaceSpec`s for the ported surface
 types (plane, conic, even and odd aspheres; refract, reflect, none, the
-ideal thin lens and gratings) and absorbing media (the tabulated
-extinction tables `k_wl`, `k_val`).
+ideal thin lens, gratings and phase sheets of the five profile kinds) and
+absorbing media (the tabulated extinction tables `k_wl`, `k_val`).
 `static_from_dict` and `params_from_numpy` carry a system built by the JAX
 package across, so both packages can run on the same tables.
 """
@@ -30,7 +30,11 @@ from optiland_tpu_torch.geometry.surfaces import (
     GEOM_ODD_ASPHERE,
     GEOM_PLANE,
 )
-from optiland_tpu_torch.materials.catalog import AIR, MaterialSpec
+from optiland_tpu_torch.materials.catalog import (
+    AIR,
+    MaterialSpec,
+    resolve_material,
+)
 from optiland_tpu_torch.materials.dispersion import MAX_COEFFS
 
 # interaction kinds (static per surface)
@@ -319,6 +323,50 @@ def _fused_newton_seed_ok(code, cvk, conic_k, coeffs, r_max) -> bool:
     return bool(np.max(err) <= 1e-4 * max(1.0, r_max))
 
 
+_PHASE_KINDS = {"constant": PHASE_CONSTANT, "radial": PHASE_RADIAL,
+                "linear_grating": PHASE_LINEAR_GRATING, "grid": PHASE_GRID,
+                "height_profile": PHASE_HEIGHT}
+
+
+def _pack_phase(profile, idx, kinds, aux, params, grids, mat_coeffs):
+    """Pack the phase profile of surface idx as the JAX package does:
+    ("constant", v), ("radial", [c1, c2, ...]) (the coefficients of r^2,
+    r^4, ... in slots 0..n-1), ("linear_grating", kx, ky), ("grid", xs,
+    ys, grid) or ("height_profile", xs, ys, h, material). A tabulated
+    profile keeps its bounds (xmin, xmax, ymin, ymax) in slots 0-3, its
+    (len(ys), len(xs)) table in `grids` and, for a height profile, its
+    material's codes in `aux` and coefficients in `mat_coeffs`; its axes
+    must be uniformly spaced."""
+    kind_name, *pvals = profile
+    if kind_name not in _PHASE_KINDS:
+        raise ValueError(f"unknown phase profile {kind_name!r}; expected one "
+                         f"of {', '.join(_PHASE_KINDS)}")
+    kinds[idx] = _PHASE_KINDS[kind_name]
+    if kind_name == "radial":
+        pvals = list(pvals[0])
+    if kind_name not in ("grid", "height_profile"):
+        params[idx, : len(pvals)] = pvals
+        return
+    xs = np.asarray(pvals[0], float)
+    ys = np.asarray(pvals[1], float)
+    gr = np.asarray(pvals[2], float)
+    if gr.shape != (len(ys), len(xs)):
+        raise ValueError("phase grid must have shape (len(y), len(x))")
+    for ax in (xs, ys):
+        d = np.diff(ax)
+        if len(d) and not np.allclose(d, d[0], rtol=1e-6):
+            raise ValueError("phase grid axes must be uniformly spaced")
+    params[idx, :4] = (xs[0], xs[-1], ys[0], ys[-1])
+    grids[idx] = gr
+    if kind_name == "height_profile":
+        mat = resolve_material(pvals[3])
+        aux[idx] = ("height", gr.shape[0], gr.shape[1], mat.formula,
+                    mat.n_coeffs)
+        mat_coeffs[idx, : mat.n_coeffs] = mat.coefficients
+    else:
+        aux[idx] = ("grid", gr.shape[0], gr.shape[1])
+
+
 def _pack_geometry(s: SurfaceSpec):
     """Resolve one SurfaceSpec's geometry to (code, cv, k, coeffs)."""
     if s.geometry not in _GEOM_BY_TYPE:
@@ -360,11 +408,14 @@ def build_system(
     wavelengths,
     primary_wavelength_idx: int,
     newton_iters: int = 16,
+    phase_interp: str = "cubic",
     dtype=None,
     device=None,
 ) -> tuple[SystemStatic, SystemParams]:
     """Compile builder state into the (static, params) pair, with the
-    parameter tensors on `device` (None means the CUDA card)."""
+    parameter tensors on `device` (None means the CUDA card).
+    `phase_interp` is the interpolation order of grid and height-profile
+    phase sheets: "cubic" (the bicubic spline) or "linear"."""
     dev = resolve_device(device)
     dtype = dtype or config.get_dtype()
     S = len(surfaces)
@@ -396,14 +447,18 @@ def build_system(
     coating_params = np.zeros((S, 4))
     focal_length = np.zeros(S)
     grating = np.zeros((S, 3))
+    phase_kinds = [PHASE_NONE] * S
+    phase_aux = [None] * S
+    phase_params = np.zeros((S, 8))
+    phase_grid_list = [None] * S
+    phase_mat_coeffs = np.zeros((S, MAX_COEFFS))
 
     current_medium = AIR
     for idx, s in enumerate(surfaces):
-        if s.surface_type not in ("standard", "paraxial", "grating"):
+        if s.surface_type not in ("standard", "paraxial", "grating", "phase"):
             raise NotImplementedError(
                 f"surface_type {s.surface_type!r} is not ported yet "
-                "(ROADMAP queue 1, item 15; phase surfaces: queue 2, "
-                "branch 6)")
+                "(ROADMAP queue 1, item 15)")
         mat = s.material
         reflective = mat.mirror
         if not reflective:
@@ -424,6 +479,11 @@ def build_system(
             grating[idx] = (gp.get("grating_order", 1),
                             gp.get("grating_period", 1.0),
                             gp.get("groove_orientation_angle", 0.0))
+        elif s.surface_type == "phase":
+            interactions.append(INT_PHASE)
+            _pack_phase(s.geom_params.get("phase_profile", ("constant", 0.0)),
+                        idx, phase_kinds, phase_aux, phase_params,
+                        phase_grid_list, phase_mat_coeffs)
         elif reflective:
             interactions.append(INT_REFLECT)
         else:
@@ -501,7 +561,7 @@ def build_system(
         is_reflective=tuple(is_reflective),
         coatings=tuple(coatings),
         bsdfs=tuple(None for _ in range(S)),
-        phase_kinds=tuple(PHASE_NONE for _ in range(S)),
+        phase_kinds=tuple(phase_kinds),
         mat_formulas=tuple(mat_formulas),
         mat_n_coeffs=tuple(mat_n_coeffs),
         has_absorption=tuple(has_absorption),
@@ -520,9 +580,16 @@ def build_system(
         aperture_masks=tuple(None for _ in range(S)),
         thin_films=tuple(None for _ in range(S)),
         has_vignetting=any(float(v) != 0.0 for v in list(vx) + list(vy)),
-        phase_aux=tuple(None for _ in range(S)),
+        phase_aux=tuple(phase_aux),
+        phase_interp=phase_interp,
         fused_newton_ok=fused_newton_ok,
     )
+    gy_max = max([0] + [g.shape[0] for g in phase_grid_list if g is not None])
+    gx_max = max([0] + [g.shape[1] for g in phase_grid_list if g is not None])
+    phase_grids = np.zeros((S, gy_max, gx_max))
+    for k, g in enumerate(phase_grid_list):
+        if g is not None:
+            phase_grids[k, : g.shape[0], : g.shape[1]] = g
 
     def t(a):
         return torch.as_tensor(np.asarray(a, float), dtype=dtype, device=dev)
@@ -533,10 +600,10 @@ def build_system(
         mat_coeffs=t(mat_coeffs), k_wl=t(k_wl),
         k_val=t(k_val), ap_radius=t(ap_radius),
         grating=t(grating), coating_params=t(coating_params),
-        phase_params=t(np.zeros((S, 8))), cs_pos=t(np.zeros((S, 3))),
+        phase_params=t(phase_params), cs_pos=t(np.zeros((S, 3))),
         aperture_value=t(aperture_value), x_fields=t(x_fields),
         y_fields=t(y_fields), vx=t(vx), vy=t(vy), wavelengths=t(wavelengths),
-        phase_grids=t(np.zeros((S, 0, 0))),
-        phase_mat_coeffs=t(np.zeros((S, MAX_COEFFS))),
+        phase_grids=t(phase_grids),
+        phase_mat_coeffs=t(phase_mat_coeffs),
     )
     return static, params

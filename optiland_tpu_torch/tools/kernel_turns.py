@@ -24,8 +24,10 @@ cotangents, K4 seeded on x, y and opd, K5 and K6 on the eager rays of that
 batch); a tree without them records None there. It drives the coating,
 thin-lens and grating configurations of chip_smoke.py's phase j3 at the
 same two sizes (`branch_ms`: K1-K4 of systems A, B and C at 0.55 um and
-per-ray, K5 and K6 on B's vignetted twin, K7 on A and B); a tree without
-those branches records None there. It also drives
+per-ray, K5 and K6 on B's vignetted twin, K7 on A and B) and the phase
+configurations of its phase j4 (`phase_ms`: K1-K4 of systems D, E and F,
+K5 and K6 on F's vignetted twin, K7 on D, E and F); a tree without those
+branches records None there. It also drives
 `huygens.huygens_sum_forward` (K8) on the Cooke triplet's Huygens PSF at
 its defaults (128 x 128: the image sum and its normalizing peak sum), at
 256 x 256, and on the random inputs of tools/bench_wave_optics.py. Each
@@ -160,10 +162,8 @@ def worker(tree: Path, ns: list[int]) -> dict:
         return launch_ms(call, spans)
 
     def args_of(static, params, wl):
-        n_table, alpha = fused._uniform_tables(static, params, wl)
-        return (fused._diff_params(params, n_table),
-                fused._nondiff_params(params, alpha),
-                fused._raygen_scalars(static, params))
+        return fused._uniform_params(static, params, wl) + (
+            fused._raygen_scalars(static, params),)
 
     static, params = cs.bench_lens(Optic).build(device="cuda")
     static_v, params_v = cs.bench_lens(Optic, vignetted=True).build(
@@ -234,6 +234,7 @@ def worker(tree: Path, ns: list[int]) -> dict:
     torch.cuda.empty_cache()
     ms.update(branch_ms(cs, fused, kernel_ms, Optic, CookeTriplet, dev, rng,
                         c))
+    ms.update(phase_ms(cs, fused, kernel_ms, Optic, dev, rng, c))
     px_b, py_b, _ = pupil_grid_coords(128, torch.float32, dev)
     for label, r0 in (
             ("flagship 1999998", generate_rays(
@@ -296,25 +297,55 @@ def branch_ms(cs, fused, kernel_ms, Optic, CookeTriplet, dev, rng, c):
     the batch's per-ray wavelengths, K5 and K6 on the eager rays of B's
     vignetted twin in both configurations, K7 on A and B. None for every
     key where the tree has no such branches (`fused.branch_defines`)."""
+    systems = {"A": lambda: cs.coated_cooke(CookeTriplet),
+               "B": lambda: cs.spectrograph(Optic),
+               "C": lambda: cs.concave_grating(Optic),
+               "B vignetted": lambda: cs.spectrograph(Optic, vignetted=True)}
+    return _systems_ms(systems, ("A", "B"), hasattr(fused, "branch_defines"),
+                       cs, fused, kernel_ms, dev, rng, c)
+
+
+def phase_ms(cs, fused, kernel_ms, Optic, dev, rng, c):
+    """The phase-sheet configurations of chip_smoke.py's phase j4, timed as
+    `branch_ms` times j3's: K1-K4 of system D (the hybrid achromat), E (the
+    coated metalens on a conic carrier) and F (the tilted reflective
+    linear-grating sheet), K5 and K6 on F's vignetted twin, K7 on D, E and
+    F. None for every key where the tree has no phase branch
+    (`fused._uniform_phase`)."""
+    systems = {"D": lambda: cs.hybrid_achromat(Optic),
+               "E": lambda: cs.curved_metalens(Optic),
+               "F": lambda: cs.phase_mirror(Optic),
+               "F vignetted": lambda: cs.phase_mirror(Optic, vignetted=True)}
+    return _systems_ms(systems, ("D", "E", "F"),
+                       hasattr(fused, "_uniform_phase"), cs, fused,
+                       kernel_ms, dev, rng, c)
+
+
+def _systems_ms(systems, history, supported, cs, fused, kernel_ms, dev, rng,
+                c):
+    """K1-K4 of each of `systems` (label -> builder) but the vignetted
+    twin, at 0.55 um and at the flagship batch's per-ray wavelengths, K5
+    and K6 on the eager rays of the "... vignetted" twin in both
+    configurations, and K7 at per-ray wavelengths on the `history` labels,
+    each at the batch's 1,999,998 rays and its first 16,384; all None where
+    the tree does not take them (`supported` false)."""
     import numpy as np
     import torch
 
     from optiland_tpu_torch.trace.raygen import generate_rays
 
-    keys = [f"{k} {label} {cfg}" for label in ("A", "B", "C")
+    twins = [label for label in systems if label.endswith("vignetted")]
+    keys = [f"{k} {label} {cfg}" for label in systems if label not in twins
             for cfg in ("0.55", "per-ray") for k in ("K1", "K2", "K3", "K4")]
-    keys += [f"{k} B vignetted {cfg}" for cfg in ("0.55", "per-ray")
-             for k in ("K5", "K6")]
-    keys += ["K7 A per-ray", "K7 B per-ray"]
+    keys += [f"{k} {label} {cfg}" for label in twins
+             for cfg in ("0.55", "per-ray") for k in ("K5", "K6")]
+    keys += [f"K7 {label} per-ray" for label in history]
     ns = (16_384, 1_999_998)
-    if not hasattr(fused, "branch_defines"):
+    if not supported:
         return {f"{key} {n}": None for key in keys for n in ns}
-    systems = {"A": cs.coated_cooke(CookeTriplet), "B": cs.spectrograph(Optic),
-               "C": cs.concave_grating(Optic),
-               "B vignetted": cs.spectrograph(Optic, vignetted=True)}
     ms = {}
-    for label, lens in systems.items():
-        static, params = lens.build(device="cuda")
+    for label, make in systems.items():
+        static, params = make().build(device="cuda")
         fb = cs.flagship_inputs(params, dev)
         for n in ns:
             d = tuple(a[:n].contiguous() for a in fb)
@@ -323,7 +354,7 @@ def branch_ms(cs, fused, kernel_ms, Optic, CookeTriplet, dev, rng, c):
             for cfg, args in (("0.55", d[:4] + (COOKE_WAVELENGTH,)),
                               ("per-ray", d)):
                 p, data = fused._prepare(static, params, *args)
-                if label == "B vignetted":
+                if label in twins:
                     r0 = generate_rays(static, params, *args)
                     rk = fused._RAY_KEYS[:8] if cfg == "0.55" else (
                         fused._RAY_KEYS)
@@ -346,7 +377,7 @@ def branch_ms(cs, fused, kernel_ms, Optic, CookeTriplet, dev, rng, c):
                         static, *p, data, (0, 1, 6, 7), seeds[:4])}
                 for key, call in calls.items():
                     ms[f"{key} {label} {cfg} {n}"] = kernel_ms(call)
-            if label in ("A", "B"):
+            if label in history:
                 r0 = generate_rays(static, params, *d)
                 r9 = tuple(getattr(r0, k).detach().contiguous()
                            for k in fused._RAY_KEYS)

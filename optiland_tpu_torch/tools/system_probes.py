@@ -904,9 +904,8 @@ def main(argv=None):
                 handle, f"{SOURCES[key]}_blocks_per_sm")()
 
     def prep(st, pr, wl):
-        n_table, alpha = fused._uniform_tables(st, pr, wl)
-        return (fused._diff_params(pr, n_table),
-                fused._nondiff_params(pr, alpha), fused._raygen_scalars(st, pr))
+        return fused._uniform_params(st, pr, wl) + (
+            fused._raygen_scalars(st, pr),)
 
     systems = {"bench": (static, prep(static, params, cs.WAVELENGTH)),
                "cooke": (static_c, prep(static_c, params_c, 0.55))}

@@ -44,15 +44,17 @@ second. Each configuration is its own build: the per-ray forward
 variants take the media's dispersion codes (`history_defines`, K7's), the
 per-ray backward variants those codes alone (`media_defines`).
 
-The chain's interactions are JAX's `_tile_trace` branches but the phase
-surfaces: refraction, reflection, simple coatings (T, or R after a
-reflection), the ideal thin lens and gratings on plane and curved
-carriers, each with its adjoint in K2, K4 and K6. A system with a coating,
-a thin lens or a grating is built with OTK_INTERACTIONS
-(`branch_defines`), its one-wavelength K2, K4 and K6 too; a system
-without them builds the code as it was before those branches. At one
-wavelength a grating's order column holds m w (`_uniform_grating`), as
-the index table holds n(w).
+The chain's interactions are JAX's `_tile_trace` branches: refraction,
+reflection, simple coatings (T, or R after a reflection), the ideal thin
+lens, gratings on plane and curved carriers, and phase sheets of the
+constant, radial and linear-grating kinds on plane and conic carriers,
+each with its adjoint in K2, K4 and K6. A system with a coating, a thin
+lens, a grating or a phase sheet is built with OTK_INTERACTIONS
+(`branch_defines`), its one-wavelength K2, K4 and K6 too, and a system
+with a phase sheet also with OTK_PHASE; a system without them builds the
+code as it was before those branches. At one wavelength a grating's order
+column holds m w (`_uniform_grating`) and a phase sheet's 1 / k0 = w 1e-3
+/ 2 pi (`_uniform_phase`), as the index table holds n(w).
 
 All run one ray per thread (csrc/chain.cuh; the backward kernels share the
 reverse sweep of csrc/chain_bwd.cuh; K1, K3, K5 and K7 unroll the same
@@ -134,6 +136,8 @@ _SUPPORTED_INTERACTIONS = (0, INT_REFLECT, INT_NONE, INT_THIN_LENS,
 _ANALYTIC_PHASE = (PHASE_NONE, PHASE_CONSTANT, PHASE_RADIAL,
                    PHASE_LINEAR_GRATING)
 _EPS = 1e-12
+# 1 / k0 per um of wavelength: k0 = 2 pi / (w 1e-3) in 1/mm, w in um
+_INV_K0_PER_UM = 1e-3 / (2.0 * math.pi)
 
 # Newton cap of the fused chain: the conic closed form seeds within ~1e-3
 # of the asphere root and Newton converges quadratically, so 2 iterations
@@ -146,10 +150,13 @@ _NEWTON_FUSED_MAX = 2
 # slots in the order csrc/chain.cuh names them (F_* and I_* there)
 _F_STRIDE = 32
 _F_COEFFS, _F_THICK, _F_TILT, _F_DEC, _F_NTAB = 2, 19, 20, 23, 25
-# a thin lens's focal length and a grating's (m w or m, d, angle) take the
-# first coefficient slots (their surfaces are planes or conics); a coated
-# surface's factor (T, or R after a reflection) takes _F_COAT
-_F_FOCAL = _F_GRATING = _F_COEFFS
+# a thin lens's focal length, a grating's (m w or m, d, angle) and a phase
+# sheet's 8 profile slots and 1 / k0 (at per-ray wavelengths 1 / k0 per um,
+# `_INV_K0_PER_UM`) take the first coefficient slots (their surfaces are
+# planes or conics); a coated surface's factor (T, or R after a reflection)
+# takes _F_COAT
+_F_FOCAL = _F_GRATING = _F_PHASE = _F_COEFFS
+_F_PHASE_IK = _F_PHASE + 8
 _F_COAT = 28
 _I_STRIDE = 16
 # leading material-coefficient columns K7 stages in shared memory: every
@@ -209,19 +216,13 @@ def supports_fused_raygen(static: SystemStatic) -> bool:
 
 
 def _check_kernel_branches(static: SystemStatic, kernel: str):
-    """Refuse the chain branches the CUDA kernel `kernel` ("K1".."K7") does
-    not cover yet (freeform geometries and phase surfaces, queued in
-    ROADMAP queue 2), at one wavelength or at per-ray wavelengths alike:
-    every kernel takes both."""
-    missing = []
+    """Refuse the chain branch the CUDA kernel `kernel` ("K1".."K7") does
+    not cover yet (freeform geometries, ROADMAP queue 2, branch 4), at one
+    wavelength or at per-ray wavelengths alike: every kernel takes both."""
     if any(g not in _INLINE_GEOMS for g in static.geom_codes):
-        missing.append("freeform geometries")
-    if INT_PHASE in static.interactions:
-        missing.append("phase surfaces")
-    if missing:
         raise NotImplementedError(
             f"{kernel} {_KERNELS[kernel]}: fused CUDA chain branches not "
-            "ported yet (ROADMAP queue 2): " + ", ".join(missing))
+            "ported yet (ROADMAP queue 2, branch 4): freeform geometries")
     if static.num_surfaces > _MAX_SURFACES:
         raise ValueError(f"the fused chain takes at most {_MAX_SURFACES} "
                          f"surfaces, got {static.num_surfaces}")
@@ -229,14 +230,24 @@ def _check_kernel_branches(static: SystemStatic, kernel: str):
         raise ValueError(f"the fused chain takes at most {MAX_GEOM_COEFFS} "
                          "asphere coefficients per surface")
     aspheres = [k for k in range(static.num_surfaces)
-                if static.interactions[k] in (INT_THIN_LENS, INT_DIFFRACT)
+                if static.interactions[k] in (INT_THIN_LENS, INT_DIFFRACT,
+                                              INT_PHASE)
                 and static.geom_codes[k] not in (GEOM_PLANE, GEOM_CONIC)]
     if aspheres:
-        # their coefficient slots hold the focal length or the grating
-        # (`_pack_tables`); `Optic.add_surface` gives them the standard
-        # geometry
-        raise ValueError(f"surfaces {aspheres}: a thin lens or grating "
-                         "on a geometry other than plane or conic")
+        # their coefficient slots hold the focal length, the grating or the
+        # phase profile (`_pack_tables`); `Optic.add_surface` gives them the
+        # standard geometry
+        raise ValueError(f"surfaces {aspheres}: a thin lens, grating or "
+                         "phase sheet on a geometry other than plane or "
+                         "conic")
+    tabulated = [k for k in range(static.num_surfaces)
+                 if static.phase_kinds[k] not in _ANALYTIC_PHASE]
+    if tabulated:
+        # as JAX's kernels (`supports_fused`): grid and height-profile
+        # sheets take the eager trace
+        raise ValueError(f"surfaces {tabulated}: the fused chain takes "
+                         "constant, radial and linear-grating phase "
+                         "profiles, not grid or height profiles")
 
 
 def _raygen_scalars(static: SystemStatic, params: SystemParams):
@@ -291,17 +302,48 @@ def _uniform_grating(static: SystemStatic, params: SystemParams, w):
     return torch.cat([g[:, :1] * w, g[:, 1:]], dim=1)
 
 
-def _diff_params(params: SystemParams, n_table=None, grating=None):
+def _uniform_phase(static: SystemStatic, params: SystemParams, w):
+    """The phase table at one wavelength w: the (S, 8) profile slots and a
+    9th column, 1 / k0 = w 1e-3 / 2 pi (mm), the factor of the phase
+    gradient and of the OPD term (w hoisted out of the kernel as the
+    indices are), differentiable in w; JAX's kernel forms k0 from each
+    ray's w. A system without a phase sheet keeps its table as it is."""
+    ph = params.phase_params
+    if INT_PHASE not in static.interactions:
+        return ph
+    w = torch.as_tensor(w, dtype=ph.dtype, device=ph.device)
+    return torch.cat([ph, (w * _INV_K0_PER_UM).expand(ph.shape[0], 1)],
+                     dim=1)
+
+
+def _uniform_params(static: SystemStatic, params: SystemParams, w,
+                    diff_w: bool = True):
+    """(diffp, nondiffp) of the chain at one wavelength w: the index and
+    absorption tables (`_uniform_tables`), the gratings' m w
+    (`_uniform_grating`) and the phase sheets' 1 / k0 (`_uniform_phase`)
+    hoisted; with `diff_w` false w enters the last two detached."""
+    n_table, alpha_table = _uniform_tables(static, params, w)
+    w = torch.as_tensor(w, dtype=params.cv.dtype, device=params.cv.device)
+    if not diff_w:
+        w = w.detach()
+    return (_diff_params(params, n_table, _uniform_grating(static, params, w),
+                         _uniform_phase(static, params, w)),
+            _nondiff_params(params, alpha_table))
+
+
+def _diff_params(params: SystemParams, n_table=None, grating=None,
+                 phase=None):
     """The 12 differentiable tables of the chain (JAX `_diff_params`); at
-    one wavelength `n_table` and `grating` are the hoisted ones
-    (`_uniform_tables`, `_uniform_grating`)."""
+    one wavelength `n_table`, `grating` and `phase` are the hoisted ones
+    (`_uniform_tables`, `_uniform_grating`, `_uniform_phase`)."""
     if n_table is None:
         n_table = torch.zeros_like(params.cv)
     return (params.cv, params.conic, params.coeffs, params.thickness,
             params.tilt, params.decenter, params.mat_coeffs,
             params.coating_params, n_table,
             params.grating if grating is None else grating,
-            params.phase_params, params.focal_length)
+            params.phase_params if phase is None else phase,
+            params.focal_length)
 
 
 def _nondiff_params(params: SystemParams, alpha_table=None):
@@ -491,6 +533,65 @@ def _diffract(plane, reflective, mw, d, angle, L, M, N, i, nx, ny, nz, gx,
     return L, M, N, i * okf
 
 
+def _phase_vg(kind, p, x, y):
+    """Phase value and gradient of the analytic kinds in the fused chain's
+    form (JAX `_phase_vg_inline`): the radial d phi / d(r^2) runs over all
+    of p's slots with r^(2 ci) carried from 1, so that its derivative at r
+    = 0 is the true 2 p_0 (the eager form, `trace/phase.py`, gives 0
+    there)."""
+    if kind == PHASE_CONSTANT:
+        z = torch.zeros_like(x)
+        return p[0] + z, z, z
+    if kind == PHASE_RADIAL:
+        r2 = x * x + y * y
+        phase = torch.zeros_like(x)
+        dphi_dr2 = torch.zeros_like(x)
+        rp = r2
+        rp_prev = torch.ones_like(x)
+        for ci in range(p.shape[0]):
+            phase = phase + p[ci] * rp
+            dphi_dr2 = dphi_dr2 + p[ci] * (ci + 1) * rp_prev
+            rp_prev = rp
+            rp = rp * r2
+        return phase, 2.0 * x * dphi_dr2, 2.0 * y * dphi_dr2
+    # PHASE_LINEAR_GRATING
+    return p[0] * x + p[1] * y, p[0] + 0.0 * x, p[1] + 0.0 * y
+
+
+def _phase_sheet(kind, p, reflective, ik, L, M, N, i, opd, x, y, nx, ny,
+                 nz, n1, n2):
+    """The generalized Snell law of a phase sheet (JAX `_tile_phase`) in
+    units of k0: with ik = 1 / k0, the scaled gradient (a, b) = ik grad
+    phi, the carrier's raw normal n (nz < 0), c = l.n and e = n1 c + a nx +
+    b ny, the tangential wavevector kp = n1 l + (a, b, 0) - e n and R^2 =
+    n2^2 - |kp|^2 (n2 = n1 on a mirror); the outgoing direction is kp +
+    s sqrt(R^2) n renormalized, s = sign(c), negated on a mirror. An
+    evanescent ray (R^2 < 0) keeps its direction with i = 0; the OPD takes
+    -phi / k0. Returns (L, M, N, i, opd)."""
+    if reflective:
+        n2 = n1
+    phase, gpx, gpy = _phase_vg(kind, p, x, y)
+    a = ik * gpx
+    b = ik * gpy
+    c = L * nx + M * ny + N * nz
+    e = n1 * c + a * nx + b * ny
+    kpx = n1 * L + a - e * nx
+    kpy = n1 * M + b - e * ny
+    kpz = n1 * N - e * nz
+    Q = n2 * n2 - (kpx * kpx + kpy * kpy + kpz * kpz)
+    okf = (Q >= 0.0).to(L.dtype)
+    al = (-1.0 if reflective else 1.0) * torch.sign(c) * torch.sqrt(
+        torch.clamp(Q, min=0.0))
+    kox = kpx + al * nx
+    koy = kpy + al * ny
+    koz = kpz + al * nz
+    inv = torch.rsqrt(kox * kox + koy * koy + koz * koz)
+    L = okf * kox * inv + (1.0 - okf) * L
+    M = okf * koy * inv + (1.0 - okf) * M
+    N = okf * koz * inv + (1.0 - okf) * N
+    return L, M, N, i * okf, opd - phase * ik
+
+
 def _kv_interp(w, kwl, kval):
     """Unrolled linear interpolation of a (K,)-point extinction table:
     jnp.interp semantics (edge-clamped) with float masks and a guarded
@@ -517,17 +618,19 @@ def _tile_trace(static: SystemStatic, diffp, nondiffp,
     """The fused chain in PyTorch for the branches the CUDA kernels cover;
     the arithmetic of csrc/chain.cuh and of the JAX `_tile_trace` value
     pass. `w=None`: one wavelength, hoisted into `n_table`, `alpha_table`
-    and the gratings' m w (`_uniform_grating`); otherwise the per-ray
-    wavelengths, with `material_index`, the extinction tables and m w
-    evaluated per ray (K1-K6 in their per-ray configuration, K7),
+    the gratings' m w (`_uniform_grating`) and the phase sheets' 1 / k0
+    (`_uniform_phase`); otherwise the per-ray wavelengths, with
+    `material_index`, the extinction tables, m w and 1 / k0 evaluated per
+    ray (K1-K6 in their per-ray configuration, K7),
     differentiable into `mat_coeffs` and w (the extinction tables are not
     differentiated, as in JAX).
     With `record`, returns every surface's state, row 0 the starting rays.
     Newton runs on a detached root and closes with one differentiable
     step, so autograd through it gives the implicit-function-theorem
-    derivative."""
+    derivative; so does a pure conic's closed-form root where it carries a
+    gradient (JAX's `for_grad` pass)."""
     (cv, conic, coeffs, thickness, tilt, decenter, mat_coeffs,
-     coating_params, n_table, grating, _phase_params, focal_length) = diffp
+     coating_params, n_table, grating, phase_params, focal_length) = diffp
     ap_radius, k_wl, k_val, alpha_table = nondiffp
     pos_prev = torch.zeros((), dtype=cv.dtype, device=cv.device)
     one = torch.ones((), dtype=cv.dtype, device=cv.device)
@@ -598,6 +701,23 @@ def _tile_trace(static: SystemStatic, diffp, nondiffp,
                 fp = gx * L + gy * M - N
                 fp = torch.where(torch.abs(fp) > _EPS, fp, eps)
                 t = t - f / fp
+        elif code != GEOM_PLANE and t.requires_grad:
+            # a pure conic's closed-form root is exact, but its derivative
+            # through the quadratic formula cancels (-B and sqrt(disc) agree
+            # to many digits on a weak curve): as JAX's `for_grad` pass
+            # does, detach the root and close the graph with one Newton
+            # step, whose derivative is the implicit-function theorem's (the
+            # backward kernels' `intersect_bwd`); the value moves by F / F',
+            # below the dtype's eps
+            t = t.detach()
+            xt = x + t * L
+            yt = y + t * M
+            zt = z + t * N
+            s_val, gx, gy = _radial_grad(code, 0, coeffs[k], cvk, kk, xt, yt,
+                                         True)
+            fp = gx * L + gy * M - N
+            fp = torch.where(torch.abs(fp) > _EPS, fp, eps)
+            t = t - (s_val - zt) / fp
 
         x = x + t * L
         y = y + t * M
@@ -634,6 +754,15 @@ def _tile_trace(static: SystemStatic, diffp, nondiffp,
                     grating[k, 1], grating[k, 2], L, M, N, i, nx, ny, nz, gx,
                     gy, n_pre, n_post)
                 n_pre = n_post
+            elif interaction == INT_PHASE:
+                n_post = n_of(k)
+                ik = (phase_params[k, 8] if w is None
+                      else w * _INV_K0_PER_UM)
+                L, M, N, i, opd = _phase_sheet(
+                    static.phase_kinds[k], phase_params[k, :8],
+                    static.is_reflective[k], ik, L, M, N, i, opd, x, y, nx,
+                    ny, nz, n_pre, n_post)
+                n_pre = n_post
             else:
                 sgn = torch.sign(L * nx + M * ny + N * nz)
                 nx, ny, nz = nx * sgn, ny * sgn, nz * sgn
@@ -647,7 +776,8 @@ def _tile_trace(static: SystemStatic, diffp, nondiffp,
                     n_pre = n_post
             if static.coatings[k] == COAT_SIMPLE:
                 # fixed-R/T coating: R after a reflection, T after every
-                # other interaction (a reflective grating's included)
+                # other interaction (a reflective grating's or phase
+                # sheet's included)
                 i = i * coating_params[k, 1 if interaction == INT_REFLECT
                                        else 0]
 
@@ -831,22 +961,33 @@ def _coated(static: SystemStatic, k: int) -> bool:
             and static.interactions[k] != INT_NONE)
 
 
-def _reflective_grating(static: SystemStatic, k: int) -> bool:
-    """Whether surface k is a grating on a mirror."""
-    return (static.interactions[k] == INT_DIFFRACT
+def _reflective_sheet(static: SystemStatic, k: int) -> bool:
+    """Whether surface k is a grating or a phase sheet on a mirror (the
+    reflective flag of csrc/chain.cuh; a plain mirror is INT_REFLECT)."""
+    return (static.interactions[k] in (INT_DIFFRACT, INT_PHASE)
             and bool(static.is_reflective[k]))
 
 
+def _phase_kind(static: SystemStatic, k: int) -> int:
+    """Surface k's phase kind where it is a phase sheet, else 0."""
+    return static.phase_kinds[k] if static.interactions[k] == INT_PHASE else 0
+
+
 def branch_defines(static: SystemStatic) -> tuple:
-    """OTK_INTERACTIONS where the system has a simple coating, a thin lens
-    or a grating: the definition that compiles those branches of the chain
-    and of its reverse sweep (csrc/chain.cuh, csrc/chain_bwd.cuh) and the
-    coating's intensity cotangent in the record. A system without them
-    builds the code without those branches, as it was before them."""
+    """OTK_INTERACTIONS where the system has a simple coating, a thin lens,
+    a grating or a phase sheet: the definition that compiles those branches
+    of the chain and of its reverse sweep (csrc/chain.cuh,
+    csrc/chain_bwd.cuh) and the coating's intensity cotangent in the
+    record; and OTK_PHASE where it has a phase sheet, which adds the phase
+    branch and its adjoint and each surface's phase kind to its codes. A
+    system without them builds the code without those branches, as it was
+    before them."""
+    phase = INT_PHASE in static.interactions
     new = (any(_coated(static, k) for k in range(static.num_surfaces))
            or INT_THIN_LENS in static.interactions
-           or INT_DIFFRACT in static.interactions)
-    return (("OTK_INTERACTIONS", "1"),) if new else ()
+           or INT_DIFFRACT in static.interactions or phase)
+    return ((("OTK_INTERACTIONS", "1"),) if new else ()) + (
+        (("OTK_PHASE", "1"),) if phase else ())
 
 
 def system_defines(static: SystemStatic) -> tuple:
@@ -855,8 +996,8 @@ def system_defines(static: SystemStatic) -> tuple:
     the Newton updates, the field and object codes, and each surface's
     geometry code, coefficient count, interaction, and tilt, decenter,
     aperture and absorption flags (the medium after it), a coated
-    surface's flag and a reflective grating's, packed as
-    csrc/system_chain.cuh `unpack_codes` reads them, then
+    surface's flag, a reflective grating's and a phase sheet's kind, packed
+    as csrc/system_chain.cuh `unpack_codes` reads them, then
     `branch_defines`. Values (curvatures, thicknesses, indices, ...) are
     not codes: they reach the kernel in the float table, so one build
     serves every value of a system."""
@@ -867,7 +1008,8 @@ def system_defines(static: SystemStatic) -> tuple:
         | int(static.has_aperture[k]) << 22
         | int(static.has_absorption[k]) << 23
         | int(_coated(static, k)) << 24
-        | int(_reflective_grating(static, k)) << 25
+        | int(_reflective_sheet(static, k)) << 25
+        | _phase_kind(static, k) << 26
         for k in range(static.num_surfaces))
     return (("OTK_S", str(static.num_surfaces)),
             ("OTK_NEWTON", str(min(static.newton_iters, _NEWTON_FUSED_MAX))),
@@ -978,15 +1120,16 @@ def _int_table(static: SystemStatic, device: torch.device):
              static.interactions[k], int(static.has_tilt[k]),
              int(static.has_decenter[k]), int(static.has_aperture[k]),
              int(static.has_absorption[k]), int(_coated(static, k)),
-             int(_reflective_grating(static, k))]
-            + [0] * (_I_STRIDE - 9) for k in range(static.num_surfaces)]
+             int(_reflective_sheet(static, k)), _phase_kind(static, k)]
+            + [0] * (_I_STRIDE - 10) for k in range(static.num_surfaces)]
     return torch.tensor(rows, dtype=torch.int32).to(device)
 
 
 @lru_cache(maxsize=64)
 def _surface_masks(static: SystemStatic, device: torch.device):
     """(S, 1) bool columns on `device`: thin-lens surfaces, gratings, coated
-    surfaces (`_coated`) and coated mirrors (whose factor is R)."""
+    surfaces (`_coated`), coated mirrors (whose factor is R) and phase
+    sheets."""
     S = static.num_surfaces
 
     def col(pred):
@@ -996,18 +1139,22 @@ def _surface_masks(static: SystemStatic, device: torch.device):
             col(lambda k: static.interactions[k] == INT_DIFFRACT),
             col(lambda k: _coated(static, k)),
             col(lambda k: _coated(static, k)
-                and static.interactions[k] == INT_REFLECT))
+                and static.interactions[k] == INT_REFLECT),
+            col(lambda k: static.interactions[k] == INT_PHASE))
 
 
-def _pack_tables(static: SystemStatic, diffp, nondiffp):
+def _pack_tables(static: SystemStatic, diffp, nondiffp, per_ray: bool):
     """The per-surface float table (S, 32) in the slot layout of
     csrc/chain.cuh, in the parameters' dtype, and the (S, 16) int table of
-    static codes. A thin lens's focal length and a grating's row (m w at
-    one wavelength, m at per-ray wavelengths; d; the groove angle) take
+    static codes, for a launch at one wavelength or (`per_ray`) at each
+    ray's own. A thin lens's focal length, a grating's row (m w at one
+    wavelength, m at per-ray wavelengths; d; the groove angle) and a phase
+    sheet's 8 profile slots and 1 / k0 (at one wavelength the hoisted 9th
+    column of `_uniform_phase`, at per-ray wavelengths 1 / k0 per um) take
     the first coefficient slots, and a coated surface's factor slot
-    _F_COAT."""
+    _F_COAT. A phase table of the other configuration's width raises."""
     (cv, conic, coeffs, thickness, tilt, decenter, _mat, coating_params,
-     n_table, grating, _phase, focal_length) = diffp
+     n_table, grating, phase, focal_length) = diffp
     ap_radius, _k_wl, _k_val, alpha_table = nondiffp
     S = static.num_surfaces
     co = coeffs[:, :MAX_GEOM_COEFFS]
@@ -1015,11 +1162,24 @@ def _pack_tables(static: SystemStatic, diffp, nondiffp):
         co = torch.nn.functional.pad(co, (0, MAX_GEOM_COEFFS - co.shape[1]))
     coat = coating_params[:, :1]   # not read without OTK_INTERACTIONS
     if branch_defines(static):
-        thin, grat, coated, coated_mirror = _surface_masks(static, cv.device)
+        thin, grat, coated, coated_mirror, sheet = _surface_masks(static,
+                                                                  cv.device)
         lead = torch.where(grat, grating, co[:, :3])
         lead = torch.where(thin, torch.nn.functional.pad(
             focal_length[:, None], (0, 2)), lead)
         co = torch.cat([lead, co[:, 3:]], dim=1)
+        if INT_PHASE in static.interactions:
+            if phase.shape[1] != (8 if per_ray else 9):
+                raise ValueError(
+                    f"phase_params of width {phase.shape[1]}: a launch at "
+                    + ("per-ray wavelengths takes the 8 profile slots"
+                       if per_ray else "one wavelength takes the 8 profile "
+                       "slots and the hoisted 1 / k0 (`_uniform_params`)"))
+            if per_ray:
+                phase = torch.nn.functional.pad(phase, (0, 1),
+                                                value=_INV_K0_PER_UM)
+            co = torch.where(sheet, torch.nn.functional.pad(
+                phase, (0, MAX_GEOM_COEFFS - 9)), co)
         coat = torch.where(coated, torch.where(
             coated_mirror, coating_params[:, 1:2], coat),
             torch.zeros_like(coat))
@@ -1036,15 +1196,16 @@ def _pack_tables(static: SystemStatic, diffp, nondiffp):
 def _unpack_table_grads(static, tab, diffp, d_mat=None):
     """The (S, 32) table cotangents of a backward kernel as the 12
     `_diff_params` cotangents: cv, conic, coeffs (cut back or padded with
-    zeros to its width; zeros on thin lenses and gratings, whose slots hold
-    their own), thickness, tilt, decenter and n_table from their slots;
-    focal_length and grating from a thin lens's and a grating's first
-    coefficient slots (the grating's m w at one wavelength: autograd
-    through `_uniform_grating` takes it to m and w); coating_params' T or
-    R from a coated surface's factor slot; `d_mat` for mat_coeffs at
-    per-ray wavelengths (at one wavelength the n_table slot's cotangent
-    reaches mat_coeffs by autograd through `_uniform_tables`); zeros for
-    phase_params, which the chain does not read."""
+    zeros to its width; zeros on thin lenses, gratings and phase sheets,
+    whose slots hold their own), thickness, tilt, decenter and n_table from
+    their slots; focal_length, grating and phase_params from a thin lens's,
+    a grating's and a phase sheet's first coefficient slots (the grating's
+    m w and, with the hoisted 9th column, the sheet's 1 / k0 at one
+    wavelength: autograd through `_uniform_grating` and `_uniform_phase`
+    takes them to m and w); coating_params' T or R from a coated surface's
+    factor slot; `d_mat` for mat_coeffs at per-ray wavelengths (at one
+    wavelength the n_table slot's cotangent reaches mat_coeffs by autograd
+    through `_uniform_tables`)."""
     coeffs = diffp[2]
     nco = coeffs.shape[1]
     co = tab[:, _F_COEFFS:_F_COEFFS + min(nco, MAX_GEOM_COEFFS)]
@@ -1052,8 +1213,12 @@ def _unpack_table_grads(static, tab, diffp, d_mat=None):
              4: tab[:, _F_TILT:_F_TILT + 3], 5: tab[:, _F_DEC:_F_DEC + 2],
              8: tab[:, _F_NTAB]}
     if branch_defines(static):
-        thin, grat, coated, coated_mirror = _surface_masks(static, tab.device)
-        co = torch.where(thin | grat, torch.zeros_like(co), co)
+        thin, grat, coated, coated_mirror, sheet = _surface_masks(static,
+                                                                  tab.device)
+        co = torch.where(thin | grat | sheet, torch.zeros_like(co), co)
+        width = diffp[10].shape[1]   # 9 with the hoisted 1 / k0
+        slots[10] = torch.where(sheet, tab[:, _F_PHASE:_F_PHASE + width],
+                                torch.zeros_like(tab[:, :width]))
         zero = torch.zeros_like(tab[:, :1])
         coat = torch.where(coated, tab[:, _F_COAT:_F_COAT + 1], zero)
         slots[7] = torch.cat([torch.where(coated_mirror, zero, coat),
@@ -1116,10 +1281,10 @@ def _launch_args(static, rg, diffp, nondiffp, data, kernel):
     """Tables and checked pointers of the raygen kernels (K1-K4): data =
     (Hx, Hy, Px, Py), or (Hx, Hy, Px, Py, w) at per-ray wavelengths."""
     _check_kernel_branches(static, kernel)
-    ftab, itab = _pack_tables(static, diffp, nondiffp)
     if len(data) not in (4, 5) or rg.shape != (5,):
         raise ValueError("expected four (n,) ray arrays (five with w) and a "
                          "(5,) rg")
+    ftab, itab = _pack_tables(static, diffp, nondiffp, len(data) == 5)
     n = _check_arrays([("rg", rg), ("tables", ftab)] + list(
         zip(("Hx", "Hy", "Px", "Py", "w"), data)), rg.device)
     head = [n, static.num_surfaces,
@@ -1136,10 +1301,10 @@ def _caller_ray_args(static, diffp, nondiffp, rays, kernel):
     """Tables and checked pointers of the caller-ray kernels (K5, K6): rays
     = (x, y, z, L, M, N, i, opd), or with w at per-ray wavelengths."""
     _check_kernel_branches(static, kernel)
-    ftab, itab = _pack_tables(static, diffp, nondiffp)
     if len(rays) not in (8, 9):
         raise ValueError("expected the 8 ray arrays x, y, z, L, M, N, i, opd "
                          "(9 with w)")
+    ftab, itab = _pack_tables(static, diffp, nondiffp, len(rays) == 9)
     n = _check_arrays([("tables", ftab)] + list(zip(_RAY_KEYS, rays)),
                       ftab.device)
     head = [n, static.num_surfaces,
@@ -1482,7 +1647,7 @@ def k7_launch(static, diffp, nondiffp, rays9):
     if len(rays9) != 9:
         raise ValueError("expected the 9 ray arrays x, y, z, L, M, N, i, "
                          "opd, w")
-    ftab, _ = _pack_tables(static, diffp, nondiffp)
+    ftab, _ = _pack_tables(static, diffp, nondiffp, True)
     sizes, media, media_keep = _media_args(static, diffp, nondiffp, True)
     dev, S = ftab.device, static.num_surfaces
     n = _check_arrays([("tables", ftab)] + list(zip(_RAY_KEYS, rays9)), dev)
@@ -1685,11 +1850,11 @@ def _per_ray(wavelength) -> bool:
 def _prepare(static, params, Hx, Hy, Px, Py, wavelength, diff_w=True):
     """Broadcast the per-ray data and build the kernel parameter tuple of
     the raygen kernels (K1-K4). A scalar `wavelength` fills the index and
-    absorption tables (`_uniform_tables`) and the gratings' m w
-    (`_uniform_grating`; with `diff_w` false w enters it detached, as
-    JAX's K2 returns no w cotangent without its data cotangents) and data
-    = (Hx, Hy, Px, Py); an array leaves the index and absorption slots as
-    unused placeholders and data gains w, broadcast to the rays."""
+    absorption tables, the gratings' m w and the phase sheets' 1 / k0
+    (`_uniform_params`; with `diff_w` false w enters the last two detached,
+    as JAX's K2 returns no w cotangent without its data cotangents) and
+    data = (Hx, Hy, Px, Py); an array leaves the index and absorption slots
+    as unused placeholders and data gains w, broadcast to the rays."""
     dt, dev = params.cv.dtype, params.cv.device
     Px = torch.as_tensor(Px, dtype=dt, device=dev)
     Py = torch.as_tensor(Py, dtype=dt, device=dev)
@@ -1697,17 +1862,12 @@ def _prepare(static, params, Hx, Hy, Px, Py, wavelength, diff_w=True):
     Hy = torch.as_tensor(Hy, dtype=dt, device=dev).expand(Px.shape)
     data = (Hx, Hy, Px, Py)
     if _per_ray(wavelength):
-        n_table = alpha_table = grating = None
+        p = (_diff_params(params), _nondiff_params(params))
         data += (torch.as_tensor(wavelength, dtype=dt,
                                  device=dev).expand(Px.shape),)
     else:
-        n_table, alpha_table = _uniform_tables(static, params, wavelength)
-        w = torch.as_tensor(wavelength, dtype=dt, device=dev)
-        grating = _uniform_grating(static, params,
-                                   w if diff_w else w.detach())
-    p = (_diff_params(params, n_table, grating),
-         _nondiff_params(params, alpha_table),
-         _raygen_scalars(static, params))
+        p = _uniform_params(static, params, wavelength, diff_w)
+    p += (_raygen_scalars(static, params),)
     return p, tuple(a.contiguous() for a in data)
 
 
@@ -1730,8 +1890,9 @@ def trace_final(static: SystemStatic, params: SystemParams, rays0,
     """Final-surface state from a caller-made bundle. On a CUDA device in
     float32 a `supports_fused` system is one launch of K5 (backward: K6):
     at a scalar `wavelength` (the one the bundle was made with) from the
-    index, absorption and grating tables (w detached from the gratings'
-    m w: JAX's K6 returns no w cotangent); at per-ray wavelengths (an
+    index, absorption, grating and phase tables (w detached from the
+    gratings' m w and the phase sheets' 1 / k0: JAX's K6 returns no w
+    cotangent); at per-ray wavelengths (an
     array, or `None`, as in JAX) at the bundle's own w, which K6
     differentiates. Otherwise the eager trace."""
     from optiland_tpu_torch.trace.tracer import _final, trace_rays
@@ -1739,15 +1900,11 @@ def trace_final(static: SystemStatic, params: SystemParams, rays0,
     if (supports_fused(static) and rays0.x.is_cuda
             and rays0.x.dtype == torch.float32):
         if wavelength is None or _per_ray(wavelength):
-            n_table = alpha_table = grating = None
+            p = (_diff_params(params), _nondiff_params(params))
             keys = _RAY_KEYS
         else:
-            n_table, alpha_table = _uniform_tables(static, params, wavelength)
-            grating = _uniform_grating(static, params, torch.as_tensor(
-                wavelength).detach())
+            p = _uniform_params(static, params, wavelength, diff_w=False)
             keys = _RAY_KEYS[:8]
-        p = (_diff_params(params, n_table, grating),
-             _nondiff_params(params, alpha_table))
         rays = tuple(getattr(rays0, k).contiguous() for k in keys)
         return dict(zip(_NAMES, fused_trace_final(static, p, rays)))
     return _final(trace_rays(static, params, rays0))

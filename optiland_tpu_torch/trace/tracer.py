@@ -2,8 +2,9 @@
 
 Port of `optiland_tpu/trace/tracer.py` for the ported surface and
 interaction set: plane/conic/even/odd-asphere geometries; refract, reflect,
-none, the ideal thin lens and gratings on plane and curved carriers;
-radial apertures; tilt and decenter; Beer-Lambert absorption in media with
+none, the ideal thin lens, gratings on plane and curved carriers and phase
+sheets (generalized Snell's law) of all five profile kinds; radial
+apertures; tilt and decenter; Beer-Lambert absorption in media with
 a tabulated extinction; simple coatings (the only coating that acts on an
 unpolarized trace). Per surface:
   localize -> intersect -> propagate -> OPD -> absorption -> aperture clip
@@ -38,6 +39,7 @@ from optiland_tpu_torch.system.spec import (
     COAT_SIMPLE,
     INT_DIFFRACT,
     INT_NONE,
+    INT_PHASE,
     INT_REFLECT,
     INT_REFRACT,
     INT_THIN_LENS,
@@ -67,9 +69,6 @@ def _check_traceable(static: SystemStatic):
     unported = []
     if any(g not in SLICE_GEOMS for g in static.geom_codes):
         unported.append("freeform geometries (item 14)")
-    if any(i not in (INT_REFRACT, INT_REFLECT, INT_NONE, INT_THIN_LENS,
-                     INT_DIFFRACT) for i in static.interactions):
-        unported.append("phase interactions (item 15)")
     if static.has_abs_cs:
         unported.append("absolute coordinate systems (item 23)")
     if any(b is not None for b in static.bsdfs):
@@ -132,6 +131,59 @@ def _grating_interact(static, params, k, rays: Rays, n1, n2) -> Rays:
     pp = d / torch.sqrt(fx * fx + fy * fy)
     return R.grating_diffract(rays, nx, ny, nz, fx, fy, fz, m, pp, n1, n2,
                               static.is_reflective[k])
+
+
+def _phase_interact(static, params, k, rays: Rays, n1, n2) -> Rays:
+    """Generalized Snell's law for a thin phase sheet at surface k (JAX
+    `tracer._phase_interact`, reference
+    `interactions/phase_interaction_model.py:45-131`): the phase gradient
+    and the incident wavevector n1 k0 l projected onto the carrier's
+    tangent plane and added; the normal component rebuilt from |k_out| =
+    n2 k0 (n2 = n1 on a mirror); an evanescent ray (R^2 < 0) keeps its
+    direction with i = 0; the OPD takes -phi / k0. The JAX package's
+    deliberate deviation from the reference is kept: the outgoing normal
+    component follows sign(k_in . n), so transmission through a curved
+    carrier continues forward."""
+    from optiland_tpu_torch.trace.phase import phase_value_grad
+
+    reflective = static.is_reflective[k]
+    if reflective:
+        n2 = n1
+    k0 = 2.0 * math.pi / (rays.w * 1e-3)  # wavenumber in 1/mm
+    nx, ny, nz = surface_normal(
+        static.geom_codes[k], static.geom_n_coeffs[k], rays.x, rays.y,
+        params.cv[k], params.conic[k], params.coeffs[k])
+    phase, gx, gy = phase_value_grad(static, params, k, rays.x, rays.y,
+                                     rays.w)
+    gz = torch.zeros_like(gx)
+    # tangential projections G = grad(phi) - (grad(phi).n) n and
+    # k_par = k_in - (k_in.n) n
+    g_dot_n = gx * nx + gy * ny + gz * nz
+    Gx, Gy, Gz = gx - g_dot_n * nx, gy - g_dot_n * ny, gz - g_dot_n * nz
+    kix = n1 * k0 * rays.L
+    kiy = n1 * k0 * rays.M
+    kiz = n1 * k0 * rays.N
+    ki_dot_n = kix * nx + kiy * ny + kiz * nz
+    kpx = kix - ki_dot_n * nx + Gx
+    kpy = kiy - ki_dot_n * ny + Gy
+    kpz = kiz - ki_dot_n * nz + Gz
+    R_sq = (n2 * k0) ** 2 - (kpx**2 + kpy**2 + kpz**2)
+    ok = R_sq >= 0.0
+    alpha = torch.sqrt(torch.clamp(R_sq, min=0.0))
+    # refraction keeps the incident normal component's sign, reflection
+    # reverses it
+    alpha = (-1.0 if reflective else 1.0) * torch.sign(ki_dot_n) * alpha
+    k_out_x = kpx + alpha * nx
+    k_out_y = kpy + alpha * ny
+    k_out_z = kpz + alpha * nz
+    mag = torch.sqrt(k_out_x**2 + k_out_y**2 + k_out_z**2)
+    return rays.replace(
+        L=torch.where(ok, k_out_x / mag, rays.L),
+        M=torch.where(ok, k_out_y / mag, rays.M),
+        N=torch.where(ok, k_out_z / mag, rays.N),
+        i=torch.where(ok, rays.i, torch.zeros_like(rays.i)),
+        opd=rays.opd - phase / k0,
+    )
 
 
 def trace_rays(static: SystemStatic, params: SystemParams,
@@ -217,10 +269,13 @@ def trace_rays(static: SystemStatic, params: SystemParams,
         elif interaction == INT_DIFFRACT:
             rays = _grating_interact(static, params, k, rays, n_pre,
                                      n_of(k, rays.w))
+        elif interaction == INT_PHASE:
+            rays = _phase_interact(static, params, k, rays, n_pre,
+                                   n_of(k, rays.w))
 
         # fixed-R/T coating: intensity scale (R after a reflection, T after
-        # every other interaction, a reflective grating's included, as in
-        # JAX); polarization coatings do not act on an unpolarized trace
+        # every other interaction, a reflective grating's or phase sheet's
+        # included, as in JAX); polarization coatings do not act on an unpolarized trace
         if interaction != INT_NONE and static.coatings[k] == COAT_SIMPLE:
             cp = params.coating_params[k]
             rays = rays.replace(

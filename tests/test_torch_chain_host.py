@@ -45,10 +45,16 @@ from optiland_tpu_torch.trace import fused
 from optiland_tpu_torch.trace.raygen import generate_rays
 
 from torch_port_helpers import (
+    K0_055,
+    PHASE_PROFILES,
     bench_lens,
     coated_cooke,
     coated_singlet,
     curved_grating,
+    curved_metalens,
+    hybrid_achromat,
+    phase_mirror,
+    phase_sheet,
     plane_grating,
     singlet_lens,
     tabulated_doublet,
@@ -542,15 +548,15 @@ def test_device_code_matches_plain(host_lib, f64, name):
                            0.5876 if name == "bench" else 0.55)
 
 
-def _check_run_time_bodies(host_lib, ts, tp, w):
+def _check_run_time_bodies(host_lib, ts, tp, w, axial_ray=False):
     """The run-time chain's bodies at one wavelength w (K1's moments, K2,
     K4, K5 and K6 on the raygen's rays with a caller's intensity and opd)
-    against the plain versions; returns K2's and K6's table cotangents."""
-    n_table, alpha = fused._uniform_tables(ts, tp, w)
-    diffp = fused._diff_params(tp, n_table, fused._uniform_grating(ts, tp, w))
-    nondiffp = fused._nondiff_params(tp, alpha)
+    against the plain versions; returns K2's and K6's table cotangents.
+    With `axial_ray`, the first ray starts on axis at the pupil's centre
+    (Hx = Hy = Px = Py = 0)."""
+    diffp, nondiffp = fused._uniform_params(ts, tp, w)
     rg = fused._raygen_scalars(ts, tp)
-    ftab, itab = fused._pack_tables(ts, diffp, nondiffp)
+    ftab, itab = fused._pack_tables(ts, diffp, nondiffp, False)
     ftab, itab, rg_np = _np(ftab), _np(itab), _np(rg)
     S = ts.num_surfaces
     head = [S, min(ts.newton_iters, fused._NEWTON_FUSED_MAX)]
@@ -558,6 +564,9 @@ def _check_run_time_bodies(host_lib, ts, tp, w):
     n = N_RAYS
     data_np = [np.ascontiguousarray(a) for a in (
         *rng.uniform(-0.5, 0.5, (2, n)), *rng.uniform(-0.9, 0.9, (2, n)))]
+    if axial_ray:
+        for a in data_np:
+            a[0] = 0.0
     data = tuple(torch.from_numpy(a) for a in data_np)
     seeds = np.ascontiguousarray(rng.normal(size=(8, n)))
 
@@ -843,11 +852,9 @@ def system_libs(tmp_path_factory):
 def _system_inputs(ts, tp, w, seed=9):
     """diffp, nondiffp, rg and the float table of a system at wavelength
     w, and n (Hx, Hy, Px, Py) from `seed` as numpy and torch arrays."""
-    n_table, alpha = fused._uniform_tables(ts, tp, w)
-    diffp = fused._diff_params(tp, n_table, fused._uniform_grating(ts, tp, w))
-    nondiffp = fused._nondiff_params(tp, alpha)
+    diffp, nondiffp = fused._uniform_params(ts, tp, w)
     rg = fused._raygen_scalars(ts, tp)
-    ftab = _np(fused._pack_tables(ts, diffp, nondiffp)[0])
+    ftab = _np(fused._pack_tables(ts, diffp, nondiffp, False)[0])
     rng = np.random.default_rng(seed)
     data_np = [np.ascontiguousarray(a) for a in (
         *rng.uniform(-0.5, 0.5, (2, N_RAYS)),
@@ -953,7 +960,7 @@ def test_history_body_matches_plain(system_libs, f64, case):
     ts, tp = _HISTORY_SYSTEMS[name]().build(device="cpu")
     assert any(ts.has_absorption)
     diffp, nondiffp = fused._diff_params(tp), fused._nondiff_params(tp)
-    ftab = _np(fused._pack_tables(ts, diffp, nondiffp)[0])
+    ftab = _np(fused._pack_tables(ts, diffp, nondiffp, True)[0])
     rng = np.random.default_rng(7)
     n = N_RAYS
     Hy = rng.uniform(-1, 1, n)
@@ -1010,7 +1017,8 @@ def _check_per_ray_bodies(lib, ts, tp, wavelengths):
     S, n = ts.num_surfaces, N_RAYS
     diffp, nondiffp = fused._diff_params(tp), fused._nondiff_params(tp)
     rg = fused._raygen_scalars(ts, tp)
-    ftab, itab = (_np(t) for t in fused._pack_tables(ts, diffp, nondiffp))
+    ftab, itab = (_np(t) for t in fused._pack_tables(ts, diffp, nondiffp,
+                                                     True))
     mat, kwl, kval = (_np(t) for t in (diffp[6], nondiffp[1], nondiffp[2]))
     rng = np.random.default_rng(21)
     data_np = [np.ascontiguousarray(a) for a in (
@@ -1231,12 +1239,19 @@ def test_history_bulk(S, n, bulk):
     assert fused.history_bulk(S, n, 50 * 2**20) is bulk
 
 
-# The chain's coating, thin-lens and grating branches and their adjoints,
-# built with OTK_INTERACTIONS (`fused.branch_defines`): a coated singlet,
-# the same at T = 0 on its first surface, a coated mirror at R = 0 (whose factor is R), the
-# coated thin lens, the plane grating, the concave reflective grating
-# coated at (T, R) = (0.9, 0) (a reflective grating takes T, as in JAX),
-# and the coated, absorbing Cooke triplet
+# The chain's coating, thin-lens, grating and phase branches and their
+# adjoints, built with OTK_INTERACTIONS and, for the phase sheets, OTK_PHASE
+# (`fused.branch_defines`): a coated singlet, the same at T = 0 on its
+# first surface, a coated mirror at R = 0 (whose factor is R), the coated
+# thin lens, the plane grating, the concave reflective grating coated at
+# (T, R) = (0.9, 0) (a reflective grating takes T, as in JAX), the coated,
+# absorbing Cooke triplet; the plane phase sheets of the three analytic
+# kinds (the radial one with a ray through its axis, where the chain's
+# gradient derivative is 2 p0), a linear-grating sheet at Ky = 0.99 k0,
+# where a part of the bundle passes the cutoff and rays come to it from
+# both sides, the coated metalens on a conic carrier, the tilted
+# reflective sheet and the hybrid achromat (absorbing N-BK7, a radial sheet
+# and a constant sheet)
 def _coated_t0():
     """The coated singlet with T = 0 on its first surface alone."""
     lens = coated_singlet(Optic, T=0.0)
@@ -1253,6 +1268,13 @@ _BRANCH_SYSTEMS = {
     "plane_grating": lambda: plane_grating(Optic),
     "curved_grating": lambda: curved_grating(Optic, ("simple", 0.9, 0.0)),
     "coated_cooke": lambda: coated_cooke(Optic),
+    **{f"phase_{kind}": (lambda kind=kind: phase_sheet(
+        Optic, PHASE_PROFILES[kind])) for kind in PHASE_PROFILES},
+    "phase_cutoff": lambda: phase_sheet(
+        Optic, ("linear_grating", 0.0, 0.99 * K0_055)),
+    "metalens": lambda: curved_metalens(Optic),
+    "phase_mirror": lambda: phase_mirror(Optic),
+    "hybrid_achromat": lambda: hybrid_achromat(Optic),
 }
 
 
@@ -1270,8 +1292,8 @@ def branch_libs(tmp_path_factory):
     out = tmp_path_factory.mktemp("branch_host")
     (out / "cuda_runtime.h").write_text("#pragma once\n")
     src = out / "shim.cpp"
-    src.write_text(_build.defines_header((("OTK_INTERACTIONS", "1"),))
-                   + _SHIM)
+    src.write_text(_build.defines_header((("OTK_INTERACTIONS", "1"),
+                                          ("OTK_PHASE", "1"))) + _SHIM)
     procs = {"run_time": subprocess.Popen(
         [gxx, "-O1", "-std=c++17", "-shared", "-fPIC", "-pthread",
          f"-I{out}", f"-I{CSRC}", "-o", str(out / "librun_time.so"),
@@ -1298,8 +1320,16 @@ def branch_libs(tmp_path_factory):
 
 def _branch_system(name):
     ts, tp = _BRANCH_SYSTEMS[name]().build(device="cpu")
-    assert fused.branch_defines(ts) == (("OTK_INTERACTIONS", "1"),)
+    phase = fused.INT_PHASE in ts.interactions
+    assert fused.branch_defines(ts) == (("OTK_INTERACTIONS", "1"),) + (
+        (("OTK_PHASE", "1"),) if phase else ())
     return ts, tp
+
+
+# the profile slots each phase kind reads (the radial kind all eight)
+_PHASE_SLOTS_READ = {fused.PHASE_CONSTANT: (0,),
+                     fused.PHASE_RADIAL: tuple(range(8)),
+                     fused.PHASE_LINEAR_GRATING: (0, 1)}
 
 
 def _lit(ts, tp):
@@ -1313,10 +1343,12 @@ def _lit(ts, tp):
     return range(1, ts.num_surfaces - 1)
 
 
-def _branch_slots(ts, tp, tab):
+def _branch_slots(ts, tp, tab, opd_seeded=True):
     """Each branch's cotangents in a (S, 32) table on the lit surfaces
     (`_lit`): the coated surfaces' factor slot, the thin lenses' focal
-    slot and the gratings' 3 slots."""
+    slot, the gratings' 3 slots and the phase sheets' slots their kind
+    reads and 1 / k0 (a constant sheet acts on the OPD alone: without an
+    OPD seed, as in K2, it has none)."""
     got = []
     for k in _lit(ts, tp):
         if fused._coated(ts, k):
@@ -1325,20 +1357,27 @@ def _branch_slots(ts, tp, tab):
             got.append(tab[k, fused._F_FOCAL])
         if ts.interactions[k] == fused.INT_DIFFRACT:
             got += list(tab[k, fused._F_GRATING:fused._F_GRATING + 3])
+        kind = ts.phase_kinds[k]
+        if ts.interactions[k] == fused.INT_PHASE and (
+                opd_seeded or kind != fused.PHASE_CONSTANT):
+            got += [tab[k, fused._F_PHASE + j] for j in _PHASE_SLOTS_READ[kind]]
+            got.append(tab[k, fused._F_PHASE_IK])
     return np.asarray(got)
 
 
 @pytest.mark.parametrize("name", list(_BRANCH_SYSTEMS))
 def test_branch_run_time_bodies_match_plain(branch_libs, f64, name):
-    """The run-time chain's coating, thin-lens and grating branches at one
-    wavelength (K1's moments, K2, K4, K5, K6, the gratings' m w hoisted
-    into the table) against the plain versions at 1e-10, T = 0 and R = 0
-    included; each branch's parameter cotangents are there (not 0) in
-    K2's and K6's tables."""
+    """The run-time chain's coating, thin-lens, grating and phase branches
+    at one wavelength (K1's moments, K2, K4, K5, K6, the gratings' m w and
+    the phase sheets' 1 / k0 hoisted into the table) against the plain
+    versions at 1e-10, T = 0, R = 0, a ray on a radial sheet's axis and
+    rays past a phase sheet's cutoff included; each branch's parameter
+    cotangents are there (not 0) in K2's and K6's tables."""
     ts, tp = _branch_system(name)
-    k2, k6 = _check_run_time_bodies(branch_libs["run_time"], ts, tp, 0.55)
-    for tab in (k2, k6):
-        assert np.all(np.abs(_branch_slots(ts, tp, tab)) > 0)
+    k2, k6 = _check_run_time_bodies(branch_libs["run_time"], ts, tp, 0.55,
+                                    axial_ray=name.startswith("phase_"))
+    for tab, opd_seeded in ((k2, False), (k6, True)):
+        assert np.all(np.abs(_branch_slots(ts, tp, tab, opd_seeded)) > 0)
 
 
 @pytest.mark.parametrize("name", list(_BRANCH_SYSTEMS))
@@ -1381,7 +1420,7 @@ def test_branch_system_bodies_match_plain(branch_libs, f64, name):
                   for k in fused._RAY_KEYS)
     rays_np = np.ascontiguousarray(np.stack([_np(r) for r in rays9]))
     diffp, nondiffp = fused._diff_params(tp), fused._nondiff_params(tp)
-    ftab = _np(fused._pack_tables(ts, diffp, nondiffp)[0])
+    ftab = _np(fused._pack_tables(ts, diffp, nondiffp, True)[0])
     mat, kwl, kval = (_np(t) for t in (diffp[6], nondiffp[1], nondiffp[2]))
     hist = np.zeros((8, ts.num_surfaces, n))
     lib.system_history(n, mat.shape[1], kwl.shape[1], _ptr(ftab), _ptr(mat),
@@ -1393,12 +1432,13 @@ def test_branch_system_bodies_match_plain(branch_libs, f64, name):
 
 @pytest.mark.parametrize("name", list(_BRANCH_SYSTEMS))
 def test_branch_per_ray_bodies_match_plain(branch_libs, f64, name):
-    """The per-ray variants' bodies with the coating, thin-lens and
-    grating branches (K1, K3 by the per-system chain at each ray's w; K2,
+    """The per-ray variants' bodies with the coating, thin-lens, grating
+    and phase branches (K1, K3 by the per-system chain at each ray's w; K2,
     K4, K5, K6 by the per-ray sweep, a grating's m w turned into m's and
-    w's cotangents) against the plain versions at per-ray wavelengths;
-    each branch's parameter cotangents are there, and a grating gives w a
-    cotangent even in a dispersionless medium."""
+    w's cotangents, a phase sheet's 1 / k0 into w's) against the plain
+    versions at per-ray wavelengths; each branch's parameter cotangents are
+    there, and a grating or a bending phase sheet gives w a cotangent even
+    in a dispersionless medium."""
     ts, tp = _branch_system(name)
     got = _check_per_ray_bodies(branch_libs[name], ts, tp, (0.48, 0.55, 0.65))
     d_diff = got["K2"][3]
@@ -1410,3 +1450,14 @@ def test_branch_per_ray_bodies_match_plain(branch_libs, f64, name):
         if ts.interactions[k] == fused.INT_DIFFRACT:
             assert d_diff[9][k].abs().min() > 0
             assert np.abs(got["K2"][4][4]).max() > 0
+        kind = ts.phase_kinds[k]
+        if (ts.interactions[k] == fused.INT_PHASE
+                and kind != fused.PHASE_CONSTANT):
+            assert d_diff[10][k, list(_PHASE_SLOTS_READ[kind])].abs().min() > 0
+            assert np.abs(got["K2"][4][4]).max() > 0
+    if fused.INT_PHASE in ts.interactions:
+        # K6 seeds the OPD: every sheet's slots, the constant one's too
+        d6 = got["K6"][1][10]
+        assert all(d6[k, list(_PHASE_SLOTS_READ[ts.phase_kinds[k]])].abs(
+        ).min() > 0 for k in _lit(ts, tp)
+            if ts.interactions[k] == fused.INT_PHASE)

@@ -21,6 +21,7 @@ import jax
 import jax.numpy as jnp
 
 from optiland_tpu.trace import fused as jfused
+from optiland_tpu_torch.system.spec import PHASE_GRID
 from optiland_tpu_torch.trace import fused as tfused
 
 from torch_port_helpers import bench_lens, build_both, singlet_lens
@@ -48,10 +49,8 @@ def _data(seed=11, n=N_RAYS):
 
 
 def _port_args(ts, tp, w):
-    n_table, alpha = tfused._uniform_tables(ts, tp, w)
-    return (tfused._diff_params(tp, n_table),
-            tfused._nondiff_params(tp, alpha),
-            tfused._raygen_scalars(ts, tp))
+    return tfused._uniform_params(ts, tp, w) + (
+        tfused._raygen_scalars(ts, tp),)
 
 
 def _t(arrays):
@@ -131,9 +130,12 @@ def test_kernel_seams_refuse_backward(bench_pair):
 
 
 def test_unported_chain_branches_raise():
-    """The chain branches still to port (queue 2: phase surfaces, freeform
-    geometries) raise before a launch, naming the kernel and the branch;
-    the coating, thin-lens and grating branches are ported and pass."""
+    """The chain branch still to port (queue 2, branch 4: freeform
+    geometries) raises before a launch, naming the kernel and the branch;
+    the coating, thin-lens, grating and phase branches are ported and pass
+    (a phase sheet at one wavelength and at per-ray wavelengths), while a
+    grid or height-profile sheet (the eager path's, as in JAX) and a sheet
+    on an asphere are refused by name."""
     (_, _), (ts, tp) = build_both(
         lambda O: singlet_lens(O, asphere=False))
     from dataclasses import replace
@@ -141,20 +143,59 @@ def test_unported_chain_branches_raise():
     phased = replace(ts, interactions=(3, tfused.INT_PHASE, 0, 3),
                      phase_kinds=(0, tfused.PHASE_CONSTANT, 0, 0))
     assert tfused.supports_fused(phased)
-    with pytest.raises(NotImplementedError, match="phase surfaces"):
-        tfused._moments_plain(phased, *_port_args(ts, tp, 0.55),
+    diffp, nondiffp = tfused._uniform_params(phased, tp, 0.55)
+    m = tfused._moments_plain(phased, diffp, nondiffp,
+                              tfused._raygen_scalars(ts, tp),
                               _t(_data(n=8)))
-    # per-ray wavelengths are a configuration of every kernel, no branch:
-    # a phase system at per-ray wavelengths names the phase surfaces alone
-    with pytest.raises(NotImplementedError,
-                       match=r"K3 raygen_trace_forward: .*: phase surfaces$"):
-        tfused.trace_system_final_fused(phased, tp, *_t(_data(n=8)),
-                                        torch.full((8,), 0.55,
-                                                   dtype=torch.float64))
+    assert bool(torch.isfinite(m).all()) and float(m[0]) > 0
+    # per-ray wavelengths are a configuration of every kernel, no branch
+    out = tfused.trace_system_final_fused(
+        phased, tp, *_t(_data(n=8)), torch.full((8,), 0.55,
+                                                dtype=torch.float64))
+    assert all(bool(torch.isfinite(v).all()) for v in out.values())
     freeform = replace(ts, geom_codes=(0, tfused.GEOM_BICONIC, 1, 0))
     with pytest.raises(NotImplementedError,
                        match=r"K1 moments_forward: .*: freeform geometries$"):
         tfused._moments_plain(freeform, *_port_args(ts, tp, 0.55),
                               _t(_data(n=8)))
+    with pytest.raises(NotImplementedError,
+                       match=r"K3 raygen_trace_forward: .*branch 4"):
+        tfused.trace_system_final_fused(freeform, tp, *_t(_data(n=8)), 0.55)
+    gridded = replace(phased, phase_kinds=(0, PHASE_GRID, 0, 0))
+    assert not tfused.supports_fused(gridded)
+    with pytest.raises(ValueError, match="not grid or height profiles"):
+        tfused._moments_plain(gridded, diffp, nondiffp,
+                              tfused._raygen_scalars(ts, tp), _t(_data(n=8)))
+    aspheric = replace(phased, geom_codes=(0, tfused.GEOM_EVEN_ASPHERE, 1, 0))
+    with pytest.raises(ValueError, match="phase sheet on a geometry"):
+        tfused._moments_plain(aspheric, diffp, nondiffp,
+                              tfused._raygen_scalars(ts, tp), _t(_data(n=8)))
     coated = replace(ts, coatings=(0, 1, 0, 0))
     tfused._moments_plain(coated, *_port_args(ts, tp, 0.55), _t(_data(n=8)))
+
+
+def test_phase_table_width_follows_configuration():
+    """A launch's table takes the phase table of its own configuration: at
+    one wavelength the 8 profile slots and the hoisted 1 / k0
+    (`_uniform_params`), at per-ray wavelengths the 8 slots, 1 / k0 per um
+    padded in. A table of the other width raises rather than trace the
+    sheet at another wavelength (the plain version fails on the missing
+    column)."""
+    from dataclasses import replace
+
+    from torch_port_helpers import TOptic
+
+    ts, tp = singlet_lens(TOptic, asphere=False).build(device="cpu")
+    phased = replace(ts, interactions=(3, tfused.INT_PHASE, 0, 3),
+                     phase_kinds=(0, tfused.PHASE_CONSTANT, 0, 0))
+    one = tfused._uniform_params(phased, tp, 0.55)
+    own = (tfused._diff_params(tp), tfused._nondiff_params(tp))
+    ftab = tfused._pack_tables(phased, *one, False)[0]
+    assert float(ftab[1, tfused._F_PHASE_IK]) == pytest.approx(
+        0.55 * tfused._INV_K0_PER_UM, rel=1e-15)
+    ftab = tfused._pack_tables(phased, *own, True)[0]
+    assert float(ftab[1, tfused._F_PHASE_IK]) == tfused._INV_K0_PER_UM
+    with pytest.raises(ValueError, match="hoisted 1 / k0"):
+        tfused._pack_tables(phased, *own, False)
+    with pytest.raises(ValueError, match="per-ray wavelengths takes"):
+        tfused._pack_tables(phased, *one, True)

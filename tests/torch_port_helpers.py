@@ -4,15 +4,31 @@ share, and a builder that makes the same system in both. JAX is imported
 only by the functions that build the JAX side, so the tests on the card
 (tests/test_torch_cuda.py) run where JAX is not installed."""
 
+import importlib.util
 import math
 from contextlib import contextmanager
 from dataclasses import fields, replace
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from optiland_tpu_torch.system.optic import Optic as TOptic
 from optiland_tpu_torch.system.spec import params_from_numpy, static_from_dict
+
+
+def _load_smoke():
+    """The repository's chip_smoke.py as a module (loaded, not run): its
+    phase systems and its float64 check of a backward kernel's cotangents
+    serve the card tests as they serve the smoke."""
+    spec = importlib.util.spec_from_file_location(
+        "_chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+SMOKE = _load_smoke()
 
 
 def bench_lens(Optic, vignetted=False):
@@ -254,6 +270,37 @@ def spectrograph(Optic, vignetted=False):
     return lens
 
 
+def phase_sheet(Optic, profile):
+    """The plane phase sheet of tests/test_fused_kernel.py
+    (`test_fused_phase_parity`) with `profile`: at the stop, EPD 6, the
+    image plane 40 mm after it; fields 0 and 3 degrees."""
+    lens = Optic()
+    lens.add_surface(index=0, radius=math.inf, thickness=math.inf)
+    lens.add_surface(index=1, radius=math.inf, thickness=40.0, is_stop=True,
+                     surface_type="phase", phase_profile=profile)
+    lens.add_surface(index=2)
+    lens.set_aperture("EPD", 6.0)
+    lens.set_field_type("angle")
+    lens.add_field(y=0.0)
+    lens.add_field(y=3.0)
+    lens.add_wavelength(0.55, is_primary=True)
+    return lens
+
+
+# the profiles of `test_fused_phase_parity`
+PHASE_PROFILES = {"radial": ("radial", [-5e2, 1e-1]),
+                  "linear_grating": ("linear_grating", 0.0, 3e3),
+                  "constant": ("constant", 2.5)}
+# chip_smoke.py's systems D-F of phase j4, defined there once: the hybrid
+# achromat, the coated metalens on a conic carrier and the tilted
+# reflective linear-grating sheet (with its vignetted twin), and the
+# wavenumber at 0.55 um (1/mm) that their prescriptions use
+K0_055 = SMOKE.K0_055
+hybrid_achromat = SMOKE.hybrid_achromat
+curved_metalens = SMOKE.curved_metalens
+phase_mirror = SMOKE.phase_mirror
+
+
 def jax_build_f64(lens):
     """Build a JAX-package lens in float64 whatever the JAX precision
     global holds, and restore it."""
@@ -284,7 +331,7 @@ def build_both(make, newton_iters=None):
     assert ts_own == ts
     for f in fields(tp):
         a, b = getattr(tp_own, f.name), getattr(tp, f.name)
-        if f.name in ("k_wl", "k_val", "phase_grids", "phase_mat_coeffs"):
+        if f.name in ("k_wl", "k_val"):
             continue  # padding of tables the ported surface types never read
         assert torch.equal(a, b), f.name
     if newton_iters is not None:
