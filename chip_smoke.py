@@ -12,8 +12,9 @@ PyTorch built for CUDA. In order it:
      triplet, of K5 for the vignetted bench lens and of K7 for the Cooke
      triplet, the per-ray variants of K1-K6 for the Cooke triplet and
      of K1 and K2 for a doublet of a tabulated glass, and the variants of
-     phase (j3)'s systems (their backward kernels built with
-     OTK_INTERACTIONS, `fused.backward_defines`), one process per source
+     phases (j3), (j4) and (j5)'s systems (their backward kernels built
+     with their branches' definitions, `fused.backward_defines`), one
+     process per source
      and per variant, all at once, and prints the seconds of each and
      nvcc's register report;
   2b. (t) T1, the peak-rate chains of tools/vpu_peak.py: each of its three
@@ -88,6 +89,14 @@ PyTorch built for CUDA. In order it:
      vignetted twin for K5 and K6); a cotangent group past TOL passes
      only by `near_float64`; then one eager `trace_system` of a cubic
      grid-phase sheet (`grid_sheet`) on the card against float64;
+ 16e. (j5) the freeform geometries through the same paths and checks:
+     system G, a biconic and a toroidal face (`anamorphic_singlet`); H, a
+     poly-XY and a 16-term Fringe Zernike (`xy_freeform_singlet`); I, a
+     tilted, decentred Chebyshev and a Forbes Q-bfs
+     (`tilted_freeform_singlet`, its vignetted twin for K5 and K6); first
+     the count of rays the kernels' capped Newton leaves unconverged (none
+     may), last a Forbes Q-2D system refused by name (ROADMAP queue 2,
+     branch 4b);
  17. (k) `CookeTriplet().trace(Hx=0, Hy=1, num_rays=6)`, the user's entry,
      reaches K7;
  18. (w1) K8, the Huygens sum, on the inputs of the Cooke triplet's
@@ -371,6 +380,150 @@ PHASE_BWD_OPS = 136
 PHASE_VG_BWD_OPS = {1: 1, 2: 87, 3: 8}
 
 
+# of a freeform surface (csrc/freeform.cuh, under OTK_FREEFORM), counted
+# by hand per family as `chain_ops_per_ray` counts, from the closed forms a
+# hand-written sag would take (nested Horner sums, the families'
+# recurrences, constants of the surface folded at launch): `freeform_ops`.
+# The conic part of a freeform's sag: its value at r^2 (r^2 3, the root's
+# argument 4, its square root, 1 +, cv r^2, the divide), its gradient (cv /
+# s, times x and y), its partials in cv and k from the forward's h = r^2 /
+# (1 + s) (h h / s, dz/dk 0.5 cv^3 that, dz/dcv h + a cv^2 that), and the
+# cotangent of the normal through it (cv a cv^2 / s^3 times x.v, the
+# Hessian's two rows; d(cv / s)/dcv and /dk times x.v)
+CONIC_FF = {"value": 12, "grad": 3, "partials": 7, "normal_bwd": 23}
+# a 1-D conic profile of a biconic or a toroidal: t^2, then as the conic
+CONIC_1D = {"value": 10, "grad": 2, "partials": 7, "normal_bwd": 14}
+
+
+def _horner2(terms):
+    """FP32 operations of a nested Horner sum of `terms` constant-weighted
+    terms (an FMA a term but the first)."""
+    return max(2 * (terms - 1), 0)
+
+
+def freeform_ops(code, nc, aux):
+    """FP32 operations per evaluation of the sag of freeform family `code`
+    with nc coefficient slots and aux ints `aux`, counted by hand from each
+    family's closed form: {"vg": its value and gradient (each Newton update
+    and the normal take one), "partials": its partials in every parameter
+    beyond the forward's values, each times the ray's weight (the hit's
+    implicit-function derivative), "normal_bwd": the cotangent of x, y and
+    every parameter from that of (dz/dx, dz/dy), the gradient of D_v z
+    (the sag's Hessian times v and its mixed derivatives), beyond the
+    forward's values}. Where a parameter's cotangent is a sum over rays,
+    its one add a ray counts in `backward_ops_per_ray`'s slots."""
+    pos = lambda v: max(v, 0)  # noqa: E731
+    conic = CONIC_FF
+    if code == 4:    # poly-XY: sum C_ij x^i y^j on an n1 x n1 grid
+        n1 = int(round(nc ** 0.5))
+        value = conic["value"] + _horner2(nc) + 1
+        # dz/dx: Horner in x of i P_i(y); dz/dy: the rows' Horner sums of
+        # j C_ij y^(j-1), then Horner in x
+        grad = (conic["grad"] + 3 * pos(n1 - 2) + n1 * _horner2(n1 - 1)
+                + _horner2(n1) + 2)
+        monomials = 2 * pos(n1 - 2) + (n1 - 1) ** 2
+        partials = conic["partials"] + monomials + nc + 2
+        # the Hessian's three second-derivative grids by Horner, H v; each
+        # slot's D_v x^i y^j = i v_x x^(i-1) y^j + j v_y x^i y^(j-1)
+        hess = (2 * _horner2(pos(n1 - 2) * n1) + _horner2((n1 - 1) ** 2)
+                + 8)
+        mixed = 4 * pos(n1 - 1) + 3 * (n1 - 1) ** 2 + monomials
+        return {"vg": value + grad, "partials": partials,
+                "normal_bwd": conic["normal_bwd"] + hess + mixed}
+    if code == 5:    # biconic: a 1-D conic in x and one in y, summed
+        one = CONIC_1D
+        return {"vg": 2 * (one["value"] + one["grad"]) + 1,
+                "partials": 2 * one["partials"] + 4,
+                # the Hessian diagonal c / s^3 times v; d(c / s)/dc, /dk
+                "normal_bwd": 2 * (4 + 10)}
+    if code == 6:    # toroidal: z_y the y-curve (cv, k) plus sum alpha_i
+        # y^(2i) over its nc - 1 slots (Horner in y^2), rotated about a
+        # radius 1 / c: z = (1 - sqrt(w)) / c, w = (1 - c z_y)^2 - c^2 x^2
+        one, alphas = CONIC_1D, nc - 1
+        value = one["value"] + 2 * alphas + 15
+        # z_x = c x / sqrt(w), z_y = (1 - c z_y) / sqrt(w) dz_y/dy
+        grad = one["grad"] + 2 * alphas + 5
+        # the y-curve's cv, k times dz/dz_y, alpha_i's y^(2i) times it,
+        # d/dc, the weights
+        partials = one["partials"] + 2 + pos(alphas - 1) + alphas + 10 + (
+            nc + 2)
+        # z_xx, z_xY, z_YY from 1 / w^(3/2), z_y'' (the y-curve's c / s^3
+        # and the polynomial's), H v; the mixed terms through z_y and z_y'
+        hess = 6 + 3 + 3 + pos(2 * alphas - 1) + 1 + 4 + 6
+        mixed = 5 + one["partials"] + 9 + 6 + pos(6 * alphas - 1) + 15
+        return {"vg": value + grad, "partials": partials,
+                "normal_bwd": hess + mixed}
+    if code == 7:    # Chebyshev: sum C_ij T_i(x / nx) T_j(y / ny)
+        rows, cols = aux
+        value = (conic["value"] + 2 + 1 + 2 * pos(rows - 2) + 1
+                 + 2 * pos(cols - 2) + rows * _horner2(cols) + _horner2(rows)
+                 + 1)
+        # T' by its recurrence, the rows' sums of C_ij T_j', the two dots
+        grad = (conic["grad"] + 1 + 4 * pos(rows - 3) + 1 + 4 * pos(cols - 3)
+                + rows * _horner2(cols - 1) + _horner2(rows - 1)
+                + _horner2(rows) + 2 + 2)
+        # T_i T_j of the slots, the norms' -x / nx dz/dx, the weights
+        partials = conic["partials"] + pos(rows - 1) * pos(cols - 1) + 2 + (
+            nc + 2)
+        # T'' by its recurrence, the three second-derivative dots, H v;
+        # each slot's (v_x / nx) T_i' T_j + (v_y / ny) T_i T_j', the norms'
+        hess = (4 * pos(rows - 3) + 4 * pos(cols - 3) + _horner2(rows - 2)
+                + 1 + rows * _horner2(cols - 2) + _horner2(rows) + 1
+                + _horner2(rows - 1) + 1 + 8)
+        mixed = 2 * rows + 2 + 3 * rows * cols + 16
+        return {"vg": value + grad, "partials": partials,
+                "normal_bwd": conic["normal_bwd"] + hess + mixed}
+    if code == 8:    # Zernike: sum c_t R_t(rho^2) (C_m or S_m), C_m + i S_m
+        # = (xn + i yn)^m
+        from optiland_tpu_torch.zernike import indices
+        terms = [((n - abs(m)) // 2, abs(m)) for n, m in indices(
+            ("fringe", "noll", "standard")[aux[0]], nc - 1)]
+        m_max = max(am for _, am in terms)
+        value = conic["value"] + 2 + 3 + 6 * pos(m_max - 1) + sum(
+            2 * d + 2 + (am > 0) for d, am in terms) + 1
+        # A = sum c R' h and B = sum c R grad h (d h = m h_(m-1)), then
+        # (2 xn A + B) / R
+        grad = sum((2 * pos(d - 1) + 2 + (am > 0) if d else 0)
+                   + (5 if am else 0) for d, am in terms) + 8 + conic["grad"] + 2
+        # each slot's R h, the norm's -(x dz/dx + y dz/dy) / R, the weights
+        partials = conic["partials"] + sum(am > 0 for _, am in terms) + 4 + (
+            nc + 2)
+        # R'' and the second derivatives of h per term, H v of the sums; each
+        # slot's D_v (R h), the norm's
+        hess = sum(2 * pos(d - 2) + (2 + (am > 0) if d >= 2 else 0)
+                   + (5 if d and am else 0) + (5 if am >= 2 else 0)
+                   for d, am in terms) + 2 + 25 + 4
+        mixed = 3 + sum((8 if d else 5) if am else (2 if d else 0)
+                        for d, am in terms) + 4
+        return {"vg": value + grad, "partials": partials,
+                "normal_bwd": conic["normal_bwd"] + hess + mixed}
+    # Forbes Q-bfs: z_conic + u^2 (1 - u^2) phi sum_n a_n Q_n(u^2), u = r /
+    # R, by Clenshaw's sum (its M = nc - 1 terms' orthonormal weights a
+    # surface's constants); the gradient a radial one
+    m = nc - 1
+    value = conic["value"] + 1 + 1 + 4 + 3 + 2 + 3 * pos(m - 1) + 2 + 2
+    # (pre S)' by Clenshaw's derivative sum, phi' = 1 / (2 phi D^2), 2 x, 2 y
+    grad = conic["grad"] + 3 + 4 * pos(m - 1) + 2 + 4 + 8 + 5
+    # phi's cv and k (8), the basis values by the transposed Clenshaw sum,
+    # the norm radius's, the weights
+    partials = conic["partials"] + 8 + 8 * m - 1 + 2 + 3
+    # the radial second derivative (Clenshaw's second sum), H v; the mixed
+    # terms of cv and k, the basis values' derivatives, the norm radius's
+    hess = 4 * pos(m - 1) + 2 + 20 + 9
+    mixed = 15 + 12 * m + 8 + 2 * (m + 3)
+    return {"vg": value + grad, "partials": partials,
+            "normal_bwd": conic["normal_bwd"] + hess + mixed}
+
+
+def _freeform(static, k):
+    """Surface k's freeform code and its `freeform_ops`, or (0, None)."""
+    code = static.geom_codes[k]
+    if code not in (4, 5, 6, 7, 8, 9):
+        return 0, None
+    return code, freeform_ops(code, static.geom_n_coeffs[k],
+                              static.geom_aux[k])
+
+
 def chain_ops_per_ray(static, fused):
     """FP32 operations per ray of the chain in csrc/chain.cuh for this
     system, counted from its branches: each add, subtract, multiply,
@@ -390,6 +543,10 @@ def chain_ops_per_ray(static, fused):
             ops += 3 + 6 * 14
         if asphere:
             ops += (n_newton + 1) * (29 + 7 * nc + (6 if odd else 0))
+        ff, ffo = _freeform(static, k)
+        if ff:   # the Newton updates on the sag's value and gradient
+            ops += (min(static.newton_iters, fused._NEWTON_FUSED_MAX_FF)
+                    + 1) * (ffo["vg"] + 13)
         if static.has_aperture[k]:
             ops += 5
         inter = static.interactions[k]
@@ -401,7 +558,8 @@ def chain_ops_per_ray(static, fused):
         elif inter == fused.INT_PHASE:
             ops += PHASE_OPS + PHASE_VG_OPS[static.phase_kinds[k]]
         elif inter != 3:  # normal, orientation, l.n
-            ops += 28 + 4 * nc + (6 if odd else 0) + 5
+            ops += (ffo["vg"] + 9 if ff else
+                    28 + 4 * nc + (6 if odd else 0)) + 5
             ops += 7 if inter == 1 else 18
         if fused._coated(static, k):
             ops += COATING_OPS
@@ -438,16 +596,19 @@ def backward_ops_per_ray(static, fused, raygen=True):
             ops += GRATING_BWD_OPS["plane" if code == 0 else "curved"]
         elif inter == fused.INT_PHASE:
             ops += PHASE_BWD_OPS + PHASE_VG_BWD_OPS[static.phase_kinds[k]]
-        elif inter != 3:   # reflection or refraction, normal, sag gradient
+        ff, ffo = _freeform(static, k)
+        if inter in (0, 1):   # reflection or refraction, normal, sag gradient
             ops += (24 if inter == 1 else 57) + 17
-            ops += (31 if not asphere else
-                    (34 if odd else 28) + 7 * nc)
+            ops += (ffo["normal_bwd"] if ff else
+                    31 if not asphere else (34 if odd else 28) + 7 * nc)
         if fused._coated(static, k):
             ops += COATING_BWD_OPS
         # the hit: a plane's closed form; the IFT, with the sag's
-        # denominator and top power, which the forward does not form
-        ops += 56 if code == 0 else 34 + 2 * nc + int(asphere)
-        slots = 3 + (nc if asphere else 0) + (3 if tilted else 0) + (
+        # denominator and top power, which the forward does not form (a
+        # freeform's: its sag's partials)
+        ops += (56 if code == 0 else 34 + ffo["partials"] if ff
+                else 34 + 2 * nc + int(asphere))
+        slots = 3 + (nc if asphere or ff else 0) + (3 if tilted else 0) + (
             2 if moved else 0) + (1 if inter in (0, 2, 4, 5) else 0) + {
             fused.INT_THIN_LENS: 1, fused.INT_DIFFRACT: 3,
             fused.INT_PHASE: 9}.get(inter, 0) + (
@@ -746,6 +907,86 @@ def grid_sheet(Optic):
     lens.add_field(y=3.0)
     lens.add_wavelength(0.55, is_primary=True)
     return lens
+
+
+# The freeform systems of phase j5: the singlets of the JAX package's
+# tests/test_fused_kernel.py (`FREEFORM_CASES`: R +-60 mm, 5 mm thick, EPD
+# 8, the image plane 45 mm behind), in N-BK7, grown to two freeform faces
+# each; fields 0, 3 and 5 degrees; 0.48, 0.55 and 0.65 um. The card tests
+# and tests/test_torch_chain_host.py build them from here.
+FREEFORM_SYSTEMS = ("G", "H", "I")
+# H's front: poly-XY of order 3, its 16 coefficients C_ij (x^i y^j,
+# row-major), 1e-8 to 2e-5 mm over its +-4 mm aperture
+POLY_XY_H = (0.0, 1e-5, 2e-5, -1e-6,
+             -2e-6, 3e-6, -1e-6, 2e-7,
+             1.5e-5, -1e-6, 3e-7, -5e-8,
+             1e-6, -2e-7, 4e-8, -1e-8)
+# H's back: 16 Fringe Zernike terms over a norm radius of 5 mm
+ZERNIKE_H = (1e-4, -2e-5, 3e-5, 5e-5, -2e-5, 1e-5, 2e-5, -1e-5, 3e-5, 1e-5,
+             -1e-5, 2e-5, -1e-5, 1e-5, -5e-6, 1e-5)
+# I's front: a 3 x 5 Chebyshev grid over 5 mm norms
+CHEBYSHEV_I = ((0.0, 1e-5, -2e-5, 5e-6, -3e-6),
+               (2e-5, 0.0, 1e-5, -5e-6, 2e-6),
+               (1e-5, -1e-5, 5e-6, 2e-6, -1e-6))
+
+
+def _freeform_pair(Optic, front, back, vignetted=False, **surface):
+    """An N-BK7 singlet at the stop, EPD 8, with the faces `front` and
+    `back` ((radius, surface_type, keywords) each); `surface` goes to the
+    front (a tilt, a decenter); `vignetted`, the twin for K5 and K6: the 5
+    degree field with vx = vy = 0.1."""
+    lens = Optic()
+    lens.add_surface(index=0, radius=math.inf, thickness=math.inf)
+    radius, stype, kw = front
+    lens.add_surface(index=1, radius=radius, thickness=5.0, material="N-BK7",
+                     is_stop=True, surface_type=stype, **kw, **surface)
+    radius, stype, kw = back
+    lens.add_surface(index=2, radius=radius, thickness=45.0,
+                     surface_type=stype, **kw)
+    lens.add_surface(index=3)
+    lens.set_aperture("EPD", 8.0)
+    lens.set_field_type("angle")
+    lens.add_field(y=0.0)
+    lens.add_field(y=3.0)
+    v = 0.1 if vignetted else 0.0
+    lens.add_field(y=5.0, vx=v, vy=v)
+    for w in (0.48, 0.55, 0.65):
+        lens.add_wavelength(w, is_primary=w == 0.55)
+    return lens
+
+
+def anamorphic_singlet(Optic):
+    """System G: a biconic front (R 60, k -0.2; R_y 75, k_y 0.4) and a
+    toroidal back (rotation radius -60, R_y -55, k -0.1, y^2 and y^4 terms
+    1e-5 and -2e-8)."""
+    return _freeform_pair(
+        Optic, (60.0, "biconic", dict(conic=-0.2, radius_y=75.0,
+                                      conic_y=0.4)),
+        (-60.0, "toroidal", dict(radius_y=-55.0, conic=-0.1,
+                                 coeffs_poly_y=(1e-5, -2e-8))))
+
+
+def xy_freeform_singlet(Optic):
+    """System H: a poly-XY front of order 3 (R 60, `POLY_XY_H`: 16
+    coefficient slots) and a Fringe Zernike back (R -60, norm radius 5,
+    `ZERNIKE_H`: 17 slots, a whole coefficient row)."""
+    return _freeform_pair(
+        Optic, (60.0, "polynomial", dict(coefficients=POLY_XY_H)),
+        (-60.0, "zernike", dict(coefficients=ZERNIKE_H, norm_radius=5.0,
+                                zernike_type="fringe")))
+
+
+def tilted_freeform_singlet(Optic, vignetted=False):
+    """System I: a Chebyshev front (R 60, `CHEBYSHEV_I` over 5 mm norms: 17
+    slots) tilted 3 degrees about x and decentred 0.3 mm in y, and a Forbes
+    Q-bfs back (R -60, 4 terms, norm radius 5); `vignetted`, its twin for
+    K5 and K6."""
+    return _freeform_pair(
+        Optic, (60.0, "chebyshev", dict(coefficients=CHEBYSHEV_I,
+                                        norm_x=5.0, norm_y=5.0)),
+        (-60.0, "forbes_qbfs", dict(coefficients=(1e-4, -2e-5, 1e-5, -5e-6),
+                                    norm_radius=5.0)),
+        vignetted=vignetted, rx=math.radians(3.0), dy=0.3)
 
 
 def huygens_ops_per_contribution():
@@ -1047,7 +1288,13 @@ def main():
                                    ("system E", curved_metalens(Optic)),
                                    ("system F", phase_mirror(Optic)),
                                    ("system F vignetted",
-                                    phase_mirror(Optic, vignetted=True)))}
+                                    phase_mirror(Optic, vignetted=True)),
+                                   ("system G", anamorphic_singlet(Optic)),
+                                   ("system H", xy_freeform_singlet(Optic)),
+                                   ("system I",
+                                    tilted_freeform_singlet(Optic)),
+                                   ("system I vignetted",
+                                    tilted_freeform_singlet(Optic, True)))}
     uniform, per_ray = fused.system_defines, fused.history_defines
     variants = (("K1", "moments_fwd", "bench lens", uniform),
                 ("K1", "moments_fwd", "Cooke triplet", uniform),
@@ -1069,13 +1316,15 @@ def main():
                 ("K1 per-ray", "moments_fwd", "tabulated doublet", per_ray),
                 ("K2 per-ray", "moments_bwd", "tabulated doublet",
                  fused.media_defines))
-    # phases (j3) and (j4), the coating, thin-lens, grating and phase
-    # branches: each kernel of systems A, B (its vignetted twin for K5 and
-    # K6) and C, and of D, E and F (F's vignetted twin for K5 and K6), in
-    # each configuration the phases drive; the backward kernels take
+    # phases (j3), (j4) and (j5), the coating, thin-lens, grating, phase
+    # and freeform branches: each kernel of systems A, B (its vignetted twin
+    # for K5 and K6) and C, of D, E and F (F's vignetted twin for K5 and
+    # K6), and of G, H and I (I's vignetted twin for K5 and K6), in each
+    # configuration the phases drive; the backward kernels take
     # OTK_INTERACTIONS (`fused.backward_defines`: at one wavelength one
     # library for every such system without a phase sheet, one for every
-    # system with one, which adds OTK_PHASE)
+    # system with one, which adds OTK_PHASE) or OTK_FREEFORM with the
+    # system's families
     bwd_uniform = (lambda st: fused.backward_defines(st, False))
     bwd_per_ray = (lambda st: fused.backward_defines(st, True))
     every = "K1 K2 K3 K4 K1p K2p K3p K4p K7"
@@ -1085,7 +1334,10 @@ def main():
                            ("system C", "K1 K2 K3 K4 K1p K2p K3p K4p"),
                            ("system D", every), ("system E", every),
                            ("system F", every),
-                           ("system F vignetted", "K5 K6 K5p K6p")):
+                           ("system F vignetted", "K5 K6 K5p K6p"),
+                           ("system G", every), ("system H", every),
+                           ("system I", every),
+                           ("system I vignetted", "K5 K6 K5p K6p")):
         for key in keys_j3.split():
             k, pr = key[:2], key.endswith("p")
             src = {"K1": "moments_fwd", "K2": "moments_bwd",
@@ -1886,7 +2138,8 @@ def main():
     # each system's branch leaf: its cotangent must reach K2, K4 and K6
     branch_leaf = {"A": "coating_params", "B": "grating", "C": "grating",
                    "D": "phase_params", "E": "phase_params",
-                   "F": "phase_params"}
+                   "F": "phase_params", "G": "coeffs", "H": "coeffs",
+                   "I": "coeffs"}
 
     def j3_build(make):
         """`make()`'s system on the card in float32 and its flagship batch,
@@ -1974,8 +2227,10 @@ def main():
         every coordinate by about lr a step whatever its scale: a phase
         sheet's radial slots multiply r^2 .. r^16 (a step of 1e-4 in the
         last is 1.5e7 rad at r = 5 mm), so, as the bench trainer leaves the
-        asphere coefficients, it steps the other leaves."""
-        names = [k for k in names if k != "phase_params"]
+        asphere coefficients, it steps the other leaves; so too for a
+        freeform's coefficient slots (C_33 x^3 y^3 of H's front at 1e-8)."""
+        names = [k for k in names if k != "phase_params"
+                 and not (k == "coeffs" and label in FREEFORM_SYSTEMS)]
         leaves, p_m = leaves_of(pr, names)
         opt = torch.optim.Adam(list(leaves.values()), lr=ADAM_LR)
 
@@ -2148,7 +2403,8 @@ def main():
         intensity, a throughput term that a coating moves) gives finite
         gradients that reach the branch's leaf."""
         leaves, p_m = leaves_of(pr, ("cv", "coating_params", "grating",
-                                     "focal_length", "phase_params"))
+                                     "focal_length", "phase_params",
+                                     "coeffs"))
         reset_counts()
         h = tracer.trace_system(st, p_m, *fbx)
         (flagship_merit(h) + h.intensity[-1].mean()).backward()
@@ -2291,6 +2547,73 @@ def main():
     print(f"phase j4 (systems D, E, F at {n_c} rays, the grid sheet at "
           f"{n_g}): {time.perf_counter() - t_j4:.1f} s; Adam losses "
           + json.dumps({k: j3_steps[k][0] for k in "DEF"}))
+
+    # 16e. (j5) the freeform geometries at the flagship's 1,999,998 rays (3
+    # fields x 3 wavelengths, `flagship_inputs`), float32, N-BK7: system G,
+    # a biconic and a toroidal face; H, a poly-XY (16 slots) and a 16-term
+    # Fringe Zernike (17 slots); I, a Chebyshev 3 x 5 (17 slots) tilted 3
+    # degrees and decentred 0.3 mm and a Forbes Q-bfs (its vignetted twin
+    # leaves in-kernel raygen for K5 and K6). The same paths and checks as
+    # phase j3 (each kernel against its plain version at TOL, the
+    # polychromatic loss and gradients against float64), after a count of
+    # the rays the freeforms' capped Newton (min(newton_iters, 6) + 1
+    # updates) leaves unconverged: the kernels' plain version in float64
+    # against the eager float64 trace (newton_iters updates) at each
+    # freeform's hit. Then a Forbes Q-2D system, inside JAX's gate, whose
+    # kernel branch is still to port, is refused by name.
+    t_j5 = time.perf_counter()
+    sys_g, sys_h, sys_i, sys_iv = (j3_build(make) for make in (
+        lambda: anamorphic_singlet(Optic), lambda: xy_freeform_singlet(Optic),
+        lambda: tilted_freeform_singlet(Optic),
+        lambda: tilted_freeform_singlet(Optic, True)))
+    check(sys_iv[0].has_vignetting and not fused.supports_fused_raygen(
+        sys_iv[0]), "I's vignetted twin leaves in-kernel raygen")
+    unconverged = {}
+    for label, sysx in (("G", sys_g), ("H", sys_h), ("I", sys_i)):
+        st64, pr64 = sysx[3]
+        r0 = generate_rays(st64, pr64, *(a.double() for a in sysx[2]))
+        with torch.no_grad():
+            ref = tracer.trace_rays(st64, pr64, r0)
+            capped = fused._tile_trace(
+                st64, fused._diff_params(pr64), fused._nondiff_params(pr64),
+                *(getattr(r0, k) for k in fused._RAY_KEYS), record=True)
+        miss = torch.zeros_like(r0.x, dtype=torch.bool)
+        for k in range(1, st64.num_surfaces - 1):
+            lit = ref.intensity[k] > 0
+            for j, key in enumerate(("x", "y", "z")):
+                miss |= lit & ((capped[k][j] - getattr(ref, key)[k]).abs()
+                               > 1e-9)
+        unconverged[label] = int(miss.sum().item())
+        del r0, ref, capped, miss
+        free()
+    print(f"phase j5: rays the capped freeform Newton leaves more than 1e-9 "
+          f"mm from the eager float64 hit: {json.dumps(unconverged)}")
+    check(not any(unconverged.values()), "the capped Newton converges")
+    for label, sysx in (("G", sys_g), ("H", sys_h), ("I", sys_i)):
+        j3_adam(label, *sysx[:3], j3_merit(label, *sysx))
+        for wl in (FLAGSHIP_WAVELENGTH, None):
+            j3_raygen(label, *sysx[:3], wl)
+    for wl in (FLAGSHIP_WAVELENGTH, None):
+        j3_caller("I", *sys_iv[:3], wl)
+    for label, sysx in (("G", sys_g), ("H", sys_h), ("I", sys_i)):
+        j3_history(label, *sysx[:3])
+    st_q, pr_q = _freeform_pair(
+        Optic, (60.0, "forbes_q2d", dict(
+            norm_radius=5.0, freeform_coeffs={("a", 0, 0): 1e-4,
+                                              ("b", 1, 1): 2e-5})),
+        (-60.0, "standard", {})).build(device="cuda")
+    check(fused.supports_fused(st_q), "a Q-2D system is inside JAX's gate")
+    try:
+        tracer.trace_system_final(st_q, pr_q, *sys_g[2][:4], 0.55)
+        refused = ""
+    except NotImplementedError as exc:
+        refused = str(exc)
+    print(f"phase j5: a Forbes Q-2D system on the card: {refused!r}")
+    check("branch 4b" in refused, "the kernels refuse Q-2D by name")
+    free()
+    print(f"phase j5 (systems G, H, I at {n_c} rays): "
+          f"{time.perf_counter() - t_j5:.1f} s; Adam losses "
+          + json.dumps({k: j3_steps[k][0] for k in FREEFORM_SYSTEMS}))
 
     # 17. (k) the user's entry: Optic.trace on the card
     reset_counts()

@@ -9,7 +9,8 @@
 // `branch_defines`: a system that has them), simple coatings, the ideal
 // thin lens and gratings on plane and curved carriers, and with OTK_PHASE
 // too, phase sheets of the constant, radial and linear-grating kinds on
-// plane and conic carriers; at one wavelength from the hoisted index,
+// plane and conic carriers; in a build with OTK_FREEFORM, the freeform
+// geometries of freeform.cuh (a conic seed, their own Newton count); at one wavelength from the hoisted index,
 // absorption, grating and phase tables (`TableMedia`),
 // or at each ray's own wavelength (`RayMedia`:
 // `material_index` for every formula code of materials/dispersion.py and
@@ -76,6 +77,11 @@ constexpr int I_ABS = 6;   // 1 where the medium after the surface absorbs
 constexpr int I_COAT = 7;  // 1 where the surface applies a simple coating's factor
 constexpr int I_REFL = 8;   // 1 for a reflective grating or phase sheet
 constexpr int I_PHASE = 9;  // a phase sheet's kind (PHASE_*), else 0
+// a freeform surface's aux ints (Chebyshev rows and columns, a Zernike's
+// convention) and its Newton updates after the first (OTK_FREEFORM)
+constexpr int I_AUX0 = 10;
+constexpr int I_AUX1 = 11;
+constexpr int I_NEWTON_FF = 12;
 constexpr int I_STRIDE = 16;
 
 constexpr int GEOM_PLANE = 0;
@@ -133,6 +139,9 @@ struct Codes {
 #ifdef OTK_PHASE
   int pk;  // a phase sheet's kind
 #endif
+#ifdef OTK_FREEFORM
+  int a0, a1, nff;  // a freeform's aux ints and Newton updates after the first
+#endif
 };
 
 // One surface's codes and values, read from the staged tables. `absorbs`
@@ -154,6 +163,10 @@ struct Surface {
   int pk;
   float ik;
 #endif
+#ifdef OTK_FREEFORM
+  int a0, a1, nff;
+  float k;  // the conic constant itself (a freeform's sag takes k, not 1 + k)
+#endif
 };
 
 __device__ __forceinline__ float sign_of(float v) {
@@ -169,6 +182,9 @@ __device__ __forceinline__ Codes codes_at(const int* it, int k) {
 #endif
 #ifdef OTK_PHASE
                , c[I_PHASE]
+#endif
+#ifdef OTK_FREEFORM
+               , c[I_AUX0], c[I_AUX1], c[I_NEWTON_FF]
 #endif
   };
 }
@@ -217,6 +233,12 @@ __device__ __forceinline__ Surface make_surface(const Codes& c, bool absorbs_bef
 #ifdef OTK_PHASE
   s.pk = c.pk;
   s.ik = c.inter == INT_PHASE ? f[F_PHASE_IK] : 0.f;
+#endif
+#ifdef OTK_FREEFORM
+  s.a0 = c.a0;
+  s.a1 = c.a1;
+  s.nff = c.nff;
+  s.k = f[F_CONIC];
 #endif
   return s;
 }
@@ -612,9 +634,16 @@ __device__ __forceinline__ void to_global(const Surface& s, float pos, float& x,
   }
 }
 
+#ifdef OTK_FREEFORM
+}  // namespace otk
+#include "freeform.cuh"
+namespace otk {
+#endif
+
 // Ray parameter t of the hit on surface s (local frame): closed-form conic
-// root, then n_newton + 1 Newton updates for aspheres. validf is 0 where
-// the conic root does not exist.
+// root, then n_newton + 1 Newton updates for aspheres (and, with
+// OTK_FREEFORM, s.nff + 1 for freeforms: JAX's min(newton_iters, 6)). validf
+// is 0 where the conic root does not exist.
 __device__ __forceinline__ float intersect(const Surface& s, int n_newton, float x, float y,
                                            float z, float L, float M, float N,
                                            float& validf) {
@@ -646,6 +675,19 @@ __device__ __forceinline__ float intersect(const Surface& s, int n_newton, float
       t = t - fv / fp;
     }
   }
+#ifdef OTK_FREEFORM
+  else if (is_freeform(s)) {
+    for (int itn = 0; itn <= s.nff; ++itn) {
+      const float xt = x + t * L, yt = y + t * M, zt = z + t * N;
+      float sv, gx, gy;
+      ff_sag_grad(s, xt, yt, sv, gx, gy);
+      const float fv = sv - zt;
+      float fp = gx * L + gy * M - N;
+      fp = (fabsf(fp) > EPS) ? fp : EPS;
+      t = t - fv / fp;
+    }
+  }
+#endif
   return t;
 }
 
@@ -655,6 +697,11 @@ __device__ __forceinline__ void oriented_normal(const Surface& s, float x, float
                                                 float M, float N, float& nx, float& ny,
                                                 float& nz) {
   float sv, gx, gy;
+#ifdef OTK_FREEFORM
+  if (is_freeform(s))
+    ff_sag_grad(s, x, y, sv, gx, gy);
+  else
+#endif
   sag_grad(s.code, s.nc, s.co, s.cv, s.kk, x, y, false, sv, gx, gy);
   const float inv_mag = rsqrtf(gx * gx + gy * gy + 1.f);
   nx = gx * inv_mag;

@@ -46,7 +46,10 @@
 //   - with OTK_PHASE, the closed-form adjoint of the phase sheet's
 //     generalized Snell law (into the ray, its OPD term, the profile's
 //     slots, 1 / k0, the carrier's curvature and conic through the sag
-//     gradient, and the two indices).
+//     gradient, and the two indices);
+//   - with OTK_FREEFORM, a freeform's sag partials and the adjoint of its
+//     gradient from its sag over nested forward-mode numbers
+//     (freeform.cuh `ff_sag_partials`, `ff_sag_grad_bwd`).
 // Masks (valid root, aperture, TIR) carry no cotangent, as in JAX.
 //
 // Parameter cotangents leave each surface as one row of F_STRIDE slots,
@@ -127,6 +130,12 @@ __device__ __forceinline__ float rotate_bwd(int axis, float ang, const Vec6& out
 // Adds w * (d sag / d cv, d sag / d k, d sag / d coeffs) at (x, y).
 __device__ __forceinline__ void sag_partials(const Surface& s, float x, float y, float w,
                                              SurfGrad& sg) {
+#ifdef OTK_FREEFORM
+  if (is_freeform(s)) {
+    ff_sag_partials(s, x, y, w, sg);
+    return;
+  }
+#endif
   const float cv = s.cv, kk = s.kk;
   const float r2 = x * x + y * y;
   const float m_raw = 1.f - kk * cv * cv * r2;
@@ -156,6 +165,12 @@ __device__ __forceinline__ void sag_partials(const Surface& s, float x, float y,
 // the surface's cv, k and coefficients.
 __device__ __forceinline__ void sag_grad_bwd(const Surface& s, float x, float y, float dgx,
                                              float dgy, float& dx, float& dy, SurfGrad& sg) {
+#ifdef OTK_FREEFORM
+  if (is_freeform(s)) {
+    ff_sag_grad_bwd(s, x, y, dgx, dgy, dx, dy, sg);
+    return;
+  }
+#endif
   const float cv = s.cv, kk = s.kk;
   const float r2 = x * x + y * y;
   const float m_raw = 1.f - kk * cv * cv * r2;
@@ -221,6 +236,11 @@ __device__ __forceinline__ void intersect_bwd(const Surface& s, const Vec6& a, f
     // implicit function theorem at the root of F(t) = sag - z
     const float xh = x + t * L, yh = y + t * M;
     float sv, gx, gy;
+#ifdef OTK_FREEFORM
+    if (is_freeform(s))
+      ff_sag_grad(s, xh, yh, sv, gx, gy);
+    else
+#endif
     sag_grad(s.code, s.nc, s.co, cv, kk, xh, yh, false, sv, gx, gy);
     float fp = gx * L + gy * M - N;
     fp = (fabsf(fp) > EPS) ? fp : EPS;
@@ -283,6 +303,11 @@ __device__ __forceinline__ void interact_bwd(const Surface& s, float n_pre, floa
                                              float& acc_n, SurfGrad& sg) {
   if (s.inter == INT_NONE) return;
   float sv, gxs, gys;
+#ifdef OTK_FREEFORM
+  if (is_freeform(s))
+    ff_sag_grad(s, x, y, sv, gxs, gys);
+  else
+#endif
   sag_grad(s.code, s.nc, s.co, s.cv, s.kk, x, y, false, sv, gxs, gys);
   const float inv_mag = rsqrtf(gxs * gxs + gys * gys + 1.f);
   const float nx0 = gxs * inv_mag, ny0 = gys * inv_mag, nz0 = -inv_mag;
@@ -826,6 +851,9 @@ __device__ __forceinline__ int table_slot(int c) {
 // least 4, that covers the compact slots the surface uses.
 __device__ __forceinline__ int row_width(const Surface& s) {
   if (s.tilted || s.decentered) return F_STRIDE;
+#ifdef OTK_FREEFORM
+  if (is_freeform(s)) return F_STRIDE;  // up to 17 coefficient slots
+#endif
 #ifdef OTK_INTERACTIONS
 #ifdef OTK_PHASE
   const int used = is_asphere(s) ? s.nc

@@ -17,6 +17,12 @@
 //                         (chain.cuh);
 //   OTK_PHASE             where it has a phase sheet: the phase branch, and
 //                         each surface's phase kind in its codes;
+//   OTK_FREEFORM          where it has a freeform (poly-XY, biconic,
+//                         toroidal, Chebyshev, Zernike, Forbes Q-bfs), the
+//                         mask of its families (freeform.cuh), with
+//     OTK_NEWTON_FF       the freeforms' Newton updates after the first, and
+//     OTK_FF_AUX          each surface's aux ints, aux0 | aux1 << 8,
+//                         separated by commas;
 // and for the builds at per-ray wavelengths, K7 and the per-ray variants of
 // K1, K3 and K5, which evaluate the dispersion formulas per ray
 // (trace/fused.py `history_defines`):
@@ -69,6 +75,9 @@ __host__ __device__ constexpr Codes unpack_codes(unsigned v) {
 #ifdef OTK_PHASE
                , static_cast<int>((v >> 26) & 0x7u)
 #endif
+#ifdef OTK_FREEFORM
+               , 0, 0, 0
+#endif
   };
 }
 
@@ -78,6 +87,22 @@ __host__ __device__ constexpr unsigned system_codes(int k) {
   return table[k];
 }
 
+#ifdef OTK_FREEFORM
+#if !defined(OTK_NEWTON_FF) || !defined(OTK_FF_AUX)
+#error "a system with a freeform needs OTK_NEWTON_FF and OTK_FF_AUX"
+#endif
+// Surface k's codes with its freeform aux ints and the freeforms' Newton
+// count.
+__host__ __device__ constexpr Codes surface_codes(int k) {
+  constexpr unsigned aux[] = {OTK_FF_AUX};
+  Codes c = unpack_codes(system_codes(k));
+  c.a0 = static_cast<int>(aux[k] & 0xffu);
+  c.a1 = static_cast<int>((aux[k] >> 8) & 0xffu);
+  c.nff = OTK_NEWTON_FF;
+  return c;
+}
+#endif
+
 // Surfaces K .. S-1 on the running state; pos: the vertex z of surface
 // K - 1; n_pre: the index before surface K; `media.at<K>()` gives surface
 // K's absorption and index, `sink` each surface's state.
@@ -86,7 +111,11 @@ __device__ __forceinline__ void system_chain_from(const float* ft, const Media& 
                                                   const Sink& sink, Ray& r, float& pos,
                                                   float& n_pre) {
   if constexpr (K < OTK_S) {
+#ifdef OTK_FREEFORM
+    constexpr Codes c = surface_codes(K);
+#else
     constexpr Codes c = unpack_codes(system_codes(K));
+#endif
     constexpr bool absorbs_before = unpack_codes(system_codes(K - 1)).absorbs;
     pos = pos + (K > 1 ? ft[(K - 1) * F_STRIDE + F_THICK] : 0.f);
     surface_step(make_surface(c, absorbs_before, ft, K), K, OTK_NEWTON, pos, r, n_pre,

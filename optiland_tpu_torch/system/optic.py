@@ -21,6 +21,21 @@ from optiland_tpu_torch.system import paraxial as px
 from optiland_tpu_torch.system.spec import SurfaceSpec, build_system
 
 
+# the geometry surface types and the keywords each takes
+_GEOMETRY_KEYS = {
+    "even_asphere": set(),
+    "odd_asphere": set(),
+    "polynomial": set(),
+    "biconic": {"radius_y", "conic_y"},
+    "toroidal": {"radius_y", "coeffs_poly_y"},
+    "chebyshev": {"coefficients", "norm_x", "norm_y"},
+    "zernike": {"norm_radius", "zernike_type"},
+    "forbes_qbfs": {"norm_radius", "radial_terms"},
+    "forbes_q2d": {"norm_radius", "freeform_coeffs"},
+    "grid_sag": {"x_coordinates", "y_coordinates", "sag_values"},
+}
+
+
 class _SurfaceCollection:
     """Builder for the surface list."""
 
@@ -66,23 +81,43 @@ class _SurfaceCollection:
         `radius` and `conic`, its `phase_profile` one of ("constant", v),
         ("radial", [c1, c2, ...]) (c_j r^(2j)), ("linear_grating", kx, ky),
         ("grid", xs, ys, grid) or ("height_profile", xs, ys, h, material),
-        as in the JAX package."""
+        as in the JAX package. The geometry types take the JAX package's
+        keywords: "polynomial" its (order+1)^2 `coefficients` C_ij x^i y^j,
+        row-major; "biconic" `radius_y`, `conic_y` (`radius`, `conic` the
+        x-profile); "toroidal" `radius_y`, `coeffs_poly_y` (`radius` the
+        rotation radius, `conic` the y-profile's); "chebyshev" a 2-D
+        `coefficients` grid, `norm_x`, `norm_y`; "zernike" `coefficients`,
+        `norm_radius`, `zernike_type` ("fringe", "noll" or "standard");
+        "forbes_qbfs" `coefficients` or `radial_terms` ({n: a_n}),
+        `norm_radius`; "forbes_q2d" `freeform_coeffs` ({("a" or "b", m, n):
+        c}), `norm_radius`; "grid_sag" `x_coordinates`, `y_coordinates`,
+        `sag_values` ((ny, nx))."""
         geometry = "standard"
-        if surface_type in ("even_asphere", "odd_asphere"):
+        if surface_type == "nurbs":
+            raise NotImplementedError(
+                "surface_type 'nurbs' is not ported yet (ROADMAP queue 1, "
+                "item 14)")
+        if surface_type in _GEOMETRY_KEYS:
             geometry = surface_type
             surface_type = "standard"
         if surface_type not in ("standard", "paraxial", "grating", "phase"):
             raise NotImplementedError(
                 f"surface_type {surface_type!r} is not ported yet; ported: "
-                "standard, even_asphere, odd_asphere, paraxial, grating, "
-                "phase (ROADMAP queue 1, item 14)")
+                "standard, paraxial, grating, phase, "
+                + ", ".join(_GEOMETRY_KEYS) + " (ROADMAP queue 1, item 15)")
         keys = {"grating": {"grating_order", "grating_period",
                             "groove_orientation_angle"},
-                "phase": {"phase_profile"}}.get(surface_type, set())
+                "phase": {"phase_profile"}}.get(surface_type,
+                                                _GEOMETRY_KEYS.get(geometry,
+                                                                   set()))
         if set(geom_kwargs) - keys:
             raise NotImplementedError(
                 f"surface keywords {sorted(set(geom_kwargs) - keys)} are not "
                 "ported yet (ROADMAP queue 1, items 14 and 15)")
+        if geometry == "chebyshev":
+            # the 2-D coefficient grid travels in geom_params (static shape)
+            geom_kwargs.setdefault("coefficients", coefficients)
+            coefficients = ()
         spec = SurfaceSpec(
             radius=float(radius),
             thickness=float(thickness),

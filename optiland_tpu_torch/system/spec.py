@@ -25,10 +25,20 @@ import torch
 from optiland_tpu_torch import config
 from optiland_tpu_torch.config import resolve_device
 from optiland_tpu_torch.geometry.surfaces import (
+    GEOM_BICONIC,
+    GEOM_CHEBYSHEV,
     GEOM_CONIC,
     GEOM_EVEN_ASPHERE,
+    GEOM_FORBES_Q2D,
+    GEOM_FORBES_QBFS,
+    GEOM_GRID_SAG,
+    GEOM_NURBS,
     GEOM_ODD_ASPHERE,
     GEOM_PLANE,
+    GEOM_POLYNOMIAL_XY,
+    GEOM_TOROIDAL,
+    GEOM_ZERNIKE,
+    ZERNIKE_TYPE_CODES,
 )
 from optiland_tpu_torch.materials.catalog import (
     AIR,
@@ -80,6 +90,15 @@ _GEOM_BY_TYPE = {
     "plane": GEOM_PLANE,
     "even_asphere": GEOM_EVEN_ASPHERE,
     "odd_asphere": GEOM_ODD_ASPHERE,
+    "polynomial": GEOM_POLYNOMIAL_XY,
+    "biconic": GEOM_BICONIC,
+    "toroidal": GEOM_TOROIDAL,
+    "chebyshev": GEOM_CHEBYSHEV,
+    "zernike": GEOM_ZERNIKE,
+    "forbes_qbfs": GEOM_FORBES_QBFS,
+    "forbes_q2d": GEOM_FORBES_Q2D,
+    "grid_sag": GEOM_GRID_SAG,
+    "nurbs": GEOM_NURBS,
 }
 
 _INF = float("inf")
@@ -367,16 +386,80 @@ def _pack_phase(profile, idx, kinds, aux, params, grids, mat_coeffs):
         aux[idx] = ("grid", gr.shape[0], gr.shape[1])
 
 
+def _forbes_norm_radius(gp: dict, s: SurfaceSpec) -> float:
+    """The manual norm radius, else the reference's rule 1.25 x the
+    semi-aperture, else 1."""
+    nr = gp.get("norm_radius")
+    if nr is not None:
+        return float(nr)
+    if s.semi_aperture is not None:
+        return 1.25 * float(s.semi_aperture)
+    return 1.0
+
+
 def _pack_geometry(s: SurfaceSpec):
-    """Resolve one SurfaceSpec's geometry to (code, cv, k, coeffs)."""
+    """Resolve one SurfaceSpec's geometry to (code, cv, k, coeffs, aux), the
+    layouts of `geometry/surfaces.py` (its module docstring)."""
     if s.geometry not in _GEOM_BY_TYPE:
-        raise NotImplementedError(
-            f"geometry {s.geometry!r} is not ported yet (ROADMAP queue 1, "
-            "item 14)")
+        raise ValueError(f"Unknown geometry {s.geometry!r}")
     geom = _GEOM_BY_TYPE[s.geometry]
+    gp = s.geom_params
     if geom == GEOM_CONIC and _safe_cv(s.radius) == 0.0:
         geom = GEOM_PLANE
-    return geom, _safe_cv(s.radius), s.conic, list(s.coefficients)
+    if geom in (GEOM_PLANE, GEOM_CONIC, GEOM_EVEN_ASPHERE, GEOM_ODD_ASPHERE,
+                GEOM_POLYNOMIAL_XY):
+        return geom, _safe_cv(s.radius), s.conic, list(s.coefficients), ()
+    if geom == GEOM_BICONIC:
+        return (geom, _safe_cv(s.radius), s.conic,
+                [_safe_cv(gp.get("radius_y", _INF)), gp.get("conic_y", 0.0)],
+                ())
+    if geom == GEOM_TOROIDAL:
+        # (cv, k) = Y-Z curve; s.radius is the rotation radius R_rot
+        poly = list(gp.get("coeffs_poly_y", s.coefficients))
+        return (geom, _safe_cv(gp.get("radius_y", _INF)), s.conic,
+                [_safe_cv(s.radius)] + poly, ())
+    if geom == GEOM_CHEBYSHEV:
+        C = np.atleast_2d(np.asarray(gp.get("coefficients", s.coefficients),
+                                     float))
+        rows, cols = C.shape
+        return (geom, _safe_cv(s.radius), s.conic,
+                [gp.get("norm_x", 1.0), gp.get("norm_y", 1.0)]
+                + list(C.ravel()), (rows, cols))
+    if geom == GEOM_ZERNIKE:
+        zt = gp.get("zernike_type", "standard")
+        return (geom, _safe_cv(s.radius), s.conic,
+                [gp.get("norm_radius", 1.0)] + list(s.coefficients),
+                (ZERNIKE_TYPE_CODES[zt],))
+    if geom == GEOM_FORBES_QBFS:
+        # radial_terms: {n: a_n}
+        terms = dict(gp.get("radial_terms", enumerate(s.coefficients)))
+        n_top = max(terms.keys(), default=-1)
+        a = [float(terms.get(n, 0.0)) for n in range(n_top + 1)]
+        return (geom, _safe_cv(s.radius), s.conic,
+                [_forbes_norm_radius(gp, s)] + a, ())
+    if geom == GEOM_FORBES_Q2D:
+        # freeform_coeffs: {('a'|'b', m, n): c}, sorted by (n, |m|, cos
+        # before sin)
+        items = []
+        for (kind, m, n), val in gp.get("freeform_coeffs", {}).items():
+            cos = kind.lower() == "a"
+            items.append(((n, abs(m), 0 if cos else 1),
+                          (n, m if cos else -m), float(val)))
+        items.sort(key=lambda it: it[0])
+        return (geom, _safe_cv(s.radius), s.conic,
+                [_forbes_norm_radius(gp, s)] + [it[2] for it in items],
+                tuple(it[1] for it in items))
+    if geom == GEOM_GRID_SAG:
+        xg = list(np.asarray(gp["x_coordinates"], float))
+        yg = list(np.asarray(gp["y_coordinates"], float))
+        zg = np.asarray(gp["sag_values"], float)
+        if zg.shape != (len(yg), len(xg)):
+            raise ValueError(
+                f"sag_values shape {zg.shape} must be (ny, nx) = "
+                f"({len(yg)}, {len(xg)})")
+        return geom, 0.0, 0.0, xg + yg + list(zg.ravel()), (len(xg), len(yg))
+    raise NotImplementedError(
+        "NURBS geometry is not ported yet (ROADMAP queue 1, item 14)")
 
 
 def _coating_code(coat):
@@ -426,6 +509,7 @@ def build_system(
     coeff_width = max([MAX_GEOM_COEFFS] + [len(p[3]) for p in packed])
 
     geom_codes, geom_n_coeffs, interactions, is_reflective = [], [], [], []
+    geom_aux = []
     coatings, mat_formulas, mat_n_coeffs = [], [], []
     has_tilt, has_decenter, has_aperture = [], [], []
     stop_index = 0
@@ -465,8 +549,9 @@ def build_system(
             current_medium = mat
         is_reflective.append(bool(reflective))
 
-        geom, cv_val, k_val_, packed_coeffs = packed[idx]
+        geom, cv_val, k_val_, packed_coeffs, aux = packed[idx]
         geom_codes.append(geom)
+        geom_aux.append(aux)
         geom_n_coeffs.append(len(packed_coeffs))
 
         if idx == 0 or idx == S - 1:
@@ -556,7 +641,7 @@ def build_system(
         num_surfaces=S,
         geom_codes=tuple(geom_codes),
         geom_n_coeffs=tuple(geom_n_coeffs),
-        geom_aux=tuple(() for _ in range(S)),
+        geom_aux=tuple(geom_aux),
         interactions=tuple(interactions),
         is_reflective=tuple(is_reflective),
         coatings=tuple(coatings),

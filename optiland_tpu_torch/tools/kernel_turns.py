@@ -26,8 +26,10 @@ thin-lens and grating configurations of chip_smoke.py's phase j3 at the
 same two sizes (`branch_ms`: K1-K4 of systems A, B and C at 0.55 um and
 per-ray, K5 and K6 on B's vignetted twin, K7 on A and B) and the phase
 configurations of its phase j4 (`phase_ms`: K1-K4 of systems D, E and F,
-K5 and K6 on F's vignetted twin, K7 on D, E and F); a tree without those
-branches records None there. It also drives
+K5 and K6 on F's vignetted twin, K7 on D, E and F) and the freeform
+configurations of its phase j5 (`freeform_ms`: K1-K4 of systems G, H and
+I, K5 and K6 on I's vignetted twin, K7 on G, H and I); a tree without
+those branches records None there. It also drives
 `huygens.huygens_sum_forward` (K8) on the Cooke triplet's Huygens PSF at
 its defaults (128 x 128: the image sum and its normalizing peak sum), at
 256 x 256, and on the random inputs of tools/bench_wave_optics.py. Each
@@ -235,6 +237,7 @@ def worker(tree: Path, ns: list[int]) -> dict:
     ms.update(branch_ms(cs, fused, kernel_ms, Optic, CookeTriplet, dev, rng,
                         c))
     ms.update(phase_ms(cs, fused, kernel_ms, Optic, dev, rng, c))
+    ms.update(freeform_ms(cs, fused, kernel_ms, Optic, dev, rng, c))
     px_b, py_b, _ = pupil_grid_coords(128, torch.float32, dev)
     for label, r0 in (
             ("flagship 1999998", generate_rays(
@@ -321,6 +324,22 @@ def phase_ms(cs, fused, kernel_ms, Optic, dev, rng, c):
                        kernel_ms, dev, rng, c)
 
 
+def freeform_ms(cs, fused, kernel_ms, Optic, dev, rng, c):
+    """The freeform configurations of chip_smoke.py's phase j5, timed as
+    `branch_ms` times j3's: K1-K4 of system G (biconic and toroidal), H
+    (poly-XY and Zernike) and I (tilted Chebyshev and Forbes Q-bfs), K5 and
+    K6 on I's vignetted twin, K7 on G, H and I. None for every key where the
+    tree has no freeform branch (`fused._freeform_mask`)."""
+    systems = {"G": lambda: cs.anamorphic_singlet(Optic),
+               "H": lambda: cs.xy_freeform_singlet(Optic),
+               "I": lambda: cs.tilted_freeform_singlet(Optic),
+               "I vignetted": lambda: cs.tilted_freeform_singlet(
+                   Optic, vignetted=True)}
+    return _systems_ms(systems, ("G", "H", "I"),
+                       hasattr(fused, "_freeform_mask"), cs, fused,
+                       kernel_ms, dev, rng, c)
+
+
 def _systems_ms(systems, history, supported, cs, fused, kernel_ms, dev, rng,
                 c):
     """K1-K4 of each of `systems` (label -> builder) but the vignetted
@@ -343,9 +362,28 @@ def _systems_ms(systems, history, supported, cs, fused, kernel_ms, dev, rng,
     ns = (16_384, 1_999_998)
     if not supported:
         return {f"{key} {n}": None for key in keys for n in ns}
+    from optiland_tpu_torch import _build
+
+    built = {label: make().build(device="cuda")
+             for label, make in systems.items()}
+    # every variant these launches take, built at once (one nvcc each)
+    sources = {"K1": "moments_fwd", "K2": "moments_bwd",
+               "K3": "raygen_trace_fwd", "K4": "raygen_trace_bwd",
+               "K5": "fused_trace_fwd", "K6": "fused_trace_bwd"}
+    variants = set()
+    for label, (static, _) in built.items():
+        for key in (("K5", "K6") if label in twins else ("K1", "K2", "K3",
+                                                         "K4")):
+            backward = key in ("K2", "K4", "K6")
+            variants.add((sources[key], fused.backward_defines(static, False)
+                          if backward else fused.system_defines(static)))
+            variants.add((sources[key], fused.backward_defines(static, True)
+                          if backward else fused.history_defines(static)))
+        if label in history:
+            variants.add(("history_fwd", fused.history_defines(static)))
+    _build.build_all(tuple(v for v in variants if v[1]))
     ms = {}
-    for label, make in systems.items():
-        static, params = make().build(device="cuda")
+    for label, (static, params) in built.items():
         fb = cs.flagship_inputs(params, dev)
         for n in ns:
             d = tuple(a[:n].contiguous() for a in fb)

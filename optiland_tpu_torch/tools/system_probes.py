@@ -5,6 +5,7 @@ in one process.
     python -m optiland_tpu_torch.tools.system_probes --parent DIR
     python -m optiland_tpu_torch.tools.system_probes --parent DIR --k7
     python -m optiland_tpu_torch.tools.system_probes --per-ray
+    python -m optiland_tpu_torch.tools.system_probes --freeform
 
 DIR is a checkout of the commit before K3 and K5 were built per system
 (their run-time chain), for instance `git archive <commit> | tar -x -C
@@ -79,6 +80,16 @@ kernel_turns times it, in four rounds of alternating order, the
 one-wavelength Cooke K2 at 0.55 um beside; each build's K2 held to its
 plain version (`chip_smoke.cotangent_errs`) and its registers, stack
 frame and SASS count printed.
+
+With --freeform (no DIR), the probes are the freeform branch's builds of
+chip_smoke.py's phase j5 (systems G, H and I; K5 and K6 on I's vignetted
+twin), K1-K7 at one wavelength (0.55 um) and at the flagship batch's
+per-ray wavelengths: each build's registers, stack frame, spill bytes and
+SASS count, the blocks an SM of the per-system builds (their occupancy
+query; the backward kernels run a persistent grid of one block an SM,
+`fused.backward_grid`), the threads `fused._backward_launch` gives the
+per-ray backward block of a 64-surface system, and the card's name and
+power limit. The same kernels' times are `kernel_turns`'s (`freeform_ms`).
 """
 
 from __future__ import annotations
@@ -88,6 +99,7 @@ import ctypes
 import json
 import re
 import subprocess
+from dataclasses import replace as dataclasses_replace
 from functools import partial
 from pathlib import Path
 
@@ -851,6 +863,62 @@ def per_ray_main():
     print(json.dumps({"rounds": 4, "ms": ms}))
 
 
+def freeform_main():
+    """--freeform: the builds of the freeform branch (module docstring);
+    their times are `kernel_turns.freeform_ms`'s."""
+    cs = _smoke()
+    config.set_precision("float32")
+    dev = torch.device("cuda")
+    systems = {"G": cs.anamorphic_singlet(Optic),
+               "H": cs.xy_freeform_singlet(Optic),
+               "I": cs.tilted_freeform_singlet(Optic),
+               "I vignetted": cs.tilted_freeform_singlet(Optic, True)}
+    built = {label: lens.build(device="cuda")
+             for label, lens in systems.items()}
+    srcs = dict(SOURCES, K7="history_fwd", **BWD_SOURCES)
+    jobs = {}
+    for label, (st, _) in built.items():
+        keys = ("K5", "K6") if label.endswith("vignetted") else (
+            "K1", "K2", "K3", "K4", "K7")
+        for key in keys:
+            for cfg in ("0.55", "per-ray"):
+                if key == "K7" and cfg == "0.55":
+                    continue
+                if key in BWD_SOURCES:
+                    defines = fused.backward_defines(st, cfg == "per-ray")
+                elif cfg == "per-ray" or key == "K7":
+                    defines = fused.history_defines(st)
+                else:
+                    defines = fused.system_defines(st)
+                jobs[f"{key} {label} {cfg}"] = (srcs[key], defines)
+    _build.build_all(tuple(set(jobs.values())))
+    cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
+    report = {}
+    for job, (src, defines) in jobs.items():
+        name = _build.variant_name(src, defines)
+        log = _build.build_log(name)
+        lib = _build.build_dir() / f"lib{name}.so"
+        sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                              capture_output=True, text=True).stdout
+        report[job] = {
+            "registers": re.findall(r"Used (\d+) registers", log),
+            "stack_bytes": re.findall(r"(\d+) bytes stack frame", log),
+            "spill_bytes": re.findall(r"(\d+) bytes spill stores", log),
+            "sass": len(re.findall(r"/\*[0-9a-f]{4,}\*/", sass))}
+        if src not in BWD_SOURCES.values():
+            report[job]["blocks_an_sm"] = fused._blocks_per_sm(src, defines)
+    wide = dataclasses_replace(built["H"][0], num_surfaces=64)
+    blocks, threads, _, _ = fused._backward_launch(wide, 2_000_000, dev,
+                                                   64 + 1, True)
+    print(json.dumps({"builds": report,
+                      "64-surface per-ray backward block": {
+                          "blocks": blocks, "threads": threads}}))
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True,
+                         timeout=60).stdout.strip().splitlines()[0])
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--parent", type=Path,
@@ -860,14 +928,19 @@ def main(argv=None):
                         help="probe K7 against DIR's run-time K7")
     parser.add_argument("--per-ray", action="store_true",
                         help="probe the per-ray backward kernels' record")
+    parser.add_argument("--freeform", action="store_true",
+                        help="report the freeform branch's builds")
     opts = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("system_probes times CUDA kernels and needs a card")
     if opts.per_ray:
         per_ray_main()
         return
+    if opts.freeform:
+        freeform_main()
+        return
     if opts.parent is None:
-        parser.error("--parent is required unless --per-ray")
+        parser.error("--parent is required unless --per-ray or --freeform")
     if opts.k7:
         k7_main(opts.parent.resolve() / "optiland_tpu_torch" / "csrc")
         return

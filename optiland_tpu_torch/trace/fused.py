@@ -91,6 +91,7 @@ from functools import lru_cache
 import torch
 
 from optiland_tpu_torch import config
+from optiland_tpu_torch.geometry import surfaces as _geom
 from optiland_tpu_torch.geometry.surfaces import (
     GEOM_BICONIC,
     GEOM_CHEBYSHEV,
@@ -127,10 +128,17 @@ from optiland_tpu_torch.system.spec import (
     positions_of,
 )
 
+# inline geometries (hand-written sag and gradient); the rest of
+# _SUPPORTED_GEOMS traces through `geometry/surfaces.sag_and_grad` with a
+# conic-seeded Newton of its own count, as JAX's `_tile_trace`
 _INLINE_GEOMS = (GEOM_PLANE, GEOM_CONIC, GEOM_EVEN_ASPHERE, GEOM_ODD_ASPHERE)
 _SUPPORTED_GEOMS = _INLINE_GEOMS + (
     GEOM_POLYNOMIAL_XY, GEOM_BICONIC, GEOM_TOROIDAL, GEOM_CHEBYSHEV,
     GEOM_ZERNIKE, GEOM_FORBES_QBFS, GEOM_FORBES_Q2D)
+# the freeform families the CUDA chain covers (csrc/freeform.cuh): all of
+# JAX's kernel freeforms but Forbes Q-2D (ROADMAP queue 2, branch 4b)
+_KERNEL_FREEFORMS = (GEOM_POLYNOMIAL_XY, GEOM_BICONIC, GEOM_TOROIDAL,
+                     GEOM_CHEBYSHEV, GEOM_ZERNIKE, GEOM_FORBES_QBFS)
 _SUPPORTED_INTERACTIONS = (0, INT_REFLECT, INT_NONE, INT_THIN_LENS,
                            INT_DIFFRACT, INT_PHASE)
 _ANALYTIC_PHASE = (PHASE_NONE, PHASE_CONSTANT, PHASE_RADIAL,
@@ -145,6 +153,9 @@ _INV_K0_PER_UM = 1e-3 / (2.0 * math.pi)
 # `static.newton_iters`; `spec._fused_newton_seed_ok` refuses the systems
 # where that does not hold.
 _NEWTON_FUSED_MAX = 2
+# freeform seeds (the conic of a biconic's x-profile, a toroidal's y-curve,
+# a Zernike's carrier) start further from the root: more steps
+_NEWTON_FUSED_MAX_FF = 6
 
 # row widths of the packed per-surface tables; `_pack_tables` writes the
 # slots in the order csrc/chain.cuh names them (F_* and I_* there)
@@ -217,12 +228,20 @@ def supports_fused_raygen(static: SystemStatic) -> bool:
 
 def _check_kernel_branches(static: SystemStatic, kernel: str):
     """Refuse the chain branch the CUDA kernel `kernel` ("K1".."K7") does
-    not cover yet (freeform geometries, ROADMAP queue 2, branch 4), at one
-    wavelength or at per-ray wavelengths alike: every kernel takes both."""
-    if any(g not in _INLINE_GEOMS for g in static.geom_codes):
+    not cover yet (Forbes Q-2D geometries, ROADMAP queue 2, branch 4b), at
+    one wavelength or at per-ray wavelengths alike: every kernel takes
+    both."""
+    if GEOM_FORBES_Q2D in static.geom_codes:
         raise NotImplementedError(
             f"{kernel} {_KERNELS[kernel]}: fused CUDA chain branches not "
-            "ported yet (ROADMAP queue 2, branch 4): freeform geometries")
+            "ported yet (ROADMAP queue 2, branch 4b): Forbes Q-2D geometries")
+    eager = sorted({g for g in static.geom_codes
+                    if g not in _SUPPORTED_GEOMS})
+    if eager:
+        # as JAX's kernels (`supports_fused`): grid sag and NURBS take the
+        # eager trace
+        raise ValueError(f"geometry codes {eager}: the fused chain takes "
+                         "no grid sag or NURBS surface")
     if static.num_surfaces > _MAX_SURFACES:
         raise ValueError(f"the fused chain takes at most {_MAX_SURFACES} "
                          f"surfaces, got {static.num_surfaces}")
@@ -628,7 +647,8 @@ def _tile_trace(static: SystemStatic, diffp, nondiffp,
     Newton runs on a detached root and closes with one differentiable
     step, so autograd through it gives the implicit-function-theorem
     derivative; so does a pure conic's closed-form root where it carries a
-    gradient (JAX's `for_grad` pass)."""
+    gradient (JAX's `for_grad` pass). Aspheres take min(newton_iters, 2)
+    updates before that step, freeforms min(newton_iters, 6)."""
     (cv, conic, coeffs, thickness, tilt, decenter, mat_coeffs,
      coating_params, n_table, grating, phase_params, focal_length) = diffp
     ap_radius, k_wl, k_val, alpha_table = nondiffp
@@ -686,7 +706,28 @@ def _tile_trace(static: SystemStatic, diffp, nondiffp,
         validf = torch.where(big, validf, one)
 
         n_coeffs = static.geom_n_coeffs[k]
-        if code in (GEOM_EVEN_ASPHERE, GEOM_ODD_ASPHERE) and n_coeffs:
+        aux_k = static.geom_aux[k]
+        freeform = code not in _INLINE_GEOMS
+        if freeform:
+            # conic-seeded Newton through `geometry/surfaces.sag_and_grad`
+            # (JAX's `_tile_trace`): min(newton_iters, 6) updates on a
+            # detached root, then one differentiable update, with the
+            # kernel's safe-divide (every |f'| <= 1e-12 becomes 1e-12)
+            t = t.detach()
+            n_newton = min(static.newton_iters, _NEWTON_FUSED_MAX_FF)
+            for it in range(n_newton + 1):
+                if it == n_newton:
+                    t = t.detach()
+                xt = x + t * L
+                yt = y + t * M
+                zt = z + t * N
+                s_val, gx, gy = _geom.sag_and_grad(
+                    code, n_coeffs, xt, yt, cvk, conic[k], coeffs[k], aux_k)
+                f = s_val - zt
+                fp = gx * L + gy * M - N
+                fp = torch.where(torch.abs(fp) > _EPS, fp, eps)
+                t = t - f / fp
+        elif code in (GEOM_EVEN_ASPHERE, GEOM_ODD_ASPHERE) and n_coeffs:
             t = t.detach()
             n_newton = min(static.newton_iters, _NEWTON_FUSED_MAX)
             for it in range(n_newton + 1):
@@ -737,8 +778,12 @@ def _tile_trace(static: SystemStatic, diffp, nondiffp,
 
         interaction = static.interactions[k]
         if interaction != INT_NONE:
-            _, gx, gy = _radial_grad(code, n_coeffs, coeffs[k], cvk, kk, x, y,
-                                     False)
+            if freeform:
+                _, gx, gy = _geom.sag_and_grad(code, n_coeffs, x, y, cvk,
+                                               conic[k], coeffs[k], aux_k)
+            else:
+                _, gx, gy = _radial_grad(code, n_coeffs, coeffs[k], cvk, kk,
+                                         x, y, False)
             inv_mag = torch.rsqrt(gx * gx + gy * gy + 1.0)
             nx, ny, nz = gx * inv_mag, gy * inv_mag, -inv_mag
             if interaction == INT_THIN_LENS:
@@ -978,16 +1023,35 @@ def branch_defines(static: SystemStatic) -> tuple:
     a grating or a phase sheet: the definition that compiles those branches
     of the chain and of its reverse sweep (csrc/chain.cuh,
     csrc/chain_bwd.cuh) and the coating's intensity cotangent in the
-    record; and OTK_PHASE where it has a phase sheet, which adds the phase
-    branch and its adjoint and each surface's phase kind to its codes. A
-    system without them builds the code without those branches, as it was
-    before them."""
+    record; OTK_PHASE where it has a phase sheet, which adds the phase
+    branch and its adjoint and each surface's phase kind to its codes; and
+    OTK_FREEFORM, the mask of its freeform families (`_freeform_mask`),
+    where it has one: their sag, Newton and adjoint (csrc/freeform.cuh),
+    their aux ints and Newton count in the int table. A system without
+    them builds the code without those branches, as it was before them."""
     phase = INT_PHASE in static.interactions
     new = (any(_coated(static, k) for k in range(static.num_surfaces))
            or INT_THIN_LENS in static.interactions
            or INT_DIFFRACT in static.interactions or phase)
+    ff = _freeform_mask(static)
     return ((("OTK_INTERACTIONS", "1"),) if new else ()) + (
-        (("OTK_PHASE", "1"),) if phase else ())
+        (("OTK_PHASE", "1"),) if phase else ()) + (
+        (("OTK_FREEFORM", f"0x{ff:x}u"),) if ff else ())
+
+
+def _freeform_mask(static: SystemStatic) -> int:
+    """The bit 1 << code of each freeform family the system has (of
+    _KERNEL_FREEFORMS), 0 without one."""
+    return sum(1 << g for g in set(static.geom_codes)
+               if g in _KERNEL_FREEFORMS)
+
+
+def _freeform_aux(static: SystemStatic, k: int) -> tuple[int, int]:
+    """Surface k's two aux ints as the chain reads them: a Chebyshev's
+    (rows, cols), a Zernike's (type code, 0), else (0, 0)."""
+    aux = tuple(static.geom_aux[k]) if static.geom_codes[k] in (
+        GEOM_CHEBYSHEV, GEOM_ZERNIKE) else ()
+    return (tuple(int(a) for a in aux) + (0, 0))[:2]
 
 
 def system_defines(static: SystemStatic) -> tuple:
@@ -998,7 +1062,9 @@ def system_defines(static: SystemStatic) -> tuple:
     aperture and absorption flags (the medium after it), a coated
     surface's flag, a reflective grating's and a phase sheet's kind, packed
     as csrc/system_chain.cuh `unpack_codes` reads them, then
-    `branch_defines`. Values (curvatures, thicknesses, indices, ...) are
+    `branch_defines`, and with a freeform the freeforms' Newton updates
+    (OTK_NEWTON_FF) and each surface's aux ints (OTK_FF_AUX, aux0 | aux1
+    << 8, `_freeform_aux`). Values (curvatures, thicknesses, indices, ...) are
     not codes: they reach the kernel in the float table, so one build
     serves every value of a system."""
     packed = (
@@ -1011,12 +1077,20 @@ def system_defines(static: SystemStatic) -> tuple:
         | int(_reflective_sheet(static, k)) << 25
         | _phase_kind(static, k) << 26
         for k in range(static.num_surfaces))
+    ff = ()
+    if _freeform_mask(static):
+        ff = (("OTK_NEWTON_FF",
+               str(min(static.newton_iters, _NEWTON_FUSED_MAX_FF))),
+              ("OTK_FF_AUX", ", ".join(
+                  "0x{:x}u".format(a0 | a1 << 8) for a0, a1 in (
+                      _freeform_aux(static, k)
+                      for k in range(static.num_surfaces)))))
     return (("OTK_S", str(static.num_surfaces)),
             ("OTK_NEWTON", str(min(static.newton_iters, _NEWTON_FUSED_MAX))),
             ("OTK_FIELD_ANGLE", str(int(static.field_type == "angle"))),
             ("OTK_OBJECT_INFINITE", str(int(static.object_infinite))),
             ("OTK_SURFACES", ", ".join(f"0x{c:x}u" for c in packed))
-            ) + branch_defines(static)
+            ) + branch_defines(static) + ff
 
 
 def media_defines(static: SystemStatic) -> tuple:
@@ -1115,13 +1189,18 @@ def backward_grid(n: int, n_sm: int) -> tuple[int, int]:
 def _int_table(static: SystemStatic, device: torch.device):
     """The (S, 16) int table of static codes of the run-time chain (K2, K4,
     K6), in the slot order of csrc/chain.cuh (I_* there); row k's
-    absorption flag is that of the medium after surface k."""
+    absorption flag is that of the medium after surface k, and a freeform
+    surface's row holds its aux ints (`_freeform_aux`) and Newton updates
+    in slots 10-12 (I_AUX0, I_AUX1, I_NEWTON_FF there)."""
+    n_ff = min(static.newton_iters, _NEWTON_FUSED_MAX_FF)
     rows = [[static.geom_codes[k], static.geom_n_coeffs[k],
              static.interactions[k], int(static.has_tilt[k]),
              int(static.has_decenter[k]), int(static.has_aperture[k]),
              int(static.has_absorption[k]), int(_coated(static, k)),
-             int(_reflective_sheet(static, k)), _phase_kind(static, k)]
-            + [0] * (_I_STRIDE - 10) for k in range(static.num_surfaces)]
+             int(_reflective_sheet(static, k)), _phase_kind(static, k),
+             *_freeform_aux(static, k),
+             n_ff if static.geom_codes[k] in _KERNEL_FREEFORMS else 0]
+            + [0] * (_I_STRIDE - 13) for k in range(static.num_surfaces)]
     return torch.tensor(rows, dtype=torch.int32).to(device)
 
 

@@ -1,7 +1,9 @@
 """The real-ray trace in eager PyTorch, under autograd.
 
 Port of `optiland_tpu/trace/tracer.py` for the ported surface and
-interaction set: plane/conic/even/odd-asphere geometries; refract, reflect,
+interaction set: plane/conic/even/odd-asphere geometries, the freeform
+families (poly-XY, biconic, toroidal, Chebyshev, Zernike, Forbes Q-bfs
+and Q-2D) and the grid sag; refract, reflect,
 none, the ideal thin lens, gratings on plane and curved carriers and phase
 sheets (generalized Snell's law) of all five profile kinds; radial
 apertures; tilt and decenter; Beer-Lambert absorption in media with
@@ -26,9 +28,11 @@ from optiland_tpu_torch.core import transforms as T
 from optiland_tpu_torch.core.rays import Rays
 from optiland_tpu_torch.geometry.surfaces import (
     _CLOSED_FORM,
+    GEOM_GRID_SAG,
     GEOM_PLANE,
     SLICE_GEOMS,
     _conic_intersect,
+    _grid_interp,
     intersect,
     intersect_implicit,
     sag_and_grad,
@@ -68,7 +72,7 @@ def _check_traceable(static: SystemStatic):
     """Refuse what the eager tracer does not implement yet."""
     unported = []
     if any(g not in SLICE_GEOMS for g in static.geom_codes):
-        unported.append("freeform geometries (item 14)")
+        unported.append("NURBS geometry (item 14)")
     if static.has_abs_cs:
         unported.append("absolute coordinate systems (item 23)")
     if any(b is not None for b in static.bsdfs):
@@ -115,10 +119,13 @@ def _grating_interact(static, params, k, rays: Rays, n1, n2) -> Rays:
         fy = torch.cos(angle) * one
         fz = torch.zeros_like(rays.x)
     else:
-        nc, cv, conic, co = (static.geom_n_coeffs[k], params.cv[k],
-                             params.conic[k], params.coeffs[k])
-        nx, ny, nz = surface_normal(code, nc, rays.x, rays.y, cv, conic, co)
-        _, gx, gy = sag_and_grad(code, nc, rays.x, rays.y, cv, conic, co)
+        nc, cv, conic, co, aux = (static.geom_n_coeffs[k], params.cv[k],
+                                  params.conic[k], params.coeffs[k],
+                                  static.geom_aux[k])
+        nx, ny, nz = surface_normal(code, nc, rays.x, rays.y, cv, conic, co,
+                                    aux)
+        _, gx, gy = sag_and_grad(code, nc, rays.x, rays.y, cv, conic, co,
+                                 aux)
         ca, sa = torch.cos(angle), torch.sin(angle)
         tx, ty, tz = ca, sa, gx * ca + gy * sa
         # surface_normal has nz < 0; f is built from the upward normal
@@ -152,7 +159,7 @@ def _phase_interact(static, params, k, rays: Rays, n1, n2) -> Rays:
     k0 = 2.0 * math.pi / (rays.w * 1e-3)  # wavenumber in 1/mm
     nx, ny, nz = surface_normal(
         static.geom_codes[k], static.geom_n_coeffs[k], rays.x, rays.y,
-        params.cv[k], params.conic[k], params.coeffs[k])
+        params.cv[k], params.conic[k], params.coeffs[k], static.geom_aux[k])
     phase, gx, gy = phase_value_grad(static, params, k, rays.x, rays.y,
                                      rays.w)
     gz = torch.zeros_like(gx)
@@ -219,12 +226,13 @@ def trace_rays(static: SystemStatic, params: SystemParams,
         # Newton-refined geometries take the implicit-function-theorem
         # backward (the converged root, not the iteration chain)
         code = static.geom_codes[k]
+        aux = static.geom_aux[k]
         if code in _CLOSED_FORM or static.geom_n_coeffs[k] == 0:
             t, valid = intersect(
                 code, static.geom_n_coeffs[k],
                 rays.x, rays.y, rays.z, rays.L, rays.M, rays.N,
                 params.cv[k], params.conic[k], params.coeffs[k],
-                newton_iters=static.newton_iters,
+                newton_iters=static.newton_iters, aux=aux,
             )
         else:
             t = intersect_implicit(
@@ -236,6 +244,11 @@ def trace_rays(static: SystemStatic, params: SystemParams,
             _, valid = _conic_intersect(rays.x, rays.y, rays.z, rays.L,
                                         rays.M, rays.N, params.cv[k],
                                         params.conic[k])
+            if code == GEOM_GRID_SAG:
+                _, _, _, oob = _grid_interp(
+                    rays.x + t * rays.L, rays.y + t * rays.M,
+                    params.coeffs[k], aux[0], aux[1])
+                valid = valid & ~oob
         n_pre = n_of(k - 1, rays.w)
         rays = R.propagate(rays, t)
         new_i = torch.where(valid, rays.i, torch.zeros_like(rays.i))
@@ -256,12 +269,12 @@ def trace_rays(static: SystemStatic, params: SystemParams,
         if interaction == INT_REFLECT:
             nx, ny, nz = surface_normal(
                 code, static.geom_n_coeffs[k], rays.x, rays.y,
-                params.cv[k], params.conic[k], params.coeffs[k])
+                params.cv[k], params.conic[k], params.coeffs[k], aux)
             rays = R.reflect(rays, nx, ny, nz)
         elif interaction == INT_REFRACT:
             nx, ny, nz = surface_normal(
                 code, static.geom_n_coeffs[k], rays.x, rays.y,
-                params.cv[k], params.conic[k], params.coeffs[k])
+                params.cv[k], params.conic[k], params.coeffs[k], aux)
             rays = R.refract(rays, nx, ny, nz, n_pre, n_of(k, rays.w))
         elif interaction == INT_THIN_LENS:
             rays = _thin_lens_interact(rays, params.focal_length[k], n_pre,

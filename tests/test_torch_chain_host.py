@@ -1,7 +1,8 @@
 """The CUDA device code of the fused chain and of K8, compiled for the host.
 
 `csrc/chain.cuh`, `csrc/chain_bwd.cuh`, `csrc/system_chain.cuh` and
-`csrc/huygens.cuh` are C++ apart from CUDA qualifiers and intrinsics. Built
+`csrc/huygens.cuh` (and `csrc/freeform.cuh`) are C++ apart from CUDA
+qualifiers and intrinsics. Built
 by g++ in float64 with those defined away (one thread, one ray at a time),
 the per-ray bodies of K2, K4 and K6 run here on the CPU: the run-time
 forward chain (`trace_chain`, at one wavelength as the backward kernels
@@ -47,6 +48,7 @@ from optiland_tpu_torch.trace.raygen import generate_rays
 from torch_port_helpers import (
     K0_055,
     PHASE_PROFILES,
+    SMOKE,
     bench_lens,
     coated_cooke,
     coated_singlet,
@@ -76,6 +78,7 @@ _PRELUDE = r"""
 #include <vector>
 #define __device__
 #define __host__
+#define __constant__
 #define __forceinline__ inline
 #define float double
 #define rsqrtf(x) (1.0 / std::sqrt(x))
@@ -245,6 +248,25 @@ extern "C" void huygens_kernel(int I, int P, int chunk, double inv_lambda, doubl
     }
   }
 }
+
+#ifdef OTK_FREEFORM
+// (sag, d sag / dx, d sag / dy) of a freeform surface (code, nc coefficient
+// slots co, aux ints a0, a1, cv, k) at n points, into out (3, n)
+extern "C" void ff_sag_points(int code, int nc, int a0, int a1, double cv, double k,
+                              const double* co, int n, const double* x, const double* y,
+                              double* out) {
+  otk::Surface s{};
+  s.code = code;
+  s.nc = nc;
+  s.a0 = a0;
+  s.a1 = a1;
+  s.cv = cv;
+  s.kk = 1 + k;
+  s.k = k;
+  s.co = co;
+  for (int j = 0; j < n; ++j) otk::ff_sag_grad(s, x[j], y[j], out[j], out[n + j], out[2 * n + j]);
+}
+#endif
 
 // material_index of one material row at each of n wavelengths
 extern "C" void index_kernel(int formula, int nc, const double* row, int n, const double* w,
@@ -1388,7 +1410,14 @@ def test_branch_system_bodies_match_plain(branch_libs, f64, name):
     wavelength, and K7's history at per-ray wavelengths, against the plain
     versions."""
     ts, tp = _branch_system(name)
-    lib, n = branch_libs[name], N_RAYS
+    _check_system_bodies(branch_libs[name], ts, tp)
+
+
+def _check_system_bodies(lib, ts, tp):
+    """The per-system bodies of `lib` (K1, K3, K5 at 0.55 um, K7 at per-ray
+    wavelengths) against the plain versions (see
+    test_branch_system_bodies_match_plain)."""
+    n = N_RAYS
     diffp, nondiffp, rg, ftab, data_np, data = _system_inputs(ts, tp, 0.55)
     out4, rays = np.zeros(4), np.zeros((8, n))
     lib.system_moments(n, _ptr(_np(rg)), _ptr(ftab), *map(_ptr, data_np),
@@ -1461,3 +1490,130 @@ def test_branch_per_ray_bodies_match_plain(branch_libs, f64, name):
         assert all(d6[k, list(_PHASE_SLOTS_READ[ts.phase_kinds[k]])].abs(
         ).min() > 0 for k in _lit(ts, tp)
             if ts.interactions[k] == fused.INT_PHASE)
+
+
+# phase j5's freeform systems (chip_smoke.py): G, the biconic and toroidal
+# singlet; H, poly-XY and a 16-term Fringe Zernike; I, a tilted, decentred
+# Chebyshev and a Forbes Q-bfs
+_FREEFORM_SYSTEMS = {"G": SMOKE.anamorphic_singlet,
+                     "H": SMOKE.xy_freeform_singlet,
+                     "I": SMOKE.tilted_freeform_singlet}
+# every freeform family the chain takes: the run-time bodies' mask
+_ALL_FREEFORMS = sum(1 << g for g in fused._KERNEL_FREEFORMS)
+
+
+@pytest.fixture(scope="module")
+def freeform_libs(tmp_path_factory):
+    """The run-time bodies built with OTK_FREEFORM for every family
+    ("run_time") and G's, H's and I's per-system bodies built with their
+    `fused.history_defines`, all g++ processes at once."""
+    from optiland_tpu_torch import _build
+
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("no g++ to build the device code for the host")
+    out = tmp_path_factory.mktemp("freeform_host")
+    (out / "cuda_runtime.h").write_text("#pragma once\n")
+    src = out / "shim.cpp"
+    src.write_text(_build.defines_header(
+        (("OTK_FREEFORM", f"0x{_ALL_FREEFORMS:x}u"),)) + _SHIM)
+    procs = {"run_time": subprocess.Popen(
+        [gxx, "-O1", "-std=c++17", "-shared", "-fPIC", "-pthread",
+         f"-I{out}", f"-I{CSRC}", "-o", str(out / "librun_time.so"),
+         str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)}
+    for name, make in _FREEFORM_SYSTEMS.items():
+        procs[name] = _system_lib(out, gxx, name, fused.history_defines(
+            make(Optic).build(device="cpu")[0]))
+    libs = {}
+    for name, proc in procs.items():
+        log = proc.communicate()[0]
+        assert proc.returncode == 0, log
+        libs[name] = ctypes.CDLL(str(out / f"lib{name}.so" if name ==
+                                     "run_time" else
+                                     out / f"libsystem_{name}.so"))
+    return libs
+
+
+def _freeform_system(name):
+    ts, tp = _FREEFORM_SYSTEMS[name](Optic).build(device="cpu")
+    assert fused.branch_defines(ts) == (
+        ("OTK_FREEFORM", f"0x{fused._freeform_mask(ts):x}u"),)
+    return ts, tp
+
+
+def _freeform_rows(ts, d_coeffs):
+    """Each freeform surface's coefficient cotangents over the slots its
+    family reads (all of them but a poly-XY's unused C_00), all nonzero."""
+    for k in range(1, ts.num_surfaces - 1):
+        row = d_coeffs[k, :ts.geom_n_coeffs[k]]
+        if ts.geom_codes[k] == fused.GEOM_POLYNOMIAL_XY:
+            row = row[1:]
+        assert torch.as_tensor(row).abs().min() > 0, k
+
+
+@pytest.mark.parametrize("name", list(_FREEFORM_SYSTEMS))
+def test_freeform_run_time_bodies_match_plain(freeform_libs, f64, name):
+    """The run-time chain's freeform branch (K1's moments, K2, K4, K5, K6 at
+    one wavelength, each freeform's aux ints and Newton count read from the
+    int table) against the plain versions at 1e-10; every coefficient
+    slot a freeform reads has its cotangent in K2's and K6's tables."""
+    ts, tp = _freeform_system(name)
+    k2, k6 = _check_run_time_bodies(freeform_libs["run_time"], ts, tp, 0.55)
+    for tab in (k2, k6):
+        _freeform_rows(ts, tab[:, fused._F_COEFFS:])
+
+
+@pytest.mark.parametrize("name", list(_FREEFORM_SYSTEMS))
+def test_freeform_system_bodies_match_plain(freeform_libs, f64, name):
+    """The per-system bodies built with the system's codes, OTK_FREEFORM,
+    OTK_NEWTON_FF and OTK_FF_AUX: K1, K3 and K5 at one wavelength and K7 at
+    per-ray wavelengths against the plain versions."""
+    ts, tp = _freeform_system(name)
+    _check_system_bodies(freeform_libs[name], ts, tp)
+
+
+@pytest.mark.parametrize("name", list(_FREEFORM_SYSTEMS))
+def test_freeform_per_ray_bodies_match_plain(freeform_libs, f64, name):
+    """The per-ray variants' bodies with the freeform branch (K1, K3 by the
+    per-system chain at each ray's w; K2, K4, K5, K6 by the per-ray sweep,
+    N-BK7's coefficients and w differentiated) against the plain versions;
+    every freeform coefficient slot has its cotangent."""
+    ts, tp = _freeform_system(name)
+    got = _check_per_ray_bodies(freeform_libs[name], ts, tp,
+                                (0.48, 0.55, 0.65))
+    _freeform_rows(ts, got["K2"][3][2])
+    _freeform_rows(ts, got["K6"][1][2])
+
+
+@pytest.mark.parametrize("surface", ["G1", "G2", "H1", "H2", "I1", "I2",
+                                     "noll", "standard"])
+def test_freeform_sag_matches_plain(freeform_libs, f64, surface):
+    """`ff_sag_grad` (csrc/freeform.cuh) of each face of G, H and I, and of
+    H's Zernike in the Noll and standard conventions (its constant tables of
+    m and the radial coefficients), against `geometry/surfaces.sag_and_grad`
+    at 48 points over +-5 mm, at 1e-12 of each output's scale."""
+    from optiland_tpu_torch.geometry import surfaces as tsurf
+
+    system = {"G": "G", "H": "H", "I": "I"}.get(surface[0], "H")
+    ts, tp = _FREEFORM_SYSTEMS[system](Optic).build(device="cpu")
+    k = 2 if surface in ("noll", "standard") else int(surface[1])
+    aux = ts.geom_aux[k]
+    if surface in ("noll", "standard"):
+        aux = (tsurf.ZERNIKE_TYPE_CODES[surface],)
+    code, nc = ts.geom_codes[k], ts.geom_n_coeffs[k]
+    a0, a1 = ((tuple(aux) if code in (fused.GEOM_CHEBYSHEV,
+                                      fused.GEOM_ZERNIKE) else ()) + (0, 0))[:2]
+    x, y = np.random.default_rng(k).uniform(-5.0, 5.0, (2, 48))
+    co = np.ascontiguousarray(_np(tp.coeffs[k]))
+    out = np.zeros((3, 48))
+    freeform_libs["run_time"].ff_sag_points(
+        code, nc, a0, a1, ctypes.c_double(float(tp.cv[k])),
+        ctypes.c_double(float(tp.conic[k])), _ptr(co), 48, _ptr(x), _ptr(y),
+        _ptr(out))
+    ref = tsurf.sag_and_grad(code, nc, torch.from_numpy(x), torch.from_numpy(y),
+                             tp.cv[k], tp.conic[k], tp.coeffs[k], aux)
+    for label, g, r in zip(("z", "gx", "gy"), out, ref):
+        np.testing.assert_allclose(g, _np(r), rtol=0,
+                                   atol=1e-12 * float(r.abs().max()),
+                                   err_msg=label)

@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card (no JAX needed): K1-K7 against
 their plain PyTorch versions in float32 (K1-K6 also on the absorbing Cooke
-triplet, K1, K3, K5 and K7 on every system built here, each its own
+triplet, on the coating, grating, thin-lens, phase and freeform systems,
+K1, K3, K5 and K7 on every system built here, each its own
 variant, all built at once by the module's `system_variants`; K7 at
 per-ray wavelengths, and K1-K6's per-ray variants on the Cooke triplet and
 on a doublet of a tabulated glass; K1, K2, K4 and K6 also at ragged ray counts around
@@ -89,9 +90,12 @@ _BACKWARD = ("moments_bwd", "raygen_trace_bwd", "fused_trace_bwd")
 # a plane grating, object heights), the concave reflective grating, coated,
 # and chip_smoke.py's phase systems D-F: the hybrid achromat (radial and
 # constant sheets behind N-BK7), the coated metalens on a conic carrier and
-# the tilted reflective linear-grating sheet
+# the tilted reflective linear-grating sheet; and its freeform systems G-I
+# (OTK_FREEFORM): the biconic and toroidal singlet, the poly-XY and Zernike
+# singlet, the tilted, decentred Chebyshev and Forbes Q-bfs singlet
 _BRANCHES = ("coated_singlet", "coated_cooke", "thin_lens", "spectrograph",
-             "curved_grating", "hybrid_achromat", "metalens", "phase_mirror")
+             "curved_grating", "hybrid_achromat", "metalens", "phase_mirror",
+             "anamorphic", "xy_freeform", "tilted_freeform")
 
 
 @pytest.fixture(scope="module")
@@ -166,7 +170,10 @@ def _build(name, device):
                     O, ("simple", 0.9, 0.0)),
                 "hybrid_achromat": hybrid_achromat,
                 "metalens": curved_metalens,
-                "phase_mirror": phase_mirror}[name]
+                "phase_mirror": phase_mirror,
+                "anamorphic": SMOKE.anamorphic_singlet,
+                "xy_freeform": SMOKE.xy_freeform_singlet,
+                "tilted_freeform": SMOKE.tilted_freeform_singlet}[name]
         return (*make(Optic).build(device=device), 0.55)
     ts, tp = singlet_lens(Optic, **_SYSTEMS[name]).build(device=device)
     return replace(ts, newton_iters=4), tp, 0.55
@@ -605,9 +612,10 @@ def test_entry_points_launch_kernels(cuda_f32):
     assert h.x.shape == (ts.num_surfaces, 4096)
     assert bool(torch.isfinite(tp.cv.grad).all()) and tp.cv.grad.any()
     # a branch the kernels do not take raises, naming kernel and branch
-    freeform = replace(ts, geom_codes=(0, fused.GEOM_BICONIC)
+    freeform = replace(ts, geom_codes=(0, fused.GEOM_FORBES_Q2D)
                        + ts.geom_codes[2:])
-    with pytest.raises(NotImplementedError, match="K7.*freeform geometries"):
+    with pytest.raises(NotImplementedError,
+                       match="K7.*branch 4b.*Forbes Q-2D geometries"):
         tracer.trace_system(freeform, tp, *data, 0.5876)
     # a phase system takes the kernels: K1, K2 and K7 at one wavelength
     ts_p, tp_p = curved_metalens(Optic).build(device=cuda_f32)

@@ -130,9 +130,10 @@ def test_kernel_seams_refuse_backward(bench_pair):
 
 
 def test_unported_chain_branches_raise():
-    """The chain branch still to port (queue 2, branch 4: freeform
+    """The chain branch still to port (queue 2, branch 4b: Forbes Q-2D
     geometries) raises before a launch, naming the kernel and the branch;
-    the coating, thin-lens, grating and phase branches are ported and pass
+    the freeform (tests/test_torch_freeform.py), coating, thin-lens,
+    grating and phase branches are ported and pass
     (a phase sheet at one wavelength and at per-ray wavelengths), while a
     grid or height-profile sheet (the eager path's, as in JAX) and a sheet
     on an asphere are refused by name."""
@@ -153,13 +154,14 @@ def test_unported_chain_branches_raise():
         phased, tp, *_t(_data(n=8)), torch.full((8,), 0.55,
                                                 dtype=torch.float64))
     assert all(bool(torch.isfinite(v).all()) for v in out.values())
-    freeform = replace(ts, geom_codes=(0, tfused.GEOM_BICONIC, 1, 0))
+    freeform = replace(ts, geom_codes=(0, tfused.GEOM_FORBES_Q2D, 1, 0))
     with pytest.raises(NotImplementedError,
-                       match=r"K1 moments_forward: .*: freeform geometries$"):
+                       match=r"K1 moments_forward: .*: Forbes Q-2D "
+                             r"geometries$"):
         tfused._moments_plain(freeform, *_port_args(ts, tp, 0.55),
                               _t(_data(n=8)))
     with pytest.raises(NotImplementedError,
-                       match=r"K3 raygen_trace_forward: .*branch 4"):
+                       match=r"K3 raygen_trace_forward: .*branch 4b"):
         tfused.trace_system_final_fused(freeform, tp, *_t(_data(n=8)), 0.55)
     gridded = replace(phased, phase_kinds=(0, PHASE_GRID, 0, 0))
     assert not tfused.supports_fused(gridded)
