@@ -12,7 +12,7 @@ PyTorch built for CUDA. In order it:
      triplet, of K5 for the vignetted bench lens and of K7 for the Cooke
      triplet, the per-ray variants of K1-K6 for the Cooke triplet and
      of K1 and K2 for a doublet of a tabulated glass, and the variants of
-     phases (j3), (j4) and (j5)'s systems (their backward kernels built
+     phases (j3), (j4), (j5) and (j6)'s systems (their backward kernels built
      with their branches' definitions, `fused.backward_defines`), one
      process per source
      and per variant, all at once, and prints the seconds of each and
@@ -95,8 +95,14 @@ PyTorch built for CUDA. In order it:
      tilted, decentred Chebyshev and a Forbes Q-bfs
      (`tilted_freeform_singlet`, its vignetted twin for K5 and K6); first
      the count of rays the kernels' capped Newton leaves unconverged (none
-     may), last a Forbes Q-2D system refused by name (ROADMAP queue 2,
-     branch 4b);
+     may), last a Forbes Q-2D system's `centroid_rms_spot` through K1;
+ 16f. (j6) the configurations the kernels took last, through the same
+     paths and checks: system J, a Forbes Q-2D face of 16 terms, tilted and
+     decentred (`q2d_singlet`, its vignetted twin for K5 and K6); K, a
+     38-slot Fringe Zernike and a 29-slot Q-2D (`wide_freeform_singlet`);
+     L, 70 surfaces of relays (`relay_train`); K1's blocks an SM and K2's
+     threads a block printed, then a NURBS singlet (`trace_system` and its
+     merit's gradient, the eager path, no kernel) against float64;
  17. (k) `CookeTriplet().trace(Hx=0, Hy=1, num_rays=6)`, the user's entry,
      reaches K7;
  18. (w1) K8, the Huygens sum, on the inputs of the Cooke triplet's
@@ -497,6 +503,36 @@ def freeform_ops(code, nc, aux):
                         for d, am in terms) + 4
         return {"vg": value + grad, "partials": partials,
                 "normal_bwd": conic["normal_bwd"] + hess + mixed}
+    if code == 10:   # Forbes Q-2D: z_conic + phi [u^2 (1 - u^2) sum_n
+        # a_n^0 Q_n^0(u^2) + sum_m (C_m sum_n a_n^m Q_n^m + S_m sum_n b_n^m
+        # Q_n^m)], each group's orthonormal weights a surface's constants
+        tops = {}
+        for n, m in aux:
+            tops[m] = max(tops.get(m, 0), n)
+        m_max = max(abs(m) for m in tops)
+
+        def group(m, n):   # Clenshaw (3 a step) or the three-term
+            # recurrence (6), the group's factor and its sum into the total
+            if m == 0:
+                return 3 * n + 2 + 2 + 3 + 1
+            return 6 * n + 1 + (2 if abs(m) == 1 and n > 2 else 0) + 2
+
+        gv = sum(group(m, n) for m, n in tops.items())
+        # x / R, y / R, u^2; phi (9); the harmonics' recurrence (6 an
+        # order); phi times the sum, plus the conic
+        value = conic["value"] + 4 + 9 + 6 * m_max + gv + 2
+        # each sum's derivative in u^2 by its derivative recurrence, the
+        # harmonics' m (C_(m-1), S_(m-1)) / R, phi', the products, 2 x, 2 y
+        grad = conic["grad"] + gv + 4 * len(tops) + 4 * m_max + 8 + 6
+        # phi's cv and k, the basis values by the transposed sums, the norm
+        # radius's, the weights
+        partials = conic["partials"] + 8 + 2 * gv + 4 + (nc + 2)
+        # the second derivatives of the sums and harmonics, H v; the mixed
+        # terms of cv, k and R, the basis values' derivatives
+        hess = 2 * gv + 8 * m_max + 29
+        mixed = 2 * gv + 4 * len(tops) + 15 + 2 * (nc + 2)
+        return {"vg": value + grad, "partials": partials,
+                "normal_bwd": conic["normal_bwd"] + hess + mixed}
     # Forbes Q-bfs: z_conic + u^2 (1 - u^2) phi sum_n a_n Q_n(u^2), u = r /
     # R, by Clenshaw's sum (its M = nc - 1 terms' orthonormal weights a
     # surface's constants); the gradient a radial one
@@ -518,7 +554,7 @@ def freeform_ops(code, nc, aux):
 def _freeform(static, k):
     """Surface k's freeform code and its `freeform_ops`, or (0, None)."""
     code = static.geom_codes[k]
-    if code not in (4, 5, 6, 7, 8, 9):
+    if code not in (4, 5, 6, 7, 8, 9, 10):
         return 0, None
     return code, freeform_ops(code, static.geom_n_coeffs[k],
                               static.geom_aux[k])
@@ -989,6 +1025,94 @@ def tilted_freeform_singlet(Optic, vignetted=False):
         vignetted=vignetted, rx=math.radians(3.0), dy=0.3)
 
 
+# The systems of phase j6 (the card's tests and tests/test_torch_chain_host.py
+# build them from here too): J, a Forbes Q-2D face within a 17-slot row; K,
+# two faces past 17 slots; L, a system of 70 surfaces.
+LONG_SYSTEMS = ("J", "K", "L")
+# J's front: Forbes Q-2D terms {("a" or "b", m, n): c} over a 5 mm norm
+# radius: a_n^0 for n <= 3 and the (a, b) pairs of m = 1 .. 3 for n <= 1,
+# 16 terms (17 slots), 5e-6 to 1e-4 mm
+Q2D_J = {("a", 0, 0): 1e-4, ("a", 0, 1): -2e-5, ("a", 0, 2): 1e-5,
+         ("a", 0, 3): -5e-6,
+         ("a", 1, 0): 2e-5, ("b", 1, 0): -1e-5, ("a", 1, 1): 1e-5,
+         ("b", 1, 1): 5e-6,
+         ("a", 2, 0): 3e-5, ("b", 2, 0): -2e-5, ("a", 2, 1): 1e-5,
+         ("b", 2, 1): -1e-5,
+         ("a", 3, 0): 1e-5, ("b", 3, 0): 2e-5, ("a", 3, 1): -5e-6,
+         ("b", 3, 1): 5e-6}
+# K's front: 37 Fringe Zernike terms (38 slots) over 5 mm, 2e-5 falling to
+# 2e-6 mm, alternating in sign; K's back: Forbes Q-2D a_n^0 for n <= 3 and
+# the (a, b) pairs of m = 1 .. 4 for n <= 2, 28 terms (29 slots)
+ZERNIKE_K = tuple((-1) ** t * 2e-5 / (1 + t // 4) for t in range(37))
+Q2D_K = {**{("a", 0, n): c for n, c in enumerate((8e-5, -2e-5, 1e-5,
+                                                  -5e-6))},
+         **{(kind, m, n): (1 if kind == "a" else -1) * 2e-5 / (m + n)
+            for m in range(1, 5) for n in range(3) for kind in ("a", "b")}}
+# L: RELAYS unit-magnification relays (`relay_train`), the relay train of
+# a rigid borescope at a millimetre's scale: each two identical N-BK7
+# biconvex singlets (R +-5 mm, 1.5 mm thick, f 5.08 mm at 0.55 um, their
+# principal planes 0.52 mm inside) 2 f apart, an afocal telescope of
+# magnification -1, the next relay 2 f on; one face of each relay an even
+# asphere (its first term -2.4e-4 r^2) so that Newton runs. Its 70 surfaces span
+# 361 mm: the float32 trace's own noise against float64 (x, y 3e-5 mm,
+# directions 4e-6, i 1e-6, OPD 8e-4 mm, the plain version on the CPU)
+# stays inside TOL, which a 2 m train of R 31 mm lenses (OPD 3e-3 mm) does
+# not
+RELAYS = 17
+RELAY_R, RELAY_T, RELAY_GAP, RELAY_C2, RELAY_EPD = 5.0, 1.5, 9.12, -2.4e-4, 0.5
+
+
+def q2d_singlet(Optic, vignetted=False):
+    """System J: a Forbes Q-2D front (R 60, `Q2D_J` over a 5 mm norm radius:
+    17 slots, a and b terms at the same (n, m)) tilted 2 degrees about x and
+    decentred 0.2 mm in y, and a spherical back (R -60); `vignetted`, its
+    twin for K5 and K6."""
+    return _freeform_pair(
+        Optic, (60.0, "forbes_q2d", dict(norm_radius=5.0,
+                                         freeform_coeffs=Q2D_J)),
+        (-60.0, "standard", {}), vignetted=vignetted, rx=math.radians(2.0),
+        dy=0.2)
+
+
+def wide_freeform_singlet(Optic):
+    """System K: a 37-term Fringe Zernike front (R 60, `ZERNIKE_K` over 5
+    mm: 38 slots) and a Forbes Q-2D back (R -60, `Q2D_K` over 5 mm: 29
+    slots), both past a 17-slot row."""
+    return _freeform_pair(
+        Optic, (60.0, "zernike", dict(coefficients=ZERNIKE_K,
+                                      norm_radius=5.0,
+                                      zernike_type="fringe")),
+        (-60.0, "forbes_q2d", dict(norm_radius=5.0, freeform_coeffs=Q2D_K)))
+
+
+def relay_train(Optic, relays=RELAYS):
+    """System L: `relays` relays (`RELAY_R`, `RELAY_T`, `RELAY_GAP`: 4
+    surfaces each) behind an object at infinity, 2 + 4 relays surfaces (70
+    for 17), the stop on the first face, EPD `RELAY_EPD` (F/10), fields 0,
+    1 and 2 degrees, 0.48, 0.55 and 0.65 um: each relay's front face an
+    even asphere."""
+    lens = Optic()
+    lens.add_surface(index=0, radius=math.inf, thickness=math.inf)
+    k = 1
+    for r in range(relays):
+        for j in range(2):
+            asphere = dict(surface_type="even_asphere",
+                           coefficients=(RELAY_C2,)) if j == 0 else {}
+            lens.add_surface(index=k, radius=RELAY_R, thickness=RELAY_T,
+                             material="N-BK7", is_stop=k == 1, **asphere)
+            lens.add_surface(index=k + 1, radius=-RELAY_R,
+                             thickness=RELAY_GAP)
+            k += 2
+    lens.add_surface(index=k)
+    lens.set_aperture("EPD", RELAY_EPD)
+    lens.set_field_type("angle")
+    for y in (0.0, 1.0, 2.0):
+        lens.add_field(y=y)
+    for w in (0.48, 0.55, 0.65):
+        lens.add_wavelength(w, is_primary=w == 0.55)
+    return lens
+
+
 def huygens_ops_per_contribution():
     """FP32 operations per (image point, pupil sample) of the Huygens sum
     as the reference writes it (`_huygens_kernel`, `huygens_sum_plain`),
@@ -1080,10 +1204,10 @@ def sfu_per_s(n_sm):
     return n_sm * SFU_PER_CLOCK_SM * mhz * 1e6, mhz
 
 
-def time_ms(fn, calls=TIMED_CALLS):
-    """Median over `calls` of CUDA-event time around one call, after three
-    warm-up calls."""
-    for _ in range(3):
+def time_ms(fn, calls=TIMED_CALLS, warmup=3):
+    """Median over `calls` of CUDA-event time around one call, after
+    `warmup` warm-up calls."""
+    for _ in range(warmup):
         fn()
     times = []
     for _ in range(calls):
@@ -1294,7 +1418,12 @@ def main():
                                    ("system I",
                                     tilted_freeform_singlet(Optic)),
                                    ("system I vignetted",
-                                    tilted_freeform_singlet(Optic, True)))}
+                                    tilted_freeform_singlet(Optic, True)),
+                                   ("system J", q2d_singlet(Optic)),
+                                   ("system J vignetted",
+                                    q2d_singlet(Optic, True)),
+                                   ("system K", wide_freeform_singlet(Optic)),
+                                   ("system L", relay_train(Optic)))}
     uniform, per_ray = fused.system_defines, fused.history_defines
     variants = (("K1", "moments_fwd", "bench lens", uniform),
                 ("K1", "moments_fwd", "Cooke triplet", uniform),
@@ -1316,15 +1445,17 @@ def main():
                 ("K1 per-ray", "moments_fwd", "tabulated doublet", per_ray),
                 ("K2 per-ray", "moments_bwd", "tabulated doublet",
                  fused.media_defines))
-    # phases (j3), (j4) and (j5), the coating, thin-lens, grating, phase
-    # and freeform branches: each kernel of systems A, B (its vignetted twin
-    # for K5 and K6) and C, of D, E and F (F's vignetted twin for K5 and
-    # K6), and of G, H and I (I's vignetted twin for K5 and K6), in each
-    # configuration the phases drive; the backward kernels take
-    # OTK_INTERACTIONS (`fused.backward_defines`: at one wavelength one
-    # library for every such system without a phase sheet, one for every
-    # system with one, which adds OTK_PHASE) or OTK_FREEFORM with the
-    # system's families
+    # phases (j3), (j4), (j5) and (j6), the coating, thin-lens, grating,
+    # phase and freeform branches, the wide rows and the long record: each
+    # kernel of systems A, B (its vignetted twin for K5 and K6) and C, of
+    # D, E and F (F's vignetted twin for K5 and K6), of G, H and I (I's
+    # vignetted twin for K5 and K6), and of J, K and L (J's vignetted twin
+    # for K5 and K6), in each configuration the phases drive; the backward
+    # kernels take OTK_INTERACTIONS (`fused.backward_defines`: at one
+    # wavelength one library for every such system without a phase sheet,
+    # one for every system with one, which adds OTK_PHASE), OTK_FREEFORM
+    # with the system's families and its Q-2D terms, OTK_WIDE with its wide
+    # rows, or OTK_MAX_SURFACES
     bwd_uniform = (lambda st: fused.backward_defines(st, False))
     bwd_per_ray = (lambda st: fused.backward_defines(st, True))
     every = "K1 K2 K3 K4 K1p K2p K3p K4p K7"
@@ -1337,7 +1468,10 @@ def main():
                            ("system F vignetted", "K5 K6 K5p K6p"),
                            ("system G", every), ("system H", every),
                            ("system I", every),
-                           ("system I vignetted", "K5 K6 K5p K6p")):
+                           ("system I vignetted", "K5 K6 K5p K6p"),
+                           ("system J", every),
+                           ("system J vignetted", "K5 K6 K5p K6p"),
+                           ("system K", every), ("system L", every)):
         for key in keys_j3.split():
             k, pr = key[:2], key.endswith("p")
             src = {"K1": "moments_fwd", "K2": "moments_bwd",
@@ -2139,15 +2273,15 @@ def main():
     branch_leaf = {"A": "coating_params", "B": "grating", "C": "grating",
                    "D": "phase_params", "E": "phase_params",
                    "F": "phase_params", "G": "coeffs", "H": "coeffs",
-                   "I": "coeffs"}
+                   "I": "coeffs", "J": "coeffs", "K": "coeffs", "L": "coeffs"}
 
     def j3_build(make):
         """`make()`'s system on the card in float32 and its flagship batch,
         and its float64 twin."""
         st, pr = make().build(device="cuda")
-        check(fused.supports_fused(st) and fused.branch_defines(st),
+        check(fused.supports_fused(st) and fused.backward_defines(st, False),
               f"{st.num_surfaces}-surface system of phase j3: inside the "
-              "gate, with the new branches")
+              "gate, with the definitions of its branches or its length")
         config.set_precision("float64")
         twin64 = make().build(device="cuda")
         config.set_precision("float32")
@@ -2228,9 +2362,11 @@ def main():
         sheet's radial slots multiply r^2 .. r^16 (a step of 1e-4 in the
         last is 1.5e7 rad at r = 5 mm), so, as the bench trainer leaves the
         asphere coefficients, it steps the other leaves; so too for a
-        freeform's coefficient slots (C_33 x^3 y^3 of H's front at 1e-8)."""
+        freeform's coefficient slots (C_33 x^3 y^3 of H's front at 1e-8) and
+        L's aspheres'."""
         names = [k for k in names if k != "phase_params"
-                 and not (k == "coeffs" and label in FREEFORM_SYSTEMS)]
+                 and not (k == "coeffs" and label in FREEFORM_SYSTEMS
+                          + LONG_SYSTEMS)]
         leaves, p_m = leaves_of(pr, names)
         opt = torch.optim.Adam(list(leaves.values()), lr=ADAM_LR)
 
@@ -2597,23 +2733,146 @@ def main():
         j3_caller("I", *sys_iv[:3], wl)
     for label, sysx in (("G", sys_g), ("H", sys_h), ("I", sys_i)):
         j3_history(label, *sysx[:3])
+    # the Q-2D system this phase once refused by name runs through K1
     st_q, pr_q = _freeform_pair(
         Optic, (60.0, "forbes_q2d", dict(
             norm_radius=5.0, freeform_coeffs={("a", 0, 0): 1e-4,
                                               ("b", 1, 1): 2e-5})),
         (-60.0, "standard", {})).build(device="cuda")
     check(fused.supports_fused(st_q), "a Q-2D system is inside JAX's gate")
-    try:
-        tracer.trace_system_final(st_q, pr_q, *sys_g[2][:4], 0.55)
-        refused = ""
-    except NotImplementedError as exc:
-        refused = str(exc)
-    print(f"phase j5: a Forbes Q-2D system on the card: {refused!r}")
-    check("branch 4b" in refused, "the kernels refuse Q-2D by name")
+    reset_counts()
+    loss_q = centroid_rms_spot(st_q, pr_q, *sys_g[2][:4], 0.55)
+    got_q = read_counts()
+    print(f"phase j5: a Forbes Q-2D system's centroid_rms_spot on the card: "
+          f"{loss_q.item()!r}, launches {got_q}")
+    check(got_q["K1"] == 1 and sum(got_q.values()) == 1
+          and math.isfinite(loss_q.item()), "the Q-2D system ran through K1")
+    del loss_q
     free()
     print(f"phase j5 (systems G, H, I at {n_c} rays): "
           f"{time.perf_counter() - t_j5:.1f} s; Adam losses "
           + json.dumps({k: j3_steps[k][0] for k in FREEFORM_SYSTEMS}))
+
+    # 16f. (j6) the configurations of K1-K7 the kernels took last, at the
+    # flagship's 1,999,998 rays (3 fields x 3 wavelengths,
+    # `flagship_inputs`), float32, N-BK7: system J, a tilted, decentred
+    # Forbes Q-2D face within a 17-slot row (its vignetted twin leaves
+    # in-kernel raygen for K5 and K6); K, a 38-slot Fringe Zernike and a
+    # 29-slot Q-2D (the wide rows); L, 70 surfaces of relays (the backward
+    # kernels' record of 128 surfaces). The same paths and checks as phase
+    # j5, after its count of the rays the capped Newton leaves
+    # unconverged; then a NURBS singlet, which JAX's gate and the kernels
+    # leave to the eager trace, on the card against float64.
+    t_j6 = time.perf_counter()
+    sys_j, sys_jv, sys_k, sys_l = (j3_build(make) for make in (
+        lambda: q2d_singlet(Optic), lambda: q2d_singlet(Optic, True),
+        lambda: wide_freeform_singlet(Optic), lambda: relay_train(Optic)))
+    check(sys_jv[0].has_vignetting and not fused.supports_fused_raygen(
+        sys_jv[0]), "J's vignetted twin leaves in-kernel raygen")
+    check(max(sys_k[0].geom_n_coeffs) == 38 and sys_l[0].num_surfaces == 70,
+          "K's rows past 17 slots, L's 70 surfaces")
+    shapes = {}
+    for label, sysx in (("J", sys_j), ("K", sys_k), ("L", sys_l)):
+        st = sysx[0]
+        blocks_sm = fused._blocks_per_sm("moments_fwd",
+                                         fused.system_defines(st))
+        threads = {cfg: fused._backward_launch(st, n_c, dev, st.num_surfaces
+                                               + 1, cfg == "per-ray")[1]
+                   for cfg in ("0.55 um", "per-ray")}
+        shapes[label] = {"K1 blocks an SM": blocks_sm,
+                         "K2 threads a block": threads}
+        check(min(threads.values()) >= 128, f"{label}'s K2 takes at least "
+              "128 threads a block")
+    print(f"phase j6: K1's blocks an SM and K2's block: {json.dumps(shapes)}")
+    unconverged = {}
+    for label, sysx in (("J", sys_j), ("K", sys_k), ("L", sys_l)):
+        st64, pr64 = sysx[3]
+        r0 = generate_rays(st64, pr64, *(a.double() for a in sysx[2]))
+        with torch.no_grad():
+            ref = tracer.trace_rays(st64, pr64, r0)
+            capped = fused._tile_trace(
+                st64, fused._diff_params(pr64), fused._nondiff_params(pr64),
+                *(getattr(r0, k) for k in fused._RAY_KEYS), record=True)
+        miss = torch.zeros_like(r0.x, dtype=torch.bool)
+        for k in range(1, st64.num_surfaces - 1):
+            lit = ref.intensity[k] > 0
+            for j, key in enumerate(("x", "y", "z")):
+                miss |= lit & ((capped[k][j] - getattr(ref, key)[k]).abs()
+                               > 1e-9)
+        unconverged[label] = int(miss.sum().item())
+        lit_share = (ref.intensity[-1] > 0).double().mean().item()
+        print(f"phase j6: system {label}, {st64.num_surfaces} surfaces, "
+              f"share of the rays that reach the image {lit_share:.6f}")
+        check(lit_share >= 0.9, f"{label}: 90% of the rays reach the image")
+        del r0, ref, capped, miss
+        free()
+    print(f"phase j6: rays the capped Newton leaves more than 1e-9 mm from "
+          f"the eager float64 hit: {json.dumps(unconverged)}")
+    check(not any(unconverged.values()), "the capped Newton converges")
+    for label, sysx in (("J", sys_j), ("K", sys_k), ("L", sys_l)):
+        j3_adam(label, *sysx[:3], j3_merit(label, *sysx))
+        for wl in (FLAGSHIP_WAVELENGTH, None):
+            j3_raygen(label, *sysx[:3], wl)
+    for wl in (FLAGSHIP_WAVELENGTH, None):
+        j3_caller("J", *sys_jv[:3], wl)
+    for label, sysx in (("J", sys_j), ("K", sys_k), ("L", sys_l)):
+        j3_history(label, *sysx[:3])
+    del sys_j, sys_jv, sys_k, sys_l
+    free()
+    # a NURBS singlet (the LSQ fit of the R 60, k -0.8 conic over +-8 mm,
+    # 10 x 10 control points): trace_system and its merit's gradient on
+    # the card's eager path in float32 against float64, no kernel launched
+    nurbs_front = (60.0, "nurbs", dict(conic=-0.8, n_points_u=10,
+                                       n_points_v=10, nurbs_norm_x=8.0,
+                                       nurbs_norm_y=8.0))
+    st_n, pr_n = _freeform_pair(Optic, nurbs_front, (-60.0, "standard", {})
+                                ).build(device="cuda")
+    config.set_precision("float64")
+    st_n64, pr_n64 = _freeform_pair(Optic, nurbs_front,
+                                    (-60.0, "standard", {})).build(
+        device="cuda")
+    config.set_precision("float32")
+    check(not fused.supports_fused(st_n), "the NURBS singlet takes no kernel")
+    rng_n = np.random.default_rng(13)
+    n_n = 65_536
+    r_n = np.sqrt(rng_n.uniform(size=n_n))
+    th_n = rng_n.uniform(0, 2 * np.pi, n_n)
+    nurbs_in = (np.zeros(n_n), rng_n.uniform(-1, 1, n_n), r_n * np.cos(th_n),
+                r_n * np.sin(th_n))
+    leaves_n, p_n = leaves_of(pr_n, ("cv", "coeffs", "thickness"))
+    leaves_n64, p_n64 = leaves_of(pr_n64, ("cv", "coeffs", "thickness"))
+    reset_counts()
+    h_n = tracer.trace_system(st_n, p_n, *(torch.tensor(
+        a, dtype=torch.float32, device=dev) for a in nurbs_in), 0.55)
+    flagship_merit(h_n).backward()
+    got_n = read_counts()
+    h_n64 = tracer.trace_system(st_n64, p_n64, *(torch.tensor(
+        a, dtype=torch.float64, device=dev) for a in nurbs_in), 0.55)
+    flagship_merit(h_n64).backward()
+    n_err = {key: (getattr(h_n, key)[-1].double()
+                   - getattr(h_n64, key)[-1]).abs().max().item()
+             for key in ("x", "y", "L", "M", "N", "opd")}
+    n_err["loss_rel"] = abs(flagship_merit(h_n).item()
+                            - flagship_merit(h_n64).item()) / abs(
+        flagship_merit(h_n64).item())
+    for k in leaves_n:
+        n_err[f"grad {k}"] = rel_err(grad_of(leaves_n, k),
+                                     grad_of(leaves_n64, k))
+    print(f"NURBS singlet, eager trace_system and its merit's gradient on the "
+          f"card (float32, {n_n} rays) vs float64: {json.dumps(n_err)}; "
+          f"launches {got_n}")
+    check(sum(got_n.values()) == 0, "the NURBS singlet traced eagerly")
+    check(all(n_err[k] <= TOL_F64["position_mm"] for k in ("x", "y"))
+          and all(n_err[k] <= TOL_F64["direction"] for k in ("L", "M", "N"))
+          and n_err["opd"] <= TOL_F64["opd_mm"]
+          and n_err["loss_rel"] <= TOL_F64["loss_rel"]
+          and all(n_err[f"grad {k}"] <= TOL_F64["grad_rel"]
+                  for k in leaves_n), "NURBS singlet on the card vs float64")
+    del h_n, h_n64, leaves_n, leaves_n64, p_n, p_n64
+    free()
+    print(f"phase j6 (systems J, K, L at {n_c} rays, the NURBS singlet at "
+          f"{n_n}): {time.perf_counter() - t_j6:.1f} s; Adam losses "
+          + json.dumps({k: j3_steps[k][0] for k in LONG_SYSTEMS}))
 
     # 17. (k) the user's entry: Optic.trace on the card
     reset_counts()
@@ -3053,10 +3312,11 @@ def main():
             plain_ms=time_ms(plains_w[key]), bound_ms=b_ms, bound_by=b_by,
             library_ms=None))
         free()
-    # phase j3's and j4's configurations: the coating, thin-lens, grating
-    # and phase branches on systems A-F at the flagship batch's rays, each
-    # kernel's launch span (median of 25) beside the median of 5 calls of
-    # its plain version
+    # phases j3-j6's configurations: the coating, thin-lens, grating,
+    # phase and freeform branches, the wide rows and the long record on
+    # systems A-L at the flagship batch's rays, each kernel's launch span
+    # (median of 25) beside one call of its plain version after one warm-up
+    # (each takes 0.1-3 s)
     j3_ms = {}
     for key, (call, plain, n_bytes, n_ops, n_launch, err) in j3.items():
         fn_name, src, replaces = meta[key[:2]][:3]
@@ -3066,11 +3326,11 @@ def main():
             name=f"{key[:2]} {fn_name} {key[3:]}", route="cuda",
             source=f"optiland_tpu_torch/csrc/{src}", replaces=replaces,
             launches=n_launch, max_abs_err=err, ms=j3_ms[key],
-            plain_ms=time_ms(plain, calls=5), bound_ms=b_ms, bound_by=b_by,
-            library_ms=None))
+            plain_ms=time_ms(plain, calls=1, warmup=1), bound_ms=b_ms,
+            bound_by=b_by, library_ms=None))
         free()
     restore()
-    print(f"phase j3 and j4 kernels, median of {TIMED_CALLS} launch spans "
+    print(f"phases j3-j6 kernels, median of {TIMED_CALLS} launch spans "
           f"(ms): {json.dumps(j3_ms)}")
     print(f"per-ray variants on the Cooke triplet, median of {TIMED_CALLS} "
           f"launch spans (ms), with the 16,384-ray bound: "
@@ -3170,7 +3430,7 @@ def main():
 
     mono_ms = host_ms(mono_step)
     j3_step_ms = {f"system {k}": host_ms(v[1]) for k, v in j3_steps.items()}
-    print(f"phase j3 and j4 polychromatic training steps (centroid_rms_spot at "
+    print(f"phases j3-j6 polychromatic training steps (centroid_rms_spot at "
           f"per-ray w, backward, Adam; per-ray K1 and K2) at {n_c} rays, "
           f"host clock, median of {TIMED_STEPS} (ms): "
           f"{json.dumps(j3_step_ms)}")

@@ -54,6 +54,29 @@ constexpr int F_AP = 27;     // radial semi-aperture
 constexpr int F_COAT = 28;   // a simple coating's factor: T, or R after a reflection
 constexpr int F_STRIDE = 32;
 constexpr int MAX_COEFFS = F_THICK - F_COEFFS;
+// A build with OTK_WIDE (trace/fused.py `_wide_defines`: a system with a
+// surface of more than MAX_COEFFS coefficient slots) reads each such
+// surface's whole row, CO_MAX slots at most, from the float table's tail:
+// OTK_WIDE_FLOATS floats after the S rows (the row's own slots keep its
+// first MAX_COEFFS, the norms among them), at the offset of its codes
+// (`xoff`, from the table's start); the backward kernels sum the
+// cotangents of its slots past MAX_COEFFS in OTK_WIDE_ROWS rows of their
+// own (chain_bwd.cuh `put_wide_rows`), the surface's from row `xrow` of
+// them.
+// OTK_FT_FLOATS(S): the floats of a system's float table; OTK_ROWS(n): the
+// rows of a backward block of n table, raygen and material rows. Macros,
+// so that a build without OTK_WIDE compiles the expressions it always had.
+#ifdef OTK_WIDE
+constexpr int CO_MAX = OTK_WIDE;
+constexpr int WIDE_FLOATS = OTK_WIDE_FLOATS;
+constexpr int WIDE_ROWS = OTK_WIDE_ROWS;
+#define OTK_FT_FLOATS(S) ((S) * otk::F_STRIDE + otk::WIDE_FLOATS)
+#define OTK_ROWS(n) ((n) + otk::WIDE_ROWS)
+#else
+constexpr int CO_MAX = MAX_COEFFS;
+#define OTK_FT_FLOATS(S) ((S) * otk::F_STRIDE)
+#define OTK_ROWS(n) (n)
+#endif
 // a thin lens or a grating is a plane or a conic: its first coefficient
 // slots hold the focal length, or the grating's order times the wavelength
 // (the order alone at per-ray wavelengths), period (um) and groove angle
@@ -82,6 +105,9 @@ constexpr int I_PHASE = 9;  // a phase sheet's kind (PHASE_*), else 0
 constexpr int I_AUX0 = 10;
 constexpr int I_AUX1 = 11;
 constexpr int I_NEWTON_FF = 12;
+// a wide surface's offset in the float table and first wide row (OTK_WIDE)
+constexpr int I_XOFF = 13;
+constexpr int I_XROW = 14;
 constexpr int I_STRIDE = 16;
 
 constexpr int GEOM_PLANE = 0;
@@ -101,7 +127,14 @@ constexpr int FORMULA_TABULATED = 10;
 // but the tabulated one has at most this many
 constexpr int MAT_SHARED = 17;
 
+// the surfaces a backward kernel's per-thread record holds at one
+// wavelength: 64, or the bucket of a longer system (trace/fused.py
+// `backward_defines`: the power of two that holds it)
+#ifdef OTK_MAX_SURFACES
+constexpr int MAX_SURFACES = OTK_MAX_SURFACES;
+#else
 constexpr int MAX_SURFACES = 64;
+#endif
 constexpr int BLOCK = 256;
 constexpr float EPS = 1e-12f;
 // the float nearest pi / 180, written as a cast of the double literal so
@@ -142,6 +175,9 @@ struct Codes {
 #ifdef OTK_FREEFORM
   int a0, a1, nff;  // a freeform's aux ints and Newton updates after the first
 #endif
+#ifdef OTK_WIDE
+  int xoff, xrow;  // a wide surface's row in the table's tail, its wide rows (0: none)
+#endif
 };
 
 // One surface's codes and values, read from the staged tables. `absorbs`
@@ -167,6 +203,9 @@ struct Surface {
   int a0, a1, nff;
   float k;  // the conic constant itself (a freeform's sag takes k, not 1 + k)
 #endif
+#ifdef OTK_WIDE
+  int xrow;
+#endif
 };
 
 __device__ __forceinline__ float sign_of(float v) {
@@ -185,6 +224,9 @@ __device__ __forceinline__ Codes codes_at(const int* it, int k) {
 #endif
 #ifdef OTK_FREEFORM
                , c[I_AUX0], c[I_AUX1], c[I_NEWTON_FF]
+#endif
+#ifdef OTK_WIDE
+               , c[I_XOFF], c[I_XROW]
 #endif
   };
 }
@@ -221,7 +263,12 @@ __device__ __forceinline__ Surface make_surface(const Codes& c, bool absorbs_bef
   s.rz = f[F_TILT + 2];
   s.ap = f[F_AP];
   s.n = f[F_NTAB];
+#ifdef OTK_WIDE
+  s.co = c.xoff ? ft + c.xoff : f + F_COEFFS;
+  s.xrow = c.xrow;
+#else
   s.co = f + F_COEFFS;
+#endif
   s.absorbs = k > 0 && absorbs_before;
   s.alpha = k > 0 ? ft[(k - 1) * F_STRIDE + F_ALPHA] : 0.f;
 #ifdef OTK_INTERACTIONS
@@ -252,13 +299,14 @@ __device__ __forceinline__ bool is_asphere(const Surface& s) {
   return (s.code == GEOM_EVEN_ASPHERE || s.code == GEOM_ODD_ASPHERE) && s.nc;
 }
 
-// Stage the (S, F_STRIDE) float and (S, I_STRIDE) int tables and the five
-// raygen scalars into shared memory; every thread of the block calls it.
+// Stage the float table (OTK_FT_FLOATS(S) floats), the (S, I_STRIDE) int
+// table and the five raygen scalars into shared memory; every thread of the
+// block calls it.
 __device__ __forceinline__ void stage_tables(int S, const float* __restrict__ ftab,
                                              const int* __restrict__ itab,
                                              const float* __restrict__ rg,
                                              float* s_ft, int* s_it, float* s_rg) {
-  for (int j = threadIdx.x; j < S * F_STRIDE; j += blockDim.x) s_ft[j] = ftab[j];
+  for (int j = threadIdx.x; j < OTK_FT_FLOATS(S); j += blockDim.x) s_ft[j] = ftab[j];
   for (int j = threadIdx.x; j < S * I_STRIDE; j += blockDim.x) s_it[j] = itab[j];
   if (rg != nullptr && threadIdx.x < 5) s_rg[threadIdx.x] = rg[threadIdx.x];
   __syncthreads();

@@ -80,7 +80,7 @@ struct Vec6 {
 // grating's (m w, d, angle) and a phase sheet's profile slots and 1 / k0
 // take co[0..], as their table slots do.
 struct SurfGrad {
-  float cv, conic, co[MAX_COEFFS], thick, tilt[3], dec[2], n;
+  float cv, conic, co[CO_MAX], thick, tilt[3], dec[2], n;
 #ifdef OTK_INTERACTIONS
   float coat;
 #endif
@@ -92,7 +92,7 @@ __device__ __forceinline__ void zero(SurfGrad& g) {
   g.coat = 0.f;
 #endif
 #pragma unroll
-  for (int ci = 0; ci < MAX_COEFFS; ++ci) g.co[ci] = 0.f;
+  for (int ci = 0; ci < CO_MAX; ++ci) g.co[ci] = 0.f;
   g.tilt[0] = g.tilt[1] = g.tilt[2] = 0.f;
   g.dec[0] = g.dec[1] = 0.f;
 }
@@ -154,7 +154,7 @@ __device__ __forceinline__ void sag_partials(const Surface& s, float x, float y,
   const float base = (s.code == GEOM_EVEN_ASPHERE) ? r2 : sqrtf(fmaxf(r2, EPS));
   float p = base;
 #pragma unroll
-  for (int ci = 0; ci < MAX_COEFFS; ++ci) {
+  for (int ci = 0; ci < CO_MAX; ++ci) {
     if (ci >= s.nc) break;
     sg.co[ci] += w * p;
     p = p * base;
@@ -184,7 +184,7 @@ __device__ __forceinline__ void sag_grad_bwd(const Surface& s, float x, float y,
     r = odd ? sqrtf(fmaxf(r2, EPS)) : r2;  // the polynomial's variable
     float p = 1.f;
 #pragma unroll
-    for (int ci = 0; ci < MAX_COEFFS; ++ci) {
+    for (int ci = 0; ci < CO_MAX; ++ci) {
       if (ci >= s.nc) break;
       g = g + (even ? 2.f : 1.f) * (float)(ci + 1) * s.co[ci] * p;
       p = p * r;
@@ -209,7 +209,7 @@ __device__ __forceinline__ void sag_grad_bwd(const Surface& s, float x, float y,
     float dr = even ? 0.f : -dG * g / (r * r);
     float p = 1.f, pm = 0.f;  // r^ci and r^(ci-1)
 #pragma unroll
-    for (int ci = 0; ci < MAX_COEFFS; ++ci) {
+    for (int ci = 0; ci < CO_MAX; ++ci) {
       if (ci >= s.nc) break;
       const float f = (even ? 2.f : 1.f) * (float)(ci + 1);
       sg.co[ci] += dg * f * p;
@@ -926,6 +926,9 @@ struct Scatter {
 // so the warp needs no barrier. Every lane of the warp calls it.
 struct WarpRows {
   float* rows;
+#ifdef OTK_WIDE
+  int xbase;  // the first of the warp's wide rows (`put_wide_rows`)
+#endif
 
   __device__ __forceinline__ void put(int row, float (&v)[F_STRIDE], int width) const {
     const int lane = threadIdx.x & 31;
@@ -974,6 +977,27 @@ __device__ __forceinline__ void surface_frames(int S, const float* ft, const int
   }
 }
 
+#ifdef OTK_WIDE
+// The cotangents of wide surface s's slots past MAX_COEFFS, 32 a row, into
+// its wide rows of `rows` (from rows.xbase + s.xrow): slot MAX_COEFFS + 32 q
+// + j goes to table slot j of its row q, put at the compact position that
+// `table_slot` maps there, as write_partials lays rows out. Every lane of
+// the warp calls it.
+template <class Rows>
+__device__ __forceinline__ void put_wide_rows(const Surface& s, const SurfGrad& sg,
+                                              const Rows& rows) {
+  for (int q = 0; MAX_COEFFS + F_STRIDE * q < s.nc; ++q) {
+    float v[F_STRIDE];
+#pragma unroll
+    for (int c = 0; c < F_STRIDE; ++c) {
+      const int j = MAX_COEFFS + F_STRIDE * q + table_slot(c);
+      v[c] = j < CO_MAX ? sg.co[j] : 0.f;
+    }
+    rows.put(rows.xbase + s.xrow + q, v, F_STRIDE);
+  }
+}
+#endif
+
 // The reverse sweep from surface S-1 down to 1, for every lane of the
 // warp (dead lanes, live = false, contribute zeros). rec: the record
 // trace_chain wrote; pos, npre: surface_frames'. g:
@@ -1002,6 +1026,9 @@ __device__ __forceinline__ void reverse_chain(int S, const float* ft, const int*
     float v[F_STRIDE];
     grad_row(sg, v);
     rows.put(k, v, row_width(s));
+#ifdef OTK_WIDE
+    put_wide_rows(s, sg, rows);
+#endif
   }
   SurfGrad sg;
   zero(sg);
@@ -1037,7 +1064,11 @@ __host__ __forceinline__ bool bwd_threads_ok(int threads) {
 
 __host__ __device__ __forceinline__ size_t bwd_smem_bytes(int S, int nrows, int threads) {
   return sizeof(float) * ((size_t)S * (F_STRIDE + I_STRIDE + 2) + 8 +
-                          (size_t)(threads / 32) * nrows * F_STRIDE);
+                          (size_t)(threads / 32) * nrows * F_STRIDE
+#ifdef OTK_WIDE
+                          + WIDE_FLOATS
+#endif
+                          );
 }
 
 // Carve the block's shared memory, stage the tables and the raygen scalars
@@ -1049,8 +1080,12 @@ __device__ __forceinline__ BwdShared stage_backward(float* smem, int S, int nrow
                                                     const float* __restrict__ rg) {
   BwdShared b;
   b.ft = smem;
-  b.it = reinterpret_cast<int*>(smem + S * F_STRIDE);
+  b.it = reinterpret_cast<int*>(smem + OTK_FT_FLOATS(S));
+#ifdef OTK_WIDE
+  b.pos = smem + S * (F_STRIDE + I_STRIDE) + WIDE_FLOATS;
+#else
   b.pos = smem + S * (F_STRIDE + I_STRIDE);
+#endif
   b.npre = b.pos + S;
   b.rg = b.npre + S;
   b.rows = b.rg + 8;
@@ -1081,7 +1116,11 @@ __device__ __forceinline__ const float* stage_backward_materials(float* smem, in
 
 // This warp's rows.
 __device__ __forceinline__ WarpRows warp_rows(const BwdShared& b, int nrows) {
+#ifdef OTK_WIDE
+  return WarpRows{b.rows + (threadIdx.x / 32) * nrows * F_STRIDE, nrows - WIDE_ROWS};
+#else
   return WarpRows{b.rows + (threadIdx.x / 32) * nrows * F_STRIDE};
+#endif
 }
 
 // After the block's last group: the sum of its warps' rows, in warp order,
@@ -1504,6 +1543,9 @@ __device__ __forceinline__ void reverse_chain_w(int S, const float* ft, const in
     float v[F_STRIDE];
     grad_row(sg, v);
     rows.put(k, v, row_width(s));
+#ifdef OTK_WIDE
+    put_wide_rows(s, sg, rows);
+#endif
     if (changes_index(s.inter)) medium_bwd(k, media, dn, live, rows, row0, tab, dw);
   }
   medium_bwd(0, media, acc_n, live, rows, row0, tab, dw);

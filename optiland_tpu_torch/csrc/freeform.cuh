@@ -1,10 +1,10 @@
 // The freeform geometries of the fused chain, one ray per thread, for
-// Hopper (sm_90a): poly-XY, biconic, toroidal, Chebyshev, Zernike and Forbes
-// Q-bfs, the freeform branch of JAX's `_tile_trace`
-// (optiland_tpu/trace/fused.py, the `freeform` arm) but Forbes Q-2D (ROADMAP
-// queue 2, branch 4b). Included by chain.cuh in a build with OTK_FREEFORM,
-// the mask of bits 1 << code of the families the system has
-// (trace/fused.py `branch_defines`): only those families compile.
+// Hopper (sm_90a): poly-XY, biconic, toroidal, Chebyshev, Zernike, Forbes
+// Q-bfs and Forbes Q-2D, the freeform branch of JAX's `_tile_trace`
+// (optiland_tpu/trace/fused.py, the `freeform` arm). Included by chain.cuh
+// in a build with OTK_FREEFORM, the mask of bits 1 << code of the families
+// the system has (trace/fused.py `branch_defines`): only those families
+// compile.
 //
 // Each family's sag is written once, `ff_sag`, as a template over its
 // scalar type: float for the value, and forward-mode numbers (`Dual`: a
@@ -17,10 +17,10 @@
 //     chain_bwd.cuh `sag_partials`): the sag over Dual<float, P> seeded in
 //     the family's P nonlinear parameters (cv, k, and the coefficient slots
 //     that enter nonlinearly: a biconic's cvy, ky, a toroidal's rotation
-//     curvature, Chebyshev's two norms, a Zernike's or a Q-bfs's norm
-//     radius; a toroidal's y-polynomial by the chain rule through a shift
-//     of its y-curve, one parameter more), and each linear coefficient's
-//     basis value;
+//     curvature, Chebyshev's two norms, a Zernike's, a Q-bfs's or a Q-2D's
+//     norm radius; a toroidal's y-polynomial by the chain rule through a
+//     shift of its y-curve, one parameter more), and each linear
+//     coefficient's basis value;
 //   - `ff_sag_grad_bwd` (the normal's cotangent, chain_bwd.cuh
 //     `sag_grad_bwd`): the derivatives of D_v z = dgx dz/dx + dgy dz/dy,
 //     v = (dgx, dgy), in x, y and the nonlinear parameters, from the sag
@@ -28,12 +28,21 @@
 //     direction v, the outer ones x, y and the parameters; each linear
 //     coefficient's is D_v of its basis function.
 // The sag is linear in the coefficients of poly-XY (all), Chebyshev (all
-// but the norms), Zernike and Q-bfs (all but the norm radius): their
+// but the norms), Zernike, Q-bfs and Q-2D (all but the norm radius): their
 // cotangents are the basis values and the basis gradients, weighted, which
-// the family passes to a `basis` callback term by term (Q-bfs's by one
-// Clenshaw sum per unit coefficient). The arithmetic is JAX's (and
-// geometry/surfaces.py's): the 1e-14 clamps of the conic roots, the 1e-12
-// clamps of the Forbes factor, the Q-bfs mask past the norm radius.
+// the family passes to a `basis` callback term by term (Q-bfs's and
+// Q-2D's by one Clenshaw sum per unit coefficient). The arithmetic is
+// JAX's (and geometry/surfaces.py's): the 1e-14 clamps of the conic roots,
+// the 1e-12 clamps of the Forbes factor, the Forbes masks past the norm
+// radius.
+//
+// A surface's coefficient row holds CO_MAX slots (chain.cuh: 17, or the
+// widest surface's count in a build with OTK_WIDE); the families' tables
+// (Q-bfs constants, Zernike terms) cover that many. A Q-2D surface's terms
+// come from the build (OTK_Q2D_GROUPS, OTK_Q2D_ROWS, trace/fused.py
+// `_q2d_tables`): each of its groups, the radial terms and the cosine and
+// sine terms of each azimuthal order m, with the recurrence constants of
+// each (n, m), folded on the host in float64 and rounded once to float.
 #pragma once
 
 namespace otk {
@@ -44,13 +53,14 @@ constexpr int GEOM_TOROIDAL = 6;
 constexpr int GEOM_CHEBYSHEV = 7;
 constexpr int GEOM_ZERNIKE = 8;
 constexpr int GEOM_FORBES_QBFS = 9;
+constexpr int GEOM_FORBES_Q2D = 10;
 // geometry/surfaces.py _EPS (the conic roots) and the Forbes factor's clamp
 constexpr float FF_EPS = static_cast<float>(1e-14);
 constexpr float PHI_EPS = static_cast<float>(1e-12);
 // at most this many Chebyshev polynomials on an axis, and Zernike terms or
-// Q-bfs coefficients: the 17 coefficient slots less the norms
-constexpr int CHEB_MAX = MAX_COEFFS - 2;
-constexpr int FF_TERMS = MAX_COEFFS - 1;
+// Q-bfs coefficients: the coefficient slots less the norms
+constexpr int CHEB_MAX = CO_MAX - 2;
+constexpr int FF_TERMS = CO_MAX - 1;
 // `ff_sag`'s parameters th: cv, k, the first two coefficient slots (the
 // ones that enter a family's sag nonlinearly), and a shift of a toroidal's
 // y-curve z_y (0; seeded for its y-polynomial's derivatives)
@@ -62,8 +72,18 @@ __host__ __device__ constexpr bool has_family(int code) {
   return ((static_cast<unsigned>(OTK_FREEFORM) >> code) & 1u) != 0;
 }
 
+#ifndef OTK_Q2D_GROUPS
+static_assert(!has_family(GEOM_FORBES_Q2D),
+              "a build with Forbes Q-2D needs its tables: OTK_Q2D_GROUPS, OTK_Q2D_ROWS, "
+              "OTK_Q2D_NMAX");
+#endif
+
 __device__ __forceinline__ bool is_freeform(const Surface& s) {
+#ifdef OTK_Q2D_GROUPS
+  return s.code >= GEOM_POLYNOMIAL_XY && s.code <= GEOM_FORBES_Q2D && has_family(s.code);
+#else
   return s.code >= GEOM_POLYNOMIAL_XY && s.code <= GEOM_FORBES_QBFS && has_family(s.code);
+#endif
 }
 
 // ---------------------------------------------------------------------------
@@ -222,6 +242,22 @@ __device__ __forceinline__ T clamp_min(const T& a, float lo) {
 // tables
 // ---------------------------------------------------------------------------
 
+#ifdef OTK_WIDE
+// The tables of a build with OTK_WIDE, as many terms as its widest
+// surface, written by the host (trace/fused.py `_wide_tables`) in the
+// layouts below: the Q-bfs constants, each Zernike convention's m and
+// radial coefficients (ZR of them), |m| < ZM.
+constexpr int ZR = OTK_WIDE_ZR;
+constexpr int ZM = OTK_WIDE_ZM;
+__constant__ float QBFS_F[FF_TERMS] = {OTK_WIDE_QBFS_F};
+__constant__ float QBFS_G[FF_TERMS] = {OTK_WIDE_QBFS_G};
+__constant__ float QBFS_H[FF_TERMS] = {OTK_WIDE_QBFS_H};
+__constant__ int ZERNIKE_M[3][FF_TERMS] = {OTK_WIDE_ZERNIKE_M};
+__constant__ float ZERNIKE_RADIAL[3][FF_TERMS][ZR] = {OTK_WIDE_ZERNIKE_RADIAL};
+#else
+// radial coefficients a Zernike term's table holds, and a bound on |m|
+constexpr int ZR = 4;
+constexpr int ZM = 6;  // |m| <= 5 in the first FF_TERMS terms
 // The Q-bfs recurrence constants f_n, g_n, h_n of geometry/forbes.py
 // (`_f_qbfs`, `_g_qbfs`, `_h_qbfs`), n < FF_TERMS, in constant memory.
 __constant__ float QBFS_F[FF_TERMS] = {
@@ -262,7 +298,7 @@ __constant__ int ZERNIKE_M[3][FF_TERMS] = {
     {0, 1, -1, 0, -2, 2, -1, 1, -3, 3, 0, 2, -2, 4, -4, 1},
     {0, -1, 1, -2, 0, 2, -3, -1, 1, 3, -4, -2, 0, 2, 4, -5},
 };
-__constant__ float ZERNIKE_RADIAL[3][FF_TERMS][4] = {
+__constant__ float ZERNIKE_RADIAL[3][FF_TERMS][ZR] = {
     {
         {0.f, 0.f, 0.f, 1.f},
         {0.f, 0.f, 0.f, 1.f},
@@ -319,6 +355,31 @@ __constant__ float ZERNIKE_RADIAL[3][FF_TERMS][4] = {
     },
 };
 
+#endif
+
+#ifdef OTK_Q2D_GROUPS
+// A Q-2D group: the azimuthal order m of its terms (> 0 the cosine terms,
+// < 0 the sine terms, 0 the radial ones), its highest n and its first row;
+// a row per n <= ntop: the coefficient slot of the term (n, m), -1 where
+// the surface has none, and the constants of its sums: f_n, g_n and h_n
+// of the radial recurrence (`_f_qbfs`, `_g_qbfs`, `_h_qbfs` of
+// geometry/forbes.py, in f, g, a), or f_n, g_n of the back-substitution
+// and a_n, b_n, c_(n+1) of the three-term recurrence (`_f_q2d`, `_g_q2d`,
+// `_abc_q2d`). A surface's groups are consecutive, by |m|, the cosine
+// group first.
+struct Q2DGroup {
+  int m, ntop, row;
+};
+struct Q2DRow {
+  int slot;
+  float f, g, a, b, c;
+};
+__constant__ Q2DGroup Q2D_GROUPS[] = {OTK_Q2D_GROUPS};
+__constant__ Q2DRow Q2D_ROWS[] = {OTK_Q2D_ROWS};
+// one more than the highest n of any group
+constexpr int Q2D_NMAX = OTK_Q2D_NMAX;
+#endif
+
 // ---------------------------------------------------------------------------
 // the families' sags
 // ---------------------------------------------------------------------------
@@ -353,6 +414,51 @@ __device__ __forceinline__ T qbfs_sum(const float* a, int m, const T& usq) {
   }
   return m > 0 ? 2.f * (b_curr + b_next) : 2.f * b_curr;
 }
+
+#ifdef OTK_Q2D_GROUPS
+// sum_n c_n Q_n^m(usq) of a Q-2D group (geometry/forbes.py `qbfs_sum` for
+// the radial group, m = 0; `q2d_sum` for m >= 1) over its rows, from row0,
+// and the ntop + 1 coefficients c: the triangular change to the orthonormal
+// basis, then Clenshaw's sum, or the three-term recurrence, with Forbes'
+// rule for m = 1 (s -= 0.4 alpha_3 past n = 2).
+template <class T>
+__device__ __forceinline__ T q2d_sum(int row0, int ntop, int m, const float* c,
+                                     const T& usq) {
+  const auto r = [row0](int n) -> Q2DRow { return Q2D_ROWS[row0 + n]; };
+  float d[Q2D_NMAX];
+  if (m == 0) {
+    d[ntop] = c[ntop] / r(ntop).f;
+    if (ntop > 0) {
+      d[ntop - 1] = (c[ntop - 1] - r(ntop - 1).g * d[ntop]) / r(ntop - 1).f;
+      for (int i = ntop - 2; i >= 0; --i)
+        d[i] = (c[i] - r(i).g * d[i + 1] - r(i).a * d[i + 2]) / r(i).f;
+    }
+    const T prefix = 2.f - 4.f * usq;
+    T b_curr = cst<T>(d[ntop]);
+    T b_next = cst<T>(0.f);
+    for (int n = ntop - 1; n >= 0; --n) {
+      const T b_new = d[n] + prefix * b_curr - b_next;
+      b_next = b_curr;
+      b_curr = b_new;
+    }
+    return ntop > 0 ? 2.f * (b_curr + b_next) : 2.f * b_curr;
+  }
+  d[ntop] = c[ntop] / r(ntop).f;
+  for (int n = ntop - 1; n >= 0; --n) d[n] = (c[n] - r(n).g * d[n + 1]) / r(n).f;
+  T a1 = cst<T>(d[ntop]);  // alpha_(n + 1)
+  T a2 = cst<T>(0.f);      // alpha_(n + 2)
+  T a3 = a1;               // alpha_3, where ntop = 3
+  for (int n = ntop - 1; n >= 0; --n) {
+    T a0 = d[n] + (r(n).a + r(n).b * usq) * a1;
+    if (n <= ntop - 2) a0 = a0 - r(n).c * a2;
+    a2 = a1;
+    a1 = a0;
+    if (n == 3) a3 = a0;
+  }
+  const T s = 0.5f * a1;
+  return m == 1 && ntop > 2 ? s - 0.4f * a3 : s;
+}
+#endif
 
 // The sag of freeform surface s at (x, y), over the scalar type T. th: cv,
 // k, the first two coefficient slots (th[2 + i] for slot i: the family
@@ -439,7 +545,7 @@ __device__ __forceinline__ T ff_sag(const Surface& s, const T& x, const T& y, co
     const T xn = x / th[2];
     const T yn = y / th[2];
     const T rn2 = xn * xn + yn * yn;
-    constexpr int MMAX = 6;  // |m| <= 5 in the first FF_TERMS terms
+    constexpr int MMAX = ZM;
     T C[MMAX], S[MMAX];
     C[0] = cst<T>(1.f);
     S[0] = cst<T>(0.f);
@@ -447,13 +553,25 @@ __device__ __forceinline__ T ff_sag(const Surface& s, const T& x, const T& y, co
       C[m] = C[m - 1] * xn - S[m - 1] * yn;
       S[m] = S[m - 1] * xn + C[m - 1] * yn;
     }
+    // unrolled within a 17-slot row; a wide build's tens of terms stay a
+    // loop (unrolled over nested numbers they cost minutes of ptxas)
+#ifdef OTK_WIDE
+#pragma unroll 1
+#else
 #pragma unroll
+#endif
     for (int t = 0; t < FF_TERMS; ++t) {
       if (t + 1 >= nc) break;
       const int m = ZERNIKE_M[s.a0][t];
       const int am = m < 0 ? -m : m;
+#ifdef OTK_WIDE
+      T rad = ZERNIKE_RADIAL[s.a0][t][0] * rn2 + ZERNIKE_RADIAL[s.a0][t][1];
+#pragma unroll
+      for (int q = 2; q < ZR; ++q) rad = rad * rn2 + ZERNIKE_RADIAL[s.a0][t][q];
+#else
       const T rad = ((ZERNIKE_RADIAL[s.a0][t][0] * rn2 + ZERNIKE_RADIAL[s.a0][t][1]) * rn2 +
                      ZERNIKE_RADIAL[s.a0][t][2]) * rn2 + ZERNIKE_RADIAL[s.a0][t][3];
+#endif
       // rho^|m| cos(m phi) or sin, chosen by selects (a register array)
       T h = C[0];
 #pragma unroll
@@ -465,6 +583,52 @@ __device__ __forceinline__ T ff_sag(const Surface& s, const T& x, const T& y, co
     }
     return z;
   }
+#ifdef OTK_Q2D_GROUPS
+  if (has_family(GEOM_FORBES_Q2D) && s.code == GEOM_FORBES_Q2D) {
+    // z_conic + phi [u^2 (1 - u^2) sum_n a_n^0 Q_n^0(u^2) + sum_m (C_m sum_n
+    // a_n^m Q_n^m(u^2) + S_m sum_n b_n^m Q_n^m(u^2))], C_m + i S_m = ((x + i
+    // y) / R)^m, 0 past the norm radius (geometry/surfaces.py
+    // `_forbes_q2d_sag`); the groups s.a0 .. s.a1 - 1 of Q2D_GROUPS
+    if (nc <= 1) return z;
+    const T xn = x / th[2];
+    const T yn = y / th[2];
+    const T usq = r2 / (th[2] * th[2]);
+    const T c2r2 = cv * cv * r2;
+    const T phi =
+        sqrt_(clamp_min(1.f - k * c2r2, PHI_EPS) / clamp_min(1.f - (1.f + k) * c2r2, PHI_EPS));
+    const bool outside = val(usq) > 1.f;
+    T total = cst<T>(0.f);
+    T Cm = cst<T>(1.f), Sm = cst<T>(0.f);
+    int m_at = 0;
+    for (int gi = s.a0; gi < s.a1; ++gi) {
+      const Q2DGroup g = Q2D_GROUPS[gi];
+      const int am = g.m < 0 ? -g.m : g.m;
+      for (; m_at < am; ++m_at) {
+        const T c_next = Cm * xn - Sm * yn;
+        Sm = Sm * xn + Cm * yn;
+        Cm = c_next;
+      }
+      const T h = am == 0 ? usq * (1.f - usq) : (g.m > 0 ? Cm : Sm);
+      float c[Q2D_NMAX];
+      for (int n = 0; n <= g.ntop; ++n) {
+        const int slot = Q2D_ROWS[g.row + n].slot;
+        c[n] = slot >= 0 ? s.co[slot] : 0.f;
+      }
+      total = total + h * q2d_sum(g.row, g.ntop, am, c, usq);
+      if (B::want) {
+        for (int n = 0; n <= g.ntop; ++n) c[n] = 0.f;
+        for (int n = 0; n <= g.ntop; ++n) {
+          const int slot = Q2D_ROWS[g.row + n].slot;
+          if (slot < 0) continue;
+          c[n] = 1.f;
+          basis(slot, outside ? cst<T>(0.f) : phi * (h * q2d_sum(g.row, g.ntop, am, c, usq)));
+          c[n] = 0.f;
+        }
+      }
+    }
+    return outside ? z : z + phi * total;
+  }
+#endif
   // GEOM_FORBES_QBFS: z_conic + u^2 (1 - u^2) phi sum_n a_n Q_n(u^2), u =
   // r / R, 0 past the norm radius (u^2 > 1); phi = sqrt((1 - k c^2 r^2) /
   // (1 - (1 + k) c^2 r^2)) (geometry/surfaces.py `_forbes_qbfs_sag`)
@@ -525,9 +689,10 @@ struct GradBwdBasis {
 // z-shift of its y-curve (`ff_sag`), through which its y-polynomial's
 // derivatives follow by the chain rule.
 __host__ __device__ constexpr int ff_nonlinear(int code) {
+  // Zernike, Q-bfs and Q-2D: 3, the norm radius
   return code == GEOM_POLYNOMIAL_XY ? 2
          : code == GEOM_BICONIC || code == GEOM_TOROIDAL || code == GEOM_CHEBYSHEV ? 4
-                                                                                   : 3;  // Zernike, Q-bfs: the norm radius
+                                                                                   : 3;
 }
 
 // The direction of the outer Dual that parameter slot i (`ff_sag`'s th) is
@@ -648,6 +813,12 @@ __device__ __forceinline__ void ff_sag_grad_bwd_of(const Surface& s, float x, fl
 template <class G>
 __device__ __forceinline__ void ff_sag_partials(const Surface& s, float x, float y, float w,
                                                 G& sg) {
+  if constexpr (has_family(GEOM_FORBES_Q2D)) {
+    if (s.code == GEOM_FORBES_Q2D) {
+      ff_sag_partials_of<GEOM_FORBES_Q2D>(s, x, y, w, sg);
+      return;
+    }
+  }
   switch (s.code) {
     case GEOM_POLYNOMIAL_XY:
       if constexpr (has_family(GEOM_POLYNOMIAL_XY))
@@ -677,6 +848,12 @@ __device__ __forceinline__ void ff_sag_partials(const Surface& s, float x, float
 template <class G>
 __device__ __forceinline__ void ff_sag_grad_bwd(const Surface& s, float x, float y, float dgx,
                                                 float dgy, float& dx, float& dy, G& sg) {
+  if constexpr (has_family(GEOM_FORBES_Q2D)) {
+    if (s.code == GEOM_FORBES_Q2D) {
+      ff_sag_grad_bwd_of<GEOM_FORBES_Q2D>(s, x, y, dgx, dgy, dx, dy, sg);
+      return;
+    }
+  }
   switch (s.code) {
     case GEOM_POLYNOMIAL_XY:
       if constexpr (has_family(GEOM_POLYNOMIAL_XY))

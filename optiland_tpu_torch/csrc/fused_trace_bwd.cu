@@ -57,10 +57,10 @@ fused_trace_bwd_kernel(int n, int S, int n_newton,
                        float* __restrict__ partials, Arrays d_rays) {
   extern __shared__ float smem[];
 #ifdef OTK_MATERIALS
-  const int nrows = 2 * S;
+  const int nrows = OTK_ROWS(2 * S);
   const float* s_mat = otk::stage_backward_materials(smem, S, nrows, mat_w, mat);
 #else
-  const int nrows = S;
+  const int nrows = OTK_ROWS(S);
 #endif
   const otk::BwdShared sh = otk::stage_backward(smem, S, nrows, ftab, itab, nullptr);
   const otk::WarpRows rows = otk::warp_rows(sh, nrows);
@@ -152,7 +152,8 @@ extern "C" int fused_trace_bwd_w(int n, int S, int n_newton, int blocks, int thr
   const Arrays rays = {{f(x), f(y), f(z), f(L), f(M), f(N), f(i), f(opd), f(w)}};
   const Arrays seeds = {{f(sx), f(sy), f(sz), f(sL), f(sM), f(sN), f(si), f(sopd), nullptr}};
   const Arrays d_rays = {{f(dx), f(dy), f(dz), f(dL), f(dM), f(dN), f(di), f(dopd), f(dw)}};
-  fused_trace_bwd_kernel<<<blocks, threads, otk::bwd_w_smem_bytes(S, 2 * S, threads),
+  fused_trace_bwd_kernel<<<blocks, threads,
+                           otk::bwd_w_smem_bytes(S, OTK_ROWS(2 * S), threads),
                            static_cast<cudaStream_t>(stream)>>>(
       n, S, n_newton, mat_w, K, in(mat), in(kwl), in(kval), static_cast<int*>(tab_seg),
       f(tab_val), in(ftab), static_cast<const int*>(itab), rays, seeds, f(partials), d_rays);
@@ -170,7 +171,8 @@ extern "C" int fused_trace_bwd(int n, int S, int n_newton, int blocks, int threa
                                void* sopd, void* partials, void* dx, void* dy, void* dz,
                                void* dL, void* dM, void* dN, void* di, void* dopd,
                                void* stream) {
-  if (!otk::bwd_threads_ok(threads)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!otk::bwd_threads_ok(threads) || S > otk::MAX_SURFACES)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (const cudaError_t err = allow_smem()) return static_cast<int>(err);
   Arrays rays = {{static_cast<float*>(x), static_cast<float*>(y), static_cast<float*>(z),
                   static_cast<float*>(L), static_cast<float*>(M), static_cast<float*>(N),
@@ -183,7 +185,8 @@ extern "C" int fused_trace_bwd(int n, int S, int n_newton, int blocks, int threa
                     static_cast<float*>(dz), static_cast<float*>(dL),
                     static_cast<float*>(dM), static_cast<float*>(dN),
                     static_cast<float*>(di), static_cast<float*>(dopd)}};
-  fused_trace_bwd_kernel<<<blocks, threads, otk::bwd_smem_bytes(S, S, threads),
+  fused_trace_bwd_kernel<<<blocks, threads,
+                           otk::bwd_smem_bytes(S, OTK_ROWS(S), threads),
                            static_cast<cudaStream_t>(stream)>>>(
       n, S, n_newton, static_cast<const float*>(ftab), static_cast<const int*>(itab), rays,
       seeds, static_cast<float*>(partials), d_rays);

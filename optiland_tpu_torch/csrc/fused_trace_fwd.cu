@@ -49,7 +49,7 @@ fused_trace_fwd_kernel(int n, const float* __restrict__ ftab, const float* __res
                        float* __restrict__ oL, float* __restrict__ oM,
                        float* __restrict__ oN, float* __restrict__ oi,
                        float* __restrict__ oopd) {
-  __shared__ float s_ft[OTK_S * otk::F_STRIDE];
+  __shared__ float s_ft[OTK_FT_FLOATS(OTK_S)];
 #ifdef OTK_MATERIALS
   __shared__ float s_mat[OTK_S * otk::MAT_SHARED];
   otk::stage_materials(OTK_S, mat_w, mat, s_mat);

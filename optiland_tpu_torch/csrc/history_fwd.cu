@@ -119,7 +119,7 @@ __global__ void __launch_bounds__(THREADS)
 history_fwd_kernel(int n, int bulk, int mat_w, int K, const float* __restrict__ ftab,
                    const float* __restrict__ mat, const float* __restrict__ kwl,
                    const float* __restrict__ kval, Rays9 rays, History hist) {
-  __shared__ float s_ft[OTK_S * otk::F_STRIDE];
+  __shared__ float s_ft[OTK_FT_FLOATS(OTK_S)];
   __shared__ float s_mat[OTK_S * otk::MAT_SHARED];
   __shared__ alignas(16) float rows[2][8][ROW];
   otk::stage_materials(OTK_S, mat_w, mat, s_mat);

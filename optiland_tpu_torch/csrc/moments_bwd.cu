@@ -71,10 +71,10 @@ moments_bwd_kernel(int n, int S, int n_newton, int field_angle, int object_infin
                    float* __restrict__ dPx, float* __restrict__ dPy) {
   extern __shared__ float smem[];
 #ifdef OTK_MATERIALS
-  const int nrows = 2 * S + 1;
+  const int nrows = OTK_ROWS(2 * S + 1);
   const float* s_mat = otk::stage_backward_materials(smem, S, nrows, mat_w, mat);
 #else
-  const int nrows = S + 1;
+  const int nrows = OTK_ROWS(S + 1);
 #endif
   const otk::BwdShared sh = otk::stage_backward(smem, S, nrows, ftab, itab, rg);
   const otk::WarpRows rows = otk::warp_rows(sh, nrows);
@@ -166,7 +166,8 @@ extern "C" int moments_bwd_w(int n, int S, int n_newton, int field_angle, int ob
   if (const cudaError_t err = allow_smem()) return static_cast<int>(err);
   const auto in = [](const void* p) { return static_cast<const float*>(p); };
   const auto out = [](void* p) { return static_cast<float*>(p); };
-  moments_bwd_kernel<<<blocks, threads, otk::bwd_w_smem_bytes(S, 2 * S + 1, threads),
+  moments_bwd_kernel<<<blocks, threads,
+                       otk::bwd_w_smem_bytes(S, OTK_ROWS(2 * S + 1), threads),
                        static_cast<cudaStream_t>(stream)>>>(
       n, S, n_newton, field_angle, object_infinite, diff_data, mat_w, K, in(mat), in(kwl),
       in(kval), in(w), out(dw), static_cast<int*>(tab_seg), out(tab_val), in(rg), in(ftab),
@@ -187,9 +188,11 @@ extern "C" int moments_bwd(int n, int S, int n_newton, int field_angle,
                            const void* Hy, const void* Px, const void* Py, const void* c,
                            void* partials, void* dHx, void* dHy, void* dPx, void* dPy,
                            void* stream) {
-  if (!otk::bwd_threads_ok(threads)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!otk::bwd_threads_ok(threads) || S > otk::MAX_SURFACES)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (const cudaError_t err = allow_smem()) return static_cast<int>(err);
-  moments_bwd_kernel<<<blocks, threads, otk::bwd_smem_bytes(S, S + 1, threads),
+  moments_bwd_kernel<<<blocks, threads,
+                       otk::bwd_smem_bytes(S, OTK_ROWS(S + 1), threads),
                        static_cast<cudaStream_t>(stream)>>>(
       n, S, n_newton, field_angle, object_infinite, diff_data,
       static_cast<const float*>(rg), static_cast<const float*>(ftab),

@@ -59,7 +59,7 @@ moments_fwd_kernel(int n,
                    const float* __restrict__ Hx, const float* __restrict__ Hy,
                    const float* __restrict__ Px, const float* __restrict__ Py,
                    float* __restrict__ partials) {
-  __shared__ float s_ft[OTK_S * otk::F_STRIDE];
+  __shared__ float s_ft[OTK_FT_FLOATS(OTK_S)];
   __shared__ float s_rg[5];
   __shared__ float s_red[4][THREADS / 32];
 #ifdef OTK_MATERIALS

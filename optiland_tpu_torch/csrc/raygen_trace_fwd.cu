@@ -48,7 +48,7 @@ raygen_trace_fwd_kernel(int n, int out_mask,
                         const float* __restrict__ ftab, const float* __restrict__ Hx,
                         const float* __restrict__ Hy, const float* __restrict__ Px,
                         const float* __restrict__ Py, Outs outs) {
-  __shared__ float s_ft[OTK_S * otk::F_STRIDE];
+  __shared__ float s_ft[OTK_FT_FLOATS(OTK_S)];
   __shared__ float s_rg[5];
 #ifdef OTK_MATERIALS
   __shared__ float s_mat[OTK_S * otk::MAT_SHARED];

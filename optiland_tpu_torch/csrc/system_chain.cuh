@@ -22,7 +22,14 @@
 //                         mask of its families (freeform.cuh), with
 //     OTK_NEWTON_FF       the freeforms' Newton updates after the first, and
 //     OTK_FF_AUX          each surface's aux ints, aux0 | aux1 << 8,
-//                         separated by commas;
+//                         separated by commas (a Q-2D surface's: its
+//                         groups' range, with OTK_Q2D_GROUPS, OTK_Q2D_ROWS
+//                         and OTK_Q2D_NMAX, freeform.cuh);
+//   OTK_WIDE              where a surface has more than 17 coefficient
+//                         slots (chain.cuh), with OTK_WIDE_OFF, each
+//                         surface's offset of its whole row in the float
+//                         table (0 for the others), and OTK_WIDE_NC, each
+//                         surface's count of slots, separated by commas;
 // and for the builds at per-ray wavelengths, K7 and the per-ray variants of
 // K1, K3 and K5, which evaluate the dispersion formulas per ray
 // (trace/fused.py `history_defines`):
@@ -78,6 +85,9 @@ __host__ __device__ constexpr Codes unpack_codes(unsigned v) {
 #ifdef OTK_FREEFORM
                , 0, 0, 0
 #endif
+#ifdef OTK_WIDE
+               , 0, 0
+#endif
   };
 }
 
@@ -91,17 +101,29 @@ __host__ __device__ constexpr unsigned system_codes(int k) {
 #if !defined(OTK_NEWTON_FF) || !defined(OTK_FF_AUX)
 #error "a system with a freeform needs OTK_NEWTON_FF and OTK_FF_AUX"
 #endif
+#endif
+#if defined(OTK_WIDE) && !(defined(OTK_WIDE_OFF) && defined(OTK_WIDE_NC))
+#error "a system with a wide surface needs OTK_WIDE_OFF and OTK_WIDE_NC"
+#endif
 // Surface k's codes with its freeform aux ints and the freeforms' Newton
-// count.
+// count, and in a wide build its coefficient count and a wide surface's
+// offset in the float table.
 __host__ __device__ constexpr Codes surface_codes(int k) {
-  constexpr unsigned aux[] = {OTK_FF_AUX};
   Codes c = unpack_codes(system_codes(k));
+#ifdef OTK_FREEFORM
+  constexpr unsigned aux[] = {OTK_FF_AUX};
   c.a0 = static_cast<int>(aux[k] & 0xffu);
   c.a1 = static_cast<int>((aux[k] >> 8) & 0xffu);
   c.nff = OTK_NEWTON_FF;
+#endif
+#ifdef OTK_WIDE
+  constexpr int off[] = {OTK_WIDE_OFF};
+  constexpr int nc[] = {OTK_WIDE_NC};
+  c.xoff = off[k];
+  c.nc = nc[k];
+#endif
   return c;
 }
-#endif
 
 // Surfaces K .. S-1 on the running state; pos: the vertex z of surface
 // K - 1; n_pre: the index before surface K; `media.at<K>()` gives surface
@@ -111,11 +133,7 @@ __device__ __forceinline__ void system_chain_from(const float* ft, const Media& 
                                                   const Sink& sink, Ray& r, float& pos,
                                                   float& n_pre) {
   if constexpr (K < OTK_S) {
-#ifdef OTK_FREEFORM
     constexpr Codes c = surface_codes(K);
-#else
-    constexpr Codes c = unpack_codes(system_codes(K));
-#endif
     constexpr bool absorbs_before = unpack_codes(system_codes(K - 1)).absorbs;
     pos = pos + (K > 1 ? ft[(K - 1) * F_STRIDE + F_THICK] : 0.f);
     surface_step(make_surface(c, absorbs_before, ft, K), K, OTK_NEWTON, pos, r, n_pre,
@@ -173,13 +191,13 @@ __device__ __forceinline__ Ray system_raygen(const float* rg, float Hx, float Hy
   return tile_raygen(OTK_FIELD_ANGLE, OTK_OBJECT_INFINITE, rg, Hx, Hy, Px, Py);
 }
 
-// Stage the system's (OTK_S, F_STRIDE) float table and, where rg is not
-// null, the five raygen scalars into shared memory; every thread of the
+// Stage the system's float table (chain.cuh OTK_FT_FLOATS) and, where rg is
+// not null, the five raygen scalars into shared memory; every thread of the
 // block calls it, once.
 __device__ __forceinline__ void stage_system(const float* __restrict__ ftab,
                                              const float* __restrict__ rg, float* s_ft,
                                              float* s_rg) {
-  for (int j = threadIdx.x; j < OTK_S * F_STRIDE; j += blockDim.x) s_ft[j] = ftab[j];
+  for (int j = threadIdx.x; j < OTK_FT_FLOATS(OTK_S); j += blockDim.x) s_ft[j] = ftab[j];
   if (rg != nullptr)
     for (int j = threadIdx.x; j < 5; j += blockDim.x) s_rg[j] = rg[j];
   __syncthreads();

@@ -7,7 +7,8 @@ and poly-XY (hand-written gradients); biconic, toroidal, Chebyshev,
 Zernike, Forbes Q-bfs and Q-2D (gradients by forward-mode AD of their sag,
 as JAX's two JVPs, themselves differentiable by autograd); the tabulated
 grid sag (bilinear, analytic cell gradients, a validity mask outside the
-grid). NURBS raises NotImplementedError (ROADMAP queue 1, item 14).
+grid); NURBS (`geometry/nurbs.py`: the graph z(x, y) by the inverted (u,
+v) chart, the intersection by the two-plane Newton).
 
 Coefficient layouts (the per-surface `coeffs` row; `aux` static ints):
   POLYNOMIAL_XY: C_ij x^i y^j on a square (order+1)^2 grid, row-major
@@ -22,6 +23,9 @@ Coefficient layouts (the per-surface `coeffs` row; `aux` static ints):
              m_signed > 0 a cos ('a') term, < 0 a sin ('b') term
   GRID_SAG:  coeffs = x_grid(nx) ++ y_grid(ny) ++ z(ny*nx row-major);
              aux = (nx, ny)
+  NURBS:     coeffs = U(nu+p+1) ++ V(nv+q+1) ++ W(nu*nv) ++ Px ++ Py ++ Pz;
+             aux = (p, q, nu, nv, x0, x1, y0, y1), the last four the
+             patch's box
 """
 
 from __future__ import annotations
@@ -42,11 +46,11 @@ GEOM_FORBES_Q2D = 10
 GEOM_GRID_SAG = 11
 GEOM_NURBS = 12
 
-# geometries this package traces
+# geometries this package traces: all of the JAX package's
 SLICE_GEOMS = (GEOM_PLANE, GEOM_CONIC, GEOM_EVEN_ASPHERE, GEOM_ODD_ASPHERE,
                GEOM_POLYNOMIAL_XY, GEOM_BICONIC, GEOM_TOROIDAL,
                GEOM_CHEBYSHEV, GEOM_ZERNIKE, GEOM_FORBES_QBFS,
-               GEOM_FORBES_Q2D, GEOM_GRID_SAG)
+               GEOM_FORBES_Q2D, GEOM_GRID_SAG, GEOM_NURBS)
 # the families whose gradient is forward-mode AD of their sag
 FREEFORM_GEOMS = (GEOM_BICONIC, GEOM_TOROIDAL, GEOM_CHEBYSHEV, GEOM_ZERNIKE,
                   GEOM_FORBES_QBFS, GEOM_FORBES_Q2D)
@@ -60,10 +64,7 @@ ZERNIKE_TYPE_CODES = {"fringe": 0, "noll": 1, "standard": 2}
 _ZERNIKE_TYPES = {v: k for k, v in ZERNIKE_TYPE_CODES.items()}
 
 
-def _unported(code):
-    if code == GEOM_NURBS:
-        return NotImplementedError(
-            "NURBS geometry is not ported yet (ROADMAP queue 1, item 14)")
+def _unknown(code):
     return ValueError(f"Unknown geometry code {code}")
 
 
@@ -311,6 +312,24 @@ def _grid_interp(x, y, coeffs, nx: int, ny: int):
     return z, gx, gy, oob
 
 
+def _nurbs_slices(coeffs, aux):
+    """A NURBS surface's (U, V, W, Px, Py, Pz) from its coefficient row,
+    aux = (p, q, nu, nv, ...)."""
+    p, q, nu, nv = aux[:4]
+    lu, lv, n = nu + p + 1, nv + q + 1, nu * nv
+    o = lu + lv
+    return (coeffs[:lu], coeffs[lu:o], coeffs[o:o + n],
+            coeffs[o + n:o + 2 * n], coeffs[o + 2 * n:o + 3 * n],
+            coeffs[o + 3 * n:o + 4 * n])
+
+
+def _nurbs_sag_and_grad(x, y, coeffs, aux):
+    from optiland_tpu_torch.geometry import nurbs as _nb
+
+    return _nb.sag_and_grad_xy(*_nurbs_slices(coeffs, aux), *aux[:4],
+                               tuple(aux[4:8]), x, y)
+
+
 def sag(code: int, n_coeffs: int, x, y, cv, k, coeffs, aux: tuple = ()):
     """Surface sag z(x, y). `code`, `n_coeffs` and `aux` are static."""
     if code == GEOM_PLANE:
@@ -340,7 +359,9 @@ def sag(code: int, n_coeffs: int, x, y, cv, k, coeffs, aux: tuple = ()):
         return _forbes_q2d_sag(x, y, cv, k, coeffs, n_coeffs, aux)
     if code == GEOM_GRID_SAG:
         return _grid_interp(x, y, coeffs, aux[0], aux[1])[0]
-    raise _unported(code)
+    if code == GEOM_NURBS:
+        return _nurbs_sag_and_grad(x, y, coeffs, aux)[0]
+    raise _unknown(code)
 
 
 def sag_and_grad(code: int, n_coeffs: int, x, y, cv, k, coeffs, aux: tuple = ()):
@@ -376,6 +397,8 @@ def sag_and_grad(code: int, n_coeffs: int, x, y, cv, k, coeffs, aux: tuple = ())
     if code == GEOM_GRID_SAG:
         z, gx, gy, _ = _grid_interp(x, y, coeffs, aux[0], aux[1])
         return z, gx, gy
+    if code == GEOM_NURBS:
+        return _nurbs_sag_and_grad(x, y, coeffs, aux)
     if code in FREEFORM_GEOMS:
         from torch.func import jvp
 
@@ -387,7 +410,7 @@ def sag_and_grad(code: int, n_coeffs: int, x, y, cv, k, coeffs, aux: tuple = ())
         z, gx = jvp(lambda xx: fn(xx, y), (x,), (torch.ones_like(x),))
         _, gy = jvp(lambda yy: fn(x, yy), (y,), (torch.ones_like(y),))
         return z, gx, gy
-    raise _unported(code)
+    raise _unknown(code)
 
 
 def surface_normal(code: int, n_coeffs: int, x, y, cv, k, coeffs,
@@ -435,9 +458,17 @@ def intersect(code: int, n_coeffs: int, x, y, z, L, M, N, cv, k, coeffs,
     y + tM) - (z + tN), with the eager safe-divide of JAX's `intersect`
     (|f'| <= 1e-14 becomes sign(f') 1e-14, and 1e-14 where f' = 0; the
     fused chain's takes 1e-12 for every |f'| <= 1e-12). A grid sag's rays
-    that land outside its grid are invalid. Returns (t, valid)."""
+    that land outside its grid are invalid. A NURBS surface takes the
+    two-plane Newton (`nurbs.intersect_two_plane`, `newton_iters` steps),
+    valid where its residual closes. Returns (t, valid)."""
     if code not in SLICE_GEOMS:
-        raise _unported(code)
+        raise _unknown(code)
+    if code == GEOM_NURBS:
+        from optiland_tpu_torch.geometry import nurbs as _nb
+
+        return _nb.intersect_two_plane(
+            *_nurbs_slices(coeffs, aux), *aux[:4], tuple(aux[4:8]), x, y, z,
+            L, M, N, iters=newton_iters)
     t, valid = _conic_intersect(x, y, z, L, M, N, cv, k)
     if code in _CLOSED_FORM or (n_coeffs == 0 and code in (
             GEOM_EVEN_ASPHERE, GEOM_ODD_ASPHERE, GEOM_POLYNOMIAL_XY)):

@@ -33,6 +33,9 @@ _GEOMETRY_KEYS = {
     "forbes_qbfs": {"norm_radius", "radial_terms"},
     "forbes_q2d": {"norm_radius", "freeform_coeffs"},
     "grid_sag": {"x_coordinates", "y_coordinates", "sag_values"},
+    "nurbs": {"control_points", "weights", "u_knots", "v_knots", "u_degree",
+              "v_degree", "n_points_u", "n_points_v", "nurbs_norm_x",
+              "nurbs_norm_y", "x_center", "y_center"},
 }
 
 
@@ -91,12 +94,12 @@ class _SurfaceCollection:
         "forbes_qbfs" `coefficients` or `radial_terms` ({n: a_n}),
         `norm_radius`; "forbes_q2d" `freeform_coeffs` ({("a" or "b", m, n):
         c}), `norm_radius`; "grid_sag" `x_coordinates`, `y_coordinates`,
-        `sag_values` ((ny, nx))."""
+        `sag_values` ((ny, nx)); "nurbs" an explicit control net
+        (`control_points` (3, nu, nv), `weights`, `u_knots`, `v_knots`,
+        `u_degree`, `v_degree`) or a fit of the conic of `radius` and
+        `conic` (`n_points_u`, `n_points_v`, `nurbs_norm_x`,
+        `nurbs_norm_y`, `x_center`, `y_center`)."""
         geometry = "standard"
-        if surface_type == "nurbs":
-            raise NotImplementedError(
-                "surface_type 'nurbs' is not ported yet (ROADMAP queue 1, "
-                "item 14)")
         if surface_type in _GEOMETRY_KEYS:
             geometry = surface_type
             surface_type = "standard"
@@ -113,7 +116,7 @@ class _SurfaceCollection:
         if set(geom_kwargs) - keys:
             raise NotImplementedError(
                 f"surface keywords {sorted(set(geom_kwargs) - keys)} are not "
-                "ported yet (ROADMAP queue 1, items 14 and 15)")
+                "ported yet (ROADMAP queue 1, item 15)")
         if geometry == "chebyshev":
             # the 2-D coefficient grid travels in geom_params (static shape)
             geom_kwargs.setdefault("coefficients", coefficients)

@@ -8,7 +8,8 @@ Port of `optiland_tpu/system/spec.py`:
     field/wavelength tables. Autograd differentiates merits through it.
 
 `build_system` compiles a list of `SurfaceSpec`s for the ported surface
-types (plane, conic, even and odd aspheres; refract, reflect, none, the
+types (every geometry of the JAX package, NURBS's fit of a conic by a
+host least-squares in float64 among them; refract, reflect, none, the
 ideal thin lens, gratings and phase sheets of the five profile kinds) and
 absorbing media (the tabulated extinction tables `k_wl`, `k_val`).
 `static_from_dict` and `params_from_numpy` carry a system built by the JAX
@@ -458,8 +459,57 @@ def _pack_geometry(s: SurfaceSpec):
                 f"sag_values shape {zg.shape} must be (ny, nx) = "
                 f"({len(yg)}, {len(xg)})")
         return geom, 0.0, 0.0, xg + yg + list(zg.ravel()), (len(xg), len(yg))
-    raise NotImplementedError(
-        "NURBS geometry is not ported yet (ROADMAP queue 1, item 14)")
+    return _pack_nurbs(s, gp)
+
+
+def _pack_nurbs(s: SurfaceSpec, gp: dict):
+    """Pack a NURBS surface (the layout of `geometry/surfaces.py`, cv and k
+    0): an explicit control net (`control_points` (3, nu, nv), `weights`,
+    `u_knots`, `v_knots`, `u_degree`, `v_degree`; clamped uniform knots and
+    cubic degrees by default), its box the net's (x, y) extent; or a host
+    least-squares fit (`nurbs.fit_nurbs_to_sag`) of the surface's conic
+    (`radius`, `conic`) over the box of half-widths `nurbs_norm_x`,
+    `nurbs_norm_y` about (`x_center`, `y_center`), `n_points_u` by
+    `n_points_v` control points (4 by 4), in float64 whatever the
+    system's dtype."""
+    from optiland_tpu_torch.geometry import nurbs as _nb
+    from optiland_tpu_torch.geometry.surfaces import _conic_sag
+
+    if gp.get("control_points") is not None:
+        P = np.asarray(gp["control_points"], float)  # (3, nu, nv)
+        _, nu, nv = P.shape
+        p = int(gp.get("u_degree", 3))
+        q = int(gp.get("v_degree", 3))
+        W = np.asarray(gp.get("weights", np.ones((nu, nv))), float)
+        U = np.asarray(gp.get("u_knots", _nb.clamped_uniform_knots(nu, p)),
+                       float)
+        V = np.asarray(gp.get("v_knots", _nb.clamped_uniform_knots(nv, q)),
+                       float)
+        Px, Py, Pz = P[0], P[1], P[2]
+        box = (float(Px.min()), float(Px.max()),
+               float(Py.min()), float(Py.max()))
+    else:
+        nu = int(gp.get("n_points_u", 4))
+        nv = int(gp.get("n_points_v", 4))
+        p = int(gp.get("u_degree", min(3, nu - 1)))
+        q = int(gp.get("v_degree", min(3, nv - 1)))
+        norm_x = float(gp.get("nurbs_norm_x") or 1.0)
+        norm_y = float(gp.get("nurbs_norm_y") or 1.0)
+        xc = float(gp.get("x_center", 0.0))
+        yc = float(gp.get("y_center", 0.0))
+        cv, k = _safe_cv(s.radius), s.conic
+
+        def sag_np(X, Y):
+            return _conic_sag(torch.from_numpy(X), torch.from_numpy(Y), cv,
+                              k).numpy()
+
+        box = (xc - norm_x, xc + norm_x, yc - norm_y, yc + norm_y)
+        U, V, W, Px, Py, Pz = _nb.fit_nurbs_to_sag(sag_np, *box, nu, nv,
+                                                   p=p, q=q)
+    coeffs = (list(U) + list(V) + list(np.asarray(W).ravel())
+              + list(np.asarray(Px).ravel()) + list(np.asarray(Py).ravel())
+              + list(np.asarray(Pz).ravel()))
+    return GEOM_NURBS, 0.0, 0.0, coeffs, (p, q, nu, nv) + tuple(box)
 
 
 def _coating_code(coat):

@@ -28,8 +28,10 @@ per-ray, K5 and K6 on B's vignetted twin, K7 on A and B) and the phase
 configurations of its phase j4 (`phase_ms`: K1-K4 of systems D, E and F,
 K5 and K6 on F's vignetted twin, K7 on D, E and F) and the freeform
 configurations of its phase j5 (`freeform_ms`: K1-K4 of systems G, H and
-I, K5 and K6 on I's vignetted twin, K7 on G, H and I); a tree without
-those branches records None there. It also drives
+I, K5 and K6 on I's vignetted twin, K7 on G, H and I) and the systems of
+its phase j6 (`long_ms`: K1-K4 of systems J (Forbes Q-2D), K (rows past 17
+slots) and L (70 surfaces), K5 and K6 on J's vignetted twin, K7 on J, K
+and L); a tree without those branches or systems records None there. It also drives
 `huygens.huygens_sum_forward` (K8) on the Cooke triplet's Huygens PSF at
 its defaults (128 x 128: the image sum and its normalizing peak sum), at
 256 x 256, and on the random inputs of tools/bench_wave_optics.py. Each
@@ -238,6 +240,7 @@ def worker(tree: Path, ns: list[int]) -> dict:
                         c))
     ms.update(phase_ms(cs, fused, kernel_ms, Optic, dev, rng, c))
     ms.update(freeform_ms(cs, fused, kernel_ms, Optic, dev, rng, c))
+    ms.update(long_ms(cs, fused, kernel_ms, Optic, dev, rng, c))
     px_b, py_b, _ = pupil_grid_coords(128, torch.float32, dev)
     for label, r0 in (
             ("flagship 1999998", generate_rays(
@@ -338,6 +341,21 @@ def freeform_ms(cs, fused, kernel_ms, Optic, dev, rng, c):
     return _systems_ms(systems, ("G", "H", "I"),
                        hasattr(fused, "_freeform_mask"), cs, fused,
                        kernel_ms, dev, rng, c)
+
+
+def long_ms(cs, fused, kernel_ms, Optic, dev, rng, c):
+    """The systems of chip_smoke.py's phase j6, timed as `branch_ms` times
+    j3's: K1-K4 of system J (a Forbes Q-2D face), K (a 38-slot Zernike and
+    a 29-slot Q-2D) and L (70 surfaces of relays), K5 and K6 on J's
+    vignetted twin, K7 on J, K and L. None for every key where the tree's
+    kernels do not take them (`fused._wide_layout`)."""
+    systems = {"J": lambda: cs.q2d_singlet(Optic),
+               "K": lambda: cs.wide_freeform_singlet(Optic),
+               "L": lambda: cs.relay_train(Optic),
+               "J vignetted": lambda: cs.q2d_singlet(Optic, vignetted=True)}
+    return _systems_ms(systems, ("J", "K", "L"),
+                       hasattr(fused, "_wide_layout"), cs, fused, kernel_ms,
+                       dev, rng, c)
 
 
 def _systems_ms(systems, history, supported, cs, fused, kernel_ms, dev, rng,

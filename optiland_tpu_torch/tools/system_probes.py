@@ -90,6 +90,13 @@ query; the backward kernels run a persistent grid of one block an SM,
 `fused.backward_grid`), the threads `fused._backward_launch` gives the
 per-ray backward block of a 64-surface system, and the card's name and
 power limit. The same kernels' times are `kernel_turns`'s (`freeform_ms`).
+
+With --long (no DIR), the same report for the builds of chip_smoke.py's
+phase j6 (systems J, K and L; K5 and K6 on J's vignetted twin): a Forbes
+Q-2D face, two faces past a 17-slot row (OTK_WIDE), 70 surfaces
+(OTK_MAX_SURFACES in the backward kernels), with the threads
+`fused._backward_launch` gives L's backward blocks at the flagship's
+1,999,998 rays. Their times are `kernel_turns`'s (`long_ms`).
 """
 
 from __future__ import annotations
@@ -863,16 +870,23 @@ def per_ray_main():
     print(json.dumps({"rounds": 4, "ms": ms}))
 
 
-def freeform_main():
-    """--freeform: the builds of the freeform branch (module docstring);
-    their times are `kernel_turns.freeform_ms`'s."""
+def freeform_main(long=False):
+    """--freeform: the builds of the freeform branch, or with `long`
+    (--long) those of phase j6 (module docstring); their times are
+    `kernel_turns.freeform_ms`'s and `long_ms`'s."""
     cs = _smoke()
     config.set_precision("float32")
     dev = torch.device("cuda")
-    systems = {"G": cs.anamorphic_singlet(Optic),
-               "H": cs.xy_freeform_singlet(Optic),
-               "I": cs.tilted_freeform_singlet(Optic),
-               "I vignetted": cs.tilted_freeform_singlet(Optic, True)}
+    if long:
+        systems = {"J": cs.q2d_singlet(Optic),
+                   "K": cs.wide_freeform_singlet(Optic),
+                   "L": cs.relay_train(Optic),
+                   "J vignetted": cs.q2d_singlet(Optic, True)}
+    else:
+        systems = {"G": cs.anamorphic_singlet(Optic),
+                   "H": cs.xy_freeform_singlet(Optic),
+                   "I": cs.tilted_freeform_singlet(Optic),
+                   "I vignetted": cs.tilted_freeform_singlet(Optic, True)}
     built = {label: lens.build(device="cuda")
              for label, lens in systems.items()}
     srcs = dict(SOURCES, K7="history_fwd", **BWD_SOURCES)
@@ -891,11 +905,11 @@ def freeform_main():
                 else:
                     defines = fused.system_defines(st)
                 jobs[f"{key} {label} {cfg}"] = (srcs[key], defines)
-    _build.build_all(tuple(set(jobs.values())))
+    _build.build_all(tuple(v for v in set(jobs.values()) if v[1]))
     cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
     report = {}
     for job, (src, defines) in jobs.items():
-        name = _build.variant_name(src, defines)
+        name = _build.variant_name(src, defines) if defines else src
         log = _build.build_log(name)
         lib = _build.build_dir() / f"lib{name}.so"
         sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
@@ -907,12 +921,21 @@ def freeform_main():
             "sass": len(re.findall(r"/\*[0-9a-f]{4,}\*/", sass))}
         if src not in BWD_SOURCES.values():
             report[job]["blocks_an_sm"] = fused._blocks_per_sm(src, defines)
-    wide = dataclasses_replace(built["H"][0], num_surfaces=64)
-    blocks, threads, _, _ = fused._backward_launch(wide, 2_000_000, dev,
-                                                   64 + 1, True)
-    print(json.dumps({"builds": report,
-                      "64-surface per-ray backward block": {
-                          "blocks": blocks, "threads": threads}}))
+    if long:
+        st = built["L"][0]
+        blocks = {cfg: fused._backward_launch(
+            st, 1_999_998, dev, st.num_surfaces + 1, cfg == "per-ray")[:2]
+            for cfg in ("0.55", "per-ray")}
+        print(json.dumps({"builds": report, "L's K2 block": {
+            cfg: {"blocks": b, "threads": t}
+            for cfg, (b, t) in blocks.items()}}))
+    else:
+        wide = dataclasses_replace(built["H"][0], num_surfaces=64)
+        blocks, threads, _, _ = fused._backward_launch(wide, 2_000_000, dev,
+                                                       64 + 1, True)
+        print(json.dumps({"builds": report,
+                          "64-surface per-ray backward block": {
+                              "blocks": blocks, "threads": threads}}))
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True,
@@ -930,17 +953,20 @@ def main(argv=None):
                         help="probe the per-ray backward kernels' record")
     parser.add_argument("--freeform", action="store_true",
                         help="report the freeform branch's builds")
+    parser.add_argument("--long", action="store_true",
+                        help="report the builds of phase j6's systems")
     opts = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("system_probes times CUDA kernels and needs a card")
     if opts.per_ray:
         per_ray_main()
         return
-    if opts.freeform:
-        freeform_main()
+    if opts.freeform or opts.long:
+        freeform_main(long=opts.long)
         return
     if opts.parent is None:
-        parser.error("--parent is required unless --per-ray or --freeform")
+        parser.error("--parent is required unless --per-ray, --freeform or "
+                     "--long")
     if opts.k7:
         k7_main(opts.parent.resolve() / "optiland_tpu_torch" / "csrc")
         return

@@ -48,7 +48,14 @@ The chain's interactions are JAX's `_tile_trace` branches: refraction,
 reflection, simple coatings (T, or R after a reflection), the ideal thin
 lens, gratings on plane and curved carriers, and phase sheets of the
 constant, radial and linear-grating kinds on plane and conic carriers,
-each with its adjoint in K2, K4 and K6. A system with a coating, a thin
+each with its adjoint in K2, K4 and K6; its geometries JAX's kernel
+geometries: plane, conic, even and odd aspheres, and the freeforms
+(poly-XY, biconic, toroidal, Chebyshev, Zernike, Forbes Q-bfs and Q-2D,
+csrc/freeform.cuh), at any number of coefficient slots (a surface past 17
+keeps its row in the float table's tail, `_wide_layout`) and surfaces
+(past 64 the one-wavelength backward kernels' record grows,
+`backward_defines`), up to a block's shared memory (`_static_smem`,
+`_backward_launch`). A system with a coating, a thin
 lens, a grating or a phase sheet is built with OTK_INTERACTIONS
 (`branch_defines`), its one-wavelength K2, K4 and K6 too, and a system
 with a phase sheet also with OTK_PHASE; a system without them builds the
@@ -136,9 +143,10 @@ _SUPPORTED_GEOMS = _INLINE_GEOMS + (
     GEOM_POLYNOMIAL_XY, GEOM_BICONIC, GEOM_TOROIDAL, GEOM_CHEBYSHEV,
     GEOM_ZERNIKE, GEOM_FORBES_QBFS, GEOM_FORBES_Q2D)
 # the freeform families the CUDA chain covers (csrc/freeform.cuh): all of
-# JAX's kernel freeforms but Forbes Q-2D (ROADMAP queue 2, branch 4b)
+# JAX's kernel freeforms
 _KERNEL_FREEFORMS = (GEOM_POLYNOMIAL_XY, GEOM_BICONIC, GEOM_TOROIDAL,
-                     GEOM_CHEBYSHEV, GEOM_ZERNIKE, GEOM_FORBES_QBFS)
+                     GEOM_CHEBYSHEV, GEOM_ZERNIKE, GEOM_FORBES_QBFS,
+                     GEOM_FORBES_Q2D)
 _SUPPORTED_INTERACTIONS = (0, INT_REFLECT, INT_NONE, INT_THIN_LENS,
                            INT_DIFFRACT, INT_PHASE)
 _ANALYTIC_PHASE = (PHASE_NONE, PHASE_CONSTANT, PHASE_RADIAL,
@@ -170,9 +178,14 @@ _F_FOCAL = _F_GRATING = _F_PHASE = _F_COEFFS
 _F_PHASE_IK = _F_PHASE + 8
 _F_COAT = 28
 _I_STRIDE = 16
+# a wide surface's offset in the float table and first wide row (I_XOFF,
+# I_XROW of csrc/chain.cuh)
+_I_XOFF, _I_XROW = 13, 14
 # leading material-coefficient columns K7 stages in shared memory: every
 # dispersion formula but the tabulated one has at most this many
 _MAT_SHARED = 17
+# the surfaces a backward kernel's record holds at one wavelength without
+# OTK_MAX_SURFACES (csrc/chain.cuh MAX_SURFACES)
 _MAX_SURFACES = 64
 # threads per block of K1, K3, K5 and K7 (csrc/system_chain.cuh
 # SYSTEM_THREADS)
@@ -185,8 +198,16 @@ _TILE_GRID_BLOCKS_PER_SM = 4
 _BWD_THREADS = 512
 _BWD_MIN_THREADS = 128
 # the dynamic shared memory a block may take on Hopper (csrc/chain_bwd.cuh
-# MAX_DYN_SMEM)
+# MAX_DYN_SMEM), and the static shared memory of one (the per-system
+# kernels stage their tables in it)
 _MAX_SMEM = 232_448
+_MAX_STATIC_SMEM = 49_152
+# static shared memory of the per-system kernels besides the float table
+# and, at per-ray wavelengths, the material columns (csrc/*_fwd.cu): K1's
+# raygen scalars and warp partials, K3's raygen scalars, K7's two staging
+# tiles of eight 256-float history rows
+_STATIC_SMEM_OTHER = {"K1": 4 * (5 + 4 * 8), "K3": 4 * 5, "K5": 0,
+                      "K7": 4 * 2 * 8 * 256}
 
 _NAMES = ("x", "y", "z", "L", "M", "N", "intensity", "opd")
 _RAY_KEYS = ("x", "y", "z", "L", "M", "N", "i", "opd", "w")
@@ -227,14 +248,13 @@ def supports_fused_raygen(static: SystemStatic) -> bool:
 
 
 def _check_kernel_branches(static: SystemStatic, kernel: str):
-    """Refuse the chain branch the CUDA kernel `kernel` ("K1".."K7") does
-    not cover yet (Forbes Q-2D geometries, ROADMAP queue 2, branch 4b), at
-    one wavelength or at per-ray wavelengths alike: every kernel takes
-    both."""
-    if GEOM_FORBES_Q2D in static.geom_codes:
-        raise NotImplementedError(
-            f"{kernel} {_KERNELS[kernel]}: fused CUDA chain branches not "
-            "ported yet (ROADMAP queue 2, branch 4b): Forbes Q-2D geometries")
+    """Refuse, by name, a system the CUDA kernel `kernel` ("K1".."K7") does
+    not take, at one wavelength or at per-ray wavelengths alike: every
+    kernel takes both. These are JAX's own refusals (`supports_fused`:
+    grid sag, NURBS, tabulated phase profiles) and the forms of the
+    tables' slots; past them, the one limit of the card: a per-system
+    kernel (K1, K3, K5, K7) stages its tables in the block's static shared
+    memory (`_static_smem`)."""
     eager = sorted({g for g in static.geom_codes
                     if g not in _SUPPORTED_GEOMS})
     if eager:
@@ -242,12 +262,6 @@ def _check_kernel_branches(static: SystemStatic, kernel: str):
         # eager trace
         raise ValueError(f"geometry codes {eager}: the fused chain takes "
                          "no grid sag or NURBS surface")
-    if static.num_surfaces > _MAX_SURFACES:
-        raise ValueError(f"the fused chain takes at most {_MAX_SURFACES} "
-                         f"surfaces, got {static.num_surfaces}")
-    if max(static.geom_n_coeffs) > MAX_GEOM_COEFFS:
-        raise ValueError(f"the fused chain takes at most {MAX_GEOM_COEFFS} "
-                         "asphere coefficients per surface")
     aspheres = [k for k in range(static.num_surfaces)
                 if static.interactions[k] in (INT_THIN_LENS, INT_DIFFRACT,
                                               INT_PHASE)
@@ -267,6 +281,30 @@ def _check_kernel_branches(static: SystemStatic, kernel: str):
         raise ValueError(f"surfaces {tabulated}: the fused chain takes "
                          "constant, radial and linear-grating phase "
                          "profiles, not grid or height profiles")
+    if kernel in _STATIC_SMEM_OTHER:
+        need = _static_smem(static, kernel)
+        if need > _MAX_STATIC_SMEM:
+            raise ValueError(
+                f"{kernel} {_KERNELS[kernel]}: a {static.num_surfaces}-"
+                f"surface system needs {need} bytes of static shared "
+                f"memory for its tables, more than the {_MAX_STATIC_SMEM} "
+                "a block of the per-system kernels may take")
+    q2d = _q2d_tables(static)
+    if q2d and len(q2d[0]) > 255:
+        raise ValueError(f"{len(q2d[0])} Forbes Q-2D term groups: the "
+                         "per-system codes hold at most 255")
+
+
+def _static_smem(static: SystemStatic, kernel: str) -> int:
+    """Bytes of static shared memory that the per-system kernel `kernel`
+    ("K1", "K3", "K5", "K7") takes for this system in its per-ray variant
+    (its one-wavelength variant takes less): the float table
+    (`_table_floats`), the first _MAT_SHARED material columns of each
+    surface, and the kernel's own (`_STATIC_SMEM_OTHER`). A block takes at
+    most _MAX_STATIC_SMEM: K7 holds 167 surfaces of 17 slots, K1, K3 and K5
+    250."""
+    return (4 * (_table_floats(static) + static.num_surfaces * _MAT_SHARED)
+            + _STATIC_SMEM_OTHER[kernel])
 
 
 def _raygen_scalars(static: SystemStatic, params: SystemParams):
@@ -1024,11 +1062,14 @@ def branch_defines(static: SystemStatic) -> tuple:
     of the chain and of its reverse sweep (csrc/chain.cuh,
     csrc/chain_bwd.cuh) and the coating's intensity cotangent in the
     record; OTK_PHASE where it has a phase sheet, which adds the phase
-    branch and its adjoint and each surface's phase kind to its codes; and
+    branch and its adjoint and each surface's phase kind to its codes;
     OTK_FREEFORM, the mask of its freeform families (`_freeform_mask`),
     where it has one: their sag, Newton and adjoint (csrc/freeform.cuh),
-    their aux ints and Newton count in the int table. A system without
-    them builds the code without those branches, as it was before them."""
+    their aux ints and Newton count in the int table, and with a Forbes
+    Q-2D surface its terms' tables (`_q2d_defines`); and where a surface
+    has more than 17 coefficient slots, the wide rows (`_wide_defines`). A
+    system without them builds the code without those branches, as it was
+    before them."""
     phase = INT_PHASE in static.interactions
     new = (any(_coated(static, k) for k in range(static.num_surfaces))
            or INT_THIN_LENS in static.interactions
@@ -1036,7 +1077,8 @@ def branch_defines(static: SystemStatic) -> tuple:
     ff = _freeform_mask(static)
     return ((("OTK_INTERACTIONS", "1"),) if new else ()) + (
         (("OTK_PHASE", "1"),) if phase else ()) + (
-        (("OTK_FREEFORM", f"0x{ff:x}u"),) if ff else ())
+        (("OTK_FREEFORM", f"0x{ff:x}u"),) if ff else ()) + (
+        _q2d_defines(static) + _wide_defines(static))
 
 
 def _freeform_mask(static: SystemStatic) -> int:
@@ -1048,10 +1090,192 @@ def _freeform_mask(static: SystemStatic) -> int:
 
 def _freeform_aux(static: SystemStatic, k: int) -> tuple[int, int]:
     """Surface k's two aux ints as the chain reads them: a Chebyshev's
-    (rows, cols), a Zernike's (type code, 0), else (0, 0)."""
+    (rows, cols), a Zernike's (type code, 0), a Forbes Q-2D's range of
+    groups in the system's Q-2D tables (`_q2d_tables`), else (0, 0)."""
+    if static.geom_codes[k] == GEOM_FORBES_Q2D:
+        return _q2d_tables(static)[2][k]
     aux = tuple(static.geom_aux[k]) if static.geom_codes[k] in (
         GEOM_CHEBYSHEV, GEOM_ZERNIKE) else ()
     return (tuple(int(a) for a in aux) + (0, 0))[:2]
+
+
+def _f32(x) -> str:
+    """A float constant for the device code: the double rounded once to
+    float there (a host build in double keeps it whole)."""
+    return f"static_cast<float>({float(x)!r})"
+
+
+@lru_cache(maxsize=64)
+def _q2d_tables(static: SystemStatic):
+    """The Forbes Q-2D terms of the system's Q-2D surfaces as the chain
+    reads them (csrc/freeform.cuh `Q2DGroup`, `Q2DRow`): (groups, rows,
+    {k: (first group, end)}, one more than the highest n), or None without
+    a Q-2D surface (one without terms has no group; a system of such
+    surfaces alone has one group of n = 0 and no slot, which none reads). A surface's terms (its `geom_aux`, (n, signed m) for
+    coefficient slot 1 + i: m > 0 a cosine term, m < 0 a sine term) form
+    groups, the radial terms (m = 0) first, then each |m| ascending,
+    cosine before sine, as `geometry/surfaces._forbes_q2d_sag` sums them
+    (a term given twice takes its last slot, as there); a group is (m,
+    ntop, first row) and has a row per n <= ntop: (slot or -1, and the
+    constants of `geometry/forbes.py` in float64, which the build rounds
+    once to float: f_n, g_n (n < ntop) and h_n (n < ntop - 1) of the
+    radial sum, or f_n, g_n (n < ntop), a_n and b_n (n < ntop) and
+    c_(n+1) (n < ntop - 1) of the azimuthal ones; the others 0)."""
+    from optiland_tpu_torch.geometry import forbes as fb
+
+    groups, rows, ranges = [], [], {}
+    for k in range(static.num_surfaces):
+        if static.geom_codes[k] != GEOM_FORBES_Q2D:
+            continue
+        by_m = {}
+        for i, (n, ms) in enumerate(static.geom_aux[k]):
+            by_m.setdefault(int(ms), {})[int(n)] = 1 + i
+        g0 = len(groups)
+        for m in sorted(by_m, key=lambda m: (abs(m), m < 0)):
+            terms, am = by_m[m], abs(m)
+            ntop = max(terms)
+            groups.append((m, ntop, len(rows)))
+            for n in range(ntop + 1):
+                f, g, a, b, c = fb._f_qbfs(n) if am == 0 else fb._f_q2d(
+                    n, am), 0.0, 0.0, 0.0, 0.0
+                if am == 0:
+                    g = fb._g_qbfs(n) if n < ntop else 0.0
+                    a = fb._h_qbfs(n) if n < ntop - 1 else 0.0
+                else:
+                    if n < ntop:
+                        g = fb._g_q2d(n, am)
+                        a, b, _ = fb._abc_q2d(n, am)
+                    if n < ntop - 1:
+                        c = fb._abc_q2d(n + 1, am)[2]
+                rows.append((terms.get(n, -1), f, g, a, b, c))
+        ranges[k] = (g0, len(groups))
+    if not ranges:
+        return None
+    if not groups:
+        groups, rows = [(0, 0, 0)], [(-1, 1.0, 0.0, 0.0, 0.0, 0.0)]
+    return (tuple(groups), tuple(rows), ranges,
+            1 + max(ntop for _, ntop, _ in groups))
+
+
+def _q2d_defines(static: SystemStatic) -> tuple:
+    """OTK_Q2D_GROUPS, OTK_Q2D_ROWS and OTK_Q2D_NMAX of a system with a
+    Forbes Q-2D surface (`_q2d_tables`), else nothing."""
+    tables = _q2d_tables(static)
+    if tables is None:
+        return ()
+    groups, rows, _, nmax = tables
+    return (("OTK_Q2D_GROUPS", ", ".join(
+                "{%d, %d, %d}" % g for g in groups)),
+            ("OTK_Q2D_ROWS", ", ".join(
+                "{%d, %s}" % (r[0], ", ".join(_f32(v) for v in r[1:]))
+                for r in rows)),
+            ("OTK_Q2D_NMAX", str(nmax)))
+
+
+def _wide(static: SystemStatic, k: int) -> bool:
+    """Whether surface k has more coefficient slots than a table row holds
+    (MAX_GEOM_COEFFS) on a geometry that reads them."""
+    return (static.geom_n_coeffs[k] > MAX_GEOM_COEFFS
+            and static.geom_codes[k] not in (GEOM_PLANE, GEOM_CONIC))
+
+
+@lru_cache(maxsize=64)
+def _wide_layout(static: SystemStatic):
+    """Where the float table keeps the rows of the wide surfaces (`_wide`):
+    (the widest one's slots, each surface's offset of its whole row from
+    the table's start (0 for the others), each surface's first wide row of
+    cotangents (csrc/chain_bwd.cuh `put_wide_rows`), the floats of the
+    table's tail, the wide rows), or None without a wide surface. The tail
+    follows the S rows of _F_STRIDE floats, the wide surfaces' rows in
+    surface order; a surface of nc slots takes ceil((nc - 17) / 32) wide
+    rows, in surface order."""
+    S = static.num_surfaces
+    wide = [k for k in range(S) if _wide(static, k)]
+    if not wide:
+        return None
+    off, xrow = [0] * S, [0] * S
+    floats = rows = 0
+    for k in wide:
+        nc = static.geom_n_coeffs[k]
+        off[k], xrow[k] = S * _F_STRIDE + floats, rows
+        floats += nc
+        rows += -(-(nc - MAX_GEOM_COEFFS) // _F_STRIDE)
+    return (max(static.geom_n_coeffs[k] for k in wide), tuple(off),
+            tuple(xrow), floats, rows)
+
+
+def _table_floats(static: SystemStatic) -> int:
+    """The floats of the system's float table: S rows and the wide
+    surfaces' tail (csrc/chain.cuh OTK_FT_FLOATS)."""
+    lay = _wide_layout(static)
+    return static.num_surfaces * _F_STRIDE + (lay[3] if lay else 0)
+
+
+@lru_cache(maxsize=None)
+def _wide_tables(co_max: int) -> tuple:
+    """The freeform tables of a build whose surfaces take up to `co_max`
+    coefficient slots (csrc/freeform.cuh under OTK_WIDE), as definitions:
+    the Q-bfs constants f_n, g_n, h_n of `geometry/forbes.py` for n <
+    co_max - 1 (0 where no sum reads them), and for each Zernike convention
+    (fringe, noll, standard) its first co_max - 1 terms' m and radial
+    polynomials R_n^m / rho^|m| in rho^2, highest power first, times the
+    convention's norm, padded in front with zeros to ZR coefficients; ZM
+    bounds |m|."""
+    from optiland_tpu_torch import zernike as zk
+    from optiland_tpu_torch.geometry import forbes as fb
+
+    T = co_max - 1
+    terms = {kind: zk.indices(kind, T) for kind in ("fringe", "noll",
+                                                     "standard")}
+    ZR = max([4] + [(n - abs(m)) // 2 + 1 for idx in terms.values()
+                    for n, m in idx])
+    ZM = max([6] + [abs(m) + 1 for idx in terms.values() for _, m in idx])
+
+    def radial(kind, n, m):
+        am = abs(m)
+        d = (n - am) // 2
+        c = [(-1) ** j * math.factorial(n - j)
+             / (math.factorial(j) * math.factorial((n + am) // 2 - j)
+                * math.factorial(d - j)) for j in range(d + 1)]
+        norm = zk._norm_constant(kind, n, m)
+        return [0.0] * (ZR - d - 1) + [norm * v for v in c]
+
+    def floats(vals):
+        return ", ".join(_f32(v) for v in vals)
+
+    return (("OTK_WIDE_ZR", str(ZR)), ("OTK_WIDE_ZM", str(ZM)),
+            ("OTK_WIDE_QBFS_F", floats(fb._f_qbfs(n) for n in range(T))),
+            ("OTK_WIDE_QBFS_G", floats(fb._g_qbfs(n) if n < T - 1 else 0.0
+                                       for n in range(T))),
+            ("OTK_WIDE_QBFS_H", floats(fb._h_qbfs(n) if n < T - 2 else 0.0
+                                       for n in range(T))),
+            ("OTK_WIDE_ZERNIKE_M", ", ".join(
+                "{%s}" % ", ".join(str(m) for _, m in idx)
+                for idx in terms.values())),
+            ("OTK_WIDE_ZERNIKE_RADIAL", ", ".join(
+                "{%s}" % ", ".join("{%s}" % floats(radial(kind, n, m))
+                                   for n, m in idx)
+                for kind, idx in terms.items())))
+
+
+def _wide_defines(static: SystemStatic) -> tuple:
+    """The definitions of a system with a wide surface (`_wide_layout`):
+    OTK_WIDE, the widest surface's slots; OTK_WIDE_FLOATS and
+    OTK_WIDE_ROWS, the table's tail and the wide rows; OTK_WIDE_OFF, each
+    surface's offset of its row in the table (0: in its own row), and
+    OTK_WIDE_NC, each surface's slots (the packed codes hold 255 at most);
+    and the freeform tables at that width (`_wide_tables`). Else
+    nothing."""
+    lay = _wide_layout(static)
+    if lay is None:
+        return ()
+    co_max, off, _, floats, rows = lay
+    return (("OTK_WIDE", str(co_max)), ("OTK_WIDE_FLOATS", str(floats)),
+            ("OTK_WIDE_ROWS", str(rows)),
+            ("OTK_WIDE_OFF", ", ".join(str(o) for o in off)),
+            ("OTK_WIDE_NC", ", ".join(str(nc)
+                                      for nc in static.geom_n_coeffs))
+            ) + _wide_tables(co_max)
 
 
 def system_defines(static: SystemStatic) -> tuple:
@@ -1068,7 +1292,7 @@ def system_defines(static: SystemStatic) -> tuple:
     not codes: they reach the kernel in the float table, so one build
     serves every value of a system."""
     packed = (
-        static.geom_codes[k] | static.geom_n_coeffs[k] << 8
+        static.geom_codes[k] | (static.geom_n_coeffs[k] & 0xff) << 8
         | static.interactions[k] << 16 | int(static.has_tilt[k]) << 20
         | int(static.has_decenter[k]) << 21
         | int(static.has_aperture[k]) << 22
@@ -1108,10 +1332,17 @@ def media_defines(static: SystemStatic) -> tuple:
 def backward_defines(static: SystemStatic, per_ray: bool) -> tuple:
     """The nvcc definitions of the backward kernels K2, K4 and K6 for this
     system, whose chain reads the system's codes from the int table at run
-    time: `media_defines` at per-ray wavelengths, then `branch_defines`.
-    Empty (the library built once) at one wavelength for a system without
-    the coating, thin-lens and grating branches."""
-    return (media_defines(static) if per_ray else ()) + branch_defines(static)
+    time: `media_defines` at per-ray wavelengths, then `branch_defines`,
+    and past 64 surfaces OTK_MAX_SURFACES, the surfaces the one-wavelength
+    kernels' per-thread record holds: the power of two that holds the
+    system. Empty (the library built once) at one wavelength for a system
+    of at most 64 surfaces without the coating, thin-lens, grating, phase
+    and freeform branches."""
+    S = static.num_surfaces
+    long = (("OTK_MAX_SURFACES", str(1 << (S - 1).bit_length())),
+            ) if S > _MAX_SURFACES else ()
+    return ((media_defines(static) if per_ray else ())
+            + branch_defines(static) + long)
 
 
 def history_defines(static: SystemStatic) -> tuple:
@@ -1191,16 +1422,22 @@ def _int_table(static: SystemStatic, device: torch.device):
     K6), in the slot order of csrc/chain.cuh (I_* there); row k's
     absorption flag is that of the medium after surface k, and a freeform
     surface's row holds its aux ints (`_freeform_aux`) and Newton updates
-    in slots 10-12 (I_AUX0, I_AUX1, I_NEWTON_FF there)."""
+    in slots 10-12 (I_AUX0, I_AUX1, I_NEWTON_FF there), and a wide
+    surface's its row's offset in the float table and its first wide row
+    (`_wide_layout`) in slots 13-14 (I_XOFF, I_XROW)."""
     n_ff = min(static.newton_iters, _NEWTON_FUSED_MAX_FF)
+    S = static.num_surfaces
+    lay = _wide_layout(static)
+    off, xrow = (lay[1], lay[2]) if lay else ((0,) * S, (0,) * S)
     rows = [[static.geom_codes[k], static.geom_n_coeffs[k],
              static.interactions[k], int(static.has_tilt[k]),
              int(static.has_decenter[k]), int(static.has_aperture[k]),
              int(static.has_absorption[k]), int(_coated(static, k)),
              int(_reflective_sheet(static, k)), _phase_kind(static, k),
              *_freeform_aux(static, k),
-             n_ff if static.geom_codes[k] in _KERNEL_FREEFORMS else 0]
-            + [0] * (_I_STRIDE - 13) for k in range(static.num_surfaces)]
+             n_ff if static.geom_codes[k] in _KERNEL_FREEFORMS else 0,
+             off[k], xrow[k]]
+            + [0] * (_I_STRIDE - 15) for k in range(S)]
     return torch.tensor(rows, dtype=torch.int32).to(device)
 
 
@@ -1231,7 +1468,9 @@ def _pack_tables(static: SystemStatic, diffp, nondiffp, per_ray: bool):
     sheet's 8 profile slots and 1 / k0 (at one wavelength the hoisted 9th
     column of `_uniform_phase`, at per-ray wavelengths 1 / k0 per um) take
     the first coefficient slots, and a coated surface's factor slot
-    _F_COAT. A phase table of the other configuration's width raises."""
+    _F_COAT. A phase table of the other configuration's width raises.
+    With a wide surface (`_wide_layout`) the float table is flat: the S
+    rows, then each wide surface's whole coefficient row."""
     (cv, conic, coeffs, thickness, tilt, decenter, _mat, coating_params,
      n_table, grating, phase, focal_length) = diffp
     ap_radius, _k_wl, _k_val, alpha_table = nondiffp
@@ -1269,22 +1508,28 @@ def _pack_tables(static: SystemStatic, diffp, nondiffp, per_ray: bool):
     col.append(torch.zeros((S, _F_STRIDE - used), dtype=cv.dtype,
                            device=cv.device))
     ftab = torch.cat(col, dim=1).contiguous()
+    if _wide_layout(static):
+        ftab = torch.cat([ftab.reshape(-1)] + [
+            coeffs[k, :static.geom_n_coeffs[k]] for k in range(S)
+            if _wide(static, k)])
     return ftab, _int_table(static, cv.device)
 
 
-def _unpack_table_grads(static, tab, diffp, d_mat=None):
+def _unpack_table_grads(static, tab, diffp, d_mat=None, wide=None):
     """The (S, 32) table cotangents of a backward kernel as the 12
     `_diff_params` cotangents: cv, conic, coeffs (cut back or padded with
     zeros to its width; zeros on thin lenses, gratings and phase sheets,
-    whose slots hold their own), thickness, tilt, decenter and n_table from
-    their slots; focal_length, grating and phase_params from a thin lens's,
-    a grating's and a phase sheet's first coefficient slots (the grating's
-    m w and, with the hoisted 9th column, the sheet's 1 / k0 at one
-    wavelength: autograd through `_uniform_grating` and `_uniform_phase`
-    takes them to m and w); coating_params' T or R from a coated surface's
-    factor slot; `d_mat` for mat_coeffs at per-ray wavelengths (at one
-    wavelength the n_table slot's cotangent reaches mat_coeffs by autograd
-    through `_uniform_tables`)."""
+    whose slots hold their own; a wide surface's slots past 17 from its
+    rows of `wide`, the kernel's wide rows, `_wide_layout`), thickness,
+    tilt, decenter and n_table from their slots; focal_length, grating and
+    phase_params from a thin lens's, a grating's and a phase sheet's first
+    coefficient slots (the grating's m w and, with the hoisted 9th column,
+    the sheet's 1 / k0 at one wavelength: autograd through
+    `_uniform_grating` and `_uniform_phase` takes them to m and w);
+    coating_params' T or R from a coated surface's factor slot; `d_mat`
+    for mat_coeffs at per-ray wavelengths (at one wavelength the n_table
+    slot's cotangent reaches mat_coeffs by autograd through
+    `_uniform_tables`)."""
     coeffs = diffp[2]
     nco = coeffs.shape[1]
     co = tab[:, _F_COEFFS:_F_COEFFS + min(nco, MAX_GEOM_COEFFS)]
@@ -1308,7 +1553,16 @@ def _unpack_table_grads(static, tab, diffp, d_mat=None):
         slots[11] = torch.where(thin[:, 0], tab[:, _F_FOCAL],
                                 torch.zeros_like(tab[:, 0]))
     if nco > MAX_GEOM_COEFFS:
-        co = torch.nn.functional.pad(co, (0, nco - MAX_GEOM_COEFFS))
+        rest = [torch.zeros(nco - MAX_GEOM_COEFFS, dtype=tab.dtype,
+                            device=tab.device)] * static.num_surfaces
+        lay = _wide_layout(static)
+        for k in range(static.num_surfaces):
+            if wide is not None and _wide(static, k):
+                extra = static.geom_n_coeffs[k] - MAX_GEOM_COEFFS
+                got = wide[lay[2][k]:].reshape(-1)[:extra]
+                rest[k] = torch.nn.functional.pad(
+                    got, (0, nco - MAX_GEOM_COEFFS - extra))
+        co = torch.cat([co, torch.stack(rest)], dim=1)
     slots[2] = co
     if d_mat is not None:
         slots[6] = d_mat
@@ -1409,25 +1663,48 @@ def _seed_ptrs(seeds, n, dev):
 def _backward_launch(static, n, dev, n_rows, per_ray):
     """(blocks, threads) of a backward kernel over n rays, its (blocks,
     rows, 32) partial buffer and, at per-ray wavelengths, the tabulated
-    glasses' outputs (`_tabulated_outputs`). A per-ray block keeps a
-    material row per medium beside the `n_rows` table and raygen rows, and
-    takes fewer threads where they would outgrow a block's shared memory
-    (csrc/chain_bwd.cuh MAX_DYN_SMEM: 64 surfaces at 512 threads)."""
+    glasses' outputs (`_tabulated_outputs`). A block keeps `n_rows` table
+    and raygen rows, at per-ray wavelengths a material row per medium, and
+    a system's wide rows (`_wide_layout`) last, and takes fewer threads
+    where they would outgrow a block's shared memory (csrc/chain_bwd.cuh
+    MAX_DYN_SMEM: 64 surfaces at 512 threads per ray, 128 at 256); a
+    system that outgrows it at 32 threads is refused by name."""
     S = static.num_surfaces
     blocks, threads = backward_grid(n, config.sm_count(dev))
-    rows = n_rows + (S if per_ray else 0)
+    lay = _wide_layout(static)
+    rows = n_rows + (S if per_ray else 0) + (lay[4] if lay else 0)
 
-    def smem(t):   # csrc/chain_bwd.cuh bwd_w_smem_bytes
-        return 4 * (S * (_F_STRIDE + _I_STRIDE + 2 + _MAT_SHARED) + 8
+    def smem(t):   # csrc/chain_bwd.cuh bwd_smem_bytes, bwd_w_smem_bytes
+        return 4 * (S * (_F_STRIDE + _I_STRIDE + 2
+                         + (_MAT_SHARED if per_ray else 0))
+                    + _table_floats(static) - S * _F_STRIDE + 8
                     + t // 32 * rows * _F_STRIDE)
 
-    while per_ray and threads > 32 and smem(threads) > _MAX_SMEM:
+    while threads > 32 and smem(threads) > _MAX_SMEM:
         threads //= 2
         blocks = min(-(-n // threads), config.sm_count(dev))
+    if smem(threads) > _MAX_SMEM:
+        raise ValueError(
+            f"a {S}-surface system's backward block needs {smem(threads)} "
+            f"bytes of shared memory at {threads} threads, more than the "
+            f"{_MAX_SMEM} a block may take")
     partials = torch.empty((blocks, rows, _F_STRIDE), dtype=torch.float32,
                            device=dev)
     return blocks, threads, partials, (
         _tabulated_outputs(static, n, dev) if per_ray else ())
+
+
+def _table_grads(static, tab, diffp, n_rows, tabulated, per_ray):
+    """A backward kernel's summed rows `tab` as the 12 `_diff_params`
+    cotangents (`_unpack_table_grads`): the S table rows, at per-ray
+    wavelengths `mat_coeffs`' from the S material rows after the `n_rows`
+    table and raygen rows (`_material_grads`), and the wide rows last."""
+    S = static.num_surfaces
+    lay = _wide_layout(static)
+    d_mat = (_material_grads(static, tab[n_rows:n_rows + S], tabulated,
+                             diffp[6]) if per_ray else None)
+    return _unpack_table_grads(static, tab[:S], diffp, d_mat,
+                               tab[tab.shape[0] - lay[4]:] if lay else None)
 
 
 def _tabulated_outputs(static, n, dev):
@@ -1549,10 +1826,9 @@ def moments_backward(static, diffp, nondiffp, rg, data, c, diff_data=True):
         _raise_on_error("moments_bwd", err)
         moments_backward.launches += 1
     tab = torch.sum(partials, dim=0)
-    d_mat = (_material_grads(static, tab[S + 1:], tabulated, diffp[6])
-             if per_ray else None)
     return (tab[S, :5].to(rg.dtype),
-            _unpack_table_grads(static, tab[:S], diffp, d_mat), d_data)
+            _table_grads(static, tab, diffp, S + 1, tabulated, per_ray),
+            d_data)
 
 
 moments_backward.launches = 0
@@ -1634,10 +1910,9 @@ def raygen_trace_backward(static, diffp, nondiffp, rg, data, out_keys,
         _raise_on_error("raygen_trace_bwd", err)
         raygen_trace_backward.launches += 1
     tab = torch.sum(partials, dim=0)
-    d_mat = (_material_grads(static, tab[S + 1:], tabulated, diffp[6])
-             if per_ray else None)
     return (tab[S, :5].to(rg.dtype),
-            _unpack_table_grads(static, tab[:S], diffp, d_mat), d_data)
+            _table_grads(static, tab, diffp, S + 1, tabulated, per_ray),
+            d_data)
 
 
 raygen_trace_backward.launches = 0
@@ -1710,9 +1985,7 @@ def fused_trace_backward(static, diffp, nondiffp, rays, seeds):
         _raise_on_error("fused_trace_bwd", err)
         fused_trace_backward.launches += 1
     tab = torch.sum(partials, dim=0)
-    d_mat = (_material_grads(static, tab[S:], tabulated, diffp[6])
-             if per_ray else None)
-    return d_rays, _unpack_table_grads(static, tab[:S], diffp, d_mat)
+    return d_rays, _table_grads(static, tab, diffp, S, tabulated, per_ray)
 
 
 fused_trace_backward.launches = 0

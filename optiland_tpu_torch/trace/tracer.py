@@ -29,6 +29,7 @@ from optiland_tpu_torch.core.rays import Rays
 from optiland_tpu_torch.geometry.surfaces import (
     _CLOSED_FORM,
     GEOM_GRID_SAG,
+    GEOM_NURBS,
     GEOM_PLANE,
     SLICE_GEOMS,
     _conic_intersect,
@@ -70,9 +71,10 @@ class TraceHistory:
 
 def _check_traceable(static: SystemStatic):
     """Refuse what the eager tracer does not implement yet."""
+    unknown = sorted({g for g in static.geom_codes if g not in SLICE_GEOMS})
+    if unknown:
+        raise ValueError(f"Unknown geometry codes {unknown}")
     unported = []
-    if any(g not in SLICE_GEOMS for g in static.geom_codes):
-        unported.append("NURBS geometry (item 14)")
     if static.has_abs_cs:
         unported.append("absolute coordinate systems (item 23)")
     if any(b is not None for b in static.bsdfs):
@@ -224,10 +226,14 @@ def trace_rays(static: SystemStatic, params: SystemParams,
             rays = T.translate_z(rays, tz)
 
         # Newton-refined geometries take the implicit-function-theorem
-        # backward (the converged root, not the iteration chain)
+        # backward (the converged root, not the iteration chain); NURBS
+        # takes its two-plane Newton directly, differentiated through its
+        # fixed steps (JAX's tracer: its validity is the converged residual,
+        # and the implicit backward's sag would be an inner Newton itself)
         code = static.geom_codes[k]
         aux = static.geom_aux[k]
-        if code in _CLOSED_FORM or static.geom_n_coeffs[k] == 0:
+        if (code in _CLOSED_FORM or static.geom_n_coeffs[k] == 0
+                or code == GEOM_NURBS):
             t, valid = intersect(
                 code, static.geom_n_coeffs[k],
                 rays.x, rays.y, rays.z, rays.L, rays.M, rays.N,

@@ -141,10 +141,22 @@ _SHIM = _PRELUDE + r"""
 
 struct Rows {
   double* out;
+#ifdef OTK_WIDE
+  int xbase;  // the first wide row
+#endif
   void put(int row, const double (&v)[otk::F_STRIDE], int width) const {
     for (int c = 0; c < width; ++c) out[row * otk::F_STRIDE + otk::table_slot(c)] += v[c];
   }
 };
+// the rows of a table whose wide rows (OTK_WIDE) start at row xbase
+inline Rows table_rows(double* tab, int xbase) {
+#ifdef OTK_WIDE
+  return Rows{tab, xbase};
+#else
+  (void)xbase;
+  return Rows{tab};
+#endif
+}
 static double rec[otk::MAX_SURFACES][otk::REC];
 static double pos[otk::MAX_SURFACES], npre[otk::MAX_SURFACES];
 
@@ -194,7 +206,7 @@ extern "C" void raygen_kernels(int mode, int n, int S, int nn, int fa, int oi,
       g_i = seeds[6 * n + idx];
       g_ip = g_i * r.i;
     }
-    const Rows rows{tab};
+    const Rows rows = table_rows(tab, S + 1);
     otk::reverse_chain(S, ft, it, pos, npre, rec, true, g_opd, g_ip, g, rows, g_i);
     double drg[5];
     double d4[4];
@@ -219,7 +231,7 @@ extern "C" void caller_kernels(int mode, int n, int S, int nn, const double* ft,
       const double* s = seeds + idx;
       otk::Vec6 g = {s[0], s[n], s[2 * n], s[3 * n], s[4 * n], s[5 * n]};
       otk::reverse_chain(S, ft, it, pos, npre, rec, true, s[7 * n],
-                         s[6 * n] * p[6 * n] * r.i, g, Rows{tab}, s[6 * n] * p[6 * n]);
+                         s[6 * n] * p[6 * n] * r.i, g, table_rows(tab, S), s[6 * n] * p[6 * n]);
       const double dv[8] = {g.x, g.y, g.z, g.L, g.M, g.N, s[6 * n] * r.i, s[7 * n]};
       for (int k = 0; k < 8; ++k) v[k] = dv[k];
     }
@@ -324,7 +336,7 @@ _SYSTEM_SHIM = r"""
 #include "system_chain.cuh"
 #include "chain_bwd.cuh"
 
-static double s_ft[OTK_S * otk::F_STRIDE], s_rg[5];
+static double s_ft[OTK_FT_FLOATS(OTK_S)], s_rg[5];
 
 extern "C" void system_moments(int n, const double* rg, const double* ft, const double* Hx,
                                const double* Hy, const double* Px, const double* Py,
@@ -402,6 +414,9 @@ extern "C" void system_history(int n, int mat_w, int K, const double* ft, const 
 // 32), the 9 ray cotangents in outs).
 struct RowsW {
   double* out;
+#ifdef OTK_WIDE
+  int xbase;
+#endif
   void put(int row, const double (&v)[otk::F_STRIDE], int width) const {
     for (int c = 0; c < width; ++c) out[row * otk::F_STRIDE + otk::table_slot(c)] += v[c];
   }
@@ -446,7 +461,11 @@ extern "C" void raygen_kernels_w(int mode, int n, int nn, int mat_w, int K, cons
       g_i = seeds[6 * n + idx];
       g_ip = g_i * r.i;
     }
+#ifdef OTK_WIDE
+    const RowsW rows{tab, 2 * OTK_S + 1};
+#else
     const RowsW rows{tab};
+#endif
     double d_w;
     otk::reverse_chain_w(OTK_S, ft, it, pos_w, media, rec_w, true, g_opd, g_ip, g, rows,
                          OTK_S + 1, otk::TabulatedOut{seg, val, (size_t)n, idx}, d_w, g_i);
@@ -480,8 +499,13 @@ extern "C" void caller_kernels_w(int mode, int n, int nn, int mat_w, int K, cons
     const double* s = seeds + idx;
     otk::Vec6 g = {s[0], s[n], s[2 * n], s[3 * n], s[4 * n], s[5 * n]};
     double d_w;
+#ifdef OTK_WIDE
+    const RowsW rows{tab, 2 * OTK_S};
+#else
+    const RowsW rows{tab};
+#endif
     otk::reverse_chain_w(OTK_S, ft, it, pos_w, media, rec_w, true, s[7 * n],
-                         s[6 * n] * p[6 * n] * r.i, g, RowsW{tab}, OTK_S,
+                         s[6 * n] * p[6 * n] * r.i, g, rows, OTK_S,
                          otk::TabulatedOut{seg, val, (size_t)n, idx}, d_w,
                          s[6 * n] * p[6 * n]);
     const double dv[9] = {g.x, g.y, g.z, g.L, g.M, g.N, s[6 * n] * r.i, s[7 * n], d_w};
@@ -555,8 +579,16 @@ _GROUP_NAMES = ("cv", "conic", "coeffs", "thickness", "tilt", "decenter",
                 "phase_params", "focal_length")
 
 
-def _close_params(ts, tab, diffp, ref_diff):
-    got = fused._unpack_table_grads(ts, torch.from_numpy(tab), diffp)
+def _wide_rows(ts):
+    """The wide rows of a system's backward tables (`fused._wide_layout`)."""
+    lay = fused._wide_layout(ts)
+    return lay[4] if lay else 0
+
+
+def _close_params(ts, tab, diffp, ref_diff, wide=None):
+    got = fused._unpack_table_grads(
+        ts, torch.from_numpy(tab), diffp,
+        wide=None if wide is None else torch.from_numpy(wide))
     for name, g, r in zip(_GROUP_NAMES, got, ref_diff):
         _close(_np(g), r, name)
 
@@ -580,7 +612,7 @@ def _check_run_time_bodies(host_lib, ts, tp, w, axial_ray=False):
     rg = fused._raygen_scalars(ts, tp)
     ftab, itab = fused._pack_tables(ts, diffp, nondiffp, False)
     ftab, itab, rg_np = _np(ftab), _np(itab), _np(rg)
-    S = ts.num_surfaces
+    S, E = ts.num_surfaces, _wide_rows(ts)
     head = [S, min(ts.newton_iters, fused._NEWTON_FUSED_MAX)]
     rng = np.random.default_rng(5)
     n = N_RAYS
@@ -593,7 +625,7 @@ def _check_run_time_bodies(host_lib, ts, tp, w, axial_ray=False):
     seeds = np.ascontiguousarray(rng.normal(size=(8, n)))
 
     def raygen_kernel(mode, c=None, s=None):
-        out4, tab, dd = np.zeros(4), np.zeros((S + 1, 32)), np.zeros((4, n))
+        out4, tab, dd = np.zeros(4), np.zeros((S + 1 + E, 32)), np.zeros((4, n))
         c = np.zeros(4) if c is None else c
         s = np.zeros((8, n)) if s is None else s
         host_lib.raygen_kernels(
@@ -613,8 +645,8 @@ def _check_run_time_bodies(host_lib, ts, tp, w, axial_ray=False):
     d_rg, d_diff, d_data = fused._moments_bwd_plain(
         ts, diffp, nondiffp, rg, data, torch.from_numpy(c), True)
     _close(tab[S, :5], d_rg, "K2 rg")
-    _close_params(ts, tab[:S], diffp, d_diff)
-    k2_tab = tab[:S].copy()
+    _close_params(ts, tab[:S], diffp, d_diff, tab[S + 1:])
+    k2_tab = tab.copy()
     for q in range(4):
         _close(dd[q], d_data[q], f"K2 data {q}")
     # K4, all eight seeds (the seed of i reaches nothing)
@@ -623,7 +655,7 @@ def _check_run_time_bodies(host_lib, ts, tp, w, axial_ray=False):
         ts, diffp, nondiffp, rg, data, tuple(range(8)),
         tuple(torch.from_numpy(a) for a in seeds))
     _close(tab[S, :5], d_rg, "K4 rg")
-    _close_params(ts, tab[:S], diffp, d_diff)
+    _close_params(ts, tab[:S], diffp, d_diff, tab[S + 1:])
     for q in range(4):
         _close(dd[q], d_data[q], f"K4 data {q}")
 
@@ -633,7 +665,7 @@ def _check_run_time_bodies(host_lib, ts, tp, w, axial_ray=False):
     rays8 += [torch.from_numpy(rng.uniform(0.5, 1.0, n)),
               torch.from_numpy(rng.uniform(0.0, 1.0, n))]
     rays_np = np.ascontiguousarray(np.stack([_np(r) for r in rays8]))
-    outs, tab = np.zeros((8, n)), np.zeros((S, 32))
+    outs, tab = np.zeros((8, n)), np.zeros((S + E, 32))
     host_lib.caller_kernels(0, n, *head, _ptr(ftab), _ptr(itab),
                             _ptr(rays_np), _ptr(seeds), _ptr(tab), _ptr(outs))
     ref = fused._fused_trace_plain(ts, diffp, nondiffp, rays8)
@@ -646,7 +678,7 @@ def _check_run_time_bodies(host_lib, ts, tp, w, axial_ray=False):
         ts, diffp, nondiffp, rays8, tuple(torch.from_numpy(a) for a in seeds))
     for k in range(8):
         _close(outs[k], d_rays[k], f"K6 d{fused._NAMES[k]}")
-    _close_params(ts, tab, diffp, d_diff)
+    _close_params(ts, tab[:S], diffp, d_diff, tab[S:])
     return k2_tab, tab
 
 
@@ -1052,16 +1084,20 @@ def _check_per_ray_bodies(lib, ts, tp, wavelengths):
     nn = min(ts.newton_iters, fused._NEWTON_FUSED_MAX)
     media = (nn, mat.shape[1], kwl.shape[1])
 
+    E = _wide_rows(ts)
+
     def sweep(fn, mode, rows, *args, n_out):
-        tab = np.zeros((rows, 32))
+        tab = np.zeros((rows + E, 32))
         out = np.zeros((n_out, n))
         seg = np.ones((max(T, 1), n), dtype=np.int32)
         val = np.zeros((max(T, 1), 4, n))
         fn(mode, n, *media, *args, _ptr(tab), _ptr(out), _ptr(seg), _ptr(val))
-        d_mat = fused._material_grads(ts, torch.from_numpy(tab[rows - S:]), (
-            torch.from_numpy(seg), torch.from_numpy(val)), diffp[6])
+        d_mat = fused._material_grads(ts, torch.from_numpy(
+            tab[rows - S:rows]), (torch.from_numpy(seg),
+                                  torch.from_numpy(val)), diffp[6])
         return tab, out, fused._unpack_table_grads(
-            ts, torch.from_numpy(tab[:S]), diffp, d_mat)
+            ts, torch.from_numpy(tab[:S]), diffp, d_mat,
+            torch.from_numpy(tab[rows:]))
 
     def raygen(mode, c=np.zeros(4), s=np.zeros((8, n))):
         out4, rays = np.zeros(4), np.zeros((8, n))
@@ -1498,8 +1534,11 @@ def test_branch_per_ray_bodies_match_plain(branch_libs, f64, name):
 _FREEFORM_SYSTEMS = {"G": SMOKE.anamorphic_singlet,
                      "H": SMOKE.xy_freeform_singlet,
                      "I": SMOKE.tilted_freeform_singlet}
-# every freeform family the chain takes: the run-time bodies' mask
-_ALL_FREEFORMS = sum(1 << g for g in fused._KERNEL_FREEFORMS)
+# every freeform family the chain takes but Forbes Q-2D, whose build takes
+# its system's terms (phase j6's systems J and K, `long_libs`): the
+# run-time bodies' mask
+_ALL_FREEFORMS = sum(1 << g for g in fused._KERNEL_FREEFORMS
+                     if g != fused.GEOM_FORBES_Q2D)
 
 
 @pytest.fixture(scope="module")
@@ -1613,6 +1652,138 @@ def test_freeform_sag_matches_plain(freeform_libs, f64, surface):
         _ptr(out))
     ref = tsurf.sag_and_grad(code, nc, torch.from_numpy(x), torch.from_numpy(y),
                              tp.cv[k], tp.conic[k], tp.coeffs[k], aux)
+    for label, g, r in zip(("z", "gx", "gy"), out, ref):
+        np.testing.assert_allclose(g, _np(r), rtol=0,
+                                   atol=1e-12 * float(r.abs().max()),
+                                   err_msg=label)
+
+
+# phase j6's systems (chip_smoke.py): J, a tilted, decentred Forbes Q-2D face
+# in a 17-slot row; K, a 38-slot Fringe Zernike and a 29-slot Q-2D (the wide
+# rows, OTK_WIDE); L, 17 relays, 70 surfaces (a record of 128, OTK_MAX_
+# SURFACES). Newton's count is cut to 2 here, as the other host systems'.
+_LONG_SYSTEMS = {"J": SMOKE.q2d_singlet, "K": SMOKE.wide_freeform_singlet,
+                 "L": SMOKE.relay_train}
+
+
+def _long_system(name):
+    ts, tp = _LONG_SYSTEMS[name](Optic).build(device="cpu")
+    return replace(ts, newton_iters=2), tp
+
+
+@pytest.fixture(scope="module")
+def long_libs(tmp_path_factory):
+    """J's, K's and L's run-time bodies (the host shim built with their
+    `fused.backward_defines`) and per-system bodies (with their
+    `fused.history_defines`), all g++ processes at once."""
+    from optiland_tpu_torch import _build
+
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("no g++ to build the device code for the host")
+    out = tmp_path_factory.mktemp("long_host")
+    (out / "cuda_runtime.h").write_text("#pragma once\n")
+    procs = {}
+    for name in _LONG_SYSTEMS:
+        ts, _ = _long_system(name)
+        src = out / f"run_time_{name}.cpp"
+        src.write_text(_build.defines_header(fused.backward_defines(
+            ts, False)) + _SHIM)
+        procs[name, "run_time"] = (subprocess.Popen(
+            [gxx, "-O1", "-std=c++17", "-shared", "-fPIC", "-pthread",
+             f"-I{out}", f"-I{CSRC}", "-o", str(out / f"librun_time_{name}.so"),
+             str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True), out / f"librun_time_{name}.so")
+        procs[name, "system"] = (_system_lib(
+            out, gxx, name, fused.history_defines(ts)),
+            out / f"libsystem_{name}.so")
+    libs = {}
+    for key, (proc, lib) in procs.items():
+        log = proc.communicate()[0]
+        assert proc.returncode == 0, log
+        libs[key] = ctypes.CDLL(str(lib))
+    return libs
+
+
+def _long_coeff_rows(ts, tp, tab, S_rows):
+    """The coefficient cotangents of a backward table whose table rows are
+    the first S and whose wide rows are its last (`fused._wide_layout`):
+    every slot of J's and K's freeform faces, past 17 too, nonzero; L's
+    aspheres' coefficient nonzero."""
+    ts_rows = torch.from_numpy(tab[:ts.num_surfaces])
+    E = _wide_rows(ts)
+    d = fused._unpack_table_grads(
+        ts, ts_rows, fused._diff_params(tp),
+        wide=torch.from_numpy(tab[len(tab) - E:]) if E else None)[2]
+    for k in range(1, ts.num_surfaces - 1):
+        if ts.geom_n_coeffs[k]:
+            row = d[k, :ts.geom_n_coeffs[k]]
+            assert row.abs().min() > 0, (k, row)
+
+
+@pytest.mark.parametrize("name", list(_LONG_SYSTEMS))
+def test_long_run_time_bodies_match_plain(long_libs, f64, name):
+    """The run-time chain of the backward kernels (K1's moments, K2, K4, K5,
+    K6 at one wavelength) on J, K and L, built with their
+    `backward_defines`: the Q-2D branch with its terms' tables, the wide
+    rows read from the table's tail and their cotangents summed in rows of
+    their own, and L's 70-surface record; against the plain versions at
+    1e-10, every coefficient slot's cotangent nonzero in K2's and K6's
+    tables."""
+    ts, tp = _long_system(name)
+    k2, k6 = _check_run_time_bodies(long_libs[name, "run_time"], ts, tp,
+                                    0.55)
+    _long_coeff_rows(ts, tp, k2, ts.num_surfaces + 1)
+    _long_coeff_rows(ts, tp, k6, ts.num_surfaces)
+
+
+@pytest.mark.parametrize("name", list(_LONG_SYSTEMS))
+def test_long_system_bodies_match_plain(long_libs, f64, name):
+    """The per-system bodies of J, K and L (K1, K3, K5 at one wavelength, K7
+    at per-ray wavelengths), built with their codes: the Q-2D terms, the
+    wide surfaces' rows and counts (OTK_WIDE_OFF, OTK_WIDE_NC), 70
+    unrolled surfaces; against the plain versions."""
+    ts, tp = _long_system(name)
+    _check_system_bodies(long_libs[name, "system"], ts, tp)
+
+
+@pytest.mark.parametrize("name", list(_LONG_SYSTEMS))
+def test_long_per_ray_bodies_match_plain(long_libs, f64, name):
+    """The per-ray variants' bodies of J, K and L (K1, K3 by the per-system
+    chain at each ray's w; K2, K4, K5, K6 by the per-ray sweep) against the
+    plain versions, every coefficient slot's cotangent nonzero."""
+    ts, tp = _long_system(name)
+    got = _check_per_ray_bodies(long_libs[name, "system"], ts, tp,
+                                (0.48, 0.55, 0.65))
+    for label in ("K2", "K6"):
+        d = got[label][3 if label == "K2" else 1][2]
+        for k in range(1, ts.num_surfaces - 1):
+            if ts.geom_n_coeffs[k]:
+                assert d[k, :ts.geom_n_coeffs[k]].abs().min() > 0, (label, k)
+
+
+@pytest.mark.parametrize("surface", ["J1", "K1", "K2"])
+def test_long_sag_matches_plain(long_libs, f64, surface):
+    """`ff_sag_grad` of J's Q-2D face and K's 38-slot Zernike and 29-slot
+    Q-2D faces (their groups' range and their whole rows) against
+    `geometry/surfaces.sag_and_grad` at 48 points over +-5 mm, past the
+    norm radius too, at 1e-12 of each output's scale."""
+    from optiland_tpu_torch.geometry import surfaces as tsurf
+
+    ts, tp = _long_system(surface[0])
+    k = int(surface[1])
+    code, nc = ts.geom_codes[k], ts.geom_n_coeffs[k]
+    a0, a1 = fused._freeform_aux(ts, k)
+    x, y = np.random.default_rng(k).uniform(-5.5, 5.5, (2, 48))
+    co = np.ascontiguousarray(_np(tp.coeffs[k]))
+    out = np.zeros((3, 48))
+    long_libs[surface[0], "run_time"].ff_sag_points(
+        code, nc, a0, a1, ctypes.c_double(float(tp.cv[k])),
+        ctypes.c_double(float(tp.conic[k])), _ptr(co), 48, _ptr(x), _ptr(y),
+        _ptr(out))
+    ref = tsurf.sag_and_grad(code, nc, torch.from_numpy(x),
+                             torch.from_numpy(y), tp.cv[k], tp.conic[k],
+                             tp.coeffs[k], ts.geom_aux[k])
     for label, g, r in zip(("z", "gx", "gy"), out, ref):
         np.testing.assert_allclose(g, _np(r), rtol=0,
                                    atol=1e-12 * float(r.abs().max()),

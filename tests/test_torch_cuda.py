@@ -31,6 +31,7 @@ import torch
 
 from optiland_tpu_torch import _build as kbuild
 from optiland_tpu_torch import config
+from optiland_tpu_torch.geometry.surfaces import GEOM_GRID_SAG, GEOM_NURBS
 from optiland_tpu_torch.models import CookeTriplet
 from optiland_tpu_torch.mtf import HuygensMTF
 from optiland_tpu_torch.psf import ScalarHuygensPSF
@@ -74,6 +75,11 @@ PARAM_GRAD_RTOL, RAY_GRAD_RTOL = 1e-3, 5e-3
 # the phase systems D-F, whose groups that miss PARAM_GRAD_RTOL (sums that
 # cancel under the seeds) are held to float64 instead (`_assert_params`)
 _PHASE = ("hybrid_achromat", "metalens", "phase_mirror")
+# the 70-surface relay train (L): a group that misses PARAM_GRAD_RTOL joins
+# that float64 check only where the plain float32 version itself misses it
+# against float64 on the same inputs (K6's `coeffs` under its random seeds:
+# 1.1e-3 on the CPU, the kernel 1.1e-3 off the plain version on an H100)
+_LONG = ("relay_train",)
 
 _SYSTEMS = {
     "singlet": dict(),
@@ -90,12 +96,16 @@ _BACKWARD = ("moments_bwd", "raygen_trace_bwd", "fused_trace_bwd")
 # a plane grating, object heights), the concave reflective grating, coated,
 # and chip_smoke.py's phase systems D-F: the hybrid achromat (radial and
 # constant sheets behind N-BK7), the coated metalens on a conic carrier and
-# the tilted reflective linear-grating sheet; and its freeform systems G-I
+# the tilted reflective linear-grating sheet; its freeform systems G-I
 # (OTK_FREEFORM): the biconic and toroidal singlet, the poly-XY and Zernike
-# singlet, the tilted, decentred Chebyshev and Forbes Q-bfs singlet
+# singlet, the tilted, decentred Chebyshev and Forbes Q-bfs singlet; and
+# its systems J-L: the tilted, decentred Forbes Q-2D singlet, the singlet
+# of a 38-slot Zernike and a 29-slot Q-2D (OTK_WIDE), the 70-surface relay
+# train (OTK_MAX_SURFACES in the backward kernels)
 _BRANCHES = ("coated_singlet", "coated_cooke", "thin_lens", "spectrograph",
              "curved_grating", "hybrid_achromat", "metalens", "phase_mirror",
-             "anamorphic", "xy_freeform", "tilted_freeform")
+             "anamorphic", "xy_freeform", "tilted_freeform", "q2d_freeform",
+             "wide_freeform", "relay_train")
 
 
 @pytest.fixture(scope="module")
@@ -119,7 +129,7 @@ def system_variants():
                           for src in _PER_SYSTEM)
         variants += tuple((src, fused.backward_defines(ts, True))
                           for src in _BACKWARD)
-        if fused.branch_defines(ts):
+        if fused.backward_defines(ts, False):
             variants += tuple((src, fused.backward_defines(ts, False))
                               for src in _BACKWARD)
     kbuild.build_all(variants)
@@ -173,7 +183,10 @@ def _build(name, device):
                 "phase_mirror": phase_mirror,
                 "anamorphic": SMOKE.anamorphic_singlet,
                 "xy_freeform": SMOKE.xy_freeform_singlet,
-                "tilted_freeform": SMOKE.tilted_freeform_singlet}[name]
+                "tilted_freeform": SMOKE.tilted_freeform_singlet,
+                "q2d_freeform": SMOKE.q2d_singlet,
+                "wide_freeform": SMOKE.wide_freeform_singlet,
+                "relay_train": SMOKE.relay_train}[name]
         return (*make(Optic).build(device=device), 0.55)
     ts, tp = singlet_lens(Optic, **_SYSTEMS[name]).build(device=device)
     return replace(ts, newton_iters=4), tp, 0.55
@@ -219,14 +232,17 @@ def _assert_params(name, got, ref, plain, args):
     systems a group that misses it passes by chip_smoke.py's float64 check
     (`float64_errs`, `near_float64`): the kernel within the larger of
     PARAM_GRAD_RTOL and F64_FACTOR times the float32 noise of `plain(*args)`
-    run in float64."""
+    run in float64; on the relay train (`_LONG`) only a group whose float32
+    noise itself exceeds PARAM_GRAD_RTOL."""
     errs = _param_errs(got[1], ref[1])
     miss = [j for j, v in errs.items() if v > PARAM_GRAD_RTOL]
     far = {}
-    if miss and name in _PHASE:
+    if miss and name in _PHASE + _LONG:
         far = SMOKE.float64_errs(got, plain, args)
-        miss = [j for j in miss if not SMOKE.near_float64(
-            far[SMOKE.PARAM_GROUPS[j]], PARAM_GRAD_RTOL)]
+        miss = [j for j in miss if not (
+            SMOKE.near_float64(far[SMOKE.PARAM_GROUPS[j]], PARAM_GRAD_RTOL)
+            and (name in _PHASE
+                 or far[SMOKE.PARAM_GROUPS[j]][1] > PARAM_GRAD_RTOL))]
     assert errs and not miss, (errs, far)
 
 
@@ -611,12 +627,26 @@ def test_entry_points_launch_kernels(cuda_f32):
     assert fused.history_forward.launches == before + 1
     assert h.x.shape == (ts.num_surfaces, 4096)
     assert bool(torch.isfinite(tp.cv.grad).all()) and tp.cv.grad.any()
-    # a branch the kernels do not take raises, naming kernel and branch
-    freeform = replace(ts, geom_codes=(0, fused.GEOM_FORBES_Q2D)
-                       + ts.geom_codes[2:])
-    with pytest.raises(NotImplementedError,
-                       match="K7.*branch 4b.*Forbes Q-2D geometries"):
-        tracer.trace_system(freeform, tp, *data, 0.5876)
+    # what JAX's gate leaves to the eager trace (grid sag, NURBS) the kernels
+    # refuse by name; a Forbes Q-2D system (J) takes them: K1, K2 and K7
+    rays0 = generate_rays(ts, tp, *data, 0.5876)
+    rays9 = tuple(getattr(rays0, k).contiguous() for k in fused._RAY_KEYS)
+    for code in (GEOM_GRID_SAG, GEOM_NURBS):
+        other = replace(ts, geom_codes=(0, code) + ts.geom_codes[2:])
+        with pytest.raises(ValueError, match="no grid sag or NURBS"):
+            fused.history_forward(other, fused._diff_params(tp),
+                                  fused._nondiff_params(tp), rays9)
+    ts_q, tp_q = SMOKE.q2d_singlet(Optic).build(device=cuda_f32)
+    tp_q = tp_q.replace(coeffs=tp_q.coeffs.clone().requires_grad_(True))
+    before = [f.launches for f in counters[:2]] + [
+        fused.history_forward.launches]
+    m = fused.spot_moments(ts_q, tp_q, *data, 0.55)
+    m[3].backward()
+    h = tracer.trace_system(ts_q, tp_q, *data, 0.55)
+    assert [f.launches - b for f, b in zip(
+        counters[:2] + (fused.history_forward,), before)] == [1, 1, 1]
+    assert bool(torch.isfinite(h.x).all())
+    assert bool((tp_q.coeffs.grad[1, :17] != 0).all())
     # a phase system takes the kernels: K1, K2 and K7 at one wavelength
     ts_p, tp_p = curved_metalens(Optic).build(device=cuda_f32)
     tp_p = tp_p.replace(phase_params=tp_p.phase_params.clone()

@@ -1,25 +1,26 @@
 """The freeform geometries of the port against the JAX package, in float64
 on the CPU.
 
-Families: the six of JAX's fused-kernel tests (`FREEFORM_CASES` of
+Families: the seven of JAX's fused kernels (`FREEFORM_CASES` of
 tests/test_fused_kernel.py: poly-XY, biconic, toroidal, Chebyshev, Zernike,
-Forbes Q-bfs, each on the R +-60 mm singlet, EPD 8, Newton count 6), and
-the two the kernels leave to the eager trace here, Forbes Q-2D (ROADMAP
-queue 2, branch 4b) and the grid sag. Each system is built in both
-packages from one prescription (tests/torch_port_helpers.py `build_both`,
-which also holds the port's own `Optic.build` to the JAX tables: codes,
-cv, k, coefficients, aux):
+Forbes Q-bfs, and Forbes Q-2D), each on the R +-60 mm singlet, EPD 8,
+Newton count 6, and the one the kernels leave to the eager trace, the grid
+sag. Each system is built in both packages from one prescription
+(tests/torch_port_helpers.py `build_both`, which also holds the port's own
+`Optic.build` to the JAX tables: codes, cv, k, coefficients, aux):
   - each family's `sag` and `sag_and_grad` on seeded points at 1e-12 of
     their scale, on its singlet;
   - on four singlets that carry two families each (`PAIRS`: biconic and
     toroidal, poly-XY and Zernike, Chebyshev and Q-bfs, Q-2D and grid
-    sag): `trace_system` at per-ray wavelengths, every history field from
-    the family's face on at rtol 1e-10 of its scale, and
-    `centroid_rms_spot`'s gradients at one and at per-ray wavelengths,
-    within 1e-8 of each leaf's largest entry;
+    sag), and on chip_smoke.py's system K ("wide": a 38-slot Fringe Zernike
+    and a 29-slot Q-2D, past a 17-slot row): `trace_system` at per-ray
+    wavelengths, every history field from the family's face on at rtol
+    1e-10 of its scale, and `centroid_rms_spot`'s gradients at one and at
+    per-ray wavelengths, within 1e-8 of each leaf's largest entry;
   - on the biconic-toroidal singlet (every parameter that enters a sag
     nonlinearly but a norm: cv and k of both profiles, the rotation
-    curvature, the y-polynomial): the plain versions of K1/K2
+    curvature, the y-polynomial) and on the Q-2D singlet (a and b terms at
+    the same (n, m)) (`BODIES`): the plain versions of K1/K2
     (`_moments_plain`, `_moments_bwd_plain`) and K5/K6
     (`_fused_trace_plain`, `_fused_trace_bwd_plain`) against `jax.vjp` of
     JAX's kernel body (`_tile_raygen` + `_tile_trace(..., for_grad=True)`),
@@ -27,18 +28,19 @@ cv, k, coefficients, aux):
     of its largest entry. The plain freeform arm is one code for every
     family (the conic seed, the detached Newton steps, the differentiable
     last one) around each family's `sag_and_grad`, held to JAX's above;
-  - on a triplet with one of the six kernel families on each face: the
+  - on a triplet with one of six kernel families on each face: the
     kernels' plain path (K7's `_history_plain`, `_tile_trace`, the K1/K2
     seam's gradients) against the port's eager trace, in both
     configurations.
 Also the two safe-divides of the Newton step (the eager path's and the
-kernels'), the three Zernike conventions, and the refusals: Q-2D in the
-kernels (branch 4b) and NURBS (item 14).
+kernels'), the three Zernike conventions, the kernels' gate (Q-2D passes,
+grid sag and NURBS are refused by name), and `Optic.add_surface` (NURBS
+builds, an unknown keyword is refused by name).
 
-The JAX side is six XLA programs, a module-scoped fixture: one per pair
-and one per configuration of the kernel body, lowered one after another
-and compiled in threads at once at XLA's backend optimization level 0
-(the same float64 arithmetic)."""
+The JAX side is nine XLA programs, a module-scoped fixture: one per pair
+and for K, and one per configuration of each kernel body, lowered one
+after another and compiled in threads at once at XLA's backend
+optimization level 0 (the same float64 arithmetic)."""
 
 import math
 from concurrent.futures import ThreadPoolExecutor
@@ -56,11 +58,12 @@ from optiland_tpu.trace.tracer import trace_rays as j_trace_rays
 from optiland_tpu.trace.tracer import trace_system as j_trace_system
 from optiland_tpu_torch.geometry import surfaces as tsurf
 from optiland_tpu_torch.optimization.merits import centroid_rms_spot
+from optiland_tpu_torch.system import spec as tspec
 from optiland_tpu_torch.system.optic import Optic as TOptic
 from optiland_tpu_torch.trace import fused as tfused
 from optiland_tpu_torch.trace.tracer import trace_rays, trace_system
 
-from torch_port_helpers import assert_close, build_both, jax_f64
+from torch_port_helpers import SMOKE, assert_close, build_both, jax_f64
 
 N_RAYS = 48
 RTOL_SAG = 1e-12
@@ -74,7 +77,7 @@ _GROUPS = ("cv", "conic", "coeffs", "thickness", "tilt", "decenter",
            "mat_coeffs", "coating_params", "n_table", "grating",
            "phase_params", "focal_length")
 
-# tests/test_fused_kernel.py FREEFORM_CASES, and the two eager families
+# tests/test_fused_kernel.py FREEFORM_CASES, and the eager family
 KERNEL_CASES = {
     "polynomial": dict(coefficients=(0.0, 1e-5, -2e-6, 3e-6)),
     "biconic": dict(radius_y=-90.0, conic_y=0.4, conic=-0.2),
@@ -83,12 +86,12 @@ KERNEL_CASES = {
                       norm_y=10.0),
     "zernike": dict(coefficients=(1e-5, -2e-5, 3e-5), norm_radius=8.0),
     "forbes_qbfs": dict(coefficients=(1e-4, -2e-5), norm_radius=8.0),
-}
-_XS = np.linspace(-6.0, 6.0, 7)
-EAGER_CASES = {
     "forbes_q2d": dict(norm_radius=8.0, freeform_coeffs={
         ("a", 0, 0): 1e-4, ("a", 0, 1): -2e-5, ("a", 1, 0): 2e-5,
         ("b", 1, 0): -1e-5, ("a", 2, 1): 3e-5, ("b", 3, 0): 1e-5}),
+}
+_XS = np.linspace(-6.0, 6.0, 7)
+EAGER_CASES = {
     "grid_sag": dict(x_coordinates=_XS, y_coordinates=_XS, sag_values=(
         1e-3 * np.add.outer(_XS**2, 0.5 * _XS**2)
         + 2e-4 * np.add.outer(_XS, -_XS))),
@@ -104,8 +107,8 @@ PAIRS = {
            ("zernike", KERNEL_CASES["zernike"])),
     "orthogonal": (("chebyshev", KERNEL_CASES["chebyshev"]),
                    ("forbes_qbfs", KERNEL_CASES["forbes_qbfs"])),
-    "eager": (("forbes_q2d", EAGER_CASES["forbes_q2d"]),
-              ("grid_sag", EAGER_CASES["grid_sag"])),
+    "forbes_grid": (("forbes_q2d", KERNEL_CASES["forbes_q2d"]),
+                    ("grid_sag", EAGER_CASES["grid_sag"])),
 }
 FACE = {stype: (label, k) for label, faces in PAIRS.items()
         for k, (stype, _) in enumerate(faces, 1)}
@@ -222,8 +225,15 @@ def _kernel_body(js, jp, uniform, rg, data, w, seeds):
             (tuple(e_rays8) + (() if uniform else (e_w,)), e_diff))
 
 
-# the singlet whose kernel body JAX differentiates here
-BODY_CASES = ("anamorphic",)
+# the systems whose kernel body JAX differentiates here: the biconic-toroidal
+# pair and the Q-2D singlet
+BODIES = {"anamorphic": freeform_pair("anamorphic"),
+          "q2d": freeform_singlet("forbes_q2d", KERNEL_CASES["forbes_q2d"])}
+BODY_CASES = tuple(BODIES)
+# chip_smoke.py's system K: a 38-slot Fringe Zernike front and a 29-slot
+# Forbes Q-2D back, on the first N_WIDE rays, WIDE_NEWTON Newton steps
+# (in both packages; JAX's program for it is the fixture's longest)
+N_WIDE, WIDE_NEWTON = 16, 3
 
 
 def _j_spot_merit(h):
@@ -241,21 +251,21 @@ def _j_spot_merit(h):
 
 @pytest.fixture(scope="module")
 def jax_results():
-    """Per pair (`PAIRS`): the JAX history of its singlet at per-ray
-    wavelengths, and the merit and its gradients at one wavelength (every
-    ray at the primary 0.55 um) and at per-ray ones, by one program that
-    differentiates the merit with the history as its by-product; for
-    `BODY_CASES` the kernel body's values and cotangents, one program per
-    configuration; the XLA compiles in threads at once. And the port's
-    system carried across."""
+    """Per pair (`PAIRS`) and for K ("wide"): the JAX history of its
+    singlet at per-ray wavelengths, and the merit and its gradients at one
+    wavelength (every ray at the primary 0.55 um) and at per-ray ones, by
+    one program that differentiates the merit with the history as its
+    by-product; for `BODIES` the kernel body's values and cotangents, one
+    program per configuration; the XLA compiles in threads at once. And
+    the port's system carried across."""
     data, widx, seeds = _inputs()
     idx = jnp.asarray(widx)
     jobs = {}
     with jax_f64():
-        for label in PAIRS:
-            (js, jp), port = build_both(freeform_pair(label), newton_iters=6)
+        def merit_job(make, data, idx, newton_iters=6):
+            (js, jp), port = build_both(make, newton_iters=newton_iters)
 
-            def run(p, idx, js=js):
+            def run(p, idx, js=js, data=data):
                 def merit(q):
                     h = j_trace_system(js, q, *data, q.wavelengths[idx])
                     return _j_spot_merit(h), h
@@ -263,9 +273,14 @@ def jax_results():
                 (loss, h), g = jax.value_and_grad(merit, has_aux=True)(p)
                 return tuple(getattr(h, f) for f in _FIELDS), g, loss
 
-            jobs[label] = (run, (jp, idx), port)
-            if label not in BODY_CASES:
-                continue
+            return run, (jp, idx), port
+
+        # the longest compiles first: each program compiles in a thread as
+        # soon as it is lowered, beside the next one's lowering
+        jobs["wide"] = merit_job(SMOKE.wide_freeform_singlet, tuple(
+            a[:N_WIDE] for a in data), idx[:N_WIDE], WIDE_NEWTON)
+        for label, make in BODIES.items():
+            (js, jp), port = build_both(make, newton_iters=6)
             ts, tp = port
             rg = jnp.asarray(tfused._raygen_scalars(ts, tp).numpy())
             d = tuple(jnp.asarray(a) for a in data)
@@ -276,20 +291,25 @@ def jax_results():
                         w, 0.55) if uniform else w, seeds)
 
                 jobs[(label, uniform)] = (body, (jp, idx), port)
-        lowered = [jax.jit(f).lower(*args) for f, args, _ in jobs.values()]
+        for label in PAIRS:
+            jobs[label] = merit_job(freeform_pair(label), data, idx)
         with ThreadPoolExecutor(len(jobs)) as pool:
-            compiled = list(pool.map(lambda lo: lo.compile(
-                compiler_options={"xla_backend_optimization_level": 0}),
-                lowered))
+            futures = [pool.submit(lambda lo: lo.compile(compiler_options={
+                "xla_backend_optimization_level": 0}), jax.jit(f).lower(
+                    *args)) for f, args, _ in jobs.values()]
+            compiled = [f.result() for f in futures]
         to_np = lambda tree: jax.tree_util.tree_map(np.asarray, tree)  # noqa: E731
         out = {}
-        for (key, (_, (jp, _), port)), prog in zip(jobs.items(), compiled):
+        for (key, (_, (jp, idx_k), port)), prog in zip(jobs.items(),
+                                                        compiled):
             if isinstance(key, tuple):
-                out[key[0]].setdefault("kernel", [None, None])[
-                    0 if key[1] else 1] = to_np(prog(jp, idx))
+                out.setdefault(f"body {key[0]}", dict(port=port)).setdefault(
+                    "kernel", [None, None])[0 if key[1] else 1] = to_np(
+                    prog(jp, idx_k))
                 continue
-            hist, g_ray, loss_ray = to_np(prog(jp, idx))
-            _, g_one, loss_one = to_np(prog(jp, jnp.zeros_like(idx)))
+            hist, g_ray, loss_ray = to_np(prog(jp, idx_k))
+            at_055 = int(np.argmin(np.abs(np.asarray(jp.wavelengths) - 0.55)))
+            _, g_one, loss_one = to_np(prog(jp, jnp.full_like(idx_k, at_055)))
             out[key] = dict(port=port, hist=hist, grads=(g_one, g_ray),
                             loss=(loss_one, loss_ray))
     return out
@@ -400,18 +420,59 @@ def test_merit_gradients_match_jax(jax_results, name, config):
     assert grads["coeffs"][k].abs().max() > 0
 
 
+def test_wide_trace_system_matches_jax(jax_results):
+    """System K (chip_smoke.py `wide_freeform_singlet`: a 38-slot Fringe
+    Zernike front, a 29-slot Forbes Q-2D back, N-BK7): `trace_system` at
+    per-ray wavelengths on N_WIDE rays, every history field within 1e-10
+    of its scale of the JAX package's."""
+    ts, tp = jax_results["wide"]["port"]
+    assert ts.geom_n_coeffs[1:3] == (38, 29)
+    data, widx, _ = _inputs()
+    h = trace_system(ts, tp, *(torch.from_numpy(a[:N_WIDE]) for a in data),
+                     tp.wavelengths[torch.from_numpy(widx[:N_WIDE])])
+    for f, r in zip(_FIELDS, jax_results["wide"]["hist"]):
+        assert_close(getattr(h, f), r, RTOL_VALUES, f)
+
+
+@pytest.mark.parametrize("config", ["one", "per_ray"])
+def test_wide_merit_gradients_match_jax(jax_results, config):
+    """`centroid_rms_spot` on system K at one and at per-ray wavelengths:
+    its value within 1e-10 of JAX's, its gradients into cv, conic and both
+    faces' whole coefficient rows (past their 17th slot too) within 1e-8 of
+    each leaf's largest entry, every slot of both rows reached."""
+    ts, tp = jax_results["wide"]["port"]
+    per_ray = config == "per_ray"
+    ref = jax_results["wide"]["grads"][per_ray]
+    data, widx, _ = _inputs()
+    leaves = {key: getattr(tp, key).detach().clone().requires_grad_(True)
+              for key in ("cv", "conic", "coeffs")}
+    p = tp.replace(**leaves)
+    w = (p.wavelengths[torch.from_numpy(widx[:N_WIDE])] if per_ray
+         else 0.55)
+    loss = centroid_rms_spot(ts, p, *(torch.from_numpy(a[:N_WIDE])
+                                      for a in data), w)
+    assert_close(loss, jax_results["wide"]["loss"][per_ray], RTOL_VALUES,
+                 "loss")
+    grads = dict(zip(leaves, torch.autograd.grad(loss,
+                                                 list(leaves.values()))))
+    for leaf in leaves:
+        assert_close(grads[leaf], getattr(ref, leaf), RTOL_GRADS, leaf)
+    for k in (1, 2):
+        assert grads["coeffs"][k, 1:ts.geom_n_coeffs[k]].abs().min() > 0
+
+
 @pytest.mark.parametrize("config", ["one", "per_ray"])
 @pytest.mark.parametrize("name", BODY_CASES)
 def test_kernel_plain_versions_match_jax(jax_results, name, config):
     """The freeform arm of the kernels' plain versions on the
-    biconic-toroidal singlet: K1's moments and K2's cotangents (rg, every
-    table group, Hx, Hy, Px, Py and at per-ray wavelengths w), K5's final
-    state and K6's cotangents against `jax.vjp` of JAX's kernel body, every
-    group at atol 1e-10 of its largest entry, both faces' coefficient rows
-    reached."""
-    ts, tp = jax_results[name]["port"]
+    biconic-toroidal singlet and on the Q-2D singlet (`BODIES`): K1's
+    moments and K2's cotangents (rg, every table group, Hx, Hy, Px, Py and
+    at per-ray wavelengths w), K5's final state and K6's cotangents against
+    `jax.vjp` of JAX's kernel body, every group at atol 1e-10 of its
+    largest entry, the freeform faces' coefficient rows reached."""
+    ts, tp = jax_results[f"body {name}"]["port"]
     uniform = config == "one"
-    final, rays8, ref2, ref6 = jax_results[name]["kernel"][
+    final, rays8, ref2, ref6 = jax_results[f"body {name}"]["kernel"][
         0 if uniform else 1]
     data, widx, seeds = _inputs()
     t = tuple(torch.from_numpy(a) for a in data)
@@ -436,7 +497,8 @@ def test_kernel_plain_versions_match_jax(jax_results, name, config):
         assert_close(g, r, ATOL_KERNEL, f"K2 {key}")
     for key, g, r in zip(("Hx", "Hy", "Px", "Py", "w"), d_data, ref2[2]):
         assert_close(g, r, ATOL_KERNEL, f"K2 {key}")
-    assert np.abs(ref2[1][2][1:3]).max(axis=1).min() > 0  # both faces' rows
+    faces = [k for k in (1, 2) if ts.geom_n_coeffs[k]]
+    assert np.abs(ref2[1][2][faces]).max(axis=1).min() > 0  # the faces' rows
     rays = tuple(torch.from_numpy(np.asarray(a)) for a in rays8) + w
     got = tfused._fused_trace_plain(ts, diffp, nondiffp, rays)
     for key, g, r in zip(_FIELDS, got, final):
@@ -564,37 +626,56 @@ def _flat(Optic, make):
 
 
 def test_kernels_refuse_q2d_and_eager_families():
-    """The kernels' gate: Q-2D is JAX's (`supports_fused`) and the plain
-    versions (the card's wrappers on the CPU) refuse it naming ROADMAP
-    queue 2, branch 4b; the grid sag is not in the gate, as in JAX; the six
-    families are and pass."""
+    """The kernels' gate is JAX's (`supports_fused`): the seven kernel
+    families, Forbes Q-2D among them, pass the plain versions (the card's
+    wrappers on the CPU), K1's and K7's; the grid sag and NURBS are not in
+    the gate, as in JAX, and the plain versions refuse them by name."""
     data, _, _ = _inputs()
     t = tuple(torch.from_numpy(a) for a in data)
-    for name in CASES:
-        _, (ts, tp) = build_both(freeform_singlet(name, CASES[name], 1))
-        assert tfused.supports_fused(ts) == (name != "grid_sag"), name
+    nurbs = freeform_singlet("nurbs", dict(
+        conic=-0.8, n_points_u=6, n_points_v=6, nurbs_norm_x=8.0,
+        nurbs_norm_y=8.0), 1)
+    for name in list(CASES) + ["nurbs"]:
+        ts, tp = (nurbs(TOptic).build(device="cpu") if name == "nurbs" else
+                  build_both(freeform_singlet(name, CASES[name], 1))[1])
+        assert tfused.supports_fused(ts) == (name in KERNEL_CASES), name
         diffp, nondiffp = tfused._uniform_params(ts, tp, 0.55)
         rg = tfused._raygen_scalars(ts, tp)
-        if name == "forbes_q2d":
-            with pytest.raises(NotImplementedError,
-                               match=r"K1 moments_forward: .*branch 4b\): "
-                                     r"Forbes Q-2D"):
-                tfused._moments_plain(ts, diffp, nondiffp, rg, t)
-            with pytest.raises(NotImplementedError, match="K7.*branch 4b"):
-                tfused._history_plain(ts, diffp, nondiffp, (t[0],) * 9)
-        elif name == "grid_sag":
-            with pytest.raises(ValueError, match="no grid sag or NURBS"):
-                tfused._moments_plain(ts, diffp, nondiffp, rg, t)
-        else:
+        if name in KERNEL_CASES:
             m = tfused._moments_plain(ts, diffp, nondiffp, rg, t)
             assert float(m[0]) == N_RAYS
+            if name == "forbes_q2d":
+                rays9 = tfused._tile_raygen(ts, rg, *t)
+                rays9 = tuple(r.expand(N_RAYS) for r in rays9) + (
+                    torch.full((N_RAYS,), 0.55, dtype=torch.float64),)
+                h = tfused._history_plain(ts, tfused._diff_params(tp),
+                                          tfused._nondiff_params(tp), rays9)
+                assert float(h[6][-1].min()) == 1.0
+        else:
+            with pytest.raises(ValueError, match="no grid sag or NURBS"):
+                tfused._moments_plain(ts, diffp, nondiffp, rg, t)
+            with pytest.raises(ValueError, match="no grid sag or NURBS"):
+                tfused._history_plain(ts, diffp, nondiffp, (t[0],) * 9)
 
 
 def test_optic_refuses_nurbs_and_unknown_keywords():
-    """NURBS is refused by name (ROADMAP queue 1, item 14), and a keyword a
-    geometry does not take by name."""
+    """NURBS builds (a fitted conic and an explicit control net;
+    tests/test_torch_nurbs.py holds both to JAX), and a keyword a geometry
+    does not take is refused by name."""
     lens = TOptic()
-    with pytest.raises(NotImplementedError, match="nurbs.*item 14"):
-        lens.add_surface(index=0, surface_type="nurbs")
+    lens.add_surface(index=0, surface_type="nurbs", radius=60.0,
+                     n_points_u=5, n_points_v=5, nurbs_norm_x=4.0,
+                     nurbs_norm_y=4.0)
+    g = np.linspace(-4.0, 4.0, 4)
+    net = np.stack(list(np.meshgrid(g, g, indexing="ij"))
+                   + [np.zeros((4, 4))])
+    lens.add_surface(index=1, surface_type="nurbs", control_points=net,
+                     weights=np.ones((4, 4)), u_degree=2, v_degree=2)
+    packed = [tspec._pack_geometry(s) for s in lens.surfaces]
+    assert [p[0] for p in packed] == [tsurf.GEOM_NURBS] * 2
+    assert packed[0][4] == (3, 3, 5, 5, -4.0, 4.0, -4.0, 4.0)
+    assert len(packed[1][3]) == 7 + 7 + 4 * 16
     with pytest.raises(NotImplementedError, match="norm_x"):
         lens.add_surface(index=0, surface_type="zernike", norm_x=1.0)
+    with pytest.raises(NotImplementedError, match="norm_radius"):
+        lens.add_surface(index=0, surface_type="nurbs", norm_radius=1.0)

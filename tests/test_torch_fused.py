@@ -130,16 +130,19 @@ def test_kernel_seams_refuse_backward(bench_pair):
 
 
 def test_unported_chain_branches_raise():
-    """The chain branch still to port (queue 2, branch 4b: Forbes Q-2D
-    geometries) raises before a launch, naming the kernel and the branch;
-    the freeform (tests/test_torch_freeform.py), coating, thin-lens,
-    grating and phase branches are ported and pass
-    (a phase sheet at one wavelength and at per-ray wavelengths), while a
-    grid or height-profile sheet (the eager path's, as in JAX) and a sheet
-    on an asphere are refused by name."""
+    """No chain branch of JAX's kernels is left to port: a phase sheet at
+    one wavelength and at per-ray wavelengths, a simple coating and a
+    Forbes Q-2D face (system J of chip_smoke.py; tests/test_torch_freeform.py
+    holds it to JAX) pass the kernels' plain versions. What JAX's gate
+    leaves to the eager trace is refused by name before a launch, as are
+    the forms the tables cannot hold: a grid sag or NURBS geometry, a grid
+    or height-profile sheet, and a phase sheet on an asphere."""
     (_, _), (ts, tp) = build_both(
         lambda O: singlet_lens(O, asphere=False))
     from dataclasses import replace
+
+    from optiland_tpu_torch.geometry.surfaces import GEOM_GRID_SAG, GEOM_NURBS
+    from torch_port_helpers import SMOKE, TOptic
 
     phased = replace(ts, interactions=(3, tfused.INT_PHASE, 0, 3),
                      phase_kinds=(0, tfused.PHASE_CONSTANT, 0, 0))
@@ -154,15 +157,21 @@ def test_unported_chain_branches_raise():
         phased, tp, *_t(_data(n=8)), torch.full((8,), 0.55,
                                                 dtype=torch.float64))
     assert all(bool(torch.isfinite(v).all()) for v in out.values())
-    freeform = replace(ts, geom_codes=(0, tfused.GEOM_FORBES_Q2D, 1, 0))
-    with pytest.raises(NotImplementedError,
-                       match=r"K1 moments_forward: .*: Forbes Q-2D "
-                             r"geometries$"):
-        tfused._moments_plain(freeform, *_port_args(ts, tp, 0.55),
+    ts_q, tp_q = SMOKE.q2d_singlet(TOptic).build(device="cpu")
+    assert tfused.supports_fused(ts_q)
+    m = tfused._moments_plain(ts_q, *_port_args(ts_q, tp_q, 0.55),
                               _t(_data(n=8)))
-    with pytest.raises(NotImplementedError,
-                       match=r"K3 raygen_trace_forward: .*branch 4b"):
-        tfused.trace_system_final_fused(freeform, tp, *_t(_data(n=8)), 0.55)
+    assert bool(torch.isfinite(m).all()) and 7.9 < float(m[0]) <= 8.0
+    out = tfused.trace_system_final_fused(ts_q, tp_q, *_t(_data(n=8)), 0.55)
+    assert all(bool(torch.isfinite(v).all()) for v in out.values())
+    for code in (GEOM_GRID_SAG, GEOM_NURBS):
+        eager = replace(ts, geom_codes=(0, code, 1, 0))
+        assert not tfused.supports_fused(eager)
+        with pytest.raises(ValueError, match="no grid sag or NURBS"):
+            tfused._moments_plain(eager, *_port_args(ts, tp, 0.55),
+                                  _t(_data(n=8)))
+        with pytest.raises(ValueError, match="no grid sag or NURBS"):
+            tfused.trace_system_final_fused(eager, tp, *_t(_data(n=8)), 0.55)
     gridded = replace(phased, phase_kinds=(0, PHASE_GRID, 0, 0))
     assert not tfused.supports_fused(gridded)
     with pytest.raises(ValueError, match="not grid or height profiles"):
