@@ -52,3 +52,29 @@ def translate_z(rays: Rays, tz) -> Rays:
 
 def untranslate_z(rays: Rays, tz) -> Rays:
     return rays.replace(z=rays.z + tz)
+
+
+def rotation_matrix(rx, ry, rz) -> torch.Tensor:
+    """3x3 rotation matrix R = Rz @ Ry @ Rx (reference
+    `coordinate_system.py:121-143`), in the dtype and on the device of the
+    first angle that is a tensor (Python numbers: the precision policy's
+    dtype, on the CPU)."""
+    from optiland_tpu_torch import config
+
+    ref = next((a for a in (rx, ry, rz) if torch.is_tensor(a)), None)
+    dt = config.get_dtype() if ref is None else ref.dtype
+    dev = None if ref is None else ref.device
+    rx, ry, rz = torch.broadcast_tensors(
+        *(torch.as_tensor(a, dtype=dt, device=dev) for a in (rx, ry, rz)))
+    one, zero = torch.ones_like(rx), torch.zeros_like(rx)
+    cx, sx = torch.cos(rx), torch.sin(rx)
+    cy, sy = torch.cos(ry), torch.sin(ry)
+    cz, sz = torch.cos(rz), torch.sin(rz)
+
+    def mat(rows):
+        return torch.stack([torch.stack(r) for r in rows])
+
+    Rx = mat([[one, zero, zero], [zero, cx, -sx], [zero, sx, cx]])
+    Ry = mat([[cy, zero, sy], [zero, one, zero], [-sy, zero, cy]])
+    Rz = mat([[cz, -sz, zero], [sz, cz, zero], [zero, zero, one]])
+    return Rz @ Ry @ Rx

@@ -424,6 +424,10 @@ def surface_normal(code: int, n_coeffs: int, x, y, cv, k, coeffs,
 def _conic_intersect(x, y, z, L, M, N, cv, k):
     """Closed-form ray/conic intersection in curvature form; the root
     nearest the vertex plane, with a linear fallback for A ~ 0.
+    The two roots are q / A and C / q with q = -(B + sign(B) sqrt(disc)) / 2,
+    which never subtracts sqrt(disc) from |B|: (-B +- sqrt(disc)) / 2A
+    cancels where 4 |A C| << B^2, a ray that has come far to a shallow
+    mirror (a telescope's primary loses ~1 mm in float32 that way).
     Returns (t, valid)."""
     kk = 1.0 + k
     A = cv * (L * L + M * M + kk * N * N)
@@ -437,8 +441,10 @@ def _conic_intersect(x, y, z, L, M, N, cv, k):
     one = torch.ones_like(A)
     big = torch.abs(A) > _EPS
     A_safe = torch.where(big, A, one)
-    t1 = (-B + sq) / (2.0 * A_safe)
-    t2 = (-B - sq) / (2.0 * A_safe)
+    q = -0.5 * (B + torch.where(B >= 0.0, sq, -sq))
+    q_safe = torch.where(q != 0.0, q, one)
+    t1 = q / A_safe
+    t2 = torch.where(q != 0.0, C / q_safe, t1)
     z1 = z + t1 * N
     z2 = z + t2 * N
     t_quad = torch.where(torch.abs(z1) <= torch.abs(z2), t1, t2)

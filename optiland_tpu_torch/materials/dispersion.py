@@ -165,3 +165,13 @@ def material_index(formula: int, n_coeffs: int, coeffs, w):
             n = n * w + c[k]
         return n
     raise ValueError(f"Unknown dispersion formula code {formula}")
+
+
+def material_extinction(formula: int, n_coeffs: int, coeffs, w):
+    """Extinction coefficient k(w). Ideal materials store k in coeffs[1];
+    dispersion-formula materials are lossless here (their tabulated k is
+    the Beer-Lambert table `SystemParams.k_wl`, `k_val`)."""
+    w = torch.as_tensor(w, dtype=coeffs.dtype, device=coeffs.device)
+    if formula == FORMULA_IDEAL and n_coeffs > 1:
+        return coeffs[1] + 0.0 * w
+    return torch.zeros_like(w)

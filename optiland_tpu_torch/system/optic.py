@@ -1,17 +1,26 @@
-"""The `Optic` builder: the prescription API of `optiland_tpu/system/optic.py`
-for the ported surface types.
+"""The `Optic` builder: the prescription API of `optiland_tpu/system/optic.py`.
 
 `build(device=...)` compiles the description to a `(SystemStatic,
 SystemParams)` pair with the parameter tensors on that device; without
 `device=` it builds on the CUDA card. `trace` and `trace_generic` trace
-a pupil distribution or explicit coordinates on that device and return
-the (S, N) `TraceHistory` (on the card in float32: kernel K7).
+a pupil distribution or explicit coordinates on that device, aimed as
+`set_ray_aiming` says, and return the (S, N) `TraceHistory` (on the card
+in float32: kernel K7). The editing API (the setters, `scale_system`,
+`flip`, `+`, `update_params`, pickups and solves) edits the description
+or installs new parameters, as the JAX package's does. `info`, `draw`,
+`draw3D`, `to_dict` and `from_dict` wait for `fileio/` and
+`visualization/`, `set_polarization` for `polarization/` (ROADMAP queue 1,
+items 21 and 15).
 """
 
 from __future__ import annotations
 
+import copy
+import hashlib
 import math
+from dataclasses import fields
 
+import numpy as np
 import torch
 
 from optiland_tpu_torch import config
@@ -71,7 +80,7 @@ class _SurfaceCollection:
         rx: float = 0.0,
         ry: float = 0.0,
         rz: float = 0.0,
-        aperture: float | None = None,
+        aperture=None,
         f: float = 0.0,
         coating=None,
         comment: str = "",
@@ -84,7 +93,9 @@ class _SurfaceCollection:
         `radius` and `conic`, its `phase_profile` one of ("constant", v),
         ("radial", [c1, c2, ...]) (c_j r^(2j)), ("linear_grating", kx, ky),
         ("grid", xs, ys, grid) or ("height_profile", xs, ys, h, material),
-        as in the JAX package. The geometry types take the JAX package's
+        as in the JAX package. `aperture` is a radial semi-aperture (a
+        number) or a mask of `system/apertures.py`. The geometry types take
+        the JAX package's
         keywords: "polynomial" its (order+1)^2 `coefficients` C_ij x^i y^j,
         row-major; "biconic" `radius_y`, `conic_y` (`radius`, `conic` the
         x-profile); "toroidal" `radius_y`, `coeffs_poly_y` (`radius` the
@@ -130,7 +141,7 @@ class _SurfaceCollection:
             geometry=geometry,
             surface_type=surface_type,
             is_stop=is_stop,
-            semi_aperture=None if aperture is None else float(aperture),
+            semi_aperture=aperture,
             dx=dx, dy=dy, rx=rx, ry=ry, rz=rz,
             focal_length=f,
             coating=coating,
@@ -231,19 +242,30 @@ class _ParaxialFacade:
 
 
 class Optic:
-    """A sequential optical system (lens prescription)."""
+    """A sequential optical system (lens prescription + trace entry
+    points)."""
 
     def __init__(self, name: str | None = None):
         self.name = name or self.__class__.__name__
         self.surfaces = _SurfaceCollection(self)
         self.fields = _FieldGroup(self)
+        self.obj_space_telecentric = False
         self.wavelengths = _WavelengthGroup(self)
         self.aperture_type: str | None = None
         self.aperture_value: float = 0.0
+        self.apodization = None
         self.device = None  # the device of the last build; None = CUDA
-        self.ray_aiming = "paraxial"
+        self.ray_aiming = "paraxial"  # paraxial, iterative, robust, cached
+        self._aim_cache = {}
         self._built = {}
         self.paraxial = _ParaxialFacade(self)
+        from optiland_tpu_torch.system.solves import (
+            PickupManager,
+            SolveManager,
+        )
+
+        self.pickups = PickupManager(self)
+        self.solves = SolveManager(self)
 
     def _dirty(self):
         self._built = {}
@@ -261,13 +283,56 @@ class Optic:
     def set_field_type(self, field_type: str):
         self.fields.set_type(field_type)
 
+    def set_telecentric(self, is_telecentric: bool = True):
+        """Object-space telecentricity (reference
+        `fields/field_group.py:212`): chief rays parallel to the axis."""
+        self.obj_space_telecentric = bool(is_telecentric)
+        self._dirty()
+
+    def set_apodization(self, spec):
+        """Set the pupil apodization: a name, (name, kwargs) or an instance
+        of `core/apodization.py` (reference `optiland/apodization/`)."""
+        from optiland_tpu_torch.core.apodization import make_apodization
+
+        self.apodization = make_apodization(spec)
+        self._dirty()
+
     def set_ray_aiming(self, mode: str):
-        """Choose the ray-aiming strategy; only "paraxial" is ported (the
-        iterative and robust aimers come with `trace/aiming.py`)."""
+        """Choose the ray-aiming strategy (reference
+        `rays/ray_aiming/registry.py`): "paraxial" (the closed form in
+        `generate_rays`), "iterative", "robust" or "cached" (the iterative
+        aim, memoized on the parameters and the query)."""
         if mode not in ("paraxial", "iterative", "robust", "cached"):
             raise ValueError(
                 "ray aiming must be paraxial, iterative, robust, or cached")
         self.ray_aiming = mode
+        self._aim_cache = {}
+
+    def _aim(self, static, params, Hx, Hy, Px, Py, wavelength):
+        """The pupil coordinates to launch, aimed as `ray_aiming` says."""
+        if self.ray_aiming == "paraxial":
+            return Px, Py
+        from optiland_tpu_torch.trace import aiming
+
+        w = torch.as_tensor(wavelength, dtype=params.cv.dtype,
+                            device=params.cv.device)
+        if self.ray_aiming == "cached":
+            # the iterative aim memoized (reference
+            # `ray_aiming/cached.py:22-147`), keyed on the parameters'
+            # bytes and the query's, so that an edit misses the cache
+            h = hashlib.sha256()
+            arrays = [getattr(params, f.name) for f in fields(params)]
+            for a in arrays + [Hx, Hy, Px, Py, w]:
+                if a is not None:
+                    h.update(a.detach().cpu().numpy().tobytes())
+            key = h.hexdigest()
+            if key not in self._aim_cache:
+                self._aim_cache[key] = aiming.aim_rays_iterative(
+                    static, params, Hx, Hy, Px, Py, w)
+            return self._aim_cache[key]
+        fn = (aiming.aim_rays_iterative if self.ray_aiming == "iterative"
+              else aiming.aim_rays_robust)
+        return fn(static, params, Hx, Hy, Px, Py, w)
 
     def add_field(self, y: float = 0.0, x: float = 0.0, vx: float = 0.0,
                   vy: float = 0.0):
@@ -306,18 +371,239 @@ class Optic:
                 aperture_value=self.aperture_value,
                 wavelengths=self.wavelengths.values_um,
                 primary_wavelength_idx=self.wavelengths.primary_idx,
+                apodization=self.apodization,
+                telecentric=self.obj_space_telecentric,
                 device=dev,
             )
         return self._built[key]
 
-    # -- tracing ---------------------------------------------------------
-    def _aim(self, Px, Py):
-        if self.ray_aiming != "paraxial":
-            raise NotImplementedError(
-                f"ray aiming {self.ray_aiming!r} is not ported yet "
-                "(trace/aiming.py, ROADMAP queue 1, item 13)")
-        return Px, Py
+    @property
+    def static(self):
+        """The `SystemStatic` of a build on the last build's device."""
+        return self.build(device=self.device)[0]
 
+    @property
+    def params(self):
+        """The `SystemParams` of a build on the last build's device."""
+        return self.build(device=self.device)[1]
+
+    def update_params(self, params):
+        """Install an externally updated `SystemParams` (e.g. an optimizer
+        step) without touching the structure, for the last build's device
+        and the current precision."""
+        static, _ = self.build(device=self.device)
+        key = (str(config.resolve_device(self.device)), config.get_dtype())
+        self._built[key] = (static, params)
+
+    def update(self):
+        """Re-apply pickups and solves (reference `Optic.update`)."""
+        self.pickups.apply()
+        self.solves.apply()
+
+    # -- per-surface edits (reference `optic/optic_updater.py:38-160`) ---
+    def set_radius(self, value: float, surface_number: int):
+        """Set the radius of curvature of surface `surface_number`."""
+        self.surfaces.specs[surface_number].radius = float(value)
+        self._dirty()
+
+    def set_conic(self, value: float, surface_number: int):
+        """Set the conic constant of surface `surface_number`."""
+        self.surfaces.specs[surface_number].conic = float(value)
+        self._dirty()
+
+    def set_thickness(self, value: float, surface_number: int):
+        """Set the gap thickness after surface `surface_number`."""
+        self.surfaces.specs[surface_number].thickness = float(value)
+        self._dirty()
+
+    def set_index(self, value: float, surface_number: int):
+        """Make the medium after surface `surface_number` an ideal material
+        of constant index `value`."""
+        self.surfaces.specs[surface_number].material = resolve_material(
+            float(value))
+        self._dirty()
+
+    def set_material(self, material, surface_number: int):
+        """Set the medium after surface `surface_number` (a name, a (name,
+        manufacturer) pair, a number or a MaterialSpec)."""
+        from optiland_tpu_torch.materials.catalog import MaterialSpec
+
+        if not isinstance(material, MaterialSpec):
+            material = resolve_material(material)
+        self.surfaces.specs[surface_number].material = material
+        self._dirty()
+
+    def set_asphere_coeff(self, value: float, surface_number: int,
+                          aspher_coeff_idx: int):
+        """Set one polynomial coefficient of an asphere surface."""
+        s = self.surfaces.specs[surface_number]
+        c = list(s.coefficients)
+        while len(c) <= aspher_coeff_idx:
+            c.append(0.0)
+        c[aspher_coeff_idx] = float(value)
+        s.coefficients = tuple(c)
+        self._dirty()
+
+    # -- system-level edits (reference `optic/optic_updater.py:24-340`) --
+    def scale_system(self, scale_factor: float):
+        """Scale every length of the prescription (radii, thicknesses,
+        freeform coefficients by their powers of length, norm radii, grid
+        sags, grating periods, radial apertures, an EPD or float-by-stop
+        aperture) by `scale_factor` (reference `optic_updater.py:175-204`
+        and each geometry's `scale`). Aperture masks keep their size, as in
+        the JAX package."""
+        f = float(scale_factor)
+        for s in self.surfaces.specs:
+            if math.isfinite(s.radius):
+                s.radius *= f
+            if math.isfinite(s.thickness):
+                s.thickness *= f
+            gp = s.geom_params
+            g = s.geometry
+            if g == "even_asphere":
+                s.coefficients = tuple(
+                    c * f ** (1 - 2 * (i + 1))
+                    for i, c in enumerate(s.coefficients))
+            elif g == "odd_asphere":
+                s.coefficients = tuple(
+                    c * f ** (1 - (i + 1))
+                    for i, c in enumerate(s.coefficients))
+            elif g == "polynomial":
+                # the flattened (order+1)^2 grid: C_ij' = C_ij f^(1-(i+j))
+                n = len(s.coefficients)
+                order = int(round(n**0.5)) - 1
+                s.coefficients = tuple(
+                    c * f ** (1 - (idx // (order + 1) + idx % (order + 1)))
+                    for idx, c in enumerate(s.coefficients))
+            elif g == "chebyshev":
+                gp["norm_x"] = gp.get("norm_x", 1.0) * f
+                gp["norm_y"] = gp.get("norm_y", 1.0) * f
+                gp["coefficients"] = np.asarray(
+                    gp.get("coefficients", s.coefficients), float) * f
+            elif g == "zernike":
+                gp["norm_radius"] = gp.get("norm_radius", 1.0) * f
+                s.coefficients = tuple(c * f for c in s.coefficients)
+            elif g in ("forbes_qbfs", "forbes_q2d"):
+                if gp.get("norm_radius") is not None:
+                    gp["norm_radius"] = gp["norm_radius"] * f
+                if "radial_terms" in gp:
+                    gp["radial_terms"] = {
+                        k: v * f for k, v in gp["radial_terms"].items()}
+                if "freeform_coeffs" in gp:
+                    gp["freeform_coeffs"] = {
+                        k: v * f for k, v in gp["freeform_coeffs"].items()}
+                s.coefficients = tuple(c * f for c in s.coefficients)
+            elif g == "biconic":
+                if math.isfinite(gp.get("radius_y", math.inf)):
+                    gp["radius_y"] = gp["radius_y"] * f
+            elif g == "toroidal":
+                if math.isfinite(gp.get("radius_y", math.inf)):
+                    gp["radius_y"] = gp["radius_y"] * f
+                poly = list(gp.get("coeffs_poly_y", s.coefficients))
+                poly = [c * f ** (1 - 2 * (i + 1))
+                        for i, c in enumerate(poly)]
+                if "coeffs_poly_y" in gp:
+                    gp["coeffs_poly_y"] = poly
+                else:
+                    s.coefficients = tuple(poly)
+            elif g == "grid_sag":
+                for key in ("x_coordinates", "y_coordinates", "sag_values"):
+                    gp[key] = np.asarray(gp[key], float) * f
+            if "grating_period" in gp:
+                gp["grating_period"] = gp["grating_period"] * f
+            sa = s.semi_aperture
+            if isinstance(sa, (int, float)):
+                s.semi_aperture = sa * f
+            elif sa is not None and hasattr(sa, "scale"):
+                s.semi_aperture = sa.scale(f)
+        # EPD and float-by-stop values are lengths, FNO and NA ratios
+        # (reference `aperture/*.is_scalable`)
+        if self.aperture_type in ("EPD", "float_by_stop"):
+            self.aperture_value *= f
+        self._dirty()
+
+    def flip(self):
+        """Reverse the optical train in place: surface order, the signs of
+        every curvature-like radius (a grid sag's table), media and the
+        gaps between surfaces (reference `optic_updater.py:267-289`,
+        `surface_group.py:458-552`); conics and polynomial coefficients
+        stay. The object and image gaps are kept; pickups are remapped to
+        the new surface numbers."""
+        specs = self.surfaces.specs
+        n = len(specs)
+        if n < 3:
+            raise ValueError(
+                "Optic flip requires at least 3 surfaces (obj, element, img)")
+        inner = specs[1:-1]
+        # material[k] is the medium after surface k; reversed, the medium
+        # after new surface j (old surface n-1-j) is the one before it
+        old_mats = [s.material for s in specs]
+        old_thick = [s.thickness for s in specs]
+        new_inner = list(reversed(inner))
+        for j, s in enumerate(new_inner):
+            old_idx = n - 2 - j
+            if math.isfinite(s.radius):
+                s.radius = -s.radius
+            if (s.geometry in ("biconic", "toroidal")
+                    and "radius_y" in s.geom_params
+                    and math.isfinite(s.geom_params["radius_y"])):
+                s.geom_params["radius_y"] = -s.geom_params["radius_y"]
+            if s.geometry == "grid_sag" and "sag_values" in s.geom_params:
+                s.geom_params["sag_values"] = -np.asarray(
+                    s.geom_params["sag_values"], float)
+            s.material = (old_mats[old_idx - 1]
+                          if not s.material.mirror else s.material)
+            # the inner gaps reverse; the gap to the image plane stays
+            s.thickness = (old_thick[n - 2 - (j + 1)] if j < n - 3
+                           else old_thick[n - 2])
+        self.surfaces._specs = [specs[0]] + new_inner + [specs[-1]]
+
+        def remap(idx):
+            return idx if idx in (0, n - 1) else n - 1 - idx
+
+        for p in getattr(self.pickups, "pickups", []):
+            p.source_surface_idx = remap(p.source_surface_idx)
+            p.target_surface_idx = remap(p.target_surface_idx)
+        self._dirty()
+
+    def __add__(self, other: "Optic") -> "Optic":
+        """Concatenate two systems: this one's surfaces but its image plane,
+        then the other's but its object plane (reference `optic/optic.py`
+        `__add__`, `surface_group.py:63-84`); one stop, this one's."""
+        out = Optic(f"{self.name}+{other.name}")
+        out.aperture_type = self.aperture_type
+        out.aperture_value = self.aperture_value
+        out.fields = copy.deepcopy(self.fields)
+        out.fields._optic = out
+        out.wavelengths = copy.deepcopy(self.wavelengths)
+        out.wavelengths._optic = out
+        out.obj_space_telecentric = self.obj_space_telecentric
+        left = [copy.deepcopy(s) for s in self.surfaces.specs[:-1]]
+        right = [copy.deepcopy(s) for s in other.surfaces.specs[1:]]
+        has_stop = any(s.is_stop for s in left)
+        for s in right:
+            if has_stop:
+                s.is_stop = False
+        out.surfaces._specs = left + right
+        return out
+
+    def update_paraxial(self):
+        """Per-surface semi-apertures from the paraxial marginal and chief
+        rays (reference `optic_updater.py:206-228`), at least each set
+        radial aperture, stored in `self.semi_apertures` (numpy); the clip
+        apertures stay as set."""
+        static, params = self.build(device=self.device)
+        ya, _ = px.marginal_ray(static, params)
+        yb, _ = px.chief_ray(static, params)
+        r = (np.abs(ya.detach().cpu().numpy().ravel())
+             + np.abs(yb.detach().cpu().numpy().ravel()))
+        for k, s in enumerate(self.surfaces.specs):
+            if isinstance(s.semi_aperture, (int, float)):
+                r[k] = max(r[k], float(s.semi_aperture))
+        self.semi_apertures = r
+        return r
+
+    # -- tracing ---------------------------------------------------------
     def trace(self, Hx=0.0, Hy=0.0, wavelength=None, num_rays: int = 100,
               distribution="hexapolar", device=None):
         """Trace a pupil distribution for field point(s) on `device` (None:
@@ -340,8 +626,9 @@ class Optic:
         nP = Px.shape[0]
         Hx_full = Hx.repeat_interleave(nP)
         Hy_full = Hy.repeat_interleave(nP)
-        Px_full, Py_full = self._aim(Px.repeat(Hx.shape[0]),
-                                     Py.repeat(Hx.shape[0]))
+        Px_full, Py_full = self._aim(static, params, Hx_full, Hy_full,
+                                     Px.repeat(Hx.shape[0]),
+                                     Py.repeat(Hx.shape[0]), wavelength)
         return trace_system(static, params, Hx_full, Hy_full, Px_full,
                             Py_full, torch.as_tensor(wavelength, dtype=dt,
                                                      device=dev), True)
@@ -362,7 +649,8 @@ class Optic:
             torch.as_tensor(a, dtype=dt, device=dev))
             for a in (Hx, Hy, Px, Py)))
         vxf, vyf = vignetting_factors(static, params, Hx, Hy)
-        Px, Py = self._aim(Px * (1.0 - vxf), Py * (1.0 - vyf))
+        Px, Py = self._aim(static, params, Hx, Hy, Px * (1.0 - vxf),
+                           Py * (1.0 - vyf), wavelength)
         return trace_system(static, params, Hx, Hy, Px, Py,
                             torch.as_tensor(wavelength, dtype=dt, device=dev),
                             True)

@@ -97,6 +97,42 @@ def f2(static, params, wavelength=None):
     return -y[0] / u[-1]
 
 
+def F1(static, params, wavelength=None):
+    """Front focal point, relative to the first surface."""
+    w = _primary(static, params) if wavelength is None else wavelength
+    y, u = trace_generic(static, params, 1.0, 0.0, -1.0, w, reverse=True,
+                         skip=1)
+    return y[-1] / u[-1]
+
+
+def F2(static, params, wavelength=None):
+    """Back focal point, relative to the image surface."""
+    w = _primary(static, params) if wavelength is None else wavelength
+    pos = positions_of(static, params)
+    y, u = trace_generic(static, params, 1.0, 0.0, pos[1] - 1.0, w)
+    return -y[-1] / u[-1]
+
+
+def P1(static, params):
+    """Front principal plane."""
+    return F1(static, params) - f1(static, params)
+
+
+def P2(static, params):
+    """Back principal plane."""
+    return F2(static, params) - f2(static, params)
+
+
+def N1(static, params):
+    """Front nodal plane."""
+    return F1(static, params) + f2(static, params)
+
+
+def N2(static, params):
+    """Back nodal plane."""
+    return F2(static, params) + f1(static, params)
+
+
 def EPL(static: SystemStatic, params: SystemParams, wavelength=None):
     """Entrance pupil z location."""
     pos = positions_of(static, params)
@@ -211,3 +247,38 @@ def _chief_scale(static, params, y_obj_unit, u_obj_unit, y_img_unit):
     if ft in ("paraxial_image_height", "real_image_height"):
         return max_y / y_img_unit
     raise ValueError(f"Unsupported field type {ft!r}")
+
+
+def unit_chief(static: SystemStatic, params: SystemParams, plane: str,
+               wavelength=None):
+    """(y, u) of a unit ray (y = 0, u = 1 at the stop) traced forward to
+    the image plane (`plane="image"`) or in reverse to object space
+    (reference `fields/field_types/paraxial_image_height.py:142-160`)."""
+    w = _primary(static, params) if wavelength is None else wavelength
+    pos = positions_of(static, params)
+    stop = static.stop_index
+    S = static.num_surfaces
+    if plane == "image":
+        y, u = trace_generic(static, params, 0.0, 1.0, pos[stop], w,
+                             skip=stop)
+    else:
+        y, u = trace_generic(static, params, 0.0, 1.0, pos[-1] - pos[stop],
+                             w, reverse=True, skip=S - stop)
+    return y[-1], u[-1]
+
+
+def magnification(static, params, wavelength=None):
+    """Paraxial magnification n0 u0 / (n' u') of the marginal ray."""
+    w = _primary(static, params) if wavelength is None else wavelength
+    ya, ua = marginal_ray(static, params, w)
+    n = index_table(static, params, w)
+    return n[0] * ua[0] / (n[-1] * ua[-1])
+
+
+def invariant(static, params, wavelength=None):
+    """Lagrange invariant (reference `paraxial.py:303-314`)."""
+    w = _primary(static, params) if wavelength is None else wavelength
+    ya, ua = marginal_ray(static, params, w)
+    yb, ub = chief_ray(static, params, w)
+    n = index_table(static, params, w)
+    return yb[1] * n[1] * ua[1] - ya[1] * n[1] * ub[1]

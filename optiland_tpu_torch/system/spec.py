@@ -10,10 +10,12 @@ Port of `optiland_tpu/system/spec.py`:
 `build_system` compiles a list of `SurfaceSpec`s for the ported surface
 types (every geometry of the JAX package, NURBS's fit of a conic by a
 host least-squares in float64 among them; refract, reflect, none, the
-ideal thin lens, gratings and phase sheets of the five profile kinds) and
-absorbing media (the tabulated extinction tables `k_wl`, `k_val`).
-`static_from_dict` and `params_from_numpy` carry a system built by the JAX
-package across, so both packages can run on the same tables.
+ideal thin lens, gratings and phase sheets of the five profile kinds),
+absorbing media (the tabulated extinction tables `k_wl`, `k_val`),
+aperture masks (`system/apertures.py`), apodization, object-space
+telecentricity and absolute coordinate systems (`SurfaceSpec.abs_cs`,
+`cs_pos`). `static_from_dict` and `params_from_numpy` carry a system built
+by the JAX package across, so both packages can run on the same tables.
 """
 
 from __future__ import annotations
@@ -119,13 +121,17 @@ class SurfaceSpec:
     geometry: str = "standard"
     surface_type: str = "standard"  # "standard" | "paraxial" | "grating"
     is_stop: bool = False
-    semi_aperture: float | None = None  # radial clip aperture (None = open)
+    # physical aperture: None = open, a float = radial semi-aperture (in
+    # SystemParams.ap_radius, differentiable), or a BaseAperture mask
+    # (`system/apertures.py`, a structural predicate)
+    semi_aperture: object = None
     dx: float = 0.0
     dy: float = 0.0
     rx: float = 0.0
     ry: float = 0.0
     rz: float = 0.0
     focal_length: float = 0.0  # thin-lens surfaces only
+    abs_cs: tuple | None = None  # absolute (x, y, z, rx, ry, rz) placement
     coating: object = None  # None | name str | ("simple", T, R)
     # a grating's grating_order, grating_period (um) and
     # groove_orientation_angle (rad)
@@ -230,21 +236,44 @@ def positions_of(static, params) -> torch.Tensor:
     return params.positions()
 
 
+def _port_object(obj):
+    """The port's counterpart of a JAX-package aperture mask or apodization
+    object, rebuilt field by field from its class name (the classes share
+    names and fields); None stays None."""
+    if obj is None:
+        return None
+    from optiland_tpu_torch.core import apodization as apod
+    from optiland_tpu_torch.system import apertures as aps
+
+    name = type(obj).__name__
+    cls = getattr(aps, name, None) or getattr(apod, name, None)
+    if not isinstance(cls, type) or not issubclass(
+            cls, (aps.BaseAperture, apod.BaseApodization)):
+        raise NotImplementedError(
+            f"{name} has no counterpart in the port")
+    kw = {k: _port_object(v) if hasattr(v, "__dict__") else v
+          for k, v in vars(obj).items()}
+    return cls(**kw)
+
+
 def static_from_dict(d: dict) -> SystemStatic:
     """A `SystemStatic` from the JAX package's `SystemStatic` fields, keyed
-    by field name. Fields holding objects of that package (apodization,
-    BSDFs, aperture masks, thin films) must be empty: they are not ported."""
+    by field name. Its aperture masks and apodization become the port's
+    objects of the same class and fields; BSDFs and thin films must be
+    empty: they are not ported."""
     names = {f.name for f in fields(SystemStatic)}
     unknown = set(d) - names
     if unknown:
         raise ValueError(f"unknown SystemStatic fields {sorted(unknown)}")
-    if (d.get("apodization") is not None
-            or any(b is not None for b in d.get("bsdfs", ()))
-            or any(m is not None for m in d.get("aperture_masks", ()))
+    if (any(b is not None for b in d.get("bsdfs", ()))
             or any(t is not None for t in d.get("thin_films", ()))):
         raise NotImplementedError(
-            "apodization, BSDFs, aperture masks and thin films are not "
-            "ported yet (ROADMAP queue 1, items 13 and 15)")
+            "BSDFs and thin films are not ported yet (ROADMAP queue 1, "
+            "item 15)")
+    d = dict(d)
+    d["aperture_masks"] = tuple(_port_object(m)
+                                for m in d.get("aperture_masks", ()))
+    d["apodization"] = _port_object(d.get("apodization"))
     return SystemStatic(**{k: (tuple(v) if isinstance(v, list) else v)
                            for k, v in d.items()})
 
@@ -393,7 +422,8 @@ def _forbes_norm_radius(gp: dict, s: SurfaceSpec) -> float:
     nr = gp.get("norm_radius")
     if nr is not None:
         return float(nr)
-    if s.semi_aperture is not None:
+    if s.semi_aperture is not None and not hasattr(s.semi_aperture,
+                                                    "contains"):
         return 1.25 * float(s.semi_aperture)
     return 1.0
 
@@ -540,7 +570,9 @@ def build_system(
     aperture_value: float,
     wavelengths,
     primary_wavelength_idx: int,
+    apodization=None,
     newton_iters: int = 16,
+    telecentric: bool = False,
     phase_interp: str = "cubic",
     dtype=None,
     device=None,
@@ -548,7 +580,18 @@ def build_system(
     """Compile builder state into the (static, params) pair, with the
     parameter tensors on `device` (None means the CUDA card).
     `phase_interp` is the interpolation order of grid and height-profile
-    phase sheets: "cubic" (the bicubic spline) or "linear"."""
+    phase sheets: "cubic" (the bicubic spline) or "linear". A telecentric
+    object space takes object-height or image-height fields and an
+    objectNA or float_by_stop aperture (reference
+    `rays/ray_aiming/paraxial.py:108-117`)."""
+    if telecentric:
+        if field_type == "angle":
+            raise ValueError(
+                'Field type cannot be "angle" for telecentric object space.')
+        if aperture_type not in ("objectNA", "float_by_stop"):
+            raise ValueError(
+                f"Aperture type {aperture_type!r} is not compatible with "
+                f"telecentric object space.")
     dev = resolve_device(device)
     dtype = dtype or config.get_dtype()
     S = len(surfaces)
@@ -562,6 +605,7 @@ def build_system(
     geom_aux = []
     coatings, mat_formulas, mat_n_coeffs = [], [], []
     has_tilt, has_decenter, has_aperture = [], [], []
+    aperture_masks = []
     stop_index = 0
 
     cv = np.zeros(S)
@@ -586,6 +630,8 @@ def build_system(
     phase_params = np.zeros((S, 8))
     phase_grid_list = [None] * S
     phase_mat_coeffs = np.zeros((S, MAX_COEFFS))
+    cs_pos = np.zeros((S, 3))
+    has_abs_cs = any(s.abs_cs is not None for s in surfaces)
 
     current_medium = AIR
     for idx, s in enumerate(surfaces):
@@ -637,9 +683,20 @@ def build_system(
             k_wl[idx, nk:] = kt[0][-1]
             k_val[idx, nk:] = kt[1][-1]
 
-        has_tilt.append(bool(s.rx or s.ry or s.rz))
+        if s.abs_cs is not None:
+            # an absolute placement: its position in cs_pos, its rotation
+            # in tilt; an x or y offset takes the tilted frame's transform
+            ax_, ay_, az_, arx, ary, arz = s.abs_cs
+            cs_pos[idx] = (ax_, ay_, az_)
+            tilt[idx] = (arx, ary, arz)
+            has_tilt.append(bool(arx or ary or arz or ax_ or ay_))
+        else:
+            has_tilt.append(bool(s.rx or s.ry or s.rz))
+            tilt[idx] = (s.rx, s.ry, s.rz)
         has_decenter.append(bool(s.dx or s.dy))
         has_aperture.append(s.semi_aperture is not None)
+        aperture_masks.append(
+            s.semi_aperture if hasattr(s.semi_aperture, "contains") else None)
 
         code, cp = _coating_code(s.coating)
         coatings.append(code)
@@ -653,10 +710,9 @@ def build_system(
         if packed_coeffs:
             coeffs[idx, : len(packed_coeffs)] = packed_coeffs
         thickness[idx] = s.thickness
-        tilt[idx] = (s.rx, s.ry, s.rz)
         decenter[idx] = (s.dx, s.dy)
         focal_length[idx] = s.focal_length
-        if s.semi_aperture is not None:
+        if s.semi_aperture is not None and aperture_masks[idx] is None:
             ap_radius[idx] = s.semi_aperture
 
     if stop_index == 0:
@@ -665,6 +721,19 @@ def build_system(
     object_infinite = not np.isfinite(surfaces[0].thickness)
     if object_infinite:
         thickness[0] = np.inf
+    if has_abs_cs:
+        # the other surfaces' cs z from the thickness chain, restarted at
+        # each absolutely placed surface
+        z = 0.0
+        for idx, s in enumerate(surfaces):
+            if idx == 0:
+                cs_pos[idx, 2] = -thickness[0]
+                continue
+            if s.abs_cs is None:
+                cs_pos[idx, 2] = z
+            else:
+                z = cs_pos[idx, 2]
+            z += thickness[idx] if np.isfinite(thickness[idx]) else 0.0
 
     fused_newton_ok = True
     for idx in range(S):
@@ -705,14 +774,16 @@ def build_system(
         has_aperture=tuple(has_aperture),
         stop_index=stop_index,
         object_infinite=object_infinite,
-        has_abs_cs=False,
+        has_abs_cs=has_abs_cs,
         field_type=field_type,
         aperture_type=aperture_type,
         num_fields=len(x_fields),
         num_wavelengths=len(wavelengths),
         primary_wavelength_idx=primary_wavelength_idx,
+        apodization=apodization,
         newton_iters=newton_iters,
-        aperture_masks=tuple(None for _ in range(S)),
+        telecentric=telecentric,
+        aperture_masks=tuple(aperture_masks),
         thin_films=tuple(None for _ in range(S)),
         has_vignetting=any(float(v) != 0.0 for v in list(vx) + list(vy)),
         phase_aux=tuple(phase_aux),
@@ -735,7 +806,7 @@ def build_system(
         mat_coeffs=t(mat_coeffs), k_wl=t(k_wl),
         k_val=t(k_val), ap_radius=t(ap_radius),
         grating=t(grating), coating_params=t(coating_params),
-        phase_params=t(phase_params), cs_pos=t(np.zeros((S, 3))),
+        phase_params=t(phase_params), cs_pos=t(cs_pos),
         aperture_value=t(aperture_value), x_fields=t(x_fields),
         y_fields=t(y_fields), vx=t(vx), vy=t(vy), wavelengths=t(wavelengths),
         phase_grids=t(phase_grids),

@@ -6,9 +6,10 @@ families (poly-XY, biconic, toroidal, Chebyshev, Zernike, Forbes Q-bfs
 and Q-2D) and the grid sag; refract, reflect,
 none, the ideal thin lens, gratings on plane and curved carriers and phase
 sheets (generalized Snell's law) of all five profile kinds; radial
-apertures; tilt and decenter; Beer-Lambert absorption in media with
-a tabulated extinction; simple coatings (the only coating that acts on an
-unpolarized trace). Per surface:
+apertures and aperture masks (`system/apertures.py`); tilt and decenter,
+and absolute coordinate systems (`cs_pos`); Beer-Lambert absorption in
+media with a tabulated extinction; simple coatings (the only coating that
+acts on an unpolarized trace). Per surface:
   localize -> intersect -> propagate -> OPD -> absorption -> aperture clip
   -> interact -> coating -> globalize -> record.
 
@@ -57,7 +58,10 @@ from optiland_tpu_torch.trace.raygen import generate_rays
 
 @dataclass(frozen=True)
 class TraceHistory:
-    """Per-surface ray records, shape (S, N) each."""
+    """Per-surface ray records, shape (S, N) each. The JAX package's
+    `TraceHistory` also carries `p`, the final polarization ray-tracing
+    matrices of a polarized trace; it comes with `polarization/` (ROADMAP
+    queue 1, item 15), and the port traces unpolarized only."""
 
     x: torch.Tensor
     y: torch.Tensor
@@ -68,22 +72,30 @@ class TraceHistory:
     intensity: torch.Tensor
     opd: torch.Tensor
 
+    @property
+    def num_surfaces(self) -> int:
+        return self.x.shape[0]
+
+    def final_rays(self, wavelength=None) -> Rays:
+        """The last surface's rays as a bundle; `wavelength` (scalar or
+        per-ray) fills `w`, else 0."""
+        w = (torch.zeros_like(self.x[-1]) if wavelength is None
+             else torch.as_tensor(wavelength, dtype=self.x.dtype,
+                                  device=self.x.device))
+        return Rays(x=self.x[-1], y=self.y[-1], z=self.z[-1],
+                    L=self.L[-1], M=self.M[-1], N=self.N[-1],
+                    i=self.intensity[-1], opd=self.opd[-1],
+                    w=w.expand(self.x[-1].shape))
+
 
 def _check_traceable(static: SystemStatic):
     """Refuse what the eager tracer does not implement yet."""
     unknown = sorted({g for g in static.geom_codes if g not in SLICE_GEOMS})
     if unknown:
         raise ValueError(f"Unknown geometry codes {unknown}")
-    unported = []
-    if static.has_abs_cs:
-        unported.append("absolute coordinate systems (item 23)")
     if any(b is not None for b in static.bsdfs):
-        unported.append("BSDF scattering (item 15)")
-    if any(m is not None for m in static.aperture_masks):
-        unported.append("aperture masks (item 13)")
-    if unported:
         raise NotImplementedError(
-            "not ported yet (ROADMAP queue 1): " + ", ".join(unported))
+            "BSDF scattering is not ported yet (ROADMAP queue 1, item 15)")
 
 
 def _thin_lens_interact(rays: Rays, f, n1, n2) -> Rays:
@@ -211,8 +223,12 @@ def trace_rays(static: SystemStatic, params: SystemParams,
     records = [rays0]
 
     for k in range(1, S):
-        tx = params.decenter[k, 0]
-        ty = params.decenter[k, 1]
+        if static.has_abs_cs:
+            tx = params.cs_pos[k, 0]
+            ty = params.cs_pos[k, 1]
+        else:
+            tx = params.decenter[k, 0]
+            ty = params.decenter[k, 1]
         tz = pos[k]
         tilted = static.has_tilt[k]
         decentered = static.has_decenter[k]
@@ -268,8 +284,13 @@ def trace_rays(static: SystemStatic, params: SystemParams,
 
         # physical aperture clip: zero intensity, keep tracing
         if static.has_aperture[k]:
-            r2 = rays.x**2 + rays.y**2
-            rays = R.clip(rays, r2 > params.ap_radius[k] ** 2)
+            mask = (static.aperture_masks[k]
+                    if k < len(static.aperture_masks) else None)
+            if mask is not None:
+                rays = R.clip(rays, mask.clip(rays.x, rays.y))
+            else:
+                r2 = rays.x**2 + rays.y**2
+                rays = R.clip(rays, r2 > params.ap_radius[k] ** 2)
 
         interaction = static.interactions[k]
         if interaction == INT_REFLECT:

@@ -87,15 +87,14 @@ def wavefront_data(static: SystemStatic, params: SystemParams, Hx, Hy, Px, Py,
     device and in the dtype of `params`.
 
     Hx/Hy are scalars (one field); Px/Py are (N,) normalized pupil coords.
+    `aiming` is the optic's ray-aiming mode: "iterative" and "cached" aim
+    the bundle and the chief ray with `aim_rays_iterative`, "robust" with
+    `aim_rays_robust`, as the JAX package's `wavefront_data` does.
     """
     if polarization is not None:
         raise NotImplementedError(
             "polarized wavefronts need polarization/, which is not ported yet "
             "(ROADMAP queue 1, item 15)")
-    if aiming != "paraxial":
-        raise NotImplementedError(
-            f"ray aiming {aiming!r} needs trace/aiming.py, which is not ported "
-            "yet (ROADMAP queue 1, item 13)")
     if strategy not in STRATEGIES:
         raise ValueError(f"Unknown wavefront strategy {strategy!r}")
     dt, dev = params.cv.dtype, params.cv.device
@@ -113,9 +112,22 @@ def wavefront_data(static: SystemStatic, params: SystemParams, Hx, Hy, Px, Py,
     Pxv = Px * (1.0 - vxf[0])
     Pyv = Py * (1.0 - vyf[0])
 
+    # ray aiming (the wide-angle lenses aim iteratively or robustly: a
+    # paraxially aimed bundle misses their real pupil at large fields);
+    # the chief ray is aimed too
+    cqx = cqy = torch.zeros(1, dtype=dt, device=dev)
+    if aiming in ("iterative", "cached", "robust"):
+        from optiland_tpu_torch.trace import aiming as _aiming
+
+        aim = (_aiming.aim_rays_robust if aiming == "robust"
+               else _aiming.aim_rays_iterative)
+        Pxv, Pyv = aim(static, params, Hx.expand(Px.shape),
+                       Hy.expand(Px.shape), Pxv, Pyv, wavelength)
+        cqx, cqy = aim(static, params, Hx[None], Hy[None], cqx, cqy,
+                       wavelength)
+
     # chief ray
-    zero1 = torch.zeros(1, dtype=dt, device=dev)
-    ch = trace_system(static, params, Hx[None], Hy[None], zero1, zero1,
+    ch = trace_system(static, params, Hx[None], Hy[None], cqx, cqy,
                       wavelength, apply_vignetting=False)
     cx, cy, cz = ch.x[-1, 0], ch.y[-1, 0], ch.z[-1, 0]
     c_opd = ch.opd[-1, 0]

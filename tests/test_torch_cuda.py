@@ -12,8 +12,10 @@ refusing another system's S), K8 (the Huygens sum) against the
 float64 plain version, also at ragged block edges, T1's peak-rate chains
 against theirs, the bitwise reproducibility of the backward kernels'
 parameter cotangents, of K1 and of K8, the dispatch of the public entry
-points (and their backward) to the kernels, and the explicit refusal of a
-branch or an input a kernel does not take. Every test skips without a CUDA
+points (and their backward) to the kernels, K5/K6 after the eager raygen
+of a telecentric and a real-image-height system and K7 on an iteratively
+aimed bundle, and the explicit refusal of a branch or an input a kernel
+does not take. Every test skips without a CUDA
 device and nvcc.
 
 On a machine with the card, from the repository root:
@@ -38,12 +40,14 @@ from optiland_tpu_torch.psf import ScalarHuygensPSF
 from optiland_tpu_torch.psf import huygens
 from optiland_tpu_torch.system.optic import Optic
 from optiland_tpu_torch.tools import vpu_peak
-from optiland_tpu_torch.trace import fused, tracer
+from optiland_tpu_torch.models import UVProjectionLens
+from optiland_tpu_torch.trace import aiming, fused, tracer
 from optiland_tpu_torch.trace.raygen import generate_rays
 from optiland_tpu_torch.wavefront.core import pupil_grid_coords, wavefront_data
 
 from torch_port_helpers import (
     SMOKE,
+    aimed_singlet,
     bench_lens,
     coated_cooke,
     coated_singlet,
@@ -78,8 +82,11 @@ _PHASE = ("hybrid_achromat", "metalens", "phase_mirror")
 # the 70-surface relay train (L): a group that misses PARAM_GRAD_RTOL joins
 # that float64 check only where the plain float32 version itself misses it
 # against float64 on the same inputs (K6's `coeffs` under its random seeds:
-# 1.1e-3 on the CPU, the kernel 1.1e-3 off the plain version on an H100)
-_LONG = ("relay_train",)
+# 1.1e-3 on the CPU, the kernel 1.1e-3 off the plain version on an H100);
+# so too the 44-surface UV projection lens (chip_smoke.py
+# LONG_TRACK_SYSTEMS), whose final arrays past _TOLS pass as near float64
+# (`SMOKE.final_float64_errs`)
+_LONG = ("relay_train", "uv_projection")
 
 _SYSTEMS = {
     "singlet": dict(),
@@ -106,6 +113,10 @@ _BRANCHES = ("coated_singlet", "coated_cooke", "thin_lens", "spectrograph",
              "curved_grating", "hybrid_achromat", "metalens", "phase_mirror",
              "anamorphic", "xy_freeform", "tilted_freeform", "q2d_freeform",
              "wide_freeform", "relay_train")
+# the system core's configurations that JAX sends to K5/K6 after its eager
+# raygen (object-space telecentric, the real image height) and to K7 after
+# an eager aim (the five-surface singlet of tests/test_torch_aiming.py)
+_CORE = ("uv_projection", "real_image_height", "aimed_singlet")
 
 
 @pytest.fixture(scope="module")
@@ -117,7 +128,7 @@ def system_variants():
         pytest.skip("no CUDA device / nvcc")
     statics = [_build(name, "cpu")[0]
                for name in list(_SYSTEMS) + ["bench", "cooke"]
-               + list(_BRANCHES)]
+               + list(_BRANCHES) + list(_CORE)]
     variants = tuple((src, fused.system_defines(ts)) for ts in statics
                      for src in _PER_SYSTEM) + tuple(
         ("history_fwd", fused.history_defines(ts)) for ts in statics)
@@ -170,6 +181,14 @@ def _build(name, device):
         return (*CookeTriplet().build(device=device), 0.55)
     if name == "doublet":
         return (*tabulated_doublet(Optic).build(device=device), 0.55)
+    if name == "uv_projection":
+        lens = UVProjectionLens()
+        return (*lens.build(device=device), lens.primary_wavelength)
+    if name == "real_image_height":
+        return (*SMOKE.image_height_cooke(
+            CookeTriplet, "real_image_height").build(device=device), 0.55)
+    if name == "aimed_singlet":
+        return (*aimed_singlet(Optic).build(device=device), 0.55)
     if name in _BRANCHES:
         make = {"coated_singlet": coated_singlet, "coated_cooke": coated_cooke,
                 # 5 mm inside the focus: at the focus the pupil's
@@ -780,3 +799,83 @@ def test_huygens_kernel_refuses(cuda_f32):
                               opd.double(), wl, Rp.double())
     assert out.dtype == torch.float64
     assert huygens.huygens_sum_forward.launches == before
+
+
+@pytest.mark.parametrize("name", ["uv_projection", "real_image_height"])
+def test_caller_ray_kernels_after_eager_raygen(cuda_f32, name):
+    """K5 and K6 on the rays the eager raygen makes for an object-space
+    telecentric system and a real-image-height one (JAX's path for them:
+    `supports_fused`, not `supports_fused_raygen`), each against its plain
+    version; `trace_system_final` and its params-only backward launch them
+    once each."""
+    ts, tp, w = _build(name, cuda_f32)
+    assert fused.supports_fused(ts) and not fused.supports_fused_raygen(ts)
+    data = _data(5000, cuda_f32)
+    p = tp.replace(cv=tp.cv.clone().requires_grad_(True))
+    before = (fused.fused_trace_forward.launches,
+              fused.fused_trace_backward.launches)
+    out = tracer.trace_system_final(ts, p, *data, w)
+    (out["x"] ** 2 + out["y"] ** 2 + out["opd"]).sum().backward()
+    assert (fused.fused_trace_forward.launches,
+            fused.fused_trace_backward.launches) == (before[0] + 1,
+                                                     before[1] + 1)
+    assert bool(torch.isfinite(p.cv.grad).all()) and p.cv.grad.any()
+    rays0 = generate_rays(ts, tp, *data, w)
+    rays8 = tuple(getattr(rays0, k).detach().contiguous()
+                  for k in fused._RAY_KEYS[:8])
+    diffp, nondiffp = fused._uniform_params(ts, tp, w, diff_w=False)
+    outs = fused.fused_trace_forward(ts, diffp, nondiffp, rays8)
+    refs = fused._fused_trace_plain(ts, diffp, nondiffp, rays8)
+    same = _lit_alike(outs[6], refs[6])
+    assert same.float().mean().item() >= 1 - 1e-3
+    miss = [k for k, tol in enumerate(_TOLS)
+            if (outs[k] - refs[k])[same].abs().max().item() > tol]
+    if miss and name in _LONG:
+        far = SMOKE.final_float64_errs(outs, lambda *a: (
+            fused._fused_trace_plain(ts, *a)), (diffp, nondiffp, rays8), same)
+        miss = [k for k in miss if not SMOKE.near_float64(
+            far[fused._NAMES[k]], _TOLS[k])]
+    assert not miss, [fused._NAMES[k] for k in miss]
+    rng = np.random.default_rng(3)
+    seeds = [torch.tensor(rng.normal(size=5000), dtype=torch.float32,
+                          device=cuda_f32) for _ in range(8)]
+    got = fused.fused_trace_backward(ts, diffp, nondiffp, rays8, seeds)
+    ref = fused._fused_trace_bwd_plain(ts, diffp, nondiffp, rays8, seeds)
+    _assert_params(name, (None,) + got[::-1], (None,) + ref[::-1],
+                   lambda *a: (None,) + fused._fused_trace_bwd_plain(
+                       ts, *a)[::-1], (diffp, nondiffp, rays8, seeds))
+    for k, (g, r) in enumerate(zip(got[0], ref[0])):
+        assert _rel(g, r, same) <= RAY_GRAD_RTOL, fused._NAMES[k]
+
+
+def test_history_kernel_on_aimed_rays(cuda_f32):
+    """K7 against its plain version on an iteratively aimed bundle (the
+    aimed singlet at fields up to 15 degrees, 5000 rays), the bundle's stop
+    hits at its targets; `Optic.trace_generic` under iterative aiming
+    launches K7 once."""
+    ts, tp, w = _build("aimed_singlet", cuda_f32)
+    Hx, Hy, Px, Py = _data(5000, cuda_f32)
+    qx, qy = aiming.aim_rays_iterative(ts, tp, Hx, Hy, Px, Py,
+                                       torch.tensor(w, device=cuda_f32))
+    rays0 = generate_rays(ts, tp, Hx, Hy, qx, qy, w, apply_vignetting=False)
+    rays9 = tuple(getattr(rays0, k).detach().contiguous()
+                  for k in fused._RAY_KEYS)
+    p = (fused._diff_params(tp), fused._nondiff_params(tp))
+    got = fused.history_forward(ts, *p, rays9)
+    ref = fused._history_plain(ts, *p, rays9)
+    same = _lit_alike(got[6], ref[6]).all(dim=0)
+    assert same.float().mean().item() >= 1 - 1e-3
+    for k, tol in enumerate(_TOLS):
+        err = (got[k] - ref[k])[:, same].abs().max().item()
+        assert err <= tol, (fused._NAMES[k], err)
+    k = ts.stop_index
+    r = aiming.stop_radius(ts, tp, torch.tensor(w, device=cuda_f32))
+    live = got[6][-1] > 0
+    err = torch.hypot(got[0][k] / r - Px, got[1][k] / r - Py)[live]
+    assert err.max().item() <= SMOKE.TOL_AIM
+    lens = aimed_singlet(Optic)
+    lens.set_ray_aiming("iterative")
+    before = fused.history_forward.launches
+    h = lens.trace_generic(Hx, Hy, Px, Py, wavelength=w)
+    assert fused.history_forward.launches == before + 1
+    assert bool(torch.isfinite(h.x[-1]).all())

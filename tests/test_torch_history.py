@@ -273,8 +273,12 @@ def test_gaussian_quadrature_matches_jax(symmetric):
 
 def test_optic_trace_generic_and_aiming():
     """`trace_generic` on explicit coordinates equals `trace` on the same
-    pupil points (no vignetting on the Cooke triplet); ray aiming other
-    than paraxial refuses until `trace/aiming.py` is ported."""
+    pupil points (no vignetting on the Cooke triplet); under iterative
+    aiming the rays cross the stop at (Px, Py) times the stop radius, as
+    the JAX package's own test holds its aim
+    (tests/test_aiming_glass.py)."""
+    from optiland_tpu_torch.trace.aiming import stop_radius
+
     lens = TCooke()
     Px, Py = tdist.hexapolar(3)
     h = lens.trace(Hx=0.0, Hy=0.7, num_rays=3, device="cpu")
@@ -282,5 +286,11 @@ def test_optic_trace_generic_and_aiming():
     for name in ("x", "y", "L", "M", "intensity", "opd"):
         assert torch.equal(getattr(g, name), getattr(h, name)), name
     lens.set_ray_aiming("iterative")
-    with pytest.raises(NotImplementedError, match="aiming"):
-        lens.trace(num_rays=3, device="cpu")
+    Py = torch.linspace(-0.9, 0.9, 7, dtype=torch.float64)
+    a = lens.trace(Hx=0.0, Hy=1.0, distribution=(torch.zeros_like(Py), Py),
+                   wavelength=0.55, device="cpu")
+    static, params = lens.build(device="cpu")
+    r = stop_radius(static, params, torch.tensor(0.55, dtype=torch.float64))
+    k = static.stop_index
+    np.testing.assert_allclose((a.y[k] / r).numpy(), Py.numpy(), atol=1e-9)
+    np.testing.assert_allclose(a.x[k].numpy(), 0.0, atol=1e-12)

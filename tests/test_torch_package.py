@@ -48,7 +48,13 @@ def test_import_leaves_jax_unloaded():
             "optiland_tpu_torch.mtf, optiland_tpu_torch.wavefront, "
             "optiland_tpu_torch.tools.vpu_peak, "
             "optiland_tpu_torch.tools.kernel_turns, "
-            "optiland_tpu_torch.tools.system_probes\n"
+            "optiland_tpu_torch.tools.system_probes, "
+            "optiland_tpu_torch.models, optiland_tpu_torch.trace.aiming, "
+            "optiland_tpu_torch.system.solves, "
+            "optiland_tpu_torch.system.multiconfig, "
+            "optiland_tpu_torch.system.converters, "
+            "optiland_tpu_torch.system.aberrations, "
+            "optiland_tpu_torch.core.apodization\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'optax', 'optiland_tpu')]\n"
             "assert not bad, bad\n")

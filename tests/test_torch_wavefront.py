@@ -88,10 +88,20 @@ def test_wavefront_data_matches_jax(lenses, pupil, jax_ref, strategy, field):
 
 
 def test_wavefront_data_refuses_unported_options(lenses):
+    """Polarized wavefronts and unknown strategies refuse; the aiming modes
+    run: "cached" is the iterative aim, and the aimed chief ray, at the
+    stop's centre, leaves its OPD reference at 0."""
     ts, tp = lenses[1].build(device="cpu")
     P = torch.zeros(3, dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="trace/aiming.py"):
-        twavefront(ts, tp, 0.0, 1.0, P, P, 0.55, aiming="iterative")
+    Py = torch.tensor([-0.8, 0.0, 0.8], dtype=torch.float64)
+    aimed = {mode: twavefront(ts, tp, 0.0, 1.0, P, Py, 0.55, aiming=mode)
+             for mode in ("paraxial", "iterative", "cached")}
+    for name in WAVES:
+        assert torch.equal(getattr(aimed["iterative"], name),
+                           getattr(aimed["cached"], name)), name
+    assert not torch.equal(aimed["iterative"].opd, aimed["paraxial"].opd)
+    assert torch.isfinite(aimed["iterative"].opd).all()
+    assert abs(float(aimed["iterative"].opd[1])) < 1e-9
     with pytest.raises(NotImplementedError, match="polarization/"):
         twavefront(ts, tp, 0.0, 1.0, P, P, 0.55, polarization="unpolarized")
     with pytest.raises(ValueError, match="strategy"):

@@ -365,3 +365,70 @@ def assert_close(got, ref, tol, label="", scale=None):
         scale = max(float(np.abs(ref).max()), 1e-300)
     np.testing.assert_allclose(got / scale, ref / scale, rtol=0, atol=tol,
                                err_msg=label)
+
+
+# the systems of phase j7 of chip_smoke.py, defined there once: the fold
+# mirror placed by absolute coordinates, the apodized singlet and the Cooke
+# triplet with image-height fields
+fold_mirror = SMOKE.fold_mirror
+apodized_singlet = SMOKE.apodized_singlet
+image_height_cooke = SMOKE.image_height_cooke
+
+
+def aimed_singlet(Optic):
+    """An N-BK7 singlet (R 40 and -120 mm, 6 mm thick) with its stop 10 mm
+    behind it, EPD 12, fields 0 and 30 degrees, 0.55 um: five surfaces whose
+    paraxially aimed rays miss their stop targets at 30 degrees, the
+    system of the aimers' parity tests."""
+    lens = Optic()
+    lens.add_surface(index=0, radius=math.inf, thickness=math.inf)
+    lens.add_surface(index=1, radius=40.0, thickness=6.0, material="N-BK7")
+    lens.add_surface(index=2, radius=-120.0, thickness=10.0)
+    lens.add_surface(index=3, radius=math.inf, thickness=40.0, is_stop=True)
+    lens.add_surface(index=4)
+    lens.set_aperture("EPD", 12.0)
+    lens.set_field_type("angle")
+    lens.add_field(y=0.0)
+    lens.add_field(y=30.0)
+    lens.add_wavelength(0.55, is_primary=True)
+    return lens
+
+
+def telecentric_singlet(Optic):
+    """The singlet of `singlet_lens` (n 1.52, R +-50 mm, no asphere) 20 mm
+    behind an object of heights 0 and 1 mm, object-space telecentric,
+    objectNA 0.1."""
+    lens = singlet_lens(Optic, field_type="object_height",
+                        object_distance=20.0, asphere=False, max_field=1.0)
+    lens.set_aperture("objectNA", 0.1)
+    lens.set_telecentric(True)
+    return lens
+
+
+def image_height_singlet(Optic, field_type):
+    """The singlet of `singlet_lens` (no asphere) with fields 0 and 3 mm
+    read as image heights (`field_type` "paraxial_image_height" or
+    "real_image_height")."""
+    return singlet_lens(Optic, field_type=field_type, asphere=False,
+                        max_field=3.0)
+
+
+def masked_plates(Optic, aps, masks):
+    """A stack of flat air surfaces 2 mm apart behind an object at
+    infinity, each clipped by one of `masks` (a list of callables taking
+    the aperture module `aps`, `system/apertures.py` of either package),
+    the stop on the first; EPD 12, fields 0 and 10 degrees, 0.55 um, the
+    image plane 10 mm behind the last."""
+    lens = Optic()
+    lens.add_surface(index=0, radius=math.inf, thickness=math.inf)
+    for k, mask in enumerate(masks, 1):
+        lens.add_surface(index=k, radius=math.inf, thickness=2.0,
+                         is_stop=k == 1, aperture=mask(aps))
+    lens.surfaces[len(masks)].thickness = 10.0
+    lens.add_surface(index=len(masks) + 1)
+    lens.set_aperture("EPD", 12.0)
+    lens.set_field_type("angle")
+    lens.add_field(y=0.0)
+    lens.add_field(y=10.0)
+    lens.add_wavelength(0.55, is_primary=True)
+    return lens
