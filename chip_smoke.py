@@ -12,7 +12,7 @@ PyTorch built for CUDA. In order it:
      triplet, of K5 for the vignetted bench lens and of K7 for the Cooke
      triplet, the per-ray variants of K1-K6 for the Cooke triplet and
      of K1 and K2 for a doublet of a tabulated glass, and the variants of
-     phases (j3), (j4), (j5), (j6) and (j7)'s systems (their backward
+     phases (j3), (j4), (j5), (j6), (j7) and (j8)'s systems (their backward
      kernels built with their branches' definitions,
      `fused.backward_defines`), one
      process per source
@@ -119,6 +119,18 @@ PyTorch built for CUDA. In order it:
      `apodized_singlet` at 65,536 rays in float32 against float64 on the
      card (TOL_EAGER); and the zoo's 26 lenses' `trace` in float64 on the
      card against the CPU (TOL_ZOO);
+ 16h. (j8) the design loop: (a) the bench lens (cv x 1.05) under
+     `design_problem`'s merit (RMS spots at 0 and 14 degrees over 2,000,017
+     rays each, f2, total track, the Seidel spherical sum, the chief ray's
+     image height; the radii of its curved faces and its back gap):
+     `sum_squared`, `fun_array` and `value_and_grad` (K7 three times an
+     evaluation, its backward the eager twin) against K7's plain version
+     and the eager float64 path, the residual Jacobian, 5 Adam steps, 3
+     iterations of scipy's minimize and least_squares, each timed; (b) the
+     Cooke triplet's Monte-Carlo draws (16, seed 1) and a 5-step sweep with
+     the image gap compensated (`cooke_tolerancing`) against float64; (c)
+     GlassExpert on its middle glass (GLASSES_J8), the K7 variants built at
+     first use printed; (d) environment/ in float64, card against CPU;
  17. (k) `CookeTriplet().trace(Hx=0, Hy=1, num_rays=6)`, the user's entry,
      reaches K7;
  18. (w1) K8, the Huygens sum, on the inputs of the Cooke triplet's
@@ -157,6 +169,7 @@ result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -1263,6 +1276,82 @@ def scaled_err(got, ref):
     return ((got - ref)[ok].abs().max() / scale).item()
 
 
+# The design loop of phase j8 (the card tests share these): the bench
+# lens's merit, RMS spots at 0 and 14 degrees over DESIGN_RINGS hexapolar
+# rings (1 + 3 * 816 * 817 = 2,000,017 rays a field), f2, total track over
+# its maximum, the summed Seidel spherical and the chief ray's image
+# height, over the radii of its curved faces and its back gap. The flat
+# faces 4, 6 and 8 stay fixed: a flat surface's curvature cotangent is the
+# reference's rule, which the eager path and the kernels' differ on by
+# design (ROADMAP queue 3; tests/test_torch_design.py pins it).
+DESIGN_RINGS = 816
+DESIGN_RADII = (1, 2, 3, 5, 7, 9, 10, 11)
+# the Cooke triplet's tolerancing (tests/test_tolerancing.py's fixture, its
+# image gap the compensator): RMS spot over 64 rings, 12,481 rays
+TOLERANCING_RINGS = 64
+TOLERANCING_DRAWS = 16
+# GlassExpert's catalog on the Cooke triplet's middle glass: three of
+# Sellmeier's 7-coefficient form (F2's own K7 variant) and two of the
+# 11-coefficient one, which need a K7 variant of their own
+GLASSES_J8 = ("F2", "SF2", "SF5", "N-SF5", "LAK9", "F4")
+# environment/ on the card: float64 against the CPU, relative
+ENV_WAVELENGTHS = 64
+TOL_ENV = 1e-13
+
+
+def design_problem(OptimizationProblem, lens, rings=DESIGN_RINGS):
+    """Phase j8's merit on the bench lens `lens` (see DESIGN_RINGS)."""
+    p = OptimizationProblem(lens)
+    for hy in (0.0, 1.0):
+        p.add_operand("rms_spot_size", target=0.0, weight=10.0,
+                      input_data=dict(surface_number=-1, Hx=0.0, Hy=hy,
+                                      num_rays=rings, wavelength=WAVELENGTH))
+    p.add_operand("f2", target=100.0)
+    p.add_operand("total_track", max_val=139.0)
+    p.add_operand("SC_sum", target=0.0)
+    p.add_operand("real_y_intercept", target=24.6, input_data=dict(
+        surface_number=-1, Hx=0.0, Hy=1.0, Px=0.0, Py=0.0,
+        wavelength=WAVELENGTH))
+    for s in DESIGN_RADII:
+        p.add_variable(lens, "radius", surface_number=s)
+    p.add_variable(lens, "thickness", surface_number=11)
+    return p
+
+
+def detune(lens, factor=1.05):
+    """`lens` with every curvature times `factor`, as tests/test_optimization
+    .py detunes the Cooke triplet before Adam."""
+    params = lens.params
+    lens.update_params(params.replace(cv=params.cv * factor))
+    return lens
+
+
+def cooke_tolerancing(tol_mod, lens, rings=TOLERANCING_RINGS, steps=4):
+    """tests/test_tolerancing.py's fixture on `lens` (the Cooke triplet):
+    R1 and the gap after surface 4 perturbed, f2 and the on-axis RMS spot
+    at 0.55 um; the image gap the compensator, `steps` Gauss-Newton
+    steps."""
+    t = tol_mod.Tolerancing(lens, compensator_steps=steps)
+    t.add_perturbation("radius", tol_mod.NormalSampler(22.01359, 0.05),
+                       surface_number=1)
+    t.add_perturbation("thickness", tol_mod.NormalSampler(4.75041, 0.02),
+                       surface_number=4)
+    t.add_compensator("thickness", surface_number=6)
+    t.add_operand("f2")
+    t.add_operand("rms_spot_size", input_data={
+        "surface_number": -1, "Hx": 0, "Hy": 0.0, "num_rays": rings,
+        "wavelength": 0.55})
+    return t
+
+
+def cooke_with_glass(CookeTriplet, glass):
+    """The Cooke triplet with `glass` after surface 3 (GlassExpert's
+    candidates)."""
+    lens = CookeTriplet()
+    lens.set_material(glass, 3)
+    return lens
+
+
 def huygens_ops_per_contribution():
     """FP32 operations per (image point, pupil sample) of the Huygens sum
     as the reference writes it (`_huygens_kernel`, `huygens_sum_plain`),
@@ -1504,7 +1593,17 @@ def main():
               file=sys.stderr)
         return 3
     sys.path.insert(0, str(ROOT))
-    from optiland_tpu_torch import _build, config
+    from optiland_tpu_torch import _build, config, environment, tolerancing
+    from optiland_tpu_torch.core import distributions as dist
+    from optiland_tpu_torch.materials.catalog import resolve_material
+    from optiland_tpu_torch.optimization import operands as design_operands
+    from optiland_tpu_torch.optimization import (
+        AdamOptimizer,
+        GlassExpert,
+        LeastSquares,
+        OptimizationProblem,
+        OptimizerGeneric,
+    )
     from optiland_tpu_torch import models as zoo_models
     from optiland_tpu_torch.models import CookeTriplet
     from optiland_tpu_torch.mtf import HuygensMTF, SampledMTF, ScalarFFTMTF
@@ -1673,6 +1772,15 @@ def main():
                                                                 "K6")
                   else (per_ray if pr or k == "K7" else uniform))
             variants += ((k + (" per-ray" if pr else ""), src, label, of),)
+    # phase j8: K7 on the bench lens (the design loop) and on the Cooke
+    # triplet with each of GlassExpert's candidates after surface 3, so that
+    # nothing builds while the glass search runs
+    glass_labels = {g: f"Cooke triplet, {g} after surface 3"
+                    for g in GLASSES_J8}
+    statics.update({label: cooke_with_glass(CookeTriplet, g).build(
+        device="cpu")[0] for g, label in glass_labels.items()})
+    variants += tuple(("K7", "history_fwd", label, per_ray) for label in
+                      ("bench lens", *glass_labels.values()))
     codes = {(key, label): of(statics[label])
              for key, _, label, of in variants}
     t0 = time.perf_counter()
@@ -3358,6 +3466,360 @@ def main():
           "the zoo on the card agrees with the CPU")
     print(f"phase j7: {time.perf_counter() - t_j7:.1f} s; "
           f"{json.dumps(j7_times)}")
+
+    # 16h. (j8) the design loop: environment/, optimization/ and
+    # tolerancing/, every ray operand through trace_system (K7 forward, the
+    # eager twin's backward). (a) the bench lens's merit (`design_problem`)
+    # at 2,000,017 rays a field: its values, gradient and residual Jacobian
+    # on K7 against K7's plain version and the eager float64 path, 5 Adam
+    # steps, scipy's minimize and least_squares; (b) the Cooke triplet's
+    # tolerancing draws and sweep (`cooke_tolerancing`) against float64;
+    # (c) GlassExpert on the Cooke triplet's middle glass, the K7 variants it
+    # builds at first use counted; (d) the air and glass models in float64
+    # on the card against the CPU. Each part with the counters at 0 just
+    # before and read just after.
+    t_j8 = time.perf_counter()
+    j8_times = {}
+
+    @contextlib.contextmanager
+    def swapped(module, name, replacement):
+        original = getattr(module, name)
+        setattr(module, name, replacement)
+        try:
+            yield original
+        finally:
+            setattr(module, name, original)
+
+    def plain_k7():
+        """K7's wrapper runs its plain version on the card (the reference of
+        the comparisons: no launch)."""
+        return swapped(fused, "history_forward", fused._history_plain)
+
+    def eager_trace():
+        """trace_system runs the eager float32 trace on the card (no kernel):
+        the rounding float32 leaves by itself."""
+        return swapped(fused, "trace_history_fused",
+                       lambda st, pr, r0: tracer.trace_rays(st, pr, r0))
+
+    @contextlib.contextmanager
+    def precision(name):
+        config.set_precision(name)
+        try:
+            yield
+        finally:
+            config.set_precision("float32")
+
+    backward_passes = [0]   # K7's backward: autograd through the eager twin
+
+    def counted_twin(*args, _twin=fused._hist_eager):
+        backward_passes[0] += 1
+        return _twin(*args)
+
+    def timed_call(fn, reps=2):
+        """Median host-clock ms of `fn` behind synchronize over `reps` calls
+        after one (the path has run before), and (K7 launches, backward
+        passes) of that one."""
+        reset_counts()
+        backward_passes[0] = 0
+        fn()
+        counts = (read_counts()["K7"], backward_passes[0])
+        times = []
+        for _ in range(reps):
+            t0 = synced()
+            fn()
+            times.append(1e3 * (synced() - t0))
+        return float(np.median(times)), counts
+
+    def rel(got, ref):
+        """Largest |got - ref| / |ref| entry by entry (float64)."""
+        got, ref = torch.as_tensor(got).double().cpu(), torch.as_tensor(
+            ref).double().cpu()
+        return ((got - ref).abs() / ref.abs().clamp_min(1e-300)).max().item()
+
+    with swapped(fused, "_hist_eager", counted_twin):
+        # (a) the bench lens, cv x 1.05, float32 on K7 and float64 eager
+        lens_d = bench_lens(Optic)
+        st_d, _ = lens_d.build(device="cuda")
+        pr_d = detune(lens_d).params
+        p_d = design_problem(OptimizationProblem, lens_d)
+        c_d = p_d._compile()
+        x_d = p_d.x0()
+        n_design = 1 + 3 * DESIGN_RINGS * (DESIGN_RINGS + 1)
+        check(n_design == 2_000_017, "2,000,017 rays a field")
+        reset_counts()
+        backward_passes[0] = 0
+        merit_d = p_d.sum_squared()
+        fa_d = p_d.fun_array()
+        v_d, g_d = c_d["value_and_grad"](x_d, pr_d)
+        got_d = read_counts()
+        print(f"phase j8: design merit (sum_squared, fun_array, "
+              f"value_and_grad) launches {got_d}, backward passes "
+              f"{backward_passes[0]}")
+        check(got_d["K7"] >= 3 * 2 and sum(got_d.values()) == got_d["K7"],
+              f"design merit: K7 at least twice an evaluation: {got_d}")
+        check(backward_passes[0] >= 2, "value_and_grad through the twin")
+        check(all(bool(torch.isfinite(t).all()) for t in (merit_d, fa_d,
+                                                           v_d, g_d))
+              and g_d.shape == (9,), "design merit and gradient finite")
+        with plain_k7():
+            merit_p = p_d.sum_squared()
+            fa_p = p_d.fun_array()
+            v_p, g_p = c_d["value_and_grad"](x_d, pr_d)
+        check(read_counts() == got_d, "K7's plain version launched nothing")
+        err_plain = {"sum_squared": rel(merit_d, merit_p),
+                     "fun_array": rel_err(fa_d, fa_p),
+                     "value": rel(v_d, v_p), "grad": rel_err(g_d, g_p)}
+        print("phase j8: design merit on K7 vs K7's plain version, "
+              f"relative: {json.dumps(err_plain)} tolerances value "
+              f"{TOL['moment_rel']} grad {TOL['param_grad_rel']}")
+        check(max(err_plain["sum_squared"], err_plain["fun_array"],
+                  err_plain["value"]) <= TOL["moment_rel"]
+              and err_plain["grad"] <= TOL["param_grad_rel"],
+              "design merit vs plain")
+        with precision("float64"):
+            lens_d64 = bench_lens(Optic)
+            lens_d64.build(device="cuda")
+            detune(lens_d64)
+            p_d64 = design_problem(OptimizationProblem, lens_d64)
+            merit_64 = p_d64.sum_squared()
+            fa_64 = p_d64.fun_array()
+            v_64, g_64 = p_d64._compile()["value_and_grad"](
+                p_d64.x0(), lens_d64.params)
+        with eager_trace():
+            v_e, g_e = c_d["value_and_grad"](x_d, pr_d)
+        check(read_counts() == got_d, "float64 and eager float32 ran eager")
+        err_64 = {"sum_squared": rel(merit_d, merit_64),
+                  "fun_array": rel_err(fa_d, fa_64), "grad": rel_err(g_d, g_64)}
+        eager_64 = {"value": rel(v_e, v_64), "grad": rel_err(g_e, g_64)}
+        grad_bound = max(TOL_F64["grad_rel"],
+                         GRAD_NOISE_FACTOR * eager_64["grad"])
+        print("phase j8: design merit on K7 vs the eager float64 path: "
+              f"{json.dumps(err_64)}; the eager float32 path's own "
+              f"{json.dumps(eager_64)}; tolerances loss_rel "
+              f"{TOL_F64['loss_rel']}, grad {grad_bound!r} (the larger of "
+              f"grad_rel and {GRAD_NOISE_FACTOR}x the eager float32 error)")
+        check(max(err_64["sum_squared"], err_64["fun_array"])
+              <= TOL_F64["loss_rel"] and err_64["grad"] <= grad_bound,
+              "design merit vs float64")
+        del p_d64, lens_d64, merit_64, fa_64, v_64, g_64, v_e, g_e
+        free()
+        design_ms = {}
+        for key, fn in (
+                ("merit", lambda: p_d.sum_squared()),
+                ("value_and_grad", lambda: c_d["value_and_grad"](x_d, pr_d)),
+                ("residual_jac", lambda: c_d["residual_jac"](x_d, pr_d))):
+            design_ms[key] = timed_call(fn)
+        # the merit's split: each operand on its own, and the hexapolar
+        # pupil that each RMS operand makes on the host
+        merit_split = {f"{i} {o.operand_type}": timed_call(
+            lambda o=o: design_operands.REGISTRY[o.operand_type](
+                st_d, pr_d, **o.input_data))[0]
+            for i, o in enumerate(p_d.operands)}
+        merit_split["hexapolar pupil (host)"] = timed_call(
+            lambda: dist.generate("hexapolar", DESIGN_RINGS))[0]
+        print(f"phase j8: the design merit's split, host clock (ms): "
+              f"{json.dumps(merit_split)}")
+        J_d = c_d["residual_jac"](x_d, pr_d)
+        check(J_d.shape == (6, 9) and bool(torch.isfinite(J_d).all()),
+              "residual Jacobian: 6 x 9, finite")
+        px_d, py_d = (torch.as_tensor(a, dtype=torch.float32, device=dev)
+                      for a in dist.generate("hexapolar", DESIGN_RINGS))
+        *k7_d, err_k7d = j7_history(
+            "bench lens, design loop", st_d, pr_d,
+            (torch.zeros_like(px_d), torch.ones_like(px_d), px_d, py_d,
+             torch.tensor(WAVELENGTH, device=dev)))
+        j3["K7 (bench lens, design loop)"] = (
+            *k7_d, design_ms["value_and_grad"][1][0], err_k7d)
+        del px_d, py_d
+        free()
+        # 5 Adam steps: K7 in every step
+        step_counts = []
+
+        def on_step(i, loss):
+            step_counts.append((read_counts()["K7"], backward_passes[0]))
+
+        metrics = []
+        reset_counts()
+        backward_passes[0] = 0
+        res_a = AdamOptimizer(p_d, lr=1e-3).optimize(
+            n_steps=5, metrics=metrics, callback=on_step)
+        per_step = [(a[0] - b[0], a[1] - b[1]) for a, b in
+                    zip(step_counts, [(0, 0)] + step_counts[:-1])]
+        design_ms["Adam step"] = (
+            float(np.median([1e3 * m["step_time_s"] for m in metrics])),
+            per_step[-1])
+        print(f"phase j8: 5 Adam steps (lr 1e-3): losses "
+              f"{res_a.loss_history}, (K7 launches, backward passes) a step "
+              f"{per_step}")
+        check(all(k >= 1 for k, _ in per_step), "K7 in every Adam step")
+        check(all(math.isfinite(v) for v in res_a.loss_history)
+              and res_a.loss_history[-1] < res_a.loss_history[0],
+              "Adam: finite losses, the last below the first")
+        start_g = p_d.sum_squared().item()
+        res_g = OptimizerGeneric(p_d).optimize(maxiter=3)
+        end_g = p_d.sum_squared().item()
+        r_ls = p_d.residual_vector()
+        start_ls = 0.5 * float((r_ls.double() ** 2).sum())
+        res_ls = LeastSquares(p_d).optimize(maxiter=3)
+        print(f"phase j8: OptimizerGeneric(maxiter=3) merit {start_g!r} -> "
+              f"{end_g!r} ({res_g.nfev} evaluations); LeastSquares(maxiter=3)"
+              f" cost {start_ls!r} -> {float(res_ls.cost)!r} ({res_ls.nfev} "
+              "evaluations)")
+        check(math.isfinite(end_g) and end_g <= start_g,
+              "OptimizerGeneric: finite, no worse than its start")
+        check(math.isfinite(res_ls.cost) and res_ls.cost <= start_ls,
+              "LeastSquares: finite, no worse than its start")
+        del p_d, c_d, lens_d, J_d
+        free()
+
+        # (b) the Cooke triplet's tolerancing: 16 draws (seed 1) and a
+        # 5-step sweep of R1 through pipeline_batch, float32 on K7 against
+        # its plain version and the eager float64 path
+        lens_t = CookeTriplet()
+        st_t, pr_t = lens_t.build(device="cuda")
+        tol32 = cooke_tolerancing(tolerancing, lens_t)
+        with precision("float64"):
+            lens_t64 = CookeTriplet()
+            lens_t64.build(device="cuda")
+            tol64 = cooke_tolerancing(tolerancing, lens_t64)
+        draws = tol32.draw_table(TOLERANCING_DRAWS, seed=1)
+        check(np.array_equal(draws, tol64.draw_table(TOLERANCING_DRAWS,
+                                                     seed=1)), "draw table")
+        nominal = [float(p.variable.get(pr_t)) for p in tol32.perturbations]
+        sweep = np.tile(nominal, (5, 1))
+        sweep[:, 0] = tolerancing.RangeSampler(21.9, 22.1, 5).sample(None, 5)
+        c_t = tol32._compile()
+        reset_counts()
+        backward_passes[0] = 0
+        t0 = synced()
+        v32, x32 = c_t["pipeline_batch"](pr_t, draws)
+        j8_times["tolerancing s a draw"] = (synced() - t0) / len(draws)
+        got_t = read_counts()
+        s32, _ = c_t["pipeline_batch"](pr_t, sweep)
+        print(f"phase j8: tolerancing, {len(draws)} draws: launches {got_t},"
+              f" backward passes {backward_passes[0]}")
+        check(got_t["K7"] >= len(draws) and sum(got_t.values())
+              == got_t["K7"], f"tolerancing draws launched K7: {got_t}")
+        with plain_k7():
+            vp, xp = c_t["pipeline_batch"](pr_t, draws)
+            sp, _ = c_t["pipeline_batch"](pr_t, sweep)
+        with precision("float64"):
+            c64 = tol64._compile()
+            v64, x64 = c64["pipeline_batch"](tol64._nominal_params, draws)
+            s64, _ = c64["pipeline_batch"](tol64._nominal_params, sweep)
+
+        def gap_mm(x):
+            return tol32.compensators[0].scaler.inverse_scale(x.double())
+
+        def tol_errs(v, x, s):
+            return {"f2": rel(v[:, 0], v64[:, 0]),
+                    "rms_spot_size": rel(v[:, 1], v64[:, 1]),
+                    "sweep": rel(s, s64),
+                    "compensator_mm": (gap_mm(x) - gap_mm(x64)).abs().max(
+                    ).item()}
+
+        err_t, noise_t = tol_errs(v32, x32, s32), tol_errs(vp, xp, sp)
+        base = {"f2": TOL_F64["loss_rel"], "rms_spot_size": TOL_F64[
+            "loss_rel"], "sweep": TOL_F64["loss_rel"],
+            "compensator_mm": TOL_F64["position_mm"]}
+        bound_t = {k: max(base[k], GRAD_NOISE_FACTOR * noise_t[k])
+                   for k in base}
+        print(f"phase j8: tolerancing on K7 vs the eager float64 path "
+              f"(operands relative, the compensator in mm): "
+              f"{json.dumps(err_t)}; K7's plain version's own "
+              f"{json.dumps(noise_t)}; bounds {json.dumps(bound_t)}; "
+              f"{j8_times['tolerancing s a draw']:.4f} s a draw")
+        check(all(err_t[k] <= bound_t[k] for k in base),
+              "tolerancing vs float64")
+        px_t, py_t = (torch.as_tensor(a, dtype=torch.float32, device=dev)
+                      for a in dist.generate("hexapolar", TOLERANCING_RINGS))
+        *k7_t, err_k7t = j7_history(
+            "Cooke triplet, tolerancing", st_t, pr_t,
+            (torch.zeros_like(px_t), torch.zeros_like(px_t), px_t, py_t,
+             torch.tensor(0.55, device=dev)))
+        j3["K7 (Cooke triplet, tolerancing)"] = (*k7_t, got_t["K7"],
+                                                  err_k7t)
+        del tol32, tol64, lens_t, lens_t64, c_t, c64
+        free()
+
+        # (c) GlassExpert on the Cooke triplet's glass after surface 3
+        lens_g = CookeTriplet()
+        lens_g.build(device="cuda")
+        p_g = OptimizationProblem(lens_g)
+        p_g.add_operand("rms_spot_size", target=0.0, weight=10.0, input_data=
+                        dict(surface_number=-1, Hx=0.0, Hy=0.0, num_rays=16,
+                             wavelength=0.55))
+        p_g.add_operand("f2", target=50.0)
+        p_g.add_variable(lens_g, "radius", surface_number=3)
+        p_g.add_variable(lens_g, "radius", surface_number=4)
+        built_late = []
+
+        def logged_compile(jobs, _compile=_build._compile):
+            out = _compile(jobs)
+            built_late.extend((name, round(sec, 2))
+                              for name, (_, sec) in out.items() if sec > 0)
+            return out
+
+        start_ge = p_g.sum_squared().item()
+        reset_counts()
+        with swapped(_build, "_compile", logged_compile):
+            t0 = synced()
+            GlassExpert(p_g, glass_surfaces=[3],
+                        glass_selection=list(GLASSES_J8), pool_size=3,
+                        num_neighbours=2).optimize(maxiter=10)
+            j8_times["GlassExpert s"] = synced() - t0
+        got_g = read_counts()
+        end_ge = p_g.sum_squared().item()
+        print(f"phase j8: GlassExpert over {list(GLASSES_J8)}: merit "
+              f"{start_ge!r} -> {end_ge!r}, glass "
+              f"{lens_g.surfaces.specs[3].material.name}, launches {got_g}; "
+              f"K7 variants built at first use (name, s): {built_late}")
+        check(got_g["K7"] >= 1, "GlassExpert launched K7")
+        check(math.isfinite(end_ge) and end_ge <= start_ge,
+              "GlassExpert: no worse than the start")
+        del p_g, lens_g
+        free()
+
+    # (d) environment/, no kernel: float64 on the card against the CPU
+    w_env = torch.linspace(0.35, 2.5, ENV_WAVELENGTHS, dtype=torch.float64)
+    conds = (environment.EnvironmentalConditions(),
+             environment.EnvironmentalConditions(
+                 pressure=90000.0, temperature=30.0, relative_humidity=0.6,
+                 co2_ppm=450.0),
+             environment.EnvironmentalConditions(
+                 temperature=-10.0, relative_humidity=0.3))
+    bk7 = resolve_material("N-BK7")
+
+    def env_values(w):
+        out = {}
+        for i, c in enumerate(conds):
+            p_atm = c.pressure / 101325.0
+            for m in ("ciddor", "edlen", "birch_downs", "kohlrausch"):
+                out[f"{m} {i}"] = environment.refractive_index_air(w, c, m)
+            out[f"nair_zemax {i}"] = environment.nair_zemax(
+                w, c.temperature, p_atm)
+            out[f"relative_wavelength {i}"] = environment.relative_wavelength(
+                w, c.temperature, p_atm)
+            out[f"schott {i}"] = environment.schott_thermal_correction(
+                1.5 + 0.01 / w**2, w, bk7.therm, bk7.t0, c.temperature, p_atm)
+        return out
+
+    reset_counts()
+    env_card = env_values(w_env.to(dev))
+    env_cpu = env_values(w_env)
+    check(sum(read_counts().values()) == 0, "environment/: no kernel")
+    check(all(v.is_cuda and v.dtype == torch.float64
+              for v in env_card.values()), "environment/ on the card")
+    env_err = max(rel(env_card[k], env_cpu[k]) for k in env_cpu)
+    print(f"phase j8: environment/ ({len(env_cpu)} evaluations of "
+          f"{ENV_WAVELENGTHS} wavelengths) float64, card vs CPU, largest "
+          f"relative difference {env_err!r} (tolerance {TOL_ENV})")
+    check(env_err <= TOL_ENV, "environment/ card vs CPU")
+    j8_times.update({f"{k} ms": v[0] for k, v in design_ms.items()})
+    print(f"phase j8 ({smi}): design loop at {n_design} rays a field, host "
+          f"clock (ms, (K7 launches, backward passes) of one call): "
+          f"{json.dumps(design_ms)}; {json.dumps(j8_times)}; phase j8 "
+          f"{time.perf_counter() - t_j8:.1f} s")
 
     # 17. (k) the user's entry: Optic.trace on the card
     reset_counts()

@@ -14,8 +14,9 @@ against theirs, the bitwise reproducibility of the backward kernels'
 parameter cotangents, of K1 and of K8, the dispatch of the public entry
 points (and their backward) to the kernels, K5/K6 after the eager raygen
 of a telecentric and a real-image-height system and K7 on an iteratively
-aimed bundle, and the explicit refusal of a branch or an input a kernel
-does not take. Every test skips without a CUDA
+aimed bundle, the design loop's merit and a tolerancing draw through K7
+(chip_smoke.py phase j8) against K7's plain version, and the explicit
+refusal of a branch or an input a kernel does not take. Every test skips without a CUDA
 device and nvcc.
 
 On a machine with the card, from the repository root:
@@ -879,3 +880,52 @@ def test_history_kernel_on_aimed_rays(cuda_f32):
     h = lens.trace_generic(Hx, Hy, Px, Py, wavelength=w)
     assert fused.history_forward.launches == before + 1
     assert bool(torch.isfinite(h.x[-1]).all())
+
+
+def test_design_merit_on_history_kernel(cuda_f32, monkeypatch):
+    """chip_smoke.py phase j8's design merit on the bench lens (cv x 1.05)
+    at 147 hexapolar rings (65,269 rays) a field: `trace_system` launches
+    K7 three times an evaluation (two fields and the chief ray), and the
+    merit, `fun_array` and `value_and_grad` agree with the same calls on
+    K7's plain version (the backward is the eager twin on both)."""
+    from optiland_tpu_torch.optimization import OptimizationProblem
+
+    lens = bench_lens(Optic)
+    lens.build(device=cuda_f32)
+    SMOKE.detune(lens)
+    p = SMOKE.design_problem(OptimizationProblem, lens, rings=147)
+    c = p._compile()
+    x = p.x0()
+    before = fused.history_forward.launches
+    v, g = c["value_and_grad"](x, lens.params)
+    fa = p.fun_array()
+    assert fused.history_forward.launches - before == 6
+    monkeypatch.setattr(fused, "history_forward", fused._history_plain)
+    vp, gp = c["value_and_grad"](x, lens.params)
+    fap = p.fun_array()
+    assert abs(v.item() - vp.item()) <= MOMENT_RTOL * abs(vp.item())
+    assert _rel(fa, fap) <= MOMENT_RTOL
+    assert _rel(g, gp) <= PARAM_GRAD_RTOL
+    assert bool(torch.isfinite(g).all()) and g.abs().max() > 0
+
+
+def test_tolerancing_draw_on_history_kernel(cuda_f32, monkeypatch):
+    """One Monte-Carlo draw of chip_smoke.py's Cooke tolerancing (its image
+    gap compensated by 4 Gauss-Newton steps, RMS spot at 12,481 rays):
+    K7 once a step and once for the values, which agree with the draw on
+    K7's plain version, the compensator within POS_TOL mm."""
+    from optiland_tpu_torch import tolerancing
+
+    lens = CookeTriplet()
+    lens.build(device=cuda_f32)
+    t = SMOKE.cooke_tolerancing(tolerancing, lens)
+    draw = t.draw_table(1, seed=1)
+    c = t._compile()
+    before = fused.history_forward.launches
+    v, x = c["pipeline_batch"](lens.params, draw)
+    assert fused.history_forward.launches - before == 5
+    monkeypatch.setattr(fused, "history_forward", fused._history_plain)
+    vp, xp = c["pipeline_batch"](lens.params, draw)
+    assert _rel(v, vp) <= MOMENT_RTOL
+    gap = t.compensators[0].scaler.inverse_scale
+    assert (gap(x) - gap(xp)).abs().max().item() <= POS_TOL
