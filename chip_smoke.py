@@ -98,8 +98,8 @@ PyTorch built for CUDA. In order it:
      the count of rays the kernels' capped Newton leaves unconverged (none
      may), last a Forbes Q-2D system's `centroid_rms_spot` through K1;
  16f. (j6) the configurations the kernels took last, through the same
-     paths and checks: system J, a Forbes Q-2D face of 16 terms, tilted and
-     decentred (`q2d_singlet`, its vignetted twin for K5 and K6); K, a
+     paths and checks: system J, a
+     Forbes Q-2D face of 16 terms, tilted and decentred (`q2d_singlet`, its vignetted twin for K5 and K6); K, a
      38-slot Fringe Zernike and a 29-slot Q-2D (`wide_freeform_singlet`);
      L, 70 surfaces of relays (`relay_train`); K1's blocks an SM and K2's
      threads a block printed, then a NURBS singlet (`trace_system` and its
@@ -131,6 +131,24 @@ PyTorch built for CUDA. In order it:
      the image gap compensated (`cooke_tolerancing`) against float64; (c)
      GlassExpert on its middle glass (GLASSES_J8), the K7 variants built at
      first use printed; (d) environment/ in float64, card against CPU;
+ 16i. (j9) polarization, thin films, BSDFs and the vectorial wave optics,
+     which JAX's gates keep from every kernel (`phase_j9`; no K1-K8 launch
+     may occur there, the uncoated unpolarized twin keeps its K7): (a) the
+     Cooke triplet with "fresnel" on its six glass faces, unpolarized, and
+     (b) with a MgF2 layer between each face's media under POL_STATE, at
+     the flagship's 1,999,998 rays through `trace_system(...,
+     polarization=)` and `Optic.trace`, float32 against float64 on the card
+     (positions, directions, intensity, |p|; the gradient of the mean
+     intensity in cv and thickness at the whole batch, and against float64
+     on its first J9_GRAD_RAYS); (c) the polarizer goldens (extinction,
+     Malus's law, halving, a quarter wave between crossed polarizers) at
+     1,999,998 rays; (d) Lambertian and Gaussian (0.1) BSDFs on a
+     singlet's flat face at 1,999,998 rays, on injected draws against
+     float64 and on a generator's stream against the law's moments; (e)
+     `VectorialHuygensPSF`, `VectorialFFTPSF` at (0, 0) and (0, 1) and
+     `VectorialFFTMTF` at their defaults against float64 and the scalar
+     Strehl ratios, with the Huygens call's split (each stage clocked
+     inside the call); (f) ThinFilmOptimizer on the card against the CPU;
  17. (k) `CookeTriplet().trace(Hx=0, Hy=1, num_rays=6)`, the user's entry,
      reaches K7;
  18. (w1) K8, the Huygens sum, on the inputs of the Cooke triplet's
@@ -148,16 +166,18 @@ PyTorch built for CUDA. In order it:
  21. (w4) `ScalarFFTPSF`, `MMDFTPSF`, `ScalarFFTMTF` over the 3 fields,
      `SampledMTF` and `ZernikeOPD` at their defaults, float32 (K7 under
      `wavefront_data`) against float64;
- 22. (g) times each kernel and its plain version with CUDA events (warm-up,
-     then the median of 25 calls), K1 and K3 also on the Cooke triplet, K7
-     also on the 16,384-ray bundle of `wavefront_data`, K8 also at the peak
+ 22. (g) times each kernel with CUDA events (warm-up, then the median of
+     25 calls) and its plain version (the median of PLAIN_CALLS), K1 and
+     K3 also on the Cooke triplet, K7 also on the 16,384-ray bundle of
+     `wavefront_data`, K8 also at the peak
      sum, the random inputs of tools/bench_wave_optics.py and
      256 x 256 (with the phase range each reduces), K1-K6's per-ray
-     variants at 1,999,998 and 16,384 rays, phase (j3)'s kernels, the
-     training steps (the polychromatic one beside the monochromatic one,
-     the flagship's and those of phase (j3)'s systems), the
-     flagship forward and the Huygens PSF end to end, and prints one JSON
-     line of kernels;
+     variants at 1,999,998 and 16,384 rays, phases (j3)-(j8)'s kernels
+     (each plain version's time its comparison's own call: once, cold,
+     host clock), the training steps (the polychromatic one beside the
+     monochromatic one, the flagship's and those of phase (j3)'s systems),
+     the flagship forward and the Huygens PSF end to end, and prints one
+     JSON line of kernels;
  23. prints as its last line {"ok": true, "device": {...}}.
 Every path is driven with all the launch counters set to 0 just before it
 and read just after, and fails unless its kernels were launched.
@@ -180,11 +200,16 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 ROOT = Path(__file__).resolve().parent
 N_RAYS = 2_000_000
 WAVELENGTH = 0.5876
 TIMED_CALLS = 25
+# a plain version's time in the kernels line: the median of 3 calls after
+# one warm-up (at 2M rays the plain versions take 25-100 ms a call, and
+# medians of 25 cost ~20 s of the run for no information the kernels need)
+PLAIN_CALLS = 3
 TIMED_STEPS = 10
 GRAD_LEAVES = ("cv", "conic", "coeffs", "thickness")
 # Adam moves every coordinate by about lr per step whatever its scale; the
@@ -1583,6 +1608,549 @@ def near_float64(pair, tol):
     return pair[0] <= max(tol, F64_FACTOR * pair[1])
 
 
+# Phase j9: polarization ray tracing, thin-film coatings, BSDF scattering
+# and the vectorial wave optics. JAX's gates send every one of them to its
+# XLA path (`trace_system`: a polarized trace never takes K7;
+# `supports_fused`: no Fresnel, thin-film or polarizer coating, no BSDF;
+# the vectorial Huygens sum is XLA, not K8), so the port runs them eagerly
+# on the card and no kernel may launch; the unpolarized, uncoated Cooke
+# triplet beside them keeps its K7.
+POL_STATE = (True, 0.6, 0.8, 0.0, 0.5)
+MGF2 = (1.38, 100.0)   # a quarter wave at 552 nm: index, thickness in nm
+# the rays of the float64 gradient's reference (its autograd graph holds
+# (N, 3, 3) complex128 records at every surface)
+J9_GRAD_RAYS = 65_536
+J9_BSDF_RAYS = 1_999_998
+J9_STEPS = 5           # ThinFilmOptimizer's L-BFGS-B iterations
+J9_SPLIT_CALLS = 3     # warm VectorialHuygensPSF calls, split inside each
+# The polarized traces in float32 against float64 on the card, on the rays
+# both keep lit: positions and directions as TOL_F64; the final intensity
+# and |p| entries (each a product of six Fresnel or thin-film amplitudes
+# of ~0.98 and the rotations between the faces' bases, a few float32
+# roundings of 6e-8 each a face: 3e-6 and 6e-6 at 18,000 rays in a CPU
+# rehearsal, larger in the tails of 1,999,998) within 5e-5; the gradient of the mean
+# final intensity relative to its largest entry within 1e-3 (a float32 sum
+# of 65,536 rays' terms, each a difference of AOI-dependent amplitudes);
+# the share of rays lit in one precision only within TOL["intensity_frac"].
+TOL_POL = {"intensity": 5e-5, "p_abs": 5e-5, "grad_rel": 1e-3}
+# The polarizer goldens in float32: an extinction is the square of a
+# rounded zero (1e-14), Malus's law and the halvings within 1e-5 (a few
+# roundings of the unit vectors that build each Jones matrix).
+TOL_GOLDEN = {"extinction": 1e-6, "malus": 1e-5}
+# BSDF scattering on injected draws, float32 against float64, at the
+# scattering face (row 1) and the next (row 2, the singlet's back face),
+# on the rays both keep lit: a ray whose candidate lands within rounding of
+# the unit disk's edge may be accepted in one precision and rejected in the
+# other, and takes another attempt's direction, so at most 1e-4 of the rays
+# may miss TOL_F64's direction or position, and every other ray is held to
+# them. At the back face, a Lambertian ray can leave near grazing, where
+# refraction amplifies a rounding by 1 / cos of the exit angle (2.2e-5 in
+# direction at 40,000 rays in a CPU rehearsal): there the rule holds the
+# rays that leave within BSDF_EXIT_COS of the axis (N >= 0.5, 60 degrees).
+TOL_BSDF = {"outside_frac": 1e-4}
+BSDF_EXIT_COS = 0.5
+# The moments of the generator's own stream are held to the law within
+# this many standard errors of the sample.
+SIGMAS = 5.0
+# VectorialFFTPSF and VectorialHuygensPSF against the scalar PSFs' Strehl
+# ratios, as tests/test_vectorial_psf.py holds them (unpolarized light
+# through an uncoated lens: the PSFs differ by the vector components'
+# obliquity alone).
+TOL_VEC_STREHL = {"fft": 1e-2, "huygens": 2e-2}
+# ThinFilmOptimizer on the card against the CPU, float64: two roundings of
+# one arithmetic (fused multiply-adds on the card), through 5 L-BFGS-B
+# iterations.
+TOL_THIN_FILM = 1e-8
+
+
+def fresnel_cooke(CookeTriplet):
+    """The Cooke triplet with "fresnel" on its six glass faces."""
+    lens = CookeTriplet()
+    for k in range(1, 7):
+        lens.surfaces[k].coating = "fresnel"
+    lens._dirty()
+    return lens
+
+
+def mgf2_cooke(CookeTriplet, ThinFilmStack):
+    """The Cooke triplet with one MgF2 layer (MGF2) on each glass face,
+    between the face's own media."""
+    lens = CookeTriplet()
+    for k in range(1, 7):
+        stack = ThinFilmStack(lens.surfaces[k - 1].material,
+                              lens.surfaces[k].material)
+        lens.surfaces[k].coating = stack.add_layer_nm(*MGF2)
+    lens._dirty()
+    return lens
+
+
+def polarizer_plates(Optic, coat1, coat2, between=None):
+    """tests/test_polarization_goldens.py's `_polarizer_system`: two
+    coated flat faces in air (EPD 4, on axis, 0.55 um), `between` on a
+    third face between them where given."""
+    lens = Optic()
+    lens.add_surface(index=0, radius=math.inf, thickness=math.inf)
+    coats = (coat1, between, coat2) if between is not None else (coat1,
+                                                                  coat2)
+    for k, c in enumerate(coats):
+        lens.add_surface(index=k + 1, radius=math.inf, thickness=5.0,
+                         is_stop=k == 0, coating=c)
+    lens.add_surface(index=len(coats) + 1)
+    lens.set_aperture(aperture_type="EPD", value=4)
+    lens.set_field_type("angle")
+    lens.add_field(y=0)
+    lens.add_wavelength(value=0.55, is_primary=True)
+    return lens
+
+
+def bsdf_singlet(Optic, bsdf):
+    """A plano-convex N-BK7 singlet (flat front, R -60 mm back, 5 mm
+    thick, EPD 10, on axis and 3 degrees, 0.55 um) with `bsdf` on its flat
+    front face: an on-axis beam meets it at normal incidence, so the
+    scattered directions there follow the law's disk draws exactly
+    (L' = -y, M' = x)."""
+    lens = Optic()
+    lens.add_surface(index=0, radius=math.inf, thickness=math.inf)
+    lens.add_surface(index=1, radius=math.inf, thickness=5.0,
+                     material="N-BK7", is_stop=True, bsdf=bsdf)
+    lens.add_surface(index=2, radius=-60.0, thickness=100.0)
+    lens.add_surface(index=3)
+    lens.set_aperture(aperture_type="EPD", value=10.0)
+    lens.set_field_type("angle")
+    lens.add_field(y=0)
+    lens.add_field(y=3)
+    lens.add_wavelength(value=0.55, is_primary=True)
+    return lens
+
+
+def ar_stack(ThinFilmStack):
+    """A 4-layer AR start on n = 1.52 (tests/test_torch_thin_film.py's)."""
+    stack = ThinFilmStack(incident_material="air", substrate_material=1.52)
+    for n, d in ((1.38, 0.09), (2.1, 0.05), (1.38, 0.03), (2.1, 0.02)):
+        stack.add_layer(n, d)
+    return stack
+
+
+class _OpCount(TorchDispatchMode):
+    """Counts the ATen operators dispatched while it is active: each runs
+    at least one kernel on the card, so an eager path's count is a floor
+    on its launches."""
+
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.n += 1
+        return func(*args, **(kwargs or {}))
+
+
+@contextlib.contextmanager
+def precision(name):
+    """The port's precision global at `name`, float32 after."""
+    from optiland_tpu_torch import config
+
+    config.set_precision(name)
+    try:
+        yield
+    finally:
+        config.set_precision("float32")
+
+
+def phase_j9(dev, reset_counts, read_counts, smi,
+             rays_per_field=FLAGSHIP_RAYS_PER_FIELD, grad_rays=J9_GRAD_RAYS,
+             bsdf_rays=J9_BSDF_RAYS, wave=True):
+    """Phase j9 on `dev` (the card; a CPU rehearsal passes the CPU and small
+    sizes): (a) the Fresnel-coated Cooke triplet, unpolarized, at the
+    flagship batch; (b) the MgF2-coated one under POL_STATE; (c) the
+    polarizer goldens; (d) Lambertian and Gaussian BSDFs; (e) the
+    vectorial PSFs and MTF at their defaults; (f) ThinFilmOptimizer.
+    Returns the seconds of each part."""
+    from optiland_tpu_torch.core.scatter import (
+        GaussianBSDF,
+        LambertianBSDF,
+        disk_draws,
+    )
+    from optiland_tpu_torch.models import CookeTriplet
+    from optiland_tpu_torch.mtf import VectorialFFTMTF
+    from optiland_tpu_torch.polarization import PolarizationState
+    from optiland_tpu_torch.psf import (
+        ScalarFFTPSF,
+        ScalarHuygensPSF,
+        VectorialFFTPSF,
+        VectorialHuygensPSF,
+    )
+    from optiland_tpu_torch.psf import huygens
+    from optiland_tpu_torch.system.optic import Optic
+    from optiland_tpu_torch.thin_film import ThinFilmOptimizer, ThinFilmStack
+    from optiland_tpu_torch.trace import tracer
+
+    seconds = {}
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def clock():
+        sync()
+        return time.perf_counter()
+
+    def build(make):
+        """`make()` on `dev` in float32 and in float64."""
+        b32 = make().build(device=dev)
+        with precision("float64"):
+            b64 = make().build(device=dev)
+        return b32, b64
+
+    def no_kernel(label, got):
+        print(f"phase j9: {label}: launches {got}")
+        check(sum(got.values()) == 0, f"{label} launched no kernel: {got}")
+
+    def polarized(label, make, state):
+        """trace_system and Optic.trace under `state`, float32 against
+        float64 on the card, no kernel launched; the gradient of the mean
+        final intensity in cv and thickness at the whole batch (finite),
+        and against float64 on its first `grad_rays` rays."""
+        t0 = clock()
+        (st, pr), (st64, pr64) = build(make)
+        fb = flagship_inputs(pr, dev, rays_per_field)
+        leaves = {k: getattr(pr, k).detach().clone().requires_grad_(True)
+                  for k in ("cv", "thickness")}
+        reset_counts()
+        h = tracer.trace_system(st, pr.replace(**leaves), *fb,
+                                polarization=state)
+        h.intensity[-1].mean().backward()
+        got = read_counts()
+        no_kernel(f"{label}, trace_system and its backward at "
+                  f"{fb[0].numel()} rays", got)
+        ops = {}
+        for what in ("forward", "forward and backward"):
+            lv = {k: v.detach().clone().requires_grad_(True)
+                  for k, v in leaves.items()}
+            with _OpCount() as count:
+                hh = tracer.trace_system(st, pr.replace(**lv),
+                                         *(a[:1024] for a in fb),
+                                         polarization=state)
+                if what != "forward":
+                    hh.intensity[-1].mean().backward()
+            ops[what] = count.n
+        check(all(bool(torch.isfinite(v.grad).all())
+                  for v in leaves.values()), f"{label}: finite gradients")
+        with torch.no_grad():
+            h64 = tracer.trace_system(st64, pr64, *(a.double() for a in fb),
+                                      polarization=state)
+        i32, i64 = h.intensity[-1].detach(), h64.intensity[-1]
+        lit = (i32 > 0) & (i64 > 0)
+        err = {"lit_differs_frac": ((i32 > 0) != (i64 > 0)).double().mean()
+               .item(), "intensity": (i32.double() - i64).abs().max().item(),
+               "p_abs": (h.p.detach().abs().double() - h64.p.abs())[lit]
+               .abs().max().item()}
+        for key in ("x", "y", "z", "L", "M", "N"):
+            err[key] = (getattr(h, key)[-1].detach().double()
+                        - getattr(h64, key)[-1])[lit].abs().max().item()
+        del h, h64
+        # the gradient against float64 on the batch's first grad_rays rays
+        grads = []
+        for (s, p), cast in (((st, pr), torch.float32),
+                             ((st64, pr64), torch.float64)):
+            lv = {k: getattr(p, k).detach().clone().requires_grad_(True)
+                  for k in ("cv", "thickness")}
+            hh = tracer.trace_system(s, p.replace(**lv),
+                                     *(a[:grad_rays].to(cast) for a in fb),
+                                     polarization=state)
+            hh.intensity[-1].mean().backward()
+            grads.append(lv)
+            del hh
+        for k in ("cv", "thickness"):
+            g32, g64 = grads[0][k].grad.double(), grads[1][k].grad
+            err[f"grad {k}"] = ((g32 - g64).abs().max()
+                                / g64.abs().max()).item()
+        # the user's entry: Optic.trace on the polarized optic
+        lens32, lens64 = make(), make()
+        lens32.set_polarization(state)
+        lens64.set_polarization(state)
+        reset_counts()
+        t32 = lens32.trace(Hx=0.0, Hy=1.0, num_rays=64, device=dev)
+        got_o = read_counts()
+        no_kernel(f"{label}, Optic.trace", got_o)
+        with precision("float64"):
+            t64 = lens64.trace(Hx=0.0, Hy=1.0, num_rays=64, device=dev)
+        err["Optic.trace intensity"] = (t32.intensity[-1].double()
+                                        - t64.intensity[-1]).abs().max().item()
+        sync()
+        seconds[label] = time.perf_counter() - t0
+        print(f"phase j9 ({smi}): {label}, {fb[0].numel()} rays (gradient "
+              f"against float64 on the first {grad_rays}), float32 vs "
+              f"float64 on the card: {json.dumps(err)}; ATen operators a "
+              f"trace_system call dispatches (each at least one launch) "
+              f"{json.dumps(ops)}; {seconds[label]:.1f} s")
+        check(err["lit_differs_frac"] <= TOL["intensity_frac"], f"{label} lit")
+        check(all(err[k] <= TOL_F64["position_mm"] for k in "xyz")
+              and all(err[k] <= TOL_F64["direction"] for k in "LMN"),
+              f"{label} positions and directions vs float64")
+        check(err["intensity"] <= TOL_POL["intensity"]
+              and err["Optic.trace intensity"] <= TOL_POL["intensity"]
+              and err["p_abs"] <= TOL_POL["p_abs"],
+              f"{label} intensity and |p| vs float64")
+        check(all(err[f"grad {k}"] <= TOL_POL["grad_rel"]
+                  for k in ("cv", "thickness")), f"{label} gradients")
+
+    t_j9 = time.perf_counter()
+    # (a) Fresnel on six faces, unpolarized; (b) MgF2 stacks, POL_STATE
+    polarized("(a) Fresnel-coated Cooke triplet, unpolarized",
+              lambda: fresnel_cooke(CookeTriplet),
+              PolarizationState.unpolarized())
+    polarized("(b) MgF2-coated Cooke triplet, polarized",
+              lambda: mgf2_cooke(CookeTriplet, ThinFilmStack),
+              PolarizationState(*POL_STATE))
+    # the uncoated, unpolarized twin keeps K7
+    st_c, pr_c = CookeTriplet().build(device=dev)
+    fb_c = flagship_inputs(pr_c, dev, rays_per_field)
+    reset_counts()
+    tracer.trace_system(st_c, pr_c, *fb_c)
+    got = read_counts()
+    print(f"phase j9: the uncoated, unpolarized twin's trace_system: "
+          f"launches {got}")
+    if dev.type == "cuda":
+        check(got["K7"] == 1 and sum(got.values()) == 1,
+              f"the uncoated twin launched K7 once: {got}")
+    del fb_c
+
+    # (c) the polarizer goldens at the flagship's number of rays
+    t0 = clock()
+    n = 9 * rays_per_field
+    h_state = PolarizationState(True, 1.0, 0.0, 0.0, 0.0)
+    cases = {"crossed H, V": ("polarizer_h", "polarizer_v", None, h_state,
+                              0.0),
+             "parallel H, H": ("polarizer_h", "polarizer_h", None, h_state,
+                               1.0),
+             "unpolarized through H": ("polarizer_h", None, None,
+                                       PolarizationState.unpolarized(), 0.5),
+             "quarter wave at 45 deg between crossed H, V": (
+                 "polarizer_h", "polarizer_v",
+                 ("retarder", math.pi / 2, math.pi / 4), h_state, 0.5)}
+    for theta in (0.2, 0.7, 1.3):
+        cases[f"Malus, H then {theta} rad"] = (
+            "polarizer_h", ("linear_polarizer", theta), None, h_state,
+            math.cos(theta) ** 2)
+    golden = {}
+    reset_counts()
+    for name, (c1, c2, mid, state, want) in cases.items():
+        lens = polarizer_plates(Optic, c1, c2, mid)
+        st, pr = lens.build(device=dev)
+        inp = field_pupil_inputs(lens, n, dev)
+        i = tracer.trace_system(st, pr, *inp, 0.55,
+                                polarization=state).intensity[-1]
+        golden[name] = (i.double() - want).abs().max().item()
+        tol = TOL_GOLDEN["extinction" if want == 0.0 else "malus"]
+        check(golden[name] <= tol, f"{name}: {golden[name]} > {tol}")
+    no_kernel(f"(c) the polarizer goldens at {n} rays", read_counts())
+    seconds["(c)"] = clock() - t0
+    print(f"phase j9 ({smi}): (c) the polarizer goldens at {n} rays, float32, "
+          f"largest |i - law| {json.dumps(golden)} (tolerances "
+          f"{json.dumps(TOL_GOLDEN)}); {seconds['(c)']:.1f} s")
+
+    # (d) BSDFs on the singlet's flat face, on-axis rays, an explicit
+    # generator on the device
+    t0 = clock()
+    for bsdf in (LambertianBSDF(), GaussianBSDF(0.1)):
+        make = (lambda b=bsdf: bsdf_singlet(Optic, b))
+        (st, pr), (st64, pr64) = build(make)
+        rng = np.random.default_rng(21)
+        r = np.sqrt(rng.uniform(size=bsdf_rays))
+        th = rng.uniform(0, 2 * np.pi, bsdf_rays)
+        inp = tuple(torch.tensor(a, dtype=torch.float32, device=dev) for a in
+                    (np.zeros(bsdf_rays), np.zeros(bsdf_rays), r * np.cos(th),
+                     r * np.sin(th)))
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(5)
+        draws = disk_draws(gen, bsdf_rays, 8, torch.float64, dev)
+        reset_counts()
+        h = tracer.trace_system(st, pr, *inp, 0.55,
+                                scatter_draws={1: draws})
+        h_own = tracer.trace_system(st, pr, *inp, 0.55, scatter=gen)
+        no_kernel(f"(d) {bsdf.kind} BSDF, injected draws and the "
+                  f"generator's stream", read_counts())
+        h64 = tracer.trace_system(st64, pr64, *(a.double() for a in inp),
+                                  0.55, scatter_draws={1: draws})
+        err = {}
+        for row in (1, 2):
+            def diff(keys):
+                return torch.stack([(getattr(h, k)[row].double()
+                                     - getattr(h64, k)[row]).abs()
+                                    for k in keys]).amax(0)
+
+            d, dp = diff("LMN"), diff("xyz")
+            lit = (h.intensity[row] > 0) & (h64.intensity[row] > 0)
+            if row == 2:
+                lit &= h64.N[row] >= BSDF_EXIT_COS
+            out = lit & ((d > TOL_F64["direction"])
+                         | (dp > TOL_F64["position_mm"]))
+            err[f"row {row} outside frac"] = out.double().mean().item()
+            err[f"row {row} direction max"] = d[lit].max().item()
+            err[f"row {row} position max"] = dp[lit].max().item()
+        print(f"phase j9 ({smi}): (d) {bsdf.kind} BSDF, {bsdf_rays} rays, "
+              f"injected draws, float32 vs float64: {json.dumps(err)}")
+        check(all(err[f"row {r_} outside frac"] <= TOL_BSDF["outside_frac"]
+                  for r_ in (1, 2)), f"{bsdf.kind} BSDF vs float64")
+        # the generator's stream against the law: at normal incidence the
+        # scattered (M', -L') is the disk draw (x, y)
+        law2 = 0.25 if bsdf.kind == "lambertian" else bsdf.sigma ** 2
+        mom = {}
+        for k, v in (("M", h_own.M[1].double()), ("L", -h_own.L[1].double())):
+            m1, m2 = v.mean(), (v * v).mean()
+            se1 = v.std() / math.sqrt(v.numel())
+            se2 = (v * v).std() / math.sqrt(v.numel())
+            mom[k] = {"mean": m1.item(), "mean/se": (m1 / se1).item(),
+                      "second": m2.item(),
+                      "(second - law)/se": ((m2 - law2) / se2).item()}
+            check(abs(mom[k]["mean/se"]) <= SIGMAS
+                  and abs(mom[k]["(second - law)/se"]) <= SIGMAS,
+                  f"{bsdf.kind} BSDF moments of {k}")
+        print(f"phase j9 ({smi}): (d) {bsdf.kind} BSDF: the generator's "
+              f"stream against the law (second moment {law2}) "
+              f"{json.dumps(mom)}")
+        del h, h_own, h64, draws
+    seconds["(d)"] = clock() - t0
+
+    # (e) the vectorial PSFs and MTF of the Cooke triplet at their
+    # defaults, unpolarized, float32 against float64
+    if wave:
+        t0 = clock()
+        lens32, scalar32 = CookeTriplet(), CookeTriplet()
+        lens32.set_polarization("unpolarized")
+        with precision("float64"):
+            lens64 = CookeTriplet()
+            lens64.set_polarization("unpolarized")
+            lens64.build(device=dev)
+        errs = {}
+        reset_counts()
+        for field in ((0.0, 0.0), (0.0, 1.0)):
+            for name, cls, key in (("VectorialHuygensPSF",
+                                    VectorialHuygensPSF, "huygens"),
+                                   ("VectorialFFTPSF", VectorialFFTPSF,
+                                    "fft")):
+                p32 = cls(lens32, field, device=dev)
+                with precision("float64"):
+                    p64 = cls(lens64, field, device=dev)
+                peak = p64.psf.abs().max()
+                errs[f"{name} {field}"] = {
+                    "psf_of_peak": ((p32.psf.double() - p64.psf).abs().max()
+                                    / peak).item(),
+                    "strehl": abs(p32.strehl_ratio().item()
+                                  - p64.strehl_ratio().item())}
+                check(errs[f"{name} {field}"]["psf_of_peak"]
+                      <= TOL_WAVE[f"{key}_psf_of_peak"]
+                      and errs[f"{name} {field}"]["strehl"]
+                      <= TOL_WAVE[f"{key}_strehl"], f"{name} {field}")
+        m32 = VectorialFFTMTF(lens32, device=dev)
+        with precision("float64"):
+            m64 = VectorialFFTMTF(lens64, device=dev)
+        errs["VectorialFFTMTF"] = max(
+            (a.double() - b).abs().max().item()
+            for fa, fb_ in zip(m32.mtf, m64.mtf) for a, b in zip(fa, fb_))
+        check(errs["VectorialFFTMTF"] <= TOL_WAVE["fft_mtf"],
+              "VectorialFFTMTF vs float64")
+        got = read_counts()
+        print(f"phase j9: (e) the vectorial analyses: launches {got}")
+        check(got["K8"] == 0, "the vectorial Huygens sum is no K8 launch")
+        # the vectorial Strehl ratios against the scalar PSFs'
+        strehl = {
+            "fft": (VectorialFFTPSF(lens32, (0.0, 0.0), device=dev)
+                    .strehl_ratio().item(),
+                    ScalarFFTPSF(scalar32, (0.0, 0.0), device=dev)
+                    .strehl_ratio().item()),
+            "huygens": (VectorialHuygensPSF(lens32, (0.0, 0.0), device=dev)
+                        .strehl_ratio().item(),
+                        ScalarHuygensPSF(scalar32, (0.0, 0.0), device=dev)
+                        .strehl_ratio().item())}
+        for key, (v, s_) in strehl.items():
+            check(abs(v - s_) <= TOL_VEC_STREHL[key],
+                  f"vectorial {key} Strehl {v} vs scalar {s_}")
+        # the Huygens PSF call at (0, 1), host clock, and its split, each
+        # stage clocked inside the call itself: the class's module calls
+        # `wavefront_data` (field and ideal) and `_component_sum` (image and
+        # peak) through wrappers that synchronize around them; of
+        # J9_SPLIT_CALLS warm calls, the one of median time, the rest the
+        # call less its stages
+        spent = {}
+
+        def clocked(key, fn):
+            def run(*a, **kw):
+                t = clock()
+                out = fn(*a, **kw)
+                spent[key] = spent.get(key, 0.0) + clock() - t
+                return out
+            return run
+
+        stages = {"wavefront_data (field and ideal)": "wavefront_data",
+                  "component sums (image and peak)": "_component_sum"}
+        orig = {key: getattr(huygens, name) for key, name in stages.items()}
+        calls = []
+        try:
+            for key, name in stages.items():
+                setattr(huygens, name, clocked(key, orig[key]))
+            for _ in range(J9_SPLIT_CALLS):
+                spent.clear()
+                t1 = clock()
+                VectorialHuygensPSF(lens32, (0.0, 1.0), device=dev)
+                calls.append({"total": clock() - t1, **spent})
+        finally:
+            for key, name in stages.items():
+                setattr(huygens, name, orig[key])
+        for c in calls:
+            c["rest"] = c["total"] - sum(c[key] for key in stages)
+            check(set(stages) <= set(c) and c["rest"] >= 0.0,
+                  f"VectorialHuygensPSF's stages ran inside the call: {c}")
+        shares = [c["component sums (image and peak)"] / c["total"]
+                  for c in calls]
+        split = dict(sorted(calls, key=lambda c: c["total"])[
+            len(calls) // 2])
+        total = split.pop("total")
+        split = {key: 1e3 * v for key, v in split.items()}
+        split["component sums' share of each call"] = shares
+        seconds["(e)"] = clock() - t0
+        print(f"phase j9 ({smi}): (e) the vectorial analyses at their "
+              f"defaults, float32 vs float64 on the card: {json.dumps(errs)}; "
+              f"Strehl vectorial vs scalar {json.dumps(strehl)}; "
+              f"VectorialHuygensPSF(CookeTriplet(), (0, 1)) {1e3 * total:.1f}"
+              f" ms (the median of {J9_SPLIT_CALLS} warm calls), split "
+              f"inside that call (ms) {json.dumps(split)}; "
+              f"{seconds['(e)']:.1f} s")
+
+    # (f) ThinFilmOptimizer in float64, the card against the CPU
+    t0 = clock()
+    runs = {}
+    with precision("float64"):
+        for where in (dev, torch.device("cpu")):
+            opt = ThinFilmOptimizer(ar_stack(ThinFilmStack), device=where)
+            opt.add_all_variables(min_nm=5.0, max_nm=400.0)
+            opt.add_operand(property="R",
+                            wavelength_nm=np.linspace(450, 650, 9),
+                            target_type="equal", value=0.0)
+            opt.add_operand(property="R", wavelength_nm=550.0, aoi_deg=30.0,
+                            target_type="below", value=0.005,
+                            polarization="s", weight=2.0)
+            opt.optimize(max_iter=J9_STEPS)
+            runs[where.type] = ([lay.thickness_um for lay in opt.stack.layers],
+                                list(opt._history))
+    th_err = max(abs(a - b) / abs(b) for a, b in zip(runs[dev.type][0],
+                                                     runs["cpu"][0]))
+    hist_err = max(abs(a - b) / abs(b) for a, b in zip(runs[dev.type][1],
+                                                       runs["cpu"][1]))
+    seconds["(f)"] = clock() - t0
+    print(f"phase j9: (f) ThinFilmOptimizer, {J9_STEPS} L-BFGS-B iterations "
+          f"on a 4-layer AR stack, {dev.type} vs CPU (float64): merits "
+          f"{runs[dev.type][1][0]!r} -> {runs[dev.type][1][-1]!r}, "
+          f"thicknesses {th_err!r}, merit history {hist_err!r} relative "
+          f"(tolerance {TOL_THIN_FILM}); {seconds['(f)']:.1f} s")
+    check(th_err <= TOL_THIN_FILM and hist_err <= TOL_THIN_FILM
+          and runs["cpu"][1][-1] < runs["cpu"][1][0],
+          "ThinFilmOptimizer on the card vs the CPU")
+    seconds["phase j9"] = time.perf_counter() - t_j9
+    return seconds
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs a CUDA "
@@ -2579,8 +3147,9 @@ def main():
     # A's and B's polychromatic merits against the eager float64 path at
     # TOL_F64 (each leaf also within GRAD_NOISE_FACTOR of the eager float32
     # path's own error), then Adam steps; C's too.
-    # phases j3 and j4 share these helpers and records
-    j3 = {}      # key -> (wrapper call, plain call, bytes, ops, launches, err)
+    # phases j3-j6 share these helpers and records
+    # key -> (wrapper call, plain ms, note, bytes, ops, launches, err)
+    j3 = {}
     j3_steps = {}
     # each system's branch leaf: its cotangent must reach K2, K4 and K6
     branch_leaf = {"A": "coating_params", "B": "grating", "C": "grating",
@@ -2701,6 +3270,28 @@ def main():
         check(all(math.isfinite(v) for v in losses), f"{label} losses")
         j3_steps[label] = (losses, step)
 
+    # a timing row's note on its plain time (`timed`)
+    plain_note = "plain: its comparison's call, once, cold, host clock"
+
+    def timed(fn):
+        """`fn()` and its host-clock milliseconds between synchronizes: a
+        comparison's plain call, timed once where it runs (its first call
+        at that shape, so the caching allocator's growth is in it)."""
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t)
+
+    def split_s(fn, split, key):
+        """`fn()`, its host-clock seconds added to split[key]."""
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        split[key] = split.get(key, 0.0) + time.perf_counter() - t
+        return out
+
     def j3_raygen(label, st, pr, fbx, wl):
         """K1-K4 of system `label` at `wl` (None: per-ray) against their
         plain versions; `trace_system_final` and its backward launch K3
@@ -2718,7 +3309,8 @@ def main():
         pj, dj = fused._prepare(st, pr, *args)
         n_j = dj[0].shape[0]
         k3 = fused.raygen_trace_forward(st, *pj, dj, keys)
-        k3_plain = fused._raygen_trace_plain(st, *pj, dj, keys)
+        k3_plain, ms3 = timed(lambda: fused._raygen_trace_plain(st, *pj, dj,
+                                                                keys))
         keep_j = (k3[6] > 0) == (k3_plain[6] > 0)
         e3 = final_errs(f"K3 ({label}, {cfg})", k3, k3_plain, keep_j)
         # seeds on x, y, i and opd: a coating's cotangent needs i's (the
@@ -2728,7 +3320,7 @@ def main():
                   torch.ones_like(k3[0]))
         del k3, k3_plain
         k1 = fused.moments_forward(st, *pj, dj)
-        k1_plain = fused._moments_plain(st, *pj, dj)
+        k1_plain, ms1 = timed(lambda: fused._moments_plain(st, *pj, dj))
         e1 = moment_rel(k1, k1_plain)
         print(f"K1 ({label}, {cfg}) vs plain: moment_rel {e1:.6g} "
               f"(tolerance {TOL['moment_rel']})")
@@ -2736,48 +3328,46 @@ def main():
         c_j = torch.tensor([0.3, -0.7, 0.5, 1.1], device=dev)
         plain2 = (lambda *a: fused._moments_bwd_plain(st, *a, True))
         got2 = fused.moments_backward(st, *pj, dj, c_j, True)
-        errs2, rays2, abs2 = cotangent_errs(got2, plain2(*pj, dj, c_j),
-                                            keep_j)
+        ref2, ms2 = timed(lambda: plain2(*pj, dj, c_j))
+        errs2, rays2, abs2 = cotangent_errs(got2, ref2, keep_j)
         check_cotangents(f"K2 ({label}, {cfg})", errs2, rays2, (
             lambda: float64_errs(got2, plain2, (*pj, dj, c_j)))
             if label in PHASE_SYSTEMS else None)
-        del got2
+        del got2, ref2
         plain4 = (lambda *a: fused._raygen_trace_bwd_plain(
             st, *a[:-1], keys4, a[-1]))
         got4 = fused.raygen_trace_backward(st, *pj, dj, keys4, seeds4)
-        errs4, rays4, abs4 = cotangent_errs(got4, plain4(*pj, dj, seeds4),
-                                            keep_j)
+        ref4, ms4 = timed(lambda: plain4(*pj, dj, seeds4))
+        errs4, rays4, abs4 = cotangent_errs(got4, ref4, keep_j)
         check_cotangents(f"K4 ({label}, {cfg})", errs4, rays4, (
             lambda: float64_errs(got4, plain4, (*pj, dj, seeds4)))
             if label in PHASE_SYSTEMS else None)
-        del got4
+        del got4, ref4
         check(branch_leaf[label] in errs2 and branch_leaf[label] in errs4,
               f"{label}: the branch's cotangents reached K2 and K4")
+
         nd = len(dj)
         ops_f = chain_ops_per_ray(st, fused) + (
             media_ops_per_ray(st) if wl is None else 0)
         ops_b = backward_ops_per_ray(st, fused) + (
             media_ops_per_ray(st) if wl is None else 0)
         j3[f"K1 (system {label}, {cfg})"] = (
-            lambda: fused.moments_forward(st, *pj, dj),
-            lambda: fused._moments_plain(st, *pj, dj), nd * 4 * n_j,
-            (ops_f + 10) * n_j, j3_launch[label, wl]["K1"],
+            lambda: fused.moments_forward(st, *pj, dj), ms1, plain_note,
+            nd * 4 * n_j, (ops_f + 10) * n_j, j3_launch[label, wl]["K1"],
             (k1 - k1_plain).abs().max().item())
         j3[f"K2 (system {label}, {cfg})"] = (
-            lambda: fused.moments_backward(st, *pj, dj, c_j, False),
-            lambda: fused._moments_bwd_plain(st, *pj, dj, c_j, False),
-            nd * 4 * n_j, (ops_b + 8) * n_j, j3_launch[label, wl]["K2"],
-            abs2)
+            lambda: fused.moments_backward(st, *pj, dj, c_j, False), ms2,
+            plain_note + " (with the data cotangents)", nd * 4 * n_j,
+            (ops_b + 8) * n_j, j3_launch[label, wl]["K2"], abs2)
         j3[f"K3 (system {label}, {cfg})"] = (
-            lambda: fused.raygen_trace_forward(st, *pj, dj, keys),
-            lambda: fused._raygen_trace_plain(st, *pj, dj, keys),
+            lambda: fused.raygen_trace_forward(st, *pj, dj, keys), ms3,
+            plain_note,
             (nd + 8) * 4 * n_j, ops_f * n_j, got["K3"],
             max(v for k, v in e3.items() if k != "intensity_frac"))
         j3[f"K4 (system {label}, {cfg})"] = (
             lambda: fused.raygen_trace_backward(st, *pj, dj, keys4, seeds4),
-            lambda: fused._raygen_trace_bwd_plain(st, *pj, dj, keys4,
-                                                  seeds4),
-            (2 * nd + 4) * 4 * n_j, ops_b * n_j, got["K4"], abs4)
+            ms4, plain_note, (2 * nd + 4) * 4 * n_j, ops_b * n_j, got["K4"],
+            abs4)
         free()
 
     def j3_caller(label, st, pr, fbx, wl):
@@ -2805,7 +3395,7 @@ def main():
         n_j = rj[0].shape[0]
         del r0
         k5 = fused.fused_trace_forward(st, *pj, rj)
-        k5_plain = fused._fused_trace_plain(st, *pj, rj)
+        k5_plain, ms5 = timed(lambda: fused._fused_trace_plain(st, *pj, rj))
         keep_j = (k5[6] > 0) == (k5_plain[6] > 0)
         e5 = final_errs(f"K5 ({label}, {cfg})", k5, k5_plain, keep_j, (
             lambda: final_float64_errs(
@@ -2821,7 +3411,7 @@ def main():
             d_rays, d_diff = fused._fused_trace_bwd_plain(st, *a)
             return None, d_diff, d_rays
 
-        k6_plain = plain6(*pj, rj, seeds8)
+        k6_plain, ms6 = timed(lambda: plain6(*pj, rj, seeds8))
         errs6, rays6, abs6 = cotangent_errs(
             (None, k6[1], k6[0]), k6_plain, keep_j)
         check_cotangents(f"K6 ({label}, {cfg})", errs6, rays6, (
@@ -2834,16 +3424,14 @@ def main():
         nr = len(rj)
         media = media_ops_per_ray(st) if wl is None else 0
         j3[f"K5 (system {label}, {cfg})"] = (
-            lambda: fused.fused_trace_forward(st, *pj, rj),
-            lambda: fused._fused_trace_plain(st, *pj, rj),
+            lambda: fused.fused_trace_forward(st, *pj, rj), ms5, plain_note,
             (nr + 8) * 4 * n_j,
             (chain_ops_per_ray(st, fused) - raygen_ops(st) + media) * n_j,
             got["K5"], max(v for k, v in e5.items()
                            if k != "intensity_frac"))
         j3[f"K6 (system {label}, {cfg})"] = (
-            lambda: fused.fused_trace_backward(st, *pj, rj, seeds8),
-            lambda: fused._fused_trace_bwd_plain(st, *pj, rj, seeds8),
-            (2 * nr + 8) * 4 * n_j,
+            lambda: fused.fused_trace_backward(st, *pj, rj, seeds8), ms6,
+            plain_note, (2 * nr + 8) * 4 * n_j,
             (backward_ops_per_ray(st, fused, raygen=False) + media) * n_j,
             got["K6"], abs6)
         free()
@@ -2873,17 +3461,19 @@ def main():
                    for k in fused._RAY_KEYS)
         del r0
         pj = (fused._diff_params(pr), fused._nondiff_params(pr))
-        e7 = history_errs(fused.history_forward(st, *pj, r9),
-                          fused._history_plain(st, *pj, r9))
+        k7 = fused.history_forward(st, *pj, r9)
+        k7_plain, ms7 = timed(lambda: fused._history_plain(st, *pj, r9))
+        e7 = history_errs(k7, k7_plain)
+        del k7, k7_plain
         print(f"K7 ({label}) vs plain, all rows: {json.dumps(e7)}")
         check(e7["intensity_frac"] <= TOL["intensity_frac"], f"K7 {label} i")
         for key, tol in hist_tol.items():
             check(e7[key] <= TOL[tol], f"K7 ({label}) {key} vs plain")
         n_j, S_j = r9[0].shape[0], st.num_surfaces
         j3[f"K7 (system {label}, per-ray)"] = (
-            lambda: fused.history_forward(st, *pj, r9),
-            lambda: fused._history_plain(st, *pj, r9),
-            (9 + 8 * S_j) * 4 * n_j, history_ops_per_ray(st, fused) * n_j,
+            lambda: fused.history_forward(st, *pj, r9), ms7,
+            plain_note + " (every row)", (9 + 8 * S_j) * 4 * n_j,
+            history_ops_per_ray(st, fused) * n_j,
             got["K7"], max(v for k, v in e7.items()
                            if k != "intensity_frac"))
         free()
@@ -3041,14 +3631,22 @@ def main():
     print(f"phase j5: rays the capped freeform Newton leaves more than 1e-9 "
           f"mm from the eager float64 hit: {json.dumps(unconverged)}")
     check(not any(unconverged.values()), "the capped Newton converges")
+    split = {}
     for label, sysx in (("G", sys_g), ("H", sys_h), ("I", sys_i)):
-        j3_adam(label, *sysx[:3], j3_merit(label, *sysx))
+        names = split_s(lambda: j3_merit(label, *sysx), split,
+                        f"{label} merit vs float64")
+        split_s(lambda: j3_adam(label, *sysx[:3], names), split,
+                f"{label} Adam")
         for wl in (FLAGSHIP_WAVELENGTH, None):
-            j3_raygen(label, *sysx[:3], wl)
+            split_s(lambda: j3_raygen(label, *sysx[:3], wl), split,
+                    f"{label} K1-K4 vs plain")
     for wl in (FLAGSHIP_WAVELENGTH, None):
-        j3_caller("I", *sys_iv[:3], wl)
+        split_s(lambda: j3_caller("I", *sys_iv[:3], wl), split,
+                "I twin K5, K6 vs plain")
     for label, sysx in (("G", sys_g), ("H", sys_h), ("I", sys_i)):
-        j3_history(label, *sysx[:3])
+        split_s(lambda: j3_history(label, *sysx[:3]), split,
+                f"{label} K7 vs plain")
+    print(f"phase j5: seconds of its parts {json.dumps(split)}")
     # the Q-2D system this phase once refused by name runs through K1
     st_q, pr_q = _freeform_pair(
         Optic, (60.0, "forbes_q2d", dict(
@@ -3076,8 +3674,8 @@ def main():
     # in-kernel raygen for K5 and K6); K, a 38-slot Fringe Zernike and a
     # 29-slot Q-2D (the wide rows); L, 70 surfaces of relays (the backward
     # kernels' record of 128 surfaces). The same paths and checks as phase
-    # j5, after its count of the rays the capped Newton leaves
-    # unconverged; then a NURBS singlet, which JAX's gate and the kernels
+    # j5, after its count of
+    # the rays the capped Newton leaves unconverged; then a NURBS singlet, which JAX's gate and the kernels
     # leave to the eager trace, on the card against float64.
     t_j6 = time.perf_counter()
     sys_j, sys_jv, sys_k, sys_l = (j3_build(make) for make in (
@@ -3125,14 +3723,22 @@ def main():
     print(f"phase j6: rays the capped Newton leaves more than 1e-9 mm from "
           f"the eager float64 hit: {json.dumps(unconverged)}")
     check(not any(unconverged.values()), "the capped Newton converges")
+    split = {}
     for label, sysx in (("J", sys_j), ("K", sys_k), ("L", sys_l)):
-        j3_adam(label, *sysx[:3], j3_merit(label, *sysx))
+        names = split_s(lambda: j3_merit(label, *sysx), split,
+                        f"{label} merit vs float64")
+        split_s(lambda: j3_adam(label, *sysx[:3], names), split,
+                f"{label} Adam")
         for wl in (FLAGSHIP_WAVELENGTH, None):
-            j3_raygen(label, *sysx[:3], wl)
+            split_s(lambda: j3_raygen(label, *sysx[:3], wl), split,
+                    f"{label} K1-K4 vs plain")
     for wl in (FLAGSHIP_WAVELENGTH, None):
-        j3_caller("J", *sys_jv[:3], wl)
+        split_s(lambda: j3_caller("J", *sys_jv[:3], wl), split,
+                "J twin K5, K6 vs plain")
     for label, sysx in (("J", sys_j), ("K", sys_k), ("L", sys_l)):
-        j3_history(label, *sysx[:3])
+        split_s(lambda: j3_history(label, *sysx[:3]), split,
+                f"{label} K7 vs plain")
+    print(f"phase j6: seconds of its parts {json.dumps(split)}")
     del sys_j, sys_jv, sys_k, sys_l
     free()
     # a NURBS singlet (the LSQ fit of the R 60, k -0.8 conic over +-8 mm,
@@ -3224,7 +3830,7 @@ def main():
         del r0
         pj = (fused._diff_params(pr), fused._nondiff_params(pr))
         got7 = fused.history_forward(st, *pj, r9)
-        plain7 = fused._history_plain(st, *pj, r9)
+        plain7, ms7 = timed(lambda: fused._history_plain(st, *pj, r9))
         e7 = history_errs(got7, plain7)
         print(f"K7 ({key}) vs plain, all rows: {json.dumps(e7)}")
         check(e7["intensity_frac"] <= TOL["intensity_frac"], f"K7 {key} i")
@@ -3244,8 +3850,8 @@ def main():
             check(name not in miss, f"K7 ({key}) {name} vs plain")
         del got7, plain7
         n_j, S_j = r9[0].shape[0], st.num_surfaces
-        return (lambda: fused.history_forward(st, *pj, r9),
-                lambda: fused._history_plain(st, *pj, r9),
+        return (lambda: fused.history_forward(st, *pj, r9), ms7,
+                plain_note,
                 (9 + 8 * S_j) * 4 * n_j, history_ops_per_ray(st, fused) * n_j,
                 max(v for k, v in e7.items() if k != "intensity_frac"))
 
@@ -3821,6 +4427,12 @@ def main():
           f"{json.dumps(design_ms)}; {json.dumps(j8_times)}; phase j8 "
           f"{time.perf_counter() - t_j8:.1f} s")
 
+    # 16i. (j9) polarization, thin films, BSDFs and the vectorial wave
+    # optics: eager on the card, as JAX's gates send them; no kernel
+    j9_s = phase_j9(dev, reset_counts, read_counts, smi)
+    print(f"phase j9 ({smi}): seconds {json.dumps(j9_s)}")
+    free()
+
     # 17. (k) the user's entry: Optic.trace on the card
     reset_counts()
     h_user = CookeTriplet().trace(Hx=0, Hy=1, num_rays=6)
@@ -4164,7 +4776,8 @@ def main():
             source=f"optiland_tpu_torch/csrc/{src}",
             replaces=replaces,
             launches=path_launches[key], max_abs_err=err,
-            ms=time_ms(launches[key]), plain_ms=time_ms(plains[key]),
+            ms=time_ms(launches[key]),
+            plain_ms=time_ms(plains[key], calls=PLAIN_CALLS, warmup=1),
             bound_ms=b_ms, bound_by=b_by, library_ms=None))
         free()
     sfu_rate, max_mhz = sfu_per_s(n_sm)
@@ -4256,25 +4869,27 @@ def main():
             name=f"{key} {fn_name} (per-ray wavelengths)", route="cuda",
             source=f"optiland_tpu_torch/csrc/{src}", replaces=replaces,
             launches=path_w[key][key], max_abs_err=err_w[key], ms=ms[n_c],
-            plain_ms=time_ms(plains_w[key]), bound_ms=b_ms, bound_by=b_by,
+            plain_ms=time_ms(plains_w[key], calls=PLAIN_CALLS, warmup=1),
+            bound_ms=b_ms, bound_by=b_by,
             library_ms=None))
         free()
     # phases j3-j6's configurations: the coating, thin-lens, grating,
     # phase and freeform branches, the wide rows and the long record on
     # systems A-L at the flagship batch's rays, each kernel's launch span
-    # (median of 25) beside one call of its plain version after one warm-up
-    # (each takes 0.1-3 s)
+    # (median of 25) beside its plain version's time at its comparison's
+    # own call (its first call, host clock), which the row's name says
     j3_ms = {}
-    for key, (call, plain, n_bytes, n_ops, n_launch, err) in j3.items():
+    for key, (call, plain_ms, note, n_bytes, n_ops, n_launch,
+              err) in j3.items():
         fn_name, src, replaces = meta[key[:2]][:3]
         j3_ms[key] = kernel_turns.launch_ms(call, spans)
         b_ms, b_by = bound_ms(n_bytes, n_ops)
         rows.append(dict(
-            name=f"{key[:2]} {fn_name} {key[3:]}", route="cuda",
+            name=f"{key[:2]} {fn_name} {key[3:-1]}; {note})", route="cuda",
             source=f"optiland_tpu_torch/csrc/{src}", replaces=replaces,
             launches=n_launch, max_abs_err=err, ms=j3_ms[key],
-            plain_ms=time_ms(plain, calls=1, warmup=1), bound_ms=b_ms,
-            bound_by=b_by, library_ms=None))
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=None))
         free()
     restore()
     print(f"phases j3-j6 kernels, median of {TIMED_CALLS} launch spans "
@@ -4415,7 +5030,8 @@ def main():
             image=ni, pupil=npu, chunks=partial.shape[0], ms=t_k8,
             bound_ms=b_ms, bound_by=b_by,
             contributions_per_s=ni * npu / (t_k8 * 1e-3),
-            plain_ms=(time_ms(lambda: huygens.huygens_sum_plain(*args))
+            plain_ms=(time_ms(lambda: huygens.huygens_sum_plain(*args),
+                              calls=PLAIN_CALLS, warmup=1)
                       if with_plain else None), **phase_reduction(args))
         del partial, _keep
         free()

@@ -19,7 +19,9 @@ import torch
 @dataclass(frozen=True)
 class Rays:
     """A batch of real rays (positions, direction cosines, intensity,
-    optical path, wavelength in micrometers)."""
+    optical path, wavelength in micrometers), and for a polarized trace
+    `p`, each ray's (N, 3, 3) complex polarization ray-tracing matrix
+    (None in a scalar trace)."""
 
     x: torch.Tensor
     y: torch.Tensor
@@ -30,6 +32,7 @@ class Rays:
     i: torch.Tensor
     opd: torch.Tensor
     w: torch.Tensor
+    p: torch.Tensor | None = None
 
     @property
     def num_rays(self) -> int:

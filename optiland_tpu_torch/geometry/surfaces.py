@@ -427,7 +427,9 @@ def _conic_intersect(x, y, z, L, M, N, cv, k):
     The two roots are q / A and C / q with q = -(B + sign(B) sqrt(disc)) / 2,
     which never subtracts sqrt(disc) from |B|: (-B +- sqrt(disc)) / 2A
     cancels where 4 |A C| << B^2, a ray that has come far to a shallow
-    mirror (a telescope's primary loses ~1 mm in float32 that way).
+    mirror (a telescope's primary loses ~1 mm in float32 that way). A ray
+    that misses (disc < 0) takes the clamped double root -B / 2A, as the
+    JAX package does, so its dark rows and any Newton seeded there match.
     Returns (t, valid)."""
     kk = 1.0 + k
     A = cv * (L * L + M * M + kk * N * N)
@@ -444,7 +446,7 @@ def _conic_intersect(x, y, z, L, M, N, cv, k):
     q = -0.5 * (B + torch.where(B >= 0.0, sq, -sq))
     q_safe = torch.where(q != 0.0, q, one)
     t1 = q / A_safe
-    t2 = torch.where(q != 0.0, C / q_safe, t1)
+    t2 = torch.where((q != 0.0) & valid, C / q_safe, t1)
     z1 = z + t1 * N
     z2 = z + t2 * N
     t_quad = torch.where(torch.abs(z1) <= torch.abs(z2), t1, t2)

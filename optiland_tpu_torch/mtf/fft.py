@@ -1,11 +1,10 @@
-"""FFT MTF (scalar part): |FFT(PSF)| slices normalized to the DC bin,
-frequency axes from the per-field working F-number, with the tangential
-axis corrected back to the flat image plane by the chief-ray tilt factor
-FNO_on/FNO_off.
+"""FFT MTF: |FFT(PSF)| slices normalized to the DC bin, frequency axes
+from the per-field working F-number, with the tangential axis corrected
+back to the flat image plane by the chief-ray tilt factor FNO_on/FNO_off.
 
-Port of `optiland_tpu/mtf/fft.py`. `VectorialFFTMTF` waits for
-`polarization/` (ROADMAP queue 1, item 15): `FFTMTF` raises for a
-polarized optic.
+Port of `optiland_tpu/mtf/fft.py`: `ScalarFFTMTF` on the scalar FFT PSF,
+`VectorialFFTMTF` on the vectorial one; `FFTMTF` picks the vectorial MTF
+for a polarized optic.
 """
 
 from __future__ import annotations
@@ -14,7 +13,11 @@ import numpy as np
 import torch
 
 from optiland_tpu_torch.core.resolve import resolve_fields
-from optiland_tpu_torch.psf.fft import ScalarFFTPSF, calculate_grid_size
+from optiland_tpu_torch.psf.fft import (
+    ScalarFFTPSF,
+    VectorialFFTPSF,
+    calculate_grid_size,
+)
 from optiland_tpu_torch.system import paraxial as px
 
 _MAX_FNUM = 1e4
@@ -61,6 +64,8 @@ class ScalarFFTMTF:
     """Tangential/sagittal MTF per field at one wavelength (scalar PSF), on
     the device of the optic's build (the CUDA card unless `device="cpu"`)."""
 
+    _psf_cls = ScalarFFTPSF
+
     def __init__(self, optic, fields="all", wavelength="primary",
                  num_rays: int = 128, grid_size: int | None = None,
                  max_freq="cutoff", strategy: str = "chief_ray", device=None):
@@ -92,9 +97,9 @@ class ScalarFFTMTF:
         self.freq_tang = []
         self.freq_sag = []
         for k, field in enumerate(self.fields):
-            psf = ScalarFFTPSF(optic, field, wavelength=[self.wavelength],
-                               num_rays=num_rays, grid_size=grid_size,
-                               strategy=strategy, device=device).psf
+            psf = self._psf_cls(optic, field, wavelength=[self.wavelength],
+                                num_rays=num_rays, grid_size=grid_size,
+                                strategy=strategy, device=device).psf
             self.mtf.append(mtf_slices(psf))
             ks = np.arange(center)
             self.freq_tang.append(ks * self._mtf_units_tang(k))
@@ -114,13 +119,18 @@ class ScalarFFTMTF:
                       * self.FNO[k])
 
 
+class VectorialFFTMTF(ScalarFFTMTF):
+    """The FFT MTF of the vectorial PSF (the exit pupil's three E-field
+    components)."""
+
+    _psf_cls = VectorialFFTPSF
+
+
 class FFTMTF:
-    """Factory: the scalar FFT MTF; a polarized optic needs
-    `VectorialFFTMTF`, which waits for `polarization/`."""
+    """Factory: the vectorial FFT MTF for an optic with a polarization
+    state, else the scalar one."""
 
     def __new__(cls, optic, *args, **kwargs):
         if getattr(optic, "polarization", "ignore") != "ignore":
-            raise NotImplementedError(
-                "VectorialFFTMTF needs polarization/, which is not ported yet "
-                "(ROADMAP queue 1, item 15)")
+            return VectorialFFTMTF(optic, *args, **kwargs)
         return ScalarFFTMTF(optic, *args, **kwargs)

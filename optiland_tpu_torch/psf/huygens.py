@@ -1,6 +1,6 @@
 """Huygens-Fresnel direct-summation PSF.
 
-Port of `optiland_tpu/psf/huygens.py` (scalar part). For every image point
+Port of `optiland_tpu/psf/huygens.py`. For every image point
 the complex phasors of every pupil sample are summed: the repo's only
 O(N^2) computation. K8 `huygens_sum_forward`, a hand-written CUDA kernel
 (csrc/huygens_sum.cu, body csrc/huygens.cuh), replaces the Pallas kernel
@@ -11,8 +11,12 @@ Physics as in the JAX package: spherical kernel exp(ikR)/R, obliquity
 (1 + cos theta)/2 with the pupil-sphere normal approximated as Q/Rp, pupil
 phase exp(-ik OPD), the phase referenced to the pupil-sphere radius Rp.
 
-`VectorialHuygensPSF` waits for `polarization/` (ROADMAP queue 1, item 15):
-`HuygensPSF` raises for a polarized optic.
+`VectorialHuygensPSF` sums the same integral over each Cartesian
+component of each incoherent state's exit-pupil E field, whose amplitude
+is complex: `huygens_sum_complex`, the twin of the JAX package's
+`huygens_sum_complex_xla`, which is XLA there and stays plain PyTorch here
+(K8 takes a real amplitude). `HuygensPSF` picks the vectorial PSF for a
+polarized optic.
 """
 
 from __future__ import annotations
@@ -167,6 +171,32 @@ def huygens_sum(image_xyz, pupil_xyz, pupil_amp, pupil_opd, wavelength_mm,
                                wavelength_mm, Rp)
 
 
+def _image_grid(optic, static, params, field, wavelength: float,
+                image_size: int, device):
+    """The image grid (IX, IY, IZ) of a Huygens PSF, centred on the beam
+    footprint of the optic's own hexapolar trace (6 rings) and wide enough
+    for the footprint or 5 Airy radii; with its pixel pitch and centre
+    (cx, cy)."""
+    dt, dev = params.cv.dtype, params.cv.device
+    spot = optic.trace(Hx=field[0], Hy=field[1], wavelength=wavelength,
+                       num_rays=6, distribution="hexapolar", device=device)
+    sx, sy, si = spot.x[-1], spot.y[-1], spot.intensity[-1]
+    wsum = torch.sum(si) + 1e-12
+    cx = torch.sum(sx * si) / wsum
+    cy = torch.sum(sy * si) / wsum
+    fno = px.FNO(static, params, wavelength)
+    extent_geo = torch.max(torch.where(
+        si > 0, torch.hypot(sx - cx, sy - cy), torch.zeros_like(si)))
+    extent_ideal = 5.0 * fno * 1.22 * wavelength * 1e-3
+    extent = torch.maximum(extent_geo, torch.as_tensor(
+        extent_ideal, dtype=dt, device=dev))
+    pixel_pitch = 2.0 * extent / image_size
+    gx = torch.linspace(-1.0, 1.0, image_size, dtype=dt, device=dev) * extent
+    IX, IY = torch.meshgrid(gx + cx, gx + cy, indexing="xy")
+    IZ = torch.zeros_like(IX) + positions_of(static, params)[-1]
+    return (IX, IY, IZ), pixel_pitch, cx, cy
+
+
 def huygens_psf_sums(optic, field, wavelength: float, num_rays: int,
                      image_size: int, strategy: str = "chief_ray",
                      device=None):
@@ -185,26 +215,11 @@ def huygens_psf_sums(optic, field, wavelength: float, num_rays: int,
     amp = torch.sqrt(data.intensity) * inside
     opd_mm = data.opd * wavelength * 1e-3
 
-    # image grid centered on the beam footprint
-    spot = optic.trace(Hx=field[0], Hy=field[1], wavelength=wavelength,
-                       num_rays=6, distribution="hexapolar", device=device)
-    sx, sy, si = spot.x[-1], spot.y[-1], spot.intensity[-1]
-    wsum = torch.sum(si) + 1e-12
-    cx = torch.sum(sx * si) / wsum
-    cy = torch.sum(sy * si) / wsum
-    fno = px.FNO(static, params, wavelength)
-    extent_geo = torch.max(torch.where(
-        si > 0, torch.hypot(sx - cx, sy - cy), torch.zeros_like(si)))
-    extent_ideal = 5.0 * fno * 1.22 * wavelength * 1e-3
-    extent = torch.maximum(extent_geo, torch.as_tensor(
-        extent_ideal, dtype=dt, device=dev))
-    pixel_pitch = 2.0 * extent / image_size
-    gx = torch.linspace(-1.0, 1.0, image_size, dtype=dt, device=dev) * extent
-    IX, IY = torch.meshgrid(gx + cx, gx + cy, indexing="xy")
+    grid, pixel_pitch, cx, cy = _image_grid(optic, static, params, field,
+                                            wavelength, image_size, device)
     pos = positions_of(static, params)
-    IZ = torch.zeros_like(IX) + pos[-1]
     wl_mm = wavelength * 1e-3
-    image = ((IX, IY, IZ), (data.pupil_x, data.pupil_y, data.pupil_z), amp,
+    image = (grid, (data.pupil_x, data.pupil_y, data.pupil_z), amp,
              opd_mm, wl_mm, data.radius)
 
     zero = torch.zeros((1, 1), dtype=dt, device=dev)
@@ -251,13 +266,116 @@ class ScalarHuygensPSF:
         return self.psf[c, c] / 100.0
 
 
+def huygens_sum_complex(image_xyz, pupil_xyz, amp_re, amp_im, pupil_opd,
+                        wavelength_mm, Rp, row_chunk: int = 128):
+    """The Huygens sum with a complex pupil amplitude (a vectorial E-field
+    component): |sum_p (re + i im) obliq / R e^{ik(R - Rp - opd)}|^2 at
+    every image point, over chunks of `row_chunk` image points (the twin
+    of JAX's `huygens_sum_complex_xla`). `amp_re` and `amp_im` may also be
+    (C, P), C components that share the geometry: the result is then the
+    sum of their C intensities, added in component order at each point, as
+    C calls would add them."""
+    ix, iy, iz = (a.reshape(-1) for a in image_xyz)
+    ux, uy, uz = (a[None, :] for a in pupil_xyz)
+    amp_re, amp_im = torch.atleast_2d(amp_re), torch.atleast_2d(amp_im)
+    opd = pupil_opd[None, :]
+    k = 2.0 * math.pi / wavelength_mm
+    rows = []
+    for s in range(0, ix.shape[0], row_chunk):
+        dx = ix[s:s + row_chunk, None] - ux
+        dy = iy[s:s + row_chunk, None] - uy
+        dz = iz[s:s + row_chunk, None] - uz
+        R = torch.sqrt(dx * dx + dy * dy + dz * dz)
+        cos_theta = (dx * ux + dy * uy + dz * uz) / (R * Rp)
+        obliq = 0.5 * (1.0 + cos_theta)
+        phase = k * ((R - Rp) - opd)
+        scale = obliq / R
+        cp, sp = torch.cos(phase), torch.sin(phase)
+        total = 0.0
+        for c in range(amp_re.shape[0]):
+            ar, ai = amp_re[c][None, :], amp_im[c][None, :]
+            re = torch.sum(scale * (ar * cp - ai * sp), dim=-1)
+            im = torch.sum(scale * (ar * sp + ai * cp), dim=-1)
+            total = total + (re * re + im * im)
+        rows.append(total)
+    return torch.cat(rows).reshape(image_xyz[0].shape)
+
+
+def _component_sum(E_exits, valid, image, pupil_xyz, opd_mm, wl_mm, Rp):
+    """The vectorial PSF's sum over every state's three E components."""
+    amp = torch.where(valid[None, :, None], E_exits, 0.0)
+    amp = amp.permute(0, 2, 1).reshape(-1, amp.shape[1])
+    return huygens_sum_complex(image, pupil_xyz, amp.real, amp.imag, opd_mm,
+                               wl_mm, Rp)
+
+
+class VectorialHuygensPSF:
+    """Vectorial Huygens-Fresnel PSF: the diffraction integral of each
+    Cartesian exit-pupil E-field component of each incoherent polarization
+    state, the intensities summed; normalized so that the ideal on-axis
+    peak is 100. The optic's polarization state, or unpolarized light
+    where it has none; on the device of the optic's build (the CUDA card
+    unless `device="cpu"`)."""
+
+    def __init__(self, optic, field, wavelength="primary",
+                 num_rays: int = 128, image_size: int = 128,
+                 strategy: str = "chief_ray", device=None):
+        from optiland_tpu_torch.polarization import PolarizationState
+
+        state = optic.polarization
+        if state == "ignore" or state is None:
+            state = PolarizationState.unpolarized()
+        self.optic = optic
+        self.field = field
+        self.wavelength = (
+            optic.primary_wavelength if wavelength == "primary"
+            else float(wavelength))
+        self.num_rays = num_rays
+        self.image_size = image_size
+
+        static, params = optic.build(device=device)
+        dt, dev = params.cv.dtype, params.cv.device
+        Px, Py, inside = pupil_grid_coords(num_rays, dt, dev)
+        data = wavefront_data(static, params, field[0], field[1], Px, Py,
+                              self.wavelength, strategy=strategy,
+                              polarization=state, aiming=optic.ray_aiming)
+        valid = (data.intensity > 0) & inside
+        opd_mm = data.opd * self.wavelength * 1e-3
+        image, self.pixel_pitch, self.cx, self.cy = _image_grid(
+            optic, static, params, field, self.wavelength, image_size,
+            device)
+        wl_mm = self.wavelength * 1e-3
+        psf_raw = _component_sum(
+            data.E_exits, valid, image,
+            (data.pupil_x, data.pupil_y, data.pupil_z), opd_mm, wl_mm,
+            data.radius)
+
+        # the ideal (zero-OPD) on-axis peak -> 100; as in the JAX package,
+        # an off-axis field's ideal wavefront is aimed paraxially
+        zero = torch.zeros((1, 1), dtype=dt, device=dev)
+        if tuple(field) == (0, 0):
+            ideal = data
+        else:
+            ideal = wavefront_data(static, params, 0.0, 0.0, Px, Py,
+                                   self.wavelength, strategy=strategy,
+                                   polarization=state)
+        ideal_valid = (ideal.intensity > 0) & inside
+        peak = _component_sum(
+            ideal.E_exits, ideal_valid,
+            (zero, zero, zero + positions_of(static, params)[-1]),
+            (ideal.pupil_x, ideal.pupil_y, ideal.pupil_z),
+            torch.zeros_like(opd_mm), wl_mm, ideal.radius)
+        self.psf = psf_raw / peak[0, 0] * 100.0
+
+    strehl_ratio = ScalarHuygensPSF.strehl_ratio
+
+
 class HuygensPSF:
-    """Factory: the scalar Huygens PSF; a polarized optic needs
-    `VectorialHuygensPSF`, which waits for `polarization/`."""
+    """Factory: the scalar Huygens PSF, or the vectorial one for an optic
+    with a polarization state."""
 
     def __new__(cls, optic, *args, **kwargs):
         if getattr(optic, "polarization", "ignore") != "ignore":
-            raise NotImplementedError(
-                "VectorialHuygensPSF needs polarization/, which is not ported "
-                "yet (ROADMAP queue 1, item 15)")
+            kwargs.pop("use_kernel", None)
+            return VectorialHuygensPSF(optic, *args, **kwargs)
         return ScalarHuygensPSF(optic, *args, **kwargs)

@@ -9,8 +9,9 @@ in float32: kernel K7). The editing API (the setters, `scale_system`,
 `flip`, `+`, `update_params`, pickups and solves) edits the description
 or installs new parameters, as the JAX package's does. `info`, `draw`,
 `draw3D`, `to_dict` and `from_dict` wait for `fileio/` and
-`visualization/`, `set_polarization` for `polarization/` (ROADMAP queue 1,
-items 21 and 15).
+`visualization/` (ROADMAP queue 1, item 21). `set_polarization` makes
+`trace` and `trace_generic` polarized traces (PRT matrices through every
+coating).
 """
 
 from __future__ import annotations
@@ -83,10 +84,17 @@ class _SurfaceCollection:
         aperture=None,
         f: float = 0.0,
         coating=None,
+        bsdf=None,
         comment: str = "",
         **geom_kwargs,
     ):
-        """Add a surface. `surface_type="paraxial"` is an ideal thin lens of
+        """Add a surface. `coating` is None, a name ("fresnel",
+        "polarizer_h", "polarizer_v", "polarizer_rcp", "polarizer_lcp"), a
+        tuple ("simple", T, R), ("retarder", retardance, theta),
+        ("diattenuator", t_min, t_max, theta) or ("linear_polarizer",
+        theta), or a `ThinFilmStack`; `bsdf` a `LambertianBSDF` or
+        `GaussianBSDF` (`core/scatter.py`). `surface_type="paraxial"` is an
+        ideal thin lens of
         focal length `f`; `"grating"` takes `grating_order`,
         `grating_period` (um) and `groove_orientation_angle` (rad) as
         keywords; `"phase"` a thin phase sheet on the plane or conic of
@@ -115,10 +123,10 @@ class _SurfaceCollection:
             geometry = surface_type
             surface_type = "standard"
         if surface_type not in ("standard", "paraxial", "grating", "phase"):
-            raise NotImplementedError(
-                f"surface_type {surface_type!r} is not ported yet; ported: "
+            raise ValueError(
+                f"Unknown surface_type {surface_type!r}; expected one of "
                 "standard, paraxial, grating, phase, "
-                + ", ".join(_GEOMETRY_KEYS) + " (ROADMAP queue 1, item 15)")
+                + ", ".join(_GEOMETRY_KEYS))
         keys = {"grating": {"grating_order", "grating_period",
                             "groove_orientation_angle"},
                 "phase": {"phase_profile"}}.get(surface_type,
@@ -127,7 +135,8 @@ class _SurfaceCollection:
         if set(geom_kwargs) - keys:
             raise NotImplementedError(
                 f"surface keywords {sorted(set(geom_kwargs) - keys)} are not "
-                "ported yet (ROADMAP queue 1, item 15)")
+                f"read by a {geometry} {surface_type} surface (the JAX "
+                "package stores them unread)")
         if geometry == "chebyshev":
             # the 2-D coefficient grid travels in geom_params (static shape)
             geom_kwargs.setdefault("coefficients", coefficients)
@@ -145,6 +154,7 @@ class _SurfaceCollection:
             dx=dx, dy=dy, rx=rx, ry=ry, rz=rz,
             focal_length=f,
             coating=coating,
+            bsdf=bsdf,
             geom_params=geom_kwargs,
             comment=comment,
         )
@@ -256,6 +266,7 @@ class Optic:
         self.apodization = None
         self.device = None  # the device of the last build; None = CUDA
         self.ray_aiming = "paraxial"  # paraxial, iterative, robust, cached
+        self.polarization = "ignore"  # "ignore" | PolarizationState
         self._aim_cache = {}
         self._built = {}
         self.paraxial = _ParaxialFacade(self)
@@ -296,6 +307,23 @@ class Optic:
 
         self.apodization = make_apodization(spec)
         self._dirty()
+
+    def set_polarization(self, state):
+        """Set the trace polarization: "ignore" (a scalar trace),
+        "unpolarized", or a `PolarizationState` (a PRT trace)."""
+        from optiland_tpu_torch.polarization import PolarizationState
+
+        if isinstance(state, PolarizationState) or state == "ignore":
+            self.polarization = state
+        elif state == "unpolarized":
+            self.polarization = PolarizationState.unpolarized()
+        else:
+            raise ValueError(
+                "polarization must be 'ignore', 'unpolarized', or a "
+                "PolarizationState")
+
+    def _pol(self):
+        return None if self.polarization == "ignore" else self.polarization
 
     def set_ray_aiming(self, mode: str):
         """Choose the ray-aiming strategy (reference
@@ -631,7 +659,8 @@ class Optic:
                                      Py.repeat(Hx.shape[0]), wavelength)
         return trace_system(static, params, Hx_full, Hy_full, Px_full,
                             Py_full, torch.as_tensor(wavelength, dtype=dt,
-                                                     device=dev), True)
+                                                     device=dev), True,
+                            polarization=self._pol())
 
     def trace_generic(self, Hx, Hy, Px, Py, wavelength=None, device=None):
         """Trace explicit (field, pupil) coordinate arrays on `device`.
@@ -653,4 +682,4 @@ class Optic:
                            Py * (1.0 - vyf), wavelength)
         return trace_system(static, params, Hx, Hy, Px, Py,
                             torch.as_tensor(wavelength, dtype=dt, device=dev),
-                            True)
+                            True, polarization=self._pol())

@@ -11,6 +11,8 @@ Port of `optiland_tpu/system/spec.py`:
 types (every geometry of the JAX package, NURBS's fit of a conic by a
 host least-squares in float64 among them; refract, reflect, none, the
 ideal thin lens, gratings and phase sheets of the five profile kinds),
+every coating kind (simple, Fresnel, the polarizers, retarders and
+diattenuators, thin-film stacks in `SystemStatic.thin_films`), BSDFs,
 absorbing media (the tabulated extinction tables `k_wl`, `k_val`),
 aperture masks (`system/apertures.py`), apodization, object-space
 telecentricity and absolute coordinate systems (`SurfaceSpec.abs_cs`,
@@ -132,7 +134,9 @@ class SurfaceSpec:
     rz: float = 0.0
     focal_length: float = 0.0  # thin-lens surfaces only
     abs_cs: tuple | None = None  # absolute (x, y, z, rx, ry, rz) placement
-    coating: object = None  # None | name str | ("simple", T, R)
+    # None | name str | (kind, *params) tuple | ThinFilmStack
+    coating: object = None
+    bsdf: object = None  # None | LambertianBSDF | GaussianBSDF
     # a grating's grating_order, grating_period (um) and
     # groove_orientation_angle (rad)
     geom_params: dict = field(default_factory=dict)
@@ -236,16 +240,44 @@ def positions_of(static, params) -> torch.Tensor:
     return params.positions()
 
 
+def _port_stack(stack):
+    """The port's `ThinFilmStack` of a JAX-package stack: the same media
+    and layers, each material rebuilt field by field and each thickness
+    carried as a float."""
+    from optiland_tpu_torch.thin_film.stack import ThinFilmStack
+
+    new = ThinFilmStack(_port_object(stack.incident_material),
+                        _port_object(stack.substrate_material))
+    for lay in stack.layers:
+        new.add_layer(_port_object(lay.material),
+                      float(np.asarray(lay.thickness_um)))
+    return new
+
+
 def _port_object(obj):
-    """The port's counterpart of a JAX-package aperture mask or apodization
-    object, rebuilt field by field from its class name (the classes share
-    names and fields); None stays None."""
+    """The port's counterpart of a JAX-package object that a system
+    carries: an aperture mask, an apodization, a BSDF, a polarization
+    state or a material, rebuilt field by field from its class name (the
+    classes share names and fields), or a thin-film stack
+    (`_port_stack`); None stays None."""
     if obj is None:
         return None
     from optiland_tpu_torch.core import apodization as apod
+    from optiland_tpu_torch.core import scatter
+    from optiland_tpu_torch.materials.catalog import MaterialSpec
+    from optiland_tpu_torch.polarization.state import PolarizationState
     from optiland_tpu_torch.system import apertures as aps
 
     name = type(obj).__name__
+    if name == "ThinFilmStack":
+        return _port_stack(obj)
+    if name == "LambertianBSDF":
+        return scatter.LambertianBSDF()
+    if name == "GaussianBSDF":
+        return scatter.GaussianBSDF(obj.sigma)
+    if name in ("PolarizationState", "MaterialSpec"):
+        cls = PolarizationState if name == "PolarizationState" else MaterialSpec
+        return cls(**{f.name: getattr(obj, f.name) for f in fields(cls)})
     cls = getattr(aps, name, None) or getattr(apod, name, None)
     if not isinstance(cls, type) or not issubclass(
             cls, (aps.BaseAperture, apod.BaseApodization)):
@@ -258,19 +290,16 @@ def _port_object(obj):
 
 def static_from_dict(d: dict) -> SystemStatic:
     """A `SystemStatic` from the JAX package's `SystemStatic` fields, keyed
-    by field name. Its aperture masks and apodization become the port's
-    objects of the same class and fields; BSDFs and thin films must be
-    empty: they are not ported."""
+    by field name. Its aperture masks, apodization, BSDFs and thin-film
+    stacks become the port's objects of the same class and fields
+    (`_port_object`)."""
     names = {f.name for f in fields(SystemStatic)}
     unknown = set(d) - names
     if unknown:
         raise ValueError(f"unknown SystemStatic fields {sorted(unknown)}")
-    if (any(b is not None for b in d.get("bsdfs", ()))
-            or any(t is not None for t in d.get("thin_films", ()))):
-        raise NotImplementedError(
-            "BSDFs and thin films are not ported yet (ROADMAP queue 1, "
-            "item 15)")
     d = dict(d)
+    for key in ("bsdfs", "thin_films"):
+        d[key] = tuple(_port_object(b) for b in d.get(key, ()))
     d["aperture_masks"] = tuple(_port_object(m)
                                 for m in d.get("aperture_masks", ()))
     d["apodization"] = _port_object(d.get("apodization"))
@@ -543,19 +572,27 @@ def _pack_nurbs(s: SurfaceSpec, gp: dict):
 
 
 def _coating_code(coat):
+    """(code, parameters, thin-film stack or None) of a surface's coating:
+    None or a name ("fresnel", "polarizer_h", ...), a (kind, *params)
+    tuple ("simple" T R, "retarder" retardance theta, "diattenuator" t_min
+    t_max theta, "linear_polarizer" theta), or a `ThinFilmStack` (also as
+    ("thin_film", stack))."""
+    from optiland_tpu_torch.thin_film.stack import ThinFilmStack
+
+    if isinstance(coat, tuple) and len(coat) == 2 and coat[0] == "thin_film":
+        coat = coat[1]
+    if isinstance(coat, ThinFilmStack):
+        return COAT_THIN_FILM, (), coat
     if coat is None or isinstance(coat, str):
-        return _COATING_BY_NAME[coat], ()
+        return _COATING_BY_NAME[coat], (), None
     kind, *cp = coat
     code = {
         "simple": COAT_SIMPLE,
         "retarder": COAT_RETARDER,
         "diattenuator": COAT_DIATTENUATOR,
         "linear_polarizer": COAT_LINEAR_POLARIZER,
-    }.get(kind)
-    if code is None:
-        raise NotImplementedError(
-            f"coating {kind!r} is not ported yet (ROADMAP queue 1, item 15)")
-    return code, tuple(cp)
+    }[kind]
+    return code, tuple(cp), None
 
 
 def build_system(
@@ -604,6 +641,7 @@ def build_system(
     geom_codes, geom_n_coeffs, interactions, is_reflective = [], [], [], []
     geom_aux = []
     coatings, mat_formulas, mat_n_coeffs = [], [], []
+    thin_films, bsdfs = [], []
     has_tilt, has_decenter, has_aperture = [], [], []
     aperture_masks = []
     stop_index = 0
@@ -636,9 +674,9 @@ def build_system(
     current_medium = AIR
     for idx, s in enumerate(surfaces):
         if s.surface_type not in ("standard", "paraxial", "grating", "phase"):
-            raise NotImplementedError(
-                f"surface_type {s.surface_type!r} is not ported yet "
-                "(ROADMAP queue 1, item 15)")
+            raise ValueError(
+                f"Unknown surface_type {s.surface_type!r}; expected standard, "
+                "paraxial, grating or phase")
         mat = s.material
         reflective = mat.mirror
         if not reflective:
@@ -698,9 +736,11 @@ def build_system(
         aperture_masks.append(
             s.semi_aperture if hasattr(s.semi_aperture, "contains") else None)
 
-        code, cp = _coating_code(s.coating)
+        code, cp, stack = _coating_code(s.coating)
         coatings.append(code)
         coating_params[idx, : len(cp)] = cp
+        thin_films.append(stack)
+        bsdfs.append(s.bsdf)
 
         if s.is_stop:
             stop_index = idx
@@ -764,7 +804,7 @@ def build_system(
         interactions=tuple(interactions),
         is_reflective=tuple(is_reflective),
         coatings=tuple(coatings),
-        bsdfs=tuple(None for _ in range(S)),
+        bsdfs=tuple(bsdfs),
         phase_kinds=tuple(phase_kinds),
         mat_formulas=tuple(mat_formulas),
         mat_n_coeffs=tuple(mat_n_coeffs),
@@ -784,7 +824,7 @@ def build_system(
         newton_iters=newton_iters,
         telecentric=telecentric,
         aperture_masks=tuple(aperture_masks),
-        thin_films=tuple(None for _ in range(S)),
+        thin_films=tuple(thin_films),
         has_vignetting=any(float(v) != 0.0 for v in list(vx) + list(vy)),
         phase_aux=tuple(phase_aux),
         phase_interp=phase_interp,

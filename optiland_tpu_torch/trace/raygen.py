@@ -201,11 +201,13 @@ def _solve_real_image_field(static, params, val_x, val_y, target_x, target_y,
 
 
 def generate_rays(static: SystemStatic, params: SystemParams, Hx, Hy, Px, Py,
-                  wavelength, apply_vignetting: bool = True) -> Rays:
+                  wavelength, apply_vignetting: bool = True,
+                  polarized: bool = False) -> Rays:
     """Aim rays at the paraxial entrance pupil and build the starting bundle.
 
     Hx/Hy/Px/Py are same-length 1-D tensors of normalized field and pupil
-    coordinates; `wavelength` is a scalar or per-ray.
+    coordinates; `wavelength` is a scalar or per-ray. `polarized` starts
+    each ray's PRT matrix `p` at the identity (a polarized trace).
     """
     dt, dev = params.cv.dtype, params.cv.device
 
@@ -253,5 +255,11 @@ def generate_rays(static: SystemStatic, params: SystemParams, Hx, Hy, Px, Py,
         intensity = static.apodization.get_intensity(Px, Py)
     else:
         intensity = torch.ones_like(Px)
-    return make_rays(x0, y0, z0, L, M, N, intensity=intensity,
+    rays = make_rays(x0, y0, z0, L, M, N, intensity=intensity,
                      wavelength=wavelength, dtype=dt, device=dev)
+    if polarized:
+        from optiland_tpu_torch.polarization.prt import complex_of, identity_prt
+
+        rays = rays.replace(p=identity_prt(rays.x.shape[0], complex_of(dt),
+                                           dev))
+    return rays

@@ -8,10 +8,13 @@ none, the ideal thin lens, gratings on plane and curved carriers and phase
 sheets (generalized Snell's law) of all five profile kinds; radial
 apertures and aperture masks (`system/apertures.py`); tilt and decenter,
 and absolute coordinate systems (`cs_pos`); Beer-Lambert absorption in
-media with a tabulated extinction; simple coatings (the only coating that
-acts on an unpolarized trace). Per surface:
+media with a tabulated extinction; BSDF scattering (`core/scatter.py`);
+every coating: a simple coating scales the intensity, and in a polarized
+trace (`polarization=` a `PolarizationState`) each surface composes its
+Jones matrix (Fresnel, a thin-film stack, a polarizer, retarder or
+diattenuator, or the identity) into each ray's PRT matrix. Per surface:
   localize -> intersect -> propagate -> OPD -> absorption -> aperture clip
-  -> interact -> coating -> globalize -> record.
+  -> interact -> scatter -> coating -> globalize -> record.
 
 It is the oracle of the port's CUDA kernels, and the path for everything
 the kernel gates refuse, as XLA is in the JAX package.
@@ -19,6 +22,7 @@ the kernel gates refuse, as XLA is in the JAX package.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 
@@ -42,7 +46,17 @@ from optiland_tpu_torch.geometry.surfaces import (
 )
 from optiland_tpu_torch.materials.dispersion import _interp, material_index
 from optiland_tpu_torch.system.spec import (
+    COAT_DIATTENUATOR,
+    COAT_FRESNEL,
+    COAT_LINEAR_POLARIZER,
+    COAT_NONE,
+    COAT_POLARIZER_H,
+    COAT_POLARIZER_LCP,
+    COAT_POLARIZER_RCP,
+    COAT_POLARIZER_V,
+    COAT_RETARDER,
     COAT_SIMPLE,
+    COAT_THIN_FILM,
     INT_DIFFRACT,
     INT_NONE,
     INT_PHASE,
@@ -58,10 +72,9 @@ from optiland_tpu_torch.trace.raygen import generate_rays
 
 @dataclass(frozen=True)
 class TraceHistory:
-    """Per-surface ray records, shape (S, N) each. The JAX package's
-    `TraceHistory` also carries `p`, the final polarization ray-tracing
-    matrices of a polarized trace; it comes with `polarization/` (ROADMAP
-    queue 1, item 15), and the port traces unpolarized only."""
+    """Per-surface ray records, shape (S, N) each, and `p`, the final
+    (N, 3, 3) polarization ray-tracing matrices of a polarized trace (None
+    for a scalar trace)."""
 
     x: torch.Tensor
     y: torch.Tensor
@@ -71,6 +84,7 @@ class TraceHistory:
     N: torch.Tensor
     intensity: torch.Tensor
     opd: torch.Tensor
+    p: torch.Tensor | None = None
 
     @property
     def num_surfaces(self) -> int:
@@ -89,13 +103,10 @@ class TraceHistory:
 
 
 def _check_traceable(static: SystemStatic):
-    """Refuse what the eager tracer does not implement yet."""
+    """Refuse geometry codes the tracer does not know."""
     unknown = sorted({g for g in static.geom_codes if g not in SLICE_GEOMS})
     if unknown:
         raise ValueError(f"Unknown geometry codes {unknown}")
-    if any(b is not None for b in static.bsdfs):
-        raise NotImplementedError(
-            "BSDF scattering is not ported yet (ROADMAP queue 1, item 15)")
 
 
 def _thin_lens_interact(rays: Rays, f, n1, n2) -> Rays:
@@ -154,6 +165,123 @@ def _grating_interact(static, params, k, rays: Rays, n1, n2) -> Rays:
                               static.is_reflective[k])
 
 
+def _aoi(nx, ny, nz, L, M, N):
+    """The angle of incidence between a ray (L, M, N) and a surface normal,
+    atan2(|k x n|, |k . n|). JAX takes arccos(clip(|k . n|, -1, 1)), the
+    same angle up to rounding, but arccos loses a small angle to rounding
+    (float32 rounds |k . n| to exactly 1 within ~3e-4 rad of the normal,
+    many of 2M rays through the Cooke triplet at field 0) and its
+    derivative -1 / sqrt(1 - x^2) is infinite there: the gradient of any
+    merit through a Fresnel or thin-film coating was NaN. The cross
+    product keeps the small angle, and its norm is floored at the dtype's
+    tiny, so that a ray exactly along the normal (an on-axis chief ray)
+    takes the derivative 0, which is exact there: |k . n| does not move to
+    first order when two unit vectors are aligned."""
+    c = torch.abs(nx * L + ny * M + nz * N)
+    cx = M * nz - N * ny
+    cy = N * nx - L * nz
+    cz = L * ny - M * nx
+    s2 = torch.clamp(cx * cx + cy * cy + cz * cz, min=torch.finfo(c.dtype).tiny)
+    return torch.atan2(torch.sqrt(s2), c)
+
+
+def _apply_coating(static, params, k, rays: Rays, k0_dirs, n1, n2) -> Rays:
+    """The coating of surface k after its interaction (JAX
+    `tracer._apply_coating`). A simple coating scales the intensity by T,
+    or R after a reflection, and, as in the reference, leaves the PRT
+    matrix without the surface's basis rotation. In a polarized trace
+    every other surface composes O_out J O_in into each ray's PRT matrix:
+    J the coating's Jones matrix (Fresnel or a thin-film stack at the
+    ray's AOI and wavelength, a polarizer, retarder or diattenuator), or
+    the identity without a coating. An unpolarized trace ignores all but
+    the simple coating."""
+    from optiland_tpu_torch.polarization import jones as J
+    from optiland_tpu_torch.polarization.prt import surface_prt
+
+    coat = static.coatings[k]
+    interaction = static.interactions[k]
+    if interaction == INT_NONE:
+        return rays
+    reflective = interaction == INT_REFLECT
+    if coat == COAT_SIMPLE:
+        cp = params.coating_params[k]
+        return rays.replace(i=rays.i * (cp[1] if reflective else cp[0]))
+    if rays.p is None:
+        return rays
+
+    k0 = torch.stack(k0_dirs, dim=-1)
+    k1 = torch.stack([rays.L, rays.M, rays.N], dim=-1)
+    cp = params.coating_params[k]
+
+    def axis(theta):
+        return [torch.cos(theta), torch.sin(theta), 0.0]
+
+    if coat == COAT_NONE:
+        jm = None
+    elif coat in (COAT_FRESNEL, COAT_THIN_FILM):
+        nx, ny, nz = surface_normal(
+            static.geom_codes[k], static.geom_n_coeffs[k], rays.x, rays.y,
+            params.cv[k], params.conic[k], params.coeffs[k],
+            static.geom_aux[k])
+        aoi = _aoi(nx, ny, nz, *k0_dirs)
+        if coat == COAT_THIN_FILM:
+            jm = static.thin_films[k].jones_matrices(k0, k1, rays.w, aoi,
+                                                     reflect=reflective)
+        else:
+            jm = J.fresnel(k0, k1, aoi, n1, n2, reflect=reflective)
+    elif coat == COAT_POLARIZER_H:
+        jm = J.polarizer_h(k0, k1)
+    elif coat == COAT_POLARIZER_V:
+        jm = J.polarizer_v(k0, k1)
+    elif coat == COAT_POLARIZER_RCP:
+        jm = J.polarizer_rcp(k0, k1)
+    elif coat == COAT_POLARIZER_LCP:
+        jm = J.polarizer_lcp(k0, k1)
+    elif coat == COAT_RETARDER:
+        jm = J.linear_retarder(k0, k1, cp[0], axis(cp[1]))
+    elif coat == COAT_DIATTENUATOR:
+        jm = J.linear_diattenuator(k0, k1, cp[0], cp[1], axis(cp[2]))
+    elif coat == COAT_LINEAR_POLARIZER:
+        jm = J.linear_polarizer(k0, k1, axis(cp[0]))
+    else:
+        raise ValueError(f"Unknown coating code {coat}")
+    p_surf = surface_prt(k0, k1, jm).to(rays.p.dtype)
+    return rays.replace(p=torch.einsum("nij,njk->nik", p_surf, rays.p))
+
+
+def _scatter(static, params, k, rays: Rays, base_seed, draws) -> Rays:
+    """BSDF scattering at surface k (JAX: `scatter_directions` under
+    `fold_in(scatter_key, k)`): the surface's own generator under
+    `base_seed`, or the caller's uniforms `draws[k]`."""
+    from optiland_tpu_torch.core.scatter import (
+        scatter_directions,
+        surface_generator,
+    )
+
+    b = static.bsdfs[k]
+    nx, ny, nz = surface_normal(
+        static.geom_codes[k], static.geom_n_coeffs[k], rays.x, rays.y,
+        params.cv[k], params.conic[k], params.coeffs[k], static.geom_aux[k])
+    d = None if draws is None else draws.get(k)
+    g = None if d is not None else surface_generator(base_seed, k,
+                                                     rays.x.device)
+    L, M, N = scatter_directions(g, rays.L, rays.M, rays.N, nx, ny, nz,
+                                 kind=b.kind, sigma=b.sigma, draws=d)
+    return rays.replace(L=L, M=M, N=N)
+
+
+def _base_seed(scatter) -> int:
+    """The seed the surfaces' generators derive from: 0 for None, else one
+    draw of the `torch.Generator`."""
+    if scatter is None:
+        return 0
+    if not isinstance(scatter, torch.Generator):
+        raise TypeError(f"scatter must be None or a torch.Generator, not "
+                        f"{type(scatter).__name__}")
+    return int(torch.randint(0, 1 << 62, (1,), generator=scatter,
+                             device=scatter.device).item())
+
+
 def _phase_interact(static, params, k, rays: Rays, n1, n2) -> Rays:
     """Generalized Snell's law for a thin phase sheet at surface k (JAX
     `tracer._phase_interact`, reference
@@ -207,11 +335,17 @@ def _phase_interact(static, params, k, rays: Rays, n1, n2) -> Rays:
     )
 
 
-def trace_rays(static: SystemStatic, params: SystemParams,
-               rays0: Rays) -> TraceHistory:
+def trace_rays(static: SystemStatic, params: SystemParams, rays0: Rays,
+               scatter=None, scatter_draws=None) -> TraceHistory:
     """Trace a starting bundle through all surfaces; row 0 of the history is
-    the starting bundle."""
+    the starting bundle. A bundle with PRT matrices (`rays0.p`) is traced
+    polarized. BSDF surfaces draw from `scatter` (None: seed 0; or a
+    `torch.Generator`, of which one draw seeds every surface's own
+    generator), or take the uniforms of `scatter_draws[k]` ((u_r, u_t),
+    each (budget, N); `core/scatter.py`)."""
     _check_traceable(static)
+    base_seed = (_base_seed(scatter)
+                 if any(b is not None for b in static.bsdfs) else 0)
     S = static.num_surfaces
     pos = positions_of(static, params)
 
@@ -292,6 +426,7 @@ def trace_rays(static: SystemStatic, params: SystemParams,
                 r2 = rays.x**2 + rays.y**2
                 rays = R.clip(rays, r2 > params.ap_radius[k] ** 2)
 
+        k0_dirs = (rays.L, rays.M, rays.N)  # pre-interaction directions
         interaction = static.interactions[k]
         if interaction == INT_REFLECT:
             nx, ny, nz = surface_normal(
@@ -313,13 +448,11 @@ def trace_rays(static: SystemStatic, params: SystemParams,
             rays = _phase_interact(static, params, k, rays, n_pre,
                                    n_of(k, rays.w))
 
-        # fixed-R/T coating: intensity scale (R after a reflection, T after
-        # every other interaction, a reflective grating's or phase sheet's
-        # included, as in JAX); polarization coatings do not act on an unpolarized trace
-        if interaction != INT_NONE and static.coatings[k] == COAT_SIMPLE:
-            cp = params.coating_params[k]
-            rays = rays.replace(
-                i=rays.i * (cp[1] if interaction == INT_REFLECT else cp[0]))
+        if static.bsdfs[k] is not None:
+            rays = _scatter(static, params, k, rays, base_seed, scatter_draws)
+
+        rays = _apply_coating(static, params, k, rays, k0_dirs, n_pre,
+                              n_of(k, rays.w))
 
         if tilted:
             rays = T.globalize(rays, tx, ty, tz, params.tilt[k, 0],
@@ -336,7 +469,7 @@ def trace_rays(static: SystemStatic, params: SystemParams,
 
     return TraceHistory(x=stack("x"), y=stack("y"), z=stack("z"),
                         L=stack("L"), M=stack("M"), N=stack("N"),
-                        intensity=stack("i"), opd=stack("opd"))
+                        intensity=stack("i"), opd=stack("opd"), p=rays.p)
 
 
 def _final(h: TraceHistory) -> dict:
@@ -376,18 +509,34 @@ def trace_system_final(static: SystemStatic, params: SystemParams, Hx, Hy,
 
 def trace_system(static: SystemStatic, params: SystemParams, Hx, Hy, Px, Py,
                  wavelength, apply_vignetting: bool = True,
-                 polarization=None) -> TraceHistory:
+                 polarization=None, scatter=None,
+                 scatter_draws=None) -> TraceHistory:
     """Generate + aim + trace, returning the full (S, N) history; row 0 is
     the starting bundle. `wavelength` is a scalar or per-ray. On a CUDA
     device a `supports_fused` system goes to `trace_history_fused` (K7 in
-    float32, its gradient through the eager trace)."""
-    if polarization is not None:
-        raise NotImplementedError(
-            "polarized traces are not ported yet (ROADMAP queue 1, item 15)")
+    float32, its gradient through the eager trace), unless it is traced
+    polarized, as JAX's gate sends it.
+
+    `polarization`: None for a scalar trace, or a `PolarizationState`
+    (`PolarizationState.unpolarized()` included) for a PRT trace: the
+    final intensity row is then the PRT matrices' intensity for that state,
+    masked by the traced intensity, so that clipped and TIR rays stay dark.
+    `scatter` and `scatter_draws` feed the BSDF surfaces (`trace_rays`)."""
     rays0 = generate_rays(static, params, Hx, Hy, Px, Py, wavelength,
-                          apply_vignetting=apply_vignetting)
+                          apply_vignetting=apply_vignetting,
+                          polarized=polarization is not None)
     from optiland_tpu_torch.trace.fused import supports_fused, trace_history_fused
 
-    if supports_fused(static) and params.cv.is_cuda:
+    if (polarization is None and supports_fused(static)
+            and params.cv.is_cuda):
         return trace_history_fused(static, params, rays0)
-    return trace_rays(static, params, rays0)
+    hist = trace_rays(static, params, rays0, scatter, scatter_draws)
+    if polarization is None:
+        return hist
+    from optiland_tpu_torch.polarization.prt import intensity_from_prt
+
+    k0 = torch.stack([rays0.L, rays0.M, rays0.N], dim=-1)
+    i_pol = intensity_from_prt(hist.p, k0, rays0.i, polarization)
+    mask = (hist.intensity[-1] > 0).to(i_pol.dtype)
+    intensity = torch.cat([hist.intensity[:-1], (i_pol * mask)[None]])
+    return dataclasses.replace(hist, intensity=intensity)

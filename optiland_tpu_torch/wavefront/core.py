@@ -12,8 +12,9 @@ Strategies:
   - "centroid_sphere": sphere centered on the intensity centroid of the spot.
   - "best_fit": least-squares sphere through the wavefront points.
 
-Paraxial aiming only (`trace/aiming.py` is not ported yet) and scalar traces
-only (`polarization/` is not ported yet): the others raise.
+With a polarization state the bundle is traced with PRT matrices (on the
+eager path, as JAX's gate sends a polarized trace) and the exit-pupil E
+fields come with the wavefront as `E_exits`.
 """
 
 from __future__ import annotations
@@ -35,9 +36,10 @@ STRATEGIES = ("chief_ray", "centroid_sphere", "best_fit")
 class WavefrontData:
     """Wavefront at the exit pupil for one (field, wavelength): pupil-sphere
     intersection points, OPD in waves, per-ray intensity, the
-    reference-sphere radius and its center (xc, yc, zc). `E_exits` (the
-    exit-pupil E-fields of a polarized trace) stays None until
-    `polarization/` is ported."""
+    reference-sphere radius and its center (xc, yc, zc). `E_exits`: the
+    exit-pupil E fields of a polarized trace, one (N, 3) complex array per
+    incoherent polarization state, stacked to (n_states, N, 3); None for a
+    scalar trace."""
 
     pupil_x: torch.Tensor
     pupil_y: torch.Tensor
@@ -89,12 +91,10 @@ def wavefront_data(static: SystemStatic, params: SystemParams, Hx, Hy, Px, Py,
     Hx/Hy are scalars (one field); Px/Py are (N,) normalized pupil coords.
     `aiming` is the optic's ray-aiming mode: "iterative" and "cached" aim
     the bundle and the chief ray with `aim_rays_iterative`, "robust" with
-    `aim_rays_robust`, as the JAX package's `wavefront_data` does.
+    `aim_rays_robust`, as the JAX package's `wavefront_data` does. With
+    `polarization` (a `PolarizationState`, unpolarized included) the bundle
+    is traced with PRT matrices and the exit E fields are `E_exits`.
     """
-    if polarization is not None:
-        raise NotImplementedError(
-            "polarized wavefronts need polarization/, which is not ported yet "
-            "(ROADMAP queue 1, item 15)")
     if strategy not in STRATEGIES:
         raise ValueError(f"Unknown wavefront strategy {strategy!r}")
     dt, dev = params.cv.dtype, params.cv.device
@@ -136,7 +136,14 @@ def wavefront_data(static: SystemStatic, params: SystemParams, Hx, Hy, Px, Py,
     # full bundle
     full = trace_system(static, params, Hx.expand(Px.shape),
                         Hy.expand(Px.shape), Pxv, Pyv, wavelength,
-                        apply_vignetting=False)
+                        apply_vignetting=False, polarization=polarization)
+    E_exits = None
+    if polarization is not None:
+        from optiland_tpu_torch.polarization.prt import exit_fields
+
+        k0 = torch.stack([full.L[0], full.M[0], full.N[0]], dim=-1)
+        E_exits = torch.stack(exit_fields(full.p, k0, full.intensity[0],
+                                          polarization))
     x, y, z = full.x[-1], full.y[-1], full.z[-1]
     L, M, N = full.L[-1], full.M[-1], full.N[-1]
     opd = full.opd[-1]
@@ -196,6 +203,7 @@ def wavefront_data(static: SystemStatic, params: SystemParams, Hx, Hy, Px, Py,
         opd=opd_waves,
         intensity=intensity,
         radius=R,
+        E_exits=E_exits,
         center=torch.stack([xc, yc, zc]),
     )
 

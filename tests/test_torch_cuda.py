@@ -16,8 +16,10 @@ points (and their backward) to the kernels, K5/K6 after the eager raygen
 of a telecentric and a real-image-height system and K7 on an iteratively
 aimed bundle, the design loop's merit and a tolerancing draw through K7
 (chip_smoke.py phase j8) against K7's plain version, and the explicit
-refusal of a branch or an input a kernel does not take. Every test skips without a CUDA
-device and nvcc.
+refusal of a branch or an input a kernel does not take; and the eager
+paths that JAX's gates keep from the kernels (chip_smoke.py phase j9: a
+Fresnel-coated polarized trace, a vectorial FFT PSF) in float32 against
+float64 on the card. Every test skips without a CUDA device and nvcc.
 
 On a machine with the card, from the repository root:
 
@@ -929,3 +931,88 @@ def test_tolerancing_draw_on_history_kernel(cuda_f32, monkeypatch):
     assert _rel(v, vp) <= MOMENT_RTOL
     gap = t.compensators[0].scaler.inverse_scale
     assert (gap(x) - gap(xp)).abs().max().item() <= POS_TOL
+
+
+# every kernel's launch counter: the eager paths leave them all unmoved
+_COUNTED = {"K1": fused.moments_forward, "K2": fused.moments_backward,
+            "K3": fused.raygen_trace_forward,
+            "K4": fused.raygen_trace_backward,
+            "K5": fused.fused_trace_forward,
+            "K6": fused.fused_trace_backward,
+            "K7": fused.history_forward, "K8": huygens.huygens_sum_forward}
+
+
+@pytest.fixture
+def cuda_eager():
+    """The card in float32, for the eager paths that launch no kernel
+    (nothing is built)."""
+    if not torch.cuda.is_available() or shutil.which("nvcc") is None:
+        pytest.skip("no CUDA device / nvcc")
+    prev = config.get_dtype()
+    config.set_precision("float32")
+    yield torch.device("cuda")
+    config.set_precision("float64" if prev == torch.float64 else "float32")
+
+
+def _pair(make, dev):
+    """`make()` built on `dev` in float32 and in float64."""
+    b32 = make().build(device=dev)
+    config.set_precision("float64")
+    try:
+        b64 = make().build(device=dev)
+    finally:
+        config.set_precision("float32")
+    return b32, b64
+
+
+def test_fresnel_polarized_trace_against_float64(cuda_eager):
+    """chip_smoke.py phase j9 (a) at 65,538 rays: the Fresnel-coated Cooke
+    triplet's unpolarized PRT trace, eager on the card (no kernel), float32
+    against float64 within TOL_F64 and TOL_POL."""
+    from optiland_tpu_torch.polarization import PolarizationState
+
+    (st, pr), (st64, pr64) = _pair(
+        lambda: SMOKE.fresnel_cooke(CookeTriplet), cuda_eager)
+    fb = SMOKE.flagship_inputs(pr, cuda_eager, 7_282)
+    state = PolarizationState.unpolarized()
+    before = {k: f.launches for k, f in _COUNTED.items()}
+    h = tracer.trace_system(st, pr, *fb, polarization=state)
+    assert {k: f.launches for k, f in _COUNTED.items()} == before
+    h64 = tracer.trace_system(st64, pr64, *(a.double() for a in fb),
+                              polarization=state)
+    lit = (h.intensity[-1] > 0) & (h64.intensity[-1] > 0)
+    assert lit.double().mean() > 0.5
+    for key, tol in (("x", SMOKE.TOL_F64["position_mm"]),
+                     ("y", SMOKE.TOL_F64["position_mm"]),
+                     ("L", SMOKE.TOL_F64["direction"]),
+                     ("M", SMOKE.TOL_F64["direction"]),
+                     ("intensity", SMOKE.TOL_POL["intensity"])):
+        err = (getattr(h, key)[-1].double() - getattr(h64, key)[-1])[lit]
+        assert err.abs().max().item() <= tol, key
+    err_p = (h.p.abs().double() - h64.p.abs())[lit].abs().max().item()
+    assert err_p <= SMOKE.TOL_POL["p_abs"]
+
+
+def test_vectorial_fft_psf_against_float64(cuda_eager):
+    """`VectorialFFTPSF` of the unpolarized Cooke triplet at field (0, 1),
+    64 pupil rays (a 128 grid), float32 against float64 on the card within
+    TOL_WAVE's FFT bounds; the vectorial sum launches no K8."""
+    from optiland_tpu_torch.psf import VectorialFFTPSF
+
+    lens32, lens64 = CookeTriplet(), CookeTriplet()
+    for lens in (lens32, lens64):
+        lens.set_polarization("unpolarized")
+    k8 = huygens.huygens_sum_forward.launches
+    p32 = VectorialFFTPSF(lens32, (0.0, 1.0), num_rays=64, device=cuda_eager)
+    assert huygens.huygens_sum_forward.launches == k8
+    config.set_precision("float64")
+    try:
+        p64 = VectorialFFTPSF(lens64, (0.0, 1.0), num_rays=64,
+                              device=cuda_eager)
+    finally:
+        config.set_precision("float32")
+    err = ((p32.psf.double() - p64.psf).abs().max()
+           / p64.psf.abs().max()).item()
+    assert err <= SMOKE.TOL_WAVE["fft_psf_of_peak"]
+    assert abs(p32.strehl_ratio().item() - p64.strehl_ratio().item()) \
+        <= SMOKE.TOL_WAVE["fft_strehl"]

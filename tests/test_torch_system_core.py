@@ -450,9 +450,14 @@ def test_aperture_contains_matches_jax(name, tmp_path):
 
 
 def test_masks_carry_across_as_port_objects(jax_results):
-    """`static_from_dict` turns JAX's masks and apodization into the port's
-    classes, field by field; BSDFs and thin films still refuse."""
+    """`static_from_dict` turns JAX's masks, apodization, BSDFs and
+    thin-film stacks into the port's classes, field by field; an object
+    with no counterpart is refused by name."""
+    from optiland_tpu.core import scatter as jscatter
+    from optiland_tpu.thin_film.stack import ThinFilmStack as JStack
+    from optiland_tpu_torch.core import scatter as tscatter
     from optiland_tpu_torch.system.spec import static_from_dict
+    from optiland_tpu_torch.thin_film.stack import ThinFilmStack as TStack
 
     _, (ts, _) = jax_results["masked"]
     masks = [m for m in ts.aperture_masks if m is not None]
@@ -460,7 +465,15 @@ def test_masks_carry_across_as_port_objects(jax_results):
     assert all(type(m).__module__ == taps.__name__ for m in masks)
     _, (ts, _) = jax_results["apodized"]
     assert isinstance(ts.apodization, tapod.GaussianApodization)
-    with pytest.raises(NotImplementedError, match="BSDFs and thin films"):
+    d = {f.name: getattr(ts, f.name) for f in fields(ts)}
+    d["bsdfs"] = (None, jscatter.GaussianBSDF(0.2), jscatter.LambertianBSDF())
+    d["thin_films"] = (None, JStack(1.0, 1.5).add_layer_nm(1.38, 90.0), None)
+    carried = static_from_dict(d)
+    assert carried.bsdfs[1] == tscatter.GaussianBSDF(0.2)
+    assert carried.bsdfs[2] == tscatter.LambertianBSDF()
+    stack = carried.thin_films[1]
+    assert isinstance(stack, TStack) and stack.layers[0].thickness_um == 0.09
+    with pytest.raises(NotImplementedError, match="object"):
         static_from_dict({"bsdfs": (None, object(), None)})
 
 
@@ -520,7 +533,7 @@ def test_trace_history_accessors(jax_results):
                      name)
     assert torch.equal(rays.w, torch.full_like(rays.x, W))
     assert torch.equal(got.final_rays().w, torch.zeros_like(rays.x))
-    assert not hasattr(got, "p")
+    assert got.p is None  # a scalar trace carries no PRT matrices
 
 
 # -- the editing API ----------------------------------------------------------

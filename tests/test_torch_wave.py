@@ -124,14 +124,22 @@ def test_huygens_mtf_matches_jax(lenses, jax_ref):
 
 
 def test_factories_refuse_polarized_optic():
+    """The factories pick the scalar analyses for a scalar optic and the
+    vectorial ones for a polarized optic (tests/test_torch_polarization.py
+    holds those to the JAX package)."""
+    from optiland_tpu_torch.mtf import VectorialFFTMTF
+    from optiland_tpu_torch.psf import VectorialFFTPSF, VectorialHuygensPSF
+
     lens = TCooke()
     assert isinstance(HuygensPSF(lens, (0, 0), num_rays=4, image_size=2,
                                  device="cpu"), ScalarHuygensPSF)
-    lens.polarization = "unpolarized"
-    for factory in (HuygensPSF, FFTPSF):
-        with pytest.raises(NotImplementedError, match="polarization/"):
-            factory(lens, (0, 0), device="cpu")
-    with pytest.raises(NotImplementedError, match="polarization/"):
-        FFTMTF(lens, device="cpu")
-    with pytest.raises(NotImplementedError, match="polarization/"):
-        HuygensMTF(lens, device="cpu")
+    lens.set_polarization("unpolarized")
+    assert isinstance(HuygensPSF(lens, (0, 0), num_rays=4, image_size=2,
+                                 device="cpu"), VectorialHuygensPSF)
+    assert isinstance(FFTPSF(lens, (0, 0), num_rays=8, grid_size=16,
+                             device="cpu"), VectorialFFTPSF)
+    mtf = FFTMTF(lens, fields=[(0, 0)], num_rays=8, grid_size=16,
+                 device="cpu")
+    assert isinstance(mtf, VectorialFFTMTF)
+    assert isinstance(HuygensMTF(lens, num_rays=4, image_size=4,
+                                 device="cpu").psf_obj, VectorialHuygensPSF)

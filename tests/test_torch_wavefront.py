@@ -88,8 +88,8 @@ def test_wavefront_data_matches_jax(lenses, pupil, jax_ref, strategy, field):
 
 
 def test_wavefront_data_refuses_unported_options(lenses):
-    """Polarized wavefronts and unknown strategies refuse; the aiming modes
-    run: "cached" is the iterative aim, and the aimed chief ray, at the
+    """Unknown strategies refuse; a polarized wavefront carries its exit
+    fields, one (N, 3) row per state; the aiming modes run: "cached" is the iterative aim, and the aimed chief ray, at the
     stop's centre, leaves its OPD reference at 0."""
     ts, tp = lenses[1].build(device="cpu")
     P = torch.zeros(3, dtype=torch.float64)
@@ -102,8 +102,12 @@ def test_wavefront_data_refuses_unported_options(lenses):
     assert not torch.equal(aimed["iterative"].opd, aimed["paraxial"].opd)
     assert torch.isfinite(aimed["iterative"].opd).all()
     assert abs(float(aimed["iterative"].opd[1])) < 1e-9
-    with pytest.raises(NotImplementedError, match="polarization/"):
-        twavefront(ts, tp, 0.0, 1.0, P, P, 0.55, polarization="unpolarized")
+    from optiland_tpu_torch.polarization import PolarizationState
+
+    pol = twavefront(ts, tp, 0.0, 1.0, P, Py, 0.55,
+                     polarization=PolarizationState.unpolarized())
+    assert pol.E_exits.shape == (2, 3, 3) and aimed["paraxial"].E_exits is None
+    assert torch.equal(pol.opd, aimed["paraxial"].opd)
     with pytest.raises(ValueError, match="strategy"):
         twavefront(ts, tp, 0.0, 1.0, P, P, 0.55, strategy="nope")
 
