@@ -149,6 +149,17 @@ PyTorch built for CUDA. In order it:
      `VectorialFFTMTF` at their defaults against float64 and the scalar
      Strehl ratios, with the Huygens call's split (each stage clocked
      inside the call); (f) ThinFilmOptimizer on the card against the CPU;
+ 16j. (j10) the analyses (`phase_j10`): `SpotDiagram(CookeTriplet(),
+     num_rings=272)`, 2,004,921 rays through K7 (two launches: the bundle
+     and the chief rays), its image rows against K7's plain version on the
+     same rays at TOL and its RMS and geometric radii against the eager
+     float64 path on the card, K7 timed on that batch; every other
+     analysis of `analysis/`, `GeometricMTF` and colorimetry (on a thin-film
+     stack's transmission) at its defaults, float32 against float64 on the
+     card (TOL_J10; the random pupils seeded alike, `seeded_draws`), the
+     image simulation on a 512 x 512 RGB image; `Distortion` and
+     `FieldCurvature`, rounding-bound, in float64 on the card against the
+     CPU; each row with its host-clock time and launches;
  17. (k) `CookeTriplet().trace(Hx=0, Hy=1, num_rays=6)`, the user's entry,
      reaches K7;
  18. (w1) K8, the Huygens sum, on the inputs of the Cooke triplet's
@@ -2149,6 +2160,395 @@ def phase_j9(dev, reset_counts, read_counts, smi,
           "ThinFilmOptimizer on the card vs the CPU")
     seconds["phase j9"] = time.perf_counter() - t_j9
     return seconds
+
+
+# Phase j10: the analyses (`analysis/`, `mtf/geometric.py`, colorimetry) on
+# the Cooke triplet, float32 on the card against float64 on the card. Every
+# analysis that traces the unpolarized triplet reaches K7 as JAX's gates
+# send it (the spot diagram at about the flagship's width: 3 fields x 3
+# wavelengths x 222,769 hexapolar points, 272 rings, 2,004,921 rays, and
+# its chief rays); the Jones pupil's polarized trace is eager (JAX's gate),
+# the Y-Ybar diagram paraxial and colorimetry a sum over a spectrum.
+J10_RINGS = 272
+J10_RAYS = 3 * 3 * (1 + 3 * J10_RINGS * (J10_RINGS + 1))
+J10_IMAGE = 512        # the image simulation's RGB source, pixels a side
+J10_FREQ = 30.0        # ThroughFocusMTF's frequency, cycles/mm
+J10_SEED = 17          # the random pupils' draws, the same in both precisions
+# float32 against float64 on the card, each of the largest entry of the
+# float64 result (`j10_errs`: NaN patterns must agree), unless named; the
+# errors of a CPU rehearsal (float32 against float64 on the CPU, the same
+# arithmetic as the card's plain versions) are given beside each:
+#  - "position": image positions and what is made of them (spots, fans,
+#    radii, heights, angles, the grid distortion, the pupil aberration):
+#    float32 spacing at the 18 mm image height is 2e-6 mm, and a spot's
+#    radius or a fan's error ~0.01-0.05 mm, so a few roundings a surface
+#    are ~1e-4 of it (CPU: 5e-7 to 4e-4);
+#  - "fit": the best-fit ray fans, whose origin is the centre of a
+#    least-squares sphere through the float32 OPD, which carries TOL_WAVE's
+#    noise of 0.014-0.018 waves rms (CPU: 1.1e-3);
+#  - "energy": the encircled-energy curves, fractions of the energy: the
+#    on-axis spot's core is ~0.003 mm across, where the curve climbs ~300 a
+#    mm, so 1e-5 mm of rounding moves it ~3e-3 (CPU: 1.3e-3);
+#  - "mtf": the geometric MTFs, absolute: float32 moves a ray across a bin
+#    of the line-spread histogram when it lies within rounding of the edge,
+#    and the spot is only 257 bins wide; each ray moved shifts the MTF by
+#    its weight (1e-4) times the phase of one bin (CPU: 2e-4 to 4e-4);
+#  - "histogram": the irradiance and radiant-intensity maps, the share of
+#    the power that lands in another bin (sum |a - b| / sum |b|, a ray
+#    moved counting twice): the on-axis spot straddles the detector's
+#    central bin edges, x = 0 and y = 0, where float32 decides the side of
+#    a ray within ~1e-6 mm of the axis, ~4e-6 / 0.003 of the spot's power
+#    (CPU: 1.8e-3 irradiance, 4e-5 intensity);
+#  - "wave": the wavefront errors and the image simulation, whose OPDs and
+#    PSFs carry the float32 trace's OPD noise (CPU: 9e-3, 1.2e-3);
+#  - "jones": the Jones pupil, a product of six faces' Fresnel amplitudes,
+#    as TOL_POL's (CPU: 3.3e-6);
+#  - "paraxial", "color": closed forms in a few dozen roundings (CPU:
+#    7e-7, 4e-7).
+TOL_J10 = {"position": 2e-3, "fit": 1e-2, "energy": 1e-2, "mtf": 5e-3,
+           "histogram": 1e-2, "wave": 5e-2, "jones": 5e-5, "paraxial": 1e-5,
+           "color": 1e-5}
+# Two analyses depend on rounding rather than on the lens: `Distortion`
+# divides by the image height of a chief ray at Hy = 1e-10 (4e-10 mm) and
+# `FieldCurvature` intersects parabasal pairs split by 1e-5 in the pupil.
+# In float32 they miss float64 by 9e-4 and 20 times their scale (CPU), an
+# amplification of float32's 6e-8 by 1.6e4 and 3.3e8. Their float64 results
+# on the card are held to float64 on the CPU (the same arithmetic, rounded
+# with fused multiply-adds on the card): 3.3e8 times float64's 1.1e-16 is
+# 4e-8, held at 1e-6 of their scale; float32's error is printed.
+TOL_J10_ROUNDING = 1e-6
+
+
+@contextlib.contextmanager
+def seeded_draws(seed=J10_SEED):
+    """`np.random.default_rng(None)` seeded: the random pupils of
+    `core/distributions.random` (the default of EncircledEnergy,
+    IncoherentIrradiance and RadiantIntensity, unseeded in both packages)
+    draw the same points in both precisions."""
+    orig = np.random.default_rng
+
+    def rng(s=None):
+        return orig(seed if s is None else s)
+
+    np.random.default_rng = rng
+    try:
+        yield
+    finally:
+        np.random.default_rng = orig
+
+
+def _leaves(tree, prefix=""):
+    """{label: float64 numpy array} of a nest of dicts, lists and tuples."""
+    if isinstance(tree, dict):
+        return {k: v for key, sub in tree.items()
+                for k, v in _leaves(sub, f"{prefix}{key} ").items()}
+    if isinstance(tree, (list, tuple)) and tree and not np.isscalar(tree[0]):
+        return {k: v for i, sub in enumerate(tree)
+                for k, v in _leaves(sub, f"{prefix}{i} ").items()}
+    a = tree.detach().cpu().numpy() if torch.is_tensor(tree) else np.asarray(
+        tree)
+    return {prefix.strip(): a.astype(np.complex128 if np.iscomplexobj(a)
+                                     else np.float64)}
+
+
+def j10_errs(got, ref, metric="rel"):
+    """The largest error over the leaves of two results, and its leaf:
+    max |a - b| / max |b| ("rel"), max |a - b| ("abs") or sum |a - b| /
+    sum |b| ("moved"); infinite where the shapes or NaN patterns differ."""
+    got, ref = _leaves(got), _leaves(ref)
+    if got.keys() != ref.keys():
+        return math.inf, "leaves"
+    worst = (0.0, "")
+    for key, b in ref.items():
+        a = got[key]
+        if a.shape != b.shape or (np.isnan(a) != np.isnan(b)).any():
+            return math.inf, key
+        a, b = a[~np.isnan(b)], b[~np.isnan(b)]
+        if b.size == 0:
+            continue
+        d = np.abs(a - b)
+        if metric == "moved":
+            err = float(d.sum() / max(np.abs(b).sum(), 1e-300))
+        elif metric == "abs":
+            err = float(d.max())
+        else:
+            err = float(d.max() / max(np.abs(b).max(), 1e-300))
+        worst = max(worst, (err, key))
+    return worst
+
+
+def j10_cases(image):
+    """(name, make(lens, dev) -> result tree, tolerance key, metric, whether
+    it reaches K7) of every analysis of phase j10 but the spot diagram at
+    full width and the two rounding-bound ones, at their defaults."""
+    from optiland_tpu_torch import analysis as A
+    from optiland_tpu_torch import colorimetry
+    from optiland_tpu_torch.mtf import GeometricMTF
+    from optiland_tpu_torch.thin_film import ThinFilmStack
+
+    def spot(s):
+        return {"x": s.x, "y": s.y, "rms": s.rms_spot_radius(),
+                "geo": s.geometric_spot_radius()}
+
+    def fan(f):
+        return {k: f.data[k] for k in ("ex", "ey", "intensity_x",
+                                       "intensity_y")}
+
+    def ee(e):
+        radii, curves = e.encircled_energy()
+        return {"radii": radii, "curves": curves}
+
+    def pupil(p):
+        return {f"{f} {w} {a}": p.data[f][w][a] for f in p.fields
+                for w in p.wavelengths for a in ("x", "y")}
+
+    def color(dev):
+        stack = ar_stack(ThinFilmStack)
+        nm = np.linspace(370.0, 790.0, 421)
+        T = stack.transmittance_nm_deg(nm, 12.0, device=dev)
+        X, Y, Z = colorimetry.spectrum_to_xyz(nm, T, device=dev)
+        return {"T": T, "XYZ": [X, Y, Z],
+                "xyY": list(colorimetry.xyz_to_xyY(X, Y, Z)),
+                "sRGB": list(colorimetry.xyz_to_srgb(X, Y, Z))}
+
+    return (
+        ("SpotDiagram centroid", lambda L, d: spot(A.SpotDiagram(
+            L, reference="centroid", device=d)), "position", "rel", True),
+        ("GeometricMTF", lambda L, d: GeometricMTF(L, device=d).mtf, "mtf",
+         "abs", True),
+        ("EncircledEnergy", lambda L, d: ee(A.EncircledEnergy(L, device=d)),
+         "energy", "rel", True),
+        ("RmsSpotSizeVsField", lambda L, d: A.RmsSpotSizeVsField(
+            L, device=d)._spot_size, "position", "rel", True),
+        ("RmsWavefrontErrorVsField", lambda L, d: A.RmsWavefrontErrorVsField(
+            L, device=d)._wavefront_error, "wave", "rel", True),
+        ("RayFan", lambda L, d: fan(A.RayFan(L, device=d)), "position",
+         "rel", True),
+        ("BestFitRayFan", lambda L, d: fan(A.BestFitRayFan(L, device=d)),
+         "fit", "rel", True),
+        ("ThroughFocusSpotDiagram", lambda L, d: A.ThroughFocusSpotDiagram(
+            L, device=d).data, "position", "rel", True),
+        ("ThroughFocusMTF", lambda L, d: A.ThroughFocusMTF(
+            L, J10_FREQ, device=d).data, "mtf", "abs", True),
+        ("MTFvsField", lambda L, d: A.MTFvsField(L, device=d).data, "mtf",
+         "abs", True),
+        ("GridDistortion", lambda L, d: A.GridDistortion(L, device=d).data,
+         "position", "rel", True),
+        ("YYbar", lambda L, d: A.YYbar(L, device=d).data, "paraxial", "rel",
+         False),
+        ("PupilAberration", lambda L, d: pupil(A.PupilAberration(
+            L, device=d)), "position", "rel", True),
+        ("AngleVsHeight", lambda L, d: A.AngleVsHeight(L, device=d).data,
+         "position", "rel", True),
+        ("PupilIncidentAngleVsHeight",
+         lambda L, d: A.PupilIncidentAngleVsHeight(L, Hy=1.0,
+                                                   device=d).data,
+         "position", "rel", True),
+        ("FieldIncidentAngleVsHeight",
+         lambda L, d: A.FieldIncidentAngleVsHeight(L, Py=0.5,
+                                                   device=d).data,
+         "position", "rel", True),
+        ("IncoherentIrradiance", lambda L, d: A.IncoherentIrradiance(
+            L, device=d).data, "histogram", "moved", True),
+        ("RadiantIntensity", lambda L, d: [[c[0] for c in row] for row in
+                                           A.RadiantIntensity(
+                                               L, device=d).data],
+         "histogram", "moved", True),
+        ("JonesPupil", lambda L, d: [j["J"] for j in A.JonesPupil(
+            L, device=d).data], "jones", "rel", False),
+        ("ImageSimulationEngine", lambda L, d: A.ImageSimulationEngine(
+            L, image, device=d).run(), "wave", "rel", True),
+        ("colorimetry", lambda L, d: color(d), "color", "rel", False),
+    )
+
+
+def phase_j10(dev, reset_counts, read_counts, smi, rings=J10_RINGS,
+              image_size=J10_IMAGE, cases=None):
+    """Phase j10 on `dev` (the card; a CPU rehearsal passes the CPU, fewer
+    rings, a smaller image and a subset of the cases' names): (a) the spot
+    diagram at full width through K7, its image rows against K7's plain
+    version on the same rays and its radii against float64; (b) every
+    other analysis at its defaults, float32 against float64; (c) the two
+    rounding-bound analyses in float64, the card against the CPU. Returns
+    the seconds of each part and the K7 timing row of (a)."""
+    from optiland_tpu_torch.analysis import SpotDiagram
+    from optiland_tpu_torch.analysis import Distortion, FieldCurvature
+    from optiland_tpu_torch.analysis.base import like
+    from optiland_tpu_torch.analysis.image_simulation import PSFBasisGenerator
+    from optiland_tpu_torch.analysis.spot import field_pupil_batch
+    from optiland_tpu_torch.core import distributions as dist
+    from optiland_tpu_torch.models import CookeTriplet
+    from optiland_tpu_torch.trace import fused
+    from optiland_tpu_torch.trace.raygen import generate_rays
+
+    on_card = dev.type == "cuda"
+    t_j10 = time.perf_counter()
+    seconds = {}
+
+    def clock():
+        if on_card:
+            torch.cuda.synchronize()
+        return time.perf_counter()
+
+    def row(name, t32, t64, got, err, tol):
+        print(f"phase j10 ({smi}): {name}: float32 {1e3 * t32:.1f} ms, "
+              f"float64 {1e3 * t64:.1f} ms (host clock); launches "
+              f"{json.dumps(got)}; error vs float64 {err[0]!r} at "
+              f"{err[1]!r} (tolerance {tol!r})")
+
+    # (a) the spot diagram at full width
+    lens = CookeTriplet()
+    reset_counts()
+    t0 = clock()
+    spot = SpotDiagram(lens, num_rings=rings, device=dev)
+    radii = (spot.rms_spot_radius(), spot.geometric_spot_radius())
+    t_spot = clock() - t0
+    got = read_counts()
+    n = spot.x.numel()
+    check(spot.x.shape == (3, 3, n // 9) and spot.x.device.type == dev.type
+          and spot.x.dtype == torch.float32
+          and all(bool(torch.isfinite(a).all())
+                  for a in (spot.x, spot.y, spot.intensity) + radii),
+          "spot diagram: shape, device, dtype, finite")
+    if on_card:
+        check(n == J10_RAYS, f"spot diagram of {J10_RAYS} rays")
+        check(got["K7"] == 2 and sum(got.values()) == 2,
+              f"the spot diagram launched K7 twice (bundle, chief rays): "
+              f"{got}")
+    # K7's image rows against its plain version on the same rays
+    static, params = lens.build(device=dev)
+    Px, Py = (like(a, params) for a in dist.hexapolar(rings))
+    rays0 = generate_rays(static, params, *field_pupil_batch(
+        spot.fields, spot.wavelengths, Px, Py, params))
+    rays9 = tuple(getattr(rays0, k).detach().contiguous()
+                  for k in fused._RAY_KEYS)
+    del rays0
+    p7 = (fused._diff_params(params), fused._nondiff_params(params))
+    t0 = clock()
+    plain = fused._history_plain(static, *p7, rays9)
+    plain_ms = 1e3 * (clock() - t0)
+    mine = (spot.x.reshape(-1), spot.y.reshape(-1),
+            spot.intensity.reshape(-1))
+    keep = (mine[2] > 0) == (plain[6][-1] > 0)
+    k7_err = {"intensity_frac": 1.0 - keep.double().mean().item()}
+    for key, a, b in (("x", mine[0], plain[0][-1]), ("y", mine[1],
+                                                    plain[1][-1]),
+                      ("intensity", mine[2], plain[6][-1])):
+        k7_err[key] = max_abs(a, b, keep)
+    del plain
+    print(f"phase j10: the spot diagram's image rows ({n} rays) vs K7's "
+          f"plain version: {json.dumps(k7_err)} tolerances "
+          f"{json.dumps(TOL)}")
+    check(k7_err["intensity_frac"] <= TOL["intensity_frac"]
+          and k7_err["x"] <= TOL["position_mm"]
+          and k7_err["y"] <= TOL["position_mm"]
+          and k7_err["intensity"] <= TOL["intensity"],
+          "spot diagram's K7 rows vs plain")
+    k7_row = None
+    if on_card:
+        S = static.num_surfaces
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        fn, args, _outs, _keep = fused.k7_launch(static, *p7, rays9)
+
+        def launch():
+            check(fn(*args, stream) == 0, "K7 launch")
+
+        b_ms, b_by = bound_ms((9 + 8 * S) * 4 * n,
+                              history_ops_per_ray(static, fused) * n)
+        k7_row = {"launches": got["K7"], "max_abs_err": max(
+            v for k, v in k7_err.items() if k != "intensity_frac"),
+            "ms": time_ms(launch), "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "rays": n}
+        print(f"phase j10 ({smi}): K7 on the spot diagram's {n} rays: "
+              f"{json.dumps(k7_row)}")
+        del _outs, _keep
+    del rays9
+    # the radii against the eager float64 path on the same device
+    with precision("float64"):
+        t0 = clock()
+        spot64 = SpotDiagram(CookeTriplet(), num_rings=rings, device=dev)
+        radii64 = (spot64.rms_spot_radius(), spot64.geometric_spot_radius())
+        t64 = clock() - t0
+    check(read_counts() == got, "the float64 spot diagram ran eager")
+    err = j10_errs({"rms": radii[0], "geo": radii[1]},
+                   {"rms": radii64[0], "geo": radii64[1]})
+    row(f"SpotDiagram(num_rings={rings}), {n} rays, radii", t_spot, t64,
+        got, err, TOL_J10["position"])
+    check(err[0] <= TOL_J10["position"], "spot radii vs float64")
+    del spot, spot64
+    # the host's share: the hexapolar pupil (a Python loop over the rings)
+    # and the PSF basis's 25 `wavefront_data` calls of one wavelength
+    t0 = clock()
+    dist.hexapolar(rings)
+    split = {"hexapolar pupil": 1e3 * (clock() - t0)}
+    t0 = clock()
+    PSFBasisGenerator(CookeTriplet(), 0.55, device=dev).generate_basis(3)
+    split["PSF basis at 0.55 um"] = 1e3 * (clock() - t0)
+    print(f"phase j10 ({smi}): host-clock ms of {json.dumps(split)}")
+    seconds["(a)"] = time.perf_counter() - t_j10
+
+    # (b) every other analysis at its defaults
+    t_b = time.perf_counter()
+    rng = np.random.default_rng(0)
+    image = rng.integers(0, 256, (image_size, image_size, 3), np.uint8)
+    times = {}
+    for name, make, tol_key, metric, k7 in j10_cases(image):
+        if cases is not None and name not in cases:
+            continue
+        with seeded_draws():
+            lens = CookeTriplet()
+            reset_counts()
+            t0 = clock()
+            res32 = make(lens, dev)
+            t32 = clock() - t0
+            got = read_counts()
+        with seeded_draws(), precision("float64"):
+            t0 = clock()
+            res64 = make(CookeTriplet(), dev)
+            t64 = clock() - t0
+        err = j10_errs(res32, res64, metric)
+        times[name] = round(1e3 * t32, 1)
+        row(name, t32, t64, got, err, TOL_J10[tol_key])
+        check(err[0] <= TOL_J10[tol_key], f"{name} vs float64")
+        if on_card:
+            check(got["K8"] == 0, f"{name}: no K8 (FFT PSFs)")
+            check((got["K7"] > 0) == k7,
+                  f"{name}: K7 {'launched' if k7 else 'not launched'}")
+    seconds["(b)"] = time.perf_counter() - t_b
+
+    # (c) the rounding-bound analyses: float64, the card against the CPU;
+    # float32's error printed
+    t_c = time.perf_counter()
+    for name, cls in (("Distortion", Distortion),
+                      ("FieldCurvature", FieldCurvature)):
+        reset_counts()
+        t0 = clock()
+        res32 = cls(CookeTriplet(), device=dev).data
+        t32 = clock() - t0
+        got = read_counts()
+        with precision("float64"):
+            t0 = clock()
+            res64 = cls(CookeTriplet(), device=dev).data
+            t64 = clock() - t0
+            cpu64 = cls(CookeTriplet(), device="cpu").data
+        err = j10_errs(res64, cpu64)
+        err32 = j10_errs(res32, res64)
+        print(f"phase j10 ({smi}): {name}: float32 {1e3 * t32:.1f} ms, "
+              f"float64 {1e3 * t64:.1f} ms (host clock); launches "
+              f"{json.dumps(got)}; float64 on the {dev.type} vs the CPU "
+              f"{err[0]!r} at {err[1]!r} (tolerance {TOL_J10_ROUNDING}); "
+              f"float32 vs float64 {err32[0]!r} at {err32[1]!r}, "
+              "rounding-bound (a chief ray at Hy = 1e-10; parabasal pairs "
+              "1e-5 apart)")
+        check(err[0] <= TOL_J10_ROUNDING, f"{name}: float64, card vs CPU")
+        if on_card:
+            check(got["K7"] > 0 and got["K8"] == 0, f"{name}: K7")
+        times[name] = round(1e3 * t32, 1)
+    seconds["(c)"] = time.perf_counter() - t_c
+    seconds["phase j10"] = time.perf_counter() - t_j10
+    print(f"phase j10 ({smi}): float32 host-clock ms per analysis "
+          f"{json.dumps(times)}")
+    return seconds, k7_row
 
 
 def main():
@@ -4431,6 +4831,14 @@ def main():
     # optics: eager on the card, as JAX's gates send them; no kernel
     j9_s = phase_j9(dev, reset_counts, read_counts, smi)
     print(f"phase j9 ({smi}): seconds {json.dumps(j9_s)}")
+    free()
+
+    # 16j. (j10) the analyses on the Cooke triplet: the spot diagram at
+    # full width through K7, every other analysis at its defaults, float32
+    # against float64 on the card
+    j10_s, j10_k7 = phase_j10(dev, reset_counts, read_counts, smi)
+    print(f"phase j10 ({smi}): seconds {json.dumps(j10_s)}")
+    check(j10_k7 is not None, "phase j10 timed K7")
     free()
 
     # 17. (k) the user's entry: Optic.trace on the card

@@ -19,7 +19,9 @@ aimed bundle, the design loop's merit and a tolerancing draw through K7
 refusal of a branch or an input a kernel does not take; and the eager
 paths that JAX's gates keep from the kernels (chip_smoke.py phase j9: a
 Fresnel-coated polarized trace, a vectorial FFT PSF) in float32 against
-float64 on the card. Every test skips without a CUDA device and nvcc.
+float64 on the card; and the spot diagram's K7 rows against K7's plain
+version and its radii against float64 (chip_smoke.py phase j10). Every
+test skips without a CUDA device and nvcc.
 
 On a machine with the card, from the repository root:
 
@@ -1016,3 +1018,47 @@ def test_vectorial_fft_psf_against_float64(cuda_eager):
     assert err <= SMOKE.TOL_WAVE["fft_psf_of_peak"]
     assert abs(p32.strehl_ratio().item() - p64.strehl_ratio().item()) \
         <= SMOKE.TOL_WAVE["fft_strehl"]
+
+
+def test_spot_diagram_on_history_kernel(cuda_f32):
+    """chip_smoke.py phase j10 (a) at 40 rings (3 fields x 3 wavelengths x
+    4,921 points, 44,289 rays): `SpotDiagram` launches K7 twice (the bundle
+    and the chief rays, no other kernel); its image rows against
+    `_history_plain` on the same rays within _TOLS; its RMS and geometric
+    radii against the eager float64 path on the card within
+    TOL_J10["position"] of their largest entry."""
+    from optiland_tpu_torch.analysis import SpotDiagram
+    from optiland_tpu_torch.analysis.base import like
+    from optiland_tpu_torch.analysis.spot import field_pupil_batch
+    from optiland_tpu_torch.core import distributions as dist
+
+    rings = 40
+    lens = CookeTriplet()
+    before = {k: f.launches for k, f in _COUNTED.items()}
+    spot = SpotDiagram(lens, num_rings=rings)
+    launched = {k: f.launches - before[k] for k, f in _COUNTED.items()}
+    assert launched == dict.fromkeys(_COUNTED, 0) | {"K7": 2}
+    assert spot.x.shape == (3, 3, 4921) and spot.x.is_cuda
+    ts, tp = lens.build()
+    Px, Py = (like(a, tp) for a in dist.hexapolar(rings))
+    rays0 = generate_rays(ts, tp, *field_pupil_batch(
+        spot.fields, spot.wavelengths, Px, Py, tp))
+    rays9 = tuple(getattr(rays0, k).contiguous() for k in fused._RAY_KEYS)
+    ref = fused._history_plain(ts, fused._diff_params(tp),
+                               fused._nondiff_params(tp), rays9)
+    same = _lit_alike(spot.intensity.reshape(-1), ref[6][-1])
+    assert same.float().mean().item() >= 1 - 1e-3
+    for k, got in ((0, spot.x), (1, spot.y), (6, spot.intensity)):
+        err = (got.reshape(-1) - ref[k][-1])[same].abs().max().item()
+        assert err <= _TOLS[k], (fused._NAMES[k], err)
+    config.set_precision("float64")
+    try:
+        spot64 = SpotDiagram(CookeTriplet(), num_rings=rings)
+        radii64 = (spot64.rms_spot_radius(), spot64.geometric_spot_radius())
+    finally:
+        config.set_precision("float32")
+    for got, ref64 in zip((spot.rms_spot_radius(),
+                           spot.geometric_spot_radius()), radii64):
+        err = ((got.double() - ref64).abs().max()
+               / ref64.abs().max()).item()
+        assert err <= SMOKE.TOL_J10["position"]

@@ -54,7 +54,9 @@ def test_import_leaves_jax_unloaded():
             "optiland_tpu_torch.system.multiconfig, "
             "optiland_tpu_torch.system.converters, "
             "optiland_tpu_torch.system.aberrations, "
-            "optiland_tpu_torch.core.apodization\n"
+            "optiland_tpu_torch.core.apodization, "
+            "optiland_tpu_torch.analysis, optiland_tpu_torch.colorimetry, "
+            "optiland_tpu_torch.mtf.geometric\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'optax', 'optiland_tpu')]\n"
             "assert not bad, bad\n")
