@@ -160,6 +160,25 @@ PyTorch built for CUDA. In order it:
      image simulation on a 512 x 512 RGB image; `Distortion` and
      `FieldCurvature`, rounding-bound, in float64 on the card against the
      CPU; each row with its host-clock time and launches;
+ 16k. (j11) ray-batch sharding (`phase_j11`, `optiland_tpu_torch/parallel`):
+     (a) the flagship training step (K7, Adam over every leaf) at
+     1,999,998 rays on a one-rank NCCL ("hosts", "chips") mesh and the
+     spot merit at 0.55 um (K1, K2) on a one-rank ("rays",) mesh, bitwise
+     against the unsharded steps (under PyTorch's deterministic
+     algorithms: the extinction tables' gather adds by atomics); (b) both
+     on two spawned gloo ranks on the one card (`parallel.dryrun.spawn`;
+     NCCL takes one rank per card), 999,999 rays each, within TOL of the
+     unsharded steps (a cancelling leaf within `j11_grad_limits`' limit,
+     which must lie below the error of a reduction that lost a rank), K1,
+     K2 and K7 launched on each rank, each rank's steps and kernels timed,
+     the kernels line's rows of K1, K2 and K7 under the mesh, each held to
+     its plain version on rank 0's shard within TOL; (c) in the same ranks, phase j8's 16 tolerancing
+     draws split over them by `MonteCarlo(mesh=)`, equal to the unsharded
+     run; (d) the Cooke triplet through the JSON, Zemax and CODE V
+     writers and readers, traced through K7 against the original; the ML
+     wrapper's Adam steps against float64; the 3-D scene (K7), a sag grid
+     and `info()`, `draw` and `draw3D` under Agg where matplotlib is
+     installed; an SMF source through `trace_source` against float64;
  17. (k) `CookeTriplet().trace(Hx=0, Hy=1, num_rays=6)`, the user's entry,
      reaches K7;
  18. (w1) K8, the Huygens sum, on the inputs of the Cooke triplet's
@@ -189,7 +208,8 @@ PyTorch built for CUDA. In order it:
      monochromatic one, the flagship's and those of phase (j3)'s systems),
      the flagship forward and the Huygens PSF end to end, and prints one
      JSON line of kernels;
- 23. prints as its last line {"ok": true, "device": {...}}.
+ 23. checks the whole run's seconds against its limit, RUN_LIMIT_S, and
+     prints as its last line {"ok": true, "device": {...}}.
 Every path is driven with all the launch counters set to 0 just before it
 and read just after, and fails unless its kernels were launched.
 
@@ -2551,6 +2571,650 @@ def phase_j10(dev, reset_counts, read_counts, smi, rings=J10_RINGS,
     return seconds, k7_row
 
 
+# Phase j11: ray-batch sharding (parallel/). The flagship batch over two
+# spawned ranks on the one card (gloo: NCCL takes one rank per card), each
+# on its half; the Cooke tolerancing's draws split over them.
+J11_RANKS = 2
+RUN_LIMIT_S = 1200   # the seconds a run of this script may take in all
+J11_TIMED_STEPS = 3
+# (d): the ML wrapper's Adam steps, the SMF source's rays (a power of two)
+J11_FIT_STEPS, J11_FIT_LR = 3, 0.005
+J11_SOURCE_RAYS = 1 << 20
+# The SMF source's rays in float32 against float64: erfinv(2 u - 1) of the
+# Sobol points, whose extremes lie ~2^-20 from 0 and 1, where float32
+# rounds 2 u - 1 to ~6e-8 and erfinv's slope grows as exp(erfinv^2): the
+# float32 rays miss float64's by up to 4.4e-3 of each array's scale (x)
+# at 2^20 rays on the CPU, before any trace. The trace itself is held to
+# TOL_EAGER against float64 from the same float32 start.
+TOL_J11_SOURCE = 1e-2
+
+
+def j11_rank(dev, n, rays_per_field, timed_steps, draws, rings):
+    """One spawned rank of phase j11: the sharded flagship and spot steps
+    (`dryrun.sharded_steps`), this rank's partial gradients of both
+    (`j11_partials`), then phase j8's Cooke tolerancing over `draws` draws
+    (seed 1, its RMS spot over `rings` rings) split over a ("rays",) mesh
+    of every rank."""
+    from optiland_tpu_torch import tolerancing
+    from optiland_tpu_torch.models import CookeTriplet
+    from optiland_tpu_torch.parallel import dryrun, make_mesh
+
+    out = dryrun.sharded_steps(dev, n, rays_per_field, timed_steps)
+    out["partials"], out["spot_partials"] = j11_partials(
+        dev, n, rays_per_field, out["wavelength"])
+    lens = CookeTriplet()
+    lens.build(device=dev)
+    mc = tolerancing.MonteCarlo(cooke_tolerancing(tolerancing, lens,
+                                                  rings=rings),
+                                mesh=make_mesh())
+    t0 = time.perf_counter()
+    df = mc.run(draws, seed=1)
+    out["monte_carlo_s"] = time.perf_counter() - t0
+    out["monte_carlo"] = {"columns": list(df.columns),
+                          "values": torch.tensor(df.to_numpy())}
+    return out
+
+
+def j11_partials(dev, n, rays_per_field, wavelength):
+    """This rank's part of each gradient of the flagship and spot steps
+    (`dryrun.sharded_steps`' batch and mesh): its local gradient before
+    `average_gradients`, over the mesh size. The parts of the ranks sum to
+    the whole gradient; their scale sets the rounding of that sum where
+    the parts cancel, and a reduction that lost one rank would be off by
+    that rank's part. ({leaf: part} of the flagship step, of the spot
+    step), on the CPU."""
+    from optiland_tpu_torch.models import CookeTriplet
+    from optiland_tpu_torch.optimization.merits import centroid_rms_spot
+    from optiland_tpu_torch.parallel import dryrun, shard_rays
+    from optiland_tpu_torch.trace.tracer import trace_system
+
+    static, params = CookeTriplet().build(device=dev)
+    mesh = dryrun.dryrun_mesh()
+    batch = shard_rays(mesh, dryrun.dryrun_batch(static, params, n,
+                                                 rays_per_field))
+    out = []
+    for merit in (
+            lambda p: dryrun.flagship_merit(trace_system(static, p, *batch),
+                                            mesh),
+            lambda p: centroid_rms_spot(static, p, *batch[:4], wavelength,
+                                        diff_inputs=False, mesh=mesh)):
+        leaves, p = dryrun.leaves_of(params)
+        merit(p).backward()
+        out.append({k: (v.grad / mesh.size()).cpu()
+                    for k, v in leaves.items() if v.grad is not None})
+    return out
+
+
+def j11_grad_limits(errs, noise, whole, parts, got):
+    """The limit each gradient of a sharded step is held to, and the error
+    a reduction that lost one rank's part would make on it. `errs`: each
+    gradient's error against the unsharded float32 step (relative to its
+    leaf's largest); `noise`: the unsharded float32 step's own error
+    against float64 on the same leaf; `whole`: the unsharded gradients;
+    `parts`: each rank's parts ({leaf: part}, `j11_partials`); `got`: this
+    rank's gradients. A gradient within TOL["param_grad_rel"] is held to
+    that. Past it, a leaf that cancels (the ranks' parts outgrow the whole
+    by A, and float32 rounds each part at its own scale) is held to
+    GRAD_NOISE_FACTOR times its noise times max(A, 1), but only where that
+    still sees a lost rank: the limit must lie below the largest error
+    that leaving out one rank's part of the average makes. Returns
+    ({leaf: limit}, {leaf: A}, {leaf: a lost rank's error})."""
+    limits, amp, lost = {}, {}, {}
+    for k, err in errs.items():
+        scale = whole[k].abs().max().item()
+        amp[k] = max(part[k].abs().max().item() for part in parts) / scale
+        lost[k] = max(rel_err(got[k] - part[k], whole[k]) for part in parts)
+        limits[k] = TOL["param_grad_rel"]
+        if err > TOL["param_grad_rel"]:
+            limits[k] = max(limits[k], GRAD_NOISE_FACTOR * noise[k]
+                            * max(amp[k], 1.0))
+    return limits, amp, lost
+
+
+def bitwise(a, b):
+    """The same shape and the same bits (NaN and inf included)."""
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+
+
+def adam_step_errs(got, ref, grads, params, lr):
+    """Per leaf, the largest difference of two Adam first steps over lr, on
+    the entries whose reference gradient lies past TOL["param_grad_rel"] of
+    its leaf's largest (float32 fixes their sign; an entry within the
+    gradient's tolerance of 0 has none, and Adam's first step moves it by
+    +-lr either way), and the count of entries left out."""
+    errs, left = {}, 0
+    for k, g in grads.items():
+        sure = g.abs() > TOL["param_grad_rel"] * g.abs().max()
+        sure &= torch.isfinite(params[k])
+        left += int(((g != 0) & torch.isfinite(params[k]) & ~sure).sum())
+        if sure.any():
+            errs[k] = ((got[k] - ref[k])[sure].abs().max() / lr).item()
+    return errs, left
+
+
+def phase_j11(dev, reset_counts, read_counts, smi,
+              rays_per_field=FLAGSHIP_RAYS_PER_FIELD, ranks=J11_RANKS,
+              timed_steps=J11_TIMED_STEPS, draws=TOLERANCING_DRAWS,
+              rings=TOLERANCING_RINGS, source_rays=J11_SOURCE_RAYS):
+    """Phase j11 on `dev` (the card; a CPU rehearsal passes the CPU, a few
+    rays a field, few draws, rings and source rays): (a) the flagship
+    training step (K7, Adam) and the spot merit at FLAGSHIP_WAVELENGTH
+    (K1, K2) on one-rank meshes, bitwise against the unsharded steps; (b)
+    both on `ranks` spawned ranks, each on its shard, within TOL of the
+    unsharded steps, each rank's kernels launched; (c) in the same ranks,
+    phase j8's Monte-Carlo tolerancing split over them, equal to the
+    unsharded run; (d) the Cooke triplet written and read back in the
+    three file formats, traced through K7 against the original; the ML
+    wrapper's Adam steps against float64; draw, draw3D and info; an SMF
+    source through trace_source against float64. Returns the seconds of
+    each part and the timing rows."""
+    import torch.distributed as dist
+
+    from optiland_tpu_torch.models import CookeTriplet
+    from optiland_tpu_torch.parallel import (init_distributed, make_mesh,
+                                             make_mesh_2d)
+    from optiland_tpu_torch.parallel import dryrun
+
+    on_card = dev.type == "cuda"
+    t_j11 = time.perf_counter()
+    seconds, rows = {}, {}
+
+    def clock():
+        if on_card:
+            torch.cuda.synchronize()
+        return time.perf_counter()
+
+    def timed(fn):
+        """fn() with the counters at 0 just before: (result, launches,
+        host-clock ms)."""
+        reset_counts()
+        t0 = clock()
+        out = fn()
+        ms = 1e3 * (clock() - t0)
+        return out, read_counts(), ms
+
+    static, params = CookeTriplet().build(device=dev)
+    n = rays_per_field * static.num_fields * static.num_wavelengths
+    batch = dryrun.dryrun_batch(static, params, n, rays_per_field)
+    wl = FLAGSHIP_WAVELENGTH
+
+    def flag(mesh=None):
+        return timed(lambda: dryrun.flagship_step(static, params, batch,
+                                                  mesh))
+
+    def spot(mesh=None):
+        return timed(lambda: dryrun.spot_step(static, params, batch[:4], wl,
+                                              mesh))
+
+    # (a) one-rank meshes (NCCL on the card): a one-rank all-reduce is the
+    # identity, so the sharded steps are the unsharded ones bit for bit.
+    # The flagship step's backward reads the extinction tables through
+    # `torch.gather`, whose backward adds each ray into the table by
+    # atomics on the card, in no fixed order: the four steps run under
+    # PyTorch's deterministic algorithms, and a fifth unsharded step
+    # outside them shows how far two runs of it differ
+    t_a = time.perf_counter()
+    was_deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        (loss0, g0, p0), k_flag0, ms_flag0 = flag()
+        (sl0, sg0), k_spot0, ms_spot0 = spot()
+        init_distributed(device=dev)
+        backend = dist.get_backend()
+        mesh2, mesh1 = make_mesh_2d(1, 1), make_mesh(1)
+        (loss1, g1, p1), k_flag1, ms_flag1 = flag(mesh2)
+        (sl1, sg1), k_spot1, ms_spot1 = spot(mesh1)
+    finally:
+        torch.use_deterministic_algorithms(was_deterministic)
+    (_, g_free, _), _, _ = flag()
+    free_diff = {k: rel_err(g_free[k], g0[k]) for k in g0
+                 if not bitwise(g_free[k], g0[k])}
+    same = {"loss": bitwise(loss1, loss0), "spot loss": bitwise(sl1, sl0),
+            "gradients": all(bitwise(g1[k], g0[k]) for k in g0),
+            "stepped parameters": all(bitwise(p1[k], p0[k]) for k in p0),
+            "spot gradients": all(bitwise(sg1[k], sg0[k]) for k in sg0)}
+    print(f"phase j11 ({smi}): (a) one-rank {backend} meshes, {n} rays: "
+          f"flagship step (K7, Adam over {len(p0)} leaves) unsharded "
+          f"{ms_flag0:.1f} ms {json.dumps(k_flag0)}, on ('hosts', 'chips') "
+          f"= (1, 1) {ms_flag1:.1f} ms {json.dumps(k_flag1)}; spot merit at "
+          f"{wl} um (K1, K2) unsharded {ms_spot0:.1f} ms "
+          f"{json.dumps(k_spot0)}, on ('rays',) = (1,) {ms_spot1:.1f} ms "
+          f"{json.dumps(k_spot1)} (host clock, first calls; deterministic "
+          f"algorithms); bitwise equal {json.dumps(same)}; loss "
+          f"{loss0.item()!r}, spot loss {sl0.item()!r}; the unsharded "
+          "flagship step run again without deterministic algorithms, the "
+          "gradients that differ (relative to their leaf's largest) "
+          f"{json.dumps(free_diff)}")
+    check(all(same.values()), "phase j11 (a): one rank equals unsharded")
+    for k in (k_flag0, k_flag1):
+        check(not on_card or (k["K7"] == 1 and sum(k.values()) == 1),
+              f"phase j11 (a): the flagship step launched K7 once: {k}")
+    for k in (k_spot0, k_spot1):
+        check(not on_card or (k["K1"] == 1 and k["K2"] == 1
+                              and sum(k.values()) == 2),
+              f"phase j11 (a): the spot merit launched K1 and K2: {k}")
+    if timed_steps:
+        for key, m2, m1 in (("unsharded", None, None),
+                            ("1 rank", mesh2, mesh1)):
+            rows[key] = dryrun.step_times(
+                dev, lambda: dryrun.flagship_step(static, params, batch, m2),
+                lambda: dryrun.spot_step(static, params, batch[:4], wl, m1),
+                timed_steps)
+    dist.destroy_process_group()
+    seconds["(a)"] = time.perf_counter() - t_a
+
+    # (b) `ranks` spawned ranks on the one card, each on its half: only the
+    # order of the float32 sums differs from the unsharded step
+    t_b = time.perf_counter()
+    res = dryrun.spawn(ranks, j11_rank, n, rays_per_field, timed_steps,
+                       draws, rings, device=dev,
+                       precision="float32" if on_card else "float64")
+    seconds["(b) spawn"] = time.perf_counter() - t_b
+    g0c, sg0c = ({k: v.cpu() for k, v in d.items()} for d in (g0, sg0))
+    p0c = {k: v.cpu() for k, v in p0.items()}
+    p_start = {k: getattr(params, k).cpu() for k in p0}
+    # the unsharded float32 steps' own error against float64 on each leaf
+    # (the flagship gradients that cancel: GRAD_NOISE_FACTOR); a CPU
+    # rehearsal keeps its float64 after
+    from optiland_tpu_torch import config
+
+    was = "float64" if config.get_dtype() == torch.float64 else "float32"
+    with precision("float64"):
+        st64, pr64 = CookeTriplet().build(device=dev)
+        b64 = tuple(a.double() for a in batch)
+        f64 = dryrun.flagship_step(st64, pr64, b64)[1]
+        s64 = dryrun.spot_step(st64, pr64, b64[:4], wl)[1]
+    noise = {k: rel_err(g0c[k], f64[k].cpu()) for k in g0c}
+    spot_noise = {k: rel_err(sg0c[k], s64[k].cpu()) for k in sg0c}
+    del st64, pr64, b64, f64, s64
+    config.set_precision(was)
+    print(f"phase j11 ({smi}): (b) the unsharded float32 steps' gradients "
+          f"vs float64, flagship {json.dumps(noise)}, spot "
+          f"{json.dumps(spot_noise)}")
+
+    for r in res:
+        loss_errs = {"loss_rel": abs(r["loss"].item() - loss0.item())
+                     / abs(loss0.item()),
+                     "spot_loss_rel": abs(r["spot_loss"].item() - sl0.item())
+                     / abs(sl0.item())}
+        held = {}
+        for label, whole, got, parts, leaf_noise in (
+                ("flagship", g0c, r["grads"], [q["partials"] for q in res],
+                 noise),
+                ("spot", sg0c, r["spot_grads"],
+                 [q["spot_partials"] for q in res], spot_noise)):
+            errs = {k: rel_err(got[k], whole[k]) for k in whole
+                    if whole[k].abs().max() > 0}
+            limits, amp, lost = j11_grad_limits(errs, leaf_noise, whole,
+                                                parts, got)
+            held[label] = {k: {"error": errs[k], "limit": limits[k],
+                               "parts_over_whole": amp[k],
+                               "one_rank_lost": lost[k]} for k in errs}
+        step, left = adam_step_errs(r["params"], p0c, g0c, p_start,
+                                    dryrun.ADAM_LR)
+        print(f"phase j11 ({smi}): (b) rank {r['rank']} of {r['world']} "
+              f"({r['device']}, gloo), {r['rays']} rays: launches "
+              f"{json.dumps(r['launches'])}, host clock (s, first calls) "
+              f"{json.dumps(r['seconds'])}, median ms {json.dumps(r['ms'])}; "
+              f"vs unsharded: {json.dumps(loss_errs)} (tolerance "
+              f"{TOL['moment_rel']}); Adam step / lr {json.dumps(step)} "
+              f"(tolerance {TOL['param_grad_rel']}; {left} entries whose "
+              "gradient is within its tolerance of 0 left out); each "
+              "gradient's error relative to its leaf's largest, the limit it "
+              f"is held to ({TOL['param_grad_rel']}, or past it "
+              f"{GRAD_NOISE_FACTOR}x the unsharded float32 step's own error "
+              "against float64 on its leaf times max(1, the ranks' parts' "
+              "scale over the whole's)), and the error one rank's part left "
+              "out of the average would make, which must exceed the limit: "
+              f"{json.dumps(held)}")
+        check(all(v <= TOL["moment_rel"] for v in loss_errs.values()),
+              f"phase j11 (b) rank {r['rank']}: losses")
+        for label, rows_held in held.items():
+            for k, h in rows_held.items():
+                check(h["error"] <= h["limit"],
+                      f"phase j11 (b) rank {r['rank']}: the {label} "
+                      f"gradient {k}, {h['error']} past its limit "
+                      f"{h['limit']}")
+                check(h["one_rank_lost"] > h["limit"],
+                      f"phase j11 (b) rank {r['rank']}: the {label} "
+                      f"gradient {k}'s limit {h['limit']} would pass a "
+                      f"reduction that lost a rank ({h['one_rank_lost']})")
+        check(all(v <= TOL["param_grad_rel"] for v in step.values()),
+              f"phase j11 (b) rank {r['rank']}: the Adam step")
+        check(all(bitwise(r["params"][k], res[0]["params"][k])
+                  for k in p0c), "phase j11 (b): the ranks' parameters agree")
+        if on_card:
+            f, s = r["launches"]["flagship"], r["launches"]["spot"]
+            check(f["K7"] == 1 and s["K1"] == 1 and s["K2"] == 1,
+                  f"phase j11 (b) rank {r['rank']}: K1, K2, K7 launched")
+        if timed_steps:
+            rows[f"rank {r['rank']} of {r['world']}"] = r["ms"]
+    rows["kernels"] = _j11_kernel_rows(static, params, batch, wl, res)
+    seconds["(b)"] = time.perf_counter() - t_b
+
+    # (c) the tolerancing's draws split over the ranks (in the spawn of
+    # (b)): each draw's pipeline is its own, so the table is the
+    # unsharded run's bit for bit
+    t_c = time.perf_counter()
+    from optiland_tpu_torch import tolerancing
+
+    lens_t = CookeTriplet()
+    lens_t.build(device=dev)
+    tol_t = cooke_tolerancing(tolerancing, lens_t, rings=rings)
+    reset_counts()
+    t0 = clock()
+    df = tolerancing.MonteCarlo(tol_t).run(draws, seed=1)
+    mc_s = clock() - t0
+    mc_launches = read_counts()
+    mc_ref = torch.tensor(df.to_numpy())
+    for r in res:
+        mc = r["monte_carlo"]
+        same_mc = mc["columns"] == list(df.columns) and bitwise(
+            mc["values"], mc_ref)
+        print(f"phase j11 ({smi}): (c) MonteCarlo(mesh=) on rank "
+              f"{r['rank']} of {r['world']}: {draws} draws, "
+              f"{r['monte_carlo_s']:.2f} s (unsharded {mc_s:.2f} s, "
+              f"launches {json.dumps(mc_launches)}); the table equal to "
+              f"the unsharded run's bit for bit: {same_mc}")
+        check(same_mc, f"phase j11 (c) rank {r['rank']}: the Monte-Carlo "
+              "table")
+    check(not on_card or mc_launches["K7"] >= draws,
+          "phase j11 (c): the unsharded draws launched K7")
+    seconds["(c)"] = time.perf_counter() - t_c
+
+    # (d) fileio/, ml/, visualization/ and sources/ on the card
+    t_d = time.perf_counter()
+    seconds.update(_j11_d(dev, reset_counts, read_counts, smi, static,
+                          params, batch, rings, source_rays, on_card))
+    seconds["(d)"] = time.perf_counter() - t_d
+    seconds["phase j11"] = time.perf_counter() - t_j11
+    return seconds, rows
+
+
+def _j11_kernel_rows(static, params, batch, wl, res):
+    """The kernels line's rows of K1, K2 and K7 under the mesh: rank 0's
+    median launch span and launches from its main path, each kernel
+    against its plain version on rank 0's shard (the batch's first
+    part) here, the plain version's one cold call (host clock), and the
+    bound at the shard's rays."""
+    from optiland_tpu_torch.optimization.merits import (
+        centroid_rms_from_moments,
+    )
+    from optiland_tpu_torch.trace import fused
+    from optiland_tpu_torch.trace.raygen import generate_rays
+
+    def cold(fn):
+        on_card = batch[0].is_cuda
+        if on_card:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        if on_card:
+            torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    nh = batch[0].shape[0] // len(res)
+    half = tuple(a[:nh].contiguous() for a in batch)
+    S = static.num_surfaces
+    pc, data = fused._prepare(static, params, *half[:4], wl)
+    m = fused.moments_forward(static, *pc, data)
+    m_plain, k1_plain_ms = cold(lambda: fused._moments_plain(static, *pc,
+                                                             data))
+    mc = m.detach().requires_grad_(True)
+    c, = torch.autograd.grad(centroid_rms_from_moments(*mc.unbind()), mc)
+    k2 = fused.moments_backward(static, *pc, data, c, False)
+    k2_plain, k2_plain_ms = cold(lambda: fused._moments_bwd_plain(
+        static, *pc, data, c, False))
+    rays0 = generate_rays(static, params, *half)
+    rays9 = tuple(getattr(rays0, k).detach().contiguous()
+                  for k in fused._RAY_KEYS)
+    p7 = (fused._diff_params(params), fused._nondiff_params(params))
+    h = fused.history_forward(static, *p7, rays9)
+    h_plain, k7_plain_ms = cold(lambda: fused._history_plain(static, *p7,
+                                                             rays9))
+    # each held as the full batch's rows are: K1's moments relative to
+    # their natural scale, K2's cotangent groups relative to their largest,
+    # K7's arrays on the rays both versions keep lit at every surface
+    scale = torch.stack([m_plain[0], (m_plain[0] * m_plain[3]).sqrt(),
+                         (m_plain[0] * m_plain[3]).sqrt(), m_plain[3]])
+    k1_rel = ((m - m_plain).abs() / scale).max().item()
+    print(f"K1 under the mesh ({nh} rays) vs plain: max rel {k1_rel:.6g} "
+          f"(tolerance {TOL['moment_rel']})")
+    check(k1_rel <= TOL["moment_rel"], "K1 under the mesh vs plain")
+    k2_errs, k2_rays, k2_abs = cotangent_errs(k2, k2_plain, None)
+    check_cotangents(f"K2 under the mesh ({nh} rays)", k2_errs, k2_rays)
+    keep = ((h[6] > 0) == (h_plain[6] > 0)).all(dim=0)
+    k7_err = {"intensity_frac": 1.0 - keep.double().mean().item()}
+    for k, key in enumerate(fused._NAMES):
+        k7_err[key] = max_abs(h[k][:, keep], h_plain[k][:, keep])
+    print(f"K7 under the mesh ({nh} rays) vs plain, all rows: "
+          f"{json.dumps(k7_err)} tolerances {json.dumps(TOL)}")
+    check(k7_err["intensity_frac"] <= TOL["intensity_frac"],
+          "K7 under the mesh: i set")
+    for key, tol in (("x", "position_mm"), ("y", "position_mm"),
+                     ("z", "position_mm"), ("L", "direction"),
+                     ("M", "direction"), ("N", "direction"),
+                     ("intensity", "intensity"), ("opd", "opd_mm")):
+        check(k7_err[key] <= TOL[tol], f"K7 under the mesh {key} vs plain")
+    errs = {"K1": k1_rel, "K2": k2_abs,
+            "K7": max(v for k, v in k7_err.items() if k != "intensity_frac")}
+    bounds = {
+        "K1": bound_ms(4 * 4 * nh,
+                       (chain_ops_per_ray(static, fused) + 10) * nh),
+        "K2": bound_ms(4 * 4 * nh,
+                       (backward_ops_per_ray(static, fused) + 8) * nh),
+        "K7": bound_ms((9 + 8 * S) * 4 * nh,
+                       history_ops_per_ray(static, fused) * nh)}
+    plain = {"K1": k1_plain_ms, "K2": k2_plain_ms, "K7": k7_plain_ms}
+    meta = {"K1": ("_moments_forward", "moments_fwd.cu", 1431, "spot"),
+            "K2": ("_moments_bwd", "moments_bwd.cu", 1509, "spot"),
+            "K7": ("_history_forward", "history_fwd.cu", 1258, "flagship")}
+    out = []
+    for key, (fn_name, src, line, path) in meta.items():
+        out.append(dict(
+            name=(f"{key} {fn_name} under the mesh (rank 0 of {len(res)}, "
+                  f"{nh} rays; ranks' spans (ms) "
+                  f"{[r['ms'].get(key) for r in res]}"
+                  + ("; max_abs_err relative to the moments' scale"
+                     if key == "K1" else "") + ")"),
+            route="cuda", source=f"optiland_tpu_torch/csrc/{src}",
+            replaces=f"optiland_tpu/trace/fused.py:{line}",
+            launches=res[0]["launches"][path][key], max_abs_err=errs[key],
+            ms=res[0]["ms"].get(key), plain_ms=plain[key],
+            bound_ms=bounds[key][0], bound_by=bounds[key][1],
+            library_ms=None))
+    return out
+
+
+def _j11_d(dev, reset_counts, read_counts, smi, static, params, batch,
+           rings, source_rays, on_card):
+    """Phase j11 (d); returns the seconds of each of its rows."""
+    import io
+    import tempfile
+
+    from optiland_tpu_torch import fileio
+    from optiland_tpu_torch.ml import OpticalSystemModule
+    from optiland_tpu_torch.core.rays import Rays
+    from optiland_tpu_torch.models import CookeTriplet
+    from optiland_tpu_torch.optimization import OptimizationProblem
+    from optiland_tpu_torch.sources import SMFSource
+    from optiland_tpu_torch.sources.base import trace_source
+    from optiland_tpu_torch.system.optic import Optic
+    from optiland_tpu_torch.trace import tracer
+    from optiland_tpu_torch.visualization import (OpticViewer3D,
+                                                  SurfaceSagViewer)
+
+    seconds = {}
+    names = ("x", "y", "z", "L", "M", "N", "intensity", "opd")
+    tols = {"x": TOL["position_mm"], "y": TOL["position_mm"],
+            "z": TOL["position_mm"], "L": TOL["direction"],
+            "M": TOL["direction"], "N": TOL["direction"],
+            "intensity": TOL["intensity"], "opd": TOL["opd_mm"]}
+
+    def hist_errs(got, ref):
+        keep = ((got.intensity > 0) == (ref.intensity > 0)).all(dim=0)
+        return {k: (getattr(got, k) - getattr(ref, k))[:, keep].abs().max(
+        ).item() for k in names}
+
+    # the Cooke triplet written by each writer and read back, traced
+    # through K7 on the flagship batch against the original's K7 history
+    t0 = time.perf_counter()
+    reset_counts()
+    ref = tracer.trace_system(static, params, *batch)
+    check(not on_card or read_counts()["K7"] == 1, "(d) the original's K7")
+    with tempfile.TemporaryDirectory() as tmp:
+        for fmt, save, load in (
+                ("json", fileio.save_optiland_file, fileio.load_optiland_file),
+                ("zmx", fileio.save_zemax_file, fileio.load_zemax_file),
+                ("seq", fileio.save_codev_file, fileio.load_codev_file)):
+            path = f"{tmp}/cooke.{fmt}"
+            save(CookeTriplet(), path)
+            st, pr = load(path).build(device=dev)
+            check(st.num_surfaces == static.num_surfaces
+                  and st.mat_formulas == static.mat_formulas,
+                  f"(d) the {fmt} file's system")
+            reset_counts()
+            errs = hist_errs(tracer.trace_system(st, pr, *batch), ref)
+            got = read_counts()
+            print(f"phase j11 ({smi}): (d) the Cooke triplet through "
+                  f".{fmt}: launches {json.dumps(got)}; history vs the "
+                  f"original's {json.dumps(errs)} (tolerances "
+                  f"{json.dumps(tols)})")
+            check(not on_card or (got["K7"] == 1 and sum(got.values()) == 1),
+                  f"(d) the {fmt} lens launched K7")
+            check(all(errs[k] <= tols[k] for k in names),
+                  f"(d) the {fmt} lens's history")
+    del ref
+    seconds["(d) file formats"] = time.perf_counter() - t0
+
+    # the ML wrapper: 3 Adam steps of R1 and R2 under f2 and the on-axis
+    # RMS spot, float32 on the card against float64
+    t0 = time.perf_counter()
+
+    def fit(dtype_name):
+        with precision(dtype_name):
+            lens = CookeTriplet()
+            lens.build(device=dev)
+            prob = OptimizationProblem(lens)
+            for k in (1, 2):
+                prob.add_variable(lens, "radius", surface_number=k)
+            prob.add_operand("f2", target=49.0)
+            prob.add_operand("rms_spot_size", target=0.0, input_data={
+                "surface_number": -1, "Hx": 0.0, "Hy": 0.7,
+                "num_rays": rings, "wavelength": 0.55})
+            module = OpticalSystemModule(lens, prob, device=dev)
+            reset_counts()
+            x, losses = module.fit(steps=J11_FIT_STEPS, lr=J11_FIT_LR)
+            return x.double().cpu(), losses, read_counts()
+
+    x32, l32, k32 = fit("float32")
+    x64, l64, _ = fit("float64")
+    fit_err = {"loss_rel": max(abs(a - b) / abs(b) for a, b in zip(l32, l64)),
+               "x / lr": ((x32 - x64).abs().max() / J11_FIT_LR).item()}
+    print(f"phase j11 ({smi}): (d) OpticalSystemModule.fit, "
+          f"{J11_FIT_STEPS} Adam steps (lr {J11_FIT_LR}): launches "
+          f"{json.dumps(k32)}, losses float32 {l32}, float64 {l64}; "
+          f"float32 vs float64 {json.dumps(fit_err)} (tolerance "
+          f"{TOL_F64['loss_rel']} each: Adam's steps are ratios of its "
+          "moments, which carry the gradients' float32 error, up to "
+          f"{TOL_F64['grad_rel']}, through {J11_FIT_STEPS} steps)")
+    check(not on_card or k32["K7"] >= J11_FIT_STEPS, "(d) fit launched K7")
+    check(fit_err["loss_rel"] <= TOL_F64["loss_rel"]
+          and fit_err["x / lr"] <= TOL_F64["loss_rel"], "(d) fit vs f64")
+    seconds["(d) ml"] = time.perf_counter() - t0
+
+    # the viewers: the 3-D scene (its rays through K7), a sag grid and the
+    # prescription table; draw and draw3D under Agg where matplotlib is
+    # installed (the card's machine has none)
+    t0 = time.perf_counter()
+    lens = CookeTriplet()
+    reset_counts()
+    scene = OpticViewer3D(lens, device=dev).build_scene()
+    _, _, sag, _ = SurfaceSagViewer(lens, device=dev).sag_grid(1)
+    with contextlib.redirect_stdout(io.StringIO()) as table:
+        rows = lens.info()
+    got = read_counts()
+    print(f"phase j11 ({smi}): (d) OpticViewer3D.build_scene "
+          f"({len(scene.surfaces)} surfaces, {len(scene.rays)} rays), "
+          f"SurfaceSagViewer.sag_grid {tuple(sag.shape)}, info ({len(rows)} "
+          f"rows, {len(table.getvalue().splitlines())} lines printed): "
+          f"launches {json.dumps(got)}")
+    check(len(rows) == static.num_surfaces and np.isfinite(sag).all()
+          and len(scene.surfaces) == static.num_surfaces - 1
+          and all(np.isfinite(r[2]).all() for r in scene.rays),
+          "(d) the viewers' scene, sag grid and table")
+    check(not on_card or got["K7"] == len(lens.fields.get_field_coords()),
+          "(d) the scene's rays launched K7 a field")
+    try:
+        import matplotlib
+    except ImportError:
+        print(f"phase j11 ({smi}): (d) draw and draw3D not run: matplotlib "
+              "is not installed")
+    else:
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+        reset_counts()
+        fig, ax = lens.draw(device=dev)
+        fig3, _ = lens.draw3D(device=dev)
+        got = read_counts()
+        n_lines = len(ax.get_lines())
+        plt.close(fig)
+        plt.close(fig3)
+        print(f"phase j11 ({smi}): (d) draw ({n_lines} lines), draw3D under "
+              f"Agg: launches {json.dumps(got)}")
+        check(n_lines > 0 and (not on_card or got["K7"] > 0),
+              "(d) draw and draw3D")
+    seconds["(d) visualization"] = time.perf_counter() - t0
+
+    # an SMF source at 5 mm before a 10 mm plate, traced eagerly (JAX's
+    # trace_rays), float32 against float64
+    t0 = time.perf_counter()
+
+    def plate():
+        lens = Optic()
+        lens.add_surface(index=0, radius=math.inf, thickness=math.inf)
+        lens.add_surface(index=1, radius=math.inf, thickness=10.0,
+                         is_stop=True)
+        lens.add_surface(index=2)
+        lens.set_aperture("EPD", 4.0)
+        lens.add_wavelength(0.55)
+        return lens
+
+    src = SMFSource(mfd_um=10.0, wavelength_um=1.55, position=(0.0, 0.0,
+                                                               -5.0))
+    reset_counts()
+    lens_p = plate()
+    h32 = trace_source(lens_p, src, source_rays, device=dev)
+    got = read_counts()
+    with precision("float64"):
+        h64 = trace_source(plate(), src, source_rays, device=dev)
+        st64, pr64 = lens_p.build(device=dev)
+        start = Rays(*(getattr(h32, k)[0].double() for k in names),
+                     torch.full_like(h32.x[0], 1.55, dtype=torch.float64))
+        h64_same = tracer.trace_rays(st64, pr64, start)
+    src_err = {k: scaled_err(getattr(h32, k)[0].double(),
+                             getattr(h64, k)[0]) for k in names}
+    trace_err = {k: scaled_err(getattr(h32, k).double(),
+                               getattr(h64_same, k)) for k in names}
+    power = h32.intensity[-1].double().sum().item()
+    print(f"phase j11 ({smi}): (d) SMFSource through trace_source, "
+          f"{h32.x.shape[1]} rays: launches {json.dumps(got)}, power "
+          f"{power!r}; the source's rays float32 vs float64 "
+          f"{json.dumps(src_err)} (tolerance {TOL_J11_SOURCE} of each "
+          f"array's scale); the trace vs float64 from the same start "
+          f"{json.dumps(trace_err)} (tolerance {TOL_EAGER})")
+    check(sum(got.values()) == 0, "(d) trace_source ran eagerly")
+    check(h32.x.is_cuda == on_card and abs(power - 1.0) <= 1e-4,
+          "(d) the source's rays on the device, power kept")
+    check(all(v <= TOL_J11_SOURCE for v in src_err.values())
+          and all(v <= TOL_EAGER for v in trace_err.values()),
+          "(d) SMFSource float32 vs float64")
+    seconds["(d) sources"] = time.perf_counter() - t0
+    return seconds
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs a CUDA "
@@ -4841,6 +5505,16 @@ def main():
     check(j10_k7 is not None, "phase j10 timed K7")
     free()
 
+    # 16k. (j11) ray-batch sharding (parallel/): one-rank NCCL meshes, two
+    # spawned gloo ranks on the card, the tolerancing's draws split over
+    # them; then fileio/, ml/, visualization/ and sources/
+    j11_s, j11_rows = phase_j11(dev, reset_counts, read_counts, smi)
+    j11_kernels = j11_rows.pop("kernels")
+    print(f"phase j11 ({smi}): seconds {json.dumps(j11_s)}; steps, host "
+          f"clock, and kernels, median launch span, median of "
+          f"{J11_TIMED_STEPS} (ms) {json.dumps(j11_rows)}")
+    free()
+
     # 17. (k) the user's entry: Optic.trace on the card
     reset_counts()
     h_user = CookeTriplet().trace(Hx=0, Hy=1, num_rays=6)
@@ -5503,7 +6177,10 @@ def main():
           f"host clock, median of {TIMED_STEPS}: {psf_ms:.4f} ms; split (ms) "
           f"{json.dumps(psf_split)}")
 
-    print(f"whole run: {time.perf_counter() - t_start:.1f} s")
+    rows += j11_kernels
+    whole = time.perf_counter() - t_start
+    print(f"whole run: {whole:.1f} s (limit {RUN_LIMIT_S} s)")
+    check(whole < RUN_LIMIT_S, "the whole run within its limit")
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -71,12 +71,13 @@ class RadiantIntensity:
                  use_absolute_units: bool = True, source=None, device=None):
         if source is not None:
             raise NotImplementedError(
-                "RadiantIntensity(source=...): the extended sources "
-                "(`sources/`) are ROADMAP item 21, not ported yet; the JAX "
-                "package's own path fails too (its `analysis/intensity.py` "
-                "imports `trace_source`, which `sources/__init__.py` does "
-                "not export, and passes it a `wavelength` that "
-                "`sources/base.py` `trace_source` does not take)")
+                "RadiantIntensity(source=...) fails in the JAX package, "
+                "which the port follows: its `analysis/intensity.py` "
+                "imports `trace_source` from `sources`, whose "
+                "`__init__.py` does not export it, and passes it a "
+                "`wavelength` that `sources/base.py` `trace_source` does "
+                "not take (ROADMAP queue 3, known behaviours); trace a "
+                "source with `sources.base.trace_source`")
         self.optic = optic
         self.fields = resolve_fields(optic, fields)
         self.wavelengths = resolve_wavelengths(optic, wavelengths)

@@ -7,9 +7,10 @@ a pupil distribution or explicit coordinates on that device, aimed as
 `set_ray_aiming` says, and return the (S, N) `TraceHistory` (on the card
 in float32: kernel K7). The editing API (the setters, `scale_system`,
 `flip`, `+`, `update_params`, pickups and solves) edits the description
-or installs new parameters, as the JAX package's does. `info`, `draw`,
-`draw3D`, `to_dict` and `from_dict` wait for `fileio/` and
-`visualization/` (ROADMAP queue 1, item 21). `set_polarization` makes
+or installs new parameters, as the JAX package's does. `info`, `draw` and
+`draw3D` render through `visualization/` (`draw` and `draw3D` trace on
+the card unless `device="cpu"`), `to_dict` and `from_dict` through
+`fileio/`, in the reference's JSON schema. `set_polarization` makes
 `trace` and `trace_generic` polarized traces (PRT matrices through every
 coating).
 """
@@ -630,6 +631,39 @@ class Optic:
                 r[k] = max(r[k], float(s.semi_aperture))
         self.semi_apertures = r
         return r
+
+    # -- convenience views (reference `Optic.draw/info`) --------------------
+    def draw(self, device=None, **kwargs):
+        """The 2-D cross-section (`visualization.OpticViewer.view`), its
+        rays traced on `device` (None: the CUDA card)."""
+        from optiland_tpu_torch.visualization import OpticViewer
+
+        return OpticViewer(self, device=device).view(**kwargs)
+
+    def draw3D(self, device=None, **kwargs):
+        """3-D render (reference `Optic.draw3D`, VTK there; matplotlib 3-D
+        by default here, `visualization/viewer3d.py`), its rays traced on
+        `device` (None: the CUDA card)."""
+        from optiland_tpu_torch.visualization import OpticViewer3D
+
+        return OpticViewer3D(self, device=device).view(**kwargs)
+
+    def info(self):
+        from optiland_tpu_torch.visualization import LensInfoViewer
+
+        return LensInfoViewer(self).view()
+
+    # -- serialization ----------------------------------------------------
+    def to_dict(self):
+        from optiland_tpu_torch.fileio import optic_to_dict
+
+        return optic_to_dict(self)
+
+    @classmethod
+    def from_dict(cls, data):
+        from optiland_tpu_torch.fileio import optic_from_dict
+
+        return optic_from_dict(data)
 
     # -- tracing ---------------------------------------------------------
     def trace(self, Hx=0.0, Hy=0.0, wavelength=None, num_rays: int = 100,

@@ -3,9 +3,11 @@
 Port of `optiland_tpu/tolerancing/monte_carlo.py`. The reference runs draws
 in a serial Python loop re-optimizing each time
 (`tolerancing/monte_carlo.py:60-124`); here `run(N)` evaluates every draw
-through `Tolerancing`'s pipeline, in chunks that can be checkpointed. The
-JAX package shards draws over a device mesh; the port's mesh
-(`parallel/`, ROADMAP item 16) is not there yet, and a mesh is refused.
+through `Tolerancing`'s pipeline, in chunks that can be checkpointed. With
+a device mesh (`parallel.make_mesh`) the draws are split over the ranks of
+its first dimension, as the JAX package shards them over its first axis:
+each rank evaluates its slice, the slices are gathered once, and every
+rank returns the table of the whole run.
 """
 
 from __future__ import annotations
@@ -18,11 +20,14 @@ from optiland_tpu_torch.tolerancing.core import Tolerancing
 class MonteCarlo:
     def __init__(self, tolerancing: Tolerancing, mesh=None):
         if mesh is not None:
-            raise NotImplementedError(
-                "MonteCarlo(mesh=...): draws sharded over a device mesh "
-                "need parallel/, which is not ported yet (ROADMAP queue 1, "
-                "item 16)")
+            from torch.distributed.device_mesh import DeviceMesh
+
+            if not isinstance(mesh, DeviceMesh):
+                raise TypeError(
+                    "MonteCarlo(mesh=...) takes a DeviceMesh "
+                    f"(parallel.make_mesh), not {type(mesh).__name__}")
         self.tol = tolerancing
+        self.mesh = mesh
         self._results = None
 
     def run(self, num_iterations: int, seed: int = 0,
@@ -41,6 +46,8 @@ class MonteCarlo:
         params = self.tol._nominal_params
 
         def eval_batch(batch):
+            if self.mesh is not None:
+                return self._sharded(c["pipeline_batch"], params, batch)
             v, cx = c["pipeline_batch"](params, batch)
             return v.cpu().numpy(), cx.cpu().numpy()
 
@@ -93,6 +100,26 @@ class MonteCarlo:
             data[f"{j}: {o.operand_type}"] = values[:, j]
         self._results = pd.DataFrame(data)
         return self._results
+
+    def _sharded(self, pipeline_batch, params, batch):
+        """`pipeline_batch` of `batch` split over the mesh's first dimension:
+        padded to a multiple of the mesh size by repeating its first rows
+        (as JAX pads), this rank's contiguous slice evaluated, the slices
+        gathered once and the padding dropped."""
+        import torch.distributed as dist
+
+        n = batch.shape[0]
+        pad = (-n) % self.mesh.size()
+        if pad and n:
+            batch = np.concatenate([batch, batch[np.arange(pad) % n]])
+        k, r = self.mesh.size(0), self.mesh.get_local_rank(0)
+        m = batch.shape[0] // k
+        v, cx = pipeline_batch(params, batch[r * m:(r + 1) * m])
+        parts = [None] * k
+        dist.all_gather_object(parts, (v.cpu().numpy(), cx.cpu().numpy()),
+                               group=self.mesh.get_group(0))
+        return (np.concatenate([p[0] for p in parts])[:n],
+                np.concatenate([p[1] for p in parts])[:n])
 
     @property
     def results(self):

@@ -1062,3 +1062,31 @@ def test_spot_diagram_on_history_kernel(cuda_f32):
         err = ((got.double() - ref64).abs().max()
                / ref64.abs().max()).item()
         assert err <= SMOKE.TOL_J10["position"]
+
+
+def test_sharded_spot_merit_on_one_rank(cuda_f32):
+    """parallel/: one sharded spot-merit step at world size 1 on the card
+    (a one-rank NCCL mesh), K1 and K2 once each, bitwise the unsharded
+    step: a one-rank all-reduce is the identity (tests/test_torch_parallel.py
+    holds two ranks on the CPU)."""
+    import torch.distributed as dist
+
+    from optiland_tpu_torch.parallel import dryrun, init_distributed, make_mesh
+
+    ts, tp = CookeTriplet().build()
+    batch = dryrun.dryrun_batch(ts, tp, 65_536, rays_per_field=8)[:4]
+    loss0, g0 = dryrun.spot_step(ts, tp, batch, 0.55)
+    created = not dist.is_initialized()
+    init_distributed()
+    try:
+        before = {k: f.launches for k, f in _COUNTED.items()}
+        loss1, g1 = dryrun.spot_step(ts, tp, batch, 0.55, make_mesh(1))
+        launched = {k: f.launches - before[k] for k, f in _COUNTED.items()}
+    finally:
+        if created:
+            dist.destroy_process_group()
+    assert launched == dict.fromkeys(_COUNTED, 0) | {"K1": 1, "K2": 1}
+    assert torch.equal(loss1, loss0) and bool(torch.isfinite(loss0))
+    for k in g0:
+        assert torch.equal(g1[k], g0[k]), k
+    assert g0["cv"].abs().max() > 0

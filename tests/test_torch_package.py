@@ -56,7 +56,10 @@ def test_import_leaves_jax_unloaded():
             "optiland_tpu_torch.system.aberrations, "
             "optiland_tpu_torch.core.apodization, "
             "optiland_tpu_torch.analysis, optiland_tpu_torch.colorimetry, "
-            "optiland_tpu_torch.mtf.geometric\n"
+            "optiland_tpu_torch.mtf.geometric, optiland_tpu_torch.parallel, "
+            "optiland_tpu_torch.parallel.dryrun, optiland_tpu_torch.sources, "
+            "optiland_tpu_torch.fileio, optiland_tpu_torch.ml, "
+            "optiland_tpu_torch.visualization\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'optax', 'optiland_tpu')]\n"
             "assert not bad, bad\n")

@@ -3,7 +3,7 @@ the CPU: the samplers' draw table bit for bit, the perturb -> compensate ->
 evaluate pipeline draw by draw (a damped Gauss-Newton compensator whose
 Jacobian the port takes by reverse mode, JAX by forward mode), Monte Carlo
 and sensitivity tables, chunked checkpoints and their resume, and the
-refusal of a device mesh.
+refusal of a mesh that is not a DeviceMesh.
 
 The JAX oracle (`jax_ref`) runs JAX's own `MonteCarlo.run` and
 `SensitivityAnalysis.run`; their shared `pipeline_batch` is compiled once,
@@ -174,5 +174,7 @@ def test_compensator_recovers_focus():
 
 
 def test_monte_carlo_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="item 16"):
+    """A mesh that is not a DeviceMesh is refused by name (a DeviceMesh
+    shards the draws: tests/test_torch_parallel.py)."""
+    with pytest.raises(TypeError, match="DeviceMesh"):
         ttol.MonteCarlo(port_tolerancing(), mesh=object())

@@ -432,3 +432,34 @@ def masked_plates(Optic, aps, masks):
     lens.add_field(y=10.0)
     lens.add_wavelength(0.55, is_primary=True)
     return lens
+
+
+def cooke_tolerancing(pkg, lens):
+    """tests/test_tolerancing.py's fixture on `lens` (the Cooke triplet) in
+    package `pkg`'s `tolerancing`: R1 and the gap after surface 4 drawn
+    from normals, f2 and the on-axis RMS spot at 0.55 um."""
+    t = pkg.Tolerancing(lens)
+    t.add_perturbation("radius", pkg.NormalSampler(22.01359, 0.05),
+                       surface_number=1)
+    t.add_perturbation("thickness", pkg.NormalSampler(4.75041, 0.02),
+                       surface_number=4)
+    t.add_operand("f2")
+    t.add_operand("rms_spot_size", input_data={
+        "surface_number": -1, "Hx": 0, "Hy": 0.0, "num_rays": 3,
+        "wavelength": 0.55})
+    return t
+
+
+def monte_carlo_rank(dev, draws, seed):
+    """One spawned rank (`parallel.dryrun.spawn`): the port's Monte Carlo
+    of `cooke_tolerancing` with its draws split over a ("rays",) mesh of
+    every rank; the table's columns and values."""
+    from optiland_tpu_torch import tolerancing as ttol
+    from optiland_tpu_torch.models import CookeTriplet
+    from optiland_tpu_torch.parallel import make_mesh
+
+    lens = CookeTriplet()
+    lens.build(device=dev)
+    df = ttol.MonteCarlo(cooke_tolerancing(ttol, lens),
+                         mesh=make_mesh()).run(draws, seed=seed)
+    return {"columns": list(df.columns), "values": torch.tensor(df.to_numpy())}
